@@ -12,21 +12,34 @@ Phases, each printing one JSON line:
    geomesa_tpu_torch/csrc with nvcc for sm_90a;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the main path's shapes (SUB = 128 over as many blocks as
-   the 100M-row table, M in {32, 256, 4096} and the whole table padded to
-   its bucket); results must be equal word for word; each kernel's time
-   (CUDA events, median of 25 runs after warm-up: the launch alone, and
-   the whole wrapper with its staging) beside its bound and the plain
-   version's time;
+   the 100M-row table; K1 at M in {32, 256, 4096} and the whole table
+   padded to its bucket; the fused scan K2 at M in {32, 2048} with 48
+   queries of differing slot counts, interleaved; the count K1p at M in
+   {32, 4096} and the whole table); results must be equal word for word;
+   each kernel's time (CUDA events, median of 25 runs after warm-up: the
+   launch alone, and the whole wrapper with its staging) beside its bound
+   and the plain version's time;
 3. main path: a GDELT-shaped Z3 point table of 100,000,000 rows (the
    reference benchmark's configuration 1, cut from 500M for the run's
    time) in ``DataStore(device="cuda")``, 16 warm-up and 64 measured
    BBOX + DURING queries (latency untraced, then a traced pass of the same
    queries for the per-phase split), 8 of them checked against an f64 brute-force
    filter, 4 density grids and 4 bounds estimates checked against the
-   plain versions on the same device table; then a 10,000,000-row table
-   with packed time, 16 queries. Launch counts are zeroed just before
-   each of the two paths and read just after it, so they show each path
-   went through every kernel.
+   plain versions on the same device table;
+4. batch path, on the same store: ``query_many`` over the 64 queries (a
+   warm call, a timed one, then a traced one for the per-phase split),
+   the serving scheduler under 8 client threads of 8 queries each,
+   ``density_many`` over the 4 busiest queries' envelopes and 8
+   ``stats_query("Count()", estimate=True)``;
+   ids equal the sequential queries', grids the sequential ``density``
+   grids, and each count the table's count arithmetic over the plain
+   popcount;
+5. a 10,000,000-row table with packed time, 16 queries, ``query_many``
+   and two count estimates.
+
+Launch counts are zeroed just before each of the three paths and read
+just after it; each path must have launched the kernels it names (main:
+K1, K3, K4; batch: K2, K1p, K3; packed time: all five).
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -41,6 +54,7 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -347,8 +361,140 @@ def kernel_phase(torch, device):
     }
     for name, e in err.items():
         out[name]["max_abs_err"] = e
-    del cols, c3, tcols, pargs, flat
+    del c3, tcols, pargs, flat
+    out.update(fused_and_pops_kernels(torch, cols, n_blocks, sub, predicates, boxes, wins, dev))
+    del cols
     torch.cuda.empty_cache()
+    return out
+
+
+def query_stacks(n_q: int, seed: int):
+    """[128, 8, 128] box stack and window stacks (seconds, and 32 s ticks
+    for tw) of n_q queries; query q uses 1 + q % 8 box slots and
+    1 + (3q + 1) % 8 window slots, so the queries of one chunk differ in
+    both counts. Rows past n_q stay zero, as in the table's stacks."""
+    from geomesa_tpu_torch.scan import block_kernels as bk
+    from geomesa_tpu_torch.storage.table import FUSED_CHUNK_Q
+
+    r = np.random.default_rng(seed)
+    boxes = np.zeros((FUSED_CHUNK_Q, 8, 128), np.float32)
+    wins = np.zeros((FUSED_CHUNK_Q, 8, 128), np.int32)
+    wins_tw = np.zeros_like(wins)
+    for q in range(n_q):
+        nb, nw = 1 + q % 8, 1 + (3 * q + 1) % 8
+        lo = r.uniform(-175, 120, (nb, 2)).astype(np.float32)
+        wide = np.concatenate([lo, lo + r.uniform(5, 60, (nb, 2)).astype(np.float32)], axis=1)
+        boxes[q] = bk.pack_boxes(wide, wide[:1] + np.array([1, 1, -1, -1], np.float32))
+        b = r.integers(2800, 2820, nw)
+        b1 = b + r.integers(0, 3, nw)
+        for stack, top in ((wins, 604_799), (wins_tw, 18_899)):
+            o = np.sort(r.integers(0, top, (nw, 2)), axis=1)
+            ws = np.stack([b, b1, o[:, 0], o[:, 1]], axis=1)
+            stack[q] = bk.pack_windows(ws, ws[:1] + np.array([0, 0, 1, -1]))
+    return boxes, wins, wins_tw
+
+
+def fused_and_pops_kernels(torch, cols, n_blocks, sub, predicates, boxes1, wins1, dev):
+    """K2 and K1p against their plain versions on the synthetic columns,
+    then their times. K2 at M = 32 and M = 2048 (the fused chunk at 100M
+    rows) with 48 queries of differing slot counts in a [128, 8, 128]
+    stack, qids interleaved, pads bid 0 / qid 0; K1p at M = 32, 4096 and
+    the whole table padded to its bucket, -1 pads (clamped to block 0)."""
+    from geomesa_tpu_torch.scan import aggregations as agg
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    n_q = 48
+    boxes, wins, wins_tw = query_stacks(n_q, SEED + 7)
+    rng = np.random.default_rng(SEED + 8)
+    out = {}
+    err = {"block_scan_multi": 0.0, "block_pops": 0.0}
+    multi_checks = 0
+    for m in (32, 2048):
+        n_real = m - max(4, m // 40)
+        blocks = rng.integers(0, n_blocks, n_real)
+        bids, _ = bk.pad_bids(blocks, n_blocks, bucket=m)
+        qids = np.zeros(m, np.int32)
+        qids[:n_real] = rng.permutation(np.arange(n_real) % n_q)
+        for name, names, hb, hw, _ in predicates:
+            w = wins_tw if "tw" in names else wins
+            c3 = tuple(cols[k] for k in names)
+            got_w, got_i = bk.block_scan_multi(c3, bids, qids, boxes, w, col_names=names,
+                                               has_boxes=hb, has_windows=hw)
+            pw, pi = bk.block_scan_multi_plain(
+                dict(zip(names, c3)), dev(bids, torch.int32), dev(qids, torch.int32),
+                dev(boxes, torch.float32), dev(w, torch.int32), has_boxes=hb, has_windows=hw,
+            )
+            err["block_scan_multi"] = max(err["block_scan_multi"], max_abs_err(got_w, pw),
+                                          max_abs_err(got_i, pi))
+            check(torch.equal(got_w, pw) and torch.equal(got_i, pi),
+                  f"block_scan_multi {name} M={m}")
+            check(bool(got_w.any()), f"block_scan_multi {name} M={m} selects rows")
+            multi_checks += 1
+    pops_checks = 0
+    for m_real in (32, 4096, n_blocks):
+        blocks = np.sort(rng.choice(n_blocks, size=m_real - 3, replace=False))
+        bids, _ = bk.pad_bids(blocks, n_blocks, pad=-1)
+        for name, names, hb, hw, w in predicates:
+            c3 = tuple(cols[k] for k in names)
+            got = agg.block_pops(c3, bids, boxes1, w, col_names=names, has_boxes=hb,
+                                 has_windows=hw)
+            ref = agg.block_pops_plain(
+                dict(zip(names, c3)), dev(bids, torch.int32), dev(boxes1, torch.float32),
+                dev(w, torch.int32), has_boxes=hb, has_windows=hw,
+            )
+            err["block_pops"] = max(err["block_pops"], max_abs_err(got, ref))
+            check(torch.equal(got, ref) and int(got.sum()) > 0,
+                  f"block_pops {name} M={len(bids)}")
+            pops_checks += 1
+
+    # timing: K2 at the fused chunk's M = 2048, every slot real; K1p at
+    # M = 4096 as K1. Box + window on (tbin, toff, x, y).
+    names = ("tbin", "toff", "x", "y")
+    c3 = tuple(cols[k] for k in names)
+    tcols = dict(zip(names, c3))
+    flags = dict(has_boxes=True, has_windows=True)
+    kw = dict(col_names=names, **flags)
+    m = 2048
+    bids = np.sort(rng.choice(n_blocks, size=m, replace=False)).astype(np.int32)
+    qids = rng.permutation(np.arange(m) % n_q).astype(np.int32)
+    rows = m * sub * 128
+    per_query = np.array([leg_ops(boxes[q], wins[q], True, True, planes=2) + 4
+                          for q in range(len(boxes))])
+    multi_ops = sub * 128 * int(per_query[qids].sum())
+    staged = bk.stage_multi_params(bids, qids, boxes, wins)
+    _, launch = bk.multi_launcher(tcols, bids, qids, boxes, wins, **flags)
+    pargs = (tcols, dev(bids, torch.int32), dev(qids, torch.int32), dev(boxes, torch.float32),
+             dev(wins, torch.int32))
+    out["block_scan_multi"] = {
+        "ms": time_ms(torch, launch),
+        "wrapper_ms": time_ms(torch, lambda: bk.block_scan_multi(c3, bids, qids, boxes, wins,
+                                                                 **kw)),
+        "plain_ms": time_ms(torch, lambda: bk.block_scan_multi_plain(*pargs, **flags)),
+        **bound(rows * 4 * len(names) + 2 * rows // 8 + staged.nbytes, multi_ops),
+        "library_ms": None,
+        "checks": multi_checks,
+        "shape": f"M={m} Q=128 ({n_q} real) SUB={sub} cols={','.join(names)}",
+    }
+    del pargs
+    m = bk.M_BUCKETS[-1]
+    bids, _ = bk.pad_bids(np.arange(m), n_blocks)
+    rows = m * sub * 128
+    # per row the wide plane's legs, then a shift and an OR to build the
+    # word; per word a popcount and an add
+    pops_ops = rows * (leg_ops(boxes1, wins1, True, True, planes=1) + 2) + rows // 16
+    _, p_launch = agg.pops_launcher(tcols, bids, boxes1, wins1, **flags)
+    pargs = (tcols, dev(bids, torch.int32), dev(boxes1, torch.float32), dev(wins1, torch.int32))
+    out["block_pops"] = {
+        "ms": time_ms(torch, p_launch),
+        "wrapper_ms": time_ms(torch, lambda: agg.block_pops(c3, bids, boxes1, wins1, **kw)),
+        "plain_ms": time_ms(torch, lambda: agg.block_pops_plain(*pargs, **flags)),
+        **bound(rows * 4 * len(names) + m * 4 + bids.nbytes, pops_ops),
+        "library_ms": None,
+        "checks": pops_checks,
+        "shape": f"M={m} SUB={sub} cols={','.join(names)}",
+    }
+    for name, e in err.items():
+        out[name]["max_abs_err"] = e
     return out
 
 
@@ -452,9 +598,153 @@ def read_launches() -> dict:
     return {k.name: k.launches for k in KERNELS}
 
 
+@contextmanager
+def chunk_recorder():
+    """Record the members of every fused chunk the table launches (one
+    entry per scan_planes_multi call: its queries, max qid + 1)."""
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    members: list = []
+    launch = bk.scan_planes_multi
+
+    def recording(cols3, bids, qids, *args, **kw):
+        members.append(int(np.max(qids)) + 1)
+        return launch(cols3, bids, qids, *args, **kw)
+
+    bk.scan_planes_multi = recording
+    try:
+        yield members
+    finally:
+        bk.scan_planes_multi = launch
+
+
+@contextmanager
+def plain_pops(torch):
+    """IndexTable.count's own arithmetic with block_pops_plain in place of
+    the K1p kernel (straddling blocks still decode through K1)."""
+    from geomesa_tpu_torch.scan import aggregations as agg
+
+    kernel = agg.block_pops
+
+    def plain(cols3, bids, boxes, wins, *, col_names, has_boxes, has_windows, **_):
+        dv = cols3[0].device
+        return agg.block_pops_plain(
+            dict(zip(col_names, cols3)), torch.from_numpy(np.asarray(bids, np.int32)).to(dv),
+            torch.from_numpy(boxes).to(dv), torch.from_numpy(wins).to(dv),
+            has_boxes=has_boxes, has_windows=has_windows,
+        )
+
+    agg.block_pops = plain
+    try:
+        yield
+    finally:
+        agg.block_pops = kernel
+
+
+def check_counts(torch, ds, queries, outs, estimates) -> int:
+    """Count estimates against the count arithmetic over block_pops_plain,
+    and against the exact hits."""
+    table = ds.table("gdelt", "z3")
+    for (q, _), out, n in zip(queries, outs, estimates):
+        with plain_pops(torch):
+            ref = table.count(ds.planner.plan("gdelt", q).config)
+        check(n == ref, f"count estimate {n} vs plain {ref}: {q}")
+        check(n >= len(out), f"count estimate {n} >= hits {len(out)}: {q}")
+    return len(estimates)
+
+
+def check_same_ids(got, ref, what: str) -> None:
+    for k, (a, b) in enumerate(zip(got, ref)):
+        check(np.array_equal(np.sort(np.asarray(a.ids, np.int64)),
+                             np.sort(np.asarray(b.ids, np.int64))), f"{what}: query {k}")
+    check(len(got) == len(ref), f"{what}: one result per query")
+
+
+def count_estimates(ds, queries) -> list:
+    return [ds.stats_query("gdelt", "Count()", q, estimate=True)[0].count for q, _ in queries]
+
+
+def batch_path(torch, ds, measured, outs, seq_wall: float) -> dict:
+    """The many-query path on the main path's store: query_many (a warm
+    call, a timed one, a traced one), the serving scheduler under 8 client threads,
+    density_many over the 4 busiest envelopes and 8 count estimates;
+    launch counts zeroed before, read after, checks after that."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
+
+    filters = [q for q, _ in measured]
+    zero_launches()
+    ds.query_many("gdelt", filters)
+    before = read_launches()
+    with chunk_recorder() as members:
+        t0 = time.perf_counter()
+        many = ds.query_many("gdelt", filters)
+        many_s = time.perf_counter() - t0
+    timed = {k: v - before[k] for k, v in read_launches().items()}
+    # a traced pass of the same call splits its time by phase
+    ds.clock = clock = PhaseClock()
+    t0 = time.perf_counter()
+    ds.query_many("gdelt", filters)
+    traced_s = time.perf_counter() - t0
+    phases = {k: v * 1e3 for k, v in clock.settle().items()}
+    ds.clock = NULL_CLOCK
+    device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
+
+    sched = ds.serve()
+    try:
+        def client(k):
+            futs = [sched.submit("gdelt", q) for q in filters[k * 8:(k + 1) * 8]]
+            return [f.result(600) for f in futs]
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            served = [o for outs_k in ex.map(client, range(8)) for o in outs_k]
+        serve_s = time.perf_counter() - t0
+    finally:
+        sched.close()
+
+    tiles = busiest(measured, outs, 4)
+    requests = [(q, (x0, y0, x1, y1)) for q, (x0, y0, x1, y1, _, _) in tiles]
+    t0 = time.perf_counter()
+    grids = ds.density_many("gdelt", requests, width=256, height=256)
+    density_s = time.perf_counter() - t0
+    counted = measured[:8]
+    t0 = time.perf_counter()
+    estimates = count_estimates(ds, counted)
+    count_s = time.perf_counter() - t0
+    launches = read_launches()
+
+    check_same_ids(many, outs, "query_many vs sequential query")
+    check_same_ids(served, outs, "scheduler vs sequential query")
+    for (q, env), grid in zip(requests, grids):
+        ref = ds.density("gdelt", q, envelope=env, width=256, height=256)
+        check(np.array_equal(grid, ref) and float(grid.sum()) > 0, f"density_many vs density: {q}")
+    n_counts = check_counts(torch, ds, counted, outs[:8], estimates)
+    hits = sum(len(o) for o in many)
+    return {
+        "phase": "batch_path", "cell": "gdelt-z3-100M-batch", "launches": launches,
+        "n_queries": len(filters), "hits_total": hits,
+        "query_many_s": many_s, "query_many_queries_per_s": len(filters) / many_s,
+        "query_many_features_per_s": hits / many_s,
+        "sequential_queries_per_s": len(filters) / seq_wall,
+        "chunks": len(members), "members_per_chunk": members,
+        "members_to_k1": timed["block_scan"], "query_many_launches": timed,
+        "query_many_phase_ms": phases, "query_many_traced_s": traced_s,
+        "query_many_device_busy_share": device_ms / (traced_s * 1e3),
+        "scheduler_wall_s": serve_s, "scheduler_queries_per_s": len(served) / serve_s,
+        "scheduler_batches": sched.batches, "scheduler_batched_queries": sched.batched_queries,
+        "density_many_s": density_s, "count_estimate_ms": count_s / len(counted) * 1e3,
+        "count_estimates": estimates, "exact_counts": [len(o) for o in outs[:8]],
+        "checked_query_many": len(many), "checked_scheduler": len(served),
+        "checked_density_many": len(grids), "checked_counts": n_counts,
+    }
+
+
 def main_path(torch, device):
-    """Both cells, each with its own launch counts (zeroed just before its
-    store is built, read just after its last check)."""
+    """Three paths, each with its own launch counts (zeroed just before it
+    runs, read just after): the single-query main path, the batch path on
+    the same store, and the packed-time cell."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -491,6 +781,7 @@ def main_path(torch, device):
         "checked_vs_brute_force": n_brute, "checked_aggregations": n_agg,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    batch = batch_path(torch, ds, measured, outs, wall)
     del ds, src, outs, table
     torch.cuda.empty_cache()
 
@@ -502,7 +793,13 @@ def main_path(torch, device):
     lat, outs, wall = run_queries(ds, queries)
     n_brute = check_queries(ds, src, queries, outs, 4)
     n_agg = check_aggregations(torch, ds, busiest(queries, outs, 2))
+    many = ds.query_many("gdelt", [q for q, _ in queries])
+    counted = busiest(queries, outs, 2)
+    estimates = count_estimates(ds, counted)
     launches = read_launches()
+    check_same_ids(many, outs, "packed query_many vs sequential query")
+    exact = {q: o for (q, _), o in zip(queries, outs)}
+    n_counts = check_counts(torch, ds, counted, [exact[q] for q, _ in counted], estimates)
     packed = {
         "phase": "main_path_packed_time", "cell": "gdelt-z3-packed-10M",
         "launches": launches, "n_points": N_PACKED,
@@ -512,10 +809,11 @@ def main_path(torch, device):
         "latency_p99_ms": float(np.percentile(lat, 99) * 1e3),
         "features_per_s": sum(len(o) for o in outs) / wall,
         "checked_vs_brute_force": n_brute, "checked_aggregations": n_agg,
+        "checked_query_many": len(many), "checked_counts": n_counts,
     }
-    del ds, src, outs, table
+    del ds, src, outs, table, many
     torch.cuda.empty_cache()
-    return rec, packed
+    return rec, batch, packed
 
 
 # -- entry point -------------------------------------------------------------
@@ -549,18 +847,28 @@ def main() -> int:
     timings = kernel_phase(torch, device)
     emit({"phase": "kernels_vs_plain", **{k: v for k, v in timings.items()}})
 
-    main_rec, packed_rec = main_path(torch, device)
-    emit(main_rec)
-    emit(packed_rec)
-    paths = {r["cell"]: r["launches"] for r in (main_rec, packed_rec)}
-    for cell, launches in paths.items():
-        for k in KERNELS:
-            check(launches[k.name] > 0, f"kernel {k.name} launched on the {cell} path")
+    records = main_path(torch, device)
+    for rec in records:
+        emit(rec)
+    paths = {r["cell"]: r["launches"] for r in records}
+    # each path names the kernels it is meant to run
+    expected = {
+        "gdelt-z3-100M": ("block_scan", "density", "bounds"),
+        "gdelt-z3-100M-batch": ("block_scan_multi", "block_pops", "density"),
+        "gdelt-z3-packed-10M": tuple(k.name for k in KERNELS),
+    }
+    for cell, names in expected.items():
+        for name in names:
+            check(paths[cell][name] > 0, f"kernel {name} launched on the {cell} path")
 
     replaces = {
         "block_scan": "geomesa_tpu/scan/block_kernels.py:685 (_pallas_block_scan; pallas_call :727)",
         "density": "geomesa_tpu/scan/aggregations.py:244 (_pallas_density; pallas_call :273)",
         "bounds": "geomesa_tpu/scan/aggregations.py:358 (_pallas_bounds; pallas_call :378)",
+        "block_scan_multi": "geomesa_tpu/scan/block_kernels.py:847 "
+                            "(_pallas_block_scan_multi; pallas_call :904)",
+        "block_pops": "geomesa_tpu/scan/aggregations.py:86 "
+                      "(_pops_pallas; through _pallas_block_scan's pallas_call block_kernels.py:727)",
     }
     kernels = []
     for k in KERNELS:
@@ -579,8 +887,9 @@ def main() -> int:
         })
     emit({"kernels": kernels, "wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
+    # the run drives one card, cuda:0
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

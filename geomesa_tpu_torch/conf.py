@@ -52,3 +52,21 @@ SCAN_RANGES_TARGET = SystemProperty(
     "geomesa.scan.ranges.target", 2000, int,
     "max covering z-ranges per query (reference QueryProperties.ScanRangesTarget)",
 )
+
+# -- concurrent query serving (serving.scheduler) -------------------------
+
+SERVING_WINDOW_MS = SystemProperty(
+    "geomesa.serving.window_ms", 2.0, float,
+    "micro-batch window CAP in milliseconds: the scheduler's adaptive "
+    "window grows toward this under load (more fusion per dispatch) and "
+    "shrinks to ~0 when idle (single queries pay ~no added latency)",
+)
+SERVING_QUEUE_MAX = SystemProperty(
+    "geomesa.serving.queue.max", 1024, int,
+    "bounded admission queue depth: a full queue blocks (backpressure) or "
+    "sheds, never buffers unboundedly",
+)
+SERVING_BATCH_MAX = SystemProperty(
+    "geomesa.serving.batch.max", 128, int,
+    "max queries drained into one fused micro-batch dispatch",
+)

@@ -1,7 +1,8 @@
 // Shared predicate legs of the port's scan-path kernels (block_scan.cu,
-// density.cu, bounds.cu): the box, window, packed-time and validity legs
-// of _masks in geomesa_tpu/scan/block_kernels.py:509-630, evaluated for
-// one row of a [n_blocks, SUB, 128] column block.
+// block_scan_multi.cu, block_pops.cu, density.cu, bounds.cu): the box,
+// window, packed-time and validity legs of _masks in
+// geomesa_tpu/scan/block_kernels.py:509-630, evaluated for one row of a
+// [n_blocks, SUB, 128] column block.
 //
 // Parameter staging: the host packs one int32 buffer per query and sends
 // it in one copy,
@@ -14,6 +15,12 @@
 // so the host counts the slots before the trailing run of pad slots and
 // the legs loop over those only: the same planes, less work per row.
 // Each CTA stages the slot words in shared memory once.
+//
+// A fused chunk of q queries (block_scan_multi.cu) sends one buffer too,
+//     params = bids[m] | qids[m] | boxes[q][8][8] | wins[q][8][8]
+//              | (n_box_slots, n_win_slots)[q]
+// and each CTA stages the slot words and counts of its own query only:
+// the counts are per query, never one chunk-wide count.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,18 +56,25 @@ __device__ __forceinline__ int gm_tid() {
   return threadIdx.y * blockDim.x + threadIdx.x;
 }
 
-// Stage the slot words of ``params`` (after the m bids) in shared memory.
-// The caller runs __syncthreads() before reading them.
-__device__ __forceinline__ void gm_load_params(GmParams& p, const int* params, int m) {
+// Stage one query's slot words (box[64] f32 bits, win[64]) and its two
+// active-slot counts in shared memory. The caller runs __syncthreads()
+// before reading them.
+__device__ __forceinline__ void gm_load_slots(GmParams& p, const int* box, const int* win,
+                                              const int* counts) {
   const int tid = gm_tid();
   if (tid < GM_SLOTS * 8) {
-    p.box[tid >> 3][tid & 7] = __int_as_float(params[m + tid]);
-    p.win[tid >> 3][tid & 7] = params[m + GM_SLOTS * 8 + tid];
+    p.box[tid >> 3][tid & 7] = __int_as_float(box[tid]);
+    p.win[tid >> 3][tid & 7] = win[tid];
   }
   if (tid == 0) {
-    p.n_box = params[m + 2 * GM_SLOTS * 8];
-    p.n_win = params[m + 2 * GM_SLOTS * 8 + 1];
+    p.n_box = counts[0];
+    p.n_win = counts[1];
   }
+}
+
+// Stage the slot words of a one-query ``params`` (after the m bids).
+__device__ __forceinline__ void gm_load_params(GmParams& p, const int* params, int m) {
+  gm_load_slots(p, params + m, params + m + GM_SLOTS * 8, params + m + 2 * GM_SLOTS * 8);
 }
 
 #define GM_WIDE 1u

@@ -1,8 +1,9 @@
 """DataStore: schema lifecycle, ingest, and the query entry points.
 
 The port of geomesa_tpu/datastore.py's main path (reference
-GeoMesaDataStore): create_schema -> write -> query / count / density /
-bounds / explain. Point schemas get a Z3 index (when a time attribute
+GeoMesaDataStore): create_schema -> write -> query / query_many / count /
+density / density_many / bounds / stats_query / explain, and serve() for
+concurrent callers. Point schemas get a Z3 index (when a time attribute
 exists) and a Z2 index, narrowed by the ``geomesa.indices.enabled`` user
 data; each index is a sorted IndexTable whose predicate columns live on
 the store's device.
@@ -15,6 +16,7 @@ index table from all rows (this slice has no delta tier).
 
 from __future__ import annotations
 
+import threading
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -73,6 +75,10 @@ class DataStore:
         # per-phase timing of the scan path (timing.PhaseClock), or the
         # clock that records nothing
         self.clock = NULL_CLOCK
+        # the serving tier (serve()); the lock keeps concurrent first
+        # callers from starting two schedulers
+        self.scheduler = None
+        self._serve_lock = threading.Lock()
 
     # -- schema lifecycle ------------------------------------------------
     def create_schema(self, sft: "FeatureType | str", spec: str | None = None) -> FeatureType:
@@ -209,6 +215,34 @@ class DataStore:
         plan = self.planner.plan(type_name, f, limit=limit, explain=explain)
         return self.planner.execute(plan, explain=explain)
 
+    def query_many(
+        self,
+        type_name: str,
+        filters: "Sequence[Filter | str]",
+        limit: Optional[int] = None,
+    ) -> list[FeatureCollection]:
+        """Run several queries with every device scan launched before any
+        result is pulled; index scans on one table fuse into one kernel
+        launch per chunk. Per-query results equal sequential ``query``."""
+        plans = [self.planner.plan(type_name, f, limit=limit) for f in filters]
+        return self.planner.execute_many(plans)
+
+    def serve(self, config=None):
+        """Attach (or return) the micro-batch serving tier: concurrent
+        callers ``submit()`` through the returned, started QueryScheduler,
+        and compatible index scans coalesce into fused launches.
+        ``config``: None builds a ServingConfig from the conf.py knobs; a
+        ServingConfig is used as given. Returns the attached scheduler
+        while it is open; a closed one is replaced. Thread-safe."""
+        from geomesa_tpu_torch.serving import QueryScheduler
+
+        with self._serve_lock:
+            sched = self.scheduler
+            if sched is not None and not sched.closed:
+                return sched
+            self.scheduler = QueryScheduler(self, config).start()
+            return self.scheduler
+
     def count(self, type_name: str, f: "Filter | str" = INCLUDE) -> int:
         """Exact hit count (scan + refine)."""
         if isinstance(f, Include):
@@ -236,17 +270,85 @@ class DataStore:
         weight attribute is requested, the grid renders on device; else
         rows gather to host and the grid is a numpy scatter over refined
         results."""
-        if envelope is None:
-            envelope = (-180.0, -90.0, 180.0, 90.0)
+        return self.density_many(
+            type_name, [(f, envelope)], width=width, height=height,
+            weight=weight, explain=explain,
+        )[0]
+
+    def density_many(
+        self,
+        type_name: str,
+        requests: Sequence,
+        width: int = 256,
+        height: int = 256,
+        weight: str | None = None,
+        explain=None,
+    ) -> list[np.ndarray]:
+        """Many density grids (a map frame's tiles), every tile's device
+        kernel launched before any grid is pulled. ``requests`` is a
+        sequence of (filter, envelope) pairs (envelope None = the whole
+        world). Results equal sequential :meth:`density` calls."""
+        staged: list = []  # (kind, payload) per request, in order
+        for f, envelope in requests:
+            if envelope is None:
+                envelope = (-180.0, -90.0, 180.0, 90.0)
+            plan = self.planner.plan(type_name, f, explain=explain)
+            if weight is not None or not self._device_aggregable(type_name, plan):
+                staged.append(("host", (plan, envelope)))
+            elif plan.config.disjoint:
+                staged.append(("empty", None))
+            else:
+                staged.append(("device", self.table(type_name, plan.index).density_submit(
+                    plan.config, envelope, width, height, clock=self.clock
+                )))
+        out: list = []
+        for kind, payload in staged:
+            if kind == "empty":
+                out.append(np.zeros((height, width), dtype=np.float32))
+            elif kind == "device":
+                out.append(payload())
+            else:
+                plan, envelope = payload
+                rows = self.planner.execute(plan, explain=explain)
+                out.append(_host_density(rows, envelope, width, height, weight))
+        return out
+
+    def stats_query(
+        self,
+        type_name: str,
+        spec: str,
+        f: "Filter | str" = INCLUDE,
+        estimate: bool = False,
+        explain=None,
+    ) -> list:
+        """Evaluate a Stat DSL spec over the query hits (reference
+        StatsScan / StatsProcess; grammar in stats.stat_spec).
+
+        ``estimate=True`` takes the device fast path for ``Count()`` terms
+        when the scan mask decides the filter: a count-only kernel with no
+        row gather (loose f32-widened semantics, like the reference's
+        estimate-only stats)."""
+        from geomesa_tpu_torch.stats import stat_spec
+        from geomesa_tpu_torch.stats.sketches import CountStat
+
+        terms = stat_spec.parse(spec)
         plan = self.planner.plan(type_name, f, explain=explain)
-        if weight is None and self._device_aggregable(type_name, plan):
-            if plan.config.disjoint:
-                return np.zeros((height, width), dtype=np.float32)
-            return self.table(type_name, plan.index).density(
-                plan.config, envelope, width, height, clock=self.clock
+        if (
+            estimate
+            and all(t.kind == "count" for t in terms)
+            and self._device_aggregable(type_name, plan)
+        ):
+            n = (
+                0 if plan.config.disjoint
+                else self.table(type_name, plan.index).count(plan.config, clock=self.clock)
             )
-        rows = self.planner.execute(plan, explain=explain)
-        return _host_density(rows, envelope, width, height, weight)
+            out = []
+            for _ in terms:
+                c = CountStat()
+                c.count = n
+                out.append(c)
+            return out
+        return stat_spec.evaluate_terms(terms, self.planner.execute(plan, explain=explain))
 
     def bounds(
         self, type_name: str, f: "Filter | str" = INCLUDE,

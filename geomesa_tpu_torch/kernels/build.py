@@ -80,7 +80,14 @@ DENSITY = CudaKernel(
 BOUNDS = CudaKernel(
     "bounds", "gm_bounds", [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
 )
-KERNELS = (BLOCK_SCAN, DENSITY, BOUNDS)
+BLOCK_SCAN_MULTI = CudaKernel(
+    "block_scan_multi", "gm_block_scan_multi",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+)
+BLOCK_POPS = CudaKernel(
+    "block_pops", "gm_block_pops", [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+)
+KERNELS = (BLOCK_SCAN, DENSITY, BOUNDS, BLOCK_SCAN_MULTI, BLOCK_POPS)
 
 _build_lock = threading.Lock()
 

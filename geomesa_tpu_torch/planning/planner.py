@@ -1,10 +1,11 @@
 """QueryPlanner: pick an index, build a scan plan, execute, refine.
 
-The port of the single-query path of geomesa_tpu/planning/planner.py
-(reference QueryPlanner.scala:40-161, StrategyDecider.scala:47-181):
-extract filter values -> per-index ScanConfig -> cost selection ->
-block-pruned device scan -> host gather -> refinement of the uncertain
-rows (always exact f64) -> limit.
+The port of the single-query and pipelined multi-query paths of
+geomesa_tpu/planning/planner.py (reference QueryPlanner.scala:40-161,
+StrategyDecider.scala:47-181): extract filter values -> per-index
+ScanConfig -> cost selection -> block-pruned device scan (one launch per
+query, or one fused launch per chunk of queries) -> host gather ->
+refinement of the uncertain rows (always exact f64) -> limit.
 
 A filter no index of this slice serves (no spatio-temporal constraint, an
 OR across indexes, a polygon that needs the point-in-polygon leg) takes
@@ -184,12 +185,64 @@ class QueryPlanner:
             )
         return self._submit_simple(plan, exp)()
 
-    def _submit_simple(self, plan: QueryPlan, exp):
-        """Launch a simple index-scan plan's device work now; return
+    # -- pipelined multi-query execution ---------------------------------
+    def _is_simple(self, plan: QueryPlan) -> bool:
+        """True when the plan is a plain index scan whose device work can
+        launch ahead of finish(); one predicate shared by submit and
+        submit_many so their routing cannot drift."""
+        return (
+            plan.index is not None
+            and plan.config is not None
+            and self.store.row_count(plan.type_name) > 0
+        )
+
+    def submit(self, plan: QueryPlan, explain: Explainer | None = None):
+        """Stage one query: launch its device scan now, return a zero-arg
+        ``finish()`` producing the FeatureCollection. A plan without an
+        index scan (full host scan, empty store) runs inside finish()."""
+        exp = explain or ExplainNull()
+        if not self._is_simple(plan):
+            return lambda: self.execute(plan, explain=exp)
+        return self._submit_simple(plan, exp)
+
+    def submit_many(self, plans) -> list:
+        """Stage many queries: simple index-scan plans sharing a (type,
+        index) table go through the table's fused multi-query scan
+        (``scan_submit_many``: one kernel launch per chunk instead of one
+        per query); the rest take :meth:`submit`. Returns one ``finish()``
+        per plan, in input order."""
+        finishes: list = [None] * len(plans)
+        groups: dict[tuple, list[int]] = {}
+        for j, plan in enumerate(plans):
+            if self._is_simple(plan):
+                groups.setdefault((plan.type_name, plan.index), []).append(j)
+            else:
+                finishes[j] = self.submit(plan)
+        for (tname, iname), idxs in groups.items():
+            if len(idxs) == 1:
+                finishes[idxs[0]] = self.submit(plans[idxs[0]])
+                continue
+            table = self.store.table(tname, iname)
+            scan_fins = table.scan_submit_many(
+                [plans[j].config for j in idxs], clock=self.store.clock
+            )
+            for j, scan_fin in zip(idxs, scan_fins):
+                finishes[j] = self._submit_simple(plans[j], ExplainNull(), finish_scan=scan_fin)
+        return finishes
+
+    def execute_many(self, plans) -> list:
+        """Execute several plans with every device scan launched before any
+        result is pulled; scans sharing a table fuse (submit_many)."""
+        return [f() for f in self.submit_many(plans)]
+
+    def _submit_simple(self, plan: QueryPlan, exp, finish_scan=None):
+        """Launch a simple index-scan plan's device work now (or take the
+        ``finish_scan`` of an already launched fused chunk); return
         ``finish()`` -> FeatureCollection."""
         clock = self.store.clock
-        table = self.store.table(plan.type_name, plan.index)
-        finish_scan = table.scan_submit(plan.config, clock=clock)
+        if finish_scan is None:
+            table = self.store.table(plan.type_name, plan.index)
+            finish_scan = table.scan_submit(plan.config, clock=clock)
 
         def finish() -> FeatureCollection:
             with exp.span(f"Device scan [{plan.index}]"):

@@ -1,13 +1,16 @@
-"""Aggregation push-down over the block layout: density and bounds.
+"""Aggregation push-down over the block layout: counts, density, bounds.
 
 The port of geomesa_tpu/scan/aggregations.py (reference DensityScan and
 StatsScan iterators). Same candidate-block contract as the scan: the host
-prunes the sorted table to candidate blocks and pads the id list with -1;
-the device evaluates the shared wide predicate over whole blocks.
+prunes the sorted table to candidate blocks and pads the id list (-1 for
+density and bounds; counts clamp pads to block 0 and the host reads
+[:n_real]); the device evaluates the shared wide predicate over whole
+blocks.
 
 Each function has a plain PyTorch version beside the wrapper of its CUDA
-kernel (csrc/density.cu, csrc/bounds.cu): a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel or the call raises.
+kernel (csrc/block_pops.cu, csrc/density.cu, csrc/bounds.cu): a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel or the
+call raises.
 """
 
 from __future__ import annotations
@@ -26,6 +29,83 @@ def _gather(cols: dict, bids: torch.Tensor) -> dict:
     """Candidate blocks of every column; pad slots (-1) read block 0."""
     b = bids.to(torch.int64).clamp(min=0)
     return {k: v[b] for k, v in cols.items()}
+
+
+# ------------------------------------------------------------------ pops
+
+
+def popcount_slots_plain(plane: torch.Tensor) -> torch.Tensor:
+    """[M, PACK, 128] int32 bit plane -> [M] int32 set-bit counts (each
+    word read as unsigned)."""
+    v = plane.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+    return v.sum(dim=(1, 2)).to(torch.int32)
+
+
+def block_pops_plain(cols: dict, bids, boxes, wins, *, has_boxes, has_windows) -> torch.Tensor:
+    """[M] int32 wide-predicate hit count per slot: the plain scan's wide
+    plane over ``max(bids, 0)``, popcounted per slot (pads count block 0;
+    the host reads [:n_real]). Tensors on the columns' device."""
+    wide, _ = bk.block_scan_plain(
+        cols, bids.clamp(min=0), boxes, wins, has_boxes=has_boxes, has_windows=has_windows
+    )
+    return popcount_slots_plain(wide)
+
+
+def block_pops(
+    cols3, bids, boxes, wins, *, col_names, has_boxes, has_windows,
+    extent=False, clock=NULL_CLOCK,
+) -> torch.Tensor:
+    """[M] int32 wide-predicate hit count per candidate block slot on the
+    columns' device, pads included: a count-only query pulls M ints, not
+    M bit planes."""
+    bk.check_unported_legs(extent)
+    cols = dict(zip(col_names, cols3))
+    device = bk.device_of(cols3)
+    bids = np.asarray(bids, np.int32)
+    if device.type == "cpu":
+        with clock.device("kernel", device):
+            return block_pops_plain(
+                cols, torch.from_numpy(bids),
+                torch.as_tensor(np.asarray(boxes, np.float32)),
+                torch.as_tensor(np.asarray(wins, np.int32)),
+                has_boxes=has_boxes, has_windows=has_windows,
+            )
+    out, launch = pops_launcher(
+        cols, bids, boxes, wins, has_boxes=has_boxes, has_windows=has_windows, clock=clock,
+    )
+    with clock.device("kernel", device):
+        launch()
+    return out
+
+
+def pops_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, clock=NULL_CLOCK):
+    """Stage one CUDA count: check, copy the params to the card, allocate
+    the [M] counts. Returns (counts, launch): each launch() writes
+    ``counts`` on the current stream."""
+    device = bk.device_of(tuple(cols.values()))
+    if device.type != "cuda":
+        raise ValueError(f"no count kernel for device {device}")
+    from geomesa_tpu_torch.kernels import BLOCK_POPS
+
+    x, y, t0, t1, flags, sub, n_blocks = bk.kernel_columns(cols, has_boxes, has_windows)
+    bids = np.asarray(bids, np.int32)
+    bk.check_bids(bids, n_blocks, allow_pad=True)
+    m = len(bids)
+    with torch.cuda.device(device):
+        params = bk.upload_params(bk.stage_params(bids, boxes, wins), device, clock)
+        out = torch.empty(m, dtype=torch.int32, device=device)
+
+    def launch() -> None:
+        BLOCK_POPS.launch(
+            x, y, t0, t1, params.data_ptr(), m, sub, flags, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+
+    return out, launch
 
 
 # --------------------------------------------------------------- density

@@ -13,11 +13,13 @@ word [j, lane] is local row (j*32 + b)*128 + lane:
   f64 precision, so host refinement touches only ``wide & ~inner``.
 
 This module holds the numpy parameter packers and decode (copies of the
-JAX package's), the plain PyTorch version of the scan, and the wrapper of
-the CUDA kernel (csrc/block_scan.cu). The wrapper routes by the device of
-the columns: a CPU tensor takes the plain version, a CUDA tensor launches
-the kernel or the call raises. Parameters (block ids and the [8, 128]
-box and window blocks) travel in one host->device copy per query.
+JAX package's), the plain PyTorch versions of the scan and of the fused
+multi-query scan, and the wrappers of their CUDA kernels
+(csrc/block_scan.cu, csrc/block_scan_multi.cu). The wrappers route by the
+device of the columns: a CPU tensor takes the plain version, a CUDA
+tensor launches the kernel or the call raises. Parameters (block ids and
+the [8, 128] box and window blocks; for a fused chunk also the query ids
+and the [Q, 8, 128] stacks) travel in one host->device copy per call.
 """
 
 from __future__ import annotations
@@ -189,10 +191,14 @@ def active_slots(slots: np.ndarray, pad: np.ndarray) -> int:
     """Slots before the trailing run of pad slots: the kernels loop over
     these only, which leaves the planes unchanged since a pad slot never
     matches."""
-    k = len(slots)
-    while k and np.array_equal(slots[k - 1], pad):
-        k -= 1
-    return k
+    return int(active_slots_many(np.asarray(slots)[None], pad)[0])
+
+
+def active_slots_many(slots: np.ndarray, pad: np.ndarray) -> np.ndarray:
+    """:func:`active_slots` of every query of a [Q, k, 8] slot stack."""
+    real = ~np.all(slots == pad, axis=-1)  # [Q, k]
+    last = slots.shape[1] - np.argmax(real[:, ::-1], axis=1)
+    return np.where(real.any(axis=1), last, 0).astype(np.int32)
 
 
 def slot_words(boxes, wins) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -215,28 +221,60 @@ def stage_params(bids, boxes, wins, extra_f32=None) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def stage_multi_params(bids, qids, boxes, wins) -> np.ndarray:
+    """One int32 host buffer per fused chunk: bids[m] | qids[m] | box
+    slots [Q][8][8] (f32 bits) | window slots [Q][8][8] | active box and
+    window slot counts [Q][2], from [Q, 8, 128] param stacks
+    (csrc/masks.cuh)."""
+    box8 = np.ascontiguousarray(np.asarray(boxes, np.float32)[:, :, :8])
+    win8 = np.ascontiguousarray(np.asarray(wins, np.int32)[:, :, :8])
+    counts = np.stack(
+        [active_slots_many(box8, _PAD_BOX), active_slots_many(win8, _PAD_WIN)], axis=1
+    )
+    return np.concatenate([
+        np.asarray(bids, np.int32).ravel(), np.asarray(qids, np.int32).ravel(),
+        box8.view(np.int32).ravel(), win8.ravel(), counts.ravel(),
+    ])
+
+
+def bucket_q(q: int) -> int:
+    """Static Q bucket: power of two >= q, floor 8. For hand-built param
+    stacks in tests; the table pads every fused chunk's stacks to
+    FUSED_CHUNK_Q (storage.table). Pad query rows are all-zero params no
+    slot references (pad slots carry qid 0 and are ignored at decode)."""
+    m = 8
+    while m < q:
+        m *= 2
+    return m
+
+
 # ------------------------------------------------------- plain PyTorch
+
+
+def _slot_lanes(p, k: int):
+    """Lanes 0-7 of slot ``k`` of a [k, 128] param block (scalars), or of
+    per-slot [M, k, 128] blocks (one [M, 1, 1] value each)."""
+    v = p[..., k, :8]
+    if v.dim() == 1:
+        return v.unbind()
+    return v.reshape(-1, 1, 1, 8).unbind(-1)
 
 
 def masks_plain(cols: dict, boxes, wins, has_boxes: bool, has_windows: bool):
     """(wide, inner) bool tensors for gathered column blocks: the box,
     window, packed-time and validity legs of the JAX package's ``_masks``.
-    ``boxes``/``wins`` are [k, 128] slot blocks (k = 8 from the packers)
-    on the columns' device."""
+    ``boxes``/``wins`` are [k, 128] slot blocks (k = 8 from the packers),
+    or [M, k, 128] blocks, one per gathered block, on the columns'
+    device."""
     w_parts, i_parts = [], []
     if has_boxes:
         x, y = cols["x"], cols["y"]
         wide = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
         inner = torch.zeros_like(wide)
-        for k in range(boxes.shape[0]):
-            wide |= (
-                (x >= boxes[k, 0]) & (x <= boxes[k, 2])
-                & (y >= boxes[k, 1]) & (y <= boxes[k, 3])
-            )
-            inner |= (
-                (x >= boxes[k, 4]) & (x <= boxes[k, 6])
-                & (y >= boxes[k, 5]) & (y <= boxes[k, 7])
-            )
+        for k in range(boxes.shape[-2]):
+            b = _slot_lanes(boxes, k)
+            wide |= (x >= b[0]) & (x <= b[2]) & (y >= b[1]) & (y <= b[3])
+            inner |= (x >= b[4]) & (x <= b[6]) & (y >= b[5]) & (y <= b[7])
         w_parts.append(wide)
         i_parts.append(inner)
     if has_windows:
@@ -249,15 +287,10 @@ def masks_plain(cols: dict, boxes, wins, has_boxes: bool, has_windows: bool):
             tb, to = cols["tbin"], cols["toff"]
         wide = torch.zeros(tb.shape, dtype=torch.bool, device=tb.device)
         inner = torch.zeros_like(wide)
-        for k in range(wins.shape[0]):
-            wide |= (
-                (tb >= wins[k, 0]) & (tb <= wins[k, 1])
-                & (to >= wins[k, 2]) & (to <= wins[k, 3])
-            )
-            inner |= (
-                (tb >= wins[k, 4]) & (tb <= wins[k, 5])
-                & (to >= wins[k, 6]) & (to <= wins[k, 7])
-            )
+        for k in range(wins.shape[-2]):
+            s = _slot_lanes(wins, k)
+            wide |= (tb >= s[0]) & (tb <= s[1]) & (to >= s[2]) & (to <= s[3])
+            inner |= (tb >= s[4]) & (tb <= s[5]) & (to >= s[6]) & (to <= s[7])
         w_parts.append(wide)
         i_parts.append(inner)
     if not w_parts:
@@ -296,6 +329,18 @@ def block_scan_plain(cols: dict, bids, boxes, wins, *, has_boxes, has_windows):
     return pack_bits_plain(w), pack_bits_plain(i)
 
 
+def block_scan_multi_plain(cols: dict, bids, qids, boxes, wins, *, has_boxes, has_windows):
+    """Plain PyTorch fused scan: slot i gathers block ``bids[i]`` and
+    query ``qids[i]``'s [8, 128] param blocks out of the [Q, 8, 128]
+    stacks, then the single-query legs per slot. Tensors on the columns'
+    device. Returns (wide, inner) int32 [M, SUB/32, 128]."""
+    b = bids.to(torch.int64)
+    q = qids.to(torch.int64)
+    gathered = {k: v[b] for k, v in cols.items()}
+    w, i = masks_plain(gathered, boxes[q], wins[q], has_boxes, has_windows)
+    return pack_bits_plain(w), pack_bits_plain(i)
+
+
 # ------------------------------------------------------- CUDA wrapper
 
 
@@ -306,10 +351,15 @@ def device_of(cols3) -> torch.device:
     return devs.pop()
 
 
-def check_unported_legs(extent=False, edges=None, n_edges=0, rast=None, n_rints=0) -> None:
+def check_unported_legs(
+    extent=False, edges=None, n_edges=0, rast=None, n_rints=0, spip=None
+) -> None:
     """The port's kernels carry the box, window, packed-time and validity
     legs only; asking for another raises on every device."""
-    if extent or edges is not None or n_edges or rast is not None or n_rints:
+    if (
+        extent or edges is not None or n_edges or rast is not None or n_rints
+        or spip is not None
+    ):
         raise NotImplementedError(
             "the point-in-polygon, raster and extent legs of the scan are "
             "not ported yet"
@@ -434,6 +484,96 @@ def block_scan(
         cols3, bids, boxes, wins, col_names=col_names, has_boxes=has_boxes,
         has_windows=has_windows, extent=extent, edges=edges, n_edges=n_edges,
         rast=rast, n_rints=n_rints,
+    )
+    return planes[0], planes[1]
+
+
+# ------------------------------------------------ fused multi-query scan
+
+
+def scan_planes_multi(
+    cols3, bids, qids, boxes, wins, *, col_names, has_boxes, has_windows,
+    extent=False, edges=None, spip=None, n_edges=0, rasts=None, n_rints=0,
+    clock=NULL_CLOCK,
+) -> torch.Tensor:
+    """Fused form of :func:`scan_planes`: slot i scans block ``bids[i]``
+    with query ``qids[i]``'s params from the [Q, 8, 128] ``boxes``/``wins``
+    stacks (numpy). Both planes in one int32 tensor [2, M, SUB/32, 128] on
+    the columns' device; each query's rows decode from its own slot
+    segment."""
+    check_unported_legs(extent, edges, n_edges, rasts, n_rints, spip)
+    cols = dict(zip(col_names, cols3))
+    device = device_of(cols3)
+    bids = np.asarray(bids, np.int32)
+    qids = np.asarray(qids, np.int32)
+    if device.type == "cpu":
+        with clock.device("kernel", device):
+            w, i = block_scan_multi_plain(
+                cols, torch.from_numpy(bids), torch.from_numpy(qids),
+                torch.as_tensor(np.asarray(boxes, np.float32)),
+                torch.as_tensor(np.asarray(wins, np.int32)),
+                has_boxes=has_boxes, has_windows=has_windows,
+            )
+            return torch.stack([w, i])
+    planes, launch = multi_launcher(
+        cols, bids, qids, boxes, wins, has_boxes=has_boxes, has_windows=has_windows,
+        clock=clock,
+    )
+    with clock.device("kernel", device):
+        launch()
+    return planes
+
+
+def multi_launcher(cols: dict, bids, qids, boxes, wins, *, has_boxes, has_windows,
+                   clock=NULL_CLOCK):
+    """Stage one CUDA fused scan: check the columns, block and query ids,
+    copy the chunk's params to the card (its one host->device copy) and
+    allocate both planes. Returns (planes [2, M, SUB/32, 128], launch)."""
+    device = device_of(tuple(cols.values()))
+    if device.type != "cuda":
+        raise ValueError(f"no fused scan kernel for device {device}")
+    from geomesa_tpu_torch.kernels import BLOCK_SCAN_MULTI
+
+    x, y, t0, t1, flags, sub, n_blocks = kernel_columns(cols, has_boxes, has_windows)
+    bids = np.asarray(bids, np.int32)
+    qids = np.asarray(qids, np.int32)
+    boxes = np.asarray(boxes, np.float32)
+    wins = np.asarray(wins, np.int32)
+    n_q = boxes.shape[0]
+    if boxes.shape != (n_q, 8, LANES) or wins.shape != boxes.shape:
+        raise ValueError(f"param stacks must be [Q, 8, 128]: {boxes.shape}, {wins.shape}")
+    if qids.shape != bids.shape:
+        raise ValueError(f"bids {bids.shape} and qids {qids.shape} differ")
+    check_bids(bids, n_blocks, allow_pad=False)
+    if len(qids) and (int(qids.min()) < 0 or int(qids.max()) >= n_q):
+        raise ValueError(f"query ids outside [0, {n_q})")
+    m = len(bids)
+    with torch.cuda.device(device):
+        params = upload_params(stage_multi_params(bids, qids, boxes, wins), device, clock)
+        planes = torch.empty((2, m, sub // 32, LANES), dtype=torch.int32, device=device)
+
+    def launch() -> None:
+        BLOCK_SCAN_MULTI.launch(
+            x, y, t0, t1, params.data_ptr(), m, n_q, sub, flags,
+            planes[0].data_ptr(), planes[1].data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+
+    return planes, launch
+
+
+def block_scan_multi(
+    cols3, bids, qids, boxes, wins, *, col_names, has_boxes, has_windows,
+    extent=False, edges=None, spip=None, n_edges=0, rasts=None, n_rints=0,
+):
+    """The JAX package's ``block_scan_multi`` contract: (wide, inner)
+    int32 planes [M, SUB/32, 128] on the columns' device. The edge and
+    raster stacks (``edges``, ``spip``, ``rasts``; the legs not ported
+    yet) raise NotImplementedError."""
+    planes = scan_planes_multi(
+        cols3, bids, qids, boxes, wins, col_names=col_names, has_boxes=has_boxes,
+        has_windows=has_windows, extent=extent, edges=edges, spip=spip,
+        n_edges=n_edges, rasts=rasts, n_rints=n_rints,
     )
     return planes[0], planes[1]
 

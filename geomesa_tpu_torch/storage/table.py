@@ -9,10 +9,12 @@ feature ordinals and per-bin segment offsets, used for range -> row-span
 A query is one kernel launch plus one device->host copy of its bit
 planes: contained ranges' rows are taken from the spans directly, the
 remaining candidate blocks go through the scan kernel, and host
-refinement touches only the uncertain ``wide & ~inner`` rows.
+refinement touches only the uncertain ``wide & ~inner`` rows. Many
+queries pack into fused chunks, one launch and one device->host copy per
+chunk (``scan_submit_many``).
 
-This slice has no delta tier, fold, block reuse or fused multi-query
-chunks: a write rebuilds the table from all rows.
+This slice has no delta tier, fold or block reuse: a write rebuilds the
+table from all rows.
 """
 
 from __future__ import annotations
@@ -35,6 +37,16 @@ _SENTINELS = {
 
 # host state a table is rebuilt from (state.load_table_state)
 STATE_KEYS = ("perm", "bins", "zs", "ubins", "bin_starts", "block")
+
+# Fused-chunk shape (scan_submit_many), the JAX package's constants: a
+# chunk's slot list pads to the table's ``fused_slots`` (this cap clamped
+# down to the table's own block-count bucket, so a small table never scans
+# a multiple of its size in pad slots) and its param stacks to
+# FUSED_CHUNK_Q queries. Members wider than half a chunk take the
+# single-query kernel. The routing thresholds are the JAX package's, tuned
+# for a TPU's per-dispatch cost; they are not yet measured on the card.
+FUSED_CHUNK_SLOTS = 2048
+FUSED_CHUNK_Q = 128
 
 
 def _block_rows(tile: "int | None") -> int:
@@ -142,6 +154,15 @@ def _merge_sorted_rows(cont_rows: np.ndarray, kr: np.ndarray, kc: np.ndarray):
     return rows, certain
 
 
+def _spans_intersect(rng: tuple[int, int], spans: list[tuple[int, int]]) -> bool:
+    """True when [rng.lo, rng.hi) intersects any [lo, hi) span."""
+    lo, hi = rng
+    for a, z in spans:
+        if a < hi and z > lo:
+            return True
+    return False
+
+
 def _rows_in_spans(rows: np.ndarray, spans: list[tuple[int, int]]) -> np.ndarray:
     """Boolean mask: which sorted ``rows`` fall inside any [lo, hi) span."""
     if not spans or len(rows) == 0:
@@ -233,10 +254,21 @@ class IndexTable(SortedKeys):
         overlap, contained = self.candidate_spans_split(config)
         blocks = self.candidate_blocks(overlap)
         if len(blocks) == 0:
-            cont_rows = _span_rows(contained)
-            out = (self.perm[cont_rows].astype(np.int64), np.ones(len(cont_rows), bool))
-            return lambda: out
-        finish_device = self._device_scan_submit(blocks, config, clock)
+            return self._contained_only(contained)
+        return self._make_finish(
+            self._device_scan_submit(blocks, config, clock), contained, clock
+        )
+
+    def _contained_only(self, contained):
+        """finish() of a scan with no candidate block: the contained
+        spans' rows, all certain."""
+        cont_rows = _span_rows(contained)
+        out = (self.perm[cont_rows].astype(np.int64), np.ones(len(cont_rows), bool))
+        return lambda: out
+
+    def _make_finish(self, finish_device, contained, clock=NULL_CLOCK):
+        """finish() over a launched device scan: decode + _post_decode.
+        Shared by scan_submit and the fused path's single-query members."""
 
         def finish() -> tuple[np.ndarray, np.ndarray]:
             rows, certain = finish_device()
@@ -255,6 +287,146 @@ class IndexTable(SortedKeys):
                 _span_rows(contained), rows[~dup], certain[~dup]
             )
         return self.perm[rows].astype(np.int64), certain
+
+    # -- fused multi-query scans -----------------------------------------
+    @property
+    def fused_slots(self) -> int:
+        """Slot count of this table's fused-chunk shape:
+        FUSED_CHUNK_SLOTS clamped down to the table's block-count bucket
+        (2048 at 100M rows of 16384-row blocks)."""
+        return min(FUSED_CHUNK_SLOTS, bk.bucket_of(self.n_blocks))
+
+    @property
+    def fused_pack_capacity(self) -> int:
+        """Candidate blocks the chunk packer fills per fused chunk (the
+        slot count, on a one-device table)."""
+        return self.fused_slots
+
+    def scan_submit_many(self, configs: list, clock=NULL_CLOCK) -> list:
+        """Fused form of :meth:`scan_submit` for many queries: configs
+        group by kernel variant (projected columns, boxes, windows), pack
+        greedily in input order into chunks of at most
+        ``fused_pack_capacity`` candidate blocks and FUSED_CHUNK_Q queries,
+        and each chunk is one fused kernel launch. Returns one
+        ``finish() -> (ordinals, certain)`` per config, in input order; a
+        chunk's planes come to the host once, on its first member's
+        finish, and each member decodes its own slot segment."""
+        finishes: list = [None] * len(configs)
+        groups: dict[tuple, list] = {}
+        for j, config in enumerate(configs):
+            if config.disjoint or self.n == 0:
+                out = (np.zeros(0, np.int64), np.zeros(0, bool))
+                finishes[j] = lambda out=out: out
+                continue
+            overlap, contained = self.candidate_spans_split(config)
+            blocks = self.candidate_blocks(overlap)
+            if len(blocks) == 0:
+                finishes[j] = self._contained_only(contained)
+                continue
+            blocks = self._full_or(blocks)
+            names = self._scan_cols(config)
+            key = (names, config.boxes is not None, config.windows is not None)
+            groups.setdefault(key, []).append((j, config, blocks, contained))
+
+        slots = self.fused_pack_capacity
+        for (names, has_boxes, has_windows), members in groups.items():
+            # members broader than half a chunk (e.g. _full_or expansions)
+            # go alone on the single-query kernel; the rest pack greedily
+            chunks: list[list] = []
+            cur: list = []
+            cur_blocks = 0
+            for m in members:
+                nb = len(m[2])
+                if nb > slots // 2:
+                    chunks.append([m])
+                    continue
+                if cur and (cur_blocks + nb > slots or len(cur) == FUSED_CHUNK_Q):
+                    chunks.append(cur)
+                    cur, cur_blocks = [], 0
+                cur.append(m)
+                cur_blocks += nb
+            if cur:
+                chunks.append(cur)
+            for chunk in chunks:
+                self._submit_fused_chunk(chunk, names, has_boxes, has_windows, finishes, clock)
+        return finishes
+
+    def _fused_route_single(self, members, finishes, clock=NULL_CLOCK) -> bool:
+        """Send a one-member or near-empty chunk to the single-query kernel
+        (the fixed fused shape would spend most of its work on pad slots);
+        returns True when routed."""
+        if len(members) == 1 or (
+            len(members) <= 8
+            and sum(len(m[2]) for m in members) < self.fused_pack_capacity // 8
+        ):
+            for j, config, blocks, contained in members:
+                finishes[j] = self._make_finish(
+                    self._device_scan_submit(blocks, config, clock), contained, clock
+                )
+            return True
+        return False
+
+    def _fused_param_stacks(self, members):
+        """(boxes, wins) [FUSED_CHUNK_Q, 8, 128] per-query param stacks of
+        one fused chunk; rows past the members stay zero (no slot reads
+        them)."""
+        boxes = np.zeros((FUSED_CHUNK_Q, 8, bk.LANES), np.float32)
+        wins = np.zeros((FUSED_CHUNK_Q, 8, bk.LANES), np.int32)
+        for q, m in enumerate(members):
+            boxes[q], wins[q] = self._params(m[1])
+        return boxes, wins
+
+    def _fused_pull(self, planes, clock=NULL_CLOCK):
+        """``pull() -> host planes [2, M, SUB/32, 128]``, memoized: the
+        chunk's planes come to the host in one copy, on the first member's
+        finish, for every member."""
+        pulled: list = []
+
+        def pull() -> np.ndarray:
+            if not pulled:
+                with clock.device("d2h", self.device):
+                    pulled.append(planes.cpu().numpy())
+            return pulled[0]
+
+        return pull
+
+    def _submit_fused_chunk(self, members, names, has_boxes, has_windows, finishes,
+                            clock=NULL_CLOCK) -> None:
+        """Launch one fused chunk: slot segments per member, pad slots
+        (bid 0, qid 0) after them up to ``fused_slots``."""
+        if self._fused_route_single(members, finishes, clock):
+            return
+        boxes, wins = self._fused_param_stacks(members)
+        segs: list[tuple[int, int]] = []
+        pos = 0
+        for m in members:
+            segs.append((pos, pos + len(m[2])))
+            pos += len(m[2])
+        bids, n_real = bk.pad_bids(
+            np.concatenate([m[2] for m in members]), self.n_blocks, bucket=self.fused_slots
+        )
+        qids = np.zeros(len(bids), np.int32)
+        qids[:n_real] = np.repeat(np.arange(len(members), dtype=np.int32),
+                                  [len(m[2]) for m in members])
+        planes = bk.scan_planes_multi(
+            self._cols_args(names), bids, qids, boxes, wins, col_names=names,
+            has_boxes=has_boxes, has_windows=has_windows, clock=clock,
+        )
+        pull = self._fused_pull(planes, clock)
+
+        def member_finish(k: int):
+            _, _, blocks, contained = members[k]
+            s, e = segs[k]
+            host = pull()
+            with clock.host("decode"):
+                rows, certain = bk.decode_bits_pair(
+                    np.ascontiguousarray(host[0, s:e]), np.ascontiguousarray(host[1, s:e]),
+                    blocks, e - s,
+                )
+                return self._post_decode(rows, certain, contained)
+
+        for k, m in enumerate(members):
+            finishes[m[0]] = lambda k=k: member_finish(k)
 
     # -- device hooks ----------------------------------------------------
     def _params(self, config: ScanConfig):
@@ -344,6 +516,47 @@ class IndexTable(SortedKeys):
 
         return finish
 
+    def _device_pops(self, blocks: np.ndarray, config: ScanConfig, clock=NULL_CLOCK):
+        """Per-candidate-block wide-hit counts -> (pops [n] i64, block ids
+        [n] i64). Pulls M ints, never bit planes."""
+        blocks = self._full_or(blocks)
+        bids, n_real = bk.pad_bids(blocks, self.n_blocks)
+        boxes, wins = self._params(config)
+        names = self._scan_cols(config)
+        pops = aggregations.block_pops(
+            self._cols_args(names), bids, boxes, wins,
+            clock=clock, **self._kernel_kwargs(config, names),
+        )
+        with clock.device("d2h", self.device):
+            pops = pops.cpu().numpy()
+        return pops[:n_real].astype(np.int64), bids[:n_real].astype(np.int64)
+
+    # -- counting --------------------------------------------------------
+    def count(self, config: ScanConfig, clock=NULL_CLOCK) -> int:
+        """Wide-predicate hit count (a superset of the exact count where
+        boundary rows would refine away) without materializing row ids:
+        contained spans count by length, the other candidate blocks by the
+        device popcount of their wide plane; only blocks straddling a
+        contained span (whose rows the spans already counted) decode."""
+        if config.disjoint or self.n == 0:
+            return 0
+        overlap, contained = self.candidate_spans_split(config)
+        cont_total = sum(z - a for a, z in contained)
+        blocks = self.candidate_blocks(overlap)
+        if len(blocks) == 0:
+            return cont_total
+        pops, gbids = self._device_pops(blocks, config, clock)
+        if not contained:
+            return int(pops.sum())
+        straddle = np.array(
+            [_spans_intersect((b * self.block, (b + 1) * self.block), contained) for b in gbids]
+        )
+        total = int(pops[~straddle].sum()) + cont_total
+        if straddle.any():
+            rows, _ = self._device_scan_submit(gbids[straddle], config, clock)()
+            total += int((~_rows_in_spans(rows, contained)).sum())
+        return total
+
     # -- aggregation push-down -------------------------------------------
     def _agg_blocks(self, config: ScanConfig) -> np.ndarray:
         """Candidate blocks over ALL scan ranges (contained rows pass the
@@ -382,21 +595,34 @@ class IndexTable(SortedKeys):
             host = stats.cpu().numpy()
         return aggregations.reduce_bounds(host, n_real)
 
-    def density(self, config: ScanConfig, bounds, width: int, height: int,
-                clock=NULL_CLOCK) -> np.ndarray:
-        """[height, width] density grid over ``bounds`` computed on device
-        (the DensityScan push-down tier)."""
+    def density_submit(self, config: ScanConfig, bounds, width: int, height: int,
+                       clock=NULL_CLOCK):
+        """Launch the density kernel now (the DensityScan push-down tier:
+        a [height, width] grid over ``bounds``); return finish() -> grid.
+        A batch of map tiles launches every tile's kernel before pulling
+        any grid (DataStore.density_many)."""
         args = self.agg_launch_args(config)
         if args is None:
-            return np.zeros((height, width), dtype=np.float32)
-        cols3, bids, _, boxes, wins, kw = args
+            return lambda: np.zeros((height, width), dtype=np.float32)
         gb = np.asarray(bounds, dtype=np.float32).reshape(4)
+        return self._device_density_submit(args, gb, width, height, clock)
+
+    def _device_density_submit(self, args, grid_bounds, width: int, height: int,
+                               clock=NULL_CLOCK):
+        """Launch the density kernel over ``agg_launch_args`` output;
+        return finish() -> grid (one device->host copy). The device hook
+        beside ``_device_scan_submit`` and ``_device_pops``."""
+        cols3, bids, _, boxes, wins, kw = args
         grid = aggregations.block_density(
-            cols3, bids, boxes, wins, gb, width=width, height=height,
+            cols3, bids, boxes, wins, grid_bounds, width=width, height=height,
             clock=clock, **kw,
         )
-        with clock.device("d2h", self.device):
-            return grid.cpu().numpy()
+
+        def finish() -> np.ndarray:
+            with clock.device("d2h", self.device):
+                return grid.cpu().numpy()
+
+        return finish
 
     @property
     def nbytes_device(self) -> int:

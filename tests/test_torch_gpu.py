@@ -99,3 +99,56 @@ def test_density_and_bounds_kernels_equal_plain(cuda_cols, case, grid):
         _t(wins, torch.int32), has_boxes=hb, has_windows=hw,
     )
     assert np.array_equal(st[:n_real].cpu().numpy(), sp[:n_real].cpu().numpy())
+
+
+def _stacks(n_q: int, tw: bool, seed: int = 9):
+    """[bucket_q(n_q), 8, 128] stacks; query q uses 1 + q % 8 box slots and
+    1 + (3q + 1) % 8 window slots (seconds, or 32 s ticks for tw)."""
+    rng = np.random.default_rng(seed)
+    q_pad = tbk.bucket_q(n_q)
+    boxes = np.zeros((q_pad, 8, tbk.LANES), np.float32)
+    wins = np.zeros((q_pad, 8, tbk.LANES), np.int32)
+    top = 18_899 if tw else 604_799
+    for q in range(n_q):
+        nb, nw = 1 + q % 8, 1 + (3 * q + 1) % 8
+        lo = rng.uniform(-170, 100, (nb, 2)).astype(np.float32)
+        wide = np.concatenate([lo, lo + rng.uniform(5, 60, (nb, 2)).astype(np.float32)], axis=1)
+        boxes[q] = tbk.pack_boxes(wide, wide[:1] + np.array([1, 1, -1, -1], np.float32))
+        b = rng.integers(2800, 2820, nw)
+        o = np.sort(rng.integers(0, top, (nw, 2)), axis=1)
+        ws = np.stack([b, b + rng.integers(0, 3, nw), o[:, 0], o[:, 1]], axis=1)
+        wins[q] = tbk.pack_windows(ws, ws[:1] + np.array([0, 0, 1, -1]))
+    return boxes, wins
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_block_scan_multi_kernel_equals_plain(cuda_cols, case):
+    names, hb, hw, _ = case
+    boxes, wins = _stacks(41, tw="tw" in names)
+    rng = np.random.default_rng(3)
+    blocks = rng.integers(0, NB, 60)
+    qids = np.zeros(64, np.int32)
+    qids[:60] = rng.permutation(np.arange(60) % 41)  # interleaved queries
+    bids, _ = tbk.pad_bids(blocks, NB, bucket=64)   # pads: bid 0, qid 0
+    cols = tuple(cuda_cols[k] for k in names)
+    w, i = tbk.block_scan_multi(cols, bids, qids, boxes, wins, col_names=names,
+                                has_boxes=hb, has_windows=hw)
+    pw, pi = tbk.block_scan_multi_plain(
+        dict(zip(names, cols)), _t(bids, torch.int32), _t(qids, torch.int32),
+        _t(boxes, torch.float32), _t(wins, torch.int32), has_boxes=hb, has_windows=hw,
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(w, pw) and torch.equal(i, pi) and bool(w.any())
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_block_pops_kernel_equals_plain(cuda_cols, case):
+    names, hb, hw, wins = case
+    bids, n_real = tbk.pad_bids(np.array([7, 0, 39, 12, 13, 2]), NB, pad=-1)
+    cols = tuple(cuda_cols[k] for k in names)
+    got = tagg.block_pops(cols, bids, BOXES, wins, col_names=names, has_boxes=hb, has_windows=hw)
+    ref = tagg.block_pops_plain(
+        dict(zip(names, cols)), _t(bids, torch.int32), _t(BOXES, torch.float32),
+        _t(wins, torch.int32), has_boxes=hb, has_windows=hw,
+    )
+    assert torch.equal(got, ref) and int(got[:n_real].sum()) > 0

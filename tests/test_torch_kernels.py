@@ -225,3 +225,105 @@ def test_scan_over_active_slots_equals_all_slots(columns, case):
         has_boxes=has_boxes, has_windows=has_windows,
     )
     assert all(torch.equal(a, b) for a, b in zip(full, cut))
+
+
+# ------------------------------------------------ fused multi-query scan
+
+
+def _query_stack(tw: bool, n_q: int = 5, seed: int = 17):
+    """[Q, 8, 128] box and window stacks of n_q queries (Q = bucket_q),
+    each with its own number of box and window slots (1..8), windows in
+    seconds or, for the packed-time columns, in 32 s ticks."""
+    rng = np.random.default_rng(seed)
+    q_pad = tbk.bucket_q(n_q)
+    boxes = np.zeros((q_pad, 8, tbk.LANES), np.float32)
+    wins = np.zeros((q_pad, 8, tbk.LANES), np.int32)
+    top = 18_899 if tw else 604_799
+    for q in range(n_q):
+        nb, nw = 1 + (q * 3) % 8, 1 + (q * 5 + 2) % 8
+        lo = rng.uniform(-50, 30, (nb, 2)).astype(np.float32)
+        wide = np.concatenate([lo, lo + rng.uniform(5, 20, (nb, 2)).astype(np.float32)], axis=1)
+        inner = wide[:1] + np.array([1, 1, -1, -1], np.float32)
+        boxes[q] = tbk.pack_boxes(wide, inner)
+        bins = rng.integers(100, 104, nw)
+        offs = np.sort(rng.integers(0, top, (nw, 2)), axis=1)
+        ws = np.stack([bins, bins, offs[:, 0], offs[:, 1]], axis=1)
+        wins[q] = tbk.pack_windows(ws, ws[:1] + np.array([0, 0, 1, -1]))
+    return boxes, wins
+
+
+def _multi_ids():
+    """Interleaved qids over real slots, then pad slots (bid 0, qid 0)."""
+    blocks = np.array([5, 0, 2, 7, 3, 3, 6, 1, 4, 7, 0, 2, 5])
+    qids = np.array([0, 3, 1, 4, 2, 0, 3, 1, 2, 4, 4, 0, 1], np.int32)
+    bids, n_real = tbk.pad_bids(blocks, NB, bucket=16)
+    q = np.zeros(len(bids), np.int32)
+    q[:n_real] = qids
+    return bids, q, n_real
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_block_scan_multi_plain_equals_pallas_and_xla(columns, case):
+    _, names, has_boxes, has_windows, _ = case
+    boxes, wins = _query_stack(tw="tw" in names)
+    counts = tbk.stage_multi_params(np.zeros(0), np.zeros(0), boxes, wins)[-2 * len(boxes):]
+    assert len(set(counts[0:10:2])) > 1 and len(set(counts[1:10:2])) > 1  # differing slots
+    bids, qids, _ = _multi_ids()
+    kw = dict(col_names=names, has_boxes=has_boxes, has_windows=has_windows, extent=False)
+    jc = _jax_cols(columns, names)
+    pw, pi = jbk._pallas_block_scan_multi(jc, bids, qids, boxes, wins, interpret=True, **kw)
+    xw, xi = jbk._xla_block_scan_multi(jc, bids, qids, boxes, wins, **kw)
+    tw, ti = tbk.block_scan_multi(_torch_cols(columns, names), bids, qids, boxes, wins, **kw)
+    assert tw.dtype == torch.int32 and tw.shape == (len(bids), SUB // 32, tbk.LANES)
+    for ref_w, ref_i in ((pw, pi), (xw, xi)):
+        assert np.array_equal(tw.numpy(), np.asarray(ref_w))
+        assert np.array_equal(ti.numpy(), np.asarray(ref_i))
+    assert tw.numpy().any()
+    # each slot equals the single-query scan of its own query
+    for q in np.unique(qids):
+        sel = qids == q
+        sw, si = tbk.block_scan(_torch_cols(columns, names), bids[sel], boxes[q], wins[q], **kw)
+        assert torch.equal(tw[torch.from_numpy(sel)], sw) and torch.equal(ti[torch.from_numpy(sel)], si)
+
+
+def test_staged_multi_params_layout():
+    """One int32 buffer per fused chunk: bids | qids | box slots [Q] |
+    window slots [Q] | per-query active slot counts, as
+    csrc/block_scan_multi.cu reads it."""
+    boxes, wins = _query_stack(tw=False)
+    bids, qids, _ = _multi_ids()
+    s = tbk.stage_multi_params(bids, qids, boxes, wins)
+    m, q = len(bids), len(boxes)
+    assert s.dtype == np.int32 and len(s) == 2 * m + 2 * q * 64 + 2 * q
+    assert np.array_equal(s[:m], bids) and np.array_equal(s[m:2 * m], qids)
+    box = s[2 * m:2 * m + q * 64].view(np.float32).reshape(q, 8, 8)
+    win = s[2 * m + q * 64:2 * m + 2 * q * 64].reshape(q, 8, 8)
+    assert np.array_equal(box, boxes[:, :, :8]) and np.array_equal(win, wins[:, :, :8])
+    counts = s[2 * m + 2 * q * 64:].reshape(q, 2)
+    for k in range(q):
+        assert list(counts[k]) == list(tbk.slot_words(boxes[k], wins[k])[2])
+    assert list(counts[5]) == [8, 8]  # an all-zero pad row: no slot equals the pad
+    assert tbk.bucket_q(5) == jbk.bucket_q(5) == 8 and tbk.bucket_q(40) == jbk.bucket_q(40)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_block_pops_plain_equals_pallas_and_xla(columns, case):
+    _, names, has_boxes, has_windows, wins = case
+    bids, n_real = tbk.pad_bids(np.array([6, 1, 4, 7, 0]), NB, pad=-1)
+    kw = dict(col_names=names, has_boxes=has_boxes, has_windows=has_windows, extent=False)
+    jc = _jax_cols(columns, names)
+    pal = np.asarray(jagg._pops_pallas(jc, bids, BOXES, wins, interpret=True, **kw))
+    xla = np.asarray(jagg._pops_xla(jc, bids, BOXES, wins, **kw))
+    got = tagg.block_pops(_torch_cols(columns, names), bids, BOXES, wins, **kw)
+    assert got.dtype == torch.int32 and got.shape == (len(bids),)
+    assert np.array_equal(got.numpy(), pal) and np.array_equal(got.numpy(), xla)
+    assert got.numpy()[:n_real].sum() > 0
+
+
+def test_popcount_slots_plain_counts_unsigned_words():
+    rng = np.random.default_rng(23)
+    plane = rng.integers(-2**31, 2**31, (6, 2, tbk.LANES), dtype=np.int64).astype(np.int32)
+    plane[0, 0, :3] = [-1, 0, np.iinfo(np.int32).min]
+    want = np.unpackbits(plane.view(np.uint8), axis=None).reshape(6, -1).sum(axis=1)
+    got = tagg.popcount_slots_plain(torch.from_numpy(plane))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)

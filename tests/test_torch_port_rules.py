@@ -9,6 +9,7 @@
   raise NotImplementedError whatever the device.
 """
 
+import importlib.util
 import inspect
 import os
 import subprocess
@@ -46,8 +47,11 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
     )
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 20  # every submodule was imported
+    assert int(n_modules) >= 40  # every submodule was imported
     assert bad.strip() == "[]", bad
+    # the submodules of the many-query slice are among them
+    for name in ("serving.scheduler", "stats.stat_spec", "stats.sketches", "utils.hashing"):
+        assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
 def test_datastore_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -89,6 +93,26 @@ def test_unported_legs_raise_on_every_device(device, leg):
             )
 
 
+QIDS = np.zeros(32, np.int32)
+STACK_BOXES = np.stack([BOXES] * 8)
+STACK_WINS = np.stack([WINS] * 8)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("leg", [
+    dict(edges=np.zeros((8, 16, 128), np.float32), n_edges=16, spip=np.zeros(32, np.int32)),
+    dict(rasts=np.zeros((8, 17, 128), np.float32), n_rints=16, spip=np.zeros(32, np.int32)),
+    dict(spip=np.zeros(32, np.int32)),
+    dict(extent=True),
+])
+def test_unported_fused_legs_raise_on_every_device(device, leg):
+    with pytest.raises(NotImplementedError):
+        tbk.block_scan_multi(_cols(device), BIDS, QIDS, STACK_BOXES, STACK_WINS, **KW, **leg)
+    if "extent" in leg:
+        with pytest.raises(NotImplementedError):
+            tagg.block_pops(_cols(device), BIDS, BOXES, WINS, **KW, **leg)
+
+
 def test_device_without_kernel_raises_instead_of_falling_back():
     """A tensor off the CPU goes to a kernel or the call raises: the
     wrappers never hand a non-CPU tensor to the plain version."""
@@ -96,6 +120,10 @@ def test_device_without_kernel_raises_instead_of_falling_back():
         tbk.block_scan(_cols("meta"), BIDS, BOXES, WINS, **KW)
     with pytest.raises(ValueError, match="no bounds kernel"):
         tagg.block_bounds(_cols("meta"), BIDS - 1, BOXES, WINS, **KW)
+    with pytest.raises(ValueError, match="no fused scan kernel"):
+        tbk.block_scan_multi(_cols("meta"), BIDS, QIDS, STACK_BOXES, STACK_WINS, **KW)
+    with pytest.raises(ValueError, match="no count kernel"):
+        tagg.block_pops(_cols("meta"), BIDS, BOXES, WINS, **KW)
     with pytest.raises(ValueError, match="no density kernel"):
         tagg.block_density(
             _cols("meta"), BIDS - 1, BOXES, WINS, np.array([0, 0, 1, 1], np.float32),
@@ -110,7 +138,11 @@ def test_cpu_wrappers_take_the_plain_versions_and_launch_nothing():
     w, i = tbk.block_scan(_cols("cpu"), BIDS, BOXES, WINS, **KW)
     assert w.shape == (32, 1, 128) and w.device.type == "cpu"
     tagg.block_bounds(_cols("cpu"), BIDS - 1, BOXES, WINS, **KW)
+    w, i = tbk.block_scan_multi(_cols("cpu"), BIDS, QIDS, STACK_BOXES, STACK_WINS, **KW)
+    assert w.shape == (32, 1, 128) and w.device.type == "cpu"
+    assert tagg.block_pops(_cols("cpu"), BIDS, BOXES, WINS, **KW).shape == (32,)
     assert [k.launches for k in KERNELS] == before
+    assert len(KERNELS) == 5
 
 
 def test_kernel_sources_and_build_flags():
