@@ -48,9 +48,47 @@ class SystemProperty:
         self._override = None
 
 
+def _parse_bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).strip().lower() in ("1", "true", "yes", "on")
+
+
 SCAN_RANGES_TARGET = SystemProperty(
     "geomesa.scan.ranges.target", 2000, int,
     "max covering z-ranges per query (reference QueryProperties.ScanRangesTarget)",
+)
+
+# -- raster-interval polygon approximations (filter.raster) ---------------
+
+RASTER_ENABLED = SystemProperty(
+    "geomesa.raster.enabled", True, _parse_bool,
+    "precompute raster-interval approximations (arXiv 2307.01716) for "
+    "polygon queries: full/out cells resolve by integer interval checks, "
+    "exact PIP runs only on the boundary residue",
+)
+RASTER_MAX_CELLS = SystemProperty(
+    "geomesa.raster.max.cells", 16384, int,
+    "cell budget of one polygon's Z2-aligned raster grid (the level is "
+    "the finest whose bbox window fits this many cells)",
+)
+RASTER_MIN_EDGES = SystemProperty(
+    "geomesa.raster.min.edges", 8, int,
+    "polygons with fewer edges than this skip rasterization (the exact "
+    "point-in-polygon leg is already cheap at tiny edge counts)",
+)
+RASTER_KERNEL_INTERVALS = SystemProperty(
+    "geomesa.raster.kernel.intervals", 16, int,
+    "cap on the per-query interval count shipped to the scan kernel "
+    "(coalesced conservatively past it): the raster-derived z-ranges "
+    "already prune at full resolution host-side, so a coarse in-kernel "
+    "stack trades a slightly wider residue for a cheaper kernel leg",
+)
+RASTER_RESIDUE = SystemProperty(
+    "geomesa.raster.residue", "host", str,
+    "where the boundary-cell residue runs its exact even-odd PIP: 'host' "
+    "(f64 refinement of the uncertain rows) or 'device' (the scan "
+    "kernel's f32 point-in-polygon leg beside the raster leg)",
 )
 
 # -- concurrent query serving (serving.scheduler) -------------------------

@@ -1,8 +1,10 @@
 // Shared predicate legs of the port's scan-path kernels (block_scan.cu,
 // block_scan_multi.cu, block_pops.cu, density.cu, bounds.cu): the box,
-// window, packed-time and validity legs of _masks in
-// geomesa_tpu/scan/block_kernels.py:509-630, evaluated for one row of a
-// [n_blocks, SUB, 128] column block.
+// window, packed-time, validity, point-in-polygon and raster legs of
+// _masks in geomesa_tpu/scan/block_kernels.py:509-630 (the polygon legs
+// after _pip_edge_step :418, _rint_step :460 and _raster_cell :471),
+// evaluated for one row of a [n_blocks, SUB, 128] column block. The two
+// scan kernels take the polygon legs; the aggregation kernels never do.
 //
 // Parameter staging: the host packs one int32 buffer per query and sends
 // it in one copy,
@@ -21,6 +23,20 @@
 //              | (n_box_slots, n_win_slots)[q]
 // and each CTA stages the slot words and counts of its own query only:
 // the counts are per query, never one chunk-wide count.
+//
+// Polygon legs. A query's polygon block is
+//     n_edges | n_rints | edges[e_cap][6] | header[6] | intervals[r_cap][3]
+// (f32 bits): edge lanes (y0, y1, x0, inverse slope, eps_x, eps_y), the
+// raster header (x0, y0, 1/cell_w, 1/cell_h, nx, ny), interval lanes
+// (lo, hi, cls) -- only the lanes the legs read, never the TPU's 128-lane
+// rows. n_edges and n_rints count the rows before the trailing pad rows
+// (zero edges never cross and are never near; intervals with lo > hi or
+// cls 0 never classify), so the legs loop over those only. One query
+// (block_scan.cu) appends its block after the slot counts with caps equal
+// to its counts; a fused chunk with polygon stacks sends
+//     bids[m] | qids[m] | spip[m] | boxes | wins | counts | blocks[q][...]
+// at a stride set by the chunk's edge and interval buckets (e_cap, r_cap),
+// and slot i takes the polygon legs of query qids[i] where spip[i] > 0.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,8 +47,15 @@
 #define GM_HAS_WINDOWS 2
 #define GM_PACKED_TW 4
 #define GM_VALID_ON_T 8
+#define GM_HAS_EDGES 16
+#define GM_HAS_RAST 32
 #define GM_TW_BITS 16
 #define GM_TW_MASK 0xFFFF
+#define GM_MAX_EDGES 256
+#define GM_MAX_RINTS 256
+#define GM_EDGE_LANES 6
+#define GM_HEAD_LANES 6
+#define GM_RINT_LANES 3
 
 struct GmParams {
   float box[GM_SLOTS][8];
@@ -40,8 +63,39 @@ struct GmParams {
   int n_box, n_win;  // slots before the trailing pad slots
 };
 
-// offset of the words after the slot counts (the density grid bounds)
+// offset of the words after the slot counts (the density grid bounds, or
+// the scan's polygon block)
 #define GM_EXTRA(m) ((m) + 2 * GM_SLOTS * 8 + 2)
+
+// One query's polygon legs, staged in shared memory (9.3 KB at the caps).
+struct GmPoly {
+  float edge[GM_MAX_EDGES][GM_EDGE_LANES];
+  float head[GM_HEAD_LANES];
+  float rint[GM_MAX_RINTS][GM_RINT_LANES];
+  int n_edge, n_rint;
+};
+
+// int32 words of one polygon block at the given caps
+__host__ __device__ __forceinline__ int gm_poly_words(int e_cap, int r_cap) {
+  return 2 + GM_EDGE_LANES * e_cap + GM_HEAD_LANES + GM_RINT_LANES * r_cap;
+}
+
+// spatial leg of a row: none (validity), the box slots, or the polygon legs
+#define GM_LEG_NONE 0
+#define GM_LEG_BOX 1
+#define GM_LEG_PIP 2
+#define GM_LEG_RAST 3
+#define GM_LEG_RAST_PIP 4
+
+// The spatial leg a slot takes: the polygon legs where the kernel carries
+// them and the slot selects them (always for one query; spip > 0 in a
+// fused chunk), else the box slots where the query has them.
+__host__ __device__ __forceinline__ int gm_leg(int flags, bool poly_slot) {
+  if (poly_slot && (flags & GM_HAS_RAST))
+    return (flags & GM_HAS_EDGES) ? GM_LEG_RAST_PIP : GM_LEG_RAST;
+  if (poly_slot && (flags & GM_HAS_EDGES)) return GM_LEG_PIP;
+  return (flags & GM_HAS_BOXES) ? GM_LEG_BOX : GM_LEG_NONE;
+}
 
 // x, y: f32 coordinates; t0: tbin, or the packed tw column; t1: toff.
 // Columns a query does not read are null and never touched.
@@ -77,18 +131,85 @@ __device__ __forceinline__ void gm_load_params(GmParams& p, const int* params, i
   gm_load_slots(p, params + m, params + m + GM_SLOTS * 8, params + m + 2 * GM_SLOTS * 8);
 }
 
+// Stage one polygon block (layout above) in shared memory. The caller
+// runs __syncthreads() before reading it.
+__device__ __forceinline__ void gm_load_poly(GmPoly& p, const int* blk, int e_cap, int r_cap) {
+  const int tid = gm_tid();
+  const int nt = blockDim.x * blockDim.y;
+  const int n_edge = blk[0], n_rint = blk[1];
+  const int* e = blk + 2;
+  const int* h = e + GM_EDGE_LANES * e_cap;
+  const int* r = h + GM_HEAD_LANES;
+  float* pe = &p.edge[0][0];
+  float* pr = &p.rint[0][0];
+  for (int i = tid; i < n_edge * GM_EDGE_LANES; i += nt) pe[i] = __int_as_float(e[i]);
+  for (int i = tid; i < n_rint * GM_RINT_LANES; i += nt) pr[i] = __int_as_float(r[i]);
+  if (tid < GM_HEAD_LANES) p.head[tid] = __int_as_float(h[tid]);
+  if (tid == 0) {
+    p.n_edge = n_edge;
+    p.n_rint = n_rint;
+  }
+}
+
+// Even-odd ray cast of (x, y) over the real edges (_pip_edge_step): the
+// crossing abscissa is a separate multiply and add (--fmad=false), as in
+// the reference's f32 order; near = within an edge's uncertainty band.
+__device__ __forceinline__ void gm_pip(const GmPoly& p, float x, float y, bool& parity,
+                                       bool& near) {
+  bool par = false, nr = false;
+  const int n = p.n_edge;
+  for (int k = 0; k < n; ++k) {
+    const float* e = p.edge[k];
+    const float y0 = e[0], y1 = e[1], x0 = e[2], isl = e[3], ex = e[4], ey = e[5];
+    const bool in_win = (y0 > y) != (y1 > y);
+    const float xc = x0 + (y - y0) * isl;
+    par ^= in_win & (x < xc);
+    nr |= (fabsf(y - y0) < ey) | (fabsf(y - y1) < ey) | (in_win & (fabsf(x - xc) < ex));
+  }
+  parity = par;
+  near = nr;
+}
+
+// Raster cell class of (x, y) (_raster_cell, _rint_step): the cell id
+// cy * nx + cx is an exact f32 integer; a row outside the grid (sentinel
+// pad rows, a zero header) is neither full nor partial.
+__device__ __forceinline__ void gm_raster(const GmPoly& p, float x, float y, bool& full,
+                                          bool& part) {
+  const float cx = floorf((x - p.head[0]) * p.head[2]);
+  const float cy = floorf((y - p.head[1]) * p.head[3]);
+  const float nx = p.head[4], ny = p.head[5];
+  bool f = false, q = false;
+  if ((cx >= 0.f) & (cx < nx) & (cy >= 0.f) & (cy < ny)) {
+    const float c = cy * nx + cx;
+    const int n = p.n_rint;
+    for (int k = 0; k < n; ++k) {
+      const float* r = p.rint[k];
+      const bool hit = (c >= r[0]) & (c <= r[1]);
+      f |= hit & (r[2] > 0.f);
+      q |= hit & (r[2] < 0.f);
+    }
+  }
+  full = f;
+  part = q;
+}
+
 #define GM_WIDE 1u
 #define GM_INNER 2u
 
-// Wide (bit 0) and inner (bit 1) of the row at flat offset r. Boxes and
-// windows AND together; with neither, both planes are the row-validity
-// test (isfinite(x), or t0 >= 0 for a table without coordinates): table
-// pad rows carry never-matching sentinels (x = +inf, tbin = tw = -1).
+// Wide (bit 0) and inner (bit 1) of the row at flat offset r. The spatial
+// leg (``leg``: the box slots, or the polygon legs read from ``poly``,
+// which may be null otherwise) and the windows AND together; with
+// neither, both planes are the row-validity test (isfinite(x), or t0 >= 0
+// for a table without coordinates): table pad rows carry never-matching
+// sentinels (x = +inf, tbin = tw = -1). The polygon legs combine as
+// _masks does: PIP alone wide = parity | near, inner = parity & ~near;
+// raster alone wide = full | part, inner = full; both, the ray cast
+// decides the partial cells only (a row that is not partial needs none).
 __device__ __forceinline__ unsigned gm_row_bits(const GmCols& c, const GmParams& p,
-                                                long long r, int flags,
-                                                int n_box, int n_win) {
+                                                const GmPoly* poly, long long r, int flags,
+                                                int leg, int n_box, int n_win) {
   bool w = true, in = true;
-  if (flags & GM_HAS_BOXES) {
+  if (leg == GM_LEG_BOX) {
     const float x = c.x[r], y = c.y[r];
     bool bw = false, bi = false;
     for (int k = 0; k < n_box; ++k) {
@@ -98,6 +219,24 @@ __device__ __forceinline__ unsigned gm_row_bits(const GmCols& c, const GmParams&
     }
     w = bw;
     in = bi;
+  } else if (leg == GM_LEG_PIP) {
+    bool parity, near;
+    gm_pip(*poly, c.x[r], c.y[r], parity, near);
+    w = parity | near;
+    in = parity & !near;
+  } else if (leg != GM_LEG_NONE) {
+    const float x = c.x[r], y = c.y[r];
+    bool full, part;
+    gm_raster(*poly, x, y, full, part);
+    if (leg == GM_LEG_RAST) {
+      w = full | part;
+      in = full;
+    } else {
+      bool parity = false, near = false;
+      if (part) gm_pip(*poly, x, y, parity, near);
+      w = full | (part & (parity | near));
+      in = full | (part & parity & !near);
+    }
   }
   if (flags & GM_HAS_WINDOWS) {
     int tb, to;
@@ -119,12 +258,19 @@ __device__ __forceinline__ unsigned gm_row_bits(const GmCols& c, const GmParams&
     w = w && ww;
     in = in && wi;
   }
-  if (!(flags & (GM_HAS_BOXES | GM_HAS_WINDOWS))) {
+  if (leg == GM_LEG_NONE && !(flags & GM_HAS_WINDOWS)) {
     const bool v = (flags & GM_VALID_ON_T) ? (c.t0[r] >= 0) : (bool)isfinite(c.x[r]);
     w = v;
     in = v;
   }
   return (w ? GM_WIDE : 0u) | (in ? GM_INNER : 0u);
+}
+
+// The box, window, packed-time and validity legs alone (the aggregation
+// kernels).
+__device__ __forceinline__ unsigned gm_row_bits(const GmCols& c, const GmParams& p,
+                                                long long r, int flags, int n_box, int n_win) {
+  return gm_row_bits(c, p, nullptr, r, flags, gm_leg(flags, false), n_box, n_win);
 }
 
 // Row (j*32 + b)*128 + lane of a block is bit b of word [j, lane] in the

@@ -244,16 +244,71 @@ class DataStore:
             return self.scheduler
 
     def count(self, type_name: str, f: "Filter | str" = INCLUDE) -> int:
-        """Exact hit count (scan + refine)."""
+        """Exact hit count (scan + refine; a polygon filter with a raster
+        counts its certain rows without gathering them)."""
         if isinstance(f, Include):
             return self.row_count(type_name)
         plan = self.planner.plan(type_name, f)
+        if self._raster_agg_eligible(type_name, plan):
+            return self._raster_agg_scan(type_name, plan)[0]
         return len(self.planner.execute(plan))
 
     def _device_aggregable(self, type_name: str, plan) -> bool:
+        """Whether the gather-free aggregation kernels decide this plan's
+        filter (never for a polygon config: they test the box only)."""
         return plan.index is not None and mask_decides_filter(
-            plan.filter, plan.config, self._schemas[type_name]
+            plan.filter, plan.config, self._schemas[type_name], for_aggregation=True
         )
+
+    # -- raster aggregation push-down ------------------------------------
+    def _raster_agg_eligible(self, type_name: str, plan) -> bool:
+        """Whether a plan may take the raster aggregation path: a polygon
+        config carrying a raster stack whose row-scan mask decides the
+        filter. Such configs stay off the gather-free aggregations (their
+        kernels test the box only), but count, bounds and Count() stats
+        can still skip the full candidate gather: full raster cells decide
+        membership outright and only the boundary residue refines."""
+        cfg = plan.config
+        return (
+            plan.index is not None
+            and cfg is not None
+            and not cfg.disjoint
+            and cfg.rast is not None
+            and mask_decides_filter(plan.filter, cfg, self._schemas[type_name])
+        )
+
+    def _raster_agg_scan(self, type_name: str, plan, explain=None):
+        """(hit count, hit ordinals) of a raster-eligible plan: the scan's
+        certain rows (full cells, contained ranges) are accepted without a
+        gather; only the uncertain residue gathers and refines in f64."""
+        ordinals, certain = self.table(type_name, plan.index).scan_submit(
+            plan.config, clock=self.clock
+        )()
+        cert_ords = ordinals[certain]
+        unc = ordinals[~certain]
+        if len(unc):
+            with self.clock.host("refine"):
+                m = plan.filter.evaluate(self.gather(type_name, unc).batch)
+            hits = np.concatenate([cert_ords, unc[m]])
+        else:
+            hits = cert_ords
+        if explain is not None:
+            explain(
+                f"raster aggregation push-down: {len(cert_ords)} certain "
+                f"(full cells / contained ranges), {len(unc)} residue rows "
+                "re-checked exactly"
+            )
+        return len(hits), hits
+
+    def _raster_agg_bounds(self, type_name: str, plan, explain=None):
+        """(count, exact envelope | None) through the raster scan: the hit
+        coordinates come straight from the point column, no row gather."""
+        n, hits = self._raster_agg_scan(type_name, plan, explain=explain)
+        if n == 0:
+            return 0, None
+        col = self.features(type_name).geom_column
+        x, y = col.x[hits], col.y[hits]
+        return n, (float(x.min()), float(y.min()), float(x.max()), float(y.max()))
 
     def density(
         self,
@@ -327,12 +382,23 @@ class DataStore:
         ``estimate=True`` takes the device fast path for ``Count()`` terms
         when the scan mask decides the filter: a count-only kernel with no
         row gather (loose f32-widened semantics, like the reference's
-        estimate-only stats)."""
+        estimate-only stats). ``Count()`` alone over a polygon filter with
+        a raster takes the raster push-down, exact, either way."""
         from geomesa_tpu_torch.stats import stat_spec
         from geomesa_tpu_torch.stats.sketches import CountStat
 
         terms = stat_spec.parse(spec)
         plan = self.planner.plan(type_name, f, explain=explain)
+        if all(t.kind == "count" for t in terms) and self._raster_agg_eligible(
+            type_name, plan
+        ):
+            n = self._raster_agg_scan(type_name, plan, explain=explain)[0]
+            out = []
+            for _ in terms:
+                c = CountStat()
+                c.count = n
+                out.append(c)
+            return out
         if (
             estimate
             and all(t.kind == "count" for t in terms)
@@ -358,8 +424,12 @@ class DataStore:
         or None when nothing matches (reference GeoMesaStats.getBounds).
         ``estimate=True`` uses the device bounds kernel without a row
         gather when the scan mask decides the filter (loose f32
-        semantics); otherwise exact from the refined results."""
+        semantics); otherwise exact from the refined results. A polygon
+        filter with a raster gives the exact envelope through the raster
+        push-down, either way."""
         plan = self.planner.plan(type_name, f, explain=explain)
+        if not isinstance(plan.filter, Include) and self._raster_agg_eligible(type_name, plan):
+            return self._raster_agg_bounds(type_name, plan, explain=explain)[1]
         if (
             estimate
             and not isinstance(plan.filter, Include)

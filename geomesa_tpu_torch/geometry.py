@@ -2,10 +2,10 @@
 
 The port's copy of the parts of geomesa_tpu/geometry.py that features,
 ECQL parsing, filter extraction and host refinement of point schemas
-read: the geometry objects, the WKT codec and the exact predicates
-(even-odd ray casting, orientation tests). The packed extent column, WKB
-and the raster classifier stay in the JAX package until the port takes
-extent schemas and polygon legs.
+read: the geometry objects, the WKT codec, the exact predicates
+(even-odd ray casting, orientation tests) and the raster cell classifier
+of polygon queries. The packed extent column and WKB stay in the JAX
+package until the port takes extent schemas.
 """
 
 from __future__ import annotations
@@ -582,3 +582,72 @@ def _point_geom_distance(x: float, y: float, g: Geometry) -> float:
         p1, p2 = _ring_edges(ring)
         best = min(best, float(_point_segments_distance(x, y, p1, p2).min()))
     return best
+
+
+# ---------------------------------------------------------------------------
+# raster cell classification (the Raster Intervals core, arXiv 2307.01716)
+# ---------------------------------------------------------------------------
+
+RASTER_OUT = 0
+RASTER_PARTIAL = 1
+RASTER_FULL = 2
+
+
+def classify_raster_cells(
+    geom: "Polygon | MultiPolygon",
+    x_edges: np.ndarray,
+    y_edges: np.ndarray,
+    margin: float = 0.0,
+) -> np.ndarray:
+    """int8 [ny, nx] cell classes of ``geom`` over an axis-aligned grid:
+    cell (j, i) spans [x_edges[i], x_edges[i+1]] x [y_edges[j], y_edges[j+1]].
+
+    Conservative: a cell is RASTER_FULL only when the cell rectangle
+    expanded by ``margin`` lies entirely inside the polygon, RASTER_OUT
+    only when the expanded rectangle misses it, RASTER_PARTIAL otherwise.
+    Every ring edge is rasterized with a margin-expanded column sweep (the
+    cells its clipped y-span touches become PARTIAL, a superset of the
+    boundary cells); every other cell avoids the boundary, so its center's
+    even-odd parity classifies the whole cell.
+    """
+    nx, ny = len(x_edges) - 1, len(y_edges) - 1
+    part = np.zeros((ny, nx), dtype=bool)
+    for ring in _rings_of(geom):
+        p1, p2 = _ring_edges(ring)
+        for (x1, y1), (x2, y2) in zip(p1.tolist(), p2.tolist()):
+            lo_x, hi_x = min(x1, x2) - margin, max(x1, x2) + margin
+            if hi_x < x_edges[0] or lo_x > x_edges[-1]:
+                continue
+            c0 = max(int(np.searchsorted(x_edges, lo_x, side="right")) - 1, 0)
+            c1 = min(int(np.searchsorted(x_edges, hi_x, side="right")) - 1, nx - 1)
+            cols = np.arange(c0, c1 + 1)
+            sl_lo = x_edges[cols] - margin
+            sl_hi = x_edges[cols + 1] + margin
+            dx, dy = x2 - x1, y2 - y1
+            if dx == 0.0:
+                y_a = np.full(len(cols), min(y1, y2))
+                y_b = np.full(len(cols), max(y1, y2))
+            else:
+                ta = np.clip((sl_lo - x1) / dx, 0.0, 1.0)
+                tb = np.clip((sl_hi - x1) / dx, 0.0, 1.0)
+                y_a = y1 + np.minimum(ta, tb) * dy
+                y_b = y1 + np.maximum(ta, tb) * dy
+                if dy < 0:
+                    y_a, y_b = y_b, y_a
+            r0 = np.clip(
+                np.searchsorted(y_edges, y_a - margin, side="right") - 1, 0, ny - 1
+            )
+            r1 = np.clip(
+                np.searchsorted(y_edges, y_b + margin, side="right") - 1, 0, ny - 1
+            )
+            for i, a, b in zip(cols.tolist(), r0.tolist(), r1.tolist()):
+                part[a : b + 1, i] = True
+    cls = np.zeros((ny, nx), dtype=np.int8)
+    cls[part] = RASTER_PARTIAL
+    jj, ii = np.nonzero(~part)
+    if len(jj):
+        cxs = 0.5 * (x_edges[ii] + x_edges[ii + 1])
+        cys = 0.5 * (y_edges[jj] + y_edges[jj + 1])
+        inside = points_in_polygon(cxs, cys, geom)
+        cls[jj[inside], ii[inside]] = RASTER_FULL
+    return cls

@@ -68,6 +68,21 @@ class ScanConfig:
     # hits -> host refinement touches only wide & ~inner boundary rows
     boxes_inner: Optional[np.ndarray] = None
     windows_inner: Optional[np.ndarray] = None
+    # point-in-polygon leg: the query polygon's packed [E, 128] edge block
+    # (block_kernels.pack_edges); the scan's spatial test is the even-odd
+    # parity instead of the box slots, and only the f32-uncertainty band
+    # refines on host. geom_precise is True with poly set, but the
+    # gather-free aggregations must not take it (mask_decides_filter's
+    # for_aggregation: their kernels evaluate the box wide plane only),
+    # and contained-range certainty stays bbox-only.
+    poly: Optional[np.ndarray] = None
+    # raster leg: the query polygon's packed [1 + R, 128] interval stack
+    # (filter.raster.RasterApprox.pack_block): full cells are certain hits,
+    # out cells certain misses, and only the boundary residue pays the
+    # exact PIP (``poly`` when set, else host refinement). On z2 the
+    # ranges come from the raster too: full cells are contained ranges
+    # (contained_exact is True), out cells inside the bbox are pruned.
+    rast: Optional[np.ndarray] = None
 
     @staticmethod
     def empty(index: str) -> "ScanConfig":

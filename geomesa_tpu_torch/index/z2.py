@@ -2,8 +2,9 @@
 
 The port's copy of geomesa_tpu/index/z2.py (reference Z2IndexKeySpace.scala
 and Z2Filter.scala). Bin is constant 0 so the sorted table is ordered
-purely by z2. Like the port's Z3 index, it serves no scan config for a
-filter that needs the point-in-polygon or raster legs.
+purely by z2. A single polygon filter rides the scan kernel's
+point-in-polygon and raster legs; where a raster exists, the z-ranges come
+from it (full cells contained, out cells inside the bbox pruned).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from geomesa_tpu_torch.filter.predicates import Filter, PointColumn
 from geomesa_tpu_torch.index.api import (
     ScanConfig, WriteKeys, shrink_boxes, widen_boxes,
 )
-from geomesa_tpu_torch.index.z3 import _bounds_only, needs_polygon_leg
+from geomesa_tpu_torch.index.z3 import _bounds_only, _polygon_legs
 from geomesa_tpu_torch.sft import FeatureType
 
 
@@ -53,10 +54,36 @@ class Z2Index:
         geoms = extract_geometries(f, self.geom)
         if geoms.disjoint:
             return ScanConfig.empty(self.name)
-        if not geoms.values or needs_polygon_leg(geoms):
-            return None  # full-table: no spatial constraint, or polygon legs
+        if not geoms.values:
+            return None  # no spatial constraint: a z2 scan would be full-table
         bounds = geometry_bounds(geoms)
         bounds_exact = geoms.precise and _bounds_only(geoms.values)
+        poly, rast, approx = (None, None, None) if bounds_exact else _polygon_legs(geoms)
+        if approx is not None:
+            # raster-derived z-ranges: full cells emit contained ranges
+            # (full-cell containment implies membership, margin-safe at
+            # f64), partial cells overlap ranges, out cells inside the
+            # bbox nothing. The Z2-aligned grid makes every cell one
+            # contiguous z-range.
+            from geomesa_tpu_torch.conf import SCAN_RANGES_TARGET
+
+            rlo, rhi, rcont = approx.zranges(max_ranges=SCAN_RANGES_TARGET.get())
+            if len(rlo) == 0:
+                return ScanConfig.empty(self.name)
+            return ScanConfig(
+                index=self.name,
+                range_bins=np.zeros(len(rlo), dtype=np.int32),
+                range_lo=rlo,
+                range_hi=rhi,
+                boxes=widen_boxes(bounds),
+                windows=None,
+                geom_precise=True,
+                range_contained=rcont,
+                contained_exact=True,
+                boxes_inner=shrink_boxes(bounds),
+                poly=poly,
+                rast=rast,
+            )
         ranges = self.sfc.ranges(bounds, inner=True)
         if not ranges:
             return ScanConfig.empty(self.name)
@@ -67,8 +94,12 @@ class Z2Index:
             range_hi=np.array([r.upper for r in ranges], dtype=np.uint64),
             boxes=widen_boxes(bounds),
             windows=None,
-            geom_precise=bool(bounds_exact),
+            # the point-in-polygon leg answers polygon queries exactly (the
+            # host refines only the uncertainty band); contained-range
+            # certainty stays bbox-only
+            geom_precise=bool(bounds_exact or poly is not None),
             range_contained=np.array([r.contained for r in ranges], dtype=bool),
             contained_exact=bool(bounds_exact),
             boxes_inner=shrink_boxes(bounds),
+            poly=poly,
         )

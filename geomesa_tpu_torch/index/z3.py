@@ -2,10 +2,10 @@
 
 The port's copy of geomesa_tpu/index/z3.py (reference Z3IndexKeySpace.scala
 :63-95 write, :97-194 read), including packed time (`pack_tw` /
-`windows_to_ticks`). The port's device scan runs the box, window, packed
-time and validity legs only: a filter that needs the point-in-polygon or
-raster legs gets no scan config here, and the planner answers it with
-its full-table host scan.
+`windows_to_ticks`). A single polygon filter rides the scan kernel's
+point-in-polygon and raster legs (``_polygon_legs``); its
+z-ranges stay bbox-derived (z3 ranges interleave time, so the 2-D raster
+cannot reshape them).
 """
 
 from __future__ import annotations
@@ -167,8 +167,6 @@ class Z3Index:
         # no spatial constraint -> no box predicate: the scan variant then
         # projects away the x/y columns entirely (ColumnGroups analogue)
         no_geom = not geoms.values
-        if needs_polygon_leg(geoms):
-            return None
         bounds = geometry_bounds(geoms) if geoms.values else [WHOLE_WORLD]
 
         # per-bin time windows (reference timesByBin, Z3IndexKeySpace:132-158)
@@ -229,6 +227,11 @@ class Z3Index:
         if not range_bins:
             return ScanConfig.empty(self.name)
         bounds_exact = geoms.precise and _bounds_only(geoms.values)
+        # the raster leg classifies rows in the kernel; the ranges stay
+        # bbox-derived (z2 gets raster-derived ranges)
+        poly, rast, _ = (
+            (None, None, None) if (no_geom or bounds_exact) else _polygon_legs(geoms)
+        )
         return ScanConfig(
             index=self.name,
             range_bins=np.concatenate(range_bins),
@@ -236,7 +239,9 @@ class Z3Index:
             range_hi=np.concatenate(range_hi),
             boxes=None if no_geom else widen_boxes(bounds),
             windows=windows.astype(np.int32),
-            geom_precise=bounds_exact,
+            # the polygon legs make single-polygon queries precise on the
+            # device; contained certainty stays bbox-only here
+            geom_precise=bounds_exact or poly is not None or rast is not None,
             time_precise=intervals.precise,
             range_contained=np.concatenate(range_cont),
             # contained certainty additionally requires the *filter* to be
@@ -245,6 +250,8 @@ class Z3Index:
             contained_exact=bool(bounds_exact and intervals.precise),
             boxes_inner=None if no_geom else shrink_boxes(bounds),
             windows_inner=windows_inner.astype(np.int32),
+            poly=poly,
+            rast=rast,
         )
 
 
@@ -269,17 +276,49 @@ def _bounds_only(geom_values) -> bool:
     return all(_is_box(g) for g in geom_values)
 
 
-def needs_polygon_leg(geoms) -> bool:
-    """True where the JAX index would hand the kernel a point-in-polygon
-    or raster leg: one precisely-extracted polygon that is not its own
-    bbox. The port's scan has no such leg yet, so the index serves no
-    scan config and the planner takes its full-table host scan (results
-    are identical; only the pruning differs)."""
-    from geomesa_tpu_torch import geometry as geo
+def _polygon_legs(geoms):
+    """(edge block | None, raster block | None, RasterApprox | None) of a
+    polygon extraction. With both legs possible, ``geomesa.raster.residue``
+    decides where the partial cells' exact test runs: 'host' (the
+    default) drops the edges, so those rows come back uncertain and refine
+    on host in f64; 'device' keeps both legs in the kernel."""
+    from geomesa_tpu_torch.conf import RASTER_RESIDUE
 
-    return (
-        geoms.precise
-        and len(geoms.values) == 1
-        and isinstance(geoms.values[0], (geo.Polygon, geo.MultiPolygon))
-        and not _bounds_only(geoms.values)
+    poly = _poly_edges(geoms)
+    rast, approx = _poly_raster(geoms)
+    if rast is not None and poly is not None and str(RASTER_RESIDUE.get()).lower() != "device":
+        poly = None
+    return poly, rast, approx
+
+
+def _poly_edges(geoms) -> "np.ndarray | None":
+    """Packed edge block for the point-in-polygon leg, or None when the
+    extraction cannot ride it: it needs one precisely extracted
+    Polygon/MultiPolygon whose edge count fits the bucket ladder
+    (block_kernels.pack_edges). Imprecise extractions keep the bbox and
+    host refinement."""
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    if not geoms.precise or len(geoms.values) != 1:
+        return None
+    return bk.pack_edges(geoms.values[0])
+
+
+def _poly_raster(geoms):
+    """(packed [1 + R, 128] raster block, RasterApprox) for the raster leg
+    (arXiv 2307.01716), or (None, None) when the extraction cannot ride
+    it: the eligibility of _poly_edges without the edge-count cap (a
+    raster approximates a polygon of any complexity)."""
+    from geomesa_tpu_torch.conf import RASTER_KERNEL_INTERVALS
+    from geomesa_tpu_torch.filter import raster as fr
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    if not geoms.precise or len(geoms.values) != 1:
+        return None, None
+    approx = fr.raster_for(geoms.values[0])
+    if approx is None:
+        return None, None
+    bucket = bk.r_bucket_of(
+        min(len(approx.ilo), max(int(RASTER_KERNEL_INTERVALS.get()), 1))
     )
+    return approx.pack_block(bucket), approx

@@ -31,15 +31,21 @@ _I = ctypes.c_int
 
 
 class CudaKernel:
-    """One hand-written kernel: its source, its C entry point, and a plain
-    count of launches (bumped only where the wrapper launches it)."""
+    """One hand-written kernel: its source, its C entry point, a plain
+    count of launches and one count per optional leg (``legs``; a launch
+    names its leg, or None), bumped only where the wrapper launches it."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list, legs: tuple = ()):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.leg_launches = dict.fromkeys(legs, 0)
         self._fn = None
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.leg_launches = dict.fromkeys(self.leg_launches, 0)
 
     @property
     def source(self) -> Path:
@@ -56,9 +62,10 @@ class CudaKernel:
         deps = [self.source, *CSRC_DIR.glob("*.cuh")]
         return any(d.stat().st_mtime > built for d in deps)
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, leg: "str | None" = None) -> None:
         """Call the C entry point (which launches on the stream passed
-        last) and raise on its nonzero cudaGetLastError()."""
+        last) and raise on its nonzero cudaGetLastError(); count the launch
+        and, when ``leg`` names one, that leg's launch."""
         if self._fn is None:
             build_all()
             fn = getattr(ctypes.CDLL(str(self.library)), self.symbol)
@@ -69,10 +76,16 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: launch failed with CUDA error {rc}")
         self.launches += 1
+        if leg is not None:
+            self.leg_launches[leg] += 1
 
+
+# the point-in-polygon and raster legs of the scans (block_kernels.leg_name)
+POLYGON_LEGS = ("pip", "raster", "pip+raster")
 
 BLOCK_SCAN = CudaKernel(
-    "block_scan", "gm_block_scan", [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
+    "block_scan", "gm_block_scan", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    legs=POLYGON_LEGS,
 )
 DENSITY = CudaKernel(
     "density", "gm_density", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
@@ -82,7 +95,8 @@ BOUNDS = CudaKernel(
 )
 BLOCK_SCAN_MULTI = CudaKernel(
     "block_scan_multi", "gm_block_scan_multi",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    legs=POLYGON_LEGS,
 )
 BLOCK_POPS = CudaKernel(
     "block_pops", "gm_block_pops", [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]

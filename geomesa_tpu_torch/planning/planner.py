@@ -7,9 +7,10 @@ ScanConfig -> cost selection -> block-pruned device scan (one launch per
 query, or one fused launch per chunk of queries) -> host gather ->
 refinement of the uncertain rows (always exact f64) -> limit.
 
-A filter no index of this slice serves (no spatio-temporal constraint, an
-OR across indexes, a polygon that needs the point-in-polygon leg) takes
-the full-table host scan, with identical results; explain says so.
+A polygon filter plans to a pruned index scan whose kernel runs the
+point-in-polygon and raster legs. A filter no index of this slice serves
+(no spatio-temporal constraint, an OR across indexes) takes the
+full-table host scan, with identical results; explain says so.
 """
 
 from __future__ import annotations
@@ -90,14 +91,25 @@ def _filter_leaf_kinds(
     return walk(f)
 
 
-def mask_decides_filter(f: Filter, config: Optional[ScanConfig], sft) -> bool:
+def mask_decides_filter(
+    f: Filter, config: Optional[ScanConfig], sft, for_aggregation: bool = False
+) -> bool:
     """True when the device scan mask decides this filter entirely, so
     refinement may skip certain rows and aggregations may run on device:
     every predicate is an indexable spatial/temporal leaf, the config is
     precise on both axes, and the chosen index enforces each kind present
     (z2 leaves ``windows=None`` and must not satisfy a temporal filter).
-    Reference Z3IndexKeySpace.useFullFilter, Z3IndexKeySpace.scala:240-254."""
+    Reference Z3IndexKeySpace.useFullFilter, Z3IndexKeySpace.scala:240-254.
+
+    ``for_aggregation``: the gather-free aggregation kernels (count
+    estimate, density, bounds) evaluate the box wide plane only, so a
+    polygon config (``poly`` or ``rast``), which decides the filter for
+    row scans through the certainty vector and host refinement of the
+    residue, does not decide it for them: they would count the whole
+    bbox."""
     if config is None or not (config.geom_precise and config.time_precise):
+        return False
+    if for_aggregation and (config.poly is not None or config.rast is not None):
         return False
     kinds = _filter_leaf_kinds(f, sft.geom_field, sft.dtg_field)
     if kinds is None:

@@ -39,11 +39,31 @@ M_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 TW_BITS = 16
 TW_MASK = (1 << TW_BITS) - 1
 
+# polygon legs (the JAX package's ladders): a query polygon's packed edge
+# block pads to a static E (pack_edges declines past the largest bucket,
+# and the query refines on host); its raster interval stack to a static R.
+# A fused chunk carries one [Q, E, 128] edge stack and one [Q, 1 + R, 128]
+# interval stack sized by the smaller fused ladders. The CUDA kernels loop
+# at run time over each query's real edges and intervals, so every bucket
+# runs there (the TPU's unrolled kernel capped E and R at 64).
+E_BUCKETS = (16, 32, 64, 128, 256)
+FUSED_E_BUCKETS = (16, 64, 256)
+R_BUCKETS = (16, 32, 64, 256)
+FUSED_R_BUCKETS = (16, 32, 64, 256)
+# lanes the legs read: an edge row (y0, y1, x0, inverse slope, eps_x,
+# eps_y), the raster header (x0, y0, 1/cell_w, 1/cell_h, nx, ny) and an
+# interval row (lo, hi, cls)
+EDGE_LANES = 6
+RAST_HEAD_LANES = 6
+RINT_LANES = 3
+
 # kernel flag bits (csrc/masks.cuh)
 _HAS_BOXES = 1
 _HAS_WINDOWS = 2
 _PACKED_TW = 4
 _VALID_ON_T = 8
+_HAS_EDGES = 16
+_HAS_RAST = 32
 
 
 # --------------------------------------------------------------- params
@@ -153,6 +173,101 @@ def merge_window_slots_inner(config) -> np.ndarray | None:
     return merge_window_slots(w, overflow="drop") if len(w) else None
 
 
+def fused_e_bucket(n: int) -> int:
+    """Static fused-chunk edge bucket: the smallest FUSED_E_BUCKETS entry
+    >= n, or 0 for a chunk with no polygon member."""
+    if n <= 0:
+        return 0
+    return next(b for b in FUSED_E_BUCKETS if n <= b)
+
+
+def fused_r_bucket(n: int) -> int:
+    """Static fused-chunk interval bucket: the smallest FUSED_R_BUCKETS
+    entry >= n, or 0 for a chunk with no raster member."""
+    if n <= 0:
+        return 0
+    return next(b for b in FUSED_R_BUCKETS if n <= b)
+
+
+def r_bucket_of(n: int) -> int:
+    """Static single-query interval bucket (R_BUCKETS); run counts past
+    the largest bucket coalesce into it (RasterApprox.pack_block)."""
+    if n <= 0:
+        return 0
+    return next((b for b in R_BUCKETS if n <= b), R_BUCKETS[-1])
+
+
+def n_rints_of(rast: "np.ndarray | None") -> int:
+    """Interval-bucket size of a pack_block stack (row 0 is the grid
+    header; 0 = no raster)."""
+    return 0 if rast is None else rast.shape[0] - 1
+
+
+def pack_edges(geom) -> "np.ndarray | None":
+    """A Polygon/MultiPolygon's edges as the point-in-polygon leg's [E, 128]
+    f32 block, or None when the geometry has more edges than the largest
+    bucket. Lanes per edge k:
+
+    0: y0   1: y1   2: x0   3: inverse slope (dx/dy; 0 for horizontals)
+    4: eps_x (crossing-abscissa uncertainty, scaled by |islope|)
+    5: eps_y (vertex-latitude uncertainty; 0 on pad rows)
+
+    Even-odd parity over all rings (shells, holes, every part) is the
+    test; rows within the eps bands are *near*: their f32 parity may
+    differ from the f64 truth, so they come back uncertain and refine on
+    host. Pad rows (zeros) never cross and are never near.
+    """
+    from geomesa_tpu_torch import geometry as geo
+
+    rings = []
+    if isinstance(geom, geo.Polygon):
+        rings = [geom.shell] + list(geom.holes)
+    elif isinstance(geom, geo.MultiPolygon):
+        for p in geom.parts:
+            rings.extend([p.shell] + list(p.holes))
+    else:
+        return None
+    segs = []
+    for r in rings:
+        c = np.asarray(r, np.float64)
+        if len(c) < 2:
+            continue
+        if c[0, 0] != c[-1, 0] or c[0, 1] != c[-1, 1]:
+            c = np.vstack([c, c[:1]])  # close the ring
+        segs.append(np.stack([c[:-1, 0], c[:-1, 1], c[1:, 0], c[1:, 1]], axis=1))
+    if not segs:
+        return None
+    return pack_edge_segments(np.concatenate(segs))
+
+
+def pack_edge_segments(e: np.ndarray) -> "np.ndarray | None":
+    """:func:`pack_edges` from raw [n, 4] (x0, y0, x1, y1) segments over
+    all rings, already concatenated."""
+    n = len(e)
+    if n == 0 or n > E_BUCKETS[-1]:
+        return None
+    E = next(b for b in E_BUCKETS if n <= b)
+    out = np.zeros((E, LANES), np.float32)
+    dy = e[:, 3] - e[:, 1]
+    horizontal = dy == 0.0
+    islope = np.where(horizontal, 0.0, (e[:, 2] - e[:, 0]) / np.where(horizontal, 1.0, dy))
+    out[:n, 0] = e[:, 1]  # y0
+    out[:n, 1] = e[:, 3]  # y1
+    out[:n, 2] = e[:, 0]  # x0
+    out[:n, 3] = islope
+    # conservative f32-uncertainty bands (coordinates are degrees, so the
+    # absolute ulp scale is bounded by ulp(360) ~ 2.7e-5): points whose
+    # crossing decision could flip under f32 rounding land inside them
+    out[:n, 4] = 1e-3 + 3e-5 * np.abs(islope)
+    out[:n, 5] = 1e-4
+    return out
+
+
+def n_edges_of(edges: "np.ndarray | None") -> int:
+    """Edge-bucket size of a pack_edges block (0 = no polygon)."""
+    return 0 if edges is None else edges.shape[0]
+
+
 def bucket_of(n: int) -> int:
     """Static M bucket for an n-block candidate list: the smallest fixed
     bucket >= n, or the next power of two past the largest bucket."""
@@ -196,9 +311,33 @@ def active_slots(slots: np.ndarray, pad: np.ndarray) -> int:
 
 def active_slots_many(slots: np.ndarray, pad: np.ndarray) -> np.ndarray:
     """:func:`active_slots` of every query of a [Q, k, 8] slot stack."""
-    real = ~np.all(slots == pad, axis=-1)  # [Q, k]
-    last = slots.shape[1] - np.argmax(real[:, ::-1], axis=1)
+    return _rows_before_pad(~np.all(slots == pad, axis=-1))
+
+
+def _rows_before_pad(real: np.ndarray) -> np.ndarray:
+    """Per query of a [Q, k] "row does something" mask: the rows before
+    the trailing run of rows that do nothing."""
+    if real.shape[1] == 0:
+        return np.zeros(real.shape[0], np.int32)
+    last = real.shape[1] - np.argmax(real[:, ::-1], axis=1)
     return np.where(real.any(axis=1), last, 0).astype(np.int32)
+
+
+def active_edges_many(edges: np.ndarray) -> np.ndarray:
+    """Real edges of each [E, 128] block of a [Q, E, 128] stack: the rows
+    before the trailing run of all-zero rows (pad rows never cross and are
+    never near, so the legs loop over the real edges only)."""
+    e = np.asarray(edges, np.float32)[..., :EDGE_LANES]
+    return _rows_before_pad(np.any(e != 0, axis=-1))
+
+
+def active_rints_many(rasts: np.ndarray) -> np.ndarray:
+    """Real intervals of each [1 + R, 128] block of a [Q, 1 + R, 128]
+    stack: the rows before the trailing run of rows that never match
+    (lo > hi, as pack_block pads) or never classify (cls 0, as a chunk's
+    zero padding)."""
+    r = np.asarray(rasts, np.float32)[:, 1:, :RINT_LANES]
+    return _rows_before_pad((r[..., 0] <= r[..., 1]) & (r[..., 2] != 0))
 
 
 def slot_words(boxes, wins) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -210,31 +349,70 @@ def slot_words(boxes, wins) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return box8, win8, counts
 
 
-def stage_params(bids, boxes, wins, extra_f32=None) -> np.ndarray:
+def stage_params(bids, boxes, wins, extra_f32=None, poly=None) -> np.ndarray:
     """One int32 host buffer per query: bids[m] | box slots [8][8] (f32
     bits) | window slots [8][8] | active box and window slot counts |
-    optional f32 words (csrc/masks.cuh)."""
+    optional f32 words, or the query's polygon block (``poly``, from
+    :func:`poly_words`) (csrc/masks.cuh)."""
     box8, win8, counts = slot_words(boxes, wins)
     parts = [np.asarray(bids, np.int32).ravel(), box8.view(np.int32).ravel(), win8.ravel(), counts]
     if extra_f32 is not None:
         parts.append(np.ascontiguousarray(extra_f32, np.float32).view(np.int32).ravel())
+    if poly is not None:
+        parts.append(np.asarray(poly, np.int32).ravel())
     return np.concatenate(parts)
 
 
-def stage_multi_params(bids, qids, boxes, wins) -> np.ndarray:
-    """One int32 host buffer per fused chunk: bids[m] | qids[m] | box
-    slots [Q][8][8] (f32 bits) | window slots [Q][8][8] | active box and
-    window slot counts [Q][2], from [Q, 8, 128] param stacks
-    (csrc/masks.cuh)."""
+def stage_multi_params(bids, qids, boxes, wins, spip=None, poly=None) -> np.ndarray:
+    """One int32 host buffer per fused chunk: bids[m] | qids[m] | (spip[m]
+    when the chunk carries polygon stacks) | box slots [Q][8][8] (f32
+    bits) | window slots [Q][8][8] | active box and window slot counts
+    [Q][2] | (the polygon blocks [q][words] of :func:`poly_words`), from
+    [Q, 8, 128] param stacks (csrc/masks.cuh)."""
     box8 = np.ascontiguousarray(np.asarray(boxes, np.float32)[:, :, :8])
     win8 = np.ascontiguousarray(np.asarray(wins, np.int32)[:, :, :8])
     counts = np.stack(
         [active_slots_many(box8, _PAD_BOX), active_slots_many(win8, _PAD_WIN)], axis=1
     )
+    parts = [np.asarray(bids, np.int32).ravel(), np.asarray(qids, np.int32).ravel()]
+    if spip is not None:
+        parts.append(np.asarray(spip, np.int32).ravel())
+    parts += [box8.view(np.int32).ravel(), win8.ravel(), counts.ravel()]
+    if poly is not None:
+        parts.append(np.asarray(poly, np.int32).ravel())
+    return np.concatenate(parts)
+
+
+def poly_words(edges, rasts, e_cap: int, r_cap: int) -> np.ndarray:
+    """[Q, 2 + 6 e_cap + 6 + 3 r_cap] int32 polygon blocks of a [Q, E, 128]
+    edge stack and a [Q, 1 + R, 128] raster stack (either None): per query
+    its real edge and interval counts, the six used lanes of its first
+    ``e_cap`` edges, the raster header's six lanes and the three used lanes
+    of its first ``r_cap`` intervals, as f32 bits (csrc/masks.cuh). Only
+    these lanes travel, never the 128-lane rows; caps must cover every
+    query's real counts."""
+    q = (edges if edges is not None else rasts).shape[0]
+    counts = np.zeros((q, 2), np.int32)
+    e6 = np.zeros((q, e_cap, EDGE_LANES), np.float32)
+    head = np.zeros((q, RAST_HEAD_LANES), np.float32)
+    r3 = np.zeros((q, r_cap, RINT_LANES), np.float32)
+    if edges is not None:
+        edges = np.asarray(edges, np.float32)
+        counts[:, 0] = active_edges_many(edges)
+        k = min(e_cap, edges.shape[1])
+        e6[:, :k] = edges[:, :k, :EDGE_LANES]
+    if rasts is not None:
+        rasts = np.asarray(rasts, np.float32)
+        counts[:, 1] = active_rints_many(rasts)
+        head[:] = rasts[:, 0, :RAST_HEAD_LANES]
+        k = min(r_cap, rasts.shape[1] - 1)
+        r3[:, :k] = rasts[:, 1 : 1 + k, :RINT_LANES]
+    if (counts[:, 0] > e_cap).any() or (counts[:, 1] > r_cap).any():
+        raise ValueError(f"polygon blocks exceed their caps (E {e_cap}, R {r_cap})")
     return np.concatenate([
-        np.asarray(bids, np.int32).ravel(), np.asarray(qids, np.int32).ravel(),
-        box8.view(np.int32).ravel(), win8.ravel(), counts.ravel(),
-    ])
+        counts, e6.reshape(q, -1).view(np.int32), head.view(np.int32),
+        r3.reshape(q, -1).view(np.int32),
+    ], axis=1)
 
 
 def bucket_q(q: int) -> int:
@@ -260,14 +438,71 @@ def _slot_lanes(p, k: int):
     return v.reshape(-1, 1, 1, 8).unbind(-1)
 
 
-def masks_plain(cols: dict, boxes, wins, has_boxes: bool, has_windows: bool):
-    """(wide, inner) bool tensors for gathered column blocks: the box,
-    window, packed-time and validity legs of the JAX package's ``_masks``.
+def _pip_plain(x, y, edges):
+    """(parity, near) even-odd ray cast against every row of an [E, 128]
+    edge block (or [M, E, 128], one per gathered block), in the op order
+    of the JAX package's ``_pip_edge_step``."""
+    parity = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    near = torch.zeros_like(parity)
+    for k in range(edges.shape[-2]):
+        y0, y1, x0, isl, ex, ey = _slot_lanes(edges, k)[:EDGE_LANES]
+        in_win = (y0 > y) != (y1 > y)
+        xc = x0 + (y - y0) * isl
+        parity ^= in_win & (x < xc)
+        near |= ((y - y0).abs() < ey) | ((y - y1).abs() < ey) | (in_win & ((x - xc).abs() < ex))
+    return parity, near
+
+
+def _raster_plain(x, y, rast):
+    """(full, part) cell classification against every interval row of a
+    [1 + R, 128] raster block (or [M, 1 + R, 128]), in the op order of the
+    JAX package's ``_raster_cell`` and ``_rint_step``. Sentinel pad rows
+    (x = inf) and a zero header (nx = ny = 0) fall outside the grid."""
+    x0, y0, icx, icy, nx, ny = _slot_lanes(rast, 0)[:RAST_HEAD_LANES]
+    cx = torch.floor((x - x0) * icx)
+    cy = torch.floor((y - y0) * icy)
+    in_grid = (cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny)
+    c = cy * nx + cx
+    full = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    part = torch.zeros_like(full)
+    for k in range(rast.shape[-2] - 1):
+        lo, hi, cl = _slot_lanes(rast, k + 1)[:RINT_LANES]
+        hit = in_grid & (c >= lo) & (c <= hi)
+        full |= hit & (cl > 0)
+        part |= hit & (cl < 0)
+    return full, part
+
+
+def _polygon_legs(x, y, edges, rast):
+    """(wide, inner) of the point-in-polygon and raster legs, as the JAX
+    package's ``_masks`` combines them: raster alone, full | part and
+    full; PIP alone, parity | near and parity & ~near; both, the PIP
+    decides the partial cells."""
+    if rast is not None:
+        full, part = _raster_plain(x, y, rast)
+        if edges is None:
+            return full | part, full
+        parity, near = _pip_plain(x, y, edges)
+        return full | (part & (parity | near)), full | (part & parity & ~near)
+    parity, near = _pip_plain(x, y, edges)
+    return parity | near, parity & ~near
+
+
+def masks_plain(cols: dict, boxes, wins, has_boxes: bool, has_windows: bool,
+                edges=None, rast=None):
+    """(wide, inner) bool tensors for gathered column blocks: the legs of
+    the JAX package's ``_masks`` (box, window, packed-time, validity, and
+    the point-in-polygon and raster legs, which replace the box leg).
     ``boxes``/``wins`` are [k, 128] slot blocks (k = 8 from the packers),
-    or [M, k, 128] blocks, one per gathered block, on the columns'
-    device."""
+    ``edges`` an [E, 128] and ``rast`` a [1 + R, 128] block, or each with
+    a leading [M] axis, one per gathered block; tensors on the columns'
+    device, ``edges``/``rast`` None when the leg is off."""
     w_parts, i_parts = [], []
-    if has_boxes:
+    if edges is not None or rast is not None:
+        wide, inner = _polygon_legs(cols["x"], cols["y"], edges, rast)
+        w_parts.append(wide)
+        i_parts.append(inner)
+    elif has_boxes:
         x, y = cols["x"], cols["y"]
         wide = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
         inner = torch.zeros_like(wide)
@@ -319,25 +554,40 @@ def pack_bits_plain(m: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
 
 
-def block_scan_plain(cols: dict, bids, boxes, wins, *, has_boxes, has_windows):
+def block_scan_plain(cols: dict, bids, boxes, wins, *, has_boxes, has_windows,
+                     edges=None, rast=None):
     """Plain PyTorch scan: gather the candidate blocks, apply the legs,
-    pack bits. ``bids``/``boxes``/``wins`` are tensors on the columns'
-    device. Returns (wide, inner) int32 [M, SUB/32, 128]."""
+    pack bits. ``bids``/``boxes``/``wins`` (and ``edges`` [E, 128] and
+    ``rast`` [1 + R, 128] where the polygon legs are on) are tensors on the
+    columns' device. Returns (wide, inner) int32 [M, SUB/32, 128]."""
     b = bids.to(torch.int64)
     gathered = {k: v[b] for k, v in cols.items()}
-    w, i = masks_plain(gathered, boxes, wins, has_boxes, has_windows)
+    w, i = masks_plain(gathered, boxes, wins, has_boxes, has_windows, edges, rast)
     return pack_bits_plain(w), pack_bits_plain(i)
 
 
-def block_scan_multi_plain(cols: dict, bids, qids, boxes, wins, *, has_boxes, has_windows):
+def block_scan_multi_plain(cols: dict, bids, qids, boxes, wins, *, has_boxes, has_windows,
+                           edges=None, rasts=None, spip=None):
     """Plain PyTorch fused scan: slot i gathers block ``bids[i]`` and
     query ``qids[i]``'s [8, 128] param blocks out of the [Q, 8, 128]
-    stacks, then the single-query legs per slot. Tensors on the columns'
-    device. Returns (wide, inner) int32 [M, SUB/32, 128]."""
+    stacks, then the single-query legs per slot. With a [Q, E, 128]
+    ``edges`` or [Q, 1 + R, 128] ``rasts`` stack, a slot whose ``spip`` is
+    > 0 takes the polygon legs with its query's blocks instead of the box
+    leg. Tensors on the columns' device. Returns (wide, inner) int32
+    [M, SUB/32, 128]."""
     b = bids.to(torch.int64)
     q = qids.to(torch.int64)
     gathered = {k: v[b] for k, v in cols.items()}
-    w, i = masks_plain(gathered, boxes[q], wins[q], has_boxes, has_windows)
+    bq, wq = boxes[q], wins[q]
+    w, i = masks_plain(gathered, bq, wq, has_boxes, has_windows)
+    if edges is not None or rasts is not None:
+        wp, ip = masks_plain(
+            gathered, bq, wq, has_boxes, has_windows,
+            None if edges is None else edges[q], None if rasts is None else rasts[q],
+        )
+        sel = (spip > 0).view(-1, 1, 1)
+        w = torch.where(sel, wp, w)
+        i = torch.where(sel, ip, i)
     return pack_bits_plain(w), pack_bits_plain(i)
 
 
@@ -351,25 +601,59 @@ def device_of(cols3) -> torch.device:
     return devs.pop()
 
 
-def check_unported_legs(
-    extent=False, edges=None, n_edges=0, rast=None, n_rints=0, spip=None
-) -> None:
-    """The port's kernels carry the box, window, packed-time and validity
-    legs only; asking for another raises on every device."""
-    if (
-        extent or edges is not None or n_edges or rast is not None or n_rints
-        or spip is not None
+def check_unported_legs(extent=False) -> None:
+    """The port's kernels carry every leg but the extent leg (bbox
+    intersection over the extent columns of XZ tables); asking for it
+    raises on every device."""
+    if extent:
+        raise NotImplementedError("the extent leg of the scan is not ported yet")
+
+
+# the kernels' shared-memory capacity for one query's polygon blocks
+# (csrc/masks.cuh GM_MAX_EDGES, GM_MAX_RINTS): the largest buckets
+MAX_EDGES = E_BUCKETS[-1]
+MAX_RINTS = R_BUCKETS[-1]
+
+
+def polygon_blocks(edges, n_edges: int, rast, n_rints: int, stacked: bool = False):
+    """(edges, rast) as f32 numpy blocks, each None where its leg is off
+    (a leg is on when its static size is > 0, as in the JAX package),
+    checked against the kernels' capacity: [n_edges, 128] and
+    [1 + n_rints, 128], or with a leading query axis when ``stacked``."""
+    out = []
+    for block, n, head, cap, name in (
+        (edges, n_edges, 0, MAX_EDGES, "edges"), (rast, n_rints, 1, MAX_RINTS, "rast"),
     ):
-        raise NotImplementedError(
-            "the point-in-polygon, raster and extent legs of the scan are "
-            "not ported yet"
-        )
+        if not n:
+            out.append(None)
+            continue
+        if n > cap:
+            raise ValueError(f"{name}: {n} rows exceed the kernels' {cap}")
+        a = np.asarray(block, np.float32)
+        if a.shape[-2:] != (head + n, LANES) or a.ndim != (3 if stacked else 2):
+            raise ValueError(f"{name} block must be [{'Q, ' if stacked else ''}"
+                             f"{head + n}, {LANES}]: {a.shape}")
+        out.append(a)
+    return tuple(out)
+
+
+def _poly_flags(edges, rast) -> int:
+    return (_HAS_EDGES if edges is not None else 0) | (_HAS_RAST if rast is not None else 0)
+
+
+def leg_name(edges, rast) -> "str | None":
+    """The launch counter of a polygon-leg launch (kernels/build.py):
+    'pip', 'raster' or 'pip+raster'; None for the box legs."""
+    return {_HAS_EDGES: "pip", _HAS_RAST: "raster", _HAS_EDGES | _HAS_RAST: "pip+raster"}.get(
+        _poly_flags(edges, rast)
+    )
 
 
 def kernel_columns(cols: dict, has_boxes: bool, has_windows: bool, need_xy: bool = False):
     """Validated column pointers + flags for the kernels:
     (x, y, t0, t1, flags, sub, n_blocks). Columns are contiguous
-    [n_blocks, SUB, 128] tensors, f32 coordinates, i32 time parts."""
+    [n_blocks, SUB, 128] tensors, f32 coordinates, i32 time parts;
+    ``need_xy``: a leg other than the box leg reads x and y."""
     shapes = {tuple(c.shape) for c in cols.values()}
     if len(shapes) != 1:
         raise ValueError(f"columns disagree on shape: {sorted(shapes)}")
@@ -422,8 +706,10 @@ def scan_planes(
     """Both planes in one int32 tensor [2, M, SUB/32, 128] (wide, inner)
     on the columns' device, so the host pulls them in one copy.
     ``bids``/``boxes``/``wins`` are numpy arrays (block ids [M]; [8, 128]
-    param blocks)."""
-    check_unported_legs(extent, edges, n_edges, rast, n_rints)
+    param blocks); ``edges`` [n_edges, 128] and ``rast`` [1 + n_rints, 128]
+    turn on the point-in-polygon and raster legs."""
+    check_unported_legs(extent)
+    edges, rast = polygon_blocks(edges, n_edges, rast, n_rints)
     cols = dict(zip(col_names, cols3))
     device = device_of(cols3)
     bids = np.asarray(bids, np.int32)
@@ -434,40 +720,60 @@ def scan_planes(
                 torch.as_tensor(np.asarray(boxes, np.float32)),
                 torch.as_tensor(np.asarray(wins, np.int32)),
                 has_boxes=has_boxes, has_windows=has_windows,
+                edges=None if edges is None else torch.from_numpy(edges),
+                rast=None if rast is None else torch.from_numpy(rast),
             )
             return torch.stack([w, i])
     planes, launch = scan_launcher(
         cols, bids, boxes, wins, has_boxes=has_boxes, has_windows=has_windows,
-        clock=clock,
+        edges=edges, rast=rast, clock=clock,
     )
     with clock.device("kernel", device):
         launch()
     return planes
 
 
-def scan_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, clock=NULL_CLOCK):
+def scan_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows,
+                  edges=None, rast=None, clock=NULL_CLOCK):
     """Stage one CUDA scan: check the columns and block ids, copy the
-    params to the card (the query's one host->device copy) and allocate
-    both planes. Returns (planes [2, M, SUB/32, 128], launch): each
-    launch() runs the kernel on the current stream into ``planes``."""
+    params (and the polygon blocks' used lanes, ``edges`` [E, 128] and
+    ``rast`` [1 + R, 128] or None) to the card (the query's one
+    host->device copy) and allocate both planes. Returns (planes
+    [2, M, SUB/32, 128], launch): each launch() runs the kernel on the
+    current stream into ``planes``."""
     device = device_of(tuple(cols.values()))
     if device.type != "cuda":
         raise ValueError(f"no scan kernel for device {device}")
     from geomesa_tpu_torch.kernels import BLOCK_SCAN
 
-    x, y, t0, t1, flags, sub, n_blocks = kernel_columns(cols, has_boxes, has_windows)
+    poly_flags = _poly_flags(edges, rast)
+    x, y, t0, t1, flags, sub, n_blocks = kernel_columns(
+        cols, has_boxes, has_windows, need_xy=bool(poly_flags)
+    )
+    flags |= poly_flags
     bids = np.asarray(bids, np.int32)
     check_bids(bids, n_blocks, allow_pad=False)
     m = len(bids)
+    poly = None
+    e_cap = r_cap = 0
+    if poly_flags:
+        # one query: the caps are its real counts, so only real rows travel
+        e_cap = int(active_edges_many(edges[None])[0]) if edges is not None else 0
+        r_cap = int(active_rints_many(rast[None])[0]) if rast is not None else 0
+        poly = poly_words(
+            None if edges is None else edges[None], None if rast is None else rast[None],
+            e_cap, r_cap,
+        )
+    leg = leg_name(edges, rast)
     with torch.cuda.device(device):
-        params = upload_params(stage_params(bids, boxes, wins), device, clock)
+        params = upload_params(stage_params(bids, boxes, wins, poly=poly), device, clock)
         planes = torch.empty((2, m, sub // 32, LANES), dtype=torch.int32, device=device)
 
     def launch() -> None:
         BLOCK_SCAN.launch(
-            x, y, t0, t1, params.data_ptr(), m, sub, flags,
+            x, y, t0, t1, params.data_ptr(), m, sub, flags, e_cap, r_cap,
             planes[0].data_ptr(), planes[1].data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
+            torch.cuda.current_stream(device).cuda_stream, leg=leg,
         )
 
     return planes, launch
@@ -478,8 +784,8 @@ def block_scan(
     extent=False, edges=None, n_edges=0, rast=None, n_rints=0,
 ):
     """The JAX package's ``block_scan`` contract: (wide, inner) int32
-    planes [M, SUB/32, 128] on the columns' device. ``extent``, ``edges``
-    and ``rast`` (the legs not ported yet) raise NotImplementedError."""
+    planes [M, SUB/32, 128] on the columns' device. ``extent`` (the leg
+    not ported yet) raises NotImplementedError."""
     planes = scan_planes(
         cols3, bids, boxes, wins, col_names=col_names, has_boxes=has_boxes,
         has_windows=has_windows, extent=extent, edges=edges, n_edges=n_edges,
@@ -498,14 +804,23 @@ def scan_planes_multi(
 ) -> torch.Tensor:
     """Fused form of :func:`scan_planes`: slot i scans block ``bids[i]``
     with query ``qids[i]``'s params from the [Q, 8, 128] ``boxes``/``wins``
-    stacks (numpy). Both planes in one int32 tensor [2, M, SUB/32, 128] on
-    the columns' device; each query's rows decode from its own slot
-    segment."""
-    check_unported_legs(extent, edges, n_edges, rasts, n_rints, spip)
+    stacks (numpy). With a [Q, n_edges, 128] ``edges`` or
+    [Q, 1 + n_rints, 128] ``rasts`` stack, slot i takes the polygon legs
+    with its query's blocks where ``spip[i]`` > 0 and the box leg
+    elsewhere. Both planes in one int32 tensor [2, M, SUB/32, 128] on the
+    columns' device; each query's rows decode from its own slot segment."""
+    check_unported_legs(extent)
+    edges, rasts = polygon_blocks(edges, n_edges, rasts, n_rints, stacked=True)
     cols = dict(zip(col_names, cols3))
     device = device_of(cols3)
     bids = np.asarray(bids, np.int32)
     qids = np.asarray(qids, np.int32)
+    if edges is not None or rasts is not None:
+        spip = np.asarray(spip, np.int32)
+        if spip.shape != bids.shape:
+            raise ValueError(f"bids {bids.shape} and spip {spip.shape} differ")
+    else:
+        spip = None  # no polygon stack: every slot takes the box leg
     if device.type == "cpu":
         with clock.device("kernel", device):
             w, i = block_scan_multi_plain(
@@ -513,11 +828,14 @@ def scan_planes_multi(
                 torch.as_tensor(np.asarray(boxes, np.float32)),
                 torch.as_tensor(np.asarray(wins, np.int32)),
                 has_boxes=has_boxes, has_windows=has_windows,
+                edges=None if edges is None else torch.from_numpy(edges),
+                rasts=None if rasts is None else torch.from_numpy(rasts),
+                spip=None if spip is None else torch.from_numpy(spip),
             )
             return torch.stack([w, i])
     planes, launch = multi_launcher(
         cols, bids, qids, boxes, wins, has_boxes=has_boxes, has_windows=has_windows,
-        clock=clock,
+        edges=edges, rasts=rasts, spip=spip, clock=clock,
     )
     with clock.device("kernel", device):
         launch()
@@ -525,16 +843,23 @@ def scan_planes_multi(
 
 
 def multi_launcher(cols: dict, bids, qids, boxes, wins, *, has_boxes, has_windows,
-                   clock=NULL_CLOCK):
+                   edges=None, rasts=None, spip=None, clock=NULL_CLOCK):
     """Stage one CUDA fused scan: check the columns, block and query ids,
-    copy the chunk's params to the card (its one host->device copy) and
-    allocate both planes. Returns (planes [2, M, SUB/32, 128], launch)."""
+    copy the chunk's params (and, with an ``edges`` [Q, E, 128] or
+    ``rasts`` [Q, 1 + R, 128] stack, ``spip`` and the used lanes of the
+    polygon blocks of the queries its polygon slots read) to the card (its
+    one host->device copy) and allocate both planes. Returns (planes
+    [2, M, SUB/32, 128], launch)."""
     device = device_of(tuple(cols.values()))
     if device.type != "cuda":
         raise ValueError(f"no fused scan kernel for device {device}")
     from geomesa_tpu_torch.kernels import BLOCK_SCAN_MULTI
 
-    x, y, t0, t1, flags, sub, n_blocks = kernel_columns(cols, has_boxes, has_windows)
+    poly_flags = _poly_flags(edges, rasts)
+    x, y, t0, t1, flags, sub, n_blocks = kernel_columns(
+        cols, has_boxes, has_windows, need_xy=bool(poly_flags)
+    )
+    flags |= poly_flags
     bids = np.asarray(bids, np.int32)
     qids = np.asarray(qids, np.int32)
     boxes = np.asarray(boxes, np.float32)
@@ -548,15 +873,37 @@ def multi_launcher(cols: dict, bids, qids, boxes, wins, *, has_boxes, has_window
     if len(qids) and (int(qids.min()) < 0 or int(qids.max()) >= n_q):
         raise ValueError(f"query ids outside [0, {n_q})")
     m = len(bids)
+    poly = None
+    e_cap = r_cap = 0
+    if poly_flags:
+        for stack in (edges, rasts):
+            if stack is not None and stack.shape[0] != n_q:
+                raise ValueError(f"polygon stack of {stack.shape[0]} queries, params of {n_q}")
+        spip = np.asarray(spip, np.int32)
+        # the chunk's buckets set the per-query stride; only the queries
+        # its polygon slots read travel
+        e_cap = 0 if edges is None else edges.shape[1]
+        r_cap = 0 if rasts is None else rasts.shape[1] - 1
+        used = qids[spip > 0]
+        n_used = int(used.max()) + 1 if len(used) else 0
+        poly = poly_words(
+            None if edges is None else edges[:n_used], None if rasts is None else rasts[:n_used],
+            e_cap, r_cap,
+        )
+    leg = leg_name(edges, rasts)
     with torch.cuda.device(device):
-        params = upload_params(stage_multi_params(bids, qids, boxes, wins), device, clock)
+        params = upload_params(
+            stage_multi_params(bids, qids, boxes, wins, spip=spip if poly_flags else None,
+                               poly=poly),
+            device, clock,
+        )
         planes = torch.empty((2, m, sub // 32, LANES), dtype=torch.int32, device=device)
 
     def launch() -> None:
         BLOCK_SCAN_MULTI.launch(
-            x, y, t0, t1, params.data_ptr(), m, n_q, sub, flags,
+            x, y, t0, t1, params.data_ptr(), m, n_q, sub, flags, e_cap, r_cap,
             planes[0].data_ptr(), planes[1].data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
+            torch.cuda.current_stream(device).cuda_stream, leg=leg,
         )
 
     return planes, launch
@@ -567,9 +914,8 @@ def block_scan_multi(
     extent=False, edges=None, spip=None, n_edges=0, rasts=None, n_rints=0,
 ):
     """The JAX package's ``block_scan_multi`` contract: (wide, inner)
-    int32 planes [M, SUB/32, 128] on the columns' device. The edge and
-    raster stacks (``edges``, ``spip``, ``rasts``; the legs not ported
-    yet) raise NotImplementedError."""
+    int32 planes [M, SUB/32, 128] on the columns' device. ``extent`` (the
+    leg not ported yet) raises NotImplementedError."""
     planes = scan_planes_multi(
         cols3, bids, qids, boxes, wins, col_names=col_names, has_boxes=has_boxes,
         has_windows=has_windows, extent=extent, edges=edges, spip=spip,

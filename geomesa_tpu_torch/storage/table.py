@@ -9,9 +9,11 @@ feature ordinals and per-bin segment offsets, used for range -> row-span
 A query is one kernel launch plus one device->host copy of its bit
 planes: contained ranges' rows are taken from the spans directly, the
 remaining candidate blocks go through the scan kernel, and host
-refinement touches only the uncertain ``wide & ~inner`` rows. Many
-queries pack into fused chunks, one launch and one device->host copy per
-chunk (``scan_submit_many``).
+refinement touches only the uncertain ``wide & ~inner`` rows. A polygon
+query's scan runs the kernel's point-in-polygon and raster legs
+(``_scan_kernel_kwargs``). Many queries pack into fused chunks, one launch
+and one device->host copy per chunk (``scan_submit_many``); polygon
+members fuse through per-query edge and raster stacks.
 
 This slice has no delta tier, fold or block reuse: a write rebuilds the
 table from all rows.
@@ -304,7 +306,8 @@ class IndexTable(SortedKeys):
 
     def scan_submit_many(self, configs: list, clock=NULL_CLOCK) -> list:
         """Fused form of :meth:`scan_submit` for many queries: configs
-        group by kernel variant (projected columns, boxes, windows), pack
+        group by kernel variant (projected columns, boxes, windows, and
+        the fused edge and interval buckets of polygon members), pack
         greedily in input order into chunks of at most
         ``fused_pack_capacity`` candidate blocks and FUSED_CHUNK_Q queries,
         and each chunk is one fused kernel launch. Returns one
@@ -325,11 +328,21 @@ class IndexTable(SortedKeys):
                 continue
             blocks = self._full_or(blocks)
             names = self._scan_cols(config)
-            key = (names, config.boxes is not None, config.windows is not None)
+            # the E and R buckets are part of the variant key (the JAX
+            # package's): box queries group at E = R = 0, polygons per
+            # fused bucket pair. The key also keeps raster-only, PIP-only
+            # and both-leg members apart: a raster-only member in an E > 0
+            # chunk would compute full | (part & (0 | 0)) and drop its
+            # partial rows
+            key = (
+                names, config.boxes is not None, config.windows is not None,
+                bk.fused_e_bucket(bk.n_edges_of(config.poly)),
+                bk.fused_r_bucket(bk.n_rints_of(config.rast)),
+            )
             groups.setdefault(key, []).append((j, config, blocks, contained))
 
         slots = self.fused_pack_capacity
-        for (names, has_boxes, has_windows), members in groups.items():
+        for (names, has_boxes, has_windows, _e, _r), members in groups.items():
             # members broader than half a chunk (e.g. _full_or expansions)
             # go alone on the single-query kernel; the rest pack greedily
             chunks: list[list] = []
@@ -376,6 +389,42 @@ class IndexTable(SortedKeys):
             boxes[q], wins[q] = self._params(m[1])
         return boxes, wins
 
+    def _chunk_edge_stack(self, members):
+        """(chunk_E, edges [FUSED_CHUNK_Q, chunk_E, 128] | None, pip [n]
+        bool) of one fused chunk: the per-query edge stack, sized to the
+        chunk's largest member polygon and zero-padded per query (pad rows
+        never cross and are never near)."""
+        pip = np.zeros(len(members), bool)
+        chunk_e = bk.fused_e_bucket(max(bk.n_edges_of(m[1].poly) for m in members))
+        if chunk_e == 0:
+            return 0, None, pip
+        edges = np.zeros((FUSED_CHUNK_Q, chunk_e, bk.LANES), np.float32)
+        for q, m in enumerate(members):
+            poly = m[1].poly
+            if poly is not None:
+                edges[q, : poly.shape[0]] = poly
+                pip[q] = True
+        return chunk_e, edges, pip
+
+    def _chunk_raster_stack(self, members):
+        """(chunk_R, rasts [FUSED_CHUNK_Q, 1 + chunk_R, 128] | None, rast [n]
+        bool) of one fused chunk: the per-query raster stack (pack_block
+        header + intervals), sized to the chunk's largest member raster
+        and zero-padded per query (pad interval rows never classify; an
+        all-zero header puts every row outside the grid, and such slots
+        never select the polygon legs)."""
+        has = np.zeros(len(members), bool)
+        chunk_r = bk.fused_r_bucket(max(bk.n_rints_of(m[1].rast) for m in members))
+        if chunk_r == 0:
+            return 0, None, has
+        rasts = np.zeros((FUSED_CHUNK_Q, 1 + chunk_r, bk.LANES), np.float32)
+        for q, m in enumerate(members):
+            rast = m[1].rast
+            if rast is not None:
+                rasts[q, : rast.shape[0]] = rast
+                has[q] = True
+        return chunk_r, rasts, has
+
     def _fused_pull(self, planes, clock=NULL_CLOCK):
         """``pull() -> host planes [2, M, SUB/32, 128]``, memoized: the
         chunk's planes come to the host in one copy, on the first member's
@@ -393,10 +442,15 @@ class IndexTable(SortedKeys):
     def _submit_fused_chunk(self, members, names, has_boxes, has_windows, finishes,
                             clock=NULL_CLOCK) -> None:
         """Launch one fused chunk: slot segments per member, pad slots
-        (bid 0, qid 0) after them up to ``fused_slots``."""
+        (bid 0, qid 0, spip 0) after them up to ``fused_slots``; with
+        polygon members, the edge and raster stacks and a per-slot
+        selector ``spip`` (1 where the slot's query takes the polygon
+        legs)."""
         if self._fused_route_single(members, finishes, clock):
             return
         boxes, wins = self._fused_param_stacks(members)
+        chunk_e, edges, pip = self._chunk_edge_stack(members)
+        chunk_r, rasts, has_rast = self._chunk_raster_stack(members)
         segs: list[tuple[int, int]] = []
         pos = 0
         for m in members:
@@ -408,9 +462,14 @@ class IndexTable(SortedKeys):
         qids = np.zeros(len(bids), np.int32)
         qids[:n_real] = np.repeat(np.arange(len(members), dtype=np.int32),
                                   [len(m[2]) for m in members])
+        spip = None
+        if chunk_e or chunk_r:
+            spip = (pip | has_rast)[qids].astype(np.int32)
+            spip[n_real:] = 0  # pad slots keep the box leg
         planes = bk.scan_planes_multi(
             self._cols_args(names), bids, qids, boxes, wins, col_names=names,
-            has_boxes=has_boxes, has_windows=has_windows, clock=clock,
+            has_boxes=has_boxes, has_windows=has_windows, edges=edges, spip=spip,
+            n_edges=chunk_e, rasts=rasts, n_rints=chunk_r, clock=clock,
         )
         pull = self._fused_pull(planes, clock)
 
@@ -493,6 +552,20 @@ class IndexTable(SortedKeys):
             has_windows=config.windows is not None,
         )
 
+    def _scan_kernel_kwargs(self, config: ScanConfig, names: tuple) -> dict:
+        """Kernel kwargs of the scan path: the box legs plus the
+        point-in-polygon and raster legs. The aggregation kernels keep
+        ``_kernel_kwargs`` (the box test); polygon configs take the host
+        aggregation path (mask_decides_filter's for_aggregation)."""
+        kw = self._kernel_kwargs(config, names)
+        if config.poly is not None:
+            kw["edges"] = config.poly
+            kw["n_edges"] = bk.n_edges_of(config.poly)
+        if config.rast is not None:
+            kw["rast"] = config.rast
+            kw["n_rints"] = bk.n_rints_of(config.rast)
+        return kw
+
     def _cols_args(self, names: tuple) -> tuple:
         return tuple(self.cols3[k] for k in names)
 
@@ -505,7 +578,7 @@ class IndexTable(SortedKeys):
         names = self._scan_cols(config)
         planes = bk.scan_planes(
             self._cols_args(names), bids, boxes, wins,
-            clock=clock, **self._kernel_kwargs(config, names),
+            clock=clock, **self._scan_kernel_kwargs(config, names),
         )
 
         def finish():

@@ -152,3 +152,102 @@ def test_block_pops_kernel_equals_plain(cuda_cols, case):
         _t(wins, torch.int32), has_boxes=hb, has_windows=hw,
     )
     assert torch.equal(got, ref) and int(got[:n_real].sum()) > 0
+
+
+def _star(cx, cy, arms, r_in, r_out, hole=False):
+    """A star polygon of 2 * arms edges (with a reversed inner hole ring)."""
+    from geomesa_tpu_torch import geometry as geo
+
+    a = np.linspace(0, 2 * np.pi, 2 * arms, endpoint=False)
+    r = np.where(np.arange(2 * arms) % 2 == 0, r_out, r_in)
+    shell = np.stack([cx + r * np.cos(a), cy + r * np.sin(a)], axis=1)
+    holes = []
+    if hole:
+        h = 0.3 * r_in
+        holes.append(np.stack([cx + h * np.cos(a[::-1]), cy + h * np.sin(a[::-1])], axis=1))
+    return geo.Polygon(shell, holes)
+
+
+# (polygon, leg): E buckets 16, 64 (with a hole) and 256; rasters at R 16,
+# 64 and 256; both legs at R 16
+POLY_CASES = [
+    ((-10, 5, 7, 30, 90), "pip", 0),
+    ((20, -10, 30, 25, 70, True), "pip", 0),
+    ((0, 0, 120, 40, 80), "pip", 0),
+    ((-10, 5, 7, 30, 90), "raster", 16),
+    ((20, -10, 30, 25, 70, True), "raster", 64),
+    ((0, 0, 120, 40, 80), "raster", 256),
+    ((20, -10, 30, 25, 70, True), "pip+raster", 16),
+]
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[1]])
+@pytest.mark.parametrize("poly", POLY_CASES, ids=[f"{c[1]}-R{c[2]}-{k}"
+                                                  for k, c in enumerate(POLY_CASES)])
+def test_block_scan_polygon_legs_equal_plain(cuda_cols, case, poly):
+    from geomesa_tpu_torch.filter import raster as tfr
+
+    names, hb, hw, wins = case
+    spec, leg, r_bucket = poly
+    p = _star(*spec)
+    edges = tbk.pack_edges(p) if "pip" in leg else None
+    rast = tfr.build_raster(p).pack_block(r_bucket) if "raster" in leg else None
+    bids, _ = tbk.pad_bids(np.array([7, 0, 39, 12, 13, 2, 20, 21]), NB)
+    cols = tuple(cuda_cols[k] for k in names)
+    w, i = tbk.block_scan(cols, bids, BOXES, wins, col_names=names, has_boxes=hb,
+                          has_windows=hw, edges=edges, n_edges=tbk.n_edges_of(edges),
+                          rast=rast, n_rints=tbk.n_rints_of(rast))
+    pw, pi = tbk.block_scan_plain(
+        dict(zip(names, cols)), _t(bids, torch.int32), _t(BOXES, torch.float32),
+        _t(wins, torch.int32), has_boxes=hb, has_windows=hw,
+        edges=None if edges is None else _t(edges, torch.float32),
+        rast=None if rast is None else _t(rast, torch.float32),
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(w, pw) and torch.equal(i, pi) and bool(w.any())
+
+
+@pytest.mark.parametrize("leg", ["pip", "raster", "pip+raster"])
+@pytest.mark.parametrize("case", [c for c in CASES if c[1]])
+def test_block_scan_multi_polygon_stacks_equal_plain(cuda_cols, case, leg):
+    """Polygon queries of differing edge and interval counts beside box
+    queries in one chunk (E bucket 64, R bucket 16); spip 0 on box slots
+    and pads."""
+    from geomesa_tpu_torch.filter import raster as tfr
+
+    names, hb, hw, _ = case
+    n_q = 24
+    boxes, wins = _stacks(n_q, tw="tw" in names)
+    rng = np.random.default_rng(11)
+    q_pad = boxes.shape[0]
+    edges = np.zeros((q_pad, 64, tbk.LANES), np.float32) if "pip" in leg else None
+    rasts = np.zeros((q_pad, 17, tbk.LANES), np.float32) if "raster" in leg else None
+    poly = np.zeros(q_pad, bool)
+    for q in range(0, n_q, 3):
+        p = _star(rng.uniform(-120, 120), rng.uniform(-50, 50), 3 + q // 2, 10 + q, 60, q % 2 == 0)
+        if edges is not None:
+            e = tbk.pack_edges(p)
+            edges[q, : len(e)] = e
+        if rasts is not None:
+            r = tfr.build_raster(p).pack_block(16)
+            rasts[q, : len(r)] = r
+        poly[q] = True
+    blocks = rng.integers(0, NB, 60)
+    qids = np.zeros(64, np.int32)
+    qids[:60] = rng.permutation(np.arange(60) % n_q)
+    bids, n_real = tbk.pad_bids(blocks, NB, bucket=64)
+    spip = poly[qids].astype(np.int32)
+    spip[n_real:] = 0
+    cols = tuple(cuda_cols[k] for k in names)
+    n_edges, n_rints = (0 if edges is None else 64), (0 if rasts is None else 16)
+    w, i = tbk.block_scan_multi(cols, bids, qids, boxes, wins, col_names=names, has_boxes=hb,
+                                has_windows=hw, edges=edges, spip=spip, n_edges=n_edges,
+                                rasts=rasts, n_rints=n_rints)
+    pw, pi = tbk.block_scan_multi_plain(
+        dict(zip(names, cols)), _t(bids, torch.int32), _t(qids, torch.int32),
+        _t(boxes, torch.float32), _t(wins, torch.int32), has_boxes=hb, has_windows=hw,
+        edges=None if edges is None else _t(edges, torch.float32),
+        rasts=None if rasts is None else _t(rasts, torch.float32), spip=_t(spip, torch.int32),
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(w, pw) and torch.equal(i, pi) and bool(w.any())

@@ -5,8 +5,10 @@
   test process has jax loaded by tests/conftest.py);
 - ``DataStore()`` defaults to the card and raises where there is none;
 - the kernel wrappers route by the device of their tensors and never fall
-  back: a device without a kernel raises, and the legs not ported yet
-  raise NotImplementedError whatever the device.
+  back: a device without a kernel raises, and the leg not ported yet (the
+  extent leg) raises NotImplementedError whatever the device; the
+  point-in-polygon and raster legs, ported, take the plain version on the
+  CPU and raise for a device without a kernel.
 """
 
 import importlib.util
@@ -49,8 +51,9 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
     n_modules, bad = out.stdout.split(" ", 1)
     assert int(n_modules) >= 40  # every submodule was imported
     assert bad.strip() == "[]", bad
-    # the submodules of the many-query slice are among them
-    for name in ("serving.scheduler", "stats.stat_spec", "stats.sketches", "utils.hashing"):
+    # the submodules of the many-query and polygon slices are among them
+    for name in ("serving.scheduler", "stats.stat_spec", "stats.sketches", "utils.hashing",
+                 "filter.raster"):
         assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
@@ -81,6 +84,22 @@ KW = dict(col_names=("x", "y"), has_boxes=True, has_windows=False)
     dict(extent=True),
 ])
 def test_unported_legs_raise_on_every_device(device, leg):
+    if "extent" not in leg:
+        # a ported polygon leg: the plain version on the CPU (zero blocks
+        # select nothing), and no fallback on a device without a kernel
+        if device == "meta":
+            with pytest.raises(ValueError, match="no scan kernel"):
+                tbk.block_scan(_cols(device), BIDS, BOXES, WINS, **KW, **leg)
+            return
+        w, i = tbk.block_scan(_cols(device), BIDS, BOXES, WINS, **KW, **leg)
+        pw, pi = tbk.block_scan_plain(
+            dict(zip(KW["col_names"], _cols(device))), torch.from_numpy(BIDS),
+            torch.from_numpy(BOXES), torch.from_numpy(WINS), has_boxes=True, has_windows=False,
+            edges=torch.from_numpy(leg["edges"]) if "edges" in leg else None,
+            rast=torch.from_numpy(leg["rast"]) if "rast" in leg else None,
+        )
+        assert torch.equal(w, pw) and torch.equal(i, pi) and not w.any()
+        return
     with pytest.raises(NotImplementedError):
         tbk.block_scan(_cols(device), BIDS, BOXES, WINS, **KW, **leg)
     if "extent" in leg:
@@ -106,6 +125,27 @@ STACK_WINS = np.stack([WINS] * 8)
     dict(extent=True),
 ])
 def test_unported_fused_legs_raise_on_every_device(device, leg):
+    if "extent" not in leg:
+        # the ported stacks (or a selector without one, which the JAX
+        # package ignores): the plain version on the CPU, no fallback
+        # elsewhere
+        if device == "meta":
+            with pytest.raises(ValueError, match="no fused scan kernel"):
+                tbk.block_scan_multi(_cols(device), BIDS, QIDS, STACK_BOXES, STACK_WINS,
+                                     **KW, **leg)
+            return
+        w, i = tbk.block_scan_multi(_cols(device), BIDS, QIDS, STACK_BOXES, STACK_WINS,
+                                    **KW, **leg)
+        pw, pi = tbk.block_scan_multi_plain(
+            dict(zip(KW["col_names"], _cols(device))), torch.from_numpy(BIDS),
+            torch.from_numpy(QIDS), torch.from_numpy(STACK_BOXES), torch.from_numpy(STACK_WINS),
+            has_boxes=True, has_windows=False,
+            edges=torch.from_numpy(leg["edges"]) if "edges" in leg else None,
+            rasts=torch.from_numpy(leg["rasts"]) if "rasts" in leg else None,
+            spip=torch.from_numpy(leg["spip"]),
+        )
+        assert torch.equal(w, pw) and torch.equal(i, pi)
+        return
     with pytest.raises(NotImplementedError):
         tbk.block_scan_multi(_cols(device), BIDS, QIDS, STACK_BOXES, STACK_WINS, **KW, **leg)
     if "extent" in leg:
