@@ -18,9 +18,13 @@ Phases, each printing one JSON line:
    {32, 4096} and the whole table; K1's point-in-polygon and raster legs
    at M = 4096 (PIP at E 16, 64, 256, the raster at R 16, 64, 256, both
    legs at R 16 + E 64) and K2's edge and raster stacks at M = 2048 with
-   48 polygon queries, each with and without the window); results must
-   be equal word for word; each kernel's time (CUDA events, median of 25
-   runs after warm-up: the launch alone, and the whole wrapper with its
+   48 polygon queries, each with and without the window; then the
+   extent leg of all five on synthetic extent columns: K1 and K1p at
+   M = 4096 and K2 at M = 2048 with 48 extent queries of 1-8 box slots,
+   each with and without the window, the window alone and the validity
+   leg, K3 and K4 over the bbox centres); results must be equal word for
+   word; each kernel's and leg's time (CUDA events, median of 25 runs
+   after warm-up: the launch alone, and the whole wrapper with its
    staging) beside its bound and the plain version's time;
 3. main path: a GDELT-shaped Z3 point table of 100,000,000 rows (the
    reference benchmark's configuration 1, cut from 500M for the run's
@@ -50,13 +54,28 @@ Phases, each printing one JSON line:
 6. a 10,000,000-row table with packed time, 16 queries, ``query_many``
    and two count estimates;
 7. a Z2 table of 20,000,000 points (the reference benchmark's
-   configuration 4): the polygon path with 32 queries and no time.
+   configuration 4): the polygon path with 32 queries and no time;
+8. osm-xz2-50M: the reference benchmark's configuration 3, building
+   footprints on an XZ2 table, cut from 200M to 50,000,000 rectangles;
+   8 warm-up and 40 measured INTERSECTS rectangle queries untraced, then
+   traced, ``query_many``, the scheduler (8 threads x 5 queries),
+   ``IndexTable.count`` / ``density`` / ``bounds_stats`` over 4 of them
+   against the plain versions on the same device table, and 8 queries'
+   ids and counts against an f64 brute force;
+9. xz3-10M-mixed: 10,000,000 extent features with dates over 120 days
+   on an XZ3 table, 99 % footprint rectangles and 1 % triangles, stars,
+   LineStrings and MultiPolygons; 8 warm-up and 32 measured INTERSECTS
+   (rectangle, star) and BBOX queries AND DURING, and DURING alone,
+   untraced then traced, ``query_many``, and 8 queries' ids against an
+   f64 brute force written here (box algebra, even-odd vertex tests and
+   edge crossings).
 
-Launch counts (and the polygon legs' counts) are zeroed just before each
-of the five paths and read just after it; each path must have launched
-the kernels and legs it names (main: K1, K3, K4; batch: K2, K1p, K3; Z3
+Launch counts (and the legs' counts) are zeroed just before each of the
+seven paths and read just after it; each path must have launched the
+kernels and legs it names (main: K1, K3, K4; batch: K2, K1p, K3; Z3
 polygon: K1 and K2 each with PIP, raster and both legs; packed time:
-all five; Z2 polygon: K1's raster leg, K2 with stacks).
+all five; Z2 polygon: K1's raster leg, K2 with stacks; XZ2: all five
+with the extent leg; XZ3: K1 and K2 with the extent leg).
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -86,6 +105,15 @@ N_POLY_MEASURED = 48
 # polygons), on a Z2 table
 N_Z2 = 20_000_000
 N_Z2_POLY_QUERIES = 32
+# the reference benchmark's configuration 3 (XZ2 building footprints), cut
+# from 200M for the host's numpy ingest and the run's time, and an XZ3
+# table of mixed extents with dates
+N_XZ2 = 50_000_000
+N_XZ2_MEASURED = 40
+N_XZ3 = 10_000_000
+N_XZ3_OTHER = 100_000
+N_XZ3_MEASURED = 32
+N_XZ_WARMUP = 8
 K2_SLOTS = 2048  # the fused chunk's slots at 100M rows (storage.table.fused_slots)
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -452,6 +480,9 @@ def kernel_phase(torch, device):
     out["polygon_leg_checks"] = n_poly
     del cols
     torch.cuda.empty_cache()
+    for name, leg in extent_kernels(torch, device, n_blocks, sub, boxes, wins, dev).items():
+        out[name].setdefault("legs", {})["extent"] = leg
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], leg["max_abs_err"])
     return out
 
 
@@ -745,6 +776,232 @@ def polygon_kernels(torch, cols, n_blocks, sub, boxes, wins, dev):
     return k1, k2, err, err2, checks
 
 
+def extent_columns(torch, n_blocks, sub, device):
+    """[n_blocks, sub, 128] extent columns (gxmin, gymin, gxmax, gymax),
+    and tbin / toff, made on the card from a seed: bboxes from a point up
+    to a few degrees wide, widened one f32 ulp outward as the packed column
+    stores them; the last block's tail carries the extent table's pad
+    sentinels (an empty bbox, +inf / -inf)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 40)
+    shape = (n_blocks, sub, 128)
+    inf = torch.tensor(float("inf"), device=device)
+    x0 = torch.rand(shape, generator=g, device=device) * 356 - 180
+    y0 = torch.rand(shape, generator=g, device=device) * 176 - 90
+    w = -torch.log1p(-torch.rand(shape, generator=g, device=device)) * 0.5
+    h = -torch.log1p(-torch.rand(shape, generator=g, device=device)) * 0.5
+    cols = {"gxmin": torch.nextafter(x0, -inf), "gymin": torch.nextafter(y0, -inf),
+            "gxmax": torch.nextafter(x0 + w, inf), "gymax": torch.nextafter(y0 + h, inf)}
+    del x0, y0, w, h
+    cols["tbin"] = torch.randint(2800, 2820, shape, generator=g, device=device, dtype=torch.int32)
+    cols["toff"] = torch.randint(0, 604_800, shape, generator=g, device=device, dtype=torch.int32)
+    tail = (slice(-1, None), slice(sub // 2, None))
+    cols["gxmin"][tail] = cols["gymin"][tail] = float("inf")
+    cols["gxmax"][tail] = cols["gymax"][tail] = float("-inf")
+    cols["tbin"][tail] = -1
+    cols["toff"][tail] = 0
+    return {k: v.contiguous() for k, v in cols.items()}
+
+
+EXT = ("gxmax", "gxmin", "gymax", "gymin")  # the extent columns, as a table projects them
+
+
+def extent_kernels(torch, device, n_blocks, sub, boxes1, wins1, dev):
+    """The extent leg of all five kernels against their plain versions on
+    synthetic extent columns of the main table's block count, then timed:
+    K1 and K1p at M = 4096 and K2 at M = 2048 with 48 extent queries of
+    1-8 box slots (K1 and K1p take 8 of them one by one), each with and
+    without the window on (tbin, toff), plus the window alone and the
+    validity leg on gxmin; K3 (256 x 256 and 33 x 17 grids) and K4 at
+    M = 4096 with -1 pads, over the bbox centres. Timed on the XZ2 path's
+    shape: the box leg on the four extent columns, 2 box slots."""
+    from geomesa_tpu_torch.scan import aggregations as agg
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    cols = extent_columns(torch, n_blocks, sub, device)
+    windowed = tuple(sorted(EXT + ("tbin", "toff")))
+    variants = [("box+window", windowed, True, True), ("box", EXT, True, False)]
+    others = [("window", ("tbin", "toff"), False, True), ("valid", ("gxmin",), False, False)]
+    n_q = 48
+    qboxes, qwins, _ = query_stacks(n_q, SEED + 41)
+    rng = np.random.default_rng(SEED + 42)
+    err = dict.fromkeys(("block_scan", "block_pops", "block_scan_multi", "density", "bounds"), 0.0)
+    checks = dict.fromkeys(err, 0)
+
+    def cmp(name, got, ref, what):
+        if got is None or ref is None:
+            check(got is None and ref is None, f"{name} extent {what}: plane count")
+            return
+        err[name] = max(err[name], max_abs_err(got, ref))
+        check(torch.equal(got, ref), f"{name} extent {what}")
+
+    m = bk.M_BUCKETS[-1]
+    bids, _ = bk.pad_bids(np.sort(rng.choice(n_blocks, size=m, replace=False)), n_blocks)
+    tbids = dev(bids, torch.int32)
+    cases = [(f"{v[0]} q{q}", *v[1:], qboxes[q], qwins[q]) for q in range(8) for v in variants]
+    cases += [(o[0], *o[1:], qboxes[0], qwins[0]) for o in others]
+    selected: dict = {}  # per variant: some query of it selects rows
+    for what, names, hb, hw, bx, wn in cases:
+        c3 = tuple(cols[k] for k in names)
+        kw = dict(col_names=names, has_boxes=hb, has_windows=hw, extent=True)
+        flags = dict(has_boxes=hb, has_windows=hw, extent=True)
+        pargs = (dict(zip(names, c3)), tbids, dev(bx, torch.float32), dev(wn, torch.int32))
+        w, i = bk.block_scan(c3, bids, bx, wn, **kw)
+        pw, pi = bk.block_scan_plain(*pargs, **flags)
+        cmp("block_scan", w, pw, f"{what} M={m}")
+        cmp("block_scan", i, pi, f"{what} M={m} inner")
+        selected[what.split()[0]] = selected.get(what.split()[0], False) or bool(w.any())
+        check((i is None) == hb, f"block_scan extent {what}: one plane with boxes")
+        del w, i, pw, pi
+        checks["block_scan"] += 1
+        got = agg.block_pops(c3, bids, bx, wn, **kw)
+        cmp("block_pops", got, agg.block_pops_plain(*pargs, **flags), f"{what} M={m}")
+        checks["block_pops"] += 1
+    for variant, sel in selected.items():
+        check(sel, f"block_scan extent {variant} selects rows")
+
+    m2 = K2_SLOTS
+    n_real = m2 - m2 // 40
+    bids2, _ = bk.pad_bids(rng.integers(0, n_blocks, n_real), n_blocks, bucket=m2)
+    qids = np.zeros(m2, np.int32)
+    qids[:n_real] = rng.permutation(np.arange(n_real) % n_q)
+    tb2, tq = dev(bids2, torch.int32), dev(qids, torch.int32)
+    for what, names, hb, hw in variants + others:
+        c3 = tuple(cols[k] for k in names)
+        w, i = bk.block_scan_multi(c3, bids2, qids, qboxes, qwins, col_names=names,
+                                   has_boxes=hb, has_windows=hw, extent=True)
+        pw, pi = bk.block_scan_multi_plain(
+            dict(zip(names, c3)), tb2, tq, dev(qboxes, torch.float32), dev(qwins, torch.int32),
+            has_boxes=hb, has_windows=hw, extent=True)
+        cmp("block_scan_multi", w, pw, f"{what} M={m2}")
+        cmp("block_scan_multi", i, pi, f"{what} M={m2} inner")
+        check(bool(w.any()), f"block_scan_multi extent {what} selects rows")
+        del w, i, pw, pi
+        checks["block_scan_multi"] += 1
+
+    gb = np.array([-100, -60, 120, 70], np.float32)
+    pbids, _ = bk.pad_bids(np.sort(rng.choice(n_blocks, size=m - 96, replace=False)), n_blocks,
+                           pad=-1)
+    tpb = dev(pbids, torch.int32)
+    for what, names, hb, hw in variants + others[:1]:
+        names = tuple(sorted(set(names) | set(EXT)))  # the aggregations read the extents
+        c3 = tuple(cols[k] for k in names)
+        kw = dict(col_names=names, has_boxes=hb, has_windows=hw, extent=True)
+        flags = dict(has_boxes=hb, has_windows=hw, extent=True)
+        pargs = (dict(zip(names, c3)), tpb, dev(boxes1, torch.float32), dev(wins1, torch.int32))
+        for width, height in ((256, 256), (33, 17)):
+            got = agg.block_density(c3, pbids, boxes1, wins1, gb, width=width, height=height, **kw)
+            ref = agg.density_plain(*pargs, dev(gb, torch.float32), width=width, height=height,
+                                    **flags)
+            cmp("density", got, ref, f"{what} {width}x{height}")
+            check(float(got.sum()) > 0, f"density extent {what} counts rows")
+            checks["density"] += 1
+        st = agg.block_bounds(c3, pbids, boxes1, wins1, **kw)
+        sp = agg.bounds_plain(*pargs, **flags)
+        n_r = m - 96
+        cmp("bounds", st[:n_r], sp[:n_r], what)
+        check(bool(torch.isfinite(st[:n_r, 1:5][st[:n_r, 0] > 0]).all()),
+              f"bounds extent {what}: no NaN centre")
+        checks["bounds"] += 1
+
+    # timing: the XZ2 path's shape (box leg, four extent columns, the two
+    # box slots of the point kernels' timing), all slots real
+    names, flags = EXT, dict(has_boxes=True, has_windows=False, extent=True)
+    c3 = tuple(cols[k] for k in names)
+    tcols = dict(zip(names, c3))
+    kw = dict(col_names=names, **flags)
+    bids, _ = bk.pad_bids(np.arange(m), n_blocks)
+    pargs = (tcols, dev(bids, torch.int32), dev(boxes1, torch.float32), dev(wins1, torch.int32))
+    rows = m * sub * 128
+    col_bytes = rows * 4 * len(names)
+    wide_ops = rows * leg_ops(boxes1, wins1, True, False, planes=1)
+    out = {}
+    _, launch = bk.scan_launcher(tcols, bids, boxes1, wins1, **flags)
+    out["block_scan"] = {
+        "ms": time_ms(torch, launch),
+        "wrapper_ms": time_ms(torch, lambda: bk.block_scan(c3, bids, boxes1, wins1, **kw)),
+        "plain_ms": time_ms(torch, lambda: bk.block_scan_plain(*pargs, **flags)),
+        # per row the wide plane's legs, a shift and an OR to pack; one plane out
+        **bound(col_bytes + rows // 8 + bids.nbytes, wide_ops + rows * 2),
+    }
+    _, p_launch = agg.pops_launcher(tcols, bids, boxes1, wins1, **flags)
+    out["block_pops"] = {
+        "ms": time_ms(torch, p_launch),
+        "wrapper_ms": time_ms(torch, lambda: agg.block_pops(c3, bids, boxes1, wins1, **kw)),
+        "plain_ms": time_ms(torch, lambda: agg.block_pops_plain(*pargs, **flags)),
+        **bound(col_bytes + m * 4 + bids.nbytes, wide_ops + rows * 2 + rows // 16),
+    }
+    # the library yardstick of K3: one bincount over the hits' pixels
+    g = {k: v[pargs[1].to(torch.int64)] for k, v in tcols.items()}
+    wm, _ = bk.masks_plain(g, pargs[2], pargs[3], True, False, extent=True)
+    wide_hits = int(wm.sum())
+    xs = (g["gxmin"][wm] + g["gxmax"][wm]) * 0.5
+    ys = (g["gymin"][wm] + g["gymax"][wm]) * 0.5
+    del g, wm
+    x0, y0, x1, y1 = (float(v) for v in gb)
+    inside = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+    xs, ys = xs[inside], ys[inside]
+    px = ((xs - x0) / (x1 - x0) * 256).to(torch.int32).clamp(0, 255)
+    py = ((ys - y0) / (y1 - y0) * 256).to(torch.int32).clamp(0, 255)
+    flat = py.to(torch.int64) * 256 + px.to(torch.int64)
+    del xs, ys, px, py, inside
+    # per wide hit the centre (2 adds, 2 multiplies) and the closed
+    # envelope (4 compares, 4 ANDs); per hit in it the pixel (15, as K3's
+    # point leg) and one increment
+    density_ops = wide_ops + wide_hits * 12 + flat.numel() * 15
+    _, d_launch = agg.density_launcher(tcols, bids, boxes1, wins1, gb, width=256, height=256,
+                                       **flags)
+    out["density"] = {
+        "ms": time_ms(torch, d_launch),
+        "wrapper_ms": time_ms(torch, lambda: agg.block_density(
+            c3, bids, boxes1, wins1, gb, width=256, height=256, **kw)),
+        "plain_ms": time_ms(torch, lambda: agg.density_plain(
+            *pargs, dev(gb, torch.float32), width=256, height=256, **flags)),
+        **bound(col_bytes + 256 * 256 * 4 + bids.nbytes, density_ops),
+        "library_ms": time_ms(torch, lambda: torch.bincount(flat, minlength=256 * 256)),
+        "hits": int(flat.numel()),
+    }
+    del flat
+    _, b_launch = agg.bounds_launcher(tcols, bids, boxes1, wins1, **flags)
+    out["bounds"] = {
+        "ms": time_ms(torch, b_launch),
+        "wrapper_ms": time_ms(torch, lambda: agg.block_bounds(c3, bids, boxes1, wins1, **kw)),
+        "plain_ms": time_ms(torch, lambda: agg.bounds_plain(*pargs, **flags)),
+        # per wide hit the centre, a count and four min/max
+        **bound(col_bytes + m * 8 * 4 + bids.nbytes, wide_ops + wide_hits * 9),
+    }
+    m2 = K2_SLOTS
+    bids2 = np.sort(rng.choice(n_blocks, size=m2, replace=False)).astype(np.int32)
+    qids = rng.permutation(np.arange(m2) % n_q).astype(np.int32)
+    rows2 = m2 * sub * 128
+    per_query = np.array([leg_ops(qboxes[q], qwins[q], True, False, planes=1) + 2
+                          for q in range(len(qboxes))])
+    _, launch = bk.multi_launcher(tcols, bids2, qids, qboxes, qwins, **flags)
+    pargs2 = (tcols, dev(bids2, torch.int32), dev(qids, torch.int32),
+              dev(qboxes, torch.float32), dev(qwins, torch.int32))
+    out["block_scan_multi"] = {
+        "ms": time_ms(torch, launch),
+        "wrapper_ms": time_ms(torch, lambda: bk.block_scan_multi(
+            c3, bids2, qids, qboxes, qwins, **kw)),
+        "plain_ms": time_ms(torch, lambda: bk.block_scan_multi_plain(*pargs2, **flags)),
+        **bound(rows2 * 4 * len(names) + rows2 // 8
+                + bk.stage_multi_params(bids2, qids, qboxes, qwins).nbytes,
+                sub * 128 * int(per_query[qids].sum())),
+    }
+    for name, rec in out.items():
+        rec.setdefault("library_ms", None)
+        rec["max_abs_err"] = err[name]
+        rec["equal_to_plain"] = err[name] == 0.0
+        rec["checks"] = checks[name]
+        rec["shape"] = (f"M={m2 if name == 'block_scan_multi' else m} SUB={sub} "
+                        f"cols={','.join(names)}"
+                        + (f" Q=128 ({n_q} real)" if name == "block_scan_multi" else "")
+                        + (" grid=256x256" if name == "density" else ""))
+    del cols, c3, tcols, pargs, pargs2
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 3: the main path --------------------------------------------------
 
 
@@ -827,12 +1084,12 @@ def busiest(queries, outs, k):
     return [queries[i] for i in order]
 
 
-def run_queries(ds, queries):
+def run_queries(ds, queries, type_name="gdelt"):
     lat, outs = [], []
     t_all = time.perf_counter()
     for q, *_ in queries:
         s = time.perf_counter()
-        outs.append(ds.query("gdelt", q))
+        outs.append(ds.query(type_name, q))
         lat.append(time.perf_counter() - s)
     return np.array(lat), outs, time.perf_counter() - t_all
 
@@ -885,12 +1142,13 @@ def plain_pops(torch):
 
     kernel = agg.block_pops
 
-    def plain(cols3, bids, boxes, wins, *, col_names, has_boxes, has_windows, **_):
+    def plain(cols3, bids, boxes, wins, *, col_names, has_boxes, has_windows, extent=False,
+              **_):
         dv = cols3[0].device
         return agg.block_pops_plain(
             dict(zip(col_names, cols3)), torch.from_numpy(np.asarray(bids, np.int32)).to(dv),
             torch.from_numpy(boxes).to(dv), torch.from_numpy(wins).to(dv),
-            has_boxes=has_boxes, has_windows=has_windows,
+            has_boxes=has_boxes, has_windows=has_windows, extent=extent,
         )
 
     agg.block_pops = plain
@@ -1251,11 +1509,466 @@ def polygon_path(torch, ds, src, index: str, warm, measured, n_brute: int, n_set
     }
 
 
+# -- extent paths ----------------------------------------------------------
+
+
+def footprints(n, rng, cities):
+    """Building-footprint rectangles of 20-200 m clustered around the
+    cities, drawn as the reference benchmark's configuration 3 draws them
+    (bench.py:308-384): (x0, y0, x1, y1) f64."""
+    cx, cy = cities
+    which = rng.integers(0, len(cx), n)
+    x0 = np.clip(cx[which] + rng.normal(0, 0.5, n), -179.9, 179.8)
+    y0 = np.clip(cy[which] + rng.normal(0, 0.4, n), -89.9, 89.8)
+    del which
+    return x0, y0, x0 + rng.uniform(0.0002, 0.002, n), y0 + rng.uniform(0.0002, 0.002, n)
+
+
+def extent_store(torch, device, type_name, spec, index, columns, n):
+    """A DataStore with one extent schema on ``index`` and n features
+    written; returns (store, ingest seconds)."""
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+
+    sft = FeatureType.from_spec(type_name, spec)
+    sft.user_data["geomesa.indices.enabled"] = index
+    ds = DataStore(device=device)
+    ds.create_schema(sft)
+    fc = FeatureCollection.from_columns(sft, np.arange(n), columns)
+    t_in = time.perf_counter()
+    ds.write(type_name, fc, check_ids=False)
+    torch.cuda.synchronize()
+    return ds, time.perf_counter() - t_in
+
+
+def rect_wkt(x0, y0, x1, y1) -> str:
+    return (f"POLYGON(({x0:.4f} {y0:.4f}, {x1:.4f} {y0:.4f}, {x1:.4f} {y1:.4f}, "
+            f"{x0:.4f} {y1:.4f}, {x0:.4f} {y0:.4f}))")
+
+
+def parsed_box(x0, y0, x1, y1) -> tuple:
+    """The box as the printed 4-decimal filter parses."""
+    return tuple(float(f"{v:.4f}") for v in (x0, y0, x1, y1))
+
+
+def rect_queries(seed, n, cities):
+    """[(ecql, box as parsed)] for n INTERSECTS rectangle queries drawn as
+    the reference benchmark's configuration 3 draws them (widths
+    0.02-2 degrees near a city)."""
+    cx, cy = cities
+    r = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        c = r.integers(0, len(cx))
+        qw = float(r.choice([0.02, 0.05, 0.1, 0.5, 2.0]))
+        qx = cx[c] + r.uniform(-1, 1)
+        qy = cy[c] + r.uniform(-0.8, 0.8)
+        out.append((f"INTERSECTS(geom, {rect_wkt(qx, qy, qx + qw, qy + qw)})",
+                    parsed_box(qx, qy, qx + qw, qy + qw)))
+    return out
+
+
+def brute_rect_ids(boxes, q) -> np.ndarray:
+    """Rectangles meeting the closed query box: box algebra in f64."""
+    x0, y0, x1, y1 = boxes
+    return np.flatnonzero((x0 <= q[2]) & (x1 >= q[0]) & (y0 <= q[3]) & (y1 >= q[1]))
+
+
+def check_table_aggregations(torch, ds, type_name, index, queries) -> int:
+    """IndexTable.count, density (256 x 256 over the query box) and
+    bounds_stats on the extent table against the count arithmetic over
+    the plain popcount and the plain density and bounds over the same
+    device table and candidate blocks."""
+    from geomesa_tpu_torch.scan import aggregations as agg
+
+    table = ds.table(type_name, index)
+    n = 0
+    for q, box in queries:
+        cfg = ds.planner.plan(type_name, q).config
+        env = box[:4]
+        count = table.count(cfg)
+        grid = table.density(cfg, env, 256, 256)
+        stats = table.bounds_stats(cfg)
+        with plain_pops(torch):
+            check(count == table.count(cfg), f"extent count vs plain: {q[:60]}")
+        cols3, bids, n_real, boxes, wins, kw = table.agg_launch_args(cfg)
+        check(kw["extent"], "extent aggregations take the extent leg")
+        dv = table.device
+        targs = (dict(zip(kw["col_names"], cols3)), torch.from_numpy(bids).to(dv),
+                 torch.from_numpy(boxes).to(dv), torch.from_numpy(wins).to(dv))
+        flags = dict(has_boxes=kw["has_boxes"], has_windows=kw["has_windows"], extent=True)
+        ref = agg.density_plain(*targs, torch.tensor(env, dtype=torch.float32, device=dv),
+                                width=256, height=256, **flags).cpu().numpy()
+        check(np.array_equal(grid, ref) and float(grid.sum()) > 0,
+              f"extent density vs plain: {q[:60]}")
+        st = agg.bounds_plain(*targs, **flags).cpu().numpy()
+        check(stats == agg.reduce_bounds(st, n_real) and stats[0] >= count > 0,
+              f"extent bounds vs plain: {q[:60]}")
+        n += 1
+    return n
+
+
+def xz2_path(torch, device) -> dict:
+    """The reference benchmark's configuration 3 on an XZ2 table (cut from
+    200M to N_XZ2 footprints): INTERSECTS rectangle queries untraced, then
+    traced, query_many, the scheduler under 8 threads, the table-level
+    aggregations, and ids against an f64 brute force."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from geomesa_tpu_torch import geometry as geo
+    from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
+
+    zero_launches()
+    t_gen = time.perf_counter()
+    rng = np.random.default_rng(SEED + 20)
+    cities = (rng.uniform(-160, 160, 256), rng.uniform(-55, 65, 256))
+    src = footprints(N_XZ2, rng, cities)
+    col = geo.PackedGeometryColumn.from_boxes(*src)
+    gen_s = time.perf_counter() - t_gen
+    ds, ingest_s = extent_store(torch, device, "bld", "*geom:Polygon:srid=4326", "xz2",
+                                {"geom": col}, N_XZ2)
+    del col
+    table = ds.table("bld", "xz2")
+    check(table.extent and table.col_names == EXT, "the xz2 table holds the extent columns")
+    warm = rect_queries(SEED + 21, N_XZ_WARMUP, cities)
+    measured = rect_queries(SEED + 22, N_XZ2_MEASURED, cities)
+    filters = [q for q, _ in measured]
+    run_queries(ds, warm, "bld")
+    lat, outs, wall = run_queries(ds, measured, "bld")
+    ds.clock = clock = PhaseClock()
+    _, _, traced_wall = run_queries(ds, measured, "bld")
+    phases = {k: v / len(measured) * 1e3 for k, v in clock.settle().items()}
+    ds.clock = NULL_CLOCK
+    device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
+    cand_blocks = []
+    for q in filters:
+        plan = ds.planner.plan("bld", q)
+        check(plan.index == "xz2" and not plan.config.geom_precise,
+              f"extent query plans to the xz2 scan: {q[:60]}")
+        cand_blocks.append(len(table.candidate_blocks(table.candidate_spans_split(plan.config)[0])))
+
+    with chunk_recorder() as members:
+        t0 = time.perf_counter()
+        many = ds.query_many("bld", filters)
+        many_s = time.perf_counter() - t0
+    sched = ds.serve()
+    try:
+        def client(k):
+            futs = [sched.submit("bld", q) for q in filters[k * 5:(k + 1) * 5]]
+            return [f.result(600) for f in futs]
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            served = [o for outs_k in ex.map(client, range(8)) for o in outs_k]
+        serve_s = time.perf_counter() - t0
+    finally:
+        sched.close()
+    t0 = time.perf_counter()
+    n_agg = check_table_aggregations(torch, ds, "bld", "xz2", busiest(measured, outs, 4))
+    agg_s = time.perf_counter() - t0
+    counts = [ds.count("bld", q) for q in filters[:8]]
+    launches, leg_launches = read_launches(), read_leg_launches()
+
+    for k, ((q, box), out) in enumerate(zip(measured[:8], outs)):
+        ids = brute_rect_ids(src, box)
+        got = np.sort(np.asarray(out.ids, np.int64))
+        check(np.array_equal(got, ids), f"xz2 ids vs brute force: {q[:60]}")
+        check(counts[k] == len(ids), f"xz2 count vs brute force: {q[:60]}")
+    check_same_ids(many, outs, "xz2 query_many vs sequential query")
+    check_same_ids(served, outs, "xz2 scheduler vs sequential query")
+    hits = sum(len(o) for o in outs)
+    rec = {
+        "phase": "extent_path_xz2", "cell": "osm-xz2-50M", "launches": launches,
+        "leg_launches": leg_launches, "n_features": N_XZ2, "index": "xz2",
+        "generate_s": gen_s, "ingest_s": ingest_s, "ingest_rows_per_s": N_XZ2 / ingest_s,
+        "device_gb": table.nbytes_device / 1e9, "n_blocks": table.n_blocks,
+        "n_queries": len(measured), "hits_total": hits,
+        "candidate_blocks_mean": float(np.mean(cand_blocks)),
+        "candidate_blocks_max": int(np.max(cand_blocks)),
+        "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
+        "latency_p84_ms": float(np.percentile(lat, 84) * 1e3),
+        "latency_p99_ms": float(np.percentile(lat, 99) * 1e3),
+        "latency_mean_ms": float(lat.mean() * 1e3),
+        "features_per_s": hits / wall,
+        "phase_ms_per_query": phases,
+        "traced_ms_per_query": traced_wall / len(measured) * 1e3,
+        "device_busy_share": device_ms / (traced_wall / len(measured) * 1e3),
+        "query_many_s": many_s, "query_many_queries_per_s": len(filters) / many_s,
+        "chunks": len(members), "members_per_chunk": members,
+        "scheduler_wall_s": serve_s, "scheduler_queries_per_s": len(served) / serve_s,
+        "aggregations_s": agg_s,
+        "checked_vs_brute_force": 8, "checked_query_many": len(many),
+        "checked_scheduler": len(served), "checked_aggregations": n_agg,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    del ds, src, outs, many, served, table
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mixed_geometries(n, rng, cities):
+    """n non-rectangle features near the cities: triangles, 5-arm stars,
+    LineStrings of 2-6 vertices and, every 500th, a two-part MultiPolygon;
+    20-2000 m across, one in 200 up to 0.5 degrees. Returns (port
+    geometries, their parts for the brute force: (rings, polygonal) per
+    feature, f64 bboxes [n, 4])."""
+    from geomesa_tpu_torch import geometry as geo
+
+    cx, cy = cities
+    which = rng.integers(0, len(cx), n)
+    px = np.clip(cx[which] + rng.normal(0, 0.5, n), -179, 179)
+    py = np.clip(cy[which] + rng.normal(0, 0.4, n), -89, 89)
+    size = rng.uniform(0.0002, 0.02, n) * np.where(rng.random(n) < 0.005, 25, 1)
+    geoms, parts = [], []
+    for i in range(n):
+        x, y, r = px[i], py[i], size[i]
+        if i % 500 == 499:
+            stars = [star(x, y, r, 5, rng), star(x + 3 * r, y, r, 5, rng)]
+            geoms.append(geo.MultiPolygon(stars))
+            parts.append(([p.shell for p in stars], True))
+        elif i % 3 == 0:
+            ring = np.array([[x, y], [x + r, y], [x, y + r], [x, y]])
+            geoms.append(geo.Polygon(ring))
+            parts.append(([ring], True))
+        elif i % 3 == 1:
+            geoms.append(star(x, y, r, 5, rng))
+            parts.append(([geoms[-1].shell], True))
+        else:
+            nv = int(rng.integers(2, 7))
+            line = np.stack([x + np.cumsum(rng.normal(0, r, nv)),
+                             y + np.cumsum(rng.normal(0, r, nv))], axis=1)
+            geoms.append(geo.LineString(line))
+            parts.append(([line], False))
+    bounds = np.array([g.bounds() for g in geoms], np.float64)
+    return geoms, parts, bounds
+
+
+def xz3_queries(seed, n, cities, during_only: bool):
+    """[(ecql, kind, query ring as parsed | None, (lo_ms, hi_ms))]: per 8
+    queries 4 INTERSECTS rectangles (0.02-2 degrees), 2 INTERSECTS 5-arm
+    stars (0.05-0.5 degrees), a BBOX and, with ``during_only``, a DURING
+    alone (6 h or 24 h; else another rectangle); each spatial one AND dtg
+    DURING 6 h - 14 d, all near a city."""
+    from geomesa_tpu_torch import geometry as geo
+
+    cx, cy = cities
+    r = np.random.default_rng(seed)
+    wins = time_windows(r, n, T0_MS, SPAN_MS)
+    out = []
+    for k in range(n):
+        lo, hi = wins[k]
+        c = r.integers(0, len(cx))
+        qx, qy = cx[c] + r.uniform(-1, 1), cy[c] + r.uniform(-0.8, 0.8)
+        kind = ("rect", "rect", "rect", "rect", "star", "star", "bbox",
+                "during" if during_only else "rect")[k % 8]
+        if kind == "during":
+            hi = lo + int(r.choice([6, 24])) * 3_600_000
+        during = f"dtg DURING {np.datetime64(lo, 'ms')}Z/{np.datetime64(hi, 'ms')}Z"
+        if kind == "star":
+            g = geo.from_wkt(geo.to_wkt(star(qx, qy, r.uniform(0.05, 0.5), 5, r)))
+            ring = g.shell
+            q = f"INTERSECTS(geom, {geo.to_wkt(g)}) AND {during}"
+        elif kind == "during":
+            ring, q = None, during
+        else:
+            qw = float(r.choice([0.02, 0.05, 0.1, 0.5, 2.0]))
+            b = parsed_box(qx, qy, qx + qw, qy + qw)
+            ring = np.array([[b[0], b[1]], [b[2], b[1]], [b[2], b[3]], [b[0], b[3]], [b[0], b[1]]])
+            spatial = (f"INTERSECTS(geom, {rect_wkt(qx, qy, qx + qw, qy + qw)})" if kind == "rect"
+                       else f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})")
+            q = f"{spatial} AND {during}"
+        out.append((q, kind, ring, (lo, hi)))
+    return out
+
+
+# an independent f64 intersects for the brute force: a vertex of one
+# inside the other (even-odd), or two edges that cross or touch
+
+
+def _orient(ax, ay, bx, by, cx, cy):
+    return (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+
+
+def _on_segment(ax, ay, bx, by, px, py, o):
+    return ((o == 0) & (np.minimum(ax, bx) <= px) & (px <= np.maximum(ax, bx))
+            & (np.minimum(ay, by) <= py) & (py <= np.maximum(ay, by)))
+
+
+def segments_meet(p1, p2, q1, q2) -> np.ndarray:
+    """Whether segments p1-p2 and q1-q2 share a point ([..., 2] arrays,
+    broadcast)."""
+    a, b, c, d = (np.asarray(v, np.float64) for v in (p1, p2, q1, q2))
+    d1 = _orient(c[..., 0], c[..., 1], d[..., 0], d[..., 1], a[..., 0], a[..., 1])
+    d2 = _orient(c[..., 0], c[..., 1], d[..., 0], d[..., 1], b[..., 0], b[..., 1])
+    d3 = _orient(a[..., 0], a[..., 1], b[..., 0], b[..., 1], c[..., 0], c[..., 1])
+    d4 = _orient(a[..., 0], a[..., 1], b[..., 0], b[..., 1], d[..., 0], d[..., 1])
+    proper = (((d1 > 0) & (d2 < 0)) | ((d1 < 0) & (d2 > 0))) & \
+        (((d3 > 0) & (d4 < 0)) | ((d3 < 0) & (d4 > 0)))
+    return (proper
+            | _on_segment(c[..., 0], c[..., 1], d[..., 0], d[..., 1], a[..., 0], a[..., 1], d1)
+            | _on_segment(c[..., 0], c[..., 1], d[..., 0], d[..., 1], b[..., 0], b[..., 1], d2)
+            | _on_segment(a[..., 0], a[..., 1], b[..., 0], b[..., 1], c[..., 0], c[..., 1], d3)
+            | _on_segment(a[..., 0], a[..., 1], b[..., 0], b[..., 1], d[..., 0], d[..., 1], d4))
+
+
+def inside_rings(px, py, rings) -> np.ndarray:
+    """Even-odd: points strictly inside the region the closed rings bound."""
+    inside = np.zeros(np.shape(px), bool)
+    for ring in rings:
+        for (x0, y0), (x1, y1) in zip(ring[:-1], ring[1:]):
+            if y0 == y1:
+                continue
+            cross = (y0 > py) != (y1 > py)
+            xc = x0 + (py - y0) * (x1 - x0) / (y1 - y0)
+            inside ^= cross & (px < xc)
+    return inside
+
+
+def feature_meets(rings, polygonal, qring) -> bool:
+    """One feature (its rings, or its line) against the query ring."""
+    verts = np.concatenate(rings)
+    if inside_rings(verts[:, 0], verts[:, 1], [qring]).any():
+        return True
+    if polygonal and inside_rings(qring[:, 0], qring[:, 1], rings).any():
+        return True
+    q1, q2 = qring[:-1], qring[1:]
+    for line in rings:
+        if segments_meet(line[:-1, None], line[1:, None], q1[None], q2[None]).any():
+            return True
+    return False
+
+
+def rects_meet_ring(boxes, qring) -> np.ndarray:
+    """Rectangles [n, 4] against a query ring, vectorized over the
+    rectangles."""
+    x0, y0, x1, y1 = (boxes[:, k] for k in range(4))
+    corners = np.stack([np.stack([x0, y0], 1), np.stack([x1, y0], 1),
+                        np.stack([x1, y1], 1), np.stack([x0, y1], 1)], axis=1)  # [n, 4, 2]
+    hit = inside_rings(corners[..., 0], corners[..., 1], [qring]).any(axis=1)
+    qx, qy = qring[None, :, 0], qring[None, :, 1]
+    hit |= ((qx > x0[:, None]) & (qx < x1[:, None]) & (qy > y0[:, None])
+            & (qy < y1[:, None])).any(axis=1)
+    nxt = np.roll(corners, -1, axis=1)
+    hit |= segments_meet(corners[:, :, None], nxt[:, :, None], qring[None, None, :-1],
+                         qring[None, None, 1:]).any(axis=(1, 2))
+    return hit
+
+
+def brute_xz3_ids(src, query) -> np.ndarray:
+    """f64 brute force of one XZ3 query: the window, then rectangles by box
+    algebra (rectangle queries) or the general test (stars), other
+    features by the general test."""
+    rect_boxes, parts, other_bounds, t = src
+    _, kind, qring, (lo, hi) = query
+    tm = (t >= lo) & (t < hi)
+    n_rect = len(rect_boxes[0])
+    if qring is None:
+        return np.flatnonzero(tm)
+    qb = (qring[:, 0].min(), qring[:, 1].min(), qring[:, 0].max(), qring[:, 1].max())
+    rect_ids = brute_rect_ids(rect_boxes, qb)
+    rect_ids = rect_ids[tm[rect_ids]]
+    if kind == "star":
+        boxes = np.stack([b[rect_ids] for b in rect_boxes], axis=1)
+        rect_ids = rect_ids[rects_meet_ring(boxes, qring)]
+    ob = other_bounds
+    cand = np.flatnonzero((ob[:, 0] <= qb[2]) & (ob[:, 2] >= qb[0]) & (ob[:, 1] <= qb[3])
+                          & (ob[:, 3] >= qb[1]) & tm[n_rect:])
+    other_ids = [n_rect + j for j in cand if feature_meets(*parts[j], qring)]
+    return np.concatenate([rect_ids, np.array(other_ids, np.int64)])
+
+
+def xz3_path(torch, device) -> dict:
+    """An XZ3 table of N_XZ3 extent features with dates over 120 days:
+    building-footprint rectangles and 1 % triangles, stars, LineStrings and
+    MultiPolygons. INTERSECTS (rectangles, stars) and BBOX queries AND
+    DURING, and DURING alone, untraced then traced, then query_many; ids
+    against an f64 brute force."""
+    from geomesa_tpu_torch import geometry as geo
+    from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
+
+    zero_launches()
+    t_gen = time.perf_counter()
+    rng = np.random.default_rng(SEED + 50)
+    cities = (rng.uniform(-160, 160, 256), rng.uniform(-55, 65, 256))
+    n_rect = N_XZ3 - N_XZ3_OTHER
+    rects = footprints(n_rect, rng, cities)
+    geoms, parts, other_bounds = mixed_geometries(N_XZ3_OTHER, rng, cities)
+    t = T0_MS + rng.integers(0, SPAN_MS, N_XZ3)
+    col = geo.PackedGeometryColumn.concat([geo.PackedGeometryColumn.from_boxes(*rects),
+                                           geo.PackedGeometryColumn.from_geometries(geoms)])
+    del geoms
+    gen_s = time.perf_counter() - t_gen
+    ds, ingest_s = extent_store(torch, device, "ext", "dtg:Date,*geom:Geometry:srid=4326",
+                                "xz3", {"geom": col, "dtg": t}, N_XZ3)
+    del col
+    table = ds.table("ext", "xz3")
+    check(table.extent and table.col_names == tuple(sorted(EXT + ("tbin", "toff"))),
+          "the xz3 table holds the extent and time columns")
+    src = (rects, parts, other_bounds, t)
+    warm = xz3_queries(SEED + 51, N_XZ_WARMUP, cities, during_only=False)
+    measured = xz3_queries(SEED + 52, N_XZ3_MEASURED, cities, during_only=True)
+    filters = [q for q, *_ in measured]
+    run_queries(ds, warm, "ext")
+    lat, outs, wall = run_queries(ds, measured, "ext")
+    ds.clock = clock = PhaseClock()
+    _, _, traced_wall = run_queries(ds, measured, "ext")
+    phases = {k: v / len(measured) * 1e3 for k, v in clock.settle().items()}
+    ds.clock = NULL_CLOCK
+    device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
+    cand_blocks = []
+    for q in filters:
+        plan = ds.planner.plan("ext", q)
+        check(plan.index == "xz3", f"extent query plans to the xz3 scan: {q[:60]}")
+        cand_blocks.append(len(table.candidate_blocks(table.candidate_spans_split(plan.config)[0])))
+    with chunk_recorder() as members:
+        t0 = time.perf_counter()
+        many = ds.query_many("ext", filters)
+        many_s = time.perf_counter() - t0
+    launches, leg_launches = read_launches(), read_leg_launches()
+
+    # the checked queries: the first of each kind, then the next ones
+    kinds = [m[1] for m in measured]
+    checked = sorted({kinds.index(k) for k in set(kinds)} | set(range(8)))[:8]
+    t0 = time.perf_counter()
+    for k in checked:
+        ids = np.sort(brute_xz3_ids(src, measured[k]))
+        got = np.sort(np.asarray(outs[k].ids, np.int64))
+        check(np.array_equal(got, ids), f"xz3 ids vs brute force ({kinds[k]}): {filters[k][:60]}")
+    brute_s = time.perf_counter() - t0
+    check_same_ids(many, outs, "xz3 query_many vs sequential query")
+    hits = sum(len(o) for o in outs)
+    rec = {
+        "phase": "extent_path_xz3", "cell": "xz3-10M-mixed", "launches": launches,
+        "leg_launches": leg_launches, "n_features": N_XZ3, "n_non_rectangles": N_XZ3_OTHER,
+        "index": "xz3", "generate_s": gen_s, "ingest_s": ingest_s,
+        "ingest_rows_per_s": N_XZ3 / ingest_s, "device_gb": table.nbytes_device / 1e9,
+        "n_blocks": table.n_blocks, "n_queries": len(measured), "hits_total": hits,
+        "query_kinds": {kd: kinds.count(kd) for kd in sorted(set(kinds))},
+        "candidate_blocks_mean": float(np.mean(cand_blocks)),
+        "candidate_blocks_max": int(np.max(cand_blocks)),
+        "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
+        "latency_p84_ms": float(np.percentile(lat, 84) * 1e3),
+        "latency_p99_ms": float(np.percentile(lat, 99) * 1e3),
+        "latency_mean_ms": float(lat.mean() * 1e3),
+        "features_per_s": hits / wall,
+        "phase_ms_per_query": phases,
+        "traced_ms_per_query": traced_wall / len(measured) * 1e3,
+        "device_busy_share": device_ms / (traced_wall / len(measured) * 1e3),
+        "query_many_s": many_s, "query_many_queries_per_s": len(filters) / many_s,
+        "chunks": len(members), "members_per_chunk": members,
+        "checked_vs_brute_force": len(checked),
+        "checked_kinds": sorted({kinds[k] for k in checked}), "brute_force_s": brute_s,
+        "checked_query_many": len(many),
+    }
+    del ds, src, outs, many, table
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main_path(torch, device):
-    """Five paths, each with its own launch counts (zeroed just before it
+    """Seven paths, each with its own launch counts (zeroed just before it
     runs, read just after): the single-query main path, the batch path
-    and the polygon path on the same store, the packed-time cell and the
-    Z2 polygon cell."""
+    and the polygon path on the same store, the packed-time cell, the Z2
+    polygon cell, and the two extent cells (XZ2, XZ3)."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -1344,7 +2057,7 @@ def main_path(torch, device):
           "device_gb": ds.table("gdelt", "z2").nbytes_device / 1e9, **z2}
     del ds, src
     torch.cuda.empty_cache()
-    return rec, batch, poly, packed, z2
+    return rec, batch, poly, packed, z2, xz2_path(torch, device), xz3_path(torch, device)
 
 
 # -- entry point -------------------------------------------------------------
@@ -1389,6 +2102,8 @@ def main() -> int:
         "gdelt-z3-100M-polygon": ("block_scan", "block_scan_multi"),
         "gdelt-z3-packed-10M": tuple(k.name for k in KERNELS),
         "gdelt-z2-20M-polygon": ("block_scan", "block_scan_multi"),
+        "osm-xz2-50M": tuple(k.name for k in KERNELS),
+        "xz3-10M-mixed": ("block_scan", "block_scan_multi"),
     }
     for cell, names in expected.items():
         for name in names:
@@ -1399,13 +2114,16 @@ def main() -> int:
         "gdelt-z3-100M-polygon": {"block_scan": ("pip", "raster", "pip+raster"),
                                   "block_scan_multi": ("pip", "raster", "pip+raster")},
         "gdelt-z2-20M-polygon": {"block_scan": ("raster",), "block_scan_multi": ()},
+        # the extent leg: every kernel on the XZ2 cell, the scans on XZ3
+        "osm-xz2-50M": {k.name: ("extent",) for k in KERNELS},
+        "xz3-10M-mixed": {"block_scan": ("extent",), "block_scan_multi": ("extent",)},
     }
     for cell, kernels in expected_legs.items():
         for name, legs in kernels.items():
             counts = leg_paths[cell][name]
             for leg in legs:
                 check(counts[leg] > 0, f"{name} leg {leg} launched on the {cell} path")
-            check(sum(counts.values()) > 0, f"{name} polygon legs launched on the {cell} path")
+            check(sum(counts.values()) > 0, f"{name} legs launched on the {cell} path")
 
     replaces = {
         "block_scan": "geomesa_tpu/scan/block_kernels.py:685 (_pallas_block_scan; pallas_call :727)",

@@ -4,7 +4,8 @@
 // Replaces the Pallas kernel _pops_pallas
 // (geomesa_tpu/scan/aggregations.py:86), which runs _pallas_block_scan
 // (block_kernels.py:685) on jnp.maximum(bids, 0) and popcounts the wide
-// plane per slot.
+// plane per slot, for all its legs (box, extent, window, packed-time,
+// validity).
 //
 // Bound on the H100: memory. The columns of each slot's block are read
 // once; the output is 4 B per slot.
@@ -23,6 +24,7 @@ __device__ __forceinline__ int gm_warp_sum(int n) {
   return n;
 }
 
+template <bool EXT>
 __global__ void __launch_bounds__(1024)
 gm_block_pops_kernel(GmCols c, const int* __restrict__ params, int m, int sub, int flags,
                      int* __restrict__ out) {
@@ -39,7 +41,7 @@ gm_block_pops_kernel(GmCols c, const int* __restrict__ params, int m, int sub, i
   for (int j = threadIdx.y; j < pack; j += blockDim.y) {
     unsigned int wbits = 0u;
     for (int b = 0; b < 32; ++b) {
-      wbits |= (gm_row_bits(c, p, gm_row(base, j, b, lane), flags, n_box, n_win) & GM_WIDE) << b;
+      wbits |= (gm_row_bits<EXT>(c, p, gm_row(base, j, b, lane), flags, n_box, n_win) & GM_WIDE) << b;
     }
     n += __popc(wbits);
   }
@@ -56,12 +58,15 @@ gm_block_pops_kernel(GmCols c, const int* __restrict__ params, int m, int sub, i
 }
 
 // out: int32 [m]. params: bids[m] | boxes | wins | slot counts.
-extern "C" int gm_block_pops(const float* x, const float* y, const int* t0, const int* t1,
-                             const int* params, int m, int sub, int flags, int* out,
-                             void* stream) {
+extern "C" int gm_block_pops(GM_COL_ARGS, const int* params, int m, int sub, int flags,
+                             int* out, void* stream) {
   if (m <= 0) return 0;
-  const GmCols c{x, y, t0, t1};
-  gm_block_pops_kernel<<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
-      c, params, m, sub, flags, out);
+  const GmCols c = GM_COLS;
+  if (gm_extent(flags))
+    gm_block_pops_kernel<true><<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
+        c, params, m, sub, flags, out);
+  else
+    gm_block_pops_kernel<false><<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
+        c, params, m, sub, flags, out);
   return (int)cudaGetLastError();
 }

@@ -4,10 +4,10 @@
 //
 // Replaces the Pallas kernel _pallas_block_scan_multi
 // (geomesa_tpu/scan/block_kernels.py:847, body _make_pallas_kernel_multi
-// :794) for its box, window, packed-time, validity, point-in-polygon and
-// raster legs, with the per-query edge and raster stacks and the per-slot
-// selector spip (:870-886). The extent leg is not ported: the wrapper
-// raises NotImplementedError for it.
+// :794): its box, window, packed-time, validity, point-in-polygon, raster
+// and extent legs, with the per-query edge and raster stacks and the
+// per-slot selector spip (:870-886). Extent members fuse on the wide plane
+// alone (no edge or raster stacks; inner is null for a box chunk).
 //
 // Bound on the H100: memory for box chunks, as for block_scan.cu. Each
 // slot reads one column block once and writes 1/32 of it per plane; the
@@ -32,6 +32,7 @@
 
 #include "masks.cuh"
 
+template <bool EXT>
 __global__ void __launch_bounds__(1024)
 gm_block_scan_multi_kernel(GmCols c, const int* __restrict__ params, int m, int q, int sub,
                            int flags, int e_cap, int r_cap, int* __restrict__ wide,
@@ -60,28 +61,31 @@ gm_block_scan_multi_kernel(GmCols c, const int* __restrict__ params, int m, int 
     unsigned int wbits = 0u, ibits = 0u;
     for (int b = 0; b < 32; ++b) {
       const unsigned m2 =
-          gm_row_bits(c, p, &poly, gm_row(base, j, b, lane), flags, leg, n_box, n_win);
+          gm_row_bits<EXT>(c, p, &poly, gm_row(base, j, b, lane), flags, leg, n_box, n_win);
       wbits |= (m2 & GM_WIDE) << b;
       ibits |= ((m2 & GM_INNER) >> 1) << b;
     }
     const long long o = ((long long)slot * pack + j) * GM_LANES + lane;
     wide[o] = (int)wbits;
-    inner[o] = (int)ibits;
+    if (inner) inner[o] = (int)ibits;
   }
 }
 
-// wide, inner: int32 [m, sub/32, 128]. params: bids[m] | qids[m] |
-// (spip[m]) | the q queries' slot words and counts | (their polygon
-// blocks at caps e_cap, r_cap: the chunk's buckets). Returns
-// cudaGetLastError() of the launch.
-extern "C" int gm_block_scan_multi(const float* x, const float* y, const int* t0,
-                                   const int* t1, const int* params, int m, int q, int sub,
+// wide, inner: int32 [m, sub/32, 128]; inner null writes the wide plane
+// alone. params: bids[m] | qids[m] | (spip[m]) | the q queries' slot words
+// and counts | (their polygon blocks at caps e_cap, r_cap: the chunk's
+// buckets). Returns cudaGetLastError() of the launch.
+extern "C" int gm_block_scan_multi(GM_COL_ARGS, const int* params, int m, int q, int sub,
                                    int flags, int e_cap, int r_cap, int* wide, int* inner,
                                    void* stream) {
   if (m <= 0) return 0;
   if (e_cap > GM_MAX_EDGES || r_cap > GM_MAX_RINTS) return (int)cudaErrorInvalidValue;
-  const GmCols c{x, y, t0, t1};
-  gm_block_scan_multi_kernel<<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
-      c, params, m, q, sub, flags, e_cap, r_cap, wide, inner);
+  const GmCols c = GM_COLS;
+  if (gm_extent(flags))
+    gm_block_scan_multi_kernel<true><<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
+        c, params, m, q, sub, flags, e_cap, r_cap, wide, inner);
+  else
+    gm_block_scan_multi_kernel<false><<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
+        c, params, m, q, sub, flags, e_cap, r_cap, wide, inner);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
 // Per-slot bounds stats: [count, xmin, xmax, ymin, ymax, 0, 0, 0] over the
-// wide-predicate hits of each candidate block.
+// representative points of the wide-predicate hits of each candidate
+// block (the point, or on an extent table the bbox centre, _rep_xy).
 //
 // Replaces the Pallas kernel _pallas_bounds
-// (geomesa_tpu/scan/aggregations.py:358, body _make_bounds_kernel :322).
+// (geomesa_tpu/scan/aggregations.py:358, body _make_bounds_kernel :322),
+// every leg.
 //
 // Bound on the H100: memory; each row is read once and reduced in
 // registers.
@@ -41,6 +43,7 @@ __device__ __forceinline__ void gm_warp_reduce(GmStats& s) {
   }
 }
 
+template <bool EXT>
 __global__ void __launch_bounds__(1024)
 gm_bounds_kernel(GmCols c, const int* __restrict__ params, int m, int sub,
                  int flags, float* __restrict__ out) {
@@ -58,8 +61,9 @@ gm_bounds_kernel(GmCols c, const int* __restrict__ params, int m, int sub,
   for (int j = threadIdx.y; j < pack; j += blockDim.y) {
     for (int b = 0; b < 32; ++b) {
       const long long r = gm_row(base, j, b, lane);
-      if (gm_row_bits(c, p, r, flags, n_box, n_win) & GM_WIDE) {
-        const float x = c.x[r], y = c.y[r];
+      if (gm_row_bits<EXT>(c, p, r, flags, n_box, n_win) & GM_WIDE) {
+        float x, y;
+        gm_rep_xy<EXT>(c, r, flags, x, y);
         gm_fold(s, 1, x, x, y, y);
       }
     }
@@ -88,12 +92,15 @@ gm_bounds_kernel(GmCols c, const int* __restrict__ params, int m, int sub,
 }
 
 // out: f32 [m, 8]. params: bids[m] | boxes | wins | slot counts.
-extern "C" int gm_bounds(const float* x, const float* y, const int* t0,
-                         const int* t1, const int* params, int m, int sub,
-                         int flags, float* out, void* stream) {
+extern "C" int gm_bounds(GM_COL_ARGS, const int* params, int m, int sub, int flags,
+                         float* out, void* stream) {
   if (m <= 0) return 0;
-  const GmCols c{x, y, t0, t1};
-  gm_bounds_kernel<<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
-      c, params, m, sub, flags, out);
+  const GmCols c = GM_COLS;
+  if (gm_extent(flags))
+    gm_bounds_kernel<true><<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
+        c, params, m, sub, flags, out);
+  else
+    gm_bounds_kernel<false><<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
+        c, params, m, sub, flags, out);
   return (int)cudaGetLastError();
 }

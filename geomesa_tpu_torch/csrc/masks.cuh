@@ -1,10 +1,27 @@
 // Shared predicate legs of the port's scan-path kernels (block_scan.cu,
 // block_scan_multi.cu, block_pops.cu, density.cu, bounds.cu): the box,
-// window, packed-time, validity, point-in-polygon and raster legs of
-// _masks in geomesa_tpu/scan/block_kernels.py:509-630 (the polygon legs
-// after _pip_edge_step :418, _rint_step :460 and _raster_cell :471),
-// evaluated for one row of a [n_blocks, SUB, 128] column block. The two
-// scan kernels take the polygon legs; the aggregation kernels never do.
+// extent, window, packed-time, validity, point-in-polygon and raster legs
+// of _masks in geomesa_tpu/scan/block_kernels.py:509-630 (the polygon legs
+// after _pip_edge_step :418, _rint_step :460 and _raster_cell :471), and
+// the aggregations' representative point (_rep_xy,
+// geomesa_tpu/scan/aggregations.py:46), evaluated for one row of a
+// [n_blocks, SUB, 128] column block. The two scan kernels take the polygon
+// legs; the aggregation kernels never do.
+//
+// Extent leg (XZ tables, flag GM_EXTENT): the box leg is bbox-intersects
+// over the four f32 extent columns (gxmin <= box.xmax, gxmax >= box.xmin,
+// likewise in y) against the wide box slots, and its inner plane is all
+// false: a bbox test never certifies the true geometry, so every hit
+// refines on the host. The stored extents are already widened one f32 ulp
+// outward; the kernels compare the stored values and recompute nothing.
+// Pad rows carry gxmin = +inf, gxmax = -inf and never intersect; with no
+// predicate the validity test is isfinite(gxmin) (GM_VALID_ON_G). The
+// aggregations' point of an extent row is the bbox centre,
+// (gxmin + gxmax) * 0.5 in f32, add then multiply as the reference.
+// The extent code is a template branch (EXT): each kernel is instantiated
+// twice and the entry point picks the extent instance when the flags ask
+// for the extent columns (gm_extent), so the point legs compile exactly as
+// they would without it.
 //
 // Parameter staging: the host packs one int32 buffer per query and sends
 // it in one copy,
@@ -49,6 +66,8 @@
 #define GM_VALID_ON_T 8
 #define GM_HAS_EDGES 16
 #define GM_HAS_RAST 32
+#define GM_EXTENT 64
+#define GM_VALID_ON_G 128
 #define GM_TW_BITS 16
 #define GM_TW_MASK 0xFFFF
 #define GM_MAX_EDGES 256
@@ -97,14 +116,26 @@ __host__ __device__ __forceinline__ int gm_leg(int flags, bool poly_slot) {
   return (flags & GM_HAS_BOXES) ? GM_LEG_BOX : GM_LEG_NONE;
 }
 
-// x, y: f32 coordinates; t0: tbin, or the packed tw column; t1: toff.
-// Columns a query does not read are null and never touched.
+// x, y: f32 coordinates of a point table; gx0, gy0, gx1, gy1: the f32
+// extent columns (gxmin, gymin, gxmax, gymax) of an extent table; t0:
+// tbin, or the packed tw column; t1: toff. Columns a query does not read
+// are null and never touched.
 struct GmCols {
   const float* __restrict__ x;
   const float* __restrict__ y;
+  const float* __restrict__ gx0;
+  const float* __restrict__ gy0;
+  const float* __restrict__ gx1;
+  const float* __restrict__ gy1;
   const int* __restrict__ t0;
   const int* __restrict__ t1;
 };
+
+// The entry points' leading column arguments, in GmCols order.
+#define GM_COL_ARGS                                                              \
+  const float *x, const float *y, const float *gx0, const float *gy0,           \
+      const float *gx1, const float *gy1, const int *t0, const int *t1
+#define GM_COLS GmCols{x, y, gx0, gy0, gx1, gy1, t0, t1}
 
 __device__ __forceinline__ int gm_tid() {
   return threadIdx.y * blockDim.x + threadIdx.x;
@@ -196,6 +227,12 @@ __device__ __forceinline__ void gm_raster(const GmPoly& p, float x, float y, boo
 #define GM_WIDE 1u
 #define GM_INNER 2u
 
+// Whether a launch reads the extent columns: the instance of the kernels
+// to run.
+__host__ __forceinline__ bool gm_extent(int flags) {
+  return (flags & (GM_EXTENT | GM_VALID_ON_G)) != 0;
+}
+
 // Wide (bit 0) and inner (bit 1) of the row at flat offset r. The spatial
 // leg (``leg``: the box slots, or the polygon legs read from ``poly``,
 // which may be null otherwise) and the windows AND together; with
@@ -205,11 +242,21 @@ __device__ __forceinline__ void gm_raster(const GmPoly& p, float x, float y, boo
 // _masks does: PIP alone wide = parity | near, inner = parity & ~near;
 // raster alone wide = full | part, inner = full; both, the ray cast
 // decides the partial cells only (a row that is not partial needs none).
+template <bool EXT>
 __device__ __forceinline__ unsigned gm_row_bits(const GmCols& c, const GmParams& p,
                                                 const GmPoly* poly, long long r, int flags,
                                                 int leg, int n_box, int n_win) {
   bool w = true, in = true;
-  if (leg == GM_LEG_BOX) {
+  if (EXT && leg == GM_LEG_BOX && (flags & GM_EXTENT)) {
+    const float x0 = c.gx0[r], y0 = c.gy0[r], x1 = c.gx1[r], y1 = c.gy1[r];
+    bool hit = false;
+    for (int k = 0; k < n_box; ++k) {
+      const float* b = p.box[k];
+      hit |= (x0 <= b[2]) & (x1 >= b[0]) & (y0 <= b[3]) & (y1 >= b[1]);
+    }
+    w = hit;
+    in = false;
+  } else if (leg == GM_LEG_BOX) {
     const float x = c.x[r], y = c.y[r];
     bool bw = false, bi = false;
     for (int k = 0; k < n_box; ++k) {
@@ -259,18 +306,37 @@ __device__ __forceinline__ unsigned gm_row_bits(const GmCols& c, const GmParams&
     in = in && wi;
   }
   if (leg == GM_LEG_NONE && !(flags & GM_HAS_WINDOWS)) {
-    const bool v = (flags & GM_VALID_ON_T) ? (c.t0[r] >= 0) : (bool)isfinite(c.x[r]);
+    const bool v = (flags & GM_VALID_ON_T)          ? (c.t0[r] >= 0)
+                   : (EXT && (flags & GM_VALID_ON_G)) ? (bool)isfinite(c.gx0[r])
+                                                    : (bool)isfinite(c.x[r]);
     w = v;
     in = v;
   }
   return (w ? GM_WIDE : 0u) | (in ? GM_INNER : 0u);
 }
 
-// The box, window, packed-time and validity legs alone (the aggregation
-// kernels).
+// The box, extent, window, packed-time and validity legs alone (the
+// aggregation kernels).
+template <bool EXT>
 __device__ __forceinline__ unsigned gm_row_bits(const GmCols& c, const GmParams& p,
                                                 long long r, int flags, int n_box, int n_win) {
-  return gm_row_bits(c, p, nullptr, r, flags, gm_leg(flags, false), n_box, n_win);
+  return gm_row_bits<EXT>(c, p, nullptr, r, flags, gm_leg(flags, false), n_box, n_win);
+}
+
+// The aggregations' representative point of row r: the point, or the
+// extent's bbox centre, each coordinate added then halved in f32 (_rep_xy).
+// A pad row's centre is (+inf + -inf) * 0.5 = NaN; callers read it only
+// for rows that passed the wide predicate, which no pad row does.
+template <bool EXT>
+__device__ __forceinline__ void gm_rep_xy(const GmCols& c, long long r, int flags, float& x,
+                                          float& y) {
+  if (EXT && (flags & GM_EXTENT)) {
+    x = __fmul_rn(__fadd_rn(c.gx0[r], c.gx1[r]), 0.5f);
+    y = __fmul_rn(__fadd_rn(c.gy0[r], c.gy1[r]), 0.5f);
+  } else {
+    x = c.x[r];
+    y = c.y[r];
+  }
 }
 
 // Row (j*32 + b)*128 + lane of a block is bit b of word [j, lane] in the

@@ -4,9 +4,10 @@ The port of geomesa_tpu/datastore.py's main path (reference
 GeoMesaDataStore): create_schema -> write -> query / query_many / count /
 density / density_many / bounds / stats_query / explain, and serve() for
 concurrent callers. Point schemas get a Z3 index (when a time attribute
-exists) and a Z2 index, narrowed by the ``geomesa.indices.enabled`` user
-data; each index is a sorted IndexTable whose predicate columns live on
-the store's device.
+exists) and a Z2 index; extent schemas (polygons, lines, multi-geometries)
+an XZ3 and an XZ2 index; both narrowed by the ``geomesa.indices.enabled``
+user data. Each index is a sorted IndexTable whose predicate columns live
+on the store's device.
 
 The device is explicit: ``DataStore(device="cuda")`` (the default) raises
 when no CUDA device is present; tests pass ``device="cpu"``, where every
@@ -23,8 +24,8 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch.features import FeatureCollection
-from geomesa_tpu_torch.filter.predicates import INCLUDE, Filter, Include
-from geomesa_tpu_torch.index import Z2Index, Z3Index
+from geomesa_tpu_torch.filter.predicates import INCLUDE, Filter, Include, PointColumn
+from geomesa_tpu_torch.index import XZ2Index, XZ3Index, Z2Index, Z3Index
 from geomesa_tpu_torch.index.api import WriteKeys
 from geomesa_tpu_torch.planning.explain import Explainer
 from geomesa_tpu_torch.planning.planner import QueryPlanner, mask_decides_filter
@@ -91,10 +92,6 @@ class DataStore:
             raise ValueError(f"schema {sft.name!r} already exists")
         if sft.geom_field is None:
             raise ValueError(f"schema {sft.name!r} has no geometry attribute")
-        if not sft.is_points:
-            raise NotImplementedError(
-                f"schema {sft.name!r}: the port indexes point schemas only"
-            )
         self._schemas[sft.name] = sft
         self._indexes[sft.name] = self._choose_indexes(sft)
         self._chunks[sft.name] = []
@@ -104,9 +101,14 @@ class DataStore:
     @staticmethod
     def _choose_indexes(sft: FeatureType) -> list:
         indexes: list = []
-        if sft.dtg_field is not None:
-            indexes.append(Z3Index(sft))
-        indexes.append(Z2Index(sft))
+        if sft.is_points:
+            if sft.dtg_field is not None:
+                indexes.append(Z3Index(sft))
+            indexes.append(Z2Index(sft))
+        else:
+            if sft.dtg_field is not None:
+                indexes.append(XZ3Index(sft))
+            indexes.append(XZ2Index(sft))
         # reference `geomesa.indices.enabled` user-data hint
         enabled = sft.user_data.get("geomesa.indices.enabled")
         if enabled:
@@ -454,13 +456,19 @@ class DataStore:
 
 
 def _exact_bounds(fc: FeatureCollection) -> Optional[tuple]:
-    """Exact envelope of a result batch's points."""
+    """Exact envelope of a result batch's geometries (bboxes for extents)."""
     if len(fc) == 0:
         return None
     col = fc.geom_column
+    if isinstance(col, PointColumn):
+        return (
+            float(col.x.min()), float(col.y.min()),
+            float(col.x.max()), float(col.y.max()),
+        )
+    b = col.bboxes.astype(np.float64)
     return (
-        float(col.x.min()), float(col.y.min()),
-        float(col.x.max()), float(col.y.max()),
+        float(b[:, 0].min()), float(b[:, 1].min()),
+        float(b[:, 2].max()), float(b[:, 3].max()),
     )
 
 

@@ -1,10 +1,10 @@
 """Columnar feature collections: the host-side batch representation.
 
-The port's copy of geomesa_tpu/features.py for point schemas: a
-FeatureCollection is a struct-of-arrays batch (ids, one array per scalar
-attribute, the geometry as a PointColumn). It is both the ingest format
-and the query result format, and the ``batch`` mapping the filter
-predicates evaluate over.
+The port's copy of geomesa_tpu/features.py: a FeatureCollection is a
+struct-of-arrays batch (ids, one array per scalar attribute, the geometry
+as a PointColumn for point schemas or a PackedGeometryColumn for
+extents). It is both the ingest format and the query result format, and
+the ``batch`` mapping the filter predicates evaluate over.
 """
 
 from __future__ import annotations
@@ -30,22 +30,14 @@ def _date_to_millis(v) -> int:
     raise TypeError(f"cannot convert {type(v)} to epoch millis")
 
 
-def _require_points(sft: FeatureType) -> None:
-    if not sft.is_points:
-        raise NotImplementedError(
-            f"schema {sft.name!r} stores {sft.geom_type} geometries; the "
-            "port holds point schemas only"
-        )
-
-
 @dataclass
 class FeatureCollection:
-    """A batch of features for one point FeatureType, stored column-wise.
+    """A batch of features for one FeatureType, stored column-wise.
 
     - ``ids``: numpy array of feature ids
     - ``columns``: attribute name -> numpy array (Date attrs = int64 millis,
       strings = unicode arrays); the geometry attribute maps to a
-      PointColumn
+      PointColumn (point schemas) or a PackedGeometryColumn (extents)
     """
 
     sft: FeatureType
@@ -74,10 +66,22 @@ class FeatureCollection:
         return self.columns[g] if g else None
 
     def representative_xy(self) -> tuple[np.ndarray, np.ndarray]:
-        """(x, y) representative coordinate per feature: the point itself
-        (the same representative the device aggregation kernels use)."""
+        """(x, y) representative coordinate per feature: the point itself,
+        or the bbox midpoint for extent geometries (the representative the
+        device aggregation kernels use, there in f32)."""
         col = self.geom_column
-        return col.x, col.y
+        if isinstance(col, PointColumn):
+            return col.x, col.y
+        b = col.bboxes.astype(np.float64)
+        return (b[:, 0] + b[:, 2]) * 0.5, (b[:, 1] + b[:, 3]) * 0.5
+
+    def geometries(self) -> list[geo.Geometry]:
+        col = self.geom_column
+        if col is None:
+            return []
+        if isinstance(col, PointColumn):
+            return [geo.Point(float(x), float(y)) for x, y in zip(col.x, col.y)]
+        return col.geometries()
 
     def take(self, idx) -> "FeatureCollection":
         idx = np.asarray(idx)
@@ -85,6 +89,8 @@ class FeatureCollection:
         for name, col in self.columns.items():
             if isinstance(col, PointColumn):
                 cols[name] = PointColumn(col.x[idx], col.y[idx])
+            elif isinstance(col, geo.PackedGeometryColumn):
+                cols[name] = col.take(idx)
             else:
                 cols[name] = np.asarray(col)[idx]
         return FeatureCollection(self.sft, self.ids[idx], cols)
@@ -96,10 +102,9 @@ class FeatureCollection:
     def from_rows(sft: FeatureType, rows: Sequence[Mapping], ids: Sequence[str] | None = None) -> "FeatureCollection":
         """Build from per-feature dicts: {attr: value, ...}.
 
-        Geometry values may be Point objects or WKT strings; dates may be
+        Geometry values may be Geometry objects or WKT strings; dates may be
         epoch millis, datetime64, or ISO strings. Missing ids are generated.
         """
-        _require_points(sft)
         n = len(rows)
         if ids is None:
             ids = [str(r.get("__id__", i)) for i, r in enumerate(rows)]
@@ -110,9 +115,12 @@ class FeatureCollection:
                 geoms = [
                     geo.from_wkt(v) if isinstance(v, str) else v for v in vals
                 ]
-                xs = np.array([g.x for g in geoms], dtype=np.float64)
-                ys = np.array([g.y for g in geoms], dtype=np.float64)
-                cols[attr.name] = PointColumn(xs, ys)
+                if sft.is_points and attr.name == sft.geom_field:
+                    xs = np.array([g.x for g in geoms], dtype=np.float64)
+                    ys = np.array([g.y for g in geoms], dtype=np.float64)
+                    cols[attr.name] = PointColumn(xs, ys)
+                else:
+                    cols[attr.name] = geo.PackedGeometryColumn.from_geometries(geoms)
             elif attr.type == "Date":
                 cols[attr.name] = np.array(
                     [_date_to_millis(v) for v in vals], dtype=np.int64
@@ -137,19 +145,21 @@ class FeatureCollection:
         columns: Mapping[str, object],
     ) -> "FeatureCollection":
         """Build from pre-columnar data; the geometry column may be an
-        (x, y) tuple of arrays or a PointColumn."""
-        _require_points(sft)
+        (x, y) tuple of arrays, a PointColumn, a PackedGeometryColumn, or a
+        list of Geometry objects."""
         cols: dict = {}
         for attr in sft.attributes:
             col = columns[attr.name]
             if attr.is_geometry:
-                if isinstance(col, PointColumn):
+                if isinstance(col, (PointColumn, geo.PackedGeometryColumn)):
                     cols[attr.name] = col
-                else:
+                elif isinstance(col, tuple):
                     cols[attr.name] = PointColumn(
                         np.asarray(col[0], dtype=np.float64),
                         np.asarray(col[1], dtype=np.float64),
                     )
+                else:
+                    cols[attr.name] = geo.PackedGeometryColumn.from_geometries(col)
             elif attr.type == "Date":
                 c = np.asarray(col)
                 if c.dtype.kind == "M":
@@ -176,6 +186,8 @@ class FeatureCollection:
                     np.concatenate([v.x for v in vals]),
                     np.concatenate([v.y for v in vals]),
                 )
+            elif isinstance(vals[0], geo.PackedGeometryColumn):
+                cols[name] = geo.PackedGeometryColumn.concat(vals)
             else:
                 cols[name] = np.concatenate(vals)
         return FeatureCollection(sft, ids, cols)

@@ -1,10 +1,12 @@
 """Filter predicate AST with vectorized (columnar) evaluation.
 
-The port's copy of geomesa_tpu/filter/predicates.py for point schemas:
+The port's copy of geomesa_tpu/filter/predicates.py:
 ``Filter.evaluate(batch)`` returns a boolean mask over a whole batch of
 features. This host path is the exactness reference the device scan
 mask is refined against, and the fallback for predicates the device
-cannot run.
+cannot run. Geometry columns in a batch are a ``PointColumn`` (point
+schemas) or a ``PackedGeometryColumn`` (extents: every XZ hit refines
+here, rectangles by vectorized box algebra).
 """
 
 from __future__ import annotations
@@ -81,15 +83,42 @@ EXCLUDE = Exclude()
 
 
 # ---------------------------------------------------------------------------
-# spatial (point columns)
+# spatial
 # ---------------------------------------------------------------------------
 
 
-def _points(batch, prop: str) -> PointColumn:
-    col = _column(batch, prop)
-    if not isinstance(col, PointColumn):
-        raise TypeError(f"not a point geometry column: {type(col)}")
-    return col
+def _ulp_out(x0: float, y0: float, x1: float, y1: float):
+    """Bounds widened one f32 ulp outward — matching the widening the
+    packed column applied to its stored bboxes, so bbox prefilters built
+    on >=/<= comparisons stay conservative."""
+    lo = np.nextafter(np.array([x0, y0], dtype=np.float32), -np.inf).astype(np.float64)
+    hi = np.nextafter(np.array([x1, y1], dtype=np.float32), np.inf).astype(np.float64)
+    return float(lo[0]), float(lo[1]), float(hi[0]), float(hi[1])
+
+
+def _eval_spatial(col, fn_points, fn_geom, candidates=None) -> np.ndarray:
+    """Exact per-geometry evaluation over a packed column, restricted to
+    ``candidates`` (a bool mask from a vectorized bbox prefilter — rows
+    outside it are definitively False)."""
+    if isinstance(col, PointColumn):
+        return fn_points(col.x, col.y)
+    if isinstance(col, geo.PackedGeometryColumn):
+        out = np.zeros(len(col), dtype=bool)
+        rows = range(len(col)) if candidates is None else np.nonzero(candidates)[0]
+        for i in rows:
+            out[i] = fn_geom(col.geometry(int(i)))
+        return out
+    raise TypeError(f"not a geometry column: {type(col)}")
+
+
+def _per_geom_vertex_counts(col: "geo.PackedGeometryColumn", vertex_mask):
+    """How many of each geometry's pool vertices satisfy ``vertex_mask``
+    ([total_verts] bool) — the cumsum reduction over the contiguous
+    per-geometry coord slices."""
+    csum = np.concatenate([[0], np.cumsum(vertex_mask)])
+    first_ring = col.part_ring_offsets[col.geom_part_offsets].astype(np.int64)
+    bounds_ix = col.ring_offsets[first_ring].astype(np.int64)
+    return csum[bounds_ix[1:]] - csum[bounds_ix[:-1]]
 
 
 @dataclass(frozen=True)
@@ -111,13 +140,62 @@ class BBox(Filter):
         return (self.xmin, self.ymin, self.xmax, self.ymax)
 
     def evaluate(self, batch):
-        col = _points(batch, self.prop)
-        return (
-            (col.x >= self.xmin)
-            & (col.x <= self.xmax)
-            & (col.y >= self.ymin)
-            & (col.y <= self.ymax)
+        col = _column(batch, self.prop)
+        if isinstance(col, PointColumn):
+            return (
+                (col.x >= self.xmin)
+                & (col.x <= self.xmax)
+                & (col.y >= self.ymin)
+                & (col.y <= self.ymax)
+            )
+        if isinstance(col, geo.PackedGeometryColumn):
+            q = np.array(self.bounds)
+            bx = geo.box(*self.bounds)
+            return _packed_box_intersects(col, q, bx)
+        raise TypeError(f"not a geometry column: {type(col)}")
+
+
+def _packed_box_intersects(
+    col: "geo.PackedGeometryColumn", q: np.ndarray, g: "geo.Geometry"
+) -> np.ndarray:
+    """Geometry-intersects-axis-aligned-box over a packed column.
+
+    Rectangle features (geometry == bbox: footprints, tiles, extents)
+    resolve exactly with vectorized f64 bbox algebra; only non-rectangle
+    candidates fall to per-geometry exact tests."""
+    rough = geo.bbox_intersects(col.bboxes.astype(np.float64), q)
+    bmask, bb = col.box_info()
+    out = (
+        bmask
+        & (bb[:, 0] <= q[2]) & (bb[:, 2] >= q[0])
+        & (bb[:, 1] <= q[3]) & (bb[:, 3] >= q[1])
+    )
+    hard = rough & ~bmask
+    n_hard = int(hard.sum())
+    if 0 < n_hard <= 64:
+        # a handful of non-rect candidates (e.g. a few odd polygons in a
+        # mostly-rectangle column): the per-geometry loop beats scanning
+        # the whole coords pool
+        for i in np.nonzero(hard)[0]:
+            out[i] = geo.intersects(col.geometry(int(i)), g)
+    elif n_hard:
+        # vectorized accept tier for arbitrary (non-rectangle) geometries:
+        # the query here is ALWAYS an axis-aligned rect (both call sites
+        # gate on is_rectangle), so any geometry VERTEX inside it proves
+        # intersection. Each geometry's coords are one contiguous pool
+        # slice; a cumsum turns the per-vertex test into per-geometry
+        # counts. Only vertex-free overlaps (rect fully inside the
+        # geometry, or pure edge crossings) fall to the per-geometry loop.
+        c = col.coords
+        inb = (
+            (c[:, 0] >= q[0]) & (c[:, 0] <= q[2])
+            & (c[:, 1] >= q[1]) & (c[:, 1] <= q[3])
         )
+        any_vertex = _per_geom_vertex_counts(col, inb) > 0
+        out |= hard & any_vertex
+        for i in np.nonzero(hard & ~any_vertex)[0]:
+            out[i] = geo.intersects(col.geometry(int(i)), g)
+    return out
 
 
 @dataclass(frozen=True)
@@ -128,25 +206,50 @@ class Intersects(Filter):
     geom: geo.Geometry
 
     def evaluate(self, batch):
-        col = _points(batch, self.prop)
+        col = _column(batch, self.prop)
         g = self.geom
-        # vectorized bbox prefilter bounds the per-point work to near-hit
-        # points (the Python loop below is exact but slow)
-        x0, y0, x1, y1 = g.bounds()
-        near = (col.x >= x0) & (col.x <= x1) & (col.y >= y0) & (col.y <= y1)
-        if isinstance(g, (geo.Polygon, geo.MultiPolygon)):
-            inside = np.zeros(len(col), dtype=bool)
-            ni = np.nonzero(near)[0]
-            inside[ni] = geo.points_in_polygon(col.x[ni], col.y[ni], g)
-            # boundary counts for intersects
-            nb = ni[~inside[ni]]
-            if len(nb):
-                inside[nb] = geo.points_on_boundary(col.x[nb], col.y[nb], g)
-            return inside
-        out = np.zeros(len(col), dtype=bool)
-        for i in np.nonzero(near)[0]:
-            out[i] = geo.intersects(geo.Point(float(col.x[i]), float(col.y[i])), g)
-        return out
+        if isinstance(col, PointColumn):
+            # vectorized bbox prefilter bounds the per-point work to
+            # near-hit points (the Python loops below are exact but slow)
+            x0, y0, x1, y1 = g.bounds()
+            near = (col.x >= x0) & (col.x <= x1) & (col.y >= y0) & (col.y <= y1)
+            if isinstance(g, (geo.Polygon, geo.MultiPolygon)):
+                inside = np.zeros(len(col), dtype=bool)
+                ni = np.nonzero(near)[0]
+                inside[ni] = geo.points_in_polygon(col.x[ni], col.y[ni], g)
+                # boundary counts for intersects — vectorized over the
+                # near-but-not-inside candidates (a per-point loop here
+                # cost seconds on dense bbox-near outside regions)
+                nb = ni[~inside[ni]]
+                if len(nb):
+                    inside[nb] = geo.points_on_boundary(
+                        col.x[nb], col.y[nb], g
+                    )
+                return inside
+            out = np.zeros(len(col), dtype=bool)
+            for i in np.nonzero(near)[0]:
+                out[i] = geo.intersects(geo.Point(float(col.x[i]), float(col.y[i])), g)
+            return out
+        if isinstance(col, geo.PackedGeometryColumn):
+            q = np.array(g.bounds())
+            if geo.is_rectangle(g):
+                return _packed_box_intersects(col, q, g)
+            rough = geo.bbox_intersects(col.bboxes.astype(np.float64), q)
+            out = np.zeros(len(col), dtype=bool)
+            n_rough = int(rough.sum())
+            if n_rough > 64 and isinstance(g, (geo.Polygon, geo.MultiPolygon)):
+                # accept tier for a POLYGON query over arbitrary features:
+                # any feature vertex inside the query polygon proves
+                # intersection (one vectorized ray cast over the coords pool)
+                c = col.coords
+                inside = geo.points_in_polygon(c[:, 0], c[:, 1], g)
+                n_in = _per_geom_vertex_counts(col, inside)
+                out |= rough & (n_in > 0)
+                rough &= ~out
+            for i in np.nonzero(rough)[0]:
+                out[i] = geo.intersects(col.geometry(int(i)), g)
+            return out
+        raise TypeError(f"not a geometry column: {type(col)}")
 
 
 @dataclass(frozen=True)
@@ -157,10 +260,40 @@ class Within(Filter):
     geom: geo.Geometry
 
     def evaluate(self, batch):
-        col = _points(batch, self.prop)
-        if not isinstance(self.geom, (geo.Polygon, geo.MultiPolygon)):
+        col = _column(batch, self.prop)
+        g = self.geom
+        if not isinstance(g, (geo.Polygon, geo.MultiPolygon)):
             raise ValueError("WITHIN requires a polygonal query geometry")
-        return geo.points_in_polygon(col.x, col.y, self.geom)
+        if isinstance(col, PointColumn):
+            return geo.points_in_polygon(col.x, col.y, g)
+        # necessary condition, vectorized: the feature's bbox lies inside
+        # the query's bbox (within implies bbox containment). Stored
+        # bboxes are f32-widened one ulp OUTWARD, so the query bounds
+        # widen by an ulp too — no true-within row is ever excluded;
+        # extra grazers fall to the exact check below.
+        x0, y0, x1, y1 = _ulp_out(*g.bounds())
+        b = col.bboxes.astype(np.float64)
+        cand = (b[:, 0] >= x0) & (b[:, 1] >= y0) & (b[:, 2] <= x1) & (b[:, 3] <= y1)
+        if geo.is_rectangle(g):
+            # two-tier for a rect query: rows whose OUTWARD-widened stored
+            # bbox fits inside the RAW query bounds are definitely within
+            # (true bbox subset of stored; boundary contact allowed, as
+            # JTS `within` permits boundary points). Only the sub-ulp
+            # boundary band (cand minus sure) needs the exact check, so
+            # a protruding vertex 1 ulp past the edge is never accepted.
+            rx0, ry0, rx1, ry1 = g.bounds()
+            sure = (
+                (b[:, 0] >= rx0) & (b[:, 1] >= ry0)
+                & (b[:, 2] <= rx1) & (b[:, 3] <= ry1)
+            )
+            out = _eval_spatial(
+                col, None, lambda feat: geo.contains(g, feat),
+                candidates=cand & ~sure,
+            )
+            return out | sure
+        return _eval_spatial(
+            col, None, lambda feat: geo.contains(g, feat), candidates=cand
+        )
 
 
 @dataclass(frozen=True)
@@ -171,10 +304,22 @@ class Contains(Filter):
     geom: geo.Geometry
 
     def evaluate(self, batch):
-        col = _points(batch, self.prop)
-        if isinstance(self.geom, geo.Point):
-            return (col.x == self.geom.x) & (col.y == self.geom.y)
-        return np.zeros(len(col), dtype=bool)
+        col = _column(batch, self.prop)
+        if isinstance(col, PointColumn):
+            if isinstance(self.geom, geo.Point):
+                return (col.x == self.geom.x) & (col.y == self.geom.y)
+            return np.zeros(len(col), dtype=bool)
+        # necessary condition, vectorized: the feature's bbox covers the
+        # query geometry's bbox (stored bboxes widen outward, so the
+        # direct comparison is already conservative for covering)
+        x0, y0, x1, y1 = self.geom.bounds()
+        b = col.bboxes.astype(np.float64)
+        cand = (b[:, 0] <= x0) & (b[:, 1] <= y0) & (b[:, 2] >= x1) & (b[:, 3] >= y1)
+        return _eval_spatial(
+            col, None, lambda feat: isinstance(feat, (geo.Polygon, geo.MultiPolygon))
+            and geo.contains(feat, self.geom),
+            candidates=cand,
+        )
 
 
 @dataclass(frozen=True)
@@ -186,25 +331,34 @@ class DWithin(Filter):
     dist: float
 
     def evaluate(self, batch):
-        col = _points(batch, self.prop)
-        if isinstance(self.geom, geo.Point):
-            return np.hypot(col.x - self.geom.x, col.y - self.geom.y) <= self.dist
-        # bbox prefilter: only points inside the distance-expanded envelope
-        # can be within range
-        x0, y0, x1, y1 = self.bounds
-        near = (col.x >= x0) & (col.x <= x1) & (col.y >= y0) & (col.y <= y1)
-        out = np.zeros(len(col), dtype=bool)
-        for i in np.nonzero(near)[0]:
-            out[i] = (
-                geo._point_geom_distance(float(col.x[i]), float(col.y[i]), self.geom)
-                <= self.dist
-            )
-        return out
+        col = _column(batch, self.prop)
+        if isinstance(col, PointColumn):
+            if isinstance(self.geom, geo.Point):
+                return np.hypot(col.x - self.geom.x, col.y - self.geom.y) <= self.dist
+            # bbox prefilter: only points inside the distance-expanded
+            # envelope can be within range
+            x0, y0, x1, y1 = self.bounds
+            near = (col.x >= x0) & (col.x <= x1) & (col.y >= y0) & (col.y <= y1)
+            out = np.zeros(len(col), dtype=bool)
+            for i in np.nonzero(near)[0]:
+                out[i] = (
+                    geo._point_geom_distance(float(col.x[i]), float(col.y[i]), self.geom)
+                    <= self.dist
+                )
+            return out
+        x0, y0, x1, y1 = _ulp_out(*self.bounds)
+        b = col.bboxes.astype(np.float64)
+        cand = (b[:, 0] <= x1) & (b[:, 2] >= x0) & (b[:, 1] <= y1) & (b[:, 3] >= y0)
+        return _eval_spatial(
+            col, None, lambda feat: geo.distance(feat, self.geom) <= self.dist,
+            candidates=cand,
+        )
 
     @property
     def bounds(self) -> tuple[float, float, float, float]:
         x0, y0, x1, y1 = self.geom.bounds()
         return (x0 - self.dist, y0 - self.dist, x1 + self.dist, y1 + self.dist)
+
 
 # ---------------------------------------------------------------------------
 # temporal (epoch-millis int64 columns)

@@ -1,15 +1,18 @@
-"""Geometry model: host objects, WKT codec and vectorized predicate math.
+"""Geometry model: host objects, WKT codec, packed columnar storage and
+vectorized predicate math.
 
 The port's copy of the parts of geomesa_tpu/geometry.py that features,
-ECQL parsing, filter extraction and host refinement of point schemas
-read: the geometry objects, the WKT codec, the exact predicates
-(even-odd ray casting, orientation tests) and the raster cell classifier
-of polygon queries. The packed extent column and WKB stay in the JAX
-package until the port takes extent schemas.
+ECQL parsing, filter extraction and host refinement read: the geometry
+objects, the WKT codec, the packed extent column of non-point schemas
+(flat coordinates + nested offsets, per-geometry f32 bboxes that become
+the XZ indexes' device columns), the exact predicates (even-odd ray
+casting, orientation tests, intersects / contains / distance) and the
+raster cell classifier of polygon queries. WKB stays in the JAX package.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -338,6 +341,350 @@ def from_wkt(text: str) -> Geometry:
     return g
 
 
+def is_rectangle(g: "Geometry") -> bool:
+    """True when ``g`` is a plain axis-aligned rectangle polygon (its
+    geometry IS its bbox): bbox algebra then answers spatial predicates
+    against it exactly. Every edge must be axis-aligned (a closed 5-point
+    "bowtie" has 2 distinct xs/ys but diagonal edges — not a rectangle)."""
+    if not isinstance(g, Polygon) or g.holes:
+        return False
+    ring = g.shell
+    if len(ring) != 5 or not np.array_equal(ring[0], ring[4]):
+        return False
+    xs = set(ring[:, 0].tolist())
+    ys = set(ring[:, 1].tolist())
+    if len(xs) != 2 or len(ys) != 2:
+        return False
+    dx = ring[1:, 0] != ring[:-1, 0]
+    dy = ring[1:, 1] != ring[:-1, 1]
+    return bool(np.all(dx ^ dy))  # each edge moves in exactly one axis
+
+
+# ---------------------------------------------------------------------------
+# packed columnar geometry pool (the device-facing storage layout)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PackedGeometryColumn:
+    """Arrow-style nested-list layout for a column of geometries.
+
+    - ``coords``            f64 [total_points, 2] — every vertex
+    - ``ring_offsets``      i32 [nrings + 1]  — ring r = coords[ro[r]:ro[r+1]]
+    - ``part_ring_offsets`` i32 [nparts + 1]  — part p owns rings pro[p]..pro[p+1]
+      (a polygon part's first ring is its shell, the rest are holes)
+    - ``geom_part_offsets`` i32 [n + 1]       — geometry i owns parts gpo[i]..gpo[i+1]
+    - ``types``             i8  [n]           — geometry type codes
+    - ``bboxes``            f32 [n, 4]        — (xmin, ymin, xmax, ymax), widened one
+      f32 ulp outward so the device prefilter never excludes a true hit
+
+    ``bboxes`` ships to the device as the four extent columns of the XZ
+    indexes' bbox-intersects leg; exact refinement decodes through the
+    offsets on the host.
+    """
+
+    coords: np.ndarray
+    ring_offsets: np.ndarray
+    part_ring_offsets: np.ndarray
+    geom_part_offsets: np.ndarray
+    types: np.ndarray
+    bboxes: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.types)
+
+    @staticmethod
+    def from_geometries(geoms: Sequence[Geometry]) -> "PackedGeometryColumn":
+        coords: list[np.ndarray] = []
+        ring_offsets = [0]
+        part_ring_offsets = [0]
+        geom_part_offsets = [0]
+        types = []
+        bboxes = []
+        total = 0
+
+        def add_ring(ring: np.ndarray):
+            nonlocal total
+            coords.append(ring)
+            total += len(ring)
+            ring_offsets.append(total)
+
+        def add_part(rings: list[np.ndarray]):
+            for r in rings:
+                add_ring(r)
+            part_ring_offsets.append(part_ring_offsets[-1] + len(rings))
+
+        for g in geoms:
+            types.append(g.type_code)
+            bboxes.append(g.bounds())
+            if isinstance(g, Point):
+                add_part([np.array([[g.x, g.y]])])
+            elif isinstance(g, LineString):
+                add_part([g.coords])
+            elif isinstance(g, Polygon):
+                add_part([g.shell] + g.holes)
+            elif isinstance(g, (MultiPoint, MultiLineString, MultiPolygon)):
+                for p in g.parts:
+                    if isinstance(p, Point):
+                        add_part([np.array([[p.x, p.y]])])
+                    elif isinstance(p, LineString):
+                        add_part([p.coords])
+                    else:
+                        add_part([p.shell] + p.holes)
+            else:
+                raise ValueError(f"cannot pack {type(g)}")
+            geom_part_offsets.append(len(part_ring_offsets) - 1)
+
+        b = np.array(bboxes, dtype=np.float64).reshape(len(types), 4)
+        lo = np.nextafter(b[:, :2].astype(np.float32), -np.inf)
+        hi = np.nextafter(b[:, 2:].astype(np.float32), np.inf)
+        return PackedGeometryColumn(
+            coords=np.concatenate(coords, axis=0) if coords else np.zeros((0, 2)),
+            ring_offsets=np.array(ring_offsets, dtype=np.int32),
+            part_ring_offsets=np.array(part_ring_offsets, dtype=np.int32),
+            geom_part_offsets=np.array(geom_part_offsets, dtype=np.int32),
+            types=np.array(types, dtype=np.int8),
+            bboxes=np.concatenate([lo, hi], axis=1).astype(np.float32),
+        )
+
+    @staticmethod
+    def from_boxes(xmin, ymin, xmax, ymax) -> "PackedGeometryColumn":
+        """Vectorized bulk constructor for n axis-aligned rectangle
+        polygons (building-footprint-style ingest): 5 CCW vertices each,
+        built with numpy broadcasting — no per-row Geometry objects."""
+        xmin = np.asarray(xmin, dtype=np.float64)
+        ymin = np.asarray(ymin, dtype=np.float64)
+        xmax = np.asarray(xmax, dtype=np.float64)
+        ymax = np.asarray(ymax, dtype=np.float64)
+        n = len(xmin)
+        coords = np.empty((n, 5, 2), dtype=np.float64)
+        coords[:, 0, 0] = xmin; coords[:, 0, 1] = ymin
+        coords[:, 1, 0] = xmax; coords[:, 1, 1] = ymin
+        coords[:, 2, 0] = xmax; coords[:, 2, 1] = ymax
+        coords[:, 3, 0] = xmin; coords[:, 3, 1] = ymax
+        coords[:, 4, 0] = xmin; coords[:, 4, 1] = ymin
+        b = np.stack([xmin, ymin, xmax, ymax], axis=1)
+        lo = np.nextafter(b[:, :2].astype(np.float32), -np.inf)
+        hi = np.nextafter(b[:, 2:].astype(np.float32), np.inf)
+        idx = np.arange(n + 1, dtype=np.int32)
+        col = PackedGeometryColumn(
+            coords=coords.reshape(-1, 2),
+            ring_offsets=idx * 5,
+            part_ring_offsets=idx,
+            geom_part_offsets=idx,
+            types=np.full(n, POLYGON, dtype=np.int8),
+            bboxes=np.concatenate([lo, hi], axis=1).astype(np.float32),
+        )
+        # every row is a rectangle by construction: seed the box_info
+        # cache (exact f64 bounds) so queries never pay the O(n) lazy
+        # rectangle detection on this column or its take() descendants,
+        # and mark the uniform 5-vertex layout so take() can use one
+        # width-10 row gather instead of nested offset expansion
+        col._box_info = (np.ones(n, dtype=bool), b.copy())
+        col._uniform_rect = True
+        return col
+
+    def box_info(self) -> tuple[np.ndarray, np.ndarray]:
+        """(mask [n] bool, bounds [n, 4] f64): which geometries are plain
+        axis-aligned rectangles (their geometry IS their bbox) and their
+        exact f64 bounds. For those rows, bbox algebra answers spatial
+        predicates exactly — the vectorized fast tier that keeps per-row
+        Python refinement off box-shaped features (footprints, tiles,
+        gridded extents). Computed once per column and cached."""
+        cached = getattr(self, "_box_info", None)
+        if cached is not None:
+            return cached
+        n = len(self)
+        bounds = np.full((n, 4), np.nan)
+        mask = self.types == POLYGON
+        # every geometry owns >= 1 part and every part >= 1 ring, so the
+        # first-part / first-ring lookups below are always in range
+        mask &= np.diff(self.geom_part_offsets) == 1
+        first_part = self.geom_part_offsets[:-1].astype(np.int64)
+        mask &= np.diff(self.part_ring_offsets)[first_part] == 1
+        first_ring = self.part_ring_offsets[first_part].astype(np.int64)
+        mask &= np.diff(self.ring_offsets)[first_ring] == 5
+        idx = np.flatnonzero(mask)
+        if len(idx):
+            starts = self.ring_offsets[first_ring[idx]].astype(np.int64)
+            pts = self.coords[starts[:, None] + np.arange(5)]  # [k, 5, 2]
+            x0 = pts[..., 0].min(axis=1)
+            x1 = pts[..., 0].max(axis=1)
+            y0 = pts[..., 1].min(axis=1)
+            y1 = pts[..., 1].max(axis=1)
+            ok = (pts[:, 0] == pts[:, 4]).all(axis=1)  # closed ring
+            # every vertex on a corner, and all four corners present
+            on_x = (pts[..., 0] == x0[:, None]) | (pts[..., 0] == x1[:, None])
+            on_y = (pts[..., 1] == y0[:, None]) | (pts[..., 1] == y1[:, None])
+            ok &= (on_x & on_y).all(axis=1)
+            # every edge axis-aligned (excludes corner-ordered "bowties",
+            # whose diagonal edges make the interior smaller than the bbox)
+            dx = pts[:, 1:, 0] != pts[:, :-1, 0]
+            dy = pts[:, 1:, 1] != pts[:, :-1, 1]
+            ok &= (dx ^ dy).all(axis=1)
+            for cx, cy in ((x0, y0), (x1, y0), (x1, y1), (x0, y1)):
+                ok &= (
+                    (pts[..., 0] == cx[:, None]) & (pts[..., 1] == cy[:, None])
+                ).any(axis=1)
+            mask[idx[~ok]] = False
+            keep = idx[ok]
+            bounds[keep, 0] = x0[ok]
+            bounds[keep, 1] = y0[ok]
+            bounds[keep, 2] = x1[ok]
+            bounds[keep, 3] = y1[ok]
+        self._box_info = (mask, bounds)
+        return self._box_info
+
+    # -- unpacking -------------------------------------------------------
+    def _ring(self, r: int) -> np.ndarray:
+        return self.coords[self.ring_offsets[r] : self.ring_offsets[r + 1]]
+
+    def _part_rings(self, p: int) -> list[np.ndarray]:
+        r0, r1 = int(self.part_ring_offsets[p]), int(self.part_ring_offsets[p + 1])
+        return [self._ring(r) for r in range(r0, r1)]
+
+    def geometry(self, i: int) -> Geometry:
+        code = int(self.types[i])
+        p0, p1 = int(self.geom_part_offsets[i]), int(self.geom_part_offsets[i + 1])
+        if code == POINT:
+            c = self._part_rings(p0)[0]
+            return Point(c[0, 0], c[0, 1])
+        if code == LINESTRING:
+            return LineString(self._part_rings(p0)[0])
+        if code == POLYGON:
+            rings = self._part_rings(p0)
+            return Polygon(rings[0], rings[1:])
+        if code == MULTIPOINT:
+            return MultiPoint(
+                [Point(*self._part_rings(p)[0][0]) for p in range(p0, p1)]
+            )
+        if code == MULTILINESTRING:
+            return MultiLineString(
+                [LineString(self._part_rings(p)[0]) for p in range(p0, p1)]
+            )
+        if code == MULTIPOLYGON:
+            polys = []
+            for p in range(p0, p1):
+                rings = self._part_rings(p)
+                polys.append(Polygon(rings[0], rings[1:]))
+            return MultiPolygon(polys)
+        raise ValueError(f"bad type code {code}")
+
+    def geometries(self) -> list[Geometry]:
+        return [self.geometry(i) for i in range(len(self))]
+
+    def take(self, idx: np.ndarray) -> "PackedGeometryColumn":
+        """Subset by geometry indices (used when gathering query results).
+
+        Pure array surgery — slices the nested offsets without
+        materializing host geometry objects (this runs on every extent
+        query's result gather).
+        """
+        idx = np.asarray(idx, dtype=np.int64)
+
+        if getattr(self, "_uniform_rect", False):
+            return self._take_uniform_rect(idx)
+
+        def expand(starts, ends):
+            """Concatenate aranges [starts[i], ends[i]) -> flat index list."""
+            lens = ends - starts
+            if len(lens) == 0 or lens.sum() == 0:
+                return np.zeros(0, dtype=np.int64), np.zeros(1, dtype=np.int32)
+            flat = np.repeat(starts - np.concatenate([[0], np.cumsum(lens)[:-1]]), lens) + np.arange(lens.sum())
+            offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+            return flat, offsets
+
+        p_flat, gpo = expand(
+            self.geom_part_offsets[idx].astype(np.int64),
+            self.geom_part_offsets[idx + 1].astype(np.int64),
+        )
+        r_flat, pro = expand(
+            self.part_ring_offsets[p_flat].astype(np.int64),
+            self.part_ring_offsets[p_flat + 1].astype(np.int64),
+        )
+        c_flat, ro = expand(
+            self.ring_offsets[r_flat].astype(np.int64),
+            self.ring_offsets[r_flat + 1].astype(np.int64),
+        )
+
+        col = PackedGeometryColumn(
+            coords=self.coords[c_flat],
+            ring_offsets=ro,
+            part_ring_offsets=pro,
+            geom_part_offsets=gpo,
+            types=self.types[idx],
+            bboxes=self.bboxes[idx],
+        )
+        cached = getattr(self, "_box_info", None)
+        if cached is not None:  # rectangle classification survives a subset
+            col._box_info = (cached[0][idx], cached[1][idx])
+        return col
+
+    def _take_uniform_rect(self, idx: np.ndarray) -> "PackedGeometryColumn":
+        """take() fast path for from_boxes columns: every geometry is one
+        5-vertex ring, so the subset is a single [n, 10] row gather plus
+        arange offsets — ~5x fewer latency-bound lookups than the generic
+        nested expansion. (The JAX package routes these gathers through its
+        threaded C++ take; the port indexes with numpy.)"""
+        n = len(idx)
+        coords10 = np.ascontiguousarray(self.coords).reshape(len(self), 10)[idx]
+        off = np.arange(n + 1, dtype=np.int32)
+        col = PackedGeometryColumn(
+            coords=coords10.reshape(-1, 2),
+            ring_offsets=off * 5,
+            part_ring_offsets=off,
+            geom_part_offsets=off,
+            types=self.types[idx],
+            bboxes=self.bboxes[idx],
+        )
+        cached = getattr(self, "_box_info", None)
+        if cached is not None:
+            col._box_info = (cached[0][idx], cached[1][idx])
+        col._uniform_rect = True
+        return col
+
+    @staticmethod
+    def concat(cols: Sequence["PackedGeometryColumn"]) -> "PackedGeometryColumn":
+        """Concatenate columns by shifting the nested offset arrays."""
+        cols = list(cols)
+        if len(cols) == 1:
+            return cols[0]
+
+        def stack_offsets(arrays, shifts):
+            out = [arrays[0]]
+            for a, s in zip(arrays[1:], shifts[1:]):
+                out.append(a[1:].astype(np.int64) + s)
+            return np.concatenate(out).astype(np.int32)
+
+        coord_shift = np.concatenate([[0], np.cumsum([len(c.coords) for c in cols])])
+        ring_shift = np.concatenate(
+            [[0], np.cumsum([len(c.ring_offsets) - 1 for c in cols])]
+        )
+        part_shift = np.concatenate(
+            [[0], np.cumsum([len(c.part_ring_offsets) - 1 for c in cols])]
+        )
+        out = PackedGeometryColumn(
+            coords=np.concatenate([c.coords for c in cols], axis=0),
+            ring_offsets=stack_offsets([c.ring_offsets for c in cols], coord_shift),
+            part_ring_offsets=stack_offsets(
+                [c.part_ring_offsets for c in cols], ring_shift
+            ),
+            geom_part_offsets=stack_offsets(
+                [c.geom_part_offsets for c in cols], part_shift
+            ),
+            types=np.concatenate([c.types for c in cols]),
+            bboxes=np.concatenate([c.bboxes for c in cols], axis=0),
+        )
+        caches = [getattr(c, "_box_info", None) for c in cols]
+        if all(c is not None for c in caches):
+            out._box_info = (
+                np.concatenate([c[0] for c in caches]),
+                np.concatenate([c[1] for c in caches], axis=0),
+            )
+        if all(getattr(c, "_uniform_rect", False) for c in cols):
+            out._uniform_rect = True
+        return out
+
 
 # ---------------------------------------------------------------------------
 # predicate math (vectorized numpy)
@@ -558,6 +905,60 @@ def _point_on_rings(g: Geometry, x: float, y: float) -> bool:
         if on.any():
             return True
     return False
+
+
+def contains(a: Geometry, b: Geometry) -> bool:
+    """Does polygonal `a` contain `b`? (all of b's vertices inside a, no
+    boundary crossing, and no hole of `a` lying inside b — the JTS
+    `contains` for the cases the query path needs: polygon contains
+    point/line/polygon)."""
+    if not isinstance(a, (Polygon, MultiPolygon)):
+        raise ValueError("contains() requires a polygonal left operand")
+    if isinstance(b, Point):
+        return bool(points_in_polygon(b.x, b.y, a))
+    if isinstance(b, MultiPoint):
+        return all(bool(points_in_polygon(p.x, p.y, a)) for p in b.parts)
+    verts = np.concatenate(_rings_of(b), axis=0)
+    if not bool(points_in_polygon(verts[:, 0], verts[:, 1], a).all()):
+        return False
+    if _any_edge_intersection(a, b):
+        return False
+    # a hole of `a` strictly inside b excludes part of b's interior even
+    # though no vertex of b touches it and no edges cross
+    if isinstance(b, (Polygon, MultiPolygon)):
+        holes = (
+            a.holes
+            if isinstance(a, Polygon)
+            else [h for p in a.parts for h in p.holes]
+        )
+        for h in holes:
+            if bool(points_in_polygon(h[:-1, 0], h[:-1, 1], b).any()):
+                return False
+    return True
+
+
+def distance(a: Geometry, b: Geometry) -> float:
+    """Euclidean (planar degrees) distance between two geometries."""
+    if isinstance(a, Point) and isinstance(b, Point):
+        return float(np.hypot(a.x - b.x, a.y - b.y))
+    if isinstance(a, Point):
+        return _point_geom_distance(a.x, a.y, b)
+    if isinstance(b, Point):
+        return _point_geom_distance(b.x, b.y, a)
+    if intersects(a, b):
+        return 0.0
+    va = np.concatenate(_rings_of(a), axis=0)
+    best = np.inf
+    for ring in _rings_of(b):
+        p1, p2 = _ring_edges(ring)
+        for v in va:
+            best = min(best, float(_point_segments_distance(v[0], v[1], p1, p2).min()))
+    vb = np.concatenate(_rings_of(b), axis=0)
+    for ring in _rings_of(a):
+        p1, p2 = _ring_edges(ring)
+        for v in vb:
+            best = min(best, float(_point_segments_distance(v[0], v[1], p1, p2).min()))
+    return best
 
 
 def _point_segments_distance(x, y, p1: np.ndarray, p2: np.ndarray) -> np.ndarray:

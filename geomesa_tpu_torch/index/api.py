@@ -43,6 +43,8 @@ class ScanConfig:
       one f32 ulp outward so the device mask never drops a true hit
     - ``windows``: i32 [W, 3] (bin, off_lo, off_hi) inclusive time windows,
       or None for atemporal indexes
+    - ``extent_mode``: the device test is bbox-*intersects* against the
+      per-feature extent columns (XZ indexes), never exact for extents
     - ``geom_precise``/``time_precise``: the device mask exactly answers the
       spatial/temporal constraint up to f32 widening (residual host
       refinement still applies exactness; these gate the `loose` fast path)
@@ -54,6 +56,7 @@ class ScanConfig:
     range_hi: np.ndarray
     boxes: Optional[np.ndarray]
     windows: Optional[np.ndarray]
+    extent_mode: bool = False
     geom_precise: bool = True
     time_precise: bool = True
     disjoint: bool = False

@@ -80,26 +80,33 @@ class CudaKernel:
             self.leg_launches[leg] += 1
 
 
-# the point-in-polygon and raster legs of the scans (block_kernels.leg_name)
+# the legs a launch counts besides its kernel (block_kernels.leg_name):
+# the point-in-polygon and raster legs of the scans, and the extent leg
+# (bbox-intersects over the extent columns, the bbox centre as the
+# aggregations' point) of all five kernels
 POLYGON_LEGS = ("pip", "raster", "pip+raster")
+EXTENT_LEG = "extent"
+# the column pointers every entry point takes first: x, y, gxmin, gymin,
+# gxmax, gymax, t0, t1 (null where a launch does not read the column)
+_COLS = [_P] * 8
 
 BLOCK_SCAN = CudaKernel(
-    "block_scan", "gm_block_scan", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    legs=POLYGON_LEGS,
+    "block_scan", "gm_block_scan", [*_COLS, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    legs=(*POLYGON_LEGS, EXTENT_LEG),
 )
 DENSITY = CudaKernel(
-    "density", "gm_density", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+    "density", "gm_density", [*_COLS, _P, _I, _I, _I, _I, _I, _P, _P], legs=(EXTENT_LEG,)
 )
 BOUNDS = CudaKernel(
-    "bounds", "gm_bounds", [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+    "bounds", "gm_bounds", [*_COLS, _P, _I, _I, _I, _P, _P], legs=(EXTENT_LEG,)
 )
 BLOCK_SCAN_MULTI = CudaKernel(
     "block_scan_multi", "gm_block_scan_multi",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    legs=POLYGON_LEGS,
+    [*_COLS, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    legs=(*POLYGON_LEGS, EXTENT_LEG),
 )
 BLOCK_POPS = CudaKernel(
-    "block_pops", "gm_block_pops", [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+    "block_pops", "gm_block_pops", [*_COLS, _P, _I, _I, _I, _P, _P], legs=(EXTENT_LEG,)
 )
 KERNELS = (BLOCK_SCAN, DENSITY, BOUNDS, BLOCK_SCAN_MULTI, BLOCK_POPS)
 

@@ -7,8 +7,10 @@ ScanConfig -> cost selection -> block-pruned device scan (one launch per
 query, or one fused launch per chunk of queries) -> host gather ->
 refinement of the uncertain rows (always exact f64) -> limit.
 
-A polygon filter plans to a pruned index scan whose kernel runs the
-point-in-polygon and raster legs. A filter no index of this slice serves
+A polygon filter on a point schema plans to a pruned index scan whose
+kernel runs the point-in-polygon and raster legs; on an extent schema the
+XZ scan's bbox-intersects mask is never exact (``geom_precise`` False),
+so every hit refines in f64 and no aggregation pushes down. A filter no index of this slice serves
 (no spatio-temporal constraint, an OR across indexes) takes the
 full-table host scan, with identical results; explain says so.
 """
@@ -27,9 +29,9 @@ from geomesa_tpu_torch.filter.predicates import Filter, Include
 from geomesa_tpu_torch.index.api import ScanConfig
 from geomesa_tpu_torch.planning.explain import Explainer, ExplainNull
 
-# index selection priority (reference cost multipliers: z3 = 1.1 with
-# bounded time, z2 = 2.0). Lower = preferred.
-INDEX_PRIORITY = {"z3": 1.1, "z2": 2.0}
+# index selection priority (reference cost multipliers: z3 / xz3 = 1.1
+# with bounded time, z2 / xz2 = 2.0). Lower = preferred.
+INDEX_PRIORITY = {"z3": 1.1, "xz3": 1.1, "z2": 2.0, "xz2": 2.0}
 
 
 def index_priority(name: str) -> float:

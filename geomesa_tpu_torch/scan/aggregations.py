@@ -5,7 +5,8 @@ StatsScan iterators). Same candidate-block contract as the scan: the host
 prunes the sorted table to candidate blocks and pads the id list (-1 for
 density and bounds; counts clamp pads to block 0 and the host reads
 [:n_real]); the device evaluates the shared wide predicate over whole
-blocks.
+blocks. The representative point of a row is the point itself, or on an
+extent (XZ) table the bbox centre ``(gxmin + gxmax) * 0.5`` in f32.
 
 Each function has a plain PyTorch version beside the wrapper of its CUDA
 kernel (csrc/block_pops.cu, csrc/density.cu, csrc/bounds.cu): a CPU
@@ -31,6 +32,15 @@ def _gather(cols: dict, bids: torch.Tensor) -> dict:
     return {k: v[b] for k, v in cols.items()}
 
 
+def _rep_xy(cols: dict, extent: bool):
+    """Representative coordinates per row (the JAX package's ``_rep_xy``):
+    the point, or the bbox centre of an extent geometry, added then halved
+    in f32."""
+    if extent:
+        return (cols["gxmin"] + cols["gxmax"]) * 0.5, (cols["gymin"] + cols["gymax"]) * 0.5
+    return cols["x"], cols["y"]
+
+
 # ------------------------------------------------------------------ pops
 
 
@@ -45,12 +55,14 @@ def popcount_slots_plain(plane: torch.Tensor) -> torch.Tensor:
     return v.sum(dim=(1, 2)).to(torch.int32)
 
 
-def block_pops_plain(cols: dict, bids, boxes, wins, *, has_boxes, has_windows) -> torch.Tensor:
+def block_pops_plain(cols: dict, bids, boxes, wins, *, has_boxes, has_windows,
+                     extent=False) -> torch.Tensor:
     """[M] int32 wide-predicate hit count per slot: the plain scan's wide
     plane over ``max(bids, 0)``, popcounted per slot (pads count block 0;
     the host reads [:n_real]). Tensors on the columns' device."""
     wide, _ = bk.block_scan_plain(
-        cols, bids.clamp(min=0), boxes, wins, has_boxes=has_boxes, has_windows=has_windows
+        cols, bids.clamp(min=0), boxes, wins, has_boxes=has_boxes, has_windows=has_windows,
+        extent=extent,
     )
     return popcount_slots_plain(wide)
 
@@ -62,7 +74,6 @@ def block_pops(
     """[M] int32 wide-predicate hit count per candidate block slot on the
     columns' device, pads included: a count-only query pulls M ints, not
     M bit planes."""
-    bk.check_unported_legs(extent)
     cols = dict(zip(col_names, cols3))
     device = bk.device_of(cols3)
     bids = np.asarray(bids, np.int32)
@@ -72,17 +83,19 @@ def block_pops(
                 cols, torch.from_numpy(bids),
                 torch.as_tensor(np.asarray(boxes, np.float32)),
                 torch.as_tensor(np.asarray(wins, np.int32)),
-                has_boxes=has_boxes, has_windows=has_windows,
+                has_boxes=has_boxes, has_windows=has_windows, extent=extent,
             )
     out, launch = pops_launcher(
-        cols, bids, boxes, wins, has_boxes=has_boxes, has_windows=has_windows, clock=clock,
+        cols, bids, boxes, wins, has_boxes=has_boxes, has_windows=has_windows, extent=extent,
+        clock=clock,
     )
     with clock.device("kernel", device):
         launch()
     return out
 
 
-def pops_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, clock=NULL_CLOCK):
+def pops_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, extent=False,
+                  clock=NULL_CLOCK):
     """Stage one CUDA count: check, copy the params to the card, allocate
     the [M] counts. Returns (counts, launch): each launch() writes
     ``counts`` on the current stream."""
@@ -91,7 +104,7 @@ def pops_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, cloc
         raise ValueError(f"no count kernel for device {device}")
     from geomesa_tpu_torch.kernels import BLOCK_POPS
 
-    x, y, t0, t1, flags, sub, n_blocks = bk.kernel_columns(cols, has_boxes, has_windows)
+    ptrs, flags, sub, n_blocks = bk.kernel_columns(cols, has_boxes, has_windows, extent=extent)
     bids = np.asarray(bids, np.int32)
     bk.check_bids(bids, n_blocks, allow_pad=True)
     m = len(bids)
@@ -101,8 +114,8 @@ def pops_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, cloc
 
     def launch() -> None:
         BLOCK_POPS.launch(
-            x, y, t0, t1, params.data_ptr(), m, sub, flags, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
+            *ptrs, params.data_ptr(), m, sub, flags, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream, leg=bk.leg_name(flags),
         )
 
     return out, launch
@@ -112,14 +125,15 @@ def pops_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, cloc
 
 
 def density_plain(cols: dict, bids, boxes, wins, grid_bounds, *, has_boxes,
-                  has_windows, width, height) -> torch.Tensor:
+                  has_windows, width, height, extent=False) -> torch.Tensor:
     """[height, width] f32 grid: a row counts when it passes the wide
-    predicate, lies in the closed envelope and sits in a real slot
-    (bid >= 0). Pixel = clip(int((x - x0) / (x1 - x0) * W), 0, W - 1) in
-    f32, likewise for y. All arguments are tensors on the columns' device."""
+    predicate, its representative point lies in the closed envelope and it
+    sits in a real slot (bid >= 0). Pixel = clip(int((x - x0) / (x1 - x0)
+    * W), 0, W - 1) in f32, likewise for y. All arguments are tensors on
+    the columns' device."""
     g = _gather(cols, bids)
-    w, _ = bk.masks_plain(g, boxes, wins, has_boxes, has_windows)
-    x, y = g["x"], g["y"]
+    w, _ = bk.masks_plain(g, boxes, wins, has_boxes, has_windows, extent=extent)
+    x, y = _rep_xy(g, extent)
     x0, y0, x1, y1 = grid_bounds[0], grid_bounds[1], grid_bounds[2], grid_bounds[3]
     m = (
         w
@@ -140,7 +154,6 @@ def block_density(
 ) -> torch.Tensor:
     """[height, width] f32 density grid over ``grid_bounds`` (x0, y0, x1,
     y1) on the columns' device. ``bids``: numpy i32 [M], -1 = pad slot."""
-    bk.check_unported_legs(extent)
     cols = dict(zip(col_names, cols3))
     device = bk.device_of(cols3)
     bids = np.asarray(bids, np.int32)
@@ -152,11 +165,11 @@ def block_density(
                 torch.as_tensor(np.asarray(boxes, np.float32)),
                 torch.as_tensor(np.asarray(wins, np.int32)),
                 torch.from_numpy(gb), has_boxes=has_boxes,
-                has_windows=has_windows, width=width, height=height,
+                has_windows=has_windows, width=width, height=height, extent=extent,
             )
     grid, launch = density_launcher(
         cols, bids, boxes, wins, gb, has_boxes=has_boxes, has_windows=has_windows,
-        width=width, height=height, clock=clock,
+        width=width, height=height, extent=extent, clock=clock,
     )
     with clock.device("kernel", device):
         launch()
@@ -164,7 +177,7 @@ def block_density(
 
 
 def density_launcher(cols: dict, bids, boxes, wins, grid_bounds, *, has_boxes,
-                     has_windows, width, height, clock=NULL_CLOCK):
+                     has_windows, width, height, extent=False, clock=NULL_CLOCK):
     """Stage one CUDA density: check, copy the params to the card, zero an
     int32 [height, width] grid. Returns (grid, launch): each launch() adds
     the hits' counts into ``grid`` on the current stream."""
@@ -173,8 +186,8 @@ def density_launcher(cols: dict, bids, boxes, wins, grid_bounds, *, has_boxes,
         raise ValueError(f"no density kernel for device {device}")
     from geomesa_tpu_torch.kernels import DENSITY
 
-    x, y, t0, t1, flags, sub, n_blocks = bk.kernel_columns(
-        cols, has_boxes, has_windows, need_xy=True
+    ptrs, flags, sub, n_blocks = bk.kernel_columns(
+        cols, has_boxes, has_windows, need_xy=True, extent=extent
     )
     bids = np.asarray(bids, np.int32)
     bk.check_bids(bids, n_blocks, allow_pad=True)
@@ -186,8 +199,9 @@ def density_launcher(cols: dict, bids, boxes, wins, grid_bounds, *, has_boxes,
 
     def launch() -> None:
         DENSITY.launch(
-            x, y, t0, t1, params.data_ptr(), m, sub, flags, width, height,
+            *ptrs, params.data_ptr(), m, sub, flags, width, height,
             grid.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            leg=bk.leg_name(flags),
         )
 
     return grid, launch
@@ -196,13 +210,14 @@ def density_launcher(cols: dict, bids, boxes, wins, grid_bounds, *, has_boxes,
 # ---------------------------------------------------------------- bounds
 
 
-def bounds_plain(cols: dict, bids, boxes, wins, *, has_boxes, has_windows) -> torch.Tensor:
+def bounds_plain(cols: dict, bids, boxes, wins, *, has_boxes, has_windows,
+                 extent=False) -> torch.Tensor:
     """[M, 8] f32 per-slot stats (count, xmin, xmax, ymin, ymax, 0, 0, 0)
-    over wide-predicate hits; pad slots (-1) read block 0, as in the
-    reference, and the host reads [:n_real]."""
+    of the wide-predicate hits' representative points; pad slots (-1)
+    read block 0, as in the reference, and the host reads [:n_real]."""
     g = _gather(cols, bids)
-    w, _ = bk.masks_plain(g, boxes, wins, has_boxes, has_windows)
-    x, y = g["x"], g["y"]
+    w, _ = bk.masks_plain(g, boxes, wins, has_boxes, has_windows, extent=extent)
+    x, y = _rep_xy(g, extent)
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=x.device)
     cnt = w.sum(dim=(1, 2)).to(torch.float32)
     xmin = torch.where(w, x, inf).amin(dim=(1, 2))
@@ -218,7 +233,6 @@ def block_bounds(
     extent=False, clock=NULL_CLOCK,
 ) -> torch.Tensor:
     """[M, STAT_LANES] f32 per-slot stats on the columns' device."""
-    bk.check_unported_legs(extent)
     cols = dict(zip(col_names, cols3))
     device = bk.device_of(cols3)
     bids = np.asarray(bids, np.int32)
@@ -228,17 +242,19 @@ def block_bounds(
                 cols, torch.from_numpy(bids),
                 torch.as_tensor(np.asarray(boxes, np.float32)),
                 torch.as_tensor(np.asarray(wins, np.int32)),
-                has_boxes=has_boxes, has_windows=has_windows,
+                has_boxes=has_boxes, has_windows=has_windows, extent=extent,
             )
     out, launch = bounds_launcher(
-        cols, bids, boxes, wins, has_boxes=has_boxes, has_windows=has_windows, clock=clock,
+        cols, bids, boxes, wins, has_boxes=has_boxes, has_windows=has_windows, extent=extent,
+        clock=clock,
     )
     with clock.device("kernel", device):
         launch()
     return out
 
 
-def bounds_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, clock=NULL_CLOCK):
+def bounds_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, extent=False,
+                    clock=NULL_CLOCK):
     """Stage one CUDA bounds: check, copy the params to the card, allocate
     the [M, STAT_LANES] stats. Returns (stats, launch): each launch()
     writes ``stats`` on the current stream."""
@@ -247,8 +263,8 @@ def bounds_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, cl
         raise ValueError(f"no bounds kernel for device {device}")
     from geomesa_tpu_torch.kernels import BOUNDS
 
-    x, y, t0, t1, flags, sub, n_blocks = bk.kernel_columns(
-        cols, has_boxes, has_windows, need_xy=True
+    ptrs, flags, sub, n_blocks = bk.kernel_columns(
+        cols, has_boxes, has_windows, need_xy=True, extent=extent
     )
     bids = np.asarray(bids, np.int32)
     bk.check_bids(bids, n_blocks, allow_pad=True)
@@ -259,8 +275,8 @@ def bounds_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows, cl
 
     def launch() -> None:
         BOUNDS.launch(
-            x, y, t0, t1, params.data_ptr(), m, sub, flags, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
+            *ptrs, params.data_ptr(), m, sub, flags, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream, leg=bk.leg_name(flags),
         )
 
     return out, launch

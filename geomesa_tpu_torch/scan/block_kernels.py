@@ -12,6 +12,12 @@ word [j, lane] is local row (j*32 + b)*128 + lane:
 - ``inner``: the predicate over shrunk bounds, rows certain to be hits at
   f64 precision, so host refinement touches only ``wide & ~inner``.
 
+On extent (XZ) tables the box leg is bbox-*intersects* over the four
+extent columns (gxmin, gymin, gxmax, gymax), which can never certify the
+true geometry predicate: an extent box scan has no inner plane
+(:func:`skip_inner_plane`), so the kernels write, and the host pulls, the
+wide plane alone.
+
 This module holds the numpy parameter packers and decode (copies of the
 JAX package's), the plain PyTorch versions of the scan and of the fused
 multi-query scan, and the wrappers of their CUDA kernels
@@ -64,6 +70,11 @@ _PACKED_TW = 4
 _VALID_ON_T = 8
 _HAS_EDGES = 16
 _HAS_RAST = 32
+_EXTENT = 64  # the box leg (and the aggregations' coordinates) read the extent columns
+_VALID_ON_G = 128  # the validity leg reads gxmin
+
+# the extent columns of XZ tables, in the kernels' argument order
+EXTENT_COLS = ("gxmin", "gymin", "gxmax", "gymax")
 
 
 # --------------------------------------------------------------- params
@@ -489,19 +500,29 @@ def _polygon_legs(x, y, edges, rast):
 
 
 def masks_plain(cols: dict, boxes, wins, has_boxes: bool, has_windows: bool,
-                edges=None, rast=None):
+                edges=None, rast=None, extent: bool = False):
     """(wide, inner) bool tensors for gathered column blocks: the legs of
-    the JAX package's ``_masks`` (box, window, packed-time, validity, and
-    the point-in-polygon and raster legs, which replace the box leg).
-    ``boxes``/``wins`` are [k, 128] slot blocks (k = 8 from the packers),
-    ``edges`` an [E, 128] and ``rast`` a [1 + R, 128] block, or each with
-    a leading [M] axis, one per gathered block; tensors on the columns'
-    device, ``edges``/``rast`` None when the leg is off."""
+    the JAX package's ``_masks`` (box, extent, window, packed-time,
+    validity, and the point-in-polygon and raster legs, which replace the
+    box leg). ``boxes``/``wins`` are [k, 128] slot blocks (k = 8 from the
+    packers), ``edges`` an [E, 128] and ``rast`` a [1 + R, 128] block, or
+    each with a leading [M] axis, one per gathered block; tensors on the
+    columns' device, ``edges``/``rast`` None when the leg is off.
+    ``extent``: the box leg is bbox-intersects over the extent columns,
+    and its inner plane is all false."""
     w_parts, i_parts = [], []
     if edges is not None or rast is not None:
         wide, inner = _polygon_legs(cols["x"], cols["y"], edges, rast)
         w_parts.append(wide)
         i_parts.append(inner)
+    elif has_boxes and extent:
+        gx0, gy0, gx1, gy1 = (cols[k] for k in EXTENT_COLS)
+        hit = torch.zeros(gx0.shape, dtype=torch.bool, device=gx0.device)
+        for k in range(boxes.shape[-2]):
+            b = _slot_lanes(boxes, k)
+            hit |= (gx0 <= b[2]) & (gx1 >= b[0]) & (gy0 <= b[3]) & (gy1 >= b[1])
+        w_parts.append(hit)
+        i_parts.append(torch.zeros_like(hit))
     elif has_boxes:
         x, y = cols["x"], cols["y"]
         wide = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
@@ -532,6 +553,8 @@ def masks_plain(cols: dict, boxes, wins, has_boxes: bool, has_windows: bool,
         # no predicate: the row-validity test (pad rows carry sentinels)
         if "x" in cols:
             v = torch.isfinite(cols["x"])
+        elif "gxmin" in cols:
+            v = torch.isfinite(cols["gxmin"])
         elif "tw" in cols:
             v = cols["tw"] >= 0
         else:
@@ -542,6 +565,14 @@ def masks_plain(cols: dict, boxes, wins, has_boxes: bool, has_windows: bool,
         w = w & p
         i = i & q
     return w, i
+
+
+def skip_inner_plane(has_boxes: bool, extent: bool) -> bool:
+    """Extent box scans have an identically false inner plane (bbox
+    intersection never certifies the true geometry predicate), so the
+    kernels write only the wide plane and the host pulls only it (the
+    JAX package's rule)."""
+    return extent and has_boxes
 
 
 def pack_bits_plain(m: torch.Tensor) -> torch.Tensor:
@@ -555,31 +586,34 @@ def pack_bits_plain(m: torch.Tensor) -> torch.Tensor:
 
 
 def block_scan_plain(cols: dict, bids, boxes, wins, *, has_boxes, has_windows,
-                     edges=None, rast=None):
+                     edges=None, rast=None, extent=False):
     """Plain PyTorch scan: gather the candidate blocks, apply the legs,
     pack bits. ``bids``/``boxes``/``wins`` (and ``edges`` [E, 128] and
     ``rast`` [1 + R, 128] where the polygon legs are on) are tensors on the
-    columns' device. Returns (wide, inner) int32 [M, SUB/32, 128]."""
+    columns' device. Returns (wide, inner) int32 [M, SUB/32, 128]; inner is
+    None where :func:`skip_inner_plane` (extent box scans)."""
     b = bids.to(torch.int64)
     gathered = {k: v[b] for k, v in cols.items()}
-    w, i = masks_plain(gathered, boxes, wins, has_boxes, has_windows, edges, rast)
+    w, i = masks_plain(gathered, boxes, wins, has_boxes, has_windows, edges, rast, extent)
+    if skip_inner_plane(has_boxes, extent):
+        return pack_bits_plain(w), None
     return pack_bits_plain(w), pack_bits_plain(i)
 
 
 def block_scan_multi_plain(cols: dict, bids, qids, boxes, wins, *, has_boxes, has_windows,
-                           edges=None, rasts=None, spip=None):
+                           edges=None, rasts=None, spip=None, extent=False):
     """Plain PyTorch fused scan: slot i gathers block ``bids[i]`` and
     query ``qids[i]``'s [8, 128] param blocks out of the [Q, 8, 128]
     stacks, then the single-query legs per slot. With a [Q, E, 128]
     ``edges`` or [Q, 1 + R, 128] ``rasts`` stack, a slot whose ``spip`` is
     > 0 takes the polygon legs with its query's blocks instead of the box
     leg. Tensors on the columns' device. Returns (wide, inner) int32
-    [M, SUB/32, 128]."""
+    [M, SUB/32, 128]; inner is None where :func:`skip_inner_plane`."""
     b = bids.to(torch.int64)
     q = qids.to(torch.int64)
     gathered = {k: v[b] for k, v in cols.items()}
     bq, wq = boxes[q], wins[q]
-    w, i = masks_plain(gathered, bq, wq, has_boxes, has_windows)
+    w, i = masks_plain(gathered, bq, wq, has_boxes, has_windows, extent=extent)
     if edges is not None or rasts is not None:
         wp, ip = masks_plain(
             gathered, bq, wq, has_boxes, has_windows,
@@ -588,6 +622,8 @@ def block_scan_multi_plain(cols: dict, bids, qids, boxes, wins, *, has_boxes, ha
         sel = (spip > 0).view(-1, 1, 1)
         w = torch.where(sel, wp, w)
         i = torch.where(sel, ip, i)
+    if skip_inner_plane(has_boxes, extent):
+        return pack_bits_plain(w), None
     return pack_bits_plain(w), pack_bits_plain(i)
 
 
@@ -599,14 +635,6 @@ def device_of(cols3) -> torch.device:
     if len(devs) != 1:
         raise ValueError(f"columns span devices {sorted(map(str, devs))}")
     return devs.pop()
-
-
-def check_unported_legs(extent=False) -> None:
-    """The port's kernels carry every leg but the extent leg (bbox
-    intersection over the extent columns of XZ tables); asking for it
-    raises on every device."""
-    if extent:
-        raise NotImplementedError("the extent leg of the scan is not ported yet")
 
 
 # the kernels' shared-memory capacity for one query's polygon blocks
@@ -641,19 +669,28 @@ def _poly_flags(edges, rast) -> int:
     return (_HAS_EDGES if edges is not None else 0) | (_HAS_RAST if rast is not None else 0)
 
 
-def leg_name(edges, rast) -> "str | None":
-    """The launch counter of a polygon-leg launch (kernels/build.py):
-    'pip', 'raster' or 'pip+raster'; None for the box legs."""
+def leg_name(flags: int) -> "str | None":
+    """The counter a launch with kernel ``flags`` bumps besides its
+    kernel's (kernels/build.py): 'pip', 'raster' or 'pip+raster' for the
+    polygon legs, 'extent' where it reads the extent columns; None for the
+    point box, window and validity legs."""
+    if flags & (_EXTENT | _VALID_ON_G):
+        return "extent"
     return {_HAS_EDGES: "pip", _HAS_RAST: "raster", _HAS_EDGES | _HAS_RAST: "pip+raster"}.get(
-        _poly_flags(edges, rast)
+        flags & (_HAS_EDGES | _HAS_RAST)
     )
 
 
-def kernel_columns(cols: dict, has_boxes: bool, has_windows: bool, need_xy: bool = False):
-    """Validated column pointers + flags for the kernels:
-    (x, y, t0, t1, flags, sub, n_blocks). Columns are contiguous
-    [n_blocks, SUB, 128] tensors, f32 coordinates, i32 time parts;
-    ``need_xy``: a leg other than the box leg reads x and y."""
+def kernel_columns(cols: dict, has_boxes: bool, has_windows: bool, need_xy: bool = False,
+                   extent: bool = False):
+    """Validated column pointers + flags for the kernels: (pointers,
+    flags, sub, n_blocks), the pointers (x, y, gxmin, gymin, gxmax, gymax,
+    t0, t1), None for a column the launch does not read. Columns are
+    contiguous [n_blocks, SUB, 128] tensors, f32 coordinates and extents,
+    i32 time parts. ``need_xy``: a leg other than the box leg reads the
+    coordinates (the polygon legs; the aggregations' representative
+    point). ``extent``: the coordinates are the extent columns (the box
+    leg is bbox-intersects, the representative point the bbox centre)."""
     shapes = {tuple(c.shape) for c in cols.values()}
     if len(shapes) != 1:
         raise ValueError(f"columns disagree on shape: {sorted(shapes)}")
@@ -661,12 +698,15 @@ def kernel_columns(cols: dict, has_boxes: bool, has_windows: bool, need_xy: bool
     if len(shape) != 3 or shape[2] != LANES or shape[1] % 32:
         raise ValueError(f"columns must be [n_blocks, SUB, 128] with SUB % 32 == 0: {shape}")
     for name, c in cols.items():
-        want = torch.float32 if name in ("x", "y") else torch.int32
+        want = torch.float32 if name in ("x", "y", *EXTENT_COLS) else torch.int32
         if c.dtype != want or not c.is_contiguous():
             raise ValueError(f"column {name!r} must be contiguous {want}: {c.dtype}")
-    if (has_boxes or need_xy) and not {"x", "y"} <= set(cols):
-        raise ValueError("the box leg reads columns x and y")
     flags = (_HAS_BOXES if has_boxes else 0) | (_HAS_WINDOWS if has_windows else 0)
+    coords = EXTENT_COLS if extent else ("x", "y")
+    if (has_boxes or need_xy) and not set(coords) <= set(cols):
+        raise ValueError(f"the box leg reads columns {', '.join(coords)}")
+    if extent and (has_boxes or need_xy):
+        flags |= _EXTENT
     t0 = t1 = None
     if "tw" in cols:
         t0 = cols["tw"]
@@ -675,16 +715,19 @@ def kernel_columns(cols: dict, has_boxes: bool, has_windows: bool, need_xy: bool
         t0, t1 = cols["tbin"], cols.get("toff")
     if has_windows and (t0 is None or (not flags & _PACKED_TW and t1 is None)):
         raise ValueError("the window leg reads tw, or tbin and toff")
-    if not (has_boxes or has_windows):
-        if "x" not in cols:
-            if t0 is None:
-                raise ValueError("the validity leg reads x, tw or tbin")
+    if not (has_boxes or has_windows) and "x" not in cols:
+        if "gxmin" in cols:
+            flags |= _VALID_ON_G
+        elif t0 is None:
+            raise ValueError("the validity leg reads x, gxmin, tw or tbin")
+        else:
             flags |= _VALID_ON_T
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    return ptr(cols.get("x")), ptr(cols.get("y")), ptr(t0), ptr(t1), flags, shape[1], shape[0]
+    ptrs = tuple(ptr(cols.get(k)) for k in ("x", "y", *EXTENT_COLS)) + (ptr(t0), ptr(t1))
+    return ptrs, flags, shape[1], shape[0]
 
 
 def check_bids(bids: np.ndarray, n_blocks: int, allow_pad: bool) -> None:
@@ -699,56 +742,76 @@ def upload_params(staged: np.ndarray, device: torch.device, clock=NULL_CLOCK) ->
         return torch.from_numpy(staged).to(device)
 
 
+def _stack_planes(w, i) -> torch.Tensor:
+    """The planes of one scan as one tensor [n_planes, M, SUB/32, 128]:
+    (wide, inner), or (wide,) where there is no inner plane."""
+    return w[None] if i is None else torch.stack([w, i])
+
+
+def _check_extent_legs(extent: bool, edges, rast) -> None:
+    if extent and (edges is not None or rast is not None):
+        raise ValueError("the polygon legs read points: extent tables take the box leg")
+
+
 def scan_planes(
     cols3, bids, boxes, wins, *, col_names, has_boxes, has_windows,
     extent=False, edges=None, n_edges=0, rast=None, n_rints=0, clock=NULL_CLOCK,
 ) -> torch.Tensor:
-    """Both planes in one int32 tensor [2, M, SUB/32, 128] (wide, inner)
-    on the columns' device, so the host pulls them in one copy.
+    """The planes in one int32 tensor [n_planes, M, SUB/32, 128] on the
+    columns' device, so the host pulls them in one copy: (wide, inner), or
+    (wide,) alone for an extent box scan (:func:`skip_inner_plane`).
     ``bids``/``boxes``/``wins`` are numpy arrays (block ids [M]; [8, 128]
     param blocks); ``edges`` [n_edges, 128] and ``rast`` [1 + n_rints, 128]
-    turn on the point-in-polygon and raster legs."""
-    check_unported_legs(extent)
+    turn on the point-in-polygon and raster legs; ``extent``: the box leg
+    is bbox-intersects over the extent columns."""
     edges, rast = polygon_blocks(edges, n_edges, rast, n_rints)
+    _check_extent_legs(extent, edges, rast)
     cols = dict(zip(col_names, cols3))
     device = device_of(cols3)
     bids = np.asarray(bids, np.int32)
     if device.type == "cpu":
         with clock.device("kernel", device):
-            w, i = block_scan_plain(
+            return _stack_planes(*block_scan_plain(
                 cols, torch.from_numpy(bids),
                 torch.as_tensor(np.asarray(boxes, np.float32)),
                 torch.as_tensor(np.asarray(wins, np.int32)),
                 has_boxes=has_boxes, has_windows=has_windows,
                 edges=None if edges is None else torch.from_numpy(edges),
-                rast=None if rast is None else torch.from_numpy(rast),
-            )
-            return torch.stack([w, i])
+                rast=None if rast is None else torch.from_numpy(rast), extent=extent,
+            ))
     planes, launch = scan_launcher(
         cols, bids, boxes, wins, has_boxes=has_boxes, has_windows=has_windows,
-        edges=edges, rast=rast, clock=clock,
+        edges=edges, rast=rast, extent=extent, clock=clock,
     )
     with clock.device("kernel", device):
         launch()
     return planes
 
 
+def _plane_ptrs(planes: torch.Tensor):
+    """(wide, inner) data pointers of a [n_planes, ...] planes tensor; the
+    inner pointer is None (the kernel writes no inner plane) when there is
+    one plane."""
+    return planes[0].data_ptr(), planes[1].data_ptr() if len(planes) == 2 else None
+
+
 def scan_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows,
-                  edges=None, rast=None, clock=NULL_CLOCK):
+                  edges=None, rast=None, extent=False, clock=NULL_CLOCK):
     """Stage one CUDA scan: check the columns and block ids, copy the
     params (and the polygon blocks' used lanes, ``edges`` [E, 128] and
     ``rast`` [1 + R, 128] or None) to the card (the query's one
-    host->device copy) and allocate both planes. Returns (planes
-    [2, M, SUB/32, 128], launch): each launch() runs the kernel on the
-    current stream into ``planes``."""
+    host->device copy) and allocate the planes. Returns (planes
+    [n_planes, M, SUB/32, 128], launch): each launch() runs the kernel on
+    the current stream into ``planes``."""
     device = device_of(tuple(cols.values()))
     if device.type != "cuda":
         raise ValueError(f"no scan kernel for device {device}")
     from geomesa_tpu_torch.kernels import BLOCK_SCAN
 
+    _check_extent_legs(extent, edges, rast)
     poly_flags = _poly_flags(edges, rast)
-    x, y, t0, t1, flags, sub, n_blocks = kernel_columns(
-        cols, has_boxes, has_windows, need_xy=bool(poly_flags)
+    ptrs, flags, sub, n_blocks = kernel_columns(
+        cols, has_boxes, has_windows, need_xy=bool(poly_flags), extent=extent
     )
     flags |= poly_flags
     bids = np.asarray(bids, np.int32)
@@ -764,16 +827,15 @@ def scan_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows,
             None if edges is None else edges[None], None if rast is None else rast[None],
             e_cap, r_cap,
         )
-    leg = leg_name(edges, rast)
+    n_planes = 1 if skip_inner_plane(has_boxes, extent) else 2
     with torch.cuda.device(device):
         params = upload_params(stage_params(bids, boxes, wins, poly=poly), device, clock)
-        planes = torch.empty((2, m, sub // 32, LANES), dtype=torch.int32, device=device)
+        planes = torch.empty((n_planes, m, sub // 32, LANES), dtype=torch.int32, device=device)
 
     def launch() -> None:
         BLOCK_SCAN.launch(
-            x, y, t0, t1, params.data_ptr(), m, sub, flags, e_cap, r_cap,
-            planes[0].data_ptr(), planes[1].data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream, leg=leg,
+            *ptrs, params.data_ptr(), m, sub, flags, e_cap, r_cap, *_plane_ptrs(planes),
+            torch.cuda.current_stream(device).cuda_stream, leg=leg_name(flags),
         )
 
     return planes, launch
@@ -784,14 +846,14 @@ def block_scan(
     extent=False, edges=None, n_edges=0, rast=None, n_rints=0,
 ):
     """The JAX package's ``block_scan`` contract: (wide, inner) int32
-    planes [M, SUB/32, 128] on the columns' device. ``extent`` (the leg
-    not ported yet) raises NotImplementedError."""
+    planes [M, SUB/32, 128] on the columns' device; inner is None where
+    :func:`skip_inner_plane` (extent box scans)."""
     planes = scan_planes(
         cols3, bids, boxes, wins, col_names=col_names, has_boxes=has_boxes,
         has_windows=has_windows, extent=extent, edges=edges, n_edges=n_edges,
         rast=rast, n_rints=n_rints,
     )
-    return planes[0], planes[1]
+    return planes[0], planes[1] if len(planes) == 2 else None
 
 
 # ------------------------------------------------ fused multi-query scan
@@ -807,10 +869,11 @@ def scan_planes_multi(
     stacks (numpy). With a [Q, n_edges, 128] ``edges`` or
     [Q, 1 + n_rints, 128] ``rasts`` stack, slot i takes the polygon legs
     with its query's blocks where ``spip[i]`` > 0 and the box leg
-    elsewhere. Both planes in one int32 tensor [2, M, SUB/32, 128] on the
-    columns' device; each query's rows decode from its own slot segment."""
-    check_unported_legs(extent)
+    elsewhere. The planes in one int32 tensor [n_planes, M, SUB/32, 128]
+    on the columns' device (one plane for an extent box chunk); each
+    query's rows decode from its own slot segment."""
     edges, rasts = polygon_blocks(edges, n_edges, rasts, n_rints, stacked=True)
+    _check_extent_legs(extent, edges, rasts)
     cols = dict(zip(col_names, cols3))
     device = device_of(cols3)
     bids = np.asarray(bids, np.int32)
@@ -823,19 +886,18 @@ def scan_planes_multi(
         spip = None  # no polygon stack: every slot takes the box leg
     if device.type == "cpu":
         with clock.device("kernel", device):
-            w, i = block_scan_multi_plain(
+            return _stack_planes(*block_scan_multi_plain(
                 cols, torch.from_numpy(bids), torch.from_numpy(qids),
                 torch.as_tensor(np.asarray(boxes, np.float32)),
                 torch.as_tensor(np.asarray(wins, np.int32)),
                 has_boxes=has_boxes, has_windows=has_windows,
                 edges=None if edges is None else torch.from_numpy(edges),
                 rasts=None if rasts is None else torch.from_numpy(rasts),
-                spip=None if spip is None else torch.from_numpy(spip),
-            )
-            return torch.stack([w, i])
+                spip=None if spip is None else torch.from_numpy(spip), extent=extent,
+            ))
     planes, launch = multi_launcher(
         cols, bids, qids, boxes, wins, has_boxes=has_boxes, has_windows=has_windows,
-        edges=edges, rasts=rasts, spip=spip, clock=clock,
+        edges=edges, rasts=rasts, spip=spip, extent=extent, clock=clock,
     )
     with clock.device("kernel", device):
         launch()
@@ -843,21 +905,22 @@ def scan_planes_multi(
 
 
 def multi_launcher(cols: dict, bids, qids, boxes, wins, *, has_boxes, has_windows,
-                   edges=None, rasts=None, spip=None, clock=NULL_CLOCK):
+                   edges=None, rasts=None, spip=None, extent=False, clock=NULL_CLOCK):
     """Stage one CUDA fused scan: check the columns, block and query ids,
     copy the chunk's params (and, with an ``edges`` [Q, E, 128] or
     ``rasts`` [Q, 1 + R, 128] stack, ``spip`` and the used lanes of the
     polygon blocks of the queries its polygon slots read) to the card (its
-    one host->device copy) and allocate both planes. Returns (planes
-    [2, M, SUB/32, 128], launch)."""
+    one host->device copy) and allocate the planes. Returns (planes
+    [n_planes, M, SUB/32, 128], launch)."""
     device = device_of(tuple(cols.values()))
     if device.type != "cuda":
         raise ValueError(f"no fused scan kernel for device {device}")
     from geomesa_tpu_torch.kernels import BLOCK_SCAN_MULTI
 
+    _check_extent_legs(extent, edges, rasts)
     poly_flags = _poly_flags(edges, rasts)
-    x, y, t0, t1, flags, sub, n_blocks = kernel_columns(
-        cols, has_boxes, has_windows, need_xy=bool(poly_flags)
+    ptrs, flags, sub, n_blocks = kernel_columns(
+        cols, has_boxes, has_windows, need_xy=bool(poly_flags), extent=extent
     )
     flags |= poly_flags
     bids = np.asarray(bids, np.int32)
@@ -890,20 +953,19 @@ def multi_launcher(cols: dict, bids, qids, boxes, wins, *, has_boxes, has_window
             None if edges is None else edges[:n_used], None if rasts is None else rasts[:n_used],
             e_cap, r_cap,
         )
-    leg = leg_name(edges, rasts)
+    n_planes = 1 if skip_inner_plane(has_boxes, extent) else 2
     with torch.cuda.device(device):
         params = upload_params(
             stage_multi_params(bids, qids, boxes, wins, spip=spip if poly_flags else None,
                                poly=poly),
             device, clock,
         )
-        planes = torch.empty((2, m, sub // 32, LANES), dtype=torch.int32, device=device)
+        planes = torch.empty((n_planes, m, sub // 32, LANES), dtype=torch.int32, device=device)
 
     def launch() -> None:
         BLOCK_SCAN_MULTI.launch(
-            x, y, t0, t1, params.data_ptr(), m, n_q, sub, flags, e_cap, r_cap,
-            planes[0].data_ptr(), planes[1].data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream, leg=leg,
+            *ptrs, params.data_ptr(), m, n_q, sub, flags, e_cap, r_cap, *_plane_ptrs(planes),
+            torch.cuda.current_stream(device).cuda_stream, leg=leg_name(flags),
         )
 
     return planes, launch
@@ -914,14 +976,14 @@ def block_scan_multi(
     extent=False, edges=None, spip=None, n_edges=0, rasts=None, n_rints=0,
 ):
     """The JAX package's ``block_scan_multi`` contract: (wide, inner)
-    int32 planes [M, SUB/32, 128] on the columns' device. ``extent`` (the
-    leg not ported yet) raises NotImplementedError."""
+    int32 planes [M, SUB/32, 128] on the columns' device; inner is None
+    where :func:`skip_inner_plane`."""
     planes = scan_planes_multi(
         cols3, bids, qids, boxes, wins, col_names=col_names, has_boxes=has_boxes,
         has_windows=has_windows, extent=extent, edges=edges, spip=spip,
         n_edges=n_edges, rasts=rasts, n_rints=n_rints,
     )
-    return planes[0], planes[1]
+    return planes[0], planes[1] if len(planes) == 2 else None
 
 
 # --------------------------------------------------------------- decode
@@ -940,15 +1002,19 @@ def _unpack_plane(plane: np.ndarray, n_real: int) -> np.ndarray:
 
 def decode_bits_pair(wide_plane, inner_plane, bids, n_real):
     """(rows, certain) — rows ascending, certain[i] True when row i is in
-    the inner plane (no host refinement needed)."""
+    the inner plane (no host refinement needed). ``inner_plane=None``
+    (extent box scans, :func:`skip_inner_plane`) decodes the wide plane
+    alone with certain all False."""
     if n_real == 0:
         return np.zeros(0, np.int64), np.zeros(0, bool)
     block = wide_plane.shape[1] * 32 * LANES
     wb = _unpack_plane(wide_plane, n_real)
-    ib = _unpack_plane(inner_plane, n_real)
     blk, local = np.nonzero(wb)
     rows = bids[:n_real][blk].astype(np.int64) * block + local
-    certain = ib[blk, local].astype(bool)
+    if inner_plane is None:
+        certain = np.zeros(len(rows), bool)
+    else:
+        certain = _unpack_plane(inner_plane, n_real)[blk, local].astype(bool)
     if not _bids_sorted(bids, n_real):
         order = np.argsort(rows, kind="stable")
         rows, certain = rows[order], certain[order]

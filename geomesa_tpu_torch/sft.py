@@ -124,6 +124,10 @@ class FeatureType:
     def z3_interval(self) -> str:
         return str(self.user_data.get("geomesa.z3.interval", "week"))
 
+    @property
+    def xz_precision(self) -> int:
+        return int(self.user_data.get("geomesa.xz.precision", 12))
+
     # -- spec DSL --------------------------------------------------------
     @staticmethod
     def from_spec(name: str, spec: str) -> "FeatureType":

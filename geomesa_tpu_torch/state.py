@@ -17,7 +17,10 @@ def load_table_state(state: dict, keyspace, device) -> IndexTable:
     """Build the port's IndexTable from ``state``: ``perm``, ``bins``,
     ``zs``, ``ubins``, ``bin_starts`` and ``block`` (rows per scan block)
     of a sorted table, plus ``cols3`` (column name -> numpy
-    [n_blocks, SUB, 128]). ``keyspace`` is the port's index the table
+    [n_blocks, SUB, 128]): x and y (and tbin/toff or tw) of a point
+    table, or the four extent columns gxmin, gymin, gxmax, gymax (and
+    tbin/toff on XZ3) of an extent table, which the table then scans
+    with the extent leg. ``keyspace`` is the port's index the table
     serves (its packed-time setting shapes the window parameters)."""
     missing = [k for k in (*STATE_KEYS, "cols3") if k not in state]
     if missing:

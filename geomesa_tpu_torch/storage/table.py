@@ -15,6 +15,12 @@ query's scan runs the kernel's point-in-polygon and raster legs
 and one device->host copy per chunk (``scan_submit_many``); polygon
 members fuse through per-query edge and raster stacks.
 
+An extent (XZ) table holds the four f32 bbox columns (gxmin, gymin, gxmax,
+gymax) instead of x and y. Its box leg is bbox-intersects, which never
+certifies a geometry: an extent box scan writes and pulls the wide plane
+alone, every hit refines on the host, and the polygon legs never run
+(extent members fuse with empty edge and raster stacks).
+
 This slice has no delta tier, fold or block reuse: a write rebuilds the
 table from all rows.
 """
@@ -35,6 +41,11 @@ _SENTINELS = {
     "tbin": np.int32(-1),
     "toff": np.int32(0),
     "tw": np.int32(-1),  # packed-time: bin -1 never matches
+    # extent pads: an empty bbox (min = +inf, max = -inf) intersects nothing
+    "gxmin": np.float32(np.inf),
+    "gymin": np.float32(np.inf),
+    "gxmax": np.float32(-np.inf),
+    "gymax": np.float32(-np.inf),
 }
 
 # host state a table is rebuilt from (state.load_table_state)
@@ -176,6 +187,13 @@ def _rows_in_spans(rows: np.ndarray, spans: list[tuple[int, int]]) -> np.ndarray
     return ok & (rows < his[np.clip(idx, 0, len(his) - 1)])
 
 
+def _host_planes(host: np.ndarray, slots=slice(None)):
+    """(wide, inner | None) of pulled planes [n_planes, M, SUB/32, 128] over
+    ``slots``: inner is None where the kernel wrote the wide plane alone."""
+    wide = np.ascontiguousarray(host[0, slots])
+    return wide, np.ascontiguousarray(host[1, slots]) if len(host) == 2 else None
+
+
 class IndexTable(SortedKeys):
     """Sorted columnar table for one (feature type, index) pair, its
     predicate columns on ``device``."""
@@ -226,6 +244,7 @@ class IndexTable(SortedKeys):
         self.n_blocks = max(1, -(-self.n // block))
         self.n_pad = self.n_blocks * block
         self.col_names = tuple(sorted(cols))
+        self.extent = "gxmin" in cols
         self.device = device
 
     def _upload(self, col: np.ndarray) -> torch.Tensor:
@@ -336,8 +355,8 @@ class IndexTable(SortedKeys):
             # partial rows
             key = (
                 names, config.boxes is not None, config.windows is not None,
-                bk.fused_e_bucket(bk.n_edges_of(config.poly)),
-                bk.fused_r_bucket(bk.n_rints_of(config.rast)),
+                0 if self.extent else bk.fused_e_bucket(bk.n_edges_of(config.poly)),
+                0 if self.extent else bk.fused_r_bucket(bk.n_rints_of(config.rast)),
             )
             groups.setdefault(key, []).append((j, config, blocks, contained))
 
@@ -393,8 +412,11 @@ class IndexTable(SortedKeys):
         """(chunk_E, edges [FUSED_CHUNK_Q, chunk_E, 128] | None, pip [n]
         bool) of one fused chunk: the per-query edge stack, sized to the
         chunk's largest member polygon and zero-padded per query (pad rows
-        never cross and are never near)."""
+        never cross and are never near). Extent chunks ride E = 0: their
+        device test is bbox-intersects."""
         pip = np.zeros(len(members), bool)
+        if self.extent:
+            return 0, None, pip
         chunk_e = bk.fused_e_bucket(max(bk.n_edges_of(m[1].poly) for m in members))
         if chunk_e == 0:
             return 0, None, pip
@@ -412,8 +434,10 @@ class IndexTable(SortedKeys):
         header + intervals), sized to the chunk's largest member raster
         and zero-padded per query (pad interval rows never classify; an
         all-zero header puts every row outside the grid, and such slots
-        never select the polygon legs)."""
+        never select the polygon legs). Extent chunks ride R = 0."""
         has = np.zeros(len(members), bool)
+        if self.extent:
+            return 0, None, has
         chunk_r = bk.fused_r_bucket(max(bk.n_rints_of(m[1].rast) for m in members))
         if chunk_r == 0:
             return 0, None, has
@@ -426,7 +450,7 @@ class IndexTable(SortedKeys):
         return chunk_r, rasts, has
 
     def _fused_pull(self, planes, clock=NULL_CLOCK):
-        """``pull() -> host planes [2, M, SUB/32, 128]``, memoized: the
+        """``pull() -> host planes [n_planes, M, SUB/32, 128]``, memoized: the
         chunk's planes come to the host in one copy, on the first member's
         finish, for every member."""
         pulled: list = []
@@ -468,8 +492,8 @@ class IndexTable(SortedKeys):
             spip[n_real:] = 0  # pad slots keep the box leg
         planes = bk.scan_planes_multi(
             self._cols_args(names), bids, qids, boxes, wins, col_names=names,
-            has_boxes=has_boxes, has_windows=has_windows, edges=edges, spip=spip,
-            n_edges=chunk_e, rasts=rasts, n_rints=chunk_r, clock=clock,
+            has_boxes=has_boxes, has_windows=has_windows, extent=self.extent, edges=edges,
+            spip=spip, n_edges=chunk_e, rasts=rasts, n_rints=chunk_r, clock=clock,
         )
         pull = self._fused_pull(planes, clock)
 
@@ -479,8 +503,7 @@ class IndexTable(SortedKeys):
             host = pull()
             with clock.host("decode"):
                 rows, certain = bk.decode_bits_pair(
-                    np.ascontiguousarray(host[0, s:e]), np.ascontiguousarray(host[1, s:e]),
-                    blocks, e - s,
+                    *_host_planes(host, slice(s, e)), blocks, e - s,
                 )
                 return self._post_decode(rows, certain, contained)
 
@@ -524,7 +547,8 @@ class IndexTable(SortedKeys):
         return blocks
 
     def _coord_cols(self) -> set:
-        return {"x", "y"} & set(self.col_names)
+        want = set(bk.EXTENT_COLS) if self.extent else {"x", "y"}
+        return want & set(self.col_names)
 
     def _scan_cols(self, config: ScanConfig) -> tuple:
         """Device columns this scan's predicate actually reads."""
@@ -535,7 +559,7 @@ class IndexTable(SortedKeys):
             names |= {"tbin", "toff", "tw"} & set(self.col_names)
         if not names:
             # no predicate: one validity column (sentinel test in the legs)
-            for v in ("x", "tw", "tbin"):
+            for v in ("x", "gxmin", "tw", "tbin"):
                 if v in self.col_names:
                     names = {v}
                     break
@@ -550,18 +574,21 @@ class IndexTable(SortedKeys):
             col_names=names,
             has_boxes=config.boxes is not None,
             has_windows=config.windows is not None,
+            extent=self.extent,
         )
 
     def _scan_kernel_kwargs(self, config: ScanConfig, names: tuple) -> dict:
         """Kernel kwargs of the scan path: the box legs plus the
         point-in-polygon and raster legs. The aggregation kernels keep
         ``_kernel_kwargs`` (the box test); polygon configs take the host
-        aggregation path (mask_decides_filter's for_aggregation)."""
+        aggregation path (mask_decides_filter's for_aggregation). Extent
+        tables never take the polygon legs: their device test is the
+        bbox-intersects box leg."""
         kw = self._kernel_kwargs(config, names)
-        if config.poly is not None:
+        if config.poly is not None and not self.extent:
             kw["edges"] = config.poly
             kw["n_edges"] = bk.n_edges_of(config.poly)
-        if config.rast is not None:
+        if config.rast is not None and not self.extent:
             kw["rast"] = config.rast
             kw["n_rints"] = bk.n_rints_of(config.rast)
         return kw
@@ -571,7 +598,8 @@ class IndexTable(SortedKeys):
 
     def _device_scan_submit(self, blocks: np.ndarray, config: ScanConfig, clock=NULL_CLOCK):
         """Launch the scan kernel now; return finish() -> (rows, certain).
-        Both planes come back in one device->host copy."""
+        The planes come back in one device->host copy (the wide plane
+        alone on an extent box scan)."""
         blocks = self._full_or(blocks)
         bids, n_real = bk.pad_bids(blocks, self.n_blocks)
         boxes, wins = self._params(config)
@@ -585,7 +613,7 @@ class IndexTable(SortedKeys):
             with clock.device("d2h", self.device):
                 host = planes.cpu().numpy()
             with clock.host("decode"):
-                return bk.decode_bits_pair(host[0], host[1], bids, n_real)
+                return bk.decode_bits_pair(*_host_planes(host), bids, n_real)
 
         return finish
 
@@ -667,6 +695,12 @@ class IndexTable(SortedKeys):
         with clock.device("d2h", self.device):
             host = stats.cpu().numpy()
         return aggregations.reduce_bounds(host, n_real)
+
+    def density(self, config: ScanConfig, bounds, width: int, height: int,
+                clock=NULL_CLOCK) -> np.ndarray:
+        """[height, width] density grid over ``bounds``, computed on the
+        device (the DensityScan push-down tier)."""
+        return self.density_submit(config, bounds, width, height, clock)()
 
     def density_submit(self, config: ScanConfig, bounds, width: int, height: int,
                        clock=NULL_CLOCK):

@@ -251,3 +251,108 @@ def test_block_scan_multi_polygon_stacks_equal_plain(cuda_cols, case, leg):
     )
     torch.cuda.synchronize()
     assert torch.equal(w, pw) and torch.equal(i, pi) and bool(w.any())
+
+
+# ------------------------------------------------------------ extent legs
+
+EXT = ("gxmax", "gxmin", "gymax", "gymin")
+# (projected columns, has_boxes, has_windows): XZ2 box, XZ3 box + window,
+# XZ3 window alone, validity on gxmin
+EXT_CASES = [
+    (EXT, True, False),
+    (tuple(sorted(EXT + ("tbin", "toff"))), True, True),
+    (("tbin", "toff"), False, True),
+    (("gxmin",), False, False),
+]
+EXT_BOXES = tbk.pack_boxes(np.array([[-60, -30, 40, 50], [100, -80, 170, -10]], np.float32), None)
+
+
+@pytest.fixture(scope="module")
+def cuda_ext_cols(cuda_cols):
+    """Extent columns beside the point table's time columns: boxes up to a
+    few degrees wide, one f32 ulp widened, boxes touching the first query
+    box's edges exactly, pad rows (+inf, -inf) at the tail."""
+    rng = np.random.default_rng(8)
+    n = NB * SUB * tbk.LANES
+    x0 = rng.uniform(-180, 178, n)
+    y0 = rng.uniform(-90, 88, n)
+    w, h = rng.exponential(0.5, n), rng.exponential(0.5, n)
+    gx0 = np.nextafter(x0.astype(np.float32), -np.inf)
+    gy0 = np.nextafter(y0.astype(np.float32), -np.inf)
+    gx1 = np.nextafter((x0 + w).astype(np.float32), np.inf)
+    gy1 = np.nextafter((y0 + h).astype(np.float32), np.inf)
+    # stored extents touching an edge of EXT_BOXES[0] = (-60, -30, 40, 50)
+    # from outside, 64 rows per edge: (gxmin, gymin, gxmax, gymax)
+    for k, ext in enumerate(((40, 0, 41, 1), (-61, 0, -60, 1), (0, 50, 1, 51), (0, -31, 1, -30))):
+        for col, v in zip((gx0, gy0, gx1, gy1), ext):
+            col[64 * k:64 * (k + 1)] = v
+    gx0[-3000:] = gy0[-3000:] = np.inf
+    gx1[-3000:] = gy1[-3000:] = -np.inf
+    shape = (NB, SUB, tbk.LANES)
+    out = {k: torch.from_numpy(v.reshape(shape)).cuda() for k, v in
+           {"gxmin": gx0, "gymin": gy0, "gxmax": gx1, "gymax": gy1}.items()}
+    return {**out, "tbin": cuda_cols["tbin"], "toff": cuda_cols["toff"]}
+
+
+@pytest.mark.parametrize("case", EXT_CASES)
+def test_extent_scan_and_pops_kernels_equal_plain(cuda_ext_cols, case):
+    names, hb, hw = case
+    bids, n_real = tbk.pad_bids(np.array([7, 0, 39, 12, 13, 2]), NB)
+    cols = tuple(cuda_ext_cols[k] for k in names)
+    kw = dict(col_names=names, has_boxes=hb, has_windows=hw, extent=True)
+    plain = dict(has_boxes=hb, has_windows=hw, extent=True)
+    w, i = tbk.block_scan(cols, bids, EXT_BOXES, WINS, **kw)
+    args = (dict(zip(names, cols)), _t(bids, torch.int32), _t(EXT_BOXES, torch.float32),
+            _t(WINS, torch.int32))
+    pw, pi = tbk.block_scan_plain(*args, **plain)
+    torch.cuda.synchronize()
+    assert torch.equal(w, pw) and bool(w.any())
+    assert (i is None) == (pi is None) == hb  # an extent box scan has one plane
+    assert i is None or torch.equal(i, pi)
+    got = tagg.block_pops(cols, bids, EXT_BOXES, WINS, **kw)
+    assert torch.equal(got, tagg.block_pops_plain(*args, **plain))
+
+
+@pytest.mark.parametrize("case", EXT_CASES)
+def test_extent_block_scan_multi_kernel_equals_plain(cuda_ext_cols, case):
+    names, hb, hw = case
+    boxes, wins = _stacks(41, tw=False)
+    rng = np.random.default_rng(4)
+    qids = np.zeros(64, np.int32)
+    qids[:60] = rng.permutation(np.arange(60) % 41)
+    bids, _ = tbk.pad_bids(rng.integers(0, NB, 60), NB, bucket=64)
+    cols = tuple(cuda_ext_cols[k] for k in names)
+    w, i = tbk.block_scan_multi(cols, bids, qids, boxes, wins, col_names=names,
+                                has_boxes=hb, has_windows=hw, extent=True)
+    pw, pi = tbk.block_scan_multi_plain(
+        dict(zip(names, cols)), _t(bids, torch.int32), _t(qids, torch.int32),
+        _t(boxes, torch.float32), _t(wins, torch.int32), has_boxes=hb, has_windows=hw,
+        extent=True,
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(w, pw) and bool(w.any())
+    assert (i is None) == (pi is None) == hb
+    assert i is None or torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("grid", [(256, 256), (33, 17)])
+@pytest.mark.parametrize("case", [c for c in EXT_CASES if c[1] or c[2]])
+def test_extent_density_and_bounds_kernels_equal_plain(cuda_ext_cols, case, grid):
+    """The bbox centre as the representative point; pad rows' NaN centres
+    never reach a pixel."""
+    names, hb, hw = case
+    names = tuple(sorted(set(names) | set(EXT)))
+    width, height = grid
+    bids, n_real = tbk.pad_bids(np.array([3, 5, 8, 21, 39]), NB, pad=-1)
+    cols = tuple(cuda_ext_cols[k] for k in names)
+    gb = np.array([-100, -60, 120, 70], np.float32)
+    kw = dict(col_names=names, has_boxes=hb, has_windows=hw, extent=True)
+    plain = dict(has_boxes=hb, has_windows=hw, extent=True)
+    args = (dict(zip(names, cols)), _t(bids, torch.int32), _t(EXT_BOXES, torch.float32),
+            _t(WINS, torch.int32))
+    got = tagg.block_density(cols, bids, EXT_BOXES, WINS, gb, width=width, height=height, **kw)
+    ref = tagg.density_plain(*args, _t(gb, torch.float32), width=width, height=height, **plain)
+    assert torch.equal(got, ref) and got.sum() > 0
+    st = tagg.block_bounds(cols, bids, EXT_BOXES, WINS, **kw)
+    sp = tagg.bounds_plain(*args, **plain)
+    assert np.array_equal(st[:n_real].cpu().numpy(), sp[:n_real].cpu().numpy())

@@ -5,9 +5,8 @@
   test process has jax loaded by tests/conftest.py);
 - ``DataStore()`` defaults to the card and raises where there is none;
 - the kernel wrappers route by the device of their tensors and never fall
-  back: a device without a kernel raises, and the leg not ported yet (the
-  extent leg) raises NotImplementedError whatever the device; the
-  point-in-polygon and raster legs, ported, take the plain version on the
+  back: a device without a kernel raises. Every leg is ported: the
+  point-in-polygon, raster and extent legs take the plain version on the
   CPU and raise for a device without a kernel.
 """
 
@@ -75,6 +74,39 @@ BIDS = np.zeros(32, np.int32)
 BOXES = tbk.pack_boxes(np.array([[0.0, 0.0, 1.0, 1.0]], np.float32), None)
 WINS = tbk.pack_windows(None, None)
 KW = dict(col_names=("x", "y"), has_boxes=True, has_windows=False)
+EXT = ("gxmin", "gymin", "gxmax", "gymax")
+EXT_KW = dict(KW, col_names=EXT, extent=True)
+GB = np.array([-1, -1, 1, 1], np.float32)
+
+
+def _extent_leg(device):
+    """The extent leg over all-zero extents (every row a point bbox at the
+    origin, inside BOXES): the plain versions on the CPU, the same planes,
+    pops, grid and bounds as the plain functions, and no fallback on a
+    device without a kernel."""
+    cols = _cols(device, EXT)
+    if device == "meta":
+        with pytest.raises(ValueError, match="no scan kernel"):
+            tbk.block_scan(cols, BIDS, BOXES, WINS, **EXT_KW)
+        with pytest.raises(ValueError, match="no bounds kernel"):
+            tagg.block_bounds(cols, BIDS - 1, BOXES, WINS, **EXT_KW)
+        with pytest.raises(ValueError, match="no density kernel"):
+            tagg.block_density(cols, BIDS - 1, BOXES, WINS, GB, width=4, height=4, **EXT_KW)
+        return
+    named = dict(zip(EXT, cols))
+    plain = dict(has_boxes=True, has_windows=False, extent=True)
+    w, i = tbk.block_scan(cols, BIDS, BOXES, WINS, **EXT_KW)
+    pw, pi = tbk.block_scan_plain(named, torch.from_numpy(BIDS), torch.from_numpy(BOXES),
+                                  torch.from_numpy(WINS), **plain)
+    assert i is None and pi is None  # an extent box scan writes no inner plane
+    assert torch.equal(w, pw) and (w == -1).all()  # every row's bit set
+    args = (named, torch.from_numpy(BIDS - 1), torch.from_numpy(BOXES), torch.from_numpy(WINS))
+    assert torch.equal(tagg.block_bounds(cols, BIDS - 1, BOXES, WINS, **EXT_KW),
+                       tagg.bounds_plain(*args, **plain))
+    grid = tagg.block_density(cols, BIDS - 1, BOXES, WINS, GB, width=4, height=4, **EXT_KW)
+    assert torch.equal(grid, tagg.density_plain(*args, torch.from_numpy(GB), width=4, height=4,
+                                                **plain))
+    assert grid.sum() == 0  # pad slots (bid -1) count nothing
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -84,32 +116,25 @@ KW = dict(col_names=("x", "y"), has_boxes=True, has_windows=False)
     dict(extent=True),
 ])
 def test_unported_legs_raise_on_every_device(device, leg):
-    if "extent" not in leg:
-        # a ported polygon leg: the plain version on the CPU (zero blocks
-        # select nothing), and no fallback on a device without a kernel
-        if device == "meta":
-            with pytest.raises(ValueError, match="no scan kernel"):
-                tbk.block_scan(_cols(device), BIDS, BOXES, WINS, **KW, **leg)
-            return
-        w, i = tbk.block_scan(_cols(device), BIDS, BOXES, WINS, **KW, **leg)
-        pw, pi = tbk.block_scan_plain(
-            dict(zip(KW["col_names"], _cols(device))), torch.from_numpy(BIDS),
-            torch.from_numpy(BOXES), torch.from_numpy(WINS), has_boxes=True, has_windows=False,
-            edges=torch.from_numpy(leg["edges"]) if "edges" in leg else None,
-            rast=torch.from_numpy(leg["rast"]) if "rast" in leg else None,
-        )
-        assert torch.equal(w, pw) and torch.equal(i, pi) and not w.any()
-        return
-    with pytest.raises(NotImplementedError):
-        tbk.block_scan(_cols(device), BIDS, BOXES, WINS, **KW, **leg)
+    """Each once-unported leg: the plain version on the CPU, a raise on a
+    device without a kernel."""
     if "extent" in leg:
-        with pytest.raises(NotImplementedError):
-            tagg.block_bounds(_cols(device), BIDS - 1, BOXES, WINS, **KW, **leg)
-        with pytest.raises(NotImplementedError):
-            tagg.block_density(
-                _cols(device), BIDS - 1, BOXES, WINS, np.array([0, 0, 1, 1], np.float32),
-                width=4, height=4, **KW, **leg,
-            )
+        _extent_leg(device)
+        return
+    # a ported polygon leg: the plain version on the CPU (zero blocks
+    # select nothing), and no fallback on a device without a kernel
+    if device == "meta":
+        with pytest.raises(ValueError, match="no scan kernel"):
+            tbk.block_scan(_cols(device), BIDS, BOXES, WINS, **KW, **leg)
+        return
+    w, i = tbk.block_scan(_cols(device), BIDS, BOXES, WINS, **KW, **leg)
+    pw, pi = tbk.block_scan_plain(
+        dict(zip(KW["col_names"], _cols(device))), torch.from_numpy(BIDS),
+        torch.from_numpy(BOXES), torch.from_numpy(WINS), has_boxes=True, has_windows=False,
+        edges=torch.from_numpy(leg["edges"]) if "edges" in leg else None,
+        rast=torch.from_numpy(leg["rast"]) if "rast" in leg else None,
+    )
+    assert torch.equal(w, pw) and torch.equal(i, pi) and not w.any()
 
 
 QIDS = np.zeros(32, np.int32)
@@ -125,32 +150,44 @@ STACK_WINS = np.stack([WINS] * 8)
     dict(extent=True),
 ])
 def test_unported_fused_legs_raise_on_every_device(device, leg):
-    if "extent" not in leg:
-        # the ported stacks (or a selector without one, which the JAX
-        # package ignores): the plain version on the CPU, no fallback
-        # elsewhere
+    if "extent" in leg:
+        # the fused extent leg and the popcount over it: plain on the CPU
+        cols = _cols(device, EXT)
         if device == "meta":
             with pytest.raises(ValueError, match="no fused scan kernel"):
-                tbk.block_scan_multi(_cols(device), BIDS, QIDS, STACK_BOXES, STACK_WINS,
-                                     **KW, **leg)
+                tbk.block_scan_multi(cols, BIDS, QIDS, STACK_BOXES, STACK_WINS, **EXT_KW)
+            with pytest.raises(ValueError, match="no count kernel"):
+                tagg.block_pops(cols, BIDS, BOXES, WINS, **EXT_KW)
             return
-        w, i = tbk.block_scan_multi(_cols(device), BIDS, QIDS, STACK_BOXES, STACK_WINS,
-                                    **KW, **leg)
+        named = dict(zip(EXT, cols))
+        w, i = tbk.block_scan_multi(cols, BIDS, QIDS, STACK_BOXES, STACK_WINS, **EXT_KW)
         pw, pi = tbk.block_scan_multi_plain(
-            dict(zip(KW["col_names"], _cols(device))), torch.from_numpy(BIDS),
-            torch.from_numpy(QIDS), torch.from_numpy(STACK_BOXES), torch.from_numpy(STACK_WINS),
-            has_boxes=True, has_windows=False,
-            edges=torch.from_numpy(leg["edges"]) if "edges" in leg else None,
-            rasts=torch.from_numpy(leg["rasts"]) if "rasts" in leg else None,
-            spip=torch.from_numpy(leg["spip"]),
+            named, torch.from_numpy(BIDS), torch.from_numpy(QIDS), torch.from_numpy(STACK_BOXES),
+            torch.from_numpy(STACK_WINS), has_boxes=True, has_windows=False, extent=True,
         )
-        assert torch.equal(w, pw) and torch.equal(i, pi)
+        assert i is None and pi is None and torch.equal(w, pw) and (w == -1).all()
+        pops = tagg.block_pops(cols, BIDS, BOXES, WINS, **EXT_KW)
+        assert (pops == 32 * 128).all()
         return
-    with pytest.raises(NotImplementedError):
-        tbk.block_scan_multi(_cols(device), BIDS, QIDS, STACK_BOXES, STACK_WINS, **KW, **leg)
-    if "extent" in leg:
-        with pytest.raises(NotImplementedError):
-            tagg.block_pops(_cols(device), BIDS, BOXES, WINS, **KW, **leg)
+    # the ported stacks (or a selector without one, which the JAX
+    # package ignores): the plain version on the CPU, no fallback
+    # elsewhere
+    if device == "meta":
+        with pytest.raises(ValueError, match="no fused scan kernel"):
+            tbk.block_scan_multi(_cols(device), BIDS, QIDS, STACK_BOXES, STACK_WINS,
+                                 **KW, **leg)
+        return
+    w, i = tbk.block_scan_multi(_cols(device), BIDS, QIDS, STACK_BOXES, STACK_WINS,
+                                **KW, **leg)
+    pw, pi = tbk.block_scan_multi_plain(
+        dict(zip(KW["col_names"], _cols(device))), torch.from_numpy(BIDS),
+        torch.from_numpy(QIDS), torch.from_numpy(STACK_BOXES), torch.from_numpy(STACK_WINS),
+        has_boxes=True, has_windows=False,
+        edges=torch.from_numpy(leg["edges"]) if "edges" in leg else None,
+        rasts=torch.from_numpy(leg["rasts"]) if "rasts" in leg else None,
+        spip=torch.from_numpy(leg["spip"]),
+    )
+    assert torch.equal(w, pw) and torch.equal(i, pi)
 
 
 def test_device_without_kernel_raises_instead_of_falling_back():
