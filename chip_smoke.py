@@ -26,14 +26,26 @@ Phases, each printing one JSON line:
    word; each kernel's and leg's time (CUDA events, median of 25 runs
    after warm-up: the launch alone, and the whole wrapper with its
    staging) beside its bound and the plain version's time;
-3. main path: a GDELT-shaped Z3 point table of 100,000,000 rows (the
+3. probes: the chip-side design probes at the JAX probes' sizes, each
+   through its own ``run`` (geomesa_tpu_torch/scripts/): P1
+   (``probe_pallas``: 64 Mi rows of x, y, tbin, toff, 1.07 GB on the
+   card, M = 128 and 1024: the scan kernel with all 8 box and window
+   slots, its end-to-end query, and K1 on the same columns as the
+   yardstick, on the probe's params and on the same predicate split
+   into 8 real slots of each leg, where K1 does P1's slot work) and P2 (``probe_agg``: 4096 blocks of x, y, 0.54 GB, M =
+   256 and 1024: the bounds kernel, the one-hot density kernel on the
+   tensor cores in its two chunk variants, K1, K3 and ``bincount`` as
+   yardsticks); every probe kernel equal to its plain version word for
+   word at both M, pad slots included, P1's rows at M = 128 equal to
+   numpy's; the columns are freed before the main path;
+4. main path: a GDELT-shaped Z3 point table of 100,000,000 rows (the
    reference benchmark's configuration 1, cut from 500M for the run's
    time) in ``DataStore(device="cuda")``, 16 warm-up and 64 measured
    BBOX + DURING queries (latency untraced, then a traced pass of the same
    queries for the per-phase split), 8 of them checked against an f64 brute-force
    filter, 4 density grids and 4 bounds estimates checked against the
    plain versions on the same device table;
-4. batch path, on the same store: ``query_many`` over the 64 queries (a
+5. batch path, on the same store: ``query_many`` over the 64 queries (a
    warm call, a timed one, then a traced one for the per-phase split),
    the serving scheduler under 8 client threads of 8 queries each,
    ``density_many`` over the 4 busiest queries' envelopes and 8
@@ -41,7 +53,7 @@ Phases, each printing one JSON line:
    ids equal the sequential queries', grids the sequential ``density``
    grids, and each count the table's count arithmetic over the plain
    popcount;
-5. polygon path, on the same store: 8 warm-up and 48 measured
+6. polygon path, on the same store: 8 warm-up and 48 measured
    ``INTERSECTS(geom, <star polygon>) AND dtg DURING`` queries (4 with a
    hole, 2 MultiPolygons, 2 past 256 edges), untraced then traced,
    ``query_many``, the scheduler (8 threads x 6 queries), 16 of them
@@ -51,18 +63,18 @@ Phases, each printing one JSON line:
    over 4 of them, and the full-table host scan the port used to run on
    2; ids, counts, envelopes and grids checked against an f64 brute
    force, every other path's ids against the sequential queries';
-6. a 10,000,000-row table with packed time, 16 queries, ``query_many``
+7. a 10,000,000-row table with packed time, 16 queries, ``query_many``
    and two count estimates;
-7. a Z2 table of 20,000,000 points (the reference benchmark's
+8. a Z2 table of 20,000,000 points (the reference benchmark's
    configuration 4): the polygon path with 32 queries and no time;
-8. osm-xz2-50M: the reference benchmark's configuration 3, building
+9. osm-xz2-50M: the reference benchmark's configuration 3, building
    footprints on an XZ2 table, cut from 200M to 50,000,000 rectangles;
    8 warm-up and 40 measured INTERSECTS rectangle queries untraced, then
    traced, ``query_many``, the scheduler (8 threads x 5 queries),
    ``IndexTable.count`` / ``density`` / ``bounds_stats`` over 4 of them
    against the plain versions on the same device table, and 8 queries'
    ids and counts against an f64 brute force;
-9. xz3-10M-mixed: 10,000,000 extent features with dates over 120 days
+10. xz3-10M-mixed: 10,000,000 extent features with dates over 120 days
    on an XZ3 table, 99 % footprint rectangles and 1 % triangles, stars,
    LineStrings and MultiPolygons; 8 warm-up and 32 measured INTERSECTS
    (rectangle, star) and BBOX queries AND DURING, and DURING alone,
@@ -75,7 +87,9 @@ seven paths and read just after it; each path must have launched the
 kernels and legs it names (main: K1, K3, K4; batch: K2, K1p, K3; Z3
 polygon: K1 and K2 each with PIP, raster and both legs; packed time:
 all five; Z2 polygon: K1's raster leg, K2 with stacks; XZ2: all five
-with the extent leg; XZ3: K1 and K2 with the extent leg).
+with the extent leg; XZ3: K1 and K2 with the extent leg); the probe
+phase zeroes and reads its own (each probe kernel, and each density
+variant, launched).
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -93,6 +107,11 @@ import time
 from contextlib import contextmanager
 
 import numpy as np
+
+# the package beside this script: its timer and comparison, shared with the
+# probes (in a directory without it, the import fails and nothing runs)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from geomesa_tpu_torch.timing import event_ms, max_abs_err  # noqa: E402
 
 N_MAIN = 100_000_000
 N_PACKED = 10_000_000
@@ -120,7 +139,6 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet); the
 # kernels' int32 compares and bit operations are counted at this rate too
 OPS_PER_S = 67e12
-TIMED_RUNS = 25
 T0_MS = int(np.datetime64("2024-01-01T00:00:00", "ms").astype(np.int64))
 SPAN_MS = 120 * 86_400_000
 
@@ -195,29 +213,6 @@ def query_set(seed, n):
 
 
 # -- timing ----------------------------------------------------------------
-
-
-def time_ms(torch, fn, runs=TIMED_RUNS, warmup=3) -> float:
-    """Median device time of fn() over ``runs`` launches (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def max_abs_err(a, b) -> float:
-    """Largest |a - b| over the elements (0 where equal, infinities included)."""
-    d = (a.double() - b.double()).abs()
-    d[a == b] = 0
-    return float(d.max()) if d.numel() else 0.0
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -386,9 +381,9 @@ def kernel_phase(torch, device):
     scan_ops = rows * (leg_ops(boxes, wins, True, True, planes=2) + 4)
     _, launch = bk.scan_launcher(tcols, bids, boxes, wins, **flags)
     out["block_scan"] = {
-        "ms": time_ms(torch, launch),
-        "wrapper_ms": time_ms(torch, lambda: bk.block_scan(c3, bids, boxes, wins, **kw)),
-        "plain_ms": time_ms(torch, lambda: bk.block_scan_plain(*pargs, **flags)),
+        "ms": event_ms(launch),
+        "wrapper_ms": event_ms(lambda: bk.block_scan(c3, bids, boxes, wins, **kw)),
+        "plain_ms": event_ms(lambda: bk.block_scan_plain(*pargs, **flags)),
         **bound(rows * 4 * len(names) + 2 * rows // 8 + bids.nbytes, scan_ops),
         "library_ms": None,
         "checks": scan_checks,
@@ -447,22 +442,22 @@ def kernel_phase(torch, device):
     _, d_launch = agg.density_launcher(tcols, bids, boxes, wins, gb, width=256, height=256,
                                        **flags)
     out["density"] = {
-        "ms": time_ms(torch, d_launch),
-        "wrapper_ms": time_ms(torch, lambda: agg.block_density(
+        "ms": event_ms(d_launch),
+        "wrapper_ms": event_ms(lambda: agg.block_density(
             c3, bids, boxes, wins, gb, width=256, height=256, **kw)),
-        "plain_ms": time_ms(torch, lambda: agg.density_plain(
+        "plain_ms": event_ms(lambda: agg.density_plain(
             *pargs, dev(gb, torch.float32), width=256, height=256, **flags)),
         **bound(col_bytes + 256 * 256 * 4 + bids.nbytes, density_ops),
-        "library_ms": time_ms(torch, lambda: torch.bincount(flat, minlength=256 * 256)),
+        "library_ms": event_ms(lambda: torch.bincount(flat, minlength=256 * 256)),
         "checks": agg_checks,
         "hits": int(flat.numel()),
         "shape": f"M={t_m} SUB={sub} grid=256x256 cols={','.join(names)}",
     }
     _, b_launch = agg.bounds_launcher(tcols, bids, boxes, wins, **flags)
     out["bounds"] = {
-        "ms": time_ms(torch, b_launch),
-        "wrapper_ms": time_ms(torch, lambda: agg.block_bounds(c3, bids, boxes, wins, **kw)),
-        "plain_ms": time_ms(torch, lambda: agg.bounds_plain(*pargs, **flags)),
+        "ms": event_ms(b_launch),
+        "wrapper_ms": event_ms(lambda: agg.block_bounds(c3, bids, boxes, wins, **kw)),
+        "plain_ms": event_ms(lambda: agg.bounds_plain(*pargs, **flags)),
         **bound(col_bytes + t_m * 8 * 4 + bids.nbytes, bounds_ops),
         "library_ms": None,
         "checks": agg_checks,
@@ -484,6 +479,114 @@ def kernel_phase(torch, device):
         out[name].setdefault("legs", {})["extent"] = leg
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], leg["max_abs_err"])
     return out
+
+
+# -- phase 3: the chip-side probes ------------------------------------------
+
+# the probes' kernels in the kernels line: (entry name, kernel, density
+# variant or None, replaced TPU kernel)
+PROBE_ENTRIES = (
+    ("probe_scan", "probe_scan", None,
+     "scripts/probe_pallas.py:67 (block_scan, body scan_kernel :25; pallas_call :84)"),
+    ("probe_bounds", "probe_bounds", None,
+     "scripts/probe_agg.py:128 (make_pallas(_bounds_kernel), body :109; pallas_call :144)"),
+    ("probe_density:reshape", "probe_density", "reshape",
+     "scripts/probe_agg.py:128 (make_pallas(_density_kernel_reshape), body :58; "
+     "pallas_call :144)"),
+    ("probe_density:fori", "probe_density", "fori",
+     "scripts/probe_agg.py:128 (make_pallas(_density_kernel_fori), body :85; "
+     "pallas_call :144)"),
+)
+
+
+def probe_phase(torch, device):
+    """P1 and P2 through their own ``run`` at the JAX probes' sizes, the
+    launch counts zeroed just before and read just after. Checks: P1's
+    rows at M = 128 equal numpy's, every probe kernel equals its plain
+    version at both M (pad slots included), K1's planes equal P1's and
+    K3's grid P2's density, and each probe kernel and density leg
+    launched. Returns (record, kernel entries for the kernels line)."""
+    from geomesa_tpu_torch.kernels import KERNELS, PROBE_DENSITY, PROBE_KERNELS
+    from geomesa_tpu_torch.scripts import probe_agg, probe_pallas
+
+    for k in (*KERNELS, *PROBE_KERNELS):
+        k.reset_counts()
+    t0 = time.perf_counter()
+    p1 = probe_pallas.run(device)
+    p2 = probe_agg.run(device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in (*KERNELS, *PROBE_KERNELS)}
+    legs = dict(PROBE_DENSITY.leg_launches)
+    torch.cuda.empty_cache()
+
+    check(p1["check"]["ok"] and p1["check"]["rows"] > 0, "P1 rows at M=128 equal numpy's")
+    for r in p1["records"]:
+        check(r["max_abs_err"] == 0.0, f"probe_scan equals plain at M={r['M']}")
+        check(r["k1_equal"], f"K1 planes equal P1's at M={r['M']}")
+        check(r["split_equal"], f"P1 and K1 on the 8-slot split equal P1's planes at M={r['M']}")
+    for r in p2["records"]:
+        for name, e in r["max_abs_err"].items():
+            check(e == 0.0, f"probe {name} equals plain at M={r['M']}")
+        check(r["k3_equal"], f"K3 grid equals P2's density at M={r['M']}")
+    for k in PROBE_KERNELS:
+        check(launches[k.name] > 0, f"probe kernel {k.name} launched")
+    for leg, n in legs.items():
+        check(n > 0, f"probe_density leg {leg} launched")
+
+    entries = []
+    for name, kname, variant, replaces in PROBE_ENTRIES:
+        by_m = {}
+        if kname == "probe_scan":
+            for r in p1["records"]:
+                by_m[r["M"]] = {
+                    "ms": r["kernel_ms"], "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
+                    **bound(r["bytes"], r["ops"]), "library_ms": None,
+                    "max_abs_err": r["max_abs_err"], "gb_per_s": r["gb_per_s"],
+                    "query_ms": r["query_ms"], "k1_ms": r["k1_ms"],
+                    "k1_wrapper_ms": r["k1_wrapper_ms"], "split_ms": r["split_kernel_ms"],
+                    "split_k1_ms": r["split_k1_ms"], "rows": r["rows"],
+                    "shape": f"M={r['M']} SUB=128 cols=x,y,tbin,toff slots=8+8",
+                }
+        else:
+            for r in p2["records"]:
+                if variant is None:
+                    a = r["bounds"]
+                    ms, wms, plain, lib = a["kernel_ms"], a["wrapper_ms"], r["plain_bounds_ms"], None
+                    err, extra = r["max_abs_err"]["bounds"], {}
+                else:
+                    a = r["density"]
+                    v = a[variant]
+                    ms, wms, plain = v["kernel_ms"], v["wrapper_ms"], r["plain_density_ms"]
+                    lib, err = r["bincount_ms"], r["max_abs_err"][variant]
+                    extra = {"tc_flops": a["tc_flops"], "tc_tflops": v["tc_tflops"],
+                             "tc_share": v["tc_share"],
+                             "tc_bound_ms": a["tc_flops"] / probe_agg.TC_FLOPS_PER_S * 1e3,
+                             "k3_ms": r["k3_ms"], "k3_wrapper_ms": r["k3_wrapper_ms"],
+                             "chunk_sublanes": 32 if variant == "reshape" else 1}
+                by_m[r["M"]] = {
+                    "ms": ms, "wrapper_ms": wms, "plain_ms": plain, **bound(a["bytes"], a["ops"]),
+                    "library_ms": lib, "max_abs_err": err, "hits": a["hits"],
+                    "k1_ms": r["k1_ms"], **extra,
+                    "shape": f"M={r['M']} SUB=128 cols=x,y boxes=8"
+                             + (" grid=256x256" if variant else ""),
+                }
+        top = by_m[max(by_m)]  # the largest M heads the entry
+        entries.append({
+            "name": name, "route": "cuda", "source": f"geomesa_tpu_torch/csrc/{kname}.cu",
+            "replaces": replaces,
+            "launches": legs[variant] if variant else launches[kname],
+            "launches_by_path": {"probes": legs[variant] if variant else launches[kname]},
+            "equal_to_plain": all(b["max_abs_err"] == 0.0 for b in by_m.values()),
+            "max_abs_err": max(b["max_abs_err"] for b in by_m.values()),
+            "ms": top["ms"], "kernel_ms": top["ms"], "wrapper_ms": top["wrapper_ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "shape": top["shape"], "by_m": by_m,
+        })
+    rec = {"phase": "probes", "wall_s": wall, "launches": launches,
+           "probe_density_legs": legs, "probe_pallas": p1, "probe_agg": p2}
+    return rec, entries
 
 
 def query_stacks(n_q: int, seed: int):
@@ -584,10 +687,10 @@ def fused_and_pops_kernels(torch, cols, n_blocks, sub, predicates, boxes1, wins1
     pargs = (tcols, dev(bids, torch.int32), dev(qids, torch.int32), dev(boxes, torch.float32),
              dev(wins, torch.int32))
     out["block_scan_multi"] = {
-        "ms": time_ms(torch, launch),
-        "wrapper_ms": time_ms(torch, lambda: bk.block_scan_multi(c3, bids, qids, boxes, wins,
+        "ms": event_ms(launch),
+        "wrapper_ms": event_ms(lambda: bk.block_scan_multi(c3, bids, qids, boxes, wins,
                                                                  **kw)),
-        "plain_ms": time_ms(torch, lambda: bk.block_scan_multi_plain(*pargs, **flags)),
+        "plain_ms": event_ms(lambda: bk.block_scan_multi_plain(*pargs, **flags)),
         **bound(rows * 4 * len(names) + 2 * rows // 8 + staged.nbytes, multi_ops),
         "library_ms": None,
         "checks": multi_checks,
@@ -603,9 +706,9 @@ def fused_and_pops_kernels(torch, cols, n_blocks, sub, predicates, boxes1, wins1
     _, p_launch = agg.pops_launcher(tcols, bids, boxes1, wins1, **flags)
     pargs = (tcols, dev(bids, torch.int32), dev(boxes1, torch.float32), dev(wins1, torch.int32))
     out["block_pops"] = {
-        "ms": time_ms(torch, p_launch),
-        "wrapper_ms": time_ms(torch, lambda: agg.block_pops(c3, bids, boxes1, wins1, **kw)),
-        "plain_ms": time_ms(torch, lambda: agg.block_pops_plain(*pargs, **flags)),
+        "ms": event_ms(p_launch),
+        "wrapper_ms": event_ms(lambda: agg.block_pops(c3, bids, boxes1, wins1, **kw)),
+        "plain_ms": event_ms(lambda: agg.block_pops_plain(*pargs, **flags)),
         **bound(rows * 4 * len(names) + m * 4 + bids.nbytes, pops_ops),
         "library_ms": None,
         "checks": pops_checks,
@@ -683,11 +786,11 @@ def polygon_kernels(torch, cols, n_blocks, sub, boxes, wins, dev):
         # the staged params with the polygon block's real rows
         staged = bk.stage_params(bids, boxes, wins).nbytes + 4 * (2 + 6 * n_e + 6 + 3 * n_r)
         k1[name] = {
-            "ms": time_ms(torch, launch),
-            "wrapper_ms": time_ms(torch, lambda: bk.block_scan(
+            "ms": event_ms(launch),
+            "wrapper_ms": event_ms(lambda: bk.block_scan(
                 c3, bids, boxes, wins, col_names=windowed, has_boxes=True, has_windows=True,
                 **kw)),
-            "plain_ms": time_ms(torch, lambda: bk.block_scan_plain(
+            "plain_ms": event_ms(lambda: bk.block_scan_plain(
                 tcols, tbids, dev(boxes, torch.float32), dev(wins, torch.int32),
                 has_boxes=True, has_windows=True, **pkw), runs=3, warmup=1),
             **bound(rows * 4 * len(windowed) + 2 * rows // 8 + staged, ops),
@@ -757,11 +860,11 @@ def polygon_kernels(torch, cols, n_blocks, sub, boxes, wins, dev):
                 None if rs is None else rs[q])
         rows2 = m2 * sub * 128
         k2[name] = {
-            "ms": time_ms(torch, launch),
-            "wrapper_ms": time_ms(torch, lambda: bk.block_scan_multi(
+            "ms": event_ms(launch),
+            "wrapper_ms": event_ms(lambda: bk.block_scan_multi(
                 c3, bids2, qids, qboxes, wins_q, col_names=windowed, has_boxes=True,
                 has_windows=True, **kw)),
-            "plain_ms": time_ms(torch, lambda: bk.block_scan_multi_plain(
+            "plain_ms": event_ms(lambda: bk.block_scan_multi_plain(
                 tcols, tb2, tq, dev(qboxes, torch.float32), dev(wins_q, torch.int32),
                 has_boxes=True, has_windows=True, **pkw), runs=3, warmup=1),
             **bound(rows2 * 4 * len(windowed) + 2 * rows2 // 8 + bk.stage_multi_params(
@@ -918,17 +1021,17 @@ def extent_kernels(torch, device, n_blocks, sub, boxes1, wins1, dev):
     out = {}
     _, launch = bk.scan_launcher(tcols, bids, boxes1, wins1, **flags)
     out["block_scan"] = {
-        "ms": time_ms(torch, launch),
-        "wrapper_ms": time_ms(torch, lambda: bk.block_scan(c3, bids, boxes1, wins1, **kw)),
-        "plain_ms": time_ms(torch, lambda: bk.block_scan_plain(*pargs, **flags)),
+        "ms": event_ms(launch),
+        "wrapper_ms": event_ms(lambda: bk.block_scan(c3, bids, boxes1, wins1, **kw)),
+        "plain_ms": event_ms(lambda: bk.block_scan_plain(*pargs, **flags)),
         # per row the wide plane's legs, a shift and an OR to pack; one plane out
         **bound(col_bytes + rows // 8 + bids.nbytes, wide_ops + rows * 2),
     }
     _, p_launch = agg.pops_launcher(tcols, bids, boxes1, wins1, **flags)
     out["block_pops"] = {
-        "ms": time_ms(torch, p_launch),
-        "wrapper_ms": time_ms(torch, lambda: agg.block_pops(c3, bids, boxes1, wins1, **kw)),
-        "plain_ms": time_ms(torch, lambda: agg.block_pops_plain(*pargs, **flags)),
+        "ms": event_ms(p_launch),
+        "wrapper_ms": event_ms(lambda: agg.block_pops(c3, bids, boxes1, wins1, **kw)),
+        "plain_ms": event_ms(lambda: agg.block_pops_plain(*pargs, **flags)),
         **bound(col_bytes + m * 4 + bids.nbytes, wide_ops + rows * 2 + rows // 16),
     }
     # the library yardstick of K3: one bincount over the hits' pixels
@@ -952,21 +1055,21 @@ def extent_kernels(torch, device, n_blocks, sub, boxes1, wins1, dev):
     _, d_launch = agg.density_launcher(tcols, bids, boxes1, wins1, gb, width=256, height=256,
                                        **flags)
     out["density"] = {
-        "ms": time_ms(torch, d_launch),
-        "wrapper_ms": time_ms(torch, lambda: agg.block_density(
+        "ms": event_ms(d_launch),
+        "wrapper_ms": event_ms(lambda: agg.block_density(
             c3, bids, boxes1, wins1, gb, width=256, height=256, **kw)),
-        "plain_ms": time_ms(torch, lambda: agg.density_plain(
+        "plain_ms": event_ms(lambda: agg.density_plain(
             *pargs, dev(gb, torch.float32), width=256, height=256, **flags)),
         **bound(col_bytes + 256 * 256 * 4 + bids.nbytes, density_ops),
-        "library_ms": time_ms(torch, lambda: torch.bincount(flat, minlength=256 * 256)),
+        "library_ms": event_ms(lambda: torch.bincount(flat, minlength=256 * 256)),
         "hits": int(flat.numel()),
     }
     del flat
     _, b_launch = agg.bounds_launcher(tcols, bids, boxes1, wins1, **flags)
     out["bounds"] = {
-        "ms": time_ms(torch, b_launch),
-        "wrapper_ms": time_ms(torch, lambda: agg.block_bounds(c3, bids, boxes1, wins1, **kw)),
-        "plain_ms": time_ms(torch, lambda: agg.bounds_plain(*pargs, **flags)),
+        "ms": event_ms(b_launch),
+        "wrapper_ms": event_ms(lambda: agg.block_bounds(c3, bids, boxes1, wins1, **kw)),
+        "plain_ms": event_ms(lambda: agg.bounds_plain(*pargs, **flags)),
         # per wide hit the centre, a count and four min/max
         **bound(col_bytes + m * 8 * 4 + bids.nbytes, wide_ops + wide_hits * 9),
     }
@@ -980,10 +1083,10 @@ def extent_kernels(torch, device, n_blocks, sub, boxes1, wins1, dev):
     pargs2 = (tcols, dev(bids2, torch.int32), dev(qids, torch.int32),
               dev(qboxes, torch.float32), dev(qwins, torch.int32))
     out["block_scan_multi"] = {
-        "ms": time_ms(torch, launch),
-        "wrapper_ms": time_ms(torch, lambda: bk.block_scan_multi(
+        "ms": event_ms(launch),
+        "wrapper_ms": event_ms(lambda: bk.block_scan_multi(
             c3, bids2, qids, qboxes, qwins, **kw)),
-        "plain_ms": time_ms(torch, lambda: bk.block_scan_multi_plain(*pargs2, **flags)),
+        "plain_ms": event_ms(lambda: bk.block_scan_multi_plain(*pargs2, **flags)),
         **bound(rows2 * 4 * len(names) + rows2 // 8
                 + bk.stage_multi_params(bids2, qids, qboxes, qwins).nbytes,
                 sub * 128 * int(per_query[qids].sum())),
@@ -1002,7 +1105,7 @@ def extent_kernels(torch, device, n_blocks, sub, boxes1, wins1, dev):
     return out
 
 
-# -- phase 3: the main path --------------------------------------------------
+# -- phase 4: the main path --------------------------------------------------
 
 
 def build_store(torch, device, n, packed: bool = False, index: str = "z3", seed: int = SEED):
@@ -2077,19 +2180,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from geomesa_tpu_torch.kernels import KERNELS, build_all
+    from geomesa_tpu_torch.kernels import KERNELS, PROBE_KERNELS, build_all
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     smi = nvidia_smi()
-    build_s = build_all()
+    build_s = build_all((*KERNELS, *PROBE_KERNELS))  # every source at once
     emit({"phase": "device", "nvidia_smi": smi, "torch_device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s})
 
     timings = kernel_phase(torch, device)
     emit({"phase": "kernels_vs_plain", **{k: v for k, v in timings.items()}})
+
+    probes, probe_kernels = probe_phase(torch, device)
+    emit(probes)
 
     records = main_path(torch, device)
     for rec in records:
@@ -2152,6 +2257,7 @@ def main() -> int:
                 "leg_launches_by_path": {cell: legs[k.name] for cell, legs in leg_paths.items()}}
                if "legs" in t else {}),
         })
+    kernels += probe_kernels
     emit({"kernels": kernels, "wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     # the run drives one card, cuda:0

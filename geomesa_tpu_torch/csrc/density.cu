@@ -23,11 +23,6 @@
 
 #include "masks.cuh"
 
-__device__ __forceinline__ int gm_pixel(float v, float v0, float span, float n, int cells) {
-  const int p = __float2int_rz(__fmul_rn(__fdiv_rn(__fsub_rn(v, v0), span), n));
-  return min(max(p, 0), cells - 1);
-}
-
 template <bool EXT>
 __global__ void __launch_bounds__(1024)
 gm_density_kernel(GmCols c, const int* __restrict__ params, int m, int sub,

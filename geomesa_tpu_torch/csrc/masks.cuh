@@ -1,9 +1,10 @@
 // Shared predicate legs of the port's scan-path kernels (block_scan.cu,
-// block_scan_multi.cu, block_pops.cu, density.cu, bounds.cu): the box,
-// extent, window, packed-time, validity, point-in-polygon and raster legs
-// of _masks in geomesa_tpu/scan/block_kernels.py:509-630 (the polygon legs
-// after _pip_edge_step :418, _rint_step :460 and _raster_cell :471), and
-// the aggregations' representative point (_rep_xy,
+// block_scan_multi.cu, block_pops.cu, density.cu, bounds.cu; the probes'
+// kernels take only the row indexing, the slot staging and gm_pixel):
+// the box, extent, window, packed-time, validity, point-in-polygon and
+// raster legs of _masks in geomesa_tpu/scan/block_kernels.py:509-630
+// (the polygon legs after _pip_edge_step :418, _rint_step :460 and
+// _raster_cell :471), and the aggregations' representative point (_rep_xy,
 // geomesa_tpu/scan/aggregations.py:46), evaluated for one row of a
 // [n_blocks, SUB, 128] column block. The two scan kernels take the polygon
 // legs; the aggregation kernels never do.
@@ -344,6 +345,15 @@ __device__ __forceinline__ void gm_rep_xy(const GmCols& c, long long r, int flag
 // load instruction of a warp reads 32 consecutive words.
 __device__ __forceinline__ long long gm_row(long long base, int j, int b, int lane) {
   return base + (long long)(j * 32 + b) * GM_LANES + lane;
+}
+
+// Density pixel of coordinate v on a grid of ``cells`` over [v0, v0 +
+// span]: clip(int((v - v0) / span * n)) in the reference's f32 order,
+// each step correctly rounded and the cast truncating (density.cu,
+// probe_density.cu).
+__device__ __forceinline__ int gm_pixel(float v, float v0, float span, float n, int cells) {
+  const int p = __float2int_rz(__fmul_rn(__fdiv_rn(__fsub_rn(v, v0), span), n));
+  return min(max(p, 0), cells - 1);
 }
 
 __host__ __forceinline__ dim3 gm_block_dim(int sub) {

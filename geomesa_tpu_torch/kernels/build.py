@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library under ``geomesa_tpu_torch/build/`` with a plain C entry
-point, loaded through ``ctypes`` at first use. All stale sources compile
-in parallel, one ``nvcc`` per source. Nothing builds or loads at import
+point, loaded through ``ctypes`` at first use. A kernel's first launch
+compiles the stale sources of its group in parallel, one ``nvcc`` per
+source: the system's five (``KERNELS``) or the chip-side probes' three
+(``PROBE_KERNELS``), so a probe source can neither slow nor fail a
+system path. Nothing builds or loads at import
 time: a machine without a CUDA toolkit imports this module and never
 calls it (CPU tensors take the plain PyTorch versions).
 """
@@ -67,7 +70,7 @@ class CudaKernel:
         last) and raise on its nonzero cudaGetLastError(); count the launch
         and, when ``leg`` names one, that leg's launch."""
         if self._fn is None:
-            build_all()
+            build_all(PROBE_KERNELS if self in PROBE_KERNELS else KERNELS)
             fn = getattr(ctypes.CDLL(str(self.library)), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -110,6 +113,19 @@ BLOCK_POPS = CudaKernel(
 )
 KERNELS = (BLOCK_SCAN, DENSITY, BOUNDS, BLOCK_SCAN_MULTI, BLOCK_POPS)
 
+# the chip-side probes' kernels (scan/probe_kernels.py, driven by
+# geomesa_tpu_torch/scripts/): no path of the system launches them, so they
+# stay out of KERNELS and build as a group of their own. The density
+# probe's launch names its chunk variant: "reshape" (32 sublanes a chunk)
+# or "fori" (one sublane).
+PROBE_SCAN = CudaKernel("probe_scan", "gm_probe_scan", [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P])
+PROBE_BOUNDS = CudaKernel("probe_bounds", "gm_probe_bounds", [_P, _P, _P, _I, _I, _P, _P])
+PROBE_DENSITY = CudaKernel(
+    "probe_density", "gm_probe_density", [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    legs=("reshape", "fori"),
+)
+PROBE_KERNELS = (PROBE_SCAN, PROBE_BOUNDS, PROBE_DENSITY)
+
 _build_lock = threading.Lock()
 
 
@@ -123,12 +139,13 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where a CUDA toolkit is installed")
 
 
-def build_all(verbose: bool = False) -> float:
-    """Compile every stale kernel source, all ``nvcc`` processes started
-    together. Returns the wall seconds spent (0.0 when nothing was stale).
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
+def build_all(kernels: tuple = KERNELS, verbose: bool = False) -> float:
+    """Compile every stale source of ``kernels`` (the system's by
+    default), all ``nvcc`` processes started together. Returns the wall
+    seconds spent (0.0 when nothing was stale). ``verbose`` adds
+    ``-Xptxas -v`` and prints the compiler's report."""
     with _build_lock:
-        todo = [k for k in KERNELS if k.stale()]
+        todo = [k for k in kernels if k.stale()]
         if not todo:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -989,7 +989,7 @@ def block_scan_multi(
 # --------------------------------------------------------------- decode
 
 
-def _unpack_plane(plane: np.ndarray, n_real: int) -> np.ndarray:
+def unpack_plane(plane: np.ndarray, n_real: int) -> np.ndarray:
     """[M, pack, 128] i32 plane -> [n_real, block] bool rows (inverts the
     packing: bit b of word [blk, j, lane] = local row (j*32+b)*128+lane)."""
     pack = plane.shape[1]
@@ -1008,13 +1008,13 @@ def decode_bits_pair(wide_plane, inner_plane, bids, n_real):
     if n_real == 0:
         return np.zeros(0, np.int64), np.zeros(0, bool)
     block = wide_plane.shape[1] * 32 * LANES
-    wb = _unpack_plane(wide_plane, n_real)
+    wb = unpack_plane(wide_plane, n_real)
     blk, local = np.nonzero(wb)
     rows = bids[:n_real][blk].astype(np.int64) * block + local
     if inner_plane is None:
         certain = np.zeros(len(rows), bool)
     else:
-        certain = _unpack_plane(inner_plane, n_real)[blk, local].astype(bool)
+        certain = unpack_plane(inner_plane, n_real)[blk, local].astype(bool)
     if not _bids_sorted(bids, n_real):
         order = np.argsort(rows, kind="stable")
         rows, certain = rows[order], certain[order]

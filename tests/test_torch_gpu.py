@@ -17,6 +17,7 @@ import torch
 
 from geomesa_tpu_torch.scan import aggregations as tagg
 from geomesa_tpu_torch.scan import block_kernels as tbk
+from geomesa_tpu_torch.scan import probe_kernels as tpk
 
 pytestmark = pytest.mark.gpu
 
@@ -356,3 +357,110 @@ def test_extent_density_and_bounds_kernels_equal_plain(cuda_ext_cols, case, grid
     st = tagg.block_bounds(cols, bids, EXT_BOXES, WINS, **kw)
     sp = tagg.bounds_plain(*args, **plain)
     assert np.array_equal(st[:n_real].cpu().numpy(), sp[:n_real].cpu().numpy())
+
+
+# -- the chip-side probes' kernels (P1 scan, P2 bounds and density) ---------
+
+PROBE_NB = 24
+
+
+@pytest.fixture(scope="module")
+def probe_cols():
+    """The probes' [PROBE_NB, 128, 128] columns on the card (x, y, tbin,
+    toff), drawn as the probes draw them, with rows exactly on the edges
+    of the P2 box / envelope (-40, -30, 60, 40) and of the P1 box."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from geomesa_tpu_torch.scripts import probe_pallas as pp
+
+    x, y, tb, to = (a.copy() for a in pp.make_columns(PROBE_NB * tpk.BLOCK, seed=3))
+    xb, yb = x.reshape(PROBE_NB, -1), y.reshape(PROBE_NB, -1)
+    for k, (ex, ey) in enumerate(((60, 0), (0, 40), (60, 40), (-40, -30), (10, 10),
+                                  (-10, 5), (60.00001, 0))):
+        xb[:, k * 97:(k + 1) * 97] = ex  # in every block
+        yb[:, k * 97:(k + 1) * 97] = ey
+    return tuple(torch.from_numpy(a).cuda() for a in (x, y, tb, to))
+
+
+def _probe_p1_params(n_slots):
+    from geomesa_tpu_torch.scripts import probe_pallas as pp
+
+    r = np.random.default_rng(n_slots)
+    lo = r.uniform(-170, 100, (n_slots, 2)).astype(np.float32)
+    bw = np.concatenate([lo, lo + r.uniform(5, 60, (n_slots, 2)).astype(np.float32)], axis=1)
+    bw[0] = (-10, -10, 10, 10)
+    b = r.integers(0, 18, n_slots)
+    ww = np.stack([b, b + r.integers(0, 4, n_slots), np.zeros(n_slots, int),
+                   np.full(n_slots, 604_799)], axis=1)
+    ww[-1, 2:] = (1000, 90_000)
+    return pp.pack_params(bw, bw[:1] + np.float32([1, 1, -1, -1]), ww, ww[:1])
+
+
+@pytest.mark.parametrize("m", [8, 32])
+@pytest.mark.parametrize("n_slots", [1, 3, 8])
+def test_probe_scan_kernel_equals_plain(probe_cols, m, n_slots):
+    """P1's planes word for word, pad slots (the tail repeating block 0)
+    included."""
+    r = np.random.default_rng(m)
+    bids = np.zeros(m, np.int32)
+    bids[: m - m // 4] = np.sort(r.choice(PROBE_NB, m - m // 4, replace=m > PROBE_NB))
+    boxes, wins = _probe_p1_params(n_slots)
+    w, i = tpk.probe_scan(probe_cols, bids, boxes, wins)
+    pw, pi = tpk.probe_scan_plain(*probe_cols, _t(bids, torch.int32),
+                                  _t(boxes, torch.float32), _t(wins, torch.int32))
+    torch.cuda.synchronize()
+    assert torch.equal(w, pw) and torch.equal(i, pi) and bool(w.any())
+
+
+def _probe_p2_bids(m):
+    r = np.random.default_rng(m + 1)
+    bids = np.full(m, -1, np.int32)
+    bids[: m - m // 4] = np.sort(r.choice(PROBE_NB, m - m // 4, replace=m > PROBE_NB))
+    return bids
+
+
+P2_BOXES = tbk.pack_boxes(np.array([[-40.0, -30.0, 60.0, 40.0], [100, -80, 170, -10]]), None)
+
+
+@pytest.mark.parametrize("empty", [False, True])
+@pytest.mark.parametrize("m", [8, 32])
+def test_probe_bounds_kernel_equals_plain(probe_cols, m, empty):
+    """P2 bounds: pad slots (-1) report block 0's stats, unmasked; a box
+    that matches nothing gives count 0 and +-inf extrema."""
+    boxes = tbk.pack_boxes(np.array([[500.0, 500, 501, 501]]), None) if empty else P2_BOXES
+    bids = _probe_p2_bids(m)
+    got = tpk.probe_bounds(probe_cols[:2], bids, boxes)
+    ref = tpk.probe_bounds_plain(*probe_cols[:2], _t(bids, torch.int32),
+                                 _t(boxes, torch.float32))
+    block0 = tpk.probe_bounds_plain(*probe_cols[:2], _t(np.zeros(1, np.int32), torch.int32),
+                                    _t(boxes, torch.float32))[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got[-1], block0)
+    assert (float(got[:, 0].sum()) == 0) == empty
+
+
+@pytest.mark.parametrize("grid", [(256, 256), (128, 384)])
+@pytest.mark.parametrize("variant", ["reshape", "fori"])
+@pytest.mark.parametrize("m", [8, 32])
+def test_probe_density_kernel_equals_plain(probe_cols, m, variant, grid):
+    """P2 density on the tensor cores, both chunk variants: rows on x1 / y1
+    clip to the last pixel, pad slots count nothing; and K3's grid is the
+    same."""
+    height, width = grid
+    bids = _probe_p2_bids(m)
+    gb = np.array([-40, -30, 60, 40], np.float32)
+    from geomesa_tpu_torch.kernels import PROBE_DENSITY
+
+    before = PROBE_DENSITY.leg_launches[variant]
+    got = tpk.probe_density(probe_cols[:2], bids, P2_BOXES, gb, variant=variant,
+                            height=height, width=width)
+    assert PROBE_DENSITY.leg_launches[variant] == before + 1
+    ref = tpk.probe_density_plain(*probe_cols[:2], _t(bids, torch.int32),
+                                  _t(P2_BOXES, torch.float32), _t(gb, torch.float32),
+                                  height, width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and got.sum() > 0 and got[-1, -1] > 0
+    k3 = tagg.block_density(probe_cols[:2], bids, P2_BOXES, WINS, gb, width=width,
+                            height=height, col_names=("x", "y"), has_boxes=True,
+                            has_windows=False)
+    assert torch.equal(k3, ref)

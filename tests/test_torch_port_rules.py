@@ -7,7 +7,10 @@
 - the kernel wrappers route by the device of their tensors and never fall
   back: a device without a kernel raises. Every leg is ported: the
   point-in-polygon, raster and extent legs take the plain version on the
-  CPU and raise for a device without a kernel.
+  CPU and raise for a device without a kernel;
+- every kernel, the system's five and the chip-side probes' three, has
+  its CUDA source in the checkout and builds for sm_90a without fast
+  math.
 """
 
 import importlib.util
@@ -52,7 +55,8 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
     assert bad.strip() == "[]", bad
     # the submodules of the many-query and polygon slices are among them
     for name in ("serving.scheduler", "stats.stat_spec", "stats.sketches", "utils.hashing",
-                 "filter.raster"):
+                 "filter.raster", "scan.probe_kernels", "scripts.probe_pallas",
+                 "scripts.probe_agg"):
         assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
@@ -115,9 +119,9 @@ def _extent_leg(device):
     dict(rast=np.zeros((17, 128), np.float32), n_rints=16),
     dict(extent=True),
 ])
-def test_unported_legs_raise_on_every_device(device, leg):
-    """Each once-unported leg: the plain version on the CPU, a raise on a
-    device without a kernel."""
+def test_ported_legs_take_plain_on_cpu_and_raise_without_a_kernel(device, leg):
+    """Each polygon and extent leg of the scan and the aggregations: the
+    plain version on the CPU, a raise on a device without a kernel."""
     if "extent" in leg:
         _extent_leg(device)
         return
@@ -149,7 +153,10 @@ STACK_WINS = np.stack([WINS] * 8)
     dict(spip=np.zeros(32, np.int32)),
     dict(extent=True),
 ])
-def test_unported_fused_legs_raise_on_every_device(device, leg):
+def test_ported_fused_legs_take_plain_on_cpu_and_raise_without_a_kernel(device, leg):
+    """Each leg of the fused scan (the edge and raster stacks, a selector
+    without one, the extent leg) and the count over the extent leg: the
+    plain version on the CPU, a raise on a device without a kernel."""
     if "extent" in leg:
         # the fused extent leg and the popcount over it: plain on the CPU
         cols = _cols(device, EXT)
@@ -222,15 +229,35 @@ def test_cpu_wrappers_take_the_plain_versions_and_launch_nothing():
     assert len(KERNELS) == 5
 
 
-def test_kernel_sources_and_build_flags():
-    """Every kernel has its CUDA source in the checkout, and the build
-    targets sm_90a without fast math."""
-    from geomesa_tpu_torch.kernels import KERNELS
+def test_kernel_sources_and_build_flags(monkeypatch):
+    """Every kernel, the probes' too, has its CUDA source in the checkout
+    naming the Pallas kernel it replaces; a first launch builds its own
+    group only (the probes stay out of KERNELS, which the system's paths
+    launch, and out of their build); the build targets sm_90a without
+    fast math."""
+    from geomesa_tpu_torch.kernels import KERNELS, PROBE_KERNELS, build
     from geomesa_tpu_torch.kernels.build import NVCC_FLAGS
 
-    for k in KERNELS:
+    assert len(PROBE_KERNELS) == 3 and not set(PROBE_KERNELS) & set(KERNELS)
+    built = []
+
+    def record(kernels=KERNELS, verbose=False):
+        built.append(kernels)
+        raise RuntimeError("no build here")
+
+    monkeypatch.setattr(build, "build_all", record)
+    for k in (build.BLOCK_SCAN, build.PROBE_DENSITY):
+        with pytest.raises(RuntimeError, match="no build here"):
+            k.launch()
+    assert built == [KERNELS, PROBE_KERNELS]
+    for k in (*KERNELS, *PROBE_KERNELS):
         src = k.source.read_text()
         assert f'extern "C" int {k.symbol}(' in src
         assert "Replaces the Pallas kernel" in src
+        assert "Bound on the H100" in src
+    for k in PROBE_KERNELS:
+        assert "scripts/probe_" in k.source.read_text()
+    assert "mma.sync" in build.PROBE_DENSITY.source.read_text()
+    assert set(build.PROBE_DENSITY.leg_launches) == {"reshape", "fori"}
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
     assert "--fmad=false" in NVCC_FLAGS and "--use_fast_math" not in NVCC_FLAGS
