@@ -22,10 +22,13 @@ Phases, each printing one JSON line:
    extent leg of all five on synthetic extent columns: K1 and K1p at
    M = 4096 and K2 at M = 2048 with 48 extent queries of 1-8 box slots,
    each with and without the window, the window alone and the validity
-   leg, K3 and K4 over the bbox centres); results must be equal word for
-   word; each kernel's and leg's time (CUDA events, median of 25 runs
-   after warm-up: the launch alone, and the whole wrapper with its
-   staging) beside its bound and the plain version's time;
+   leg, K3 and K4 over the bbox centres; K3 again on a clustered shape,
+   the main shape's columns with half of the rows in 64 gaussian clusters
+   of sigma 0.5 degrees); results must be
+   equal word for word; each kernel's and leg's time (CUDA events, median
+   of 25 runs after warm-up: the launch alone, and the whole wrapper with
+   its staging) beside its bound and the plain version's time, K3's on
+   the uniform and the clustered shape;
 3. probes: the chip-side design probes at the JAX probes' sizes, each
    through its own ``run`` (geomesa_tpu_torch/scripts/): P1
    (``probe_pallas``: 64 Mi rows of x, y, tbin, toff, 1.07 GB on the
@@ -80,16 +83,29 @@ Phases, each printing one JSON line:
    (rectangle, star) and BBOX queries AND DURING, and DURING alone,
    untraced then traced, ``query_many``, and 8 queries' ids against an
    f64 brute force written here (box algebra, even-odd vertex tests and
-   edge crossings).
+   edge crossings);
+11. gdelt-z3-10M-tiered: a 10,000,000-row GDELT-shaped store on Z3 and
+   Z2 takes two appends of 1,000,000 rows with recent times (hourly
+   loads into a standing table). The first stays in the delta tier: 8
+   BBOX + DURING queries give the main table's ids then the delta's f64
+   brute-force hits, in order and under a limit, counts, both bounds,
+   count estimates and density grids equal to the brute force over the
+   delta plus the plain versions over the main table, and ``query_many``
+   (16 queries, fused) the same ids. The second compacts: ids in order
+   equal a store written once with all 12M rows, appended rows first
+   where (bin, z) keys tie. Then 4 ``BBOX OR dtg
+   DURING`` queries plan as
+   unions of a Z2 and a Z3 scan: the box branch's ids, then the window
+   branch's unseen ids, each branch equal to an f64 brute force.
 
 Launch counts (and the legs' counts) are zeroed just before each of the
-seven paths and read just after it; each path must have launched the
+eight paths and read just after it; each path must have launched the
 kernels and legs it names (main: K1, K3, K4; batch: K2, K1p, K3; Z3
 polygon: K1 and K2 each with PIP, raster and both legs; packed time:
 all five; Z2 polygon: K1's raster leg, K2 with stacks; XZ2: all five
-with the extent leg; XZ3: K1 and K2 with the extent leg); the probe
-phase zeroes and reads its own (each probe kernel, and each density
-variant, launched).
+with the extent leg; XZ3: K1 and K2 with the extent leg; tiered: all
+five); the probe phase zeroes and reads its own (each probe kernel, and
+each density variant, launched).
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -174,6 +190,24 @@ def gdelt_points(n, rng):
     return x, y
 
 
+def cluster_xy(torch, x, y, seed=SEED):
+    """New x, y with half of the rows (chosen at random among the finite
+    ones) moved into 64 gaussian clusters of sigma 0.5 degrees, centres
+    drawn as gdelt_points draws them (lon -160..160, lat -55..65): hot
+    pixels on a 256 x 256 density grid."""
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed + 1)
+    cx = torch.rand(64, generator=g, device=x.device) * 320 - 160
+    cy = torch.rand(64, generator=g, device=x.device) * 120 - 55
+    which = torch.randint(0, 64, x.shape, generator=g, device=x.device)
+    # table pad rows (x = +inf) stay pads
+    moved = (torch.rand(x.shape, generator=g, device=x.device) < 0.5) & torch.isfinite(x)
+    nx = cx[which] + torch.randn(x.shape, generator=g, device=x.device) * 0.5
+    ny = cy[which] + torch.randn(x.shape, generator=g, device=x.device) * 0.5
+    return (torch.where(moved, nx.clamp(-180, 180), x).contiguous(),
+            torch.where(moved, ny.clamp(-90, 90), y).contiguous())
+
+
 def box_queries(rng, n_queries):
     """Selectivity mix: city-scale through continent-scale boxes."""
     out = []
@@ -195,11 +229,12 @@ def time_windows(rng, n_queries, t0, span_ms):
     return out
 
 
-def query_set(seed, n):
-    """[(ecql, (x0, y0, x1, y1, lo_ms, hi_ms))] for n BBOX + DURING queries."""
+def query_set(seed, n, t0=T0_MS, span_ms=SPAN_MS):
+    """[(ecql, (x0, y0, x1, y1, lo_ms, hi_ms))] for n BBOX + DURING queries
+    with windows inside [t0, t0 + span_ms)."""
     r = np.random.default_rng(seed)
     boxes = box_queries(r, n)
-    wins = time_windows(r, n, T0_MS, SPAN_MS)
+    wins = time_windows(r, n, t0, span_ms)
     out = []
     for (x0, y0, x1, y1), (lo, hi) in zip(boxes, wins):
         q = (
@@ -420,7 +455,8 @@ def kernel_phase(torch, device):
 
     # timing at the largest bucket, all slots real
     col_bytes = rows * 4 * len(names)
-    # the library yardstick: one bincount over this query's hit pixels
+    # the library yardstick: one bincount over this query's hit pixels,
+    # computed beforehand; it reads no column, so it is not K3's function
     g = {k: v[pargs[1].to(torch.int64)] for k, v in tcols.items()}
     wm, _ = bk.masks_plain(g, pargs[2], pargs[3], True, True)
     wide_hits = int(wm.sum())
@@ -449,10 +485,14 @@ def kernel_phase(torch, device):
             *pargs, dev(gb, torch.float32), width=256, height=256, **flags)),
         **bound(col_bytes + 256 * 256 * 4 + bids.nbytes, density_ops),
         "library_ms": event_ms(lambda: torch.bincount(flat, minlength=256 * 256)),
+        "library_covers": "torch.bincount over the hits' precomputed pixels; reads no column",
         "checks": agg_checks,
         "hits": int(flat.numel()),
         "shape": f"M={t_m} SUB={sub} grid=256x256 cols={','.join(names)}",
     }
+    out["density"]["clustered"], c_err = clustered_density(
+        torch, cols, n_blocks, bids, boxes, wins, gb, names, rng, dev, col_bytes, wide_ops)
+    err["density"] = max(err["density"], c_err)
     _, b_launch = agg.bounds_launcher(tcols, bids, boxes, wins, **flags)
     out["bounds"] = {
         "ms": event_ms(b_launch),
@@ -479,6 +519,57 @@ def kernel_phase(torch, device):
         out[name].setdefault("legs", {})["extent"] = leg
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], leg["max_abs_err"])
     return out
+
+
+def clustered_density(torch, cols, n_blocks, bids, boxes, wins, gb, names, rng, dev,
+                      col_bytes, wide_ops):
+    """K3 on the main shape's columns with half of the rows moved into 64
+    gaussian clusters of sigma 0.5 degrees (hot pixels): on a 256 x 256 and
+    a 33 x 17 grid against the plain version with -1 pads, over 3000
+    blocks and the whole table, then the kernel and the wrapper timed at
+    the main shape. Returns (record, max abs err)."""
+    from geomesa_tpu_torch.scan import aggregations as agg
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    sub = cols["x"].shape[1]
+    ccols = {k: cols[k] for k in names}
+    ccols["x"], ccols["y"] = cluster_xy(torch, cols["x"], cols["y"])
+    c3 = tuple(ccols[k] for k in names)
+    kw = dict(col_names=names, has_boxes=True, has_windows=True)
+    flags = dict(has_boxes=True, has_windows=True)
+    err, checks = 0.0, 0
+    for n_real in (3000, n_blocks):
+        blocks = np.sort(rng.choice(n_blocks, size=n_real, replace=False))
+        pbids, _ = bk.pad_bids(blocks, n_blocks, pad=-1)
+        pl = (ccols, dev(pbids, torch.int32), dev(boxes, torch.float32), dev(wins, torch.int32))
+        for width, height in ((256, 256), (33, 17)):
+            got = agg.block_density(c3, pbids, boxes, wins, gb, width=width, height=height, **kw)
+            ref = agg.density_plain(*pl, dev(gb, torch.float32), width=width, height=height,
+                                    **flags)
+            err = max(err, max_abs_err(got, ref))
+            check(torch.equal(got, ref) and float(got.sum()) > 0,
+                  f"density clustered M={len(pbids)} {width}x{height}")
+            checks += 1
+    pargs = (ccols, dev(bids, torch.int32), dev(boxes, torch.float32), dev(wins, torch.int32))
+    ref = agg.density_plain(*pargs, dev(gb, torch.float32), width=256, height=256, **flags)
+    hits = int(ref.sum())
+    _, launch = agg.density_launcher(ccols, bids, boxes, wins, gb, width=256, height=256, **flags)
+    rec = {
+        "ms": event_ms(launch),
+        "wrapper_ms": event_ms(lambda: agg.block_density(
+            c3, bids, boxes, wins, gb, width=256, height=256, **kw)),
+        # as the uniform shape: per row the legs and the envelope, per hit
+        # the pixel and one increment
+        **bound(col_bytes + 256 * 256 * 4 + bids.nbytes,
+                wide_ops + len(bids) * sub * 128 * 8 + hits * 15),
+        "hits": hits, "max_pixel_hits": int(ref.max()), "checks": checks,
+        "max_abs_err": err,
+        "shape": f"M={len(bids)} SUB={sub} grid=256x256 cols={','.join(names)}, "
+                 "half the rows in 64 clusters of sigma 0.5 deg",
+    }
+    del ccols, c3, ref
+    torch.cuda.empty_cache()
+    return rec, err
 
 
 # -- phase 3: the chip-side probes ------------------------------------------
@@ -2068,10 +2159,11 @@ def xz3_path(torch, device) -> dict:
 
 
 def main_path(torch, device):
-    """Seven paths, each with its own launch counts (zeroed just before it
+    """Eight paths, each with its own launch counts (zeroed just before it
     runs, read just after): the single-query main path, the batch path
     and the polygon path on the same store, the packed-time cell, the Z2
-    polygon cell, and the two extent cells (XZ2, XZ3)."""
+    polygon cell, the two extent cells (XZ2, XZ3), and the tiered store
+    with its union queries."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -2160,7 +2252,232 @@ def main_path(torch, device):
           "device_gb": ds.table("gdelt", "z2").nbytes_device / 1e9, **z2}
     del ds, src
     torch.cuda.empty_cache()
-    return rec, batch, poly, packed, z2, xz2_path(torch, device), xz3_path(torch, device)
+    return (rec, batch, poly, packed, z2, xz2_path(torch, device), xz3_path(torch, device),
+            tiered_union_path(torch, device))
+
+
+# -- the delta tier and union plans ----------------------------------------
+
+N_TIERED = 10_000_000
+N_APPEND = 1_000_000  # each of the two later writes
+N_TIERED_QUERIES = 8
+N_UNION_QUERIES = 4
+RECENT_MS = 21 * 86_400_000  # the appended rows' times: the span's last 21 days
+
+
+def wide_rows(cfg, cols) -> np.ndarray:
+    """The kernels' wide predicate over host key columns, written out: any
+    f32 box slot and any (bin, offset) window slot, bounds inclusive."""
+    x, y = cols["x"], cols["y"]
+    box = np.zeros(len(x), bool)
+    for x0, y0, x1, y1 in np.asarray(cfg.boxes, np.float32):
+        box |= (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
+    win = np.zeros(len(x), bool)
+    for b, lo, hi in np.asarray(cfg.windows, np.int64):
+        win |= (cols["tbin"] == b) & (cols["toff"] >= lo) & (cols["toff"] <= hi)
+    return box & win
+
+
+def check_tiered_query(torch, ds, q, box, main_ids, src, out) -> None:
+    """One BBOX + DURING query on a store whose rows past N_TIERED sit in
+    the delta tier: ids in order are the main table's ids, then the
+    delta's f64 brute-force hits in write order; a limit is the prefix;
+    count, both bounds, the count estimate and the density grid equal the
+    brute force over the delta added to the plain versions over the main
+    table."""
+    from geomesa_tpu_torch.scan import aggregations as agg
+
+    x, y, t = src
+    lo, hi = N_TIERED, ds.row_count("gdelt")
+    delta = lo + brute_ids((x[lo:hi], y[lo:hi], t[lo:hi]), box)
+    expect = np.concatenate([main_ids, delta])
+    ids = np.asarray(out.ids, np.int64)
+    check(np.array_equal(ids, expect), f"tiered ids in order: {q}")
+    check(np.array_equal(np.asarray(ds.query("gdelt", q, limit=7).ids, np.int64), expect[:7]),
+          f"tiered limit 7: {q}")
+    check(ds.count("gdelt", q) == len(expect), f"tiered count: {q}")
+    if len(expect):
+        env = (float(x[expect].min()), float(y[expect].min()),
+               float(x[expect].max()), float(y[expect].max()))
+        check(ds.bounds("gdelt", q, estimate=False) == env, f"tiered exact bounds: {q}")
+    tiered = ds.table("gdelt", "z3")
+    cfg = ds.planner.plan("gdelt", q).config
+    dcols = tiered.delta.device_cols
+    wide = np.flatnonzero(wide_rows(cfg, dcols))
+    with plain_pops(torch):
+        main_count = tiered.main.count(cfg)
+    est = ds.stats_query("gdelt", "Count()", q, estimate=True)[0].count
+    check(est == main_count + len(wide), f"tiered count estimate: {q}")
+    envelope = box[:4]
+    args = tiered.main.agg_launch_args(cfg)
+    env_main, ref = None, np.zeros((256, 256), np.float32)
+    if args is not None:  # the main table has candidate blocks
+        cols3, bids, n_real, boxes, wins, kw = args
+        dv = tiered.main.device
+        targs = (dict(zip(kw["col_names"], cols3)), torch.from_numpy(bids).to(dv),
+                 torch.from_numpy(boxes).to(dv), torch.from_numpy(wins).to(dv))
+        flags = dict(has_boxes=kw["has_boxes"], has_windows=kw["has_windows"])
+        st = agg.bounds_plain(*targs, **flags).cpu().numpy()
+        env_main = agg.reduce_bounds(st, n_real)[1]
+        ref = agg.density_plain(*targs, torch.tensor(envelope, dtype=torch.float32, device=dv),
+                                width=256, height=256, **flags).cpu().numpy()
+    dx, dy = dcols["x"][wide], dcols["y"][wide]
+    env_est = env_main
+    if len(wide):
+        denv = (float(dx.min()), float(dy.min()), float(dx.max()), float(dy.max()))
+        env_est = denv if env_main is None else (
+            min(env_main[0], denv[0]), min(env_main[1], denv[1]),
+            max(env_main[2], denv[2]), max(env_main[3], denv[3]))
+    check(ds.bounds("gdelt", q, estimate=True) == env_est, f"tiered bounds estimate: {q}")
+    grid = ds.density("gdelt", q, envelope=envelope, width=256, height=256)
+    ref = ref + host_density(dx, dy, envelope, 256, 256)
+    check(np.array_equal(grid, ref), f"tiered density: {q}")
+
+
+def tiered_union_path(torch, device) -> dict:
+    """gdelt-z3-10M-tiered: a 10M-row GDELT-shaped point store (Z3 and Z2)
+    takes two hourly-load-sized appends of 1M rows with recent times. The
+    first stays in the delta tier (1M <= max(262,144, 11M // 8)): 8 BBOX +
+    DURING queries (4 of them on the recent days) are checked as
+    ``check_tiered_query`` says, and ``query_many`` over them and 8 more
+    against the sequential queries. The
+    second crosses the threshold and compacts: ids in order must equal a
+    store written once with all 12M rows, with the appended rows ahead of
+    the main table's where their (bin, z) keys tie. Then 4 ``BBOX OR dtg DURING``
+    queries plan as unions: ids in order are the box branch's ids, then
+    the window branch's ids not yet seen, both branches equal to an f64
+    brute force, and ``limit=7`` the prefix. Launch counts are zeroed
+    before and read after."""
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+    from geomesa_tpu_torch.storage.delta import TieredTable
+    from geomesa_tpu_torch.storage.table import IndexTable
+    from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
+
+    zero_launches()
+    rng = np.random.default_rng(SEED + 40)
+    n_all = N_TIERED + 2 * N_APPEND
+    x, y = gdelt_points(n_all, rng)
+    perm = rng.permutation(n_all)  # clustered and uniform rows in every write
+    x, y = x[perm], y[perm]
+    t = np.concatenate([
+        T0_MS + rng.integers(0, SPAN_MS, N_TIERED),
+        T0_MS + SPAN_MS - RECENT_MS + rng.integers(0, RECENT_MS, 2 * N_APPEND),
+    ])
+    src = (x, y, t)
+    sft = FeatureType.from_spec("gdelt", "dtg:Date,*geom:Point:srid=4326")
+
+    def store():
+        ds = DataStore(device=device)
+        ds.create_schema(sft)
+        return ds
+
+    def write(ds, lo, hi) -> float:
+        fc = FeatureCollection.from_columns(
+            sft, np.arange(lo, hi), {"dtg": t[lo:hi], "geom": (x[lo:hi], y[lo:hi])})
+        t_in = time.perf_counter()
+        ds.write("gdelt", fc, check_ids=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t_in
+
+    ds = store()
+    ingest_s = write(ds, 0, N_TIERED)
+    half = N_TIERED_QUERIES // 2
+    queries = (query_set(SEED + 41, half, T0_MS + SPAN_MS - RECENT_MS, RECENT_MS)
+               + query_set(SEED + 42, N_TIERED_QUERIES - half))
+    main_ids = [np.asarray(ds.query("gdelt", q).ids, np.int64) for q, _ in queries]
+    lat_main, _, _ = run_queries(ds, queries)
+    append_s = write(ds, N_TIERED, N_TIERED + N_APPEND)
+    check(isinstance(ds.table("gdelt", "z3"), TieredTable)
+          and isinstance(ds.table("gdelt", "z2"), TieredTable), "the first append stays in the delta")
+    lat_tiered, outs, _ = run_queries(ds, queries)
+    ds.clock = clock = PhaseClock()
+    run_queries(ds, queries)
+    phases = {k: v / len(queries) * 1e3 for k, v in clock.settle().items()}
+    ds.clock = NULL_CLOCK
+    t_chk = time.perf_counter()
+    for (q, box), ids, out in zip(queries, main_ids, outs):
+        check_tiered_query(torch, ds, q, box, ids, src, out)
+    # 8 more queries: a batch of more than 8 fuses into K2's chunks
+    batch = [q for q, _ in queries + query_set(SEED + 45, N_TIERED_QUERIES)]
+    many = ds.query_many("gdelt", batch)
+    seq = outs + [ds.query("gdelt", q) for q in batch[len(outs):]]
+    check(all(np.array_equal(np.asarray(a.ids), np.asarray(b.ids)) for a, b in zip(many, seq))
+          and len(many) == len(seq), "tiered query_many vs sequential, in order")
+    check_s = time.perf_counter() - t_chk
+    delta_hits = sum(int((np.asarray(o.ids) >= N_TIERED).sum()) for o in outs)
+    check(delta_hits > 0, "the checked queries see delta rows")
+
+    compact_s = write(ds, N_TIERED + N_APPEND, n_all)
+    check(isinstance(ds.table("gdelt", "z3"), IndexTable)
+          and ds.row_count("gdelt") == n_all, "the second append compacts")
+    lat_compacted, outs, _ = run_queries(ds, queries)
+    once = store()
+    once_s = write(once, 0, n_all)
+    z3 = next(i for i in once.indexes("gdelt") if i.name == "z3")
+    ties = 0
+    for (q, _), out in zip(queries, outs):
+        ref = np.asarray(once.query("gdelt", q).ids, np.int64)
+        # one write orders rows of an equal (bin, z) key by id; the
+        # reference's compaction puts the appended rows ahead of the main
+        # table's there, in write order
+        keys = z3.write_keys(FeatureCollection.from_columns(
+            sft, ref, {"dtg": t[ref], "geom": (x[ref], y[ref])}))
+        order = np.lexsort((ref < N_TIERED, keys.zs, keys.bins))
+        ties += int((order != np.arange(len(ref))).sum())
+        check(np.array_equal(np.asarray(out.ids, np.int64), ref[order]),
+              f"compacted ids in order vs one write, appended rows first on a tie: {q}")
+    del once
+    torch.cuda.empty_cache()
+
+    r = np.random.default_rng(SEED + 43)
+    boxes = box_queries(r, N_UNION_QUERIES)
+    r_wins = np.random.default_rng(SEED + 44)
+    union_lat, union_hits = [], 0
+    for (x0, y0, x1, y1) in boxes:
+        dur = int(r_wins.choice([6, 24, 72])) * 3600_000
+        lo = int(T0_MS + r_wins.integers(0, SPAN_MS - dur))
+        bq = f"bbox(geom, {x0:.4f}, {y0:.4f}, {x1:.4f}, {y1:.4f})"
+        wq = f"dtg DURING {np.datetime64(lo, 'ms')}Z/{np.datetime64(lo + dur, 'ms')}Z"
+        q = f"{bq} OR {wq}"
+        check(ds.planner.plan("gdelt", q).strategy == "union(z2+z3)", f"union plan: {q}")
+        s0 = time.perf_counter()
+        got = np.asarray(ds.query("gdelt", q).ids, np.int64)
+        union_lat.append(time.perf_counter() - s0)
+        b1 = np.asarray(ds.query("gdelt", bq).ids, np.int64)
+        b2 = np.asarray(ds.query("gdelt", wq).ids, np.int64)
+        bx = tuple(float(f"{v:.4f}") for v in (x0, y0, x1, y1))
+        check(np.array_equal(np.sort(b1), np.flatnonzero(
+            (x >= bx[0]) & (x <= bx[2]) & (y >= bx[1]) & (y <= bx[3]))), f"box branch: {bq}")
+        check(np.array_equal(np.sort(b2), np.flatnonzero((t >= lo) & (t < lo + dur))),
+              f"window branch: {wq}")
+        expect = np.concatenate([b1, b2[~np.isin(b2, b1)]])
+        check(np.array_equal(got, expect), f"union ids in order: {q}")
+        check(np.array_equal(np.asarray(ds.query("gdelt", q, limit=7).ids, np.int64),
+                             expect[:7]), f"union limit 7: {q}")
+        union_hits += len(got)
+    launches = read_launches()
+    rec = {
+        "phase": "tiered_union_path", "cell": "gdelt-z3-10M-tiered", "launches": launches,
+        "n_points": N_TIERED, "n_append": N_APPEND, "indexes": ["z3", "z2"],
+        "ingest_s": ingest_s, "append_s": append_s, "compaction_s": compact_s,
+        "one_write_12M_s": once_s,
+        "n_queries": len(queries), "delta_hits_total": delta_hits,
+        "latency_p50_ms_main_only": float(np.percentile(lat_main, 50) * 1e3),
+        "latency_p50_ms_tiered": float(np.percentile(lat_tiered, 50) * 1e3),
+        "latency_p50_ms_compacted": float(np.percentile(lat_compacted, 50) * 1e3),
+        "delta_scan_ms_per_query": phases.get("delta", 0.0),
+        "phase_ms_per_query_tiered": phases,
+        "checked_tiered": len(queries), "checked_query_many": len(many), "check_s": check_s,
+        "checked_compacted_vs_one_write": len(queries), "compacted_hits_moved_by_ties": ties,
+        "n_union_queries": len(union_lat), "union_hits_total": union_hits,
+        "union_latency_p50_ms": float(np.percentile(union_lat, 50) * 1e3),
+        "union_latency_max_ms": float(np.max(union_lat) * 1e3),
+        "device_gb": ds.table("gdelt", "z3").nbytes_device / 1e9
+                     + ds.table("gdelt", "z2").nbytes_device / 1e9,
+    }
+    del ds, outs, many, seq
+    torch.cuda.empty_cache()
+    return rec
 
 
 # -- entry point -------------------------------------------------------------
@@ -2209,6 +2526,7 @@ def main() -> int:
         "gdelt-z2-20M-polygon": ("block_scan", "block_scan_multi"),
         "osm-xz2-50M": tuple(k.name for k in KERNELS),
         "xz3-10M-mixed": ("block_scan", "block_scan_multi"),
+        "gdelt-z3-10M-tiered": tuple(k.name for k in KERNELS),
     }
     for cell, names in expected.items():
         for name in names:
@@ -2253,6 +2571,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"],
+            **({"clustered": t["clustered"]} if "clustered" in t else {}),
             **({"legs": t["legs"],
                 "leg_launches_by_path": {cell: legs[k.name] for cell, legs in leg_paths.items()}}
                if "legs" in t else {}),

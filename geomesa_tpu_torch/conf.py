@@ -59,6 +59,11 @@ SCAN_RANGES_TARGET = SystemProperty(
     "max covering z-ranges per query (reference QueryProperties.ScanRangesTarget)",
 )
 
+COMPACT_MIN_ROWS = SystemProperty(
+    "geomesa.tpu.compact.min.rows", 262_144, int,
+    "delta rows before a minor compaction merges into the device table",
+)
+
 # -- raster-interval polygon approximations (filter.raster) ---------------
 
 RASTER_ENABLED = SystemProperty(

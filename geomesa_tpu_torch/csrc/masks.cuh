@@ -234,39 +234,83 @@ __host__ __forceinline__ bool gm_extent(int flags) {
   return (flags & (GM_EXTENT | GM_VALID_ON_G)) != 0;
 }
 
-// Wide (bit 0) and inner (bit 1) of the row at flat offset r. The spatial
-// leg (``leg``: the box slots, or the polygon legs read from ``poly``,
-// which may be null otherwise) and the windows AND together; with
-// neither, both planes are the row-validity test (isfinite(x), or t0 >= 0
-// for a table without coordinates): table pad rows carry never-matching
-// sentinels (x = +inf, tbin = tw = -1). The polygon legs combine as
-// _masks does: PIP alone wide = parity | near, inner = parity & ~near;
+// Wide (bit 0) and inner (bit 1) of one row from its loaded values: the
+// box leg (``leg`` GM_LEG_BOX) or the spatial bits ``w``, ``in`` the
+// caller's polygon legs gave, ANDed with the windows; with neither, both
+// planes are the row-validity test (isfinite(a), or t0 >= 0 for a table
+// without coordinates): table pad rows carry never-matching sentinels
+// (x = +inf, tbin = tw = -1). a, b, e, f are x and y of a point, or
+// gxmin, gymin, gxmax, gymax of an extent (an extent box leg is
+// bbox-intersects, its inner plane all false); t0 is tbin or the packed
+// tw, t1 toff. Values a query does not read are never looked at.
+template <bool EXT>
+__device__ __forceinline__ unsigned gm_leg_bits(const GmParams& p, int flags, int leg,
+                                                int n_box, int n_win, float a, float b,
+                                                float e, float f, int t0, int t1,
+                                                bool w = true, bool in = true) {
+  if (EXT && leg == GM_LEG_BOX && (flags & GM_EXTENT)) {
+    bool hit = false;
+    for (int k = 0; k < n_box; ++k) {
+      const float* s = p.box[k];
+      hit |= (a <= s[2]) & (e >= s[0]) & (b <= s[3]) & (f >= s[1]);
+    }
+    w = hit;
+    in = false;
+  } else if (leg == GM_LEG_BOX) {
+    bool bw = false, bi = false;
+    for (int k = 0; k < n_box; ++k) {
+      const float* s = p.box[k];
+      bw |= (a >= s[0]) & (a <= s[2]) & (b >= s[1]) & (b <= s[3]);
+      bi |= (a >= s[4]) & (a <= s[6]) & (b >= s[5]) & (b <= s[7]);
+    }
+    w = bw;
+    in = bi;
+  }
+  if (flags & GM_HAS_WINDOWS) {
+    int tb = t0, to = t1;
+    if (flags & GM_PACKED_TW) {
+      // arithmetic shift: the pad sentinel -1 stays bin -1, never a real bin
+      tb = t0 >> GM_TW_BITS;
+      to = t0 & GM_TW_MASK;
+    }
+    bool ww = false, wi = false;
+    for (int k = 0; k < n_win; ++k) {
+      const int* s = p.win[k];
+      ww |= (tb >= s[0]) & (tb <= s[1]) & (to >= s[2]) & (to <= s[3]);
+      wi |= (tb >= s[4]) & (tb <= s[5]) & (to >= s[6]) & (to <= s[7]);
+    }
+    w = w && ww;
+    in = in && wi;
+  }
+  if (leg == GM_LEG_NONE && !(flags & GM_HAS_WINDOWS)) {
+    const bool v = (flags & GM_VALID_ON_T) ? (t0 >= 0) : (bool)isfinite(a);
+    w = v;
+    in = v;
+  }
+  return (w ? GM_WIDE : 0u) | (in ? GM_INNER : 0u);
+}
+
+// Wide and inner of the row at flat offset r: loads what the legs read,
+// runs the polygon legs (``leg``: read from ``poly``, which may be null
+// otherwise) and hands the rest to gm_leg_bits. The polygon legs combine
+// as _masks does: PIP alone wide = parity | near, inner = parity & ~near;
 // raster alone wide = full | part, inner = full; both, the ray cast
 // decides the partial cells only (a row that is not partial needs none).
 template <bool EXT>
 __device__ __forceinline__ unsigned gm_row_bits(const GmCols& c, const GmParams& p,
                                                 const GmPoly* poly, long long r, int flags,
                                                 int leg, int n_box, int n_win) {
+  float a = 0.f, b = 0.f, e = 0.f, f = 0.f;
+  int t0 = 0, t1 = 0;
   bool w = true, in = true;
   if (EXT && leg == GM_LEG_BOX && (flags & GM_EXTENT)) {
-    const float x0 = c.gx0[r], y0 = c.gy0[r], x1 = c.gx1[r], y1 = c.gy1[r];
-    bool hit = false;
-    for (int k = 0; k < n_box; ++k) {
-      const float* b = p.box[k];
-      hit |= (x0 <= b[2]) & (x1 >= b[0]) & (y0 <= b[3]) & (y1 >= b[1]);
-    }
-    w = hit;
-    in = false;
+    a = c.gx0[r];
+    b = c.gy0[r];
+    e = c.gx1[r];
+    f = c.gy1[r];
   } else if (leg == GM_LEG_BOX) {
-    const float x = c.x[r], y = c.y[r];
-    bool bw = false, bi = false;
-    for (int k = 0; k < n_box; ++k) {
-      const float* b = p.box[k];
-      bw |= (x >= b[0]) & (x <= b[2]) & (y >= b[1]) & (y <= b[3]);
-      bi |= (x >= b[4]) & (x <= b[6]) & (y >= b[5]) & (y <= b[7]);
-    }
-    w = bw;
-    in = bi;
+    a = c.x[r];
+    b = c.y[r];
   } else if (leg == GM_LEG_PIP) {
     bool parity, near;
     gm_pip(*poly, c.x[r], c.y[r], parity, near);
@@ -286,34 +330,12 @@ __device__ __forceinline__ unsigned gm_row_bits(const GmCols& c, const GmParams&
       in = full | (part & parity & !near);
     }
   }
-  if (flags & GM_HAS_WINDOWS) {
-    int tb, to;
-    if (flags & GM_PACKED_TW) {
-      // arithmetic shift: the pad sentinel -1 stays bin -1, never a real bin
-      const int tw = c.t0[r];
-      tb = tw >> GM_TW_BITS;
-      to = tw & GM_TW_MASK;
-    } else {
-      tb = c.t0[r];
-      to = c.t1[r];
-    }
-    bool ww = false, wi = false;
-    for (int k = 0; k < n_win; ++k) {
-      const int* s = p.win[k];
-      ww |= (tb >= s[0]) & (tb <= s[1]) & (to >= s[2]) & (to <= s[3]);
-      wi |= (tb >= s[4]) & (tb <= s[5]) & (to >= s[6]) & (to <= s[7]);
-    }
-    w = w && ww;
-    in = in && wi;
-  }
-  if (leg == GM_LEG_NONE && !(flags & GM_HAS_WINDOWS)) {
-    const bool v = (flags & GM_VALID_ON_T)          ? (c.t0[r] >= 0)
-                   : (EXT && (flags & GM_VALID_ON_G)) ? (bool)isfinite(c.gx0[r])
-                                                    : (bool)isfinite(c.x[r]);
-    w = v;
-    in = v;
-  }
-  return (w ? GM_WIDE : 0u) | (in ? GM_INNER : 0u);
+  const bool valid_leg = leg == GM_LEG_NONE && !(flags & GM_HAS_WINDOWS);
+  if ((flags & GM_HAS_WINDOWS) || (valid_leg && (flags & GM_VALID_ON_T))) t0 = c.t0[r];
+  if ((flags & GM_HAS_WINDOWS) && !(flags & GM_PACKED_TW)) t1 = c.t1[r];
+  if (valid_leg && !(flags & GM_VALID_ON_T))
+    a = (EXT && (flags & GM_VALID_ON_G)) ? c.gx0[r] : c.x[r];
+  return gm_leg_bits<EXT>(p, flags, leg, n_box, n_win, a, b, e, f, t0, t1, w, in);
 }
 
 // The box, extent, window, packed-time and validity legs alone (the

@@ -11,8 +11,10 @@ on the store's device.
 
 The device is explicit: ``DataStore(device="cuda")`` (the default) raises
 when no CUDA device is present; tests pass ``device="cpu"``, where every
-kernel wrapper takes its plain PyTorch version. A write rebuilds each
-index table from all rows (this slice has no delta tier).
+kernel wrapper takes its plain PyTorch version. The first write builds
+each index table; later writes stay in a host delta tier (storage.delta)
+until it outgrows ``geomesa.tpu.compact.min.rows`` and an eighth of the
+rows, when ``compact`` rebuilds the tables from all rows.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from geomesa_tpu_torch import conf
 from geomesa_tpu_torch.features import FeatureCollection
 from geomesa_tpu_torch.filter.predicates import INCLUDE, Filter, Include, PointColumn
 from geomesa_tpu_torch.index import XZ2Index, XZ3Index, Z2Index, Z3Index
@@ -30,7 +33,8 @@ from geomesa_tpu_torch.index.api import WriteKeys
 from geomesa_tpu_torch.planning.explain import Explainer
 from geomesa_tpu_torch.planning.planner import QueryPlanner, mask_decides_filter
 from geomesa_tpu_torch.sft import FeatureType
-from geomesa_tpu_torch.storage.table import IndexTable
+from geomesa_tpu_torch.storage.delta import TieredTable, concat_keys
+from geomesa_tpu_torch.storage.table import IndexTable, merged_perm
 from geomesa_tpu_torch.timing import NULL_CLOCK
 
 
@@ -47,19 +51,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _concat_keys(parts: Sequence[WriteKeys]) -> WriteKeys:
-    if len(parts) == 1:
-        return parts[0]
-    return WriteKeys(
-        bins=np.concatenate([p.bins for p in parts]),
-        zs=np.concatenate([p.zs for p in parts]),
-        device_cols={
-            k: np.concatenate([p.device_cols[k] for p in parts])
-            for k in parts[0].device_cols
-        },
-    )
-
-
 class DataStore:
     """In-process feature store whose index tables live on one device."""
 
@@ -71,7 +62,10 @@ class DataStore:
         self._full: dict[str, FeatureCollection | None] = {}
         self._indexes: dict[str, list] = {}
         self._tables: dict[tuple[str, str], IndexTable] = {}
+        # per-index write keys, one part per write; rows past _main_rows
+        # are the delta tier
         self._key_chunks: dict[tuple[str, str], list[WriteKeys]] = {}
+        self._main_rows: dict[str, int] = {}
         self.planner = QueryPlanner(self)
         # per-phase timing of the scan path (timing.PhaseClock), or the
         # clock that records nothing
@@ -96,6 +90,7 @@ class DataStore:
         self._indexes[sft.name] = self._choose_indexes(sft)
         self._chunks[sft.name] = []
         self._full[sft.name] = None
+        self._main_rows[sft.name] = 0
         return sft
 
     @staticmethod
@@ -131,9 +126,12 @@ class DataStore:
         features: "FeatureCollection | Sequence[Mapping]",
         check_ids: bool = True,
     ) -> int:
-        """Append a batch of features and rebuild every index table from
-        all rows. ``check_ids=False`` skips the duplicate id check for bulk
-        loads with known-unique ids."""
+        """Append a batch of features. The first write builds every index
+        table; a later batch stays in the host delta tier until the delta
+        exceeds ``max(geomesa.tpu.compact.min.rows, total // 8)`` rows,
+        when :meth:`compact` runs (the JAX package's commit rule).
+        ``check_ids=False`` skips the duplicate id check for bulk loads
+        with known-unique ids."""
         sft = self._schemas[type_name]
         if not isinstance(features, FeatureCollection):
             features = FeatureCollection.from_rows(sft, features)
@@ -147,16 +145,43 @@ class DataStore:
         self._widen_bin_ranges(type_name, new_keys)
         self._chunks[type_name].append(features)
         self._full[type_name] = None
+        for name, keys in new_keys.items():
+            self._key_chunks.setdefault((type_name, name), []).append(keys)
+        total = self.row_count(type_name)
+        main_rows = self._main_rows[type_name]
+        if main_rows == 0 or total - main_rows > max(conf.COMPACT_MIN_ROWS.get(), total // 8):
+            self.compact(type_name)
+        return len(features)
+
+    def compact(self, type_name: str) -> None:
+        """Merge the delta tier into the device tables: concatenate the
+        key and feature chunks and rebuild each index table from all rows,
+        the delta's rows sorted into the old table's (bin, z) order ahead
+        of old rows with an equal key, as the JAX package's merge places
+        them (storage.table.merged_perm). Also collapses the feature
+        chunks into one collection."""
+        full = self.features(type_name)
+        self._chunks[type_name] = [full] if len(full) else []
+        main_rows = self._main_rows[type_name]
         for idx in self._indexes[type_name]:
             key = (type_name, idx.name)
-            parts = self._key_chunks.setdefault(key, [])
-            parts.append(new_keys[idx.name])
-            keys = _concat_keys(parts)
+            parts = self._key_chunks.get(key)
+            if not parts:
+                continue
+            keys = concat_keys(parts)
             self._key_chunks[key] = [keys]
+            old = self._tables.get(key)
+            if old is not None and old.n == len(keys.zs) == main_rows:
+                continue  # empty delta: the table is current
+            perm = None
+            if old is not None and old.n == main_rows < len(keys.zs):
+                perm = merged_perm(old.perm, keys, main_rows)
             # release the old device columns before the rebuild uploads
             self._tables.pop(key, None)
-            self._tables[key] = IndexTable(idx, keys, tile=self.tile, device=self.device)
-        return len(features)
+            self._tables[key] = IndexTable(
+                idx, keys, tile=self.tile, device=self.device, perm=perm
+            )
+        self._main_rows[type_name] = len(full)
 
     def _check_ids(self, type_name: str, ids: np.ndarray) -> None:
         if len(np.unique(ids)) != len(ids):
@@ -183,8 +208,21 @@ class DataStore:
                 idx.bin_range = (lo, hi) if p is None else (min(p[0], lo), max(p[1], hi))
 
     # -- tables and rows -------------------------------------------------
-    def table(self, type_name: str, index_name: str) -> IndexTable:
-        return self._tables[(type_name, index_name)]
+    def table(self, type_name: str, index_name: str) -> "IndexTable | TieredTable":
+        """The scan surface of one index: the device table, wrapped with
+        the host delta tier while writes since the last compaction exist."""
+        table = self._tables[(type_name, index_name)]
+        main_rows = self._main_rows[type_name]
+        if self.row_count(type_name) == main_rows:
+            return table
+        # a compaction leaves one key part of exactly main_rows rows and
+        # each later write appends one part, so the delta is whole parts
+        delta, seen = [], 0
+        for p in self._key_chunks[(type_name, index_name)]:
+            if seen >= main_rows:
+                delta.append(p)
+            seen += len(p.zs)
+        return TieredTable(table, concat_keys(delta), main_rows)
 
     def features(self, type_name: str) -> FeatureCollection:
         chunks = self._chunks.get(type_name, [])

@@ -10,9 +10,12 @@ refinement of the uncertain rows (always exact f64) -> limit.
 A polygon filter on a point schema plans to a pruned index scan whose
 kernel runs the point-in-polygon and raster legs; on an extent schema the
 XZ scan's bbox-intersects mask is never exact (``geom_precise`` False),
-so every hit refines in f64 and no aggregation pushes down. A filter no index of this slice serves
-(no spatio-temporal constraint, an OR across indexes) takes the
-full-table host scan, with identical results; explain says so.
+so every hit refines in f64 and no aggregation pushes down. A filter no
+single index serves plans as a union over its DNF disjuncts when each
+disjunct has an index (``bbox(...) OR dtg DURING ...``: one scan per
+disjunct, results deduplicated in first-seen order); otherwise (no
+spatio-temporal constraint) it takes the full-table host scan, with
+identical results. Explain says which.
 """
 
 from __future__ import annotations
@@ -48,9 +51,14 @@ class QueryPlan:
     config: Optional[ScanConfig]
     limit: Optional[int] = None
     planning_s: float = 0.0
+    # multi-index union plan (reference FilterSplitter OR options): each
+    # sub-plan scans one DNF disjunct on its own index; results dedup-union
+    union: Optional[list["QueryPlan"]] = None
 
     @property
     def strategy(self) -> str:
+        if self.union is not None:
+            return "union(" + "+".join(p.strategy for p in self.union) + ")"
         return "full-scan" if self.index is None else self.index
 
 
@@ -146,9 +154,55 @@ class QueryPlanner:
 
             f = normalize_antimeridian(f)
             exp(f"Planning query on '{type_name}': {type(f).__name__}")
-            plan = self._select_single(type_name, f, limit, exp)
+            plan = self._select(type_name, f, limit, exp)
         plan.planning_s = time.perf_counter() - t0
         return plan
+
+    def _select(self, type_name: str, f: Filter, limit: Optional[int], exp) -> QueryPlan:
+        plan = self._select_single(type_name, f, limit, exp)
+        if plan.index is not None:
+            return plan
+        # no single index serves the whole filter: try a multi-index union
+        # over the DNF disjuncts (reference FilterSplitter.scala:61-147)
+        union = self._select_union(type_name, f, limit, exp)
+        return union if union is not None else plan
+
+    def _select_union(
+        self, type_name: str, f: Filter, limit: Optional[int], exp
+    ) -> Optional[QueryPlan]:
+        from geomesa_tpu_torch.filter.dnf import rewrite_dnf
+
+        disjuncts = rewrite_dnf(f)
+        if disjuncts is None or len(disjuncts) < 2:
+            return None
+        subs: list[QueryPlan] = []
+        empty = None
+        for d in disjuncts:
+            sp = self._select_single(type_name, d, None, exp)
+            if sp.config is not None and sp.config.disjoint:
+                exp("Union: disjunct unsatisfiable, dropped")
+                empty = empty or sp
+                continue  # contributes nothing to the union
+            if sp.index is None:
+                exp("Union: a disjunct needs a full scan -> single-scan plan")
+                return None  # one full scan beats full scan + index scans
+            subs.append(sp)
+        if not subs:
+            # every disjunct unsatisfiable: an empty scan answers the query
+            # (the JAX package plans an empty id lookup, which the port
+            # does not carry)
+            return QueryPlan(type_name, f, empty.index, empty.config, limit=limit)
+        if len(subs) == 1:
+            # every other disjunct was unsatisfiable: the live branch IS the
+            # query (its disjunct filter is equivalent to the whole filter)
+            exp(f"Strategy: {subs[0].strategy} (other disjuncts unsatisfiable)")
+            subs[0].limit = limit
+            return subs[0]
+        exp(
+            f"Strategy: union of {len(subs)} index scans ("
+            + ", ".join(s.strategy for s in subs) + ")"
+        )
+        return QueryPlan(type_name, f, None, None, limit=limit, union=subs)
 
     def _select_single(
         self, type_name: str, f: Filter, limit: Optional[int], exp
@@ -187,6 +241,8 @@ class QueryPlanner:
     # -- execution -------------------------------------------------------
     def execute(self, plan: QueryPlan, explain: Explainer | None = None) -> FeatureCollection:
         exp = explain or ExplainNull()
+        if plan.union is not None:
+            return self._execute_union(plan, exp)
         if plan.index is None:  # full host scan
             fc = self.store.features(plan.type_name)
             with exp.span("Full-table host scan"):
@@ -198,6 +254,26 @@ class QueryPlanner:
                 plan, self.store.features(plan.type_name), None, exp
             )
         return self._submit_simple(plan, exp)()
+
+    def _execute_union(self, plan: QueryPlan, exp) -> FeatureCollection:
+        """Run every union branch on its own index, each refined with its
+        own disjunct filter, and dedup-union by feature id: branches in
+        disjunct order, each row where it first appears (reference:
+        per-option scans merged client-side with deduplication,
+        FilterSplitter OR semantics). The limit applies after the merge."""
+        parts = []
+        for sp in plan.union:
+            with exp.span(f"Union branch [{sp.strategy}]"):
+                parts.append(self.execute(sp, explain=exp))
+        nonempty = [p for p in parts if len(p)]
+        if not nonempty:
+            return self._post(parts[0], plan, exp)
+        out = nonempty[0] if len(nonempty) == 1 else FeatureCollection.concat(nonempty)
+        _, first = np.unique(np.asarray(out.ids), return_index=True)
+        if len(first) != len(out):
+            exp(f"Union dedup: {len(out)} -> {len(first)} rows")
+            out = out.take(np.sort(first))
+        return self._post(out, plan, exp)
 
     # -- pipelined multi-query execution ---------------------------------
     def _is_simple(self, plan: QueryPlan) -> bool:
@@ -212,8 +288,9 @@ class QueryPlanner:
 
     def submit(self, plan: QueryPlan, explain: Explainer | None = None):
         """Stage one query: launch its device scan now, return a zero-arg
-        ``finish()`` producing the FeatureCollection. A plan without an
-        index scan (full host scan, empty store) runs inside finish()."""
+        ``finish()`` producing the FeatureCollection. A plan without a
+        simple index scan (a union, a full host scan, an empty store) runs
+        inside finish()."""
         exp = explain or ExplainNull()
         if not self._is_simple(plan):
             return lambda: self.execute(plan, explain=exp)

@@ -191,6 +191,8 @@ def density_launcher(cols: dict, bids, boxes, wins, grid_bounds, *, has_boxes,
     )
     bids = np.asarray(bids, np.int32)
     bk.check_bids(bids, n_blocks, allow_pad=True)
+    if width < 1 or height < 1:
+        raise ValueError(f"density grid must be at least 1 x 1: {height} x {width}")
     gb = np.asarray(grid_bounds, np.float32).reshape(4)
     m = len(bids)
     with torch.cuda.device(device):

@@ -21,8 +21,8 @@ certifies a geometry: an extent box scan writes and pulls the wide plane
 alone, every hit refines on the host, and the polygon legs never run
 (extent members fuse with empty edge and raster stacks).
 
-This slice has no delta tier, fold or block reuse: a write rebuilds the
-table from all rows.
+The delta tier (storage.delta) wraps a table between compactions; a
+compaction rebuilds the table from all rows (no fold or block reuse).
 """
 
 from __future__ import annotations
@@ -72,12 +72,14 @@ class SortedKeys:
     """Host-side sorted key structure: the (bin, z) sort, the permutation
     back to feature ordinals, and searchsorted range -> row-span pruning."""
 
-    def __init__(self, keyspace: IndexKeySpace, keys: WriteKeys, tile: int):
+    def __init__(self, keyspace: IndexKeySpace, keys: WriteKeys, tile: int,
+                 perm: "np.ndarray | None" = None):
         self.keyspace = keyspace
         self.tile = tile
         self.n = len(keys.bins)
-        # stable (bin, z) sort (np.lexsort: LAST key is most significant)
-        perm = np.lexsort((keys.zs, keys.bins))
+        if perm is None:
+            # stable (bin, z) sort (np.lexsort: LAST key is most significant)
+            perm = np.lexsort((keys.zs, keys.bins))
         self.perm = perm  # table row -> feature ordinal
         self.bins = bins = keys.bins[perm]
         self.zs = keys.zs[perm]
@@ -124,6 +126,18 @@ class SortedKeys:
                 if z > a:
                     (contained if c else overlap).append((a, z))
         return _merge_spans(overlap), _merge_spans(contained)
+
+
+def merged_perm(old_perm: np.ndarray, keys: WriteKeys, main_rows: int) -> np.ndarray:
+    """The sort order of a compaction that folds rows [main_rows, n) of
+    ``keys`` into a table sorted as ``old_perm``: the stable (bin, z) sort
+    of the new rows in ordinal order followed by the old table's rows, so
+    a new row sorts before an old row with the same key. That is the order
+    of the JAX package's two-run merge (``merged_table``, insertion at
+    ``searchsorted(side="left")``), here by one full sort."""
+    order = np.concatenate([np.arange(main_rows, len(keys.zs), dtype=np.int64),
+                            np.asarray(old_perm, np.int64)])
+    return order[np.lexsort((keys.zs[order], keys.bins[order]))]
 
 
 def _merge_spans(spans: list[tuple[int, int]]) -> list[tuple[int, int]]:
@@ -204,9 +218,12 @@ class IndexTable(SortedKeys):
         keys: WriteKeys,
         tile: int | None = None,
         device="cuda",
+        perm: "np.ndarray | None" = None,
     ):
+        """``perm``: the table's sort order (row -> feature ordinal), or
+        None for the stable (bin, z) sort of ``keys``."""
         block = _block_rows(tile)
-        super().__init__(keyspace, keys, block)
+        super().__init__(keyspace, keys, block, perm)
         self._set_layout(block, keys.device_cols, torch.device(device))
         # sort-gather each column, pad it, upload it, release the host copy
         # before the next column (host peak: one padded column)

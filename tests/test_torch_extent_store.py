@@ -325,3 +325,164 @@ def test_loaded_table_state_gives_same_planes(stores, cell):
     jo, jc = jt.scan(jcfg)
     to, tc = pt.scan(tcfg)
     assert np.array_equal(to, jo) and np.array_equal(tc, jc) and not tc.any()
+
+
+# -- the delta tier against the JAX package's ------------------------------
+
+TIERED_RECT3, TIERED_OTHER3 = 5_400, 600
+WRITES = [4_000, 2_000]  # the second write stays in the delta of both
+TIERED_QUERIES = {
+    "xz2": SPATIAL[:3],
+    "xz3": [QUERIES["xz3"][0], QUERIES["xz3"][1], QUERIES["xz3"][5]],
+}
+TIERED_CASES = [(c, q) for c in CELLS for q in TIERED_QUERIES[c]]
+TIERED_IDS = [f"{c}-{i}" for c in CELLS for i in range(len(TIERED_QUERIES[c]))]
+
+
+def _tiered_data(seed=43):
+    rng = np.random.default_rng(seed)
+    xz2 = _footprints(rng, sum(WRITES))
+    rect3 = _footprints(rng, TIERED_RECT3)
+    others = _others(rng, TIERED_OTHER3)
+    t = T0 + rng.integers(0, 40 * DAY, TIERED_RECT3 + TIERED_OTHER3)
+    return xz2, rect3, others, t
+
+
+def _write_extents(pkg, ds, cell, data, writes, start=0):
+    """Write features [start, start + sum(writes)), one batch per entry of
+    ``writes``; on XZ3 each batch takes its share of the rectangles and of
+    the other geometries (rectangles first), so every batch mixes both."""
+    xz2, rect3, others, t = data
+    packed = pkg.geometry.PackedGeometryColumn
+    sft = ds.get_schema("ext")
+    for n in writes:
+        ids = np.arange(start, start + n)
+        if cell == "xz2":
+            cols = {"geom": packed.from_boxes(*(c[start:start + n] for c in xz2))}
+        else:
+            # feature k of the store: rectangle k // 10 * 9 + ..., i.e. the
+            # rectangles and others interleave in batches in a 9 : 1 ratio
+            r0, r1 = start * 9 // 10, (start + n) * 9 // 10
+            o0, o1 = start - r0, start + n - r1
+            col = packed.concat([packed.from_boxes(*(c[r0:r1] for c in rect3)),
+                                 packed.from_geometries(_geoms(pkg, others[o0:o1]))])
+            cols = {"geom": col, "dtg": np.concatenate([t[r0:r1], t[TIERED_RECT3 + o0:
+                                                                      TIERED_RECT3 + o1]])}
+        ds.write("ext", pkg.FeatureCollection.from_columns(sft, ids, cols))
+        start += n
+
+
+def _tiered_store(pkg, cell, data, writes, **kw):
+    spec = ("*geom:Polygon:srid=4326" if cell == "xz2"
+            else "dtg:Date,*geom:Geometry:srid=4326")
+    ds = pkg.DataStore(tile=TILE, **kw)
+    ds.create_schema("ext", spec)
+    _write_extents(pkg, ds, cell, data, writes)
+    return ds
+
+
+@pytest.fixture(scope="module")
+def tiered():
+    from geomesa_tpu import native
+
+    data = _tiered_data()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "_lib", False)
+        yield {
+            cell: (_tiered_store(geomesa_tpu, cell, data, WRITES),
+                   _tiered_store(geomesa_tpu_torch, cell, data, WRITES, device="cpu"))
+            for cell in CELLS
+        }, data
+
+
+def _ordered(fc) -> np.ndarray:
+    return np.asarray(fc.ids, np.int64)
+
+
+@pytest.mark.parametrize("cell,q", TIERED_CASES, ids=TIERED_IDS)
+def test_tiered_ids_in_order_and_limits_equal_jax(tiered, cell, q):
+    from geomesa_tpu_torch.storage.delta import TieredTable
+
+    jds, tds = tiered[0][cell]
+    assert isinstance(tds.table("ext", cell), TieredTable)
+    ref = _ordered(jds.query("ext", q))
+    assert len(ref) and (ref >= WRITES[0]).any()
+    assert np.array_equal(_ordered(tds.query("ext", q)), ref)
+    for limit in (1, 5, 7):
+        got = _ordered(tds.query("ext", q, limit=limit))
+        assert np.array_equal(got, ref[:limit])
+        assert np.array_equal(got, _ordered(jds.query("ext", q, limit=limit)))
+    assert tds.count("ext", q) == jds.count("ext", q) == len(ref)
+
+
+@pytest.mark.parametrize("cell,q", TIERED_CASES, ids=TIERED_IDS)
+def test_tiered_aggregations_equal_jax(tiered, cell, q):
+    """Bounds (estimate on and off) and Count() through the store, and the
+    tiered table's own count, density and bounds_stats: the main table's
+    kernels plus the host delta's bbox-intersects and bbox centres."""
+    jds, tds = tiered[0][cell]
+    for est in (True, False):
+        assert tds.bounds("ext", q, estimate=est) == jds.bounds("ext", q, estimate=est)
+        got = tds.stats_query("ext", "Count()", q, estimate=est)
+        ref = jds.stats_query("ext", "Count()", q, estimate=est)
+        assert [st.to_json() for st in got] == [st.to_json() for st in ref]
+    env = (-45.5, -30.25, 45, 30)
+    got = tds.density("ext", q, envelope=env, width=33, height=17)
+    assert np.array_equal(got, jds.density("ext", q, envelope=env, width=33, height=17))
+    jt, tt = jds.table("ext", cell), tds.table("ext", cell)
+    jc, tc = jds.planner.plan("ext", q).config, tds.planner.plan("ext", q).config
+    assert tt.count(tc) == jt.count(jc)
+    assert np.array_equal(tt.density(tc, env, 64, 32), np.asarray(jt.density(jc, env, 64, 32)))
+    assert tt.bounds_stats(tc) == jt.bounds_stats(jc)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_tiered_query_many_and_density_many_equal_jax(tiered, cell):
+    jds, tds = tiered[0][cell]
+    queries = TIERED_QUERIES[cell]
+    for limit in (None, 7):
+        got = tds.query_many("ext", queries, limit=limit)
+        ref = jds.query_many("ext", queries, limit=limit)
+        for q, g, r in zip(queries, got, ref):
+            assert np.array_equal(_ordered(g), _ordered(r)), q
+    reqs = [(q, (-45.5, -30.25, 45, 30)) for q in queries]
+    for g, r in zip(tds.density_many("ext", reqs, width=33, height=17),
+                    jds.density_many("ext", reqs, width=33, height=17)):
+        assert np.array_equal(g, np.asarray(r))
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_compaction_keeps_the_reference_order(tiered, cell):
+    """A third write past a lowered ``geomesa.tpu.compact.min.rows``
+    compacts both stores, and so does an explicit ``compact()``; ids stay
+    equal in order, and under a limit, to the JAX package's."""
+    from geomesa_tpu import conf as jconf
+    from geomesa_tpu import native
+
+    from geomesa_tpu_torch import conf as tconf
+    from geomesa_tpu_torch.storage.table import IndexTable
+
+    data = tiered[1]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "_lib", False)
+        jconf.COMPACT_MIN_ROWS.set(1_000)
+        tconf.COMPACT_MIN_ROWS.set(1_000)
+        try:
+            pair = [_tiered_store(geomesa_tpu, cell, data, [4_000, 500]),
+                    _tiered_store(geomesa_tpu_torch, cell, data, [4_000, 500], device="cpu")]
+            # 1,500 more: a delta of 2,000 > max(1,000, 6,000 // 8)
+            _write_extents(geomesa_tpu, pair[0], cell, data, [1_500], start=4_500)
+            _write_extents(geomesa_tpu_torch, pair[1], cell, data, [1_500], start=4_500)
+        finally:
+            jconf.COMPACT_MIN_ROWS.clear()
+            tconf.COMPACT_MIN_ROWS.clear()
+        explicit = [_tiered_store(geomesa_tpu, cell, data, WRITES),
+                    _tiered_store(geomesa_tpu_torch, cell, data, WRITES, device="cpu")]
+        for ds in explicit:
+            ds.compact("ext")
+        for jds, tds in (pair, explicit):
+            assert isinstance(tds.table("ext", cell), IndexTable)
+            for q in TIERED_QUERIES[cell][:2]:
+                ref = _ordered(jds.query("ext", q))
+                assert len(ref) and np.array_equal(_ordered(tds.query("ext", q)), ref)
+                assert np.array_equal(_ordered(tds.query("ext", q, limit=7)), ref[:7])

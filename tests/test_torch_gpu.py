@@ -359,6 +359,88 @@ def test_extent_density_and_bounds_kernels_equal_plain(cuda_ext_cols, case, grid
     assert np.array_equal(st[:n_real].cpu().numpy(), sp[:n_real].cpu().numpy())
 
 
+# -- K3 as redesigned: warp-compacted hits, grouped device atomics --------
+
+HOT = (10.0, 20.0)  # every row of the hot blocks lies on this point
+
+
+@pytest.fixture(scope="module")
+def hot_cols(cuda_cols):
+    """cuda_cols with blocks 8-15 (131,072 rows) moved onto one point and
+    blocks 16-23 into 4 gaussian clusters of sigma 0.5 degrees."""
+    rng = np.random.default_rng(6)
+    x = cuda_cols["x"].clone()
+    y = cuda_cols["y"].clone()
+    x[8:16] = HOT[0]
+    y[8:16] = HOT[1]
+    shape = tuple(x[16:24].shape)
+    which = rng.integers(0, 4, shape)
+    x[16:24] = torch.from_numpy((rng.uniform(-50, 30, 4)[which]
+                                 + rng.normal(0, 0.5, shape)).astype(np.float32)).cuda()
+    y[16:24] = torch.from_numpy((rng.uniform(-25, 45, 4)[which]
+                                 + rng.normal(0, 0.5, shape)).astype(np.float32)).cuda()
+    return {**cuda_cols, "x": x, "y": y}
+
+
+def _density_pair(cols_by_name, names, bids, boxes, wins, gb, width, height, hb=True, hw=True):
+    cols = tuple(cols_by_name[k] for k in names)
+    got = tagg.block_density(cols, bids, boxes, wins, gb, width=width, height=height,
+                             col_names=names, has_boxes=hb, has_windows=hw)
+    ref = tagg.density_plain(
+        dict(zip(names, cols)), _t(bids, torch.int32), _t(boxes, torch.float32),
+        _t(wins, torch.int32), _t(gb, torch.float32), has_boxes=hb, has_windows=hw,
+        width=width, height=height,
+    )
+    torch.cuda.synchronize()
+    return got, ref
+
+
+# the test grid, the polygon path's and the main path's
+K3_GRIDS = [(33, 17), (128, 128), (256, 256)]
+
+
+@pytest.mark.parametrize("grid", K3_GRIDS)
+def test_density_kernel_hot_pixel_past_16_bits(hot_cols, grid):
+    """One pixel gets 131,072 hits from 8 blocks, split over several CTAs
+    (at most 16,384 rows each), clusters make other hot pixels: the
+    grouped atomics of every CTA must add up exactly past 16 bits."""
+    width, height = grid
+    names = ("tbin", "toff", "x", "y")
+    bids, _ = tbk.pad_bids(np.arange(0, 30), NB, pad=-1)
+    boxes = tbk.pack_boxes(np.array([[-60, -30, 40, 50]], np.float32), None)
+    wins = tbk.pack_windows(np.array([[2800, 2819, 0, 604_799]]), None)
+    gb = np.array([-100, -60, 120, 70], np.float32)
+    # the hot blocks' time columns match the window: tbin, toff as drawn
+    got, ref = _density_pair(hot_cols, names, bids, boxes, wins, gb, width, height)
+    assert torch.equal(got, ref) and float(ref.max()) > 65_535
+
+
+@pytest.mark.parametrize("grid", K3_GRIDS)
+def test_density_kernel_all_pads_and_empty_predicate(cuda_cols, grid):
+    width, height = grid
+    names = ("tbin", "toff", "x", "y")
+    gb = np.array([-100, -60, 120, 70], np.float32)
+    pads = np.full(32, -1, np.int32)
+    got, ref = _density_pair(cuda_cols, names, pads, BOXES, WINS, gb, width, height)
+    assert torch.equal(got, ref) and float(got.sum()) == 0
+    empty = tbk.pack_boxes(np.array([[200, 100, 210, 110]], np.float32), None)
+    bids, _ = tbk.pad_bids(np.arange(NB), NB, pad=-1)
+    got, ref = _density_pair(cuda_cols, names, bids, empty, WINS, gb, width, height)
+    assert torch.equal(got, ref) and float(got.sum()) == 0
+
+
+@pytest.mark.parametrize("grid", K3_GRIDS)
+def test_density_kernel_every_block_box_and_validity(hot_cols, grid):
+    """Every block of the table (pads past the bucket), the box leg alone
+    and the validity leg (no predicate: every finite row)."""
+    width, height = grid
+    bids, _ = tbk.pad_bids(np.arange(NB), NB, pad=-1)
+    gb = np.array([-100, -60, 120, 70], np.float32)
+    for names, hb, hw in ((("x", "y"), True, False), (("x", "y"), False, False)):
+        got, ref = _density_pair(hot_cols, names, bids, BOXES, WINS, gb, width, height, hb, hw)
+        assert torch.equal(got, ref) and float(got.sum()) > 0
+
+
 # -- the chip-side probes' kernels (P1 scan, P2 bounds and density) ---------
 
 PROBE_NB = 24

@@ -8,7 +8,9 @@ Z3 with packed time off and on, and Z2. The JAX package's C++ host
 helpers are switched off for the module so both packages take the same
 numpy range decomposition (the helpers' ranges can differ from the numpy
 ones, which moves the candidate blocks a loose aggregation covers).
-Tolerance is exact equality throughout.
+Stores written in two batches keep the second in their delta tier: ids
+must then agree in order and under a limit, before and after a
+compaction. Tolerance is exact equality throughout.
 """
 
 import numpy as np
@@ -20,6 +22,8 @@ import geomesa_tpu_torch
 from geomesa_tpu.scan import block_kernels as jbk
 from geomesa_tpu_torch.scan import block_kernels as tbk
 from geomesa_tpu_torch.state import load_table_state
+from geomesa_tpu_torch.storage.delta import TieredTable
+from geomesa_tpu_torch.storage.table import IndexTable
 
 # the suite runs in several test processes side by side: one intra-op
 # thread each keeps torch's CPU kernels from oversubscribing the cores
@@ -31,18 +35,18 @@ T0 = int(np.datetime64("2024-01-01T00:00:00", "ms").astype(np.int64))
 DAY = 86_400_000
 
 
-def _data(seed=7):
+def _data(seed=7, n=N):
     rng = np.random.default_rng(seed)
-    half = N // 2
+    half = n // 2
     cx = rng.uniform(-160, 160, 16)
     cy = rng.uniform(-55, 65, 16)
     which = rng.integers(0, 16, half)
-    x = np.concatenate([rng.uniform(-180, 180, N - half),
+    x = np.concatenate([rng.uniform(-180, 180, n - half),
                         np.clip(cx[which] + rng.normal(0, 3.0, half), -180, 180)])
-    y = np.concatenate([rng.uniform(-90, 90, N - half),
+    y = np.concatenate([rng.uniform(-90, 90, n - half),
                         np.clip(cy[which] + rng.normal(0, 2.0, half), -90, 90)])
-    t = T0 + rng.integers(0, 28 * DAY, N)
-    age = rng.integers(0, 100, N).astype(np.int32)
+    t = T0 + rng.integers(0, 28 * DAY, n)
+    age = rng.integers(0, 100, n).astype(np.int32)
     # a few points exactly on query edges exercise the f32 boundary band
     x[:50] = 10.0
     y[50:100] = -5.0
@@ -57,18 +61,30 @@ SPECS = {
 }
 
 
-def _build(pkg, cell, data, **kw):
+def _build(pkg, cell, data, writes=None, **kw):
+    """A store of ``data`` in one write, or in one write per row count of
+    ``writes``."""
     spec, ud = SPECS[cell]
     sft = pkg.FeatureType.from_spec("pts", spec)
     sft.user_data.update(ud)
     ds = pkg.DataStore(tile=TILE, **kw)
     ds.create_schema(sft)
-    x, y, t, age = data
-    cols = {"geom": (x, y), "age": age}
-    if "dtg" in spec:
-        cols["dtg"] = t
-    ds.write("pts", pkg.FeatureCollection.from_columns(sft, np.arange(N), cols))
+    _write(pkg, ds, data, writes or [len(data[0])])
     return ds
+
+
+def _write(pkg, ds, data, writes, start=0):
+    """Write rows [start, start + sum(writes)) of ``data``, one batch per
+    entry of ``writes``; ids are the row numbers."""
+    sft = ds.get_schema("pts")
+    x, y, t, age = data
+    for n in writes:
+        sl = slice(start, start + n)
+        cols = {"geom": (x[sl], y[sl]), "age": age[sl]}
+        if sft.dtg_field is not None:
+            cols["dtg"] = t[sl]
+        ds.write("pts", pkg.FeatureCollection.from_columns(sft, np.arange(sl.start, sl.stop), cols))
+        start += n
 
 
 @pytest.fixture(scope="module")
@@ -163,24 +179,140 @@ def test_explain_names_strategy(stores):
     assert "full-table host scan" in tds.explain("pts", "age > 50")
 
 
-def test_rebuild_on_write_equals_lsm_path():
-    """Two writes: the port rebuilds its table from all rows, the JAX store
-    keeps the second batch in its delta tier; answers agree."""
+def _ordered(fc) -> np.ndarray:
+    return np.asarray(fc.ids, np.int64)
+
+
+def test_two_writes_return_main_then_delta_rows_in_order():
+    """Two writes: both packages keep the second batch in their delta
+    tier and return the main table's hits, then the delta's, so the ids
+    agree in order."""
     data = _data(seed=9)
-    x, y, t, age = data
-    stores = []
-    for pkg, kw in ((geomesa_tpu, {}), (geomesa_tpu_torch, {"device": "cpu"})):
-        sft = pkg.FeatureType.from_spec("pts", SPECS["z3"][0])
-        ds = pkg.DataStore(tile=TILE, **kw)
-        ds.create_schema(sft)
-        for sl in (slice(0, 40_000), slice(40_000, N)):
-            ds.write("pts", pkg.FeatureCollection.from_columns(
-                sft, np.arange(N)[sl], {"geom": (x[sl], y[sl]), "age": age[sl], "dtg": t[sl]}
-            ))
-        stores.append(ds)
+    stores = [_build(geomesa_tpu, "z3", data, writes=[40_000, 20_000]),
+              _build(geomesa_tpu_torch, "z3", data, writes=[40_000, 20_000], device="cpu")]
+    assert isinstance(stores[1].table("pts", "z3"), TieredTable)
+    delta_hits = 0
     for q in TIME_QUERIES[:3]:
-        ref, got = (np.sort(np.asarray(d.query("pts", q).ids, np.int64)) for d in stores)
+        ref, got = (_ordered(d.query("pts", q)) for d in stores)
         assert len(ref) and np.array_equal(got, ref)
+        n_delta = int((ref >= 40_000).sum())
+        assert (ref[len(ref) - n_delta:] >= 40_000).all()  # the delta's hits come last
+        delta_hits += n_delta
+    assert delta_hits
+
+
+# -- the delta tier against the JAX package's ------------------------------
+
+N_TIERED = 20_000
+WRITES = [12_000, 8_000]  # the second write stays in the delta of both
+TIERED_QUERIES = {
+    "z3": TIME_QUERIES[:3] + TIME_QUERIES[6:7],
+    "z3-packed": TIME_QUERIES[1:3] + TIME_QUERIES[6:7],
+    "z2": SPATIAL_QUERIES[1:4],
+}
+TIERED_CASES = [(c, q) for c in SPECS for q in TIERED_QUERIES[c]]
+TIERED_IDS = [f"{c}-{i}" for c in SPECS for i in range(len(TIERED_QUERIES[c]))]
+
+
+@pytest.fixture(scope="module")
+def tiered():
+    from geomesa_tpu import native
+
+    data = _data(seed=11, n=N_TIERED)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "_lib", False)
+        yield {
+            cell: (_build(geomesa_tpu, cell, data, writes=WRITES),
+                   _build(geomesa_tpu_torch, cell, data, writes=WRITES, device="cpu"))
+            for cell in SPECS
+        }, data
+
+
+def _index_of(cell):
+    return "z2" if cell == "z2" else "z3"
+
+
+@pytest.mark.parametrize("cell,q", TIERED_CASES, ids=TIERED_IDS)
+def test_tiered_ids_in_order_and_limits_equal_jax(tiered, cell, q):
+    jds, tds = tiered[0][cell]
+    assert isinstance(tds.table("pts", _index_of(cell)), TieredTable)
+    ref = _ordered(jds.query("pts", q))
+    assert len(ref) and np.array_equal(_ordered(tds.query("pts", q)), ref)
+    for limit in (1, 5, 7):
+        got = _ordered(tds.query("pts", q, limit=limit))
+        assert np.array_equal(got, _ordered(jds.query("pts", q, limit=limit)))
+        assert np.array_equal(got, ref[:limit])
+    assert tds.count("pts", q) == jds.count("pts", q) == len(ref)
+
+
+@pytest.mark.parametrize("cell,q", TIERED_CASES, ids=TIERED_IDS)
+def test_tiered_aggregations_equal_jax(tiered, cell, q):
+    """Bounds (estimate on and off), density grids and the Count()
+    estimate over the main table's kernels plus the host delta."""
+    jds, tds = tiered[0][cell]
+    for est in (True, False):
+        assert tds.bounds("pts", q, estimate=est) == jds.bounds("pts", q, estimate=est)
+        got = tds.stats_query("pts", "Count()", q, estimate=est)
+        ref = jds.stats_query("pts", "Count()", q, estimate=est)
+        assert [st.to_json() for st in got] == [st.to_json() for st in ref]
+    for env, w, h in (((-180, -90, 180, 90), 64, 32), ((-45.5, -30.25, 45, 30), 33, 17)):
+        got = tds.density("pts", q, envelope=env, width=w, height=h)
+        assert np.array_equal(got, jds.density("pts", q, envelope=env, width=w, height=h))
+
+
+@pytest.mark.parametrize("cell", list(SPECS))
+def test_tiered_query_many_and_density_many_equal_jax(tiered, cell):
+    jds, tds = tiered[0][cell]
+    queries = TIERED_QUERIES[cell]
+    for limit in (None, 7):
+        got = tds.query_many("pts", queries, limit=limit)
+        ref = jds.query_many("pts", queries, limit=limit)
+        for q, g, r in zip(queries, got, ref):
+            assert np.array_equal(_ordered(g), _ordered(r)), q
+    reqs = [(q, (-45.5, -30.25, 45, 30)) for q in queries]
+    for g, r in zip(tds.density_many("pts", reqs, width=33, height=17),
+                    jds.density_many("pts", reqs, width=33, height=17)):
+        assert np.array_equal(g, np.asarray(r))
+
+
+@pytest.mark.parametrize("cell", list(SPECS))
+def test_compaction_keeps_the_reference_order(tiered, cell):
+    """A third write past a lowered ``geomesa.tpu.compact.min.rows``
+    compacts both stores; an explicit ``compact()`` does too. Ids stay
+    equal in order, under a limit, to the JAX package's."""
+    from geomesa_tpu import conf as jconf
+    from geomesa_tpu import native
+
+    from geomesa_tpu_torch import conf as tconf
+
+    data = tiered[1]
+    queries = TIERED_QUERIES[cell][:2]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "_lib", False)
+        jconf.COMPACT_MIN_ROWS.set(4_000)
+        tconf.COMPACT_MIN_ROWS.set(4_000)
+        try:
+            pair = [_build(geomesa_tpu, cell, data, writes=[12_000, 2_000]),
+                    _build(geomesa_tpu_torch, cell, data, writes=[12_000, 2_000], device="cpu")]
+            assert isinstance(pair[1].table("pts", _index_of(cell)), TieredTable)
+            # 6,000 more: a delta of 8,000 > max(4,000, 20,000 // 8)
+            _write(geomesa_tpu, pair[0], data, [6_000], start=14_000)
+            _write(geomesa_tpu_torch, pair[1], data, [6_000], start=14_000)
+        finally:
+            jconf.COMPACT_MIN_ROWS.clear()
+            tconf.COMPACT_MIN_ROWS.clear()
+        explicit = [_build(geomesa_tpu, cell, data, writes=WRITES),
+                    _build(geomesa_tpu_torch, cell, data, writes=WRITES, device="cpu")]
+        for ds in explicit:
+            ds.compact("pts")
+        for jds, tds in (pair, explicit):
+            assert isinstance(tds.table("pts", _index_of(cell)), IndexTable)
+            assert tds.row_count("pts") == N_TIERED
+            for q in queries:
+                ref = _ordered(jds.query("pts", q))
+                assert len(ref) and np.array_equal(_ordered(tds.query("pts", q)), ref)
+                got = _ordered(tds.query("pts", q, limit=7))
+                assert np.array_equal(got, _ordered(jds.query("pts", q, limit=7)))
 
 
 @pytest.mark.parametrize("cell", ["z3", "z3-packed", "z2"])
