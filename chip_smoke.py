@@ -28,7 +28,8 @@ Phases, each printing one JSON line:
    equal word for word; each kernel's and leg's time (CUDA events, median
    of 25 runs after warm-up: the launch alone, and the whole wrapper with
    its staging) beside its bound and the plain version's time, K3's on
-   the uniform and the clustered shape;
+   the uniform and the clustered shape, K1's box + window launch also at
+   M = 32 and 256, the main path's small buckets;
 3. probes: the chip-side design probes at the JAX probes' sizes, each
    through its own ``run`` (geomesa_tpu_torch/scripts/): P1
    (``probe_pallas``: 64 Mi rows of x, y, tbin, toff, 1.07 GB on the
@@ -47,7 +48,9 @@ Phases, each printing one JSON line:
    BBOX + DURING queries (latency untraced, then a traced pass of the same
    queries for the per-phase split), 8 of them checked against an f64 brute-force
    filter, 4 density grids and 4 bounds estimates checked against the
-   plain versions on the same device table;
+   plain versions on the same device table; the record gives the
+   candidate blocks of every measured query's K1 launch (its M bucket and
+   its real blocks: median, p90, max), the shapes K1 runs at there;
 5. batch path, on the same store: ``query_many`` over the 64 queries (a
    warm call, a timed one, then a traced one for the per-phase split),
    the serving scheduler under 8 client threads of 8 queries each,
@@ -349,13 +352,12 @@ def synthetic_columns(torch, n_blocks, sub, device):
     return {"x": x.contiguous(), "y": y.contiguous(), "tbin": tb, "toff": to, "tw": tw}
 
 
-def kernel_phase(torch, device):
-    from geomesa_tpu_torch.scan import aggregations as agg
+def scan_params():
+    """The kernel phase's one-query params: two wide box slots and one
+    inner, two wide window slots and one inner, in seconds and in the
+    packed 32 s ticks (boxes, wins, wins_tw: [8, 128] blocks)."""
     from geomesa_tpu_torch.scan import block_kernels as bk
 
-    sub = 128
-    n_blocks = -(-N_MAIN // (sub * 128))  # the main table's block count
-    cols = synthetic_columns(torch, n_blocks, sub, device)
     boxes = bk.pack_boxes(
         np.array([[-60, -30, 40, 50], [100, -80, 170, -10]], np.float32),
         np.array([[-59, -29, 39, 49]], np.float32),
@@ -368,6 +370,30 @@ def kernel_phase(torch, device):
         np.array([[2801, 2805, 0, 18_899], [2810, 2810, 31, 2812]]),
         np.array([[2801, 2805, 1, 18_898]]),
     )
+    return boxes, wins, wins_tw
+
+
+def k1_scan_ops(boxes, wins, rows: int) -> int:
+    """Operations of K1's box + window scan over ``rows``: per row both
+    planes' legs, then a shift and an OR per plane to pack."""
+    return rows * (leg_ops(boxes, wins, True, True, planes=2) + 4)
+
+
+def k1_scan_bytes(bids, n_cols: int, sub: int) -> int:
+    """Bytes of K1 over the slots ``bids``: each column read once, both
+    planes written, the block ids."""
+    rows = len(bids) * sub * 128
+    return rows * 4 * n_cols + 2 * rows // 8 + bids.nbytes
+
+
+def kernel_phase(torch, device):
+    from geomesa_tpu_torch.scan import aggregations as agg
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    sub = 128
+    n_blocks = -(-N_MAIN // (sub * 128))  # the main table's block count
+    cols = synthetic_columns(torch, n_blocks, sub, device)
+    boxes, wins, wins_tw = scan_params()
     predicates = [
         ("box+window", ("tbin", "toff", "x", "y"), True, True, wins),
         ("box+window:tw", ("tw", "x", "y"), True, True, wins_tw),
@@ -412,18 +438,27 @@ def kernel_phase(torch, device):
     flags = dict(has_boxes=True, has_windows=True)
     pargs = (tcols, dev(bids, torch.int32), dev(boxes, torch.float32), dev(wins, torch.int32))
     rows = t_m * sub * 128
-    # per row: both planes' legs, then a shift and an OR per plane to pack
-    scan_ops = rows * (leg_ops(boxes, wins, True, True, planes=2) + 4)
     _, launch = bk.scan_launcher(tcols, bids, boxes, wins, **flags)
     out["block_scan"] = {
         "ms": event_ms(launch),
         "wrapper_ms": event_ms(lambda: bk.block_scan(c3, bids, boxes, wins, **kw)),
         "plain_ms": event_ms(lambda: bk.block_scan_plain(*pargs, **flags)),
-        **bound(rows * 4 * len(names) + 2 * rows // 8 + bids.nbytes, scan_ops),
+        **bound(k1_scan_bytes(bids, len(names), sub), k1_scan_ops(boxes, wins, rows)),
         "library_ms": None,
         "checks": scan_checks,
         "shape": f"M={t_m} SUB={sub} cols={','.join(names)}",
     }
+    # the main path's small buckets, the same predicate on M real slots
+    # spread over the table
+    small = {}
+    for m in (32, 256):
+        sb = np.sort(rng.choice(n_blocks, size=m, replace=False)).astype(np.int32)
+        _, s_launch = bk.scan_launcher(tcols, sb, boxes, wins, **flags)
+        small[f"M={m}"] = {
+            "ms": event_ms(s_launch),
+            **bound(k1_scan_bytes(sb, len(names), sub), k1_scan_ops(boxes, wins, m * sub * 128)),
+        }
+    out["block_scan"]["small_m"] = small
 
     # K3 / K4: grids and stats with -1 pads, both time layouts, over 3000
     # blocks (padded to 4096) and over the whole table (padded to 8192)
@@ -810,21 +845,13 @@ def fused_and_pops_kernels(torch, cols, n_blocks, sub, predicates, boxes1, wins1
     return out
 
 
-def polygon_kernels(torch, cols, n_blocks, sub, boxes, wins, dev):
-    """K1's point-in-polygon and raster legs and K2's per-query stacks
-    against their plain versions on the synthetic columns, each case with
-    the window on (tbin, toff) and without it, then timed with the window:
-    K1 at M = 4096 with PIP alone at E 16, 64 and 256 (stars of 12, 56
-    with a hole, and 200 edges), the raster alone at R 16, 64 and 256, and
-    both legs at R 16 + E 64; K2 at M = 2048 with 48 polygon queries of
-    differing edge and interval counts (E bucket 64, R bucket 16),
-    interleaved, one chunk per leg combination, pads spip 0. The plain
-    versions take seconds at E 256, so they are timed over 3 runs."""
+def k1_polygon_cases(rng):
+    """K1's timed polygon legs, (name, edges, rast): PIP alone at E 16, 64
+    and 256 (stars of 12, 56 with a hole, and 200 edges), the raster alone
+    at R 16, 64 and 256, both legs at R 16 + E 64."""
     from geomesa_tpu_torch.filter import raster as fr
     from geomesa_tpu_torch.scan import block_kernels as bk
-    from geomesa_tpu_torch.storage.table import FUSED_CHUNK_Q
 
-    rng = np.random.default_rng(SEED + 9)
     polys = {
         16: star(-20, 10, 75, 6, rng),
         64: star(30, -5, 70, 14, rng, hole=True),
@@ -835,6 +862,45 @@ def polygon_kernels(torch, cols, n_blocks, sub, boxes, wins, dev):
               for r in (16, 64, 256)]
     cases.append(("pip+raster:R16+E64", bk.pack_edges(polys[64]),
                   fr.build_raster(polys[64]).pack_block(16)))
+    return cases
+
+
+def k2_polygon_stacks(rng, n_q: int):
+    """K2's [128, 64, 128] edge and [128, 17, 128] raster stacks of n_q
+    star geofences of differing edge and interval counts (E bucket 64 with
+    or without a hole, R bucket 16); rows past n_q stay zero."""
+    from geomesa_tpu_torch.filter import raster as fr
+    from geomesa_tpu_torch.scan import block_kernels as bk
+    from geomesa_tpu_torch.storage.table import FUSED_CHUNK_Q
+
+    edges = np.zeros((FUSED_CHUNK_Q, 64, 128), np.float32)
+    rasts = np.zeros((FUSED_CHUNK_Q, 17, 128), np.float32)
+    for q in range(n_q):
+        hole = q % 4 == 0
+        arms = int(rng.integers(3, 17 if hole else 33))  # E bucket 64 with or without a hole
+        p = star(rng.uniform(-150, 150), rng.uniform(-60, 60), rng.uniform(10, 40), arms, rng,
+                 hole=hole)
+        e = bk.pack_edges(p)
+        edges[q, : len(e)] = e
+        r = fr.build_raster(p).pack_block(16)
+        rasts[q, : len(r)] = r
+    return edges, rasts
+
+
+def polygon_kernels(torch, cols, n_blocks, sub, boxes, wins, dev):
+    """K1's point-in-polygon and raster legs and K2's per-query stacks
+    against their plain versions on the synthetic columns, each case with
+    the window on (tbin, toff) and without it, then timed with the window:
+    K1 at M = 4096 with PIP alone at E 16, 64 and 256 (stars of 12, 56
+    with a hole, and 200 edges), the raster alone at R 16, 64 and 256, and
+    both legs at R 16 + E 64; K2 at M = 2048 with 48 polygon queries of
+    differing edge and interval counts (E bucket 64, R bucket 16),
+    interleaved, one chunk per leg combination, pads spip 0. The plain
+    versions take seconds at E 256, so they are timed over 3 runs."""
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    rng = np.random.default_rng(SEED + 9)
+    cases = k1_polygon_cases(rng)
     windowed = ("tbin", "toff", "x", "y")
     variants = [(windowed, True), (("x", "y"), False)]
     m = bk.M_BUCKETS[-1]
@@ -895,17 +961,7 @@ def polygon_kernels(torch, cols, n_blocks, sub, boxes, wins, dev):
     # K2: 48 polygon queries in one [128, ...] chunk per leg combination
     n_q = 48
     qboxes, wins_q, _ = query_stacks(n_q, SEED + 10)
-    edges = np.zeros((FUSED_CHUNK_Q, 64, 128), np.float32)
-    rasts = np.zeros((FUSED_CHUNK_Q, 17, 128), np.float32)
-    for q in range(n_q):
-        hole = q % 4 == 0
-        arms = int(rng.integers(3, 17 if hole else 33))  # E bucket 64 with or without a hole
-        p = star(rng.uniform(-150, 150), rng.uniform(-60, 60), rng.uniform(10, 40), arms, rng,
-                 hole=hole)
-        e = bk.pack_edges(p)
-        edges[q, : len(e)] = e
-        r = fr.build_raster(p).pack_block(16)
-        rasts[q, : len(r)] = r
+    edges, rasts = k2_polygon_stacks(rng, n_q)
     m2 = K2_SLOTS
     n_real = m2 - m2 // 40
     bids2, _ = bk.pad_bids(rng.integers(0, n_blocks, n_real), n_blocks, bucket=m2)
@@ -1326,6 +1382,36 @@ def chunk_recorder():
         yield members
     finally:
         bk.scan_planes_multi = launch
+
+
+@contextmanager
+def scan_m_recorder():
+    """Record the candidate blocks of every single-query scan the table
+    launches: per ``scan_planes`` call its M (the padded bucket K1 runs
+    over) and its real blocks (the ids before the trailing pad run of
+    block 0)."""
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    shapes: list = []
+    launch = bk.scan_planes
+
+    def recording(cols3, bids, *args, **kw):
+        b = np.asarray(bids)
+        nz = np.flatnonzero(b)
+        shapes.append((len(b), int(nz[-1]) + 1 if len(nz) else 1))
+        return launch(cols3, bids, *args, **kw)
+
+    bk.scan_planes = recording
+    try:
+        yield shapes
+    finally:
+        bk.scan_planes = launch
+
+
+def m_summary(values) -> dict:
+    v = np.asarray(values, np.float64)
+    return {"median": float(np.median(v)), "p90": float(np.percentile(v, 90)),
+            "max": int(v.max())}
 
 
 @contextmanager
@@ -2172,7 +2258,9 @@ def main_path(torch, device):
     warm = query_set(SEED + 1, N_WARMUP)
     measured = query_set(SEED + 2, N_MEASURED)
     run_queries(ds, warm)
-    lat, outs, wall = run_queries(ds, measured)  # untraced: the end-to-end numbers
+    with scan_m_recorder() as scans:
+        lat, outs, wall = run_queries(ds, measured)  # untraced: the end-to-end numbers
+    check(len(scans) > 0, "the main path's queries launched K1")
     # a second, traced pass over the same queries splits the time by phase
     ds.clock = clock = PhaseClock()
     _, _, traced_wall = run_queries(ds, measured)
@@ -2199,6 +2287,9 @@ def main_path(torch, device):
         "device_busy_share": device_ms / (traced_wall / len(measured) * 1e3),
         "checked_vs_brute_force": n_brute, "checked_aggregations": n_agg,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        # the shapes K1 runs at on this path, per measured query's scan
+        "k1_candidate_m": {"scans": len(scans), "m": m_summary([m for m, _ in scans]),
+                           "real_blocks": m_summary([r for _, r in scans])},
     }
     batch = batch_path(torch, ds, measured, outs, wall)
     centres = cluster_centres(SEED)
@@ -2572,6 +2663,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"],
             **({"clustered": t["clustered"]} if "clustered" in t else {}),
+            **({"small_m": t["small_m"]} if "small_m" in t else {}),
             **({"legs": t["legs"],
                 "leg_launches_by_path": {cell: legs[k.name] for cell, legs in leg_paths.items()}}
                if "legs" in t else {}),

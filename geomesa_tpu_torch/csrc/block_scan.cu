@@ -16,66 +16,70 @@
 // 16 B balances 320 operations, so past ~15 edges or ~34 intervals per row
 // the compares, not the bytes, set the bound.
 //
-// Design: one CTA per candidate slot i, reading block bids[i]. Thread
-// (lane, j) reads its 32 rows at stride 128 (coalesced across lanes),
-// builds one uint32 word per plane by shifts and stores it as int32, so
-// no atomics and no shared-memory reduction are needed. The box and
-// window slots, and the query's polygon block (its real edges and
-// intervals, only the lanes the legs read), are staged in shared memory
-// once per CTA; every thread then walks them row by row, edge-inner, each
-// edge a broadcast read. The extent leg reads four f32 columns per row
-// (16 B, four compares per active slot) and writes one plane. The legs
-// loop over the query's real slots, edges and intervals only, and the ray
-// cast runs only on the raster's partial cells when both polygon legs
-// ride together. Pad slots repeat block 0 and are ignored by the host
-// decode.
+// Design (scan_tile.cuh, the body K2 shares): the slots' rows are cut
+// into warp tiles of 32 stripes x 32 lanes spread in even runs over whole
+// waves of resident CTAs, so M = 32 puts every SM to work and M = 4096
+// ends on whole waves. A thread owns four neighbouring lanes of 8 stripes:
+// it issues a batch's 16-byte column loads (2 stripes, 8 rows) before any
+// compare, then runs the legs with the slot, edge and interval loops
+// outside and the batch's rows inside, so a slot's words (shared memory,
+// staged once per CTA) and an edge's or interval's (the polygon block,
+// read in place through the read-only path) are read once a batch, not
+// once a row. Each row's truth is a bit of a mask; each lane's bits move
+// into its words, the chunks of a quad meet by two shuffles, and each
+// quad's four words leave as one 16-byte store: no atomics, no
+// shared-memory reduction. The legs loop over the query's real slots,
+// edges and intervals only; when both polygon legs ride together the ray
+// cast runs only for rows in the raster's partial cells, each lane casting
+// its own such rows one at a time with the warp's lanes together. The
+// extent leg reads four f32 columns per row and writes one plane. Pad
+// slots repeat block 0 and are ignored by the host decode.
 
-#include "masks.cuh"
+#include "scan_tile.cuh"
 
-template <bool EXT>
-__global__ void __launch_bounds__(1024)
-gm_block_scan_kernel(GmCols c, const int* __restrict__ params, int m, int sub,
-                     int flags, int e_cap, int r_cap, int* __restrict__ wide,
-                     int* __restrict__ inner) {
+template <bool EXT, bool POLY>
+__global__ void __launch_bounds__(GS_THREADS)
+gm_block_scan_kernel(GmCols c, const int* __restrict__ params, int m, int sub, int flags,
+                     int e_cap, int* __restrict__ wide, int* __restrict__ inner) {
   __shared__ GmParams p;
-  __shared__ GmPoly poly;
   gm_load_params(p, params, m);
-  if (flags & (GM_HAS_EDGES | GM_HAS_RAST)) gm_load_poly(poly, params + GM_EXTRA(m), e_cap, r_cap);
   __syncthreads();
-  const int slot = blockIdx.x;
-  const int pack = sub >> 5;
-  const long long base = (long long)params[slot] * sub * GM_LANES;
-  const int lane = threadIdx.x;
-  const int n_box = p.n_box, n_win = p.n_win;
+  const GmPoly poly = (flags & (GM_HAS_EDGES | GM_HAS_RAST))
+                          ? gm_poly(params + GM_EXTRA(m), e_cap, flags)
+                          : GmPoly{};
   const int leg = gm_leg(flags, true);
-  for (int j = threadIdx.y; j < pack; j += blockDim.y) {
-    unsigned int wbits = 0u, ibits = 0u;
-    for (int b = 0; b < 32; ++b) {
-      const unsigned m2 =
-          gm_row_bits<EXT>(c, p, &poly, gm_row(base, j, b, lane), flags, leg, n_box, n_win);
-      wbits |= (m2 & GM_WIDE) << b;
-      ibits |= ((m2 & GM_INNER) >> 1) << b;
-    }
-    const long long o = ((long long)slot * pack + j) * GM_LANES + lane;
-    wide[o] = (int)wbits;
-    if (inner) inner[o] = (int)ibits;
+  const int pack = sub >> 5;
+  int begin, end;
+  gs_run(m, pack, begin, end);
+  for (int t = begin; t < end; ++t) {
+    const GsTile tile = gs_tile(t, pack);
+    gs_scan_tile<EXT, POLY>(c, p, poly, flags, leg, (long long)params[tile.slot] * sub * GM_LANES,
+                      tile, pack, wide, inner);
   }
 }
 
-// wide, inner: int32 [m, sub/32, 128]; inner null writes the wide plane
-// alone. e_cap, r_cap: the polygon block's edge and interval caps (0
-// without the polygon legs). Returns cudaGetLastError() of the launch
-// (0 = launched).
+// resident CTAs of each instance (point, extent, polygon), per device
+static std::atomic<int> gm_block_scan_resident[3][GS_MAX_DEVICES];
+
+// wide, inner: int32 [m, sub/32, 128], 16-byte aligned like every column;
+// inner null writes the wide plane alone. e_cap, r_cap: the polygon
+// block's edge and interval caps (0 without the polygon legs). Returns
+// cudaGetLastError() of the launch (0 = launched).
 extern "C" int gm_block_scan(GM_COL_ARGS, const int* params, int m, int sub, int flags,
                              int e_cap, int r_cap, int* wide, int* inner, void* stream) {
   if (m <= 0) return 0;
   if (e_cap > GM_MAX_EDGES || r_cap > GM_MAX_RINTS) return (int)cudaErrorInvalidValue;
   const GmCols c = GM_COLS;
-  if (gm_extent(flags))
-    gm_block_scan_kernel<true><<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
-        c, params, m, sub, flags, e_cap, r_cap, wide, inner);
-  else
-    gm_block_scan_kernel<false><<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
-        c, params, m, sub, flags, e_cap, r_cap, wide, inner);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  // the instance: extent columns, polygon legs, or the point legs
+  const int inst = gm_extent(flags) ? 1 : (flags & (GM_HAS_EDGES | GM_HAS_RAST)) ? 2 : 0;
+  std::atomic<int>* res = gm_block_scan_resident[inst];
+  if (inst == 1)
+    return gs_launch(gm_block_scan_kernel<true, false>, res, m, sub, s, c, params, m, sub, flags,
+                     e_cap, wide, inner);
+  if (inst == 2)
+    return gs_launch(gm_block_scan_kernel<false, true>, res, m, sub, s, c, params, m, sub, flags,
+                     e_cap, wide, inner);
+  return gs_launch(gm_block_scan_kernel<false, false>, res, m, sub, s, c, params, m, sub, flags,
+                   e_cap, wide, inner);
 }

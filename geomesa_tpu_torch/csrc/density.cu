@@ -31,9 +31,10 @@
 //   atomic per distinct pixel of the step.
 // Counts are exact integers in any order of the atomics, so the grid
 // equals the plain version and the JAX grid bit for bit. The predicate is
-// masks.cuh's (gm_leg_bits, on the loaded values); the pixel keeps the
-// reference's f32 order (gm_pixel, built with --fmad=false); a pad slot
-// (bid < 0) counts nothing.
+// masks.cuh's (gm_leg_bits on the loaded values of the thread's rows of
+// the tile at once: each slot's words are read once for them); the pixel
+// keeps the reference's f32 order (gm_pixel, built with --fmad=false); a
+// pad slot (bid < 0) counts nothing.
 
 #include "masks.cuh"
 
@@ -109,11 +110,12 @@ gm_density_kernel(GmCols c, const int* __restrict__ params, int m, int sub, int 
     }
     // then each row's pixel, or -1, packed into the warp's hit list
     int n_hits = 0;
+    GmMask wide = gm_all_rows<RPT>(), inner = gm_all_rows<RPT>();
+    gm_leg_bits<EXT, RPT>(p, flags, leg, n_box, n_win, a, b, e, f, t0, t1, wide, inner);
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
       int pix = -1;
-      if (gm_leg_bits<EXT>(p, flags, leg, n_box, n_win, a[k], b[k], e[k], f[k], t0[k], t1[k])
-          & GM_WIDE) {
+      if ((wide >> k) & 1u) {
         float x = a[k], y = b[k];
         if (EXT && (flags & GM_EXTENT)) {
           x = __fmul_rn(__fadd_rn(a[k], e[k]), 0.5f);

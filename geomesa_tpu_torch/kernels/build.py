@@ -71,16 +71,22 @@ class CudaKernel:
         and, when ``leg`` names one, that leg's launch."""
         if self._fn is None:
             build_all(PROBE_KERNELS if self in PROBE_KERNELS else KERNELS)
-            fn = getattr(ctypes.CDLL(str(self.library)), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = bind(self.library, self.symbol, self.argtypes)
         rc = self._fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: launch failed with CUDA error {rc}")
         self.launches += 1
         if leg is not None:
             self.leg_launches[leg] += 1
+
+
+def bind(library: Path, symbol: str, argtypes: list):
+    """The C entry point ``symbol`` of a built library, with its argument
+    types and an int (cudaError_t) result."""
+    fn = getattr(ctypes.CDLL(str(library)), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 # the legs a launch counts besides its kernel (block_kernels.leg_name):

@@ -730,6 +730,15 @@ def kernel_columns(cols: dict, has_boxes: bool, has_windows: bool, need_xy: bool
     return ptrs, flags, shape[1], shape[0]
 
 
+def check_aligned(cols: dict) -> None:
+    """The scan kernels read each column 16 bytes at a time from every
+    block's base (csrc/scan_tile.cuh): a column must start on 16 bytes,
+    as a tensor of its own does (a view at an offset may not)."""
+    for name, c in cols.items():
+        if c.data_ptr() % 16:
+            raise ValueError(f"column {name!r} is not 16-byte aligned: {c.data_ptr():#x}")
+
+
 def check_bids(bids: np.ndarray, n_blocks: int, allow_pad: bool) -> None:
     lo = -1 if allow_pad else 0
     if len(bids) and (int(bids.min()) < lo or int(bids.max()) >= n_blocks):
@@ -814,6 +823,7 @@ def scan_launcher(cols: dict, bids, boxes, wins, *, has_boxes, has_windows,
         cols, has_boxes, has_windows, need_xy=bool(poly_flags), extent=extent
     )
     flags |= poly_flags
+    check_aligned(cols)
     bids = np.asarray(bids, np.int32)
     check_bids(bids, n_blocks, allow_pad=False)
     m = len(bids)
@@ -923,6 +933,7 @@ def multi_launcher(cols: dict, bids, qids, boxes, wins, *, has_boxes, has_window
         cols, has_boxes, has_windows, need_xy=bool(poly_flags), extent=extent
     )
     flags |= poly_flags
+    check_aligned(cols)
     bids = np.asarray(bids, np.int32)
     qids = np.asarray(qids, np.int32)
     boxes = np.asarray(boxes, np.float32)

@@ -441,6 +441,209 @@ def test_density_kernel_every_block_box_and_validity(hot_cols, grid):
         assert torch.equal(got, ref) and float(got.sum()) > 0
 
 
+# -- K1 and K2 as redesigned: the row-batched body's edges ------------------
+
+EDGE_NB = 6
+EDGE_SUBS = [32, 96, 256]  # SUB/32 = 1, 3, 8 word groups a slot
+
+
+@pytest.fixture(scope="module")
+def sub_cols():
+    """Point, extent and time columns of EDGE_NB blocks at each SUB of
+    EDGE_SUBS, pad rows (+inf, -1; empty extents) at the last block's
+    tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = {}
+    for sub in EDGE_SUBS:
+        rng = np.random.default_rng(sub)
+        n = EDGE_NB * sub * tbk.LANES
+        x = rng.uniform(-180, 180, n).astype(np.float32)
+        y = rng.uniform(-90, 90, n).astype(np.float32)
+        tb = rng.integers(2800, 2820, n).astype(np.int32)
+        to = rng.integers(0, 604_800, n).astype(np.int32)
+        tw = ((tb.astype(np.int64) << 16) | (to >> 5)).astype(np.int32)
+        x0, y0 = rng.uniform(-180, 178, n), rng.uniform(-90, 88, n)
+        w, h = rng.exponential(2.0, n), rng.exponential(2.0, n)
+        gx0 = np.nextafter(x0.astype(np.float32), -np.inf)
+        gy0 = np.nextafter(y0.astype(np.float32), -np.inf)
+        gx1 = np.nextafter((x0 + w).astype(np.float32), np.inf)
+        gy1 = np.nextafter((y0 + h).astype(np.float32), np.inf)
+        tail = slice(n - sub * tbk.LANES // 3, n)
+        for c, v in ((x, np.inf), (y, np.inf), (tb, -1), (tw, -1), (gx0, np.inf),
+                     (gy0, np.inf), (gx1, -np.inf), (gy1, -np.inf)):
+            c[tail] = v
+        shape = (EDGE_NB, sub, tbk.LANES)
+        out[sub] = {k: torch.from_numpy(v.reshape(shape)).cuda() for k, v in dict(
+            x=x, y=y, tbin=tb, toff=to, tw=tw, gxmin=gx0, gymin=gy0, gxmax=gx1,
+            gymax=gy1).items()}
+    return out
+
+
+def _k1_pair(cols_by_name, names, bids, boxes, wins, hb, hw, extent=False, edges=None,
+             rast=None):
+    cols = tuple(cols_by_name[k] for k in names)
+    w, i = tbk.block_scan(cols, bids, boxes, wins, col_names=names, has_boxes=hb,
+                          has_windows=hw, extent=extent, edges=edges,
+                          n_edges=tbk.n_edges_of(edges), rast=rast, n_rints=tbk.n_rints_of(rast))
+    pw, pi = tbk.block_scan_plain(
+        dict(zip(names, cols)), _t(bids, torch.int32), _t(boxes, torch.float32),
+        _t(wins, torch.int32), has_boxes=hb, has_windows=hw, extent=extent,
+        edges=None if edges is None else _t(edges, torch.float32),
+        rast=None if rast is None else _t(rast, torch.float32),
+    )
+    torch.cuda.synchronize()
+    return (w, i), (pw, pi)
+
+
+def _k2_pair(cols_by_name, names, bids, qids, boxes, wins, hb, hw, extent=False, edges=None,
+             rasts=None, spip=None):
+    cols = tuple(cols_by_name[k] for k in names)
+    n_edges = 0 if edges is None else edges.shape[1]
+    n_rints = 0 if rasts is None else rasts.shape[1] - 1
+    w, i = tbk.block_scan_multi(cols, bids, qids, boxes, wins, col_names=names, has_boxes=hb,
+                                has_windows=hw, extent=extent, edges=edges, spip=spip,
+                                n_edges=n_edges, rasts=rasts, n_rints=n_rints)
+    pw, pi = tbk.block_scan_multi_plain(
+        dict(zip(names, cols)), _t(bids, torch.int32), _t(qids, torch.int32),
+        _t(boxes, torch.float32), _t(wins, torch.int32), has_boxes=hb, has_windows=hw,
+        extent=extent, edges=None if edges is None else _t(edges, torch.float32),
+        rasts=None if rasts is None else _t(rasts, torch.float32),
+        spip=None if spip is None else _t(spip, torch.int32),
+    )
+    torch.cuda.synchronize()
+    return (w, i), (pw, pi)
+
+
+def _same_planes(got, ref) -> bool:
+    (w, i), (pw, pi) = got, ref
+    return torch.equal(w, pw) and (i is None) == (pi is None) and (i is None or torch.equal(i, pi))
+
+
+# M = 1 on the table's last block; three slots ending on it, block 0 between
+EDGE_BIDS = {"M1-last": [EDGE_NB - 1], "M3-last": [2, 0, EDGE_NB - 1]}
+
+
+@pytest.mark.parametrize("bids", list(EDGE_BIDS), ids=list(EDGE_BIDS))
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("sub", EDGE_SUBS)
+def test_block_scan_sub_and_small_m_equal_plain(sub_cols, sub, case, bids):
+    """K1 at SUB/32 = 1, 3 and 8 word groups, M = 1 and M = 3, the last
+    block of the table (pad rows at its tail) among the slots."""
+    names, hb, hw, wins = case
+    got, ref = _k1_pair(sub_cols[sub], names, np.array(EDGE_BIDS[bids], np.int32), BOXES, wins,
+                        hb, hw)
+    assert _same_planes(got, ref) and bool(ref[0].any())
+
+
+@pytest.mark.parametrize("leg", ["pip", "raster", "pip+raster"])
+@pytest.mark.parametrize("sub", EDGE_SUBS)
+def test_block_scan_polygon_legs_at_each_sub_equal_plain(sub_cols, sub, leg):
+    from geomesa_tpu_torch.filter import raster as tfr
+
+    p = _star(20, -10, 30, 25, 70, True)
+    edges = tbk.pack_edges(p) if "pip" in leg else None
+    rast = tfr.build_raster(p).pack_block(16) if "raster" in leg else None
+    names = ("tbin", "toff", "x", "y")
+    got, ref = _k1_pair(sub_cols[sub], names, np.array([2, 0, EDGE_NB - 1], np.int32), BOXES,
+                        WINS, True, True, edges=edges, rast=rast)
+    assert _same_planes(got, ref) and bool(ref[0].any())
+
+
+def _one_and_eight_slots(tw: bool):
+    """Query 0 with 1 box slot and 1 window slot, query 1 with 8 of each
+    (the inner plane with fewer), in a stack of 2."""
+    rng = np.random.default_rng(21)
+    top = 18_899 if tw else 604_799
+    boxes = np.zeros((2, 8, tbk.LANES), np.float32)
+    wins = np.zeros((2, 8, tbk.LANES), np.int32)
+    for q, n in ((0, 1), (1, 8)):
+        lo = rng.uniform(-170, 100, (n, 2)).astype(np.float32)
+        wide = np.concatenate([lo, lo + rng.uniform(10, 70, (n, 2)).astype(np.float32)], axis=1)
+        boxes[q] = tbk.pack_boxes(wide, wide[: max(1, n // 2)] + np.array([1, 1, -1, -1],
+                                                                          np.float32))
+        b = rng.integers(2800, 2820, n)
+        o = np.sort(rng.integers(0, top, (n, 2)), axis=1)
+        ws = np.stack([b, b + rng.integers(0, 4, n), o[:, 0], o[:, 1]], axis=1)
+        wins[q] = tbk.pack_windows(ws, ws[: max(1, n // 2)] + np.array([0, 0, 1, -1]))
+    return boxes, wins
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("sub", EDGE_SUBS)
+def test_block_scan_multi_one_then_eight_slots_equal_plain(sub_cols, sub, case):
+    """A chunk whose queries alternate slot by slot between 1 and 8 box and
+    window slots (each warp restages its query's words on every change),
+    the last block among the slots, and M = 1."""
+    names, hb, hw, _ = case
+    boxes, wins = _one_and_eight_slots(tw="tw" in names)
+    bids = np.array([EDGE_NB - 1, 0, 3, EDGE_NB - 1, 1, 2, 4, 5], np.int32)
+    qids = (np.arange(len(bids)) % 2).astype(np.int32)
+    got, ref = _k2_pair(sub_cols[sub], names, bids, qids, boxes, wins, hb, hw)
+    assert _same_planes(got, ref) and bool(ref[0].any())
+    got, ref = _k2_pair(sub_cols[sub], names, bids[:1], qids[1:2], boxes, wins, hb, hw)
+    assert _same_planes(got, ref)
+
+
+@pytest.mark.parametrize("leg", ["pip", "raster", "pip+raster"])
+@pytest.mark.parametrize("sub", EDGE_SUBS)
+def test_block_scan_multi_box_slots_between_polygon_slots_equal_plain(sub_cols, sub, leg):
+    """A chunk carrying stacks where polygon slots (spip 1) and box slots
+    (spip 0) of other queries alternate; the box queries' polygon blocks
+    are zero and past the staged blocks."""
+    from geomesa_tpu_torch.filter import raster as tfr
+
+    boxes, wins = _one_and_eight_slots(tw=False)
+    boxes = np.concatenate([boxes, boxes])
+    wins = np.concatenate([wins, wins])
+    edges = np.zeros((4, 64, tbk.LANES), np.float32) if "pip" in leg else None
+    rasts = np.zeros((4, 17, tbk.LANES), np.float32) if "raster" in leg else None
+    for q, spec in ((0, (-40, 10, 9, 25, 70, True)), (1, (60, -20, 14, 20, 60))):
+        p = _star(*spec)
+        if edges is not None:
+            e = tbk.pack_edges(p)
+            edges[q, : len(e)] = e
+        if rasts is not None:
+            r = tfr.build_raster(p).pack_block(16)
+            rasts[q, : len(r)] = r
+    qids = np.array([0, 2, 1, 3, 0, 3, 1, 2], np.int32)  # queries 2, 3 take the box leg
+    spip = (qids < 2).astype(np.int32)
+    bids = np.array([EDGE_NB - 1, 0, 3, EDGE_NB - 1, 1, 2, 4, 5], np.int32)
+    names = ("tbin", "toff", "x", "y")
+    got, ref = _k2_pair(sub_cols[sub], names, bids, qids, boxes, wins, True, True, edges=edges,
+                        rasts=rasts, spip=spip)
+    assert _same_planes(got, ref) and bool(ref[0].any())
+
+
+@pytest.mark.parametrize("case", EXT_CASES)
+def test_extent_scans_at_sub_96_equal_plain(sub_cols, case):
+    """The extent leg on three word groups a slot: K1 with M = 1 and 3 on
+    the last block, K2 with 1- and 8-slot queries alternating."""
+    names, hb, hw = case
+    cols = sub_cols[96]
+    for bids in EDGE_BIDS.values():
+        got, ref = _k1_pair(cols, names, np.array(bids, np.int32), EXT_BOXES, WINS, hb, hw,
+                            extent=True)
+        assert _same_planes(got, ref) and bool(ref[0].any())
+    boxes, wins = _one_and_eight_slots(tw=False)
+    bids = np.array([EDGE_NB - 1, 0, 3, EDGE_NB - 1, 1, 2, 4, 5], np.int32)
+    qids = (np.arange(len(bids)) % 2).astype(np.int32)
+    got, ref = _k2_pair(cols, names, bids, qids, boxes, wins, hb, hw, extent=True)
+    assert _same_planes(got, ref) and bool(ref[0].any())
+
+
+def test_scan_wrappers_refuse_unaligned_columns(sub_cols):
+    """The scans read 16 bytes at a time from each block's base: a column
+    view that starts off a 16-byte boundary raises before any launch."""
+    n = EDGE_NB - 1
+    x = sub_cols[32]["x"].flatten()[1:1 + n * 32 * tbk.LANES].reshape(n, 32, tbk.LANES)
+    y = sub_cols[32]["y"][:n].contiguous()
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tbk.block_scan((x, y), np.array([0], np.int32), BOXES, WINS, col_names=("x", "y"),
+                       has_boxes=True, has_windows=False)
+
+
 # -- the chip-side probes' kernels (P1 scan, P2 bounds and density) ---------
 
 PROBE_NB = 24

@@ -261,3 +261,38 @@ def test_kernel_sources_and_build_flags(monkeypatch):
     assert set(build.PROBE_DENSITY.leg_launches) == {"reshape", "fori"}
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
     assert "--fmad=false" in NVCC_FLAGS and "--use_fast_math" not in NVCC_FLAGS
+
+
+def test_kernel_ab_builds_each_old_source_against_its_own_headers(monkeypatch, tmp_path):
+    """The A/B tool compiles every old kernel with ``-I`` naming the old
+    tree's headers, never this checkout's csrc, into a library of its own
+    beside the current build (an old source against the new masks.cuh
+    would time a hybrid)."""
+    from geomesa_tpu_torch.kernels import build
+    from geomesa_tpu_torch.scripts import kernel_ab
+
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    names = set()
+    for k in kernel_ab.AB_KERNELS:
+        cmd = kernel_ab.old_build_command(k, tmp_path)
+        assert cmd[0] == "nvcc" and all(f in cmd for f in build.NVCC_FLAGS)
+        includes = [cmd[i + 1] for i, a in enumerate(cmd) if a == "-I"]
+        assert includes == [str(tmp_path)]
+        assert not any(str(build.CSRC_DIR) in a for a in cmd)
+        assert cmd[-1] == str(tmp_path / f"{k.name}.cu")
+        out = cmd[cmd.index("-o") + 1]
+        assert out == str(kernel_ab.old_library(k)) and out != str(k.library)
+        names.add(k.name)
+    assert names == {"block_scan", "block_scan_multi", "block_pops", "density", "bounds"}
+    assert not (build.PKG_DIR / "scripts" / "density_ab.py").exists()
+
+
+def test_scan_columns_must_start_on_16_bytes():
+    """The scans' 16-byte column loads need every column on a 16-byte
+    boundary: a view at a 4-byte offset is refused, a tensor of its own
+    passes."""
+    whole = torch.zeros(2 * 32 * 128 + 1, dtype=torch.float32)
+    view = whole[1:].reshape(2, 32, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tbk.check_aligned({"x": view})
+    tbk.check_aligned({"x": torch.zeros((2, 32, 128), dtype=torch.float32)})
