@@ -33,15 +33,18 @@ Phases, each printing one JSON line:
 3. probes: the chip-side design probes at the JAX probes' sizes, each
    through its own ``run`` (geomesa_tpu_torch/scripts/): P1
    (``probe_pallas``: 64 Mi rows of x, y, tbin, toff, 1.07 GB on the
-   card, M = 128 and 1024: the scan kernel with all 8 box and window
-   slots, its end-to-end query, and K1 on the same columns as the
-   yardstick, on the probe's params and on the same predicate split
-   into 8 real slots of each leg, where K1 does P1's slot work) and P2 (``probe_agg``: 4096 blocks of x, y, 0.54 GB, M =
-   256 and 1024: the bounds kernel, the one-hot density kernel on the
-   tensor cores in its two chunk variants, K1, K3 and ``bincount`` as
+   card, M = 128 and 1024: the scan kernel over the live slots, its
+   end-to-end query, and K1 on the same columns as the yardstick, on
+   the probe's params and on the same predicate split into 8 real slots
+   of each leg, where K1 does P1's slot work) and P2 (``probe_agg``:
+   4096 blocks of x, y, 0.54 GB, M = 256 and 1024: the bounds kernel and
+   the density kernel, which both TPU bodies launch, on the probe's box
+   and on it split into 8 strips, K1, K3 and ``bincount`` as
    yardsticks); every probe kernel equal to its plain version word for
-   word at both M, pad slots included, P1's rows at M = 128 equal to
-   numpy's; the columns are freed before the main path;
+   word at both M, pad slots included, on the split and on the staging
+   edge cases (pad, inverted, NaN and infinite slots, one plane live, a
+   leg with no live slot), P1's rows at M = 128 equal to numpy's; the
+   columns are freed before the main path;
 4. main path: a GDELT-shaped Z3 point table of 100,000,000 rows (the
    reference benchmark's configuration 1, cut from 500M for the run's
    time) in ``DataStore(device="cuda")``, 16 warm-up and 64 measured
@@ -629,9 +632,11 @@ def probe_phase(torch, device):
     """P1 and P2 through their own ``run`` at the JAX probes' sizes, the
     launch counts zeroed just before and read just after. Checks: P1's
     rows at M = 128 equal numpy's, every probe kernel equals its plain
-    version at both M (pad slots included), K1's planes equal P1's and
-    K3's grid P2's density, and each probe kernel and density leg
-    launched. Returns (record, kernel entries for the kernels line)."""
+    version at both M (pad slots, the 8-slot split and the staging edge
+    cases included), K1's planes equal P1's and K3's grid P2's density,
+    the split gives P1's planes and P2's stats and grid, and each probe
+    kernel and density leg launched. Returns (record, kernel entries for
+    the kernels line)."""
     from geomesa_tpu_torch.kernels import KERNELS, PROBE_DENSITY, PROBE_KERNELS
     from geomesa_tpu_torch.scripts import probe_agg, probe_pallas
 
@@ -651,9 +656,14 @@ def probe_phase(torch, device):
         check(r["max_abs_err"] == 0.0, f"probe_scan equals plain at M={r['M']}")
         check(r["k1_equal"], f"K1 planes equal P1's at M={r['M']}")
         check(r["split_equal"], f"P1 and K1 on the 8-slot split equal P1's planes at M={r['M']}")
+        for case, e in r["staging_err"].items():
+            check(e == 0.0, f"probe_scan equals plain on staging case {case} at M={r['M']}")
     for r in p2["records"]:
         for name, e in r["max_abs_err"].items():
             check(e == 0.0, f"probe {name} equals plain at M={r['M']}")
+        for case, errs in r["staging_err"].items():
+            check(not any(errs.values()), f"P2 equals plain on staging case {case} at M={r['M']}")
+        check(r["split_equal"], f"P2 on the 8-slot split equals P2 on its box at M={r['M']}")
         check(r["k3_equal"], f"K3 grid equals P2's density at M={r['M']}")
     for k in PROBE_KERNELS:
         check(launches[k.name] > 0, f"probe kernel {k.name} launched")
@@ -677,23 +687,19 @@ def probe_phase(torch, device):
         else:
             for r in p2["records"]:
                 if variant is None:
-                    a = r["bounds"]
-                    ms, wms, plain, lib = a["kernel_ms"], a["wrapper_ms"], r["plain_bounds_ms"], None
+                    a = v = r["bounds"]
+                    plain, lib = r["plain_bounds_ms"], None
                     err, extra = r["max_abs_err"]["bounds"], {}
                 else:
                     a = r["density"]
                     v = a[variant]
-                    ms, wms, plain = v["kernel_ms"], v["wrapper_ms"], r["plain_density_ms"]
-                    lib, err = r["bincount_ms"], r["max_abs_err"][variant]
-                    extra = {"tc_flops": a["tc_flops"], "tc_tflops": v["tc_tflops"],
-                             "tc_share": v["tc_share"],
-                             "tc_bound_ms": a["tc_flops"] / probe_agg.TC_FLOPS_PER_S * 1e3,
-                             "k3_ms": r["k3_ms"], "k3_wrapper_ms": r["k3_wrapper_ms"],
-                             "chunk_sublanes": 32 if variant == "reshape" else 1}
+                    plain, lib = r["plain_density_ms"], r["bincount_ms"]
+                    err = r["max_abs_err"][variant]
+                    extra = {"k3_ms": r["k3_ms"], "k3_wrapper_ms": r["k3_wrapper_ms"]}
                 by_m[r["M"]] = {
-                    "ms": ms, "wrapper_ms": wms, "plain_ms": plain, **bound(a["bytes"], a["ops"]),
-                    "library_ms": lib, "max_abs_err": err, "hits": a["hits"],
-                    "k1_ms": r["k1_ms"], **extra,
+                    "ms": v["kernel_ms"], "wrapper_ms": v["wrapper_ms"], "plain_ms": plain,
+                    **bound(a["bytes"], a["ops"]), "library_ms": lib, "max_abs_err": err,
+                    "hits": a["hits"], "split_ms": v["split_ms"], "k1_ms": r["k1_ms"], **extra,
                     "shape": f"M={r['M']} SUB=128 cols=x,y boxes=8"
                              + (" grid=256x256" if variant else ""),
                 }
@@ -708,7 +714,7 @@ def probe_phase(torch, device):
             "ms": top["ms"], "kernel_ms": top["ms"], "wrapper_ms": top["wrapper_ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-            "shape": top["shape"], "by_m": by_m,
+            "split_ms": top["split_ms"], "shape": top["shape"], "by_m": by_m,
         })
     rec = {"phase": "probes", "wall_s": wall, "launches": launches,
            "probe_density_legs": legs, "probe_pallas": p1, "probe_agg": p2}

@@ -6,25 +6,34 @@
 // :144), the chip-side probe of the bounds push-down: f32 x, y columns
 // [n_blocks, SUB, 128], M slots, one [M, 128] f32 row per slot with lanes
 // 0-4 = count, xmin, xmax, ymin, ymax and the other lanes 0. A row counts
-// when it lies in any of the 8 closed boxes (lanes 0-3 of the box slots;
-// pad slots are +inf / -inf and match nothing). Pad slots (bid < 0) read
-// block 0, as the probe's index map jnp.maximum(bids[i], 0) does, and are
-// not masked: their rows report block 0's stats, as xla_bounds does. A
-// slot without a hit reports count 0, xmin = ymin = +inf, xmax = ymax =
-// -inf.
+// when it lies in any of the 8 closed boxes (lanes 0-3 of the box slots).
+// Pad slots (bid < 0) read block 0, as the probe's index map
+// jnp.maximum(bids[i], 0) does, and are not masked: their rows report
+// block 0's stats, as xla_bounds does. A slot without a hit reports count
+// 0, xmin = ymin = +inf, xmax = ymax = -inf.
 //
 // Bound on the H100: memory. Each row is read once (8 B) and costs 8
-// boxes x 8 compares and logic ops; the output is 512 B a slot.
+// compares and logic ops a live box; the output is 512 B a slot.
 //
-// Design: one CTA per slot, as bounds.cu. Each thread folds its 32 rows
-// (gm_row, coalesced across lanes) into a count and four extrema in
-// registers, a warp shuffle and a shared-memory pass across warps reduce
-// them (the count is exact as f32 up to 2^24 rows), and the first 128
-// threads write the slot's 128 output lanes, so the output needs no
-// zeroing.
+// Design: one CTA of 8 warps a slot, so a slot's result needs no merge
+// across CTAs (the card has no f32 atomic min or max); at M = 1024 that
+// is about one wave of 8 CTAs an SM. The slot's rows are read as a flat
+// run of 16-byte column loads, neighbouring threads on neighbouring 4-row
+// groups: a thread issues the loads of 8 rows (2 groups) of x and y before
+// any compare, takes the box leg over the live slots through the batch
+// predicate of masks.cuh (the host puts the live slots first,
+// probe_kernels.live_slots: a slot with an empty interval matches no
+// row), and folds count and four extrema of its hits in registers. Warp
+// shuffles and one shared-memory pass across the 8 warps reduce them (the
+// count is exact as f32 up to 2^24 rows), and the first 128 threads write
+// the slot's 128 output lanes, so the output needs no zeroing.
 
 #include "masks.cuh"
 
+#define GM_PB_THREADS 256
+#define GM_PB_WARPS (GM_PB_THREADS / 32)
+#define GM_PB_GROUPS 2  // 4-row groups a thread loads ahead of its compares
+#define GM_PB_ROWS (4 * GM_PB_GROUPS)
 #define GM_FULL_MASK 0xffffffffu
 
 struct GmProbeStats {
@@ -52,42 +61,48 @@ __device__ __forceinline__ void gm_probe_warp_reduce(GmProbeStats& s) {
   }
 }
 
-__global__ void __launch_bounds__(1024)
-gm_probe_bounds_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                       const int* __restrict__ params, int m, int sub,
+__global__ void __launch_bounds__(GM_PB_THREADS)
+gm_probe_bounds_kernel(GmCols c, const int* __restrict__ params, int m, int sub,
                        float* __restrict__ out) {
+  constexpr int G = GM_PB_GROUPS, R = GM_PB_ROWS;
   __shared__ GmParams p;
-  __shared__ GmProbeStats part[32];
+  __shared__ GmProbeStats part[GM_PB_WARPS];
   __shared__ float row[5];
   gm_load_params(p, params, m);
   __syncthreads();
   const float inf = __int_as_float(0x7f800000);
-  const int bid = max(params[blockIdx.x], 0);
-  const int pack = sub >> 5;
-  const long long base = (long long)bid * sub * GM_LANES;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const long long base = (long long)max(params[blockIdx.x], 0) * sub * GM_LANES;
+  const int groups = sub * (GM_LANES / 4);  // 4-row groups of the slot
+  const int n_box = p.n_box;
   GmProbeStats s{0, inf, -inf, inf, -inf};
-  for (int j = threadIdx.y; j < pack; j += blockDim.y) {
-    for (int b = 0; b < 32; ++b) {
-      const long long r = gm_row(base, j, b, lane);
-      const float xv = x[r], yv = y[r];
-      bool hit = false;
+#pragma unroll 1
+  for (int g0 = tid; g0 < groups; g0 += G * GM_PB_THREADS) {
+    // every load of the batch first: row 4k + i of group g0 + k * threads
+    float a[R], b[R], e[R], f[R];
+    int t0[R], t1[R];
 #pragma unroll
-      for (int k = 0; k < GM_SLOTS; ++k) {
-        const float* q = p.box[k];
-        hit |= (xv >= q[0]) & (xv <= q[2]) & (yv >= q[1]) & (yv <= q[3]);
-      }
-      if (hit) gm_probe_fold(s, GmProbeStats{1, xv, xv, yv, yv});
+    for (int k = 0; k < G; ++k)
+      gm_load_rows<false, 4, 1>(c, base + 4ll * (g0 + k * GM_PB_THREADS), GM_HAS_BOXES,
+                                GM_LEG_BOX, 4 * k, a, b, e, f, t0, t1);
+    GmMask w = gm_all_rows<R>(), in = gm_all_rows<R>();
+    gm_leg_bits<false, R>(p, GM_HAS_BOXES, GM_LEG_BOX, n_box, 0, a, b, e, f, t0, t1, w, in);
+    s.cnt += __popc(w);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool hit = (w >> r) & 1u;
+      s.xmin = fminf(s.xmin, hit ? a[r] : inf);
+      s.xmax = fmaxf(s.xmax, hit ? a[r] : -inf);
+      s.ymin = fminf(s.ymin, hit ? b[r] : inf);
+      s.ymax = fmaxf(s.ymax, hit ? b[r] : -inf);
     }
   }
   gm_probe_warp_reduce(s);
-  const int tid = gm_tid();
   const int warp = tid >> 5, wl = tid & 31;
-  const int n_warps = (blockDim.x * blockDim.y) >> 5;
   if (wl == 0) part[warp] = s;
   __syncthreads();
   if (warp == 0) {
-    GmProbeStats t = wl < n_warps ? part[wl] : GmProbeStats{0, inf, -inf, inf, -inf};
+    GmProbeStats t = wl < GM_PB_WARPS ? part[wl] : GmProbeStats{0, inf, -inf, inf, -inf};
     gm_probe_warp_reduce(t);
     if (wl == 0) {
       row[0] = (float)t.cnt;
@@ -101,14 +116,17 @@ gm_probe_bounds_kernel(const float* __restrict__ x, const float* __restrict__ y,
   if (tid < GM_LANES) out[(long long)blockIdx.x * GM_LANES + tid] = tid < 5 ? row[tid] : 0.0f;
 }
 
-// x, y: f32 columns [n_blocks, sub, 128]. params: bids[m] (-1 = pad,
-// read as block 0) | boxes[8][8] (f32 bits; lanes 0-3 read) | wins[8][8]
-// and two slot counts (unused). out: f32 [m, 128]. Returns
-// cudaGetLastError() of the launch (0 = launched).
+// x, y: f32 columns [n_blocks, sub, 128], 16-byte aligned, sub a multiple
+// of 16. params: bids[m] (-1 = pad, read as block 0) | boxes[8][8] (f32
+// bits; lanes 0-3 read) | wins[8][8] (unread) | live box slots (of lanes
+// 0-3, first) | 0. out: f32 [m, 128]. Returns cudaGetLastError() of the
+// launch (0 = launched).
 extern "C" int gm_probe_bounds(const float* x, const float* y, const int* params, int m,
                                int sub, float* out, void* stream) {
   if (m <= 0) return 0;
-  gm_probe_bounds_kernel<<<m, gm_block_dim(sub), 0, (cudaStream_t)stream>>>(
-      x, y, params, m, sub, out);
+  if (sub % 16) return (int)cudaErrorInvalidValue;
+  const GmCols c{x, y, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  gm_probe_bounds_kernel<<<m, GM_PB_THREADS, 0, (cudaStream_t)stream>>>(c, params, m, sub,
+                                                                         out);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,8 @@
 // l / 8): every column it reads is one 16-byte load per stripe, a warp
 // load instruction four full 128-byte lines. It loads a batch of 2
 // stripes (8 rows; batches of 4 stripes held twice the registers and were
-// slower on the box, window and raster legs in A/B runs) before any
+// slower on the box, window and raster legs in A/B runs; the probe P1,
+// whose legs are fixed at compile time, takes 4) before any
 // compare, evaluates the legs over the batch with the slot, edge and
 // interval loops outside (masks.cuh: a slot's words are read once a
 // batch, each row's truth a bit of a mask), and moves each lane's bits
@@ -42,8 +43,7 @@
 #define GS_MAX_DEVICES 64
 #define GS_FULL 0xffffffffu
 
-#define GS_STRIPES 2      // stripes a thread loads ahead of its compares
-#define GS_ROWS (4 * GS_STRIPES)  // rows of a batch: 4 lanes of each stripe
+#define GS_STRIPES 2      // stripes a thread loads ahead of its compares (K1, K2)
 
 struct GsTile {
   int slot, j, g;
@@ -70,13 +70,14 @@ __device__ __forceinline__ void gs_run(int m, int pack, int& begin, int& end) {
 // slot's bid * SUB * 128), its planes at word [slot, j, 32g] of wide and
 // inner (null: the wide plane alone). ``leg``: the tile's spatial leg
 // (gm_leg); ``poly``: its polygon block where the leg reads one. POLY:
-// the launch carries polygon legs. The whole warp runs a tile together.
-template <bool EXT, bool POLY>
+// the launch carries polygon legs; S: stripes a batch (a divisor of
+// GS_CHUNK). The whole warp runs a tile together.
+template <bool EXT, bool POLY, int S = GS_STRIPES>
 __device__ __forceinline__ void gs_scan_tile(const GmCols& c, const GmParams& p, const GmPoly& poly,
                                              int flags, int leg, long long block0, GsTile t,
                                              int pack, int* __restrict__ wide,
                                              int* __restrict__ inner) {
-  constexpr int S = GS_STRIPES, R = GS_ROWS;
+  constexpr int R = 4 * S;
   const int l = threadIdx.x & 31;
   const int q = l % 8, ch = l / 8;
   const long long r0 =

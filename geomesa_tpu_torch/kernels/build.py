@@ -122,12 +122,12 @@ KERNELS = (BLOCK_SCAN, DENSITY, BOUNDS, BLOCK_SCAN_MULTI, BLOCK_POPS)
 # the chip-side probes' kernels (scan/probe_kernels.py, driven by
 # geomesa_tpu_torch/scripts/): no path of the system launches them, so they
 # stay out of KERNELS and build as a group of their own. The density
-# probe's launch names its chunk variant: "reshape" (32 sublanes a chunk)
-# or "fori" (one sublane).
+# probe's launch names the TPU body it stands for, "reshape" or "fori":
+# both launch the one kernel.
 PROBE_SCAN = CudaKernel("probe_scan", "gm_probe_scan", [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P])
 PROBE_BOUNDS = CudaKernel("probe_bounds", "gm_probe_bounds", [_P, _P, _P, _I, _I, _P, _P])
 PROBE_DENSITY = CudaKernel(
-    "probe_density", "gm_probe_density", [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "probe_density", "gm_probe_density", [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     legs=("reshape", "fori"),
 )
 PROBE_KERNELS = (PROBE_SCAN, PROBE_BOUNDS, PROBE_DENSITY)

@@ -7,8 +7,10 @@ The port of the Pallas kernels of the JAX package's design probes
 (geomesa_tpu_torch/scripts/). Same layout as the scan path: f32 ``x``,
 ``y`` and i32 ``tbin``, ``toff`` columns [n_blocks, SUB, 128] with SUB =
 128 (BLOCK = 16384 rows), M candidate slots, [8, 128] box and window
-param blocks. Unlike the system's kernels the probes take no flags and no
-slot counts: every slot evaluates all 8 box (and window) slots.
+param blocks. Unlike the system's kernels the probes take no flags. Their
+functions evaluate all 8 box (and window) slots; the kernels loop over
+the live slots only (:func:`live_slots`), which leaves every output as
+it is, since a slot with an empty interval matches no row.
 
 - P1 (:func:`probe_scan`): two int32 planes [M, SUB/32, 128], wide =
   any box (lanes 0-3) & any window (lanes 0-3), inner = the same over
@@ -19,9 +21,10 @@ slot counts: every slot evaluates all 8 box (and window) slots.
   Pad slots (bid -1) read block 0 and report its stats unmasked, as the
   probe does.
 - P2 density (:func:`probe_density`): [H, W] f32 grid of the rows in any
-  box, in the closed envelope ``gb`` and in a real slot (bid >= 0), on the
-  tensor cores as one-hot products over chunks of 32 sublanes
-  (``variant="reshape"``) or one (``"fori"``).
+  box, in the closed envelope ``gb`` and in a real slot (bid >= 0). The
+  TPU computed it as one-hot products over chunks of 32 sublanes
+  (``variant="reshape"``) or one (``"fori"``); both variants launch the
+  one kernel, which counts each hit by an atomic on an int32 grid.
 
 Each has a plain PyTorch version beside the wrapper of its CUDA kernel
 (csrc/probe_scan.cu, csrc/probe_bounds.cu, csrc/probe_density.cu): a CPU
@@ -41,8 +44,12 @@ SUB = 128  # fixed by both probes
 PACK = SUB // 32
 BLOCK = SUB * LANES
 OUT_LANES = 128  # P2 bounds: one [1, 128] row per slot
-# P2 density's two bodies: sublanes per one-hot chunk
-DENSITY_CHUNKS = {"reshape": 32, "fori": 1}
+# P2 density's two TPU bodies (sublanes per one-hot chunk), one kernel here
+DENSITY_VARIANTS = ("reshape", "fori")
+# the density grid's limits (the JAX probe's packed pixel: py < 2^15,
+# px < 2^16)
+MAX_HEIGHT = 2**15 - 1
+MAX_WIDTH = 2**16 - 1
 
 P1_COLS = ("x", "y", "tbin", "toff")
 P2_COLS = ("x", "y")
@@ -92,11 +99,42 @@ def _route(device: torch.device, what: str) -> bool:
     return False
 
 
-def _staged(device, bids, boxes, wins, gb=None) -> torch.Tensor:
-    """The probe's params in one host->device copy, in the one-query layout
-    of csrc/masks.cuh (its slot counts are not read by the probes)."""
+def live_slots(boxes, wins, planes: int = 2):
+    """(boxes, wins, counts): the [8, 128] param blocks with each leg's
+    live slots first, and int32 [n_box, n_win] live slots. A slot is live
+    when lo <= hi on both of its intervals (x and y of a box, bin and
+    offset of a window; NaN counts as empty) in any of the first
+    ``planes`` planes: lanes 0-3 (wide), and 4-7 (inner) when ``planes``
+    is 2. Any other slot matches no row whatever the row holds, so a
+    kernel that loops over the first ``count`` slots of the reordered
+    blocks gives every output of all 8."""
+    boxes = _param_block(boxes, np.float32)
+    wins = _param_block(wins, np.int32)
+    box_live = np.zeros(8, bool)
+    win_live = np.zeros(8, bool)
+    for o in (0, 4)[:planes]:
+        box_live |= (boxes[:, o] <= boxes[:, o + 2]) & (boxes[:, o + 1] <= boxes[:, o + 3])
+        win_live |= (wins[:, o] <= wins[:, o + 1]) & (wins[:, o + 2] <= wins[:, o + 3])
+    bo = np.argsort(~box_live, kind="stable")
+    wo = np.argsort(~win_live, kind="stable")
+    return boxes[bo], wins[wo], np.array([box_live.sum(), win_live.sum()], np.int32)
+
+
+def stage_probe(bids, boxes, wins, gb=None, planes: int = 2) -> np.ndarray:
+    """The probe's int32 params in the one-query layout of csrc/masks.cuh,
+    bids[m] | boxes | wins | n_box | n_win | gb, with the live slots first
+    and their counts in the slot-count words (:func:`live_slots`)."""
+    boxes, wins, counts = live_slots(boxes, wins, planes)
+    staged = bk.stage_params(bids, boxes, wins, gb)
+    at = len(bids) + 2 * 8 * 8  # GM_EXTRA(m) - 2
+    staged[at:at + 2] = counts
+    return staged
+
+
+def _staged(device, bids, boxes, wins, gb=None, planes: int = 2) -> torch.Tensor:
+    """:func:`stage_probe` in one host->device copy."""
     with torch.cuda.device(device):
-        return bk.upload_params(bk.stage_params(bids, boxes, wins, gb), device)
+        return bk.upload_params(stage_probe(bids, boxes, wins, gb, planes), device)
 
 
 def _stream(device) -> int:
@@ -147,11 +185,11 @@ def probe_scan_launcher(cols3, bids, boxes, wins):
         raise ValueError(f"no probe scan kernel for device {device}")
     from geomesa_tpu_torch.kernels import PROBE_SCAN
 
+    bk.check_aligned(dict(zip(P1_COLS, cols3)))
     bids = np.asarray(bids, np.int32)
     bk.check_bids(bids, n_blocks, allow_pad=False)
     m = len(bids)
-    params = _staged(device, bids, _param_block(boxes, np.float32),
-                     _param_block(wins, np.int32))
+    params = _staged(device, bids, boxes, wins)
     with torch.cuda.device(device):
         planes = torch.empty((2, m, PACK, LANES), dtype=torch.int32, device=device)
     ptrs = [c.data_ptr() for c in cols3]
@@ -215,10 +253,11 @@ def probe_bounds_launcher(cols3, bids, boxes):
         raise ValueError(f"no probe bounds kernel for device {device}")
     from geomesa_tpu_torch.kernels import PROBE_BOUNDS
 
+    bk.check_aligned(dict(zip(P2_COLS, cols3)))
     bids = np.asarray(bids, np.int32)
     bk.check_bids(bids, n_blocks, allow_pad=True)
     m = len(bids)
-    params = _staged(device, bids, _param_block(boxes, np.float32), bk.pack_windows(None, None))
+    params = _staged(device, bids, boxes, bk.pack_windows(None, None), planes=1)
     with torch.cuda.device(device):
         out = torch.empty((m, OUT_LANES), dtype=torch.float32, device=device)
     ptrs = [c.data_ptr() for c in cols3]
@@ -274,36 +313,40 @@ def probe_density_plain(x, y, bids, boxes, gb, height: int, width: int) -> torch
     )
 
 
-def _variant_chunk(variant: str) -> int:
-    if variant not in DENSITY_CHUNKS:
-        raise ValueError(f"density variant is one of {sorted(DENSITY_CHUNKS)}: {variant!r}")
-    return DENSITY_CHUNKS[variant]
+def _check_variant(variant: str) -> None:
+    if variant not in DENSITY_VARIANTS:
+        raise ValueError(f"density variant is one of {sorted(DENSITY_VARIANTS)}: {variant!r}")
 
 
 def probe_density_launcher(cols3, bids, boxes, gb, *, variant: str, height: int, width: int):
     """Stage one P2 density launch: check, copy the params to the card,
-    zero an f32 [height, width] grid. Returns (grid, launch): each
-    launch() adds the counts into ``grid`` on the current stream."""
-    chunk = _variant_chunk(variant)
+    allocate the f32 [height, width] grid and a zeroed int32 scratch grid.
+    Returns (grid, launch): each launch() writes this launch's counts into
+    ``grid`` on the current stream (the kernel counts in the scratch,
+    converts it into ``grid`` and zeroes it again)."""
+    _check_variant(variant)
     device, n_blocks = check_columns(cols3, P2_COLS)
     if device.type != "cuda":
         raise ValueError(f"no probe density kernel for device {device}")
-    if height % 128 or width % 128 or not 0 < height < 2**15 or not 0 < width < 2**16:
-        raise ValueError(f"the density kernel takes grids of 128-multiples: {height}x{width}")
+    if not 0 < height <= MAX_HEIGHT or not 0 < width <= MAX_WIDTH:
+        raise ValueError(f"density grids are at most {MAX_HEIGHT} x {MAX_WIDTH}: "
+                         f"{height} x {width}")
+    bk.check_aligned(dict(zip(P2_COLS, cols3)))
     from geomesa_tpu_torch.kernels import PROBE_DENSITY
 
     bids = np.asarray(bids, np.int32)
     bk.check_bids(bids, n_blocks, allow_pad=True)
     m = len(bids)
-    params = _staged(device, bids, _param_block(boxes, np.float32), bk.pack_windows(None, None),
-                     _grid_bounds(gb))
+    params = _staged(device, bids, boxes, bk.pack_windows(None, None), _grid_bounds(gb),
+                     planes=1)
     with torch.cuda.device(device):
-        grid = torch.zeros((height, width), dtype=torch.float32, device=device)
+        grid = torch.empty((height, width), dtype=torch.float32, device=device)
+        scratch = torch.zeros((height, width), dtype=torch.int32, device=device)
     ptrs = [c.data_ptr() for c in cols3]
 
     def launch() -> None:
-        PROBE_DENSITY.launch(*ptrs, params.data_ptr(), m, SUB, chunk, height, width,
-                             grid.data_ptr(), _stream(device), leg=variant)
+        PROBE_DENSITY.launch(*ptrs, params.data_ptr(), m, SUB, height, width,
+                             scratch.data_ptr(), grid.data_ptr(), _stream(device), leg=variant)
 
     return grid, launch
 
@@ -313,8 +356,9 @@ def probe_density(cols3, bids, boxes, gb, *, variant: str = "reshape", height: i
     """P2 density: [height, width] f32 grid of ``cols3`` = (x, y) over
     ``bids`` (numpy i32 [M], -1 = pad) with the [8, 128] ``boxes`` and the
     envelope ``gb`` (x0, y0, x1, y1, or the probe's [1, 128] row), on the
-    columns' device; ``variant`` names the TPU body ("reshape", "fori")."""
-    _variant_chunk(variant)
+    columns' device; ``variant`` names the TPU body ("reshape", "fori"),
+    which the count of launches records: both launch the one kernel."""
+    _check_variant(variant)
     device, n_blocks = check_columns(cols3, P2_COLS)
     if _route(device, "probe density"):
         bids = np.asarray(bids, np.int32)

@@ -1,10 +1,14 @@
 """The scan-path kernels beside an earlier tree's on the card: K1
-(block_scan), K2 (block_scan_multi) and K3 (density), and K1p (block_pops)
-and K4 (bounds), which share their predicate header (masks.cuh), each
-built from this checkout and from another tree's sources (``--old DIR``:
-that tree's ``geomesa_tpu_torch/csrc``, for example the parent commit's
-from ``git archive``). Every old source builds against its own tree's
-headers (``-I DIR``), never this checkout's.
+(block_scan), K2 (block_scan_multi) and K3 (density), K1p (block_pops)
+and K4 (bounds), which share their predicate header (masks.cuh), and the
+chip-side probes' P1 (probe_scan), P2 bounds (probe_bounds) and P2
+density (probe_density), each built from this checkout and from another
+tree's sources (``--old DIR``: that tree's ``geomesa_tpu_torch/csrc``,
+for example the parent commit's from ``git archive``). Every old source
+builds against its own tree's headers (``-I DIR``), never this
+checkout's. An old P2 density with a chunk argument (the one-hot design,
+before the live-slot staging) runs through an adapter that passes the
+variant's chunk, with fewer timed runs: it takes some 10 ms a launch.
 
 Shapes, on the kernel phase's columns of ``chip_smoke.py`` (6,104 blocks
 of 128 x 128 rows: the 100M-row main table; SUB = 128):
@@ -22,18 +26,27 @@ of 128 x 128 rows: the 100M-row main table; SUB = 128):
 - K1p and K4 at M = 4096, box + window and the extent leg (box alone);
 - K3 at M = 4096 on a 256 x 256 grid: uniform, clustered (half of the
   rows in 64 gaussian clusters of sigma 0.5 degrees), the extent columns
-  with the window and with the box alone.
+  with the window and with the box alone;
+- the probes on P1's table (64 Mi rows of x, y, tbin, toff;
+  ``probe_pallas.make_columns``): P1 at M = 128 and 1024, P2 bounds and
+  both density variants at M = 256 and 1024 (P2's box and envelope on
+  the same x and y), each on the probe's params and on the 8-slot split
+  (``probe_pallas.split_params``, ``probe_agg.split_boxes``).
 
 Each shape holds both builds against the plain version bit for bit before
 timing them; times are CUDA-event medians of the launch alone
 (``timing.event_ms``), taken new, old, old, new, beside the shape's bound
-(``chip_smoke.bound``). Also reported: the registers, local memory and
-static count of global and shared loads and stores of every kernel
-function of both builds (``cuobjdump``), the card's name and power limit,
-and whether the toolkit has Nsight Compute. Run on a CUDA card from the
-root of a checkout (it imports ``chip_smoke`` for the columns):
+(``chip_smoke.bound``), and each build's time a launch over launches
+queued back to back (``timing.queued_ms``: 20 a run, 4 for the one-hot
+density), where the host's submission hides behind the launches ahead.
+Also reported: the registers, local memory and static count of global
+and shared loads and stores of every kernel function of both builds
+(``cuobjdump``), whether the two builds compiled to the same code, the
+card's name and power limit, and whether the toolkit has Nsight Compute. Run on a CUDA card from the
+root of a checkout (it imports ``chip_smoke`` for the columns);
+``--only system`` or ``--only probes`` takes one group:
 
-    python -m geomesa_tpu_torch.scripts.kernel_ab --old DIR [--out FILE]
+    python -m geomesa_tpu_torch.scripts.kernel_ab --old DIR [--only GROUP] [--out FILE]
 """
 
 from __future__ import annotations
@@ -51,11 +64,21 @@ import torch
 from geomesa_tpu_torch.kernels import build
 from geomesa_tpu_torch.scan import aggregations as agg
 from geomesa_tpu_torch.scan import block_kernels as bk
-from geomesa_tpu_torch.timing import event_ms
+from geomesa_tpu_torch.timing import event_ms, queued_ms
 
-# the kernels an A/B builds twice
-AB_KERNELS = (build.BLOCK_SCAN, build.BLOCK_SCAN_MULTI, build.BLOCK_POPS, build.DENSITY,
-              build.BOUNDS)
+# the kernels an A/B builds twice, by group
+GROUPS = {
+    "system": (build.BLOCK_SCAN, build.BLOCK_SCAN_MULTI, build.BLOCK_POPS, build.DENSITY,
+               build.BOUNDS),
+    "probes": build.PROBE_KERNELS,
+}
+AB_KERNELS = (*GROUPS["system"], *GROUPS["probes"])
+# the one-hot P2 density's C entry (x, y, params, m, sub, chunk, height,
+# width, grid, stream), and its chunk by variant
+_P, _I = build._P, build._I
+ONE_HOT_DENSITY_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+ONE_HOT_CHUNKS = {"reshape": 32, "fori": 1}
+ONE_HOT_RUNS = 5
 SUB = 128
 M = 4096
 M2 = 2048  # the fused chunk's slots at 100M rows
@@ -79,12 +102,19 @@ def old_build_command(kernel, old_dir: Path) -> list:
             "-o", str(old_library(kernel)), str(old_dir / f"{kernel.name}.cu")]
 
 
-def build_old(old_dir: Path) -> dict:
-    """Build every A/B kernel of ``old_dir`` at once; their C entry points
-    by kernel name."""
+def one_hot_density(old_dir: Path) -> bool:
+    """Whether ``old_dir``'s P2 density is the one-hot design, whose C entry
+    takes a chunk and no scratch grid."""
+    text = (Path(old_dir) / f"{build.PROBE_DENSITY.name}.cu").read_text()
+    return "int chunk" in text
+
+
+def build_old(old_dir: Path, kernels) -> dict:
+    """Build ``kernels`` from ``old_dir`` at once; their C entry points by
+    kernel name (an old one-hot P2 density bound with its own arguments)."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = [(k, subprocess.Popen(old_build_command(k, old_dir), stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)) for k in AB_KERNELS]
+                                  stderr=subprocess.STDOUT, text=True)) for k in kernels]
     failed = []
     for k, p in procs:
         out, _ = p.communicate()
@@ -92,7 +122,13 @@ def build_old(old_dir: Path) -> dict:
             failed.append(f"{k.name}:\n{out}")
     if failed:
         raise RuntimeError("nvcc failed on the old sources:\n" + "\n".join(failed))
-    return {k.name: build.bind(old_library(k), k.symbol, k.argtypes) for k in AB_KERNELS}
+    fns = {}
+    for k in kernels:
+        argtypes = k.argtypes
+        if k is build.PROBE_DENSITY and one_hot_density(old_dir):
+            argtypes = ONE_HOT_DENSITY_ARGTYPES
+        fns[k.name] = build.bind(old_library(k), k.symbol, argtypes)
+    return fns
 
 
 def tool(name: str) -> "str | None":
@@ -180,34 +216,59 @@ def nvidia_smi() -> str:
 class Pair:
     """One kernel's two builds behind its wrapper: ``use(variant)`` points
     the kernel's C entry point at the new or the old library, so both run
-    through the same staging and launch."""
+    through the same staging and launch. ``old_runs`` timed runs of the
+    old build (None: the timer's default)."""
 
-    def __init__(self, kernel, old_fn):
+    def __init__(self, kernel, old_fn, old_runs=None):
         self.kernel = kernel
         self.fns = {"new": build.bind(kernel.library, kernel.symbol, kernel.argtypes),
                     "old": old_fn}
+        self.old_runs = old_runs
 
     def use(self, variant: str) -> None:
         self.kernel._fn = self.fns[variant]
 
 
+class OneHotDensityPair(Pair):
+    """The P2 density pair against the one-hot design: the old entry gets
+    the chunk of the variant being timed (``chunk``) in place of the
+    scratch grid, and adds into a grid the check zeroes first."""
+
+    def __init__(self, kernel, old_fn):
+        super().__init__(kernel, old_fn, old_runs=ONE_HOT_RUNS)
+        self.one_hot = old_fn
+        self.chunk = ONE_HOT_CHUNKS["reshape"]
+
+        def adapter(x, y, params, m, sub, height, width, counts, grid, stream):
+            return self.one_hot(x, y, params, m, sub, self.chunk, height, width, grid, stream)
+
+        self.fns["old"] = adapter
+
+
 def ab(pair: Pair, launch, out: torch.Tensor, ref, equal, rec: dict) -> dict:
     """Both builds on one shape: each equal to the plain version ``ref``
     (``equal(out, ref)``), then timed new, old, old, new."""
+    zeroed = pair.kernel in (build.DENSITY, build.PROBE_DENSITY)
     for v in ("new", "old"):
         pair.use(v)
-        out.fill_(0 if pair.kernel is build.DENSITY else SENTINEL)
+        out.fill_(0 if zeroed else SENTINEL)
         launch()
         torch.cuda.synchronize()
         if not equal(out, ref):
             raise RuntimeError(f"{pair.kernel.name} {v} {rec['shape']}: differs from plain")
     times: dict = {"new": [], "old": []}
+    slow = {"new": {}, "old": {"runs": pair.old_runs, "warmup": 1} if pair.old_runs else {}}
     for v in ("new", "old", "old", "new"):
         pair.use(v)
-        times[v].append(event_ms(launch))
+        times[v].append(event_ms(launch, **slow[v]))
+    queued = {}
+    for v in ("new", "old"):
+        pair.use(v)
+        queued[v] = queued_ms(launch, launches=4 if slow[v] else 20)
     pair.use("new")
     rec.update(kernel=pair.kernel.name, new_ms=times["new"], old_ms=times["old"],
-               new_over_old=min(times["new"]) / min(times["old"]))
+               new_over_old=min(times["new"]) / min(times["old"]),
+               new_queued_ms=queued["new"], old_queued_ms=queued["old"])
     rec["share_of_bound"] = rec["bound_ms"] / min(times["new"])
     return rec
 
@@ -387,36 +448,102 @@ def _density(cs, pair, shape, sel, bids, boxes, wins, hw, extent, device) -> dic
                "hits": int(ref.sum()), **cs.bound(n_bytes, ops)})
 
 
-def run(old_dir: Path) -> dict:
+def probe_shapes(cs, pairs: dict, device) -> list:
+    """P1 at M = 128 and 1024, P2 bounds and both density variants at M =
+    256 and 1024, each on the probe's params and on the 8-slot split."""
+    from geomesa_tpu_torch.scan import probe_kernels as pk
+    from geomesa_tpu_torch.scripts import probe_agg as pa
+    from geomesa_tpu_torch.scripts import probe_pallas as pp
+
+    host = pp.make_columns()
+    n_blocks = host[0].shape[0]
+    cols = tuple(torch.from_numpy(a).to(device) for a in host)
+    del host
+    recs = []
+    p1 = {"probe": pp.pack_params(*(np.array([pp.BOX], np.float32),) * 2,
+                                  *(np.array([pp.WINDOW], np.int32),) * 2),
+          "split": pp.split_params()}
+    for m in pp.MS:
+        bids, _ = pp.sample_bids(n_blocks, m)
+        for params, (boxes, wins) in p1.items():
+            planes, launch = pk.probe_scan_launcher(cols, bids, boxes, wins)
+            ref = pk.probe_scan_plain(*cols, dev(bids, torch.int32, device),
+                                      dev(boxes, torch.float32, device),
+                                      dev(wins, torch.int32, device))
+            recs.append(ab(pairs["probe_scan"], launch, planes, ref, planes_equal,
+                           {"shape": f"P1 {params} M={m}", "m": m,
+                            **cs.bound(*pp.cost(bids, boxes, wins))}))
+            del planes, ref
+    rng = np.random.default_rng(pa.SEED)
+    gb = pa.grid_bounds()
+    p2 = {"probe": bk.pack_boxes(np.array([pa.BOX]), None), "split": pa.split_boxes()}
+    for m in pa.MS:
+        bids = pa.sample_bids(rng, n_blocks, m)
+        for params, boxes in p2.items():
+            pargs = (*cols[:2], dev(bids, torch.int32, device), dev(boxes, torch.float32, device))
+            ref = pk.probe_bounds_plain(*pargs)
+            out, launch = pk.probe_bounds_launcher(cols[:2], bids, boxes)
+            recs.append(ab(pairs["probe_bounds"], launch, out, ref, torch.equal,
+                           {"shape": f"P2 bounds {params} M={m}", "m": m,
+                            **cs.bound(*pa.bounds_cost(bids, boxes, int(ref[:, 0].sum())))}))
+            ref = pk.probe_density_plain(*pargs, dev(gb[0, :4], torch.float32, device),
+                                         pa.H, pa.W)
+            pair = pairs["probe_density"]
+            for v in pk.DENSITY_VARIANTS:
+                if isinstance(pair, OneHotDensityPair):
+                    pair.chunk = ONE_HOT_CHUNKS[v]
+                grid, launch = pk.probe_density_launcher(cols[:2], bids, boxes, gb, variant=v,
+                                                         height=pa.H, width=pa.W)
+                recs.append(ab(pair, launch, grid, ref, torch.equal,
+                               {"shape": f"P2 density:{v} {params} M={m}", "m": m,
+                                "hits": int(ref.sum()),
+                                **cs.bound(*pa.density_cost(bids, boxes, int(ref.sum())))}))
+    del cols
+    torch.cuda.empty_cache()
+    return recs
+
+
+def run(old_dir: Path, only: "str | None" = None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_ab measures a CUDA card; there is none")
     import chip_smoke as cs  # the kernel phase's columns, from the checkout's root
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    build.build_all()
-    old = build_old(Path(old_dir))
-    pairs = {k.name: Pair(k, old[k.name]) for k in AB_KERNELS}
-    n_blocks = -(-cs.N_MAIN // (SUB * 128))
-    cols = cs.synthetic_columns(torch, n_blocks, SUB, device)
-    ext = cs.extent_columns(torch, n_blocks, SUB, device)
-    recs = k1_shapes(cs, pairs["block_scan"], cols, ext, n_blocks, device)
-    recs += k2_shapes(cs, pairs["block_scan_multi"], cols, ext, n_blocks, device)
-    recs += agg_shapes(cs, pairs, cols, ext, n_blocks, device)
-    code = {"new": {k.name: code_stats(k.library) for k in AB_KERNELS},
-            "old": {k.name: code_stats(old_library(k)) for k in AB_KERNELS}}
+    kernels = GROUPS[only] if only else AB_KERNELS
+    build.build_all(kernels)
+    old = build_old(Path(old_dir), kernels)
+    pairs = {k.name: Pair(k, old[k.name]) for k in kernels}
+    if build.PROBE_DENSITY in kernels and one_hot_density(old_dir):
+        pairs["probe_density"] = OneHotDensityPair(build.PROBE_DENSITY, old["probe_density"])
+    recs = []
+    if only in (None, "system"):
+        n_blocks = -(-cs.N_MAIN // (SUB * 128))
+        cols = cs.synthetic_columns(torch, n_blocks, SUB, device)
+        ext = cs.extent_columns(torch, n_blocks, SUB, device)
+        recs += k1_shapes(cs, pairs["block_scan"], cols, ext, n_blocks, device)
+        recs += k2_shapes(cs, pairs["block_scan_multi"], cols, ext, n_blocks, device)
+        recs += agg_shapes(cs, pairs, cols, ext, n_blocks, device)
+        del cols, ext
+        torch.cuda.empty_cache()
+    if only in (None, "probes"):
+        recs += probe_shapes(cs, pairs, device)
+    code = {"new": {k.name: code_stats(k.library) for k in kernels},
+            "old": {k.name: code_stats(old_library(k)) for k in kernels}}
+    same = {k.name: code["new"][k.name] == code["old"][k.name] for k in kernels}
     return {"phase": "kernel_ab", "nvidia_smi": nvidia_smi(),
             "device": torch.cuda.get_device_name(0), "old": str(old_dir), "ncu": tool("ncu"),
-            "records": recs, "code": code}
+            "records": recs, "code": code, "same_code": same}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, required=True,
                     help="an earlier tree's geomesa_tpu_torch/csrc to time beside this one")
+    ap.add_argument("--only", choices=sorted(GROUPS), help="time one group of kernels")
     ap.add_argument("--out", type=Path, help="also write the JSON record here")
     args = ap.parse_args()
-    text = json.dumps(run(args.old))
+    text = json.dumps(run(args.old, args.only))
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(text + "\n")

@@ -10,15 +10,18 @@ count M over a [n_blocks, SUB, 128] point table it measures:
   probe's ``xla_density`` / ``xla_bounds``;
 - ``bounds``: the bounds probe kernel (csrc/probe_bounds.cu), per-slot
   [M, 128] out;
-- ``density.reshape`` / ``density.fori``: the one-hot density probe
-  kernel (csrc/probe_density.cu) on the tensor cores, over chunks of 32
-  sublanes or one, with the tensor-core rate it reaches;
+- ``density.reshape`` / ``density.fori``: the density probe kernel
+  (csrc/probe_density.cu), which both TPU bodies launch: one atomic per
+  distinct pixel of a warp's hits on an int32 grid;
+- each of the two kernels again on the probe's box cut into 8 strips
+  (:func:`split_boxes`, ``split_ms``), every slot real;
 - as yardsticks, the port's K3 (csrc/density.cu, global atomics) and one
   ``torch.bincount`` over the hits' pixels on the same inputs.
 
 Each probe kernel is held against its plain version word for word at
-every M, with and without pad slots, and K3's grid against the probe's;
-a mismatch raises. Times are medians of
+every M, with and without pad slots, on the split and on the staging
+edge cases of ``probe_pallas.staging_cases`` (their boxes), and K3's grid
+against the probe's; a mismatch raises. Times are medians of
 ``geomesa_tpu_torch.timing.TIMED_RUNS`` runs. Run on a CUDA card:
 
     python -m geomesa_tpu_torch.scripts.probe_agg
@@ -34,6 +37,7 @@ import torch
 from geomesa_tpu_torch.scan import aggregations as agg
 from geomesa_tpu_torch.scan import block_kernels as bk
 from geomesa_tpu_torch.scan import probe_kernels as pk
+from geomesa_tpu_torch.scripts.probe_pallas import staging_cases
 from geomesa_tpu_torch.timing import event_ms, max_abs_err
 
 BLOCK = pk.BLOCK
@@ -43,7 +47,6 @@ MS = (256, 1024)
 H = W = 256
 SEED = 0  # the JAX probe's generator
 BOX = (-40.0, -30.0, 60.0, 40.0)  # the query box, and the grid's envelope
-TC_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 # operations of the functions (as K3's bound counts them): per row and
 # box slot 4 compares, 3 ANDs and an OR; per row the closed envelope (4
 # compares, 4 ANDs); per density hit two pixels (subtract, divide,
@@ -71,6 +74,36 @@ def sample_bids(rng, n_blocks: int, m: int) -> np.ndarray:
     bids, _ = bk.pad_bids(np.sort(rng.choice(n_blocks, m, replace=False)), n_blocks, pad=-1,
                           bucket=m)
     return bids
+
+
+def bounds_cost(bids, boxes, hits: int) -> tuple:
+    """(bytes, operations) of one bounds launch over ``bids`` with ``hits``
+    rows in a box, for its bound: every slot's x and y read once (pads
+    read block 0), the [M, 128] rows written once, the staged params."""
+    m = len(bids)
+    n_bytes = (m * BLOCK * 8 + m * pk.OUT_LANES * 4
+               + pk.stage_probe(bids, boxes, bk.pack_windows(None, None), planes=1).nbytes)
+    return n_bytes, m * BLOCK * BOX_OPS_PER_ROW + hits * BOUNDS_OPS_PER_HIT
+
+
+def density_cost(bids, boxes, hits: int) -> tuple:
+    """(bytes, operations) of one density launch over ``bids`` with
+    ``hits`` counted rows, for its bound: the real slots' x and y read
+    once, the H x W grid written once, the staged params."""
+    real_rows = int((np.asarray(bids) >= 0).sum()) * BLOCK
+    n_bytes = (real_rows * 8 + H * W * 4 + pk.stage_probe(
+        bids, boxes, bk.pack_windows(None, None), grid_bounds()[0, :4], planes=1).nbytes)
+    ops = real_rows * (BOX_OPS_PER_ROW + ENVELOPE_OPS_PER_ROW) + hits * DENSITY_OPS_PER_HIT
+    return n_bytes, ops
+
+
+def split_boxes() -> np.ndarray:
+    """The probe's box cut into 8 closed strips along x, every slot real:
+    the strips cover exactly the box, so every output is the probe's."""
+    x = np.linspace(BOX[0], BOX[2], 9, dtype=np.float32)
+    strips = np.stack([x[:-1], np.full(8, BOX[1], np.float32), x[1:],
+                       np.full(8, BOX[3], np.float32)], axis=1)
+    return bk.pack_boxes(strips, None)
 
 
 def grid_bounds() -> np.ndarray:
@@ -109,17 +142,18 @@ def run(device="cuda", n_blocks: int = N_BLOCKS, ms=MS) -> dict:
     def t(fn):
         return event_ms(fn) if timed else None
 
-    def kernel_errs(bids) -> dict:
-        """max |kernel - plain| of each probe kernel on ``bids``."""
-        pargs = (*cols, dev(bids, torch.int32), dev(boxes, torch.float32))
-        out = {"bounds": max_abs_err(pk.probe_bounds(cols, bids, boxes),
+    def kernel_errs(bids, bx=boxes) -> dict:
+        """max |kernel - plain| of each probe kernel on ``bids``, ``bx``."""
+        pargs = (*cols, dev(bids, torch.int32), dev(bx, torch.float32))
+        out = {"bounds": max_abs_err(pk.probe_bounds(cols, bids, bx),
                                      pk.probe_bounds_plain(*pargs))}
         ref = pk.probe_density_plain(*pargs, dev(gb4, torch.float32), H, W)
-        for v in pk.DENSITY_CHUNKS:
-            got = pk.probe_density(cols, bids, boxes, gb, variant=v, height=H, width=W)
+        for v in pk.DENSITY_VARIANTS:
+            got = pk.probe_density(cols, bids, bx, gb, variant=v, height=H, width=W)
             out[v] = max_abs_err(got, ref)
         return out
 
+    boxes8 = split_boxes()
     records = []
     for m in ms:
         bids = sample_bids(rng, n_blocks, m)
@@ -135,6 +169,18 @@ def run(device="cuda", n_blocks: int = N_BLOCKS, ms=MS) -> dict:
         pads_err = kernel_errs(padded)
         _require(not any(pads_err.values()),
                  f"a probe kernel differs from its plain version with pads at M={m}: {pads_err}")
+        # the 8-slot split, and the staging edge cases' boxes
+        split_err = kernel_errs(bids, boxes8)
+        split_same = (
+            torch.equal(pk.probe_bounds(cols, bids, boxes8), pk.probe_bounds(cols, bids, boxes))
+            and torch.equal(pk.probe_density(cols, bids, boxes8, gb, height=H, width=W),
+                            pk.probe_density(cols, bids, boxes, gb, height=H, width=W)))
+        _require(not any(split_err.values()) and split_same,
+                 f"the 8-slot split differs from plain or from the probe's box at M={m}")
+        staging = {name: kernel_errs(padded, bx) for name, (bx, _) in staging_cases().items()}
+        _require(not any(e for errs in staging.values() for e in errs.values()),
+                 f"a probe kernel differs from its plain version on staging cases at M={m}: "
+                 f"{staging}")
         # K3 computes the same grid as the density probe
         ref_grid = pk.probe_density_plain(*pargs, gb_t, H, W)
         k3_grid = agg.block_density(cols, bids, boxes, no_wins, gb4, width=W, height=H,
@@ -143,29 +189,23 @@ def run(device="cuda", n_blocks: int = N_BLOCKS, ms=MS) -> dict:
         _require(k3_equal, f"K3's grid differs from the density probe's at M={m}")
         stats = pk.probe_bounds_plain(*pargs)
         flat = pk.density_pixels(*pargs, gb_t, H, W)
-        rows = m * BLOCK
-        real_rows = n_real * BLOCK
         bounds_hits = int(stats[:, 0].sum())
         density_hits = int(flat.numel())
-        density_params = bk.stage_params(bids, boxes, no_wins, gb4).nbytes
         rec = {
-            "M": m, "n_real": n_real, "k3_equal": k3_equal,
-            "max_abs_err": {k: max(err[k], pads_err[k]) for k in err},
+            "M": m, "n_real": n_real, "k3_equal": k3_equal, "split_equal": split_same,
+            "max_abs_err": {k: max(err[k], pads_err[k], split_err[k],
+                                   *(e[k] for e in staging.values())) for k in err},
+            "staging_err": staging,
             "bounds": {
                 "hits": bounds_hits,
-                "bytes": rows * 8 + m * pk.OUT_LANES * 4
-                + bk.stage_params(bids, boxes, no_wins).nbytes,
-                "ops": rows * BOX_OPS_PER_ROW + bounds_hits * BOUNDS_OPS_PER_HIT,
-                "kernel_ms": None, "wrapper_ms": None,
+                **dict(zip(("bytes", "ops"), bounds_cost(bids, boxes, bounds_hits))),
+                "kernel_ms": None, "wrapper_ms": None, "split_ms": None,
             },
             "density": {
                 "hits": density_hits, "grid": [H, W],
-                "bytes": real_rows * 8 + H * W * 4 + density_params,
-                "ops": real_rows * (BOX_OPS_PER_ROW + ENVELOPE_OPS_PER_ROW)
-                + density_hits * DENSITY_OPS_PER_HIT,
-                "tc_flops": 2 * H * W * real_rows,
-                **{v: {"kernel_ms": None, "wrapper_ms": None, "tc_tflops": None,
-                       "tc_share": None} for v in pk.DENSITY_CHUNKS},
+                **dict(zip(("bytes", "ops"), density_cost(bids, boxes, density_hits))),
+                **{v: {"kernel_ms": None, "wrapper_ms": None, "split_ms": None}
+                   for v in pk.DENSITY_VARIANTS},
             },
             "k1_ms": None, "plain_density_ms": None, "plain_bounds_ms": None,
             "k3_ms": None, "k3_wrapper_ms": None, "bincount_ms": None,
@@ -179,15 +219,16 @@ def run(device="cuda", n_blocks: int = N_BLOCKS, ms=MS) -> dict:
             _, b_launch = pk.probe_bounds_launcher(cols, bids, boxes)
             rec["bounds"]["kernel_ms"] = t(b_launch)
             rec["bounds"]["wrapper_ms"] = t(lambda: pk.probe_bounds(cols, bids, boxes))
-            for v in pk.DENSITY_CHUNKS:
+            rec["bounds"]["split_ms"] = t(pk.probe_bounds_launcher(cols, bids, boxes8)[1])
+            for v in pk.DENSITY_VARIANTS:
                 _, d_launch = pk.probe_density_launcher(cols, bids, boxes, gb, variant=v,
                                                         height=H, width=W)
                 d = rec["density"][v]
                 d["kernel_ms"] = t(d_launch)
                 d["wrapper_ms"] = t(lambda v=v: pk.probe_density(
                     cols, bids, boxes, gb, variant=v, height=H, width=W))
-                d["tc_tflops"] = rec["density"]["tc_flops"] / (d["kernel_ms"] * 1e-3) / 1e12
-                d["tc_share"] = d["tc_tflops"] * 1e12 / TC_FLOPS_PER_S
+                d["split_ms"] = t(pk.probe_density_launcher(cols, bids, boxes8, gb, variant=v,
+                                                            height=H, width=W)[1])
             _, k3_launch = agg.density_launcher(dict(zip(names, cols)), bids, boxes, no_wins,
                                                 gb4, has_boxes=True, has_windows=False,
                                                 width=W, height=H)

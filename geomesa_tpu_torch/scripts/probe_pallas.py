@@ -3,9 +3,10 @@
 The port of the JAX package's scripts/probe_pallas.py. Design under test:
 
 - columns stored [n_blocks, SUB, 128] (BLOCK = SUB * 128 rows a block);
-- one CTA per candidate slot, block ids staged with the params;
+- block ids staged with the params;
 - params: one wide and one inner box and window, the other 7 slots of
-  each padded, all 8 evaluated every time (no slot counts);
+  each padded; the TPU kernel evaluates all 8, the CUDA kernel the live
+  ones (``probe_kernels.live_slots``), which gives the same planes;
 - outputs: wide and inner packed bit planes [M, SUB/32, 128] int32;
 - one pull of the wide plane, host decode to row ids.
 
@@ -17,9 +18,12 @@ on the probe's params, where K1 loops over the one real slot of each leg
 and P1 still evaluates all 8, and once on the same predicate split into
 8 real box and 8 real window slots (:func:`split_params`), where both do
 the same slot work. Every kernel output is held against the plain
-version and K1's planes, and at ``check_m`` the decoded rows against
-numpy; a mismatch raises. Times are medians of
-``geomesa_tpu_torch.timing.TIMED_RUNS`` runs. Run on a CUDA card:
+version and K1's planes, on the probe's params, on the split and on the
+staging edge cases (:func:`staging_cases`: pad, inverted, NaN and
+infinite slots, one plane live, no live slot in a leg), and at
+``check_m`` the decoded rows against numpy; a mismatch raises. Times are
+medians of ``geomesa_tpu_torch.timing.TIMED_RUNS`` runs. Run on a CUDA
+card:
 
     python -m geomesa_tpu_torch.scripts.probe_pallas
 """
@@ -50,6 +54,16 @@ WINDOW = (3, 5, 0, 604799)
 # logic ops, over 2 planes and 8 slots; per plane the AND of the legs and
 # the shift and OR that pack the bit
 OPS_PER_ROW = 2 * 8 * 16 + 2 * 3
+
+
+def cost(bids, boxes, wins) -> tuple:
+    """(bytes, operations) of one P1 launch over ``bids``, for its bound:
+    the columns read once, both planes written once, the staged params;
+    OPS_PER_ROW for every row."""
+    m = len(bids)
+    n_bytes = m * BLOCK * 16 + 2 * m * PACK * pk.LANES * 4 + pk.stage_probe(bids, boxes,
+                                                                              wins).nbytes
+    return n_bytes, m * BLOCK * OPS_PER_ROW
 
 
 def make_columns(n_rows: int = N_ROWS, seed: int = SEED):
@@ -100,6 +114,62 @@ def split_params():
     wins = np.stack([np.full(8, WINDOW[0]), np.full(8, WINDOW[1]), t[:-1], t[1:] - 1],
                     axis=1).astype(np.int32)
     return pack_params(boxes, boxes, wins, wins)
+
+
+def staging_cases() -> dict:
+    """Param blocks (boxes, wins) that exercise the live-slot staging
+    (``probe_kernels.live_slots``), by name: live slots between pad slots,
+    inverted and NaN slots, infinite bounds, slots with one plane live and
+    the other empty, all 8 slots live, and a leg with no live slot. Each
+    matches rows of the probe's columns in at least one plane, except
+    the two with a dead leg."""
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    box = np.array(BOX, np.float32)
+    pad_b = np.array([inf, 0, -inf, 0], np.float32)
+    pad_w = np.array([1, 0, 0, 0], np.int32)
+    w = np.array(WINDOW, np.int32)
+
+    def blocks(wide_b, inner_b, wide_w, inner_w):
+        boxes = np.zeros((8, 128), np.float32)
+        wins = np.zeros((8, 128), np.int32)
+        boxes[:, 0:4], boxes[:, 4:8] = wide_b, inner_b
+        wins[:, 0:4], wins[:, 4:8] = wide_w, inner_w
+        return boxes, wins
+
+    def slots(*live, fill):
+        """8 slots of ``fill``, but (slot, value) for each pair of ``live``."""
+        out = np.tile(fill, (8, 1))
+        for k, v in live:
+            out[k] = v
+        return out
+
+    inverted_b = [(1, (10, -10, -10, 10)), (2, (-10, 10, 10, -10)), (5, box),
+                  (6, (30, 30, 20, 40))]
+    inverted_w = [(0, (5, 3, 0, 604_799)), (3, w), (4, (3, 5, 9, 8))]
+    nan_b = [(0, (nan, -10, 10, 10)), (2, (-10, -10, 10, nan)), (4, box), (7, (nan,) * 4)]
+    nan_w = [(1, w)]
+    return {
+        "pads": blocks(slots((3, box), fill=pad_b), slots((6, box + [1, 1, -1, -1]),
+                                                          fill=pad_b),
+                       slots((5, w), fill=pad_w), slots((2, w + [0, 0, 60, -60]), fill=pad_w)),
+        "inverted": blocks(slots(*inverted_b, fill=pad_b), slots(*inverted_b, fill=pad_b),
+                           slots(*inverted_w, fill=pad_w), slots(*inverted_w, fill=pad_w)),
+        "nan": blocks(slots(*nan_b, fill=pad_b), slots(*nan_b[:2], fill=pad_b),
+                      slots(*nan_w, fill=pad_w), slots(*nan_w, fill=pad_w)),
+        "inf": blocks(slots((1, (-inf, -10, inf, 10)), (4, (-inf, -inf, inf, inf)),
+                            fill=pad_b),
+                      slots((2, (-10, -inf, 10, inf)), (3, (inf, inf, inf, inf)), fill=pad_b),
+                      slots((0, w), fill=pad_w), slots((7, (0, 17, 0, 604_799)), fill=pad_w)),
+        # slot 1 live in the wide plane only, slot 4 in the inner only
+        "one_plane": blocks(slots((1, box), fill=pad_b), slots((4, box), fill=pad_b),
+                            slots((4, w), fill=pad_w), slots((1, w), fill=pad_w)),
+        "all8": split_params(),
+        "no_box": blocks(slots((2, (10, -10, -10, 10)), fill=pad_b),
+                         slots((6, (nan, -10, 10, 10)), fill=pad_b),
+                         slots((0, w), fill=pad_w), slots((1, w), fill=pad_w)),
+        "no_window": blocks(slots((0, box), fill=pad_b), slots((1, box), fill=pad_b),
+                            slots((3, (5, 3, 0, 604_799)), fill=pad_w), np.tile(pad_w, (8, 1))),
+    }
 
 
 def sample_bids(n_blocks: int, m: int):
@@ -183,6 +253,11 @@ def run(device="cuda", n_rows: int = N_ROWS, ms=MS, check_m: int = CHECK_M) -> d
         pads_err = _err_to_plain(cols3, padded, boxes, wins, dev)[2]
         _require(pads_err == 0.0,
                  f"kernel planes differ from the plain version with pads at M={m}")
+        staging = {name: _err_to_plain(cols3, bids, b, w, dev)[2]
+                   for name, (b, w) in staging_cases().items()}
+        _require(not any(staging.values()),
+                 f"kernel planes differ from the plain version on staging cases at M={m}: "
+                 f"{staging}")
         if m == check_m:
             expect = truth_rows(host, real)
             got = np.sort(rows)
@@ -191,11 +266,9 @@ def run(device="cuda", n_rows: int = N_ROWS, ms=MS, check_m: int = CHECK_M) -> d
             _require(ok, f"rows differ from numpy at M={m} ({len(got)} vs {len(expect)})")
         rec = {
             "M": m, "n_real": n_real, "rows": len(rows),
-            "max_abs_err": max(err, pads_err, err8), "k1_equal": k1_equal,
-            "split_equal": split_equal,
-            "bytes": m * BLOCK * 16 + 2 * m * PACK * pk.LANES * 4
-            + bk.stage_params(bids, boxes, wins).nbytes,
-            "ops": m * BLOCK * OPS_PER_ROW,
+            "max_abs_err": max(err, pads_err, err8, *staging.values()), "k1_equal": k1_equal,
+            "split_equal": split_equal, "staging_err": staging,
+            **dict(zip(("bytes", "ops"), cost(bids, boxes, wins))),
             "kernel_ms": None, "gb_per_s": None, "wrapper_ms": None, "plain_ms": None,
             "query_ms": None, "k1_ms": None, "k1_wrapper_ms": None,
             "split_kernel_ms": None, "split_k1_ms": None,

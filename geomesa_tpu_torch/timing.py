@@ -10,7 +10,10 @@ On CPU tensors the device phases are timed by the wall clock.
 ``event_ms`` and ``wall_ms`` are the one timer of the chip-side
 measurements (chip_smoke.py, the probes in geomesa_tpu_torch/scripts/):
 the median of ``TIMED_RUNS`` runs after a warm-up (``statistics.median``); ``max_abs_err`` is
-their one comparison of a kernel with its plain version.
+their one comparison of a kernel with its plain version. ``queued_ms``
+times calls queued back to back, which ``kernel_ab`` reports beside
+``event_ms`` to show how much of a short kernel's time is the host's
+submission.
 """
 
 from __future__ import annotations
@@ -97,6 +100,28 @@ def event_ms(fn, runs: int = TIMED_RUNS, warmup: int = EVENT_WARMUP) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def queued_ms(fn, launches: int = 20, runs: int = 5) -> float:
+    """Median device time in ms a call of ``fn()`` over ``runs`` runs of
+    ``launches`` calls queued back to back between two CUDA events: unlike
+    :func:`event_ms`, the host's time to submit a call hides behind the
+    calls queued ahead of it, so a short kernel's time is the device's
+    alone."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("queued_ms times a CUDA device; there is none")
+    fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
     return statistics.median(times)
 
 

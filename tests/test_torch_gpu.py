@@ -724,13 +724,13 @@ def test_probe_bounds_kernel_equals_plain(probe_cols, m, empty):
     assert (float(got[:, 0].sum()) == 0) == empty
 
 
-@pytest.mark.parametrize("grid", [(256, 256), (128, 384)])
+@pytest.mark.parametrize("grid", [(256, 256), (128, 384), (33, 17), (1000, 3)])
 @pytest.mark.parametrize("variant", ["reshape", "fori"])
 @pytest.mark.parametrize("m", [8, 32])
 def test_probe_density_kernel_equals_plain(probe_cols, m, variant, grid):
-    """P2 density on the tensor cores, both chunk variants: rows on x1 / y1
-    clip to the last pixel, pad slots count nothing; and K3's grid is the
-    same."""
+    """P2 density, both variants (one kernel), on grids of any size: rows
+    on x1 / y1 clip to the last pixel, pad slots count nothing; and K3's
+    grid is the same."""
     height, width = grid
     bids = _probe_p2_bids(m)
     gb = np.array([-40, -30, 60, 40], np.float32)
@@ -749,3 +749,86 @@ def test_probe_density_kernel_equals_plain(probe_cols, m, variant, grid):
                             height=height, col_names=("x", "y"), has_boxes=True,
                             has_windows=False)
     assert torch.equal(k3, ref)
+
+
+# the probes over M, on the probe's params and on the 8-slot split, and on
+# the live-slot staging edge cases (scripts/probe_pallas.staging_cases)
+
+PROBE_MS = [1, 3, 128, 257, 1024]
+
+
+def _probe_p1_bids(m):
+    """P1's bids: the last quarter pad slots repeating block 0."""
+    r = np.random.default_rng(m + 2)
+    bids = np.zeros(m, np.int32)
+    n = m - m // 4
+    bids[:n] = np.sort(r.choice(PROBE_NB, n, replace=n > PROBE_NB))
+    return bids
+
+
+def _probe_kernels_equal_plain(cols, bids1, bids2, boxes, wins, boxes2) -> dict:
+    """Each probe kernel on the card against its plain version: P1 on
+    ``bids1`` (pads repeat block 0) with ``boxes``, ``wins``; P2 bounds and
+    both density variants on ``bids2`` (pads -1) with ``boxes2``. Returns
+    the outputs by name."""
+    gb = np.array([-40, -30, 60, 40], np.float32)
+    w, i = tpk.probe_scan(cols, bids1, boxes, wins)
+    pw, pi = tpk.probe_scan_plain(*cols, _t(bids1, torch.int32), _t(boxes, torch.float32),
+                                  _t(wins, torch.int32))
+    b2 = (*cols[:2], _t(bids2, torch.int32), _t(boxes2, torch.float32))
+    bounds = tpk.probe_bounds(cols[:2], bids2, boxes2)
+    ref_grid = tpk.probe_density_plain(*b2, _t(gb, torch.float32), 256, 256)
+    grids = {v: tpk.probe_density(cols[:2], bids2, boxes2, gb, variant=v)
+             for v in tpk.DENSITY_VARIANTS}
+    torch.cuda.synchronize()
+    assert torch.equal(w, pw) and torch.equal(i, pi)
+    assert torch.equal(bounds, tpk.probe_bounds_plain(*b2))
+    for g in grids.values():
+        assert torch.equal(g, ref_grid)
+    return {"wide": w, "inner": i, "bounds": bounds, "grid": ref_grid}
+
+
+@pytest.mark.parametrize("m", PROBE_MS)
+def test_probe_kernels_over_m_and_the_split(probe_cols, m):
+    """P1, P2 bounds and P2 density at M = 1 to 1024, each with its pad
+    rule (P1's pads repeat block 0; P2 bounds' pads read block 0 unmasked;
+    density's count nothing), on the probe's params and on the 8-slot
+    split, which gives the same outputs."""
+    from geomesa_tpu_torch.scripts import probe_agg as pa
+    from geomesa_tpu_torch.scripts import probe_pallas as pp
+
+    bids1, bids2 = _probe_p1_bids(m), _probe_p2_bids(m)
+    boxes, wins = pp.pack_params(*(np.array([pp.BOX], np.float32),) * 2,
+                                 *(np.array([pp.WINDOW], np.int32),) * 2)
+    p2_boxes = tbk.pack_boxes(np.array([pa.BOX]), None)
+    one = _probe_kernels_equal_plain(probe_cols, bids1, bids2, boxes, wins, p2_boxes)
+    split = _probe_kernels_equal_plain(probe_cols, bids1, bids2, *pp.split_params(),
+                                       pa.split_boxes())
+    for k in one:
+        assert torch.equal(one[k], split[k])
+    assert bool(one["wide"].any()) and float(one["grid"].sum()) > 0
+    if m // 4:  # the tail is pads: bounds report block 0, unmasked
+        assert bids2[-1] == -1 and torch.equal(one["bounds"][-1], tpk.probe_bounds(
+            probe_cols[:2], np.zeros(1, np.int32), p2_boxes)[0])
+
+
+@pytest.mark.parametrize("m", [3, 257])
+@pytest.mark.parametrize("case", ["pads", "inverted", "nan", "inf", "one_plane", "all8",
+                                  "no_box", "no_window"])
+def test_probe_kernels_on_staging_cases(probe_cols, case, m):
+    """Every probe kernel equals its plain version (all 8 slots) where the
+    launch loops over the live slots only: live slots between pads,
+    inverted, NaN and infinite slots, one plane live, all 8 live, and a leg
+    with no live slot (a zero plane; count 0 with +-inf extrema; an empty
+    grid)."""
+    from geomesa_tpu_torch.scripts import probe_pallas as pp
+
+    boxes, wins = pp.staging_cases()[case]
+    out = _probe_kernels_equal_plain(probe_cols, _probe_p1_bids(m), _probe_p2_bids(m), boxes,
+                                     wins, boxes)
+    if case in ("no_box", "no_window"):
+        assert not out["wide"].any() and not out["inner"].any()
+    if case == "no_box":
+        b = out["bounds"]
+        assert float(b[:, 0].sum()) == 0 and float(out["grid"].sum()) == 0
+        assert bool((b[:, [1, 3]] == float("inf")).all() and (b[:, [2, 4]] == -float("inf")).all())

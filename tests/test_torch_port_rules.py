@@ -257,17 +257,20 @@ def test_kernel_sources_and_build_flags(monkeypatch):
         assert "Bound on the H100" in src
     for k in PROBE_KERNELS:
         assert "scripts/probe_" in k.source.read_text()
-    assert "mma.sync" in build.PROBE_DENSITY.source.read_text()
+    # P2 density counts hits with atomics on an int32 grid, not one-hot
+    # products on the tensor cores; both TPU bodies launch it
+    density = build.PROBE_DENSITY.source.read_text()
+    assert "mma.sync" not in density and "__match_any_sync" in density
     assert set(build.PROBE_DENSITY.leg_launches) == {"reshape", "fori"}
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
     assert "--fmad=false" in NVCC_FLAGS and "--use_fast_math" not in NVCC_FLAGS
 
 
 def test_kernel_ab_builds_each_old_source_against_its_own_headers(monkeypatch, tmp_path):
-    """The A/B tool compiles every old kernel with ``-I`` naming the old
-    tree's headers, never this checkout's csrc, into a library of its own
-    beside the current build (an old source against the new masks.cuh
-    would time a hybrid)."""
+    """The A/B tool compiles every old kernel, the probes' too, with ``-I``
+    naming the old tree's headers, never this checkout's csrc, into a
+    library of its own beside the current build (an old source against the
+    new masks.cuh would time a hybrid)."""
     from geomesa_tpu_torch.kernels import build
     from geomesa_tpu_torch.scripts import kernel_ab
 
@@ -283,8 +286,24 @@ def test_kernel_ab_builds_each_old_source_against_its_own_headers(monkeypatch, t
         out = cmd[cmd.index("-o") + 1]
         assert out == str(kernel_ab.old_library(k)) and out != str(k.library)
         names.add(k.name)
-    assert names == {"block_scan", "block_scan_multi", "block_pops", "density", "bounds"}
+    assert names == {"block_scan", "block_scan_multi", "block_pops", "density", "bounds",
+                     "probe_scan", "probe_bounds", "probe_density"}
     assert not (build.PKG_DIR / "scripts" / "density_ab.py").exists()
+
+
+def test_kernel_ab_knows_the_one_hot_density_by_its_chunk_argument(tmp_path):
+    """The A/B tool binds an old P2 density that takes a chunk (the one-hot
+    design) with that entry's arguments, and this checkout's as it is."""
+    from geomesa_tpu_torch.kernels import build
+    from geomesa_tpu_torch.scripts import kernel_ab
+
+    assert not kernel_ab.one_hot_density(build.CSRC_DIR)
+    (tmp_path / "probe_density.cu").write_text(
+        'extern "C" int gm_probe_density(const float* x, const float* y, const int* params,\n'
+        "    int m, int sub, int chunk, int height, int width, float* grid, void* stream);\n")
+    assert kernel_ab.one_hot_density(tmp_path)
+    assert len(kernel_ab.ONE_HOT_DENSITY_ARGTYPES) == len(build.PROBE_DENSITY.argtypes)
+    assert set(kernel_ab.ONE_HOT_CHUNKS) == set(build.PROBE_DENSITY.leg_launches)
 
 
 def test_scan_columns_must_start_on_16_bytes():

@@ -9,9 +9,13 @@ and against the probes' XLA versions (``xla_bounds``, ``xla_density``),
 on the same numpy columns made from a seed: 4 blocks of 16384 rows
 (SUB = 128, fixed by both probes), M = 6. Tolerance everywhere is exact
 equality: planes are bits, counts integers, and min/max select stored
-f32 values. Then the rules: each probe wrapper takes the plain version
-on a CPU tensor and launches nothing, raises on a device without a
-kernel, and both probes' ``run(device="cpu")`` complete at a tiny size.
+f32 values. The live-slot staging the CUDA launches use
+(``live_slots``, ``stage_probe``: each leg's live slots first, their
+counts in the words csrc/masks.cuh reads) is held against the JAX probes
+on the original param blocks. Then the rules: each probe wrapper takes
+the plain version on a CPU tensor and launches nothing, raises on a
+device without a kernel, and both probes' ``run(device="cpu")`` complete
+at a tiny size.
 """
 
 import importlib.util
@@ -224,6 +228,144 @@ def test_probe_density_plain_equals_jax_probe(jprobes, columns, jax_p2_fns, vari
         assert got[-1, -1] >= 4 * 64
     real = (P2_BIDS >= 0).sum()
     assert got.sum() <= real * tpk.BLOCK
+
+
+# -- live-slot staging ------------------------------------------------------
+
+# (box, window) live slots of each staging case of probe_pallas, over both
+# planes (P1) and over the wide plane's boxes alone (P2)
+STAGING_COUNTS = {
+    "pads": ((2, 2), 1), "inverted": ((1, 1), 1), "nan": ((1, 1), 1), "inf": ((4, 2), 2),
+    "one_plane": ((2, 2), 1), "all8": ((8, 8), 8), "no_box": ((0, 2), 0),
+    "no_window": ((2, 0), 1),
+}
+_PAD_HALF = {np.float32: (np.inf, 0, -np.inf, 0), np.int32: (1, 0, 0, 0)}
+
+
+def _seeded_blocks(seed):
+    """Seeded P1 blocks: each half (wide lanes 0-3, inner 4-7) of each of
+    the 8 box and window slots is at random live, a pad, inverted, NaN
+    (boxes) or infinite (boxes), with the expected live counts."""
+    r = np.random.default_rng(seed)
+    blocks, counts = [], []
+    for dtype in (np.float32, np.int32):
+        p = np.zeros((8, tpk.LANES), dtype)
+        live = np.zeros(8, bool)
+        kinds = ["live", "pad", "inverted"] + (["nan", "inf"] if dtype is np.float32 else [])
+        for k in range(8):
+            for o in (0, 4):
+                kind = r.choice(kinds)
+                if dtype is np.float32:
+                    lo = r.uniform(-90, 0, 2).astype(np.float32)
+                    v = np.concatenate([lo, lo + r.uniform(40, 120, 2).astype(np.float32)])
+                else:
+                    b0, o0 = r.integers(0, 10), r.integers(0, 300_000)
+                    v = np.array([b0, b0 + r.integers(2, 9), o0, o0 + r.integers(1, 300_000)])
+                if kind == "pad":
+                    v = np.array(_PAD_HALF[dtype], dtype)
+                elif kind == "inverted":
+                    v = v[[0, 3, 2, 1]] if r.integers(2) else v[[2, 1, 0, 3]]
+                    if dtype is np.int32:  # (bin_lo, bin_hi, off_lo, off_hi)
+                        v = v[[1, 0, 2, 3]] if v[0] < v[1] else v
+                elif kind == "nan":
+                    v[r.integers(4)] = np.nan
+                elif kind == "inf":
+                    v[r.choice([0, 1])] = -np.inf
+                    v[r.choice([2, 3])] = np.inf
+                p[k, o:o + 4] = v
+                live[k] |= kind in ("live", "inf")
+        blocks.append(p)
+        counts.append(int(live.sum()))
+    return blocks[0], blocks[1], tuple(counts)
+
+
+def _staging_case(case):
+    """(boxes, wins, P1 counts, P2 box count) of a named or seeded case."""
+    if isinstance(case, int):
+        boxes, wins, counts = _seeded_blocks(case)
+        wide = (boxes[:, 0] <= boxes[:, 2]) & (boxes[:, 1] <= boxes[:, 3])
+        return boxes, wins, counts, int(wide.sum())
+    boxes, wins = tpp.staging_cases()[case]
+    return (boxes, wins, *STAGING_COUNTS[case])
+
+
+def _first(block, n):
+    """``block`` with its slots from ``n`` on made pads (a kernel that loops
+    over the first n slots sees this)."""
+    out = block.copy()
+    pad = _PAD_HALF[np.float32 if block.dtype == np.float32 else np.int32]
+    out[n:, 0:4] = pad
+    out[n:, 4:8] = pad
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(STAGING_COUNTS) + [1, 2, 3])
+def test_live_slot_staging_equals_jax_probes(jprobes, columns, jax_p2_fns, case):
+    """The probes' params with each leg's live slots first (pads, inverted,
+    NaN and infinite slots, one plane live, all 8 live, a leg with none,
+    and seeded mixes): (a) the plain versions on the staged blocks equal
+    the JAX probes (Pallas, interpret mode) on the original blocks, for
+    P1's planes, P2's bounds and both density bodies; (b) the counts are
+    the live slots; (c) the plain versions over the first ``count`` slots
+    alone equal them over all 8."""
+    boxes, wins, counts, p2_count = _staging_case(case)
+    sb, sw, got_counts = tpk.live_slots(boxes, wins)
+    assert tuple(got_counts.tolist()) == counts
+    jw, ji = _jax_p1(jprobes[0], columns, P1_BIDS, boxes, wins)
+    for b, w in ((sb, sw), (_first(sb, counts[0]), _first(sw, counts[1]))):
+        pw, pi = tpk.probe_scan_plain(*_t(columns), torch.from_numpy(P1_BIDS),
+                                      torch.from_numpy(b), torch.from_numpy(w))
+        assert np.array_equal(pw.numpy(), jw) and np.array_equal(pi.numpy(), ji)
+    if case in ("pads", "inverted", "inf", "one_plane", "all8"):
+        assert jw.any()
+    # P2 reads the boxes' lanes 0-3 alone
+    no_wins = tbk.pack_windows(None, None)
+    b2, _, c2 = tpk.live_slots(boxes, no_wins, planes=1)
+    assert c2.tolist() == [p2_count, 0]
+    x, y = columns[:2]
+    gb = _gb(P2_BOX)
+    with pltpu.force_tpu_interpret_mode():
+        want = {k: np.asarray(fn(P2_BIDS, boxes, gb, x, y)) for k, fn in jax_p2_fns.items()}
+    bids_t = torch.from_numpy(P2_BIDS)
+    for b in (b2, _first(b2, p2_count)):
+        bt = torch.from_numpy(b)
+        assert np.array_equal(tpk.probe_bounds_plain(*_t((x, y)), bids_t, bt).numpy(),
+                              want["bounds"])
+        grid = tpk.probe_density_plain(*_t((x, y)), bids_t, bt, torch.from_numpy(gb[0, :4]),
+                                       tpa.H, tpa.W).numpy()
+        assert np.array_equal(grid, want["reshape"]) and np.array_equal(grid, want["fori"])
+
+
+def _masks_header_extra() -> int:
+    """GM_EXTRA(0) of csrc/masks.cuh: the first word after the slot counts
+    of a one-query params buffer with no bids."""
+    import re
+
+    text = open(os.path.join(ROOT, "geomesa_tpu_torch", "csrc", "masks.cuh")).read()
+    slots = int(re.search(r"#define GM_SLOTS (\d+)", text).group(1))
+    expr = re.search(r"#define GM_EXTRA\(m\) (.+)", text).group(1)
+    return eval(expr.replace("(m)", "0").replace("GM_SLOTS", str(slots)))  # noqa: S307
+
+
+@pytest.mark.parametrize("m", [1, 6, 257])
+def test_stage_probe_writes_counts_where_masks_reads_them(m):
+    """The staged params (what the launchers copy to the card) hold the
+    bids, each leg's live slots first in lanes 0-7, the two live counts
+    in words GM_EXTRA(m) - 2 and - 1 as csrc/masks.cuh reads them, then
+    the density envelope."""
+    boxes, wins = tpp.staging_cases()["one_plane"]
+    bids = np.arange(m, dtype=np.int32) % 3
+    gb = np.array([-40, -30, 60, 40], np.float32)
+    extra = m + _masks_header_extra()
+    for planes, counts in ((2, [2, 2]), (1, [1, 1])):
+        staged = tpk.stage_probe(bids, boxes, wins, gb, planes=planes)
+        sb, sw, _ = tpk.live_slots(boxes, wins, planes)
+        assert staged.dtype == np.int32 and len(staged) == extra + 4
+        assert np.array_equal(staged[:m], bids)
+        assert np.array_equal(staged[m:m + 64].view(np.float32), sb[:, :8].ravel())
+        assert np.array_equal(staged[m + 64:m + 128], sw[:, :8].ravel())
+        assert staged[extra - 2:extra].tolist() == counts
+        assert np.array_equal(staged[extra:].view(np.float32), gb)
 
 
 # -- rules -------------------------------------------------------------------
