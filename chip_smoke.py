@@ -102,16 +102,32 @@ Phases, each printing one JSON line:
    where (bin, z) keys tie. Then 4 ``BBOX OR dtg
    DURING`` queries plan as
    unions of a Z2 and a Z3 scan: the box branch's ids, then the window
-   branch's unseen ids, each branch equal to an f64 brute force.
+   branch's unseen ids, each branch equal to an f64 brute force;
+12. gdelt-z3-10M-mutate (cut to 5,000,000 rows for the run's time): a
+   GDELT-shaped store on Z3 and Z2 takes ``fold_upsert`` of 1,000,000
+   rows (500k moving objects reporting again in the span's last 21
+   days, 500k new ids; 16 slices of 65,536 rows on the device fold),
+   ``upsert`` of 10,000 ids,
+   ``modify_features`` of ``dtg`` over a BBOX + DURING filter,
+   ``delete_features`` over a 10 x 10 degree box and ``age_off`` with a
+   90-day TTL, against a numpy model of the live rows: after every op
+   10 BBOX + DURING queries equal the model's f64 brute force as sets
+   and in (bin, z, ordinal) order, and ``id_lookup``, ``id_exists_mask``
+   and an ``IN`` query over 1,000 ids (half removed) equal the model;
+   the first and last slices' device-folded tables equal a host-path
+   fold of the same slice and (last) a full build, bitwise on the card,
+   and upload only the slice's rows; on the final store ``query_many``
+   of 16, 4 count estimates, densities and bounds against the plain
+   versions, and ``warmup()``.
 
 Launch counts (and the legs' counts) are zeroed just before each of the
-eight paths and read just after it; each path must have launched the
+nine paths and read just after it; each path must have launched the
 kernels and legs it names (main: K1, K3, K4; batch: K2, K1p, K3; Z3
 polygon: K1 and K2 each with PIP, raster and both legs; packed time:
 all five; Z2 polygon: K1's raster leg, K2 with stacks; XZ2: all five
-with the extent leg; XZ3: K1 and K2 with the extent leg; tiered: all
-five); the probe phase zeroes and reads its own (each probe kernel, and
-each density variant, launched).
+with the extent leg; XZ3: K1 and K2 with the extent leg; tiered and
+mutate: all five); the probe phase zeroes and reads its own (each probe
+kernel, and each density variant, launched).
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -2251,11 +2267,11 @@ def xz3_path(torch, device) -> dict:
 
 
 def main_path(torch, device):
-    """Eight paths, each with its own launch counts (zeroed just before it
+    """Nine paths, each with its own launch counts (zeroed just before it
     runs, read just after): the single-query main path, the batch path
     and the polygon path on the same store, the packed-time cell, the Z2
-    polygon cell, the two extent cells (XZ2, XZ3), and the tiered store
-    with its union queries."""
+    polygon cell, the two extent cells (XZ2, XZ3), the tiered store with
+    its union queries, and the mutated store."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -2350,7 +2366,7 @@ def main_path(torch, device):
     del ds, src
     torch.cuda.empty_cache()
     return (rec, batch, poly, packed, z2, xz2_path(torch, device), xz3_path(torch, device),
-            tiered_union_path(torch, device))
+            tiered_union_path(torch, device), mutation_path(torch, device))
 
 
 # -- the delta tier and union plans ----------------------------------------
@@ -2577,6 +2593,378 @@ def tiered_union_path(torch, device) -> dict:
     return rec
 
 
+# -- the mutation surface and the incremental fold --------------------------
+
+# cut from the cell's 10M rows: with the path at 10M the script took 944 s
+# (NVIDIA H100 80GB HBM3, 700 W; 671 s without the path), too near its
+# 1200 s limit on a slower host; the fold's slices and the maintenance ops
+# scale with the rows
+N_MUTATE = 5_000_000
+N_FOLD = 1_000_000  # half replace existing ids, half are new
+N_UPSERT = 10_000
+N_MUTATE_QUERIES = 8
+N_ID_CHECK = 1_000
+MUTATE_MODIFY_BOX = (-20.0, -20.0, 20.0, 20.0)
+MUTATE_DELETE_BOX = (40.0, 0.0, 50.0, 10.0)
+AGE_OFF_TTL_MS = 90 * 86_400_000
+
+
+class PointModel:
+    """The live rows of a mutated store, by id: alive, x, y, t."""
+
+    def __init__(self, n_ids, x, y, t, n_live):
+        self.alive = np.zeros(n_ids, bool)
+        self.alive[:n_live] = True
+        self.x = np.zeros(n_ids)
+        self.y = np.zeros(n_ids)
+        self.t = np.zeros(n_ids, np.int64)
+        self.set(np.arange(n_live), x, y, t)
+
+    def set(self, ids, x, y, t):
+        self.alive[ids] = True
+        self.x[ids], self.y[ids], self.t[ids] = x, y, t
+
+    def hits(self, box, lo=None, hi=None) -> np.ndarray:
+        """Live ids in the f64 box (bounds inclusive) and, with a window,
+        with lo <= t < hi."""
+        x0, y0, x1, y1 = box
+        m = self.alive & (self.x >= x0) & (self.x <= x1) & (self.y >= y0) & (self.y <= y1)
+        if lo is not None:
+            m &= (self.t >= lo) & (self.t < hi)
+        return np.flatnonzero(m)
+
+
+def expected_order(ds, iname, hits) -> np.ndarray:
+    """``hits`` in the order a query returns them: the device table's rows
+    by (bin, z) and then store ordinal, then the delta tier's rows in
+    ordinal order."""
+    from geomesa_tpu_torch.storage.delta import TieredTable
+
+    if len(hits) == 0:
+        return hits
+    ords = ds.id_lookup("gdelt", hits)
+    check(len(ords) == len(hits), "every brute-force hit is in the store's id index")
+    table = ds.table("gdelt", iname)
+    main_rows = table.base if isinstance(table, TieredTable) else ds.row_count("gdelt")
+    fc = ds.gather("gdelt", ords)
+    idx = next(i for i in ds.indexes("gdelt") if i.name == iname)
+    keys = idx.write_keys(fc)
+    delta = ords >= main_rows
+    order = np.lexsort((ords, np.where(delta, 0, keys.zs), np.where(delta, 0, keys.bins), delta))
+    return np.asarray(fc.ids, np.int64)[order]
+
+
+def check_mutated_queries(ds, model, queries, op: str) -> list:
+    """The queries' ids as sets against the model's f64 brute force, and in
+    order as ``expected_order`` gives them. Returns the latencies (s)."""
+    lat = []
+    for q, (x0, y0, x1, y1, lo, hi) in queries:
+        s = time.perf_counter()
+        plan = ds.planner.plan("gdelt", q)  # what DataStore.query runs
+        out = ds.planner.execute(plan)
+        lat.append(time.perf_counter() - s)
+        got = np.asarray(out.ids, np.int64)
+        ref = model.hits((x0, y0, x1, y1), lo, hi)
+        check(np.array_equal(np.sort(got), ref), f"after {op}: query ids vs the model: {q}")
+        check(np.array_equal(got, expected_order(ds, plan.index, ref)),
+              f"after {op}: query ids in (bin, z, ordinal) order: {q}")
+    return lat
+
+
+def check_mutated_ids(ds, model, removed, rng, op: str) -> None:
+    """``id_lookup``, ``id_exists_mask`` and an ``IN`` query over 1,000 ids,
+    half of them live and half removed (deleted, or never written)."""
+    live = np.flatnonzero(model.alive)
+    dead = np.asarray(removed, np.int64)
+    if len(dead) < N_ID_CHECK // 2:
+        dead = np.concatenate([dead, len(model.alive) + np.arange(N_ID_CHECK // 2)])
+    ids = np.concatenate([rng.choice(live, N_ID_CHECK // 2, replace=False),
+                          rng.choice(dead, N_ID_CHECK // 2, replace=False)])
+    rng.shuffle(ids)
+    known = ids < len(model.alive)
+    expect = known.copy()
+    expect[known] = model.alive[ids[known]]
+    check(np.array_equal(ds.id_exists_mask("gdelt", ids), expect),
+          f"after {op}: id_exists_mask vs the model")
+    ords = ds.id_lookup("gdelt", ids)
+    fc = ds.gather("gdelt", ords)
+    got = np.asarray(fc.ids, np.int64)
+    check(np.array_equal(got, ids[expect]), f"after {op}: id_lookup gives the live ids in order")
+    col = fc.columns["geom"]
+    check(np.array_equal(col.x, model.x[got]) and np.array_equal(col.y, model.y[got])
+          and np.array_equal(fc.columns["dtg"], model.t[got]),
+          f"after {op}: id_lookup rows hold the model's values")
+    probe = ids[:60]
+    q = "IN (" + ", ".join(f"'{i}'" for i in probe) + ")"
+    live_probe = probe[expect[:60]]
+    ref = np.array(sorted(live_probe, key=str), np.int64)
+    check(np.array_equal(np.asarray(ds.query("gdelt", q).ids, np.int64), ref),
+          f"after {op}: an IN query gives the live ids in sorted order")
+
+
+@contextmanager
+def fold_recorder(keep_slices):
+    """Record every folded_table call of a fold: per index, each slice's
+    rows_uploaded and, for the slices in ``keep_slices``, the call's
+    arguments and result, to fold again on the host path afterwards."""
+    from geomesa_tpu_torch import datastore as dsm
+
+    fold = dsm.folded_table
+    uploaded: dict = {}
+    kept: dict = {}
+
+    def recording(old, merged, keep, omap, dk, delta_perm=None, tile=None):
+        table = fold(old, merged, keep, omap, dk, delta_perm=delta_perm, tile=tile)
+        name = old.keyspace.name
+        si = len(uploaded.setdefault(name, []))
+        uploaded[name].append((table.rows_uploaded, len(dk.zs)))
+        if si in keep_slices:
+            kept[(name, si)] = (old, merged, keep, omap, dk, tile, table)
+        return table
+
+    dsm.folded_table = recording
+    try:
+        yield uploaded, kept
+    finally:
+        dsm.folded_table = fold
+
+
+def check_fold_builds(torch, device, kept, last: int) -> dict:
+    """Each kept slice's device-folded table against a host-path fold of
+    the same slice (``geomesa.stream.fold.device=off``) and, for the last
+    slice, a full IndexTable over the merged keys: sort state and every
+    column bitwise equal on the card. Returns, per (index, slice), the
+    host path's rows_uploaded and both builds' seconds, each timed again
+    from the same old table."""
+    from geomesa_tpu_torch import conf
+    from geomesa_tpu_torch.storage.table import IndexTable, folded_table
+
+    def fold_s(old, merged, keep, omap, dk, tile, mode):
+        conf.STREAM_FOLD_DEVICE.set(mode)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = folded_table(old, merged, keep, omap, dk, tile=tile)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        finally:
+            conf.STREAM_FOLD_DEVICE.clear()
+
+    out = {}
+    for (name, si), (old, merged, keep, omap, dk, tile, table) in sorted(kept.items()):
+        check(table.rows_uploaded == len(dk.zs),
+              f"device fold of slice {si} on {name} uploads only the slice's rows")
+        args = (old, merged, keep, omap, dk, tile)
+        dev, dev_s = fold_s(*args, "on")
+        del dev
+        host, host_s = fold_s(*args, "off")
+        out[f"{name}/{si}"] = {"host_rows_uploaded": host.rows_uploaded,
+                               "device_fold_s": dev_s, "host_fold_s": host_s}
+        refs = [("host fold", host)]
+        if si == last:
+            refs.append(("full build", IndexTable(old.keyspace, merged, tile=tile, device=device)))
+        for what, ref in refs:
+            check(np.array_equal(np.asarray(table.perm, np.int64), np.asarray(ref.perm, np.int64)),
+                  f"device fold of slice {si} on {name}: perm equals the {what}'s")
+            for k in table.cols3:
+                check(table.cols3[k].device.type == "cuda" or device.type != "cuda",
+                      f"{name} column {k} lives on the card")
+                check(torch.equal(table.cols3[k], ref.cols3[k]),
+                      f"device fold of slice {si} on {name}: {k} equals the {what}'s bitwise")
+        del refs, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def mutation_path(torch, device) -> dict:
+    """gdelt-z3-10M-mutate, cut to N_MUTATE = 5M rows: a GDELT-shaped
+    point store (Z3 and Z2, ids 0..N-1, written once) takes, in order,
+    ``fold_upsert`` of 1M rows
+    (500k existing ids moved to new positions in the span's last 21 days,
+    500k new ids; 16 slices of 65,536 rows on the device fold),
+    ``upsert`` of 10k existing ids, ``modify_features`` setting ``dtg`` on
+    a BBOX + DURING filter, ``delete_features`` over a 10 x 10 degree box,
+    and ``age_off`` with a 90-day TTL. A numpy model of the live rows
+    follows every op. After each op: 8 BBOX + DURING queries (4 on the
+    recent days) and 2 over the modified and the deleted rows against the
+    model's f64 brute force, as sets and in (bin, z, ordinal) order; ``id_lookup``, ``id_exists_mask`` and an
+    ``IN`` query over 1,000 ids, half of them removed. After the fold:
+    the first and last slices' device-folded tables against a host-path
+    fold of the same slice and (last) a full build, bitwise on the card.
+    On the final store: ``query_many`` over 16 queries against the
+    sequential ones, 4 count estimates, densities and bounds against the
+    plain versions, and ``warmup()``. Launch counts are zeroed before and
+    read after; all five kernels must launch."""
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType, conf
+
+    zero_launches()
+    rng = np.random.default_rng(SEED + 50)
+    x, y = gdelt_points(N_MUTATE, rng)
+    t = T0_MS + rng.integers(0, SPAN_MS, N_MUTATE)
+    n_new = N_FOLD // 2
+    model = PointModel(N_MUTATE + n_new, x, y, t, N_MUTATE)
+    sft = FeatureType.from_spec("gdelt", "dtg:Date,*geom:Point:srid=4326")
+    ds = DataStore(device=device)
+    ds.create_schema(sft)
+
+    def fc_of(ids, bx, by, bt):
+        return FeatureCollection.from_columns(sft, ids, {"dtg": bt, "geom": (bx, by)})
+
+    t_in = time.perf_counter()
+    ds.write("gdelt", fc_of(np.arange(N_MUTATE), x, y, t), check_ids=False)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t_in
+    del x, y, t
+    half = N_MUTATE_QUERIES // 2
+    queries = (query_set(SEED + 51, half, T0_MS + SPAN_MS - RECENT_MS, RECENT_MS)
+               + query_set(SEED + 52, N_MUTATE_QUERIES - half))
+    # the modify's filter, and the deleted box over the whole span: two
+    # more queries that see the ops' rows
+    lo = T0_MS + 40 * 86_400_000
+    hi = lo + 20 * 86_400_000
+    probes = [
+        (f"bbox(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) AND dtg DURING "
+         f"{np.datetime64(w0, 'ms')}Z/{np.datetime64(w1, 'ms')}Z", (*b, w0, w1))
+        for b, w0, w1 in ((MUTATE_MODIFY_BOX, lo, hi),
+                          (MUTATE_DELETE_BOX, T0_MS, T0_MS + SPAN_MS))
+    ]
+    id_rng = np.random.default_rng(SEED + 53)
+    removed: list = []
+    ops: dict = {}
+
+    def after(op, seconds, n_removed):
+        t0 = time.perf_counter()
+        lat = check_mutated_queries(ds, model, queries + probes, op)[: len(queries)]
+        check_mutated_ids(ds, model, np.concatenate(removed) if removed else [], id_rng, op)
+        ops[op] = {"s": seconds, "rows_removed": n_removed, "rows": ds.row_count("gdelt"),
+                   "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
+                   "check_s": time.perf_counter() - t0}
+
+    after("write", ingest_s, 0)
+
+    # 1. the fold: moving objects reporting again, and new ones
+    r = np.random.default_rng(SEED + 54)
+    ids = np.concatenate([r.choice(N_MUTATE, N_FOLD - n_new, replace=False),
+                          N_MUTATE + np.arange(n_new)])
+    r.shuffle(ids)
+    fx, fy = gdelt_points(N_FOLD, r)
+    ft = T0_MS + SPAN_MS - RECENT_MS + r.integers(0, RECENT_MS, N_FOLD)
+    batch = fc_of(ids, fx, fy, ft)
+    slice_rows = conf.STREAM_FOLD_SLICE_ROWS.get()  # 65,536 by default
+    n_slices = -(-N_FOLD // slice_rows)
+    with fold_recorder({0, n_slices - 1}) as (uploaded, kept):
+        t0 = time.perf_counter()
+        ds.fold_upsert("gdelt", batch)
+        torch.cuda.synchronize()
+        fold_s = time.perf_counter() - t0
+    report = ds.last_fold_report
+    check(report["slices"] == n_slices and report["rows"] == N_FOLD,
+          f"the fold ran in {n_slices} slices of {slice_rows} rows")
+    model.set(ids, fx, fy, ft)
+    del batch, fx, fy, ft
+    fold_builds = check_fold_builds(torch, device, kept, n_slices - 1)
+    del kept
+    torch.cuda.empty_cache()
+    for name, per_slice in uploaded.items():
+        check(len(per_slice) == n_slices and all(u == n for u, n in per_slice),
+              f"every device-folded slice of {name} uploads only its rows")
+    after("fold_upsert", fold_s, 0)
+
+    # 2. upsert: the delete-and-rewrite path
+    r = np.random.default_rng(SEED + 55)
+    ids = r.choice(np.flatnonzero(model.alive), N_UPSERT, replace=False)
+    ux, uy = gdelt_points(N_UPSERT, r)
+    ut = T0_MS + SPAN_MS - RECENT_MS + r.integers(0, RECENT_MS, N_UPSERT)
+    t0 = time.perf_counter()
+    n = ds.upsert("gdelt", fc_of(ids, ux, uy, ut))
+    torch.cuda.synchronize()
+    upsert_s = time.perf_counter() - t0
+    check(n == N_UPSERT, "upsert wrote its batch")
+    model.set(ids, ux, uy, ut)
+    after("upsert", upsert_s, 0)
+
+    # 3. modify_features: rows move to another time bin
+    new_t = T0_MS + 100 * 86_400_000
+    mq = probes[0][0]
+    matched = model.hits(MUTATE_MODIFY_BOX, lo, hi)
+    t0 = time.perf_counter()
+    n = ds.modify_features("gdelt", {"dtg": int(new_t)}, mq)
+    torch.cuda.synchronize()
+    modify_s = time.perf_counter() - t0
+    check(n == len(matched) > 0, f"modify_features changed {n} rows, the model {len(matched)}")
+    model.t[matched] = new_t
+    after("modify_features", modify_s, 0)
+    ops["modify_features"]["rows_modified"] = n
+
+    # 4. delete_features over one box
+    gone = model.hits(MUTATE_DELETE_BOX)
+    t0 = time.perf_counter()
+    n = ds.delete_features("gdelt", "bbox(geom, {}, {}, {}, {})".format(*MUTATE_DELETE_BOX))
+    torch.cuda.synchronize()
+    delete_s = time.perf_counter() - t0
+    check(n == len(gone) > 0, f"delete_features removed {n} rows, the model {len(gone)}")
+    model.alive[gone] = False
+    removed.append(gone)
+    after("delete_features", delete_s, n)
+
+    # 5. age_off: a 90-day TTL at the span's end
+    now = T0_MS + SPAN_MS
+    old = np.flatnonzero(model.alive & (model.t < now - AGE_OFF_TTL_MS))
+    t0 = time.perf_counter()
+    n = ds.age_off("gdelt", ttl_ms=AGE_OFF_TTL_MS, now_ms=now)
+    torch.cuda.synchronize()
+    age_off_s = time.perf_counter() - t0
+    check(n == len(old) > 0, f"age_off removed {n} rows, the model {len(old)}")
+    model.alive[old] = False
+    removed.append(old)
+    after("age_off", age_off_s, n)
+
+    # the final store: the fused scan, the aggregations, warm-up
+    batch_q = [q for q, _ in queries + query_set(SEED + 56, N_MUTATE_QUERIES)]
+    many = ds.query_many("gdelt", batch_q)
+    seq = [ds.query("gdelt", q) for q in batch_q]
+    check(len(many) == len(seq) and all(
+        np.array_equal(np.asarray(a.ids), np.asarray(b.ids)) for a, b in zip(many, seq)),
+        "mutated query_many vs sequential, in order")
+    outs = seq[:N_MUTATE_QUERIES]
+    counted = busiest(queries, outs, 4)
+    exact = {q: o for (q, _), o in zip(queries, outs)}
+    estimates = count_estimates(ds, counted)
+    n_counts = check_counts(torch, ds, counted, [exact[q] for q, _ in counted], estimates)
+    n_agg = check_aggregations(torch, ds, counted)
+    t0 = time.perf_counter()
+    calls = ds.warmup("gdelt")
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    launches = read_launches()
+    slice_ms = np.asarray(report["slice_s"]) * 1e3
+    rec = {
+        "phase": "mutation_path", "cell": "gdelt-z3-10M-mutate", "launches": launches,
+        "n_points": N_MUTATE, "indexes": ["z3", "z2"], "n_queries": len(queries),
+        "reduced": {"n_points": {"cell": 10_000_000, "run": N_MUTATE},
+                    "why": "the script's 1200 s limit (944 s with the path at 10M)"},
+        "ingest_s": ingest_s,
+        "fold": {"rows": N_FOLD, "replaced": N_FOLD - n_new, "new": n_new, "s": fold_s,
+                 "slices": report["slices"], "slice_rows": slice_rows,
+                 "slice_ms_p50": float(np.percentile(slice_ms, 50)),
+                 "slice_ms_max": float(slice_ms.max()),
+                 "rows_uploaded_device": {k: int(sum(u for u, _ in v))
+                                          for k, v in uploaded.items()},
+                 "checked_slice_builds": fold_builds,
+                 "checked_slices": [0, n_slices - 1]},
+        "fold_s": fold_s, "upsert_s": upsert_s, "modify_s": modify_s, "delete_s": delete_s,
+        "age_off_s": age_off_s, "warmup_s": warmup_s, "warmup_calls": calls,
+        "ops": ops,
+        "checked_query_many": len(many), "checked_counts": n_counts,
+        "checked_aggregations": n_agg, "count_estimates": estimates,
+        "device_gb": ds.table("gdelt", "z3").nbytes_device / 1e9
+                     + ds.table("gdelt", "z2").nbytes_device / 1e9,
+    }
+    del ds, many, seq, outs, model
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- entry point -------------------------------------------------------------
 
 
@@ -2624,6 +3012,7 @@ def main() -> int:
         "osm-xz2-50M": tuple(k.name for k in KERNELS),
         "xz3-10M-mixed": ("block_scan", "block_scan_multi"),
         "gdelt-z3-10M-tiered": tuple(k.name for k in KERNELS),
+        "gdelt-z3-10M-mutate": tuple(k.name for k in KERNELS),
     }
     for cell, names in expected.items():
         for name in names:

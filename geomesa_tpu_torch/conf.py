@@ -63,6 +63,32 @@ COMPACT_MIN_ROWS = SystemProperty(
     "geomesa.tpu.compact.min.rows", 262_144, int,
     "delta rows before a minor compaction merges into the device table",
 )
+COMPACT_SPAN_ROWS = SystemProperty(
+    "geomesa.tpu.compact.span.rows", 4_194_304, int,
+    "bounded-buffer rows per gather span when a compaction streams sorted "
+    "columns to the device (block-aligned; caps host scratch instead of "
+    "materializing the whole sorted column set)",
+)
+
+# -- the incremental fold (DataStore.fold_upsert) --------------------------
+
+STREAM_FOLD_SLICE_ROWS = SystemProperty(
+    "geomesa.stream.fold.slice.rows", 65_536, int,
+    "update-fold slice size: a fold batch larger than this splits into "
+    "batch-contiguous slices, each published atomically on its own "
+    "(readers see exact intermediate states), so the fold is no longer "
+    "one O(table) pause; 0 folds monolithically",
+)
+STREAM_FOLD_DEVICE = SystemProperty(
+    "geomesa.stream.fold.device", "auto", str,
+    "device-side fold plan: 'on' builds a folded index table's columns on "
+    "the table's device from the old table plus an O(touched) upload "
+    "(removed positions, insert positions, the slice's sorted rows) "
+    "instead of re-gathering and re-uploading the O(table) suffix; "
+    "'auto' does so on a CUDA table and keeps the host gather on a CPU "
+    "table; 'off' always takes the host gather. Both builds are "
+    "bit-identical",
+)
 
 # -- raster-interval polygon approximations (filter.raster) ---------------
 

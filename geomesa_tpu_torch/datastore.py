@@ -2,8 +2,11 @@
 
 The port of geomesa_tpu/datastore.py's main path (reference
 GeoMesaDataStore): create_schema -> write -> query / query_many / count /
-density / density_many / bounds / stats_query / explain, and serve() for
-concurrent callers. Point schemas get a Z3 index (when a time attribute
+density / density_many / bounds / stats_query / explain, serve() for
+concurrent callers, and the mutation surface: upsert, fold_upsert (the
+incremental fold), delete_features, modify_features, age_off,
+delete_schema, plus id_lookup / id_exists_mask over a per-chunk sorted
+id index. Point schemas get a Z3 index (when a time attribute
 exists) and a Z2 index; extent schemas (polygons, lines, multi-geometries)
 an XZ3 and an XZ2 index; both narrowed by the ``geomesa.indices.enabled``
 user data. Each index is a sorted IndexTable whose predicate columns live
@@ -14,28 +17,88 @@ when no CUDA device is present; tests pass ``device="cpu"``, where every
 kernel wrapper takes its plain PyTorch version. The first write builds
 each index table; later writes stay in a host delta tier (storage.delta)
 until it outgrows ``geomesa.tpu.compact.min.rows`` and an eighth of the
-rows, when ``compact`` rebuilds the tables from all rows.
+rows, when ``compact`` merges the delta into the tables. Writers
+serialize on one lock; readers take none and see whole publishes.
 """
 
 from __future__ import annotations
 
+import re
 import threading
-from typing import Mapping, Optional, Sequence
+import time
+from typing import Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from geomesa_tpu_torch import conf
-from geomesa_tpu_torch.features import FeatureCollection
-from geomesa_tpu_torch.filter.predicates import INCLUDE, Filter, Include, PointColumn
+from geomesa_tpu_torch import geometry as geo
+from geomesa_tpu_torch.features import FeatureCollection, _date_to_millis
+from geomesa_tpu_torch.filter.predicates import (
+    INCLUDE, Cmp, Filter, IdFilter, Include, PointColumn,
+)
 from geomesa_tpu_torch.index import XZ2Index, XZ3Index, Z2Index, Z3Index
 from geomesa_tpu_torch.index.api import WriteKeys
 from geomesa_tpu_torch.planning.explain import Explainer
 from geomesa_tpu_torch.planning.planner import QueryPlanner, mask_decides_filter
 from geomesa_tpu_torch.sft import FeatureType
 from geomesa_tpu_torch.storage.delta import TieredTable, concat_keys
-from geomesa_tpu_torch.storage.table import IndexTable, merged_perm
+from geomesa_tpu_torch.storage.table import IndexTable, folded_table, merged_table
 from geomesa_tpu_torch.timing import NULL_CLOCK
+
+_EXPIRY_UNITS_MS = {
+    "millisecond": 1, "second": 1000, "minute": 60_000, "hour": 3_600_000,
+    "day": 86_400_000, "week": 7 * 86_400_000,
+    # the short forms of scala.concurrent.duration ("7 d", "24 h",
+    # "30 min", "90 s", "500 ms"); "m" means minutes, matched exactly
+    # before the plural strip below so "ms" never collapses onto it
+    "ms": 1, "s": 1000, "sec": 1000, "min": 60_000, "m": 60_000,
+    "h": 3_600_000, "d": 86_400_000, "w": 7 * 86_400_000,
+}
+
+
+def parse_expiry_ms(spec: str, dtg_field: str | None = None) -> int:
+    """``geomesa.feature.expiry``-style duration -> milliseconds: a plain
+    integer (ms) or ``"<n> <unit>"`` with the long (``"7 days"``) or short
+    (``"7 d"``, ``"30 min"``, ``"500 ms"``) units. An attribute prefix like
+    ``"dtg(7 days)"`` is accepted only when it names the schema's time
+    attribute (pass ``dtg_field`` to enforce): age-off always sweeps by
+    that attribute, so honoring another attribute's expiry would delete
+    the wrong rows."""
+    s = spec.strip()
+    m = re.fullmatch(r"(\w+)\(([^)]+)\)", s)
+    if m:
+        if dtg_field is not None and m.group(1) != dtg_field:
+            raise ValueError(
+                f"expiry attribute {m.group(1)!r} is not the time attribute "
+                f"{dtg_field!r}; attribute-based expiry on other attributes "
+                "is not supported"
+            )
+        s = m.group(2).strip()
+    if re.fullmatch(r"\d+", s):
+        return int(s)
+    m = re.fullmatch(r"(\d+)\s*([a-zA-Z]+)", s)
+    if m:
+        unit = m.group(2).lower()
+        # exact unit first ("ms", "min", "s"), then the plural long form
+        if unit not in _EXPIRY_UNITS_MS and unit.endswith("s"):
+            unit = unit[:-1]
+        if unit in _EXPIRY_UNITS_MS:
+            return int(m.group(1)) * _EXPIRY_UNITS_MS[unit]
+    raise ValueError(f"unparseable expiry spec: {spec!r}")
+
+
+def _slice_keys(keys: WriteKeys, start: int, stop: "int | None" = None) -> WriteKeys:
+    """WriteKeys rows [start:stop] (the delta tier's view of a partly
+    compacted part; the fold's batch-contiguous slices)."""
+    if start == 0 and (stop is None or stop >= len(keys.bins)):
+        return keys
+    sl = slice(start, stop)
+    return WriteKeys(
+        bins=keys.bins[sl],
+        zs=keys.zs[sl],
+        device_cols={k: v[sl] for k, v in keys.device_cols.items()},
+    )
 
 
 def resolve_device(device) -> torch.device:
@@ -54,6 +117,15 @@ def resolve_device(device) -> torch.device:
 class DataStore:
     """In-process feature store whose index tables live on one device."""
 
+    # the last fold's timing report: {"rows", "slices", "slice_s": [per
+    # publish seconds]}; None until a fold runs
+    last_fold_report = None
+
+    # probe rows per searchsorted call in _id_find: numpy's string
+    # searchsorted holds the GIL for the whole call, so slicing bounds
+    # each hold for concurrent readers
+    _ID_PROBE_SLICE = 8192
+
     def __init__(self, device="cuda", tile: int | None = None):
         self.device = resolve_device(device)
         self.tile = tile
@@ -66,6 +138,21 @@ class DataStore:
         # are the delta tier
         self._key_chunks: dict[tuple[str, str], list[WriteKeys]] = {}
         self._main_rows: dict[str, int] = {}
+        # id lookup: per-chunk sorted id columns, built lazily and
+        # validated by chunk identity (_id_index)
+        self._id_sorted: dict[str, list | None] = {}
+        # writers (write, compact, every mutation) serialize on this lock
+        # so a reader never observes half-updated chunk or table state;
+        # readers take no lock
+        self._write_lock = threading.RLock()
+        # serializes only the id-index entry cache
+        self._id_lock = threading.Lock()
+        # seqlock of the fold's publishes: odd while the assignment-only
+        # swap of tables and chunks is in flight, so pin_scan_state's
+        # lock-free readers capture a consistent (table, chunks) pair
+        self._publish_seq = 0  # guarded-by: _write_lock
+        # sliced-fold progress (type -> (published, total) slices)
+        self._fold_progress: dict[str, tuple] = {}  # guarded-by: _write_lock
         self.planner = QueryPlanner(self)
         # per-phase timing of the scan path (timing.PhaseClock), or the
         # clock that records nothing
@@ -91,6 +178,7 @@ class DataStore:
         self._chunks[sft.name] = []
         self._full[sft.name] = None
         self._main_rows[sft.name] = 0
+        self._id_sorted[sft.name] = None
         return sft
 
     @staticmethod
@@ -116,6 +204,21 @@ class DataStore:
     def get_schema(self, type_name: str) -> FeatureType:
         return self._schemas[type_name]
 
+    def type_names(self) -> list[str]:
+        return sorted(self._schemas)
+
+    def delete_schema(self, type_name: str) -> None:
+        """Drop a schema and all its data (reference removeSchema)."""
+        with self._write_lock:
+            self._schemas.pop(type_name)
+            self._chunks.pop(type_name, None)
+            self._full.pop(type_name, None)
+            self._main_rows.pop(type_name, None)
+            self._id_sorted.pop(type_name, None)
+            for idx in self._indexes.pop(type_name, []):
+                self._tables.pop((type_name, idx.name), None)
+                self._key_chunks.pop((type_name, idx.name), None)
+
     def indexes(self, type_name: str) -> list:
         return self._indexes[type_name]
 
@@ -132,65 +235,522 @@ class DataStore:
         when :meth:`compact` runs (the JAX package's commit rule).
         ``check_ids=False`` skips the duplicate id check for bulk loads
         with known-unique ids."""
+        features, new_keys = self._encode_batch(type_name, features)
+        if len(features) == 0:
+            return 0
+        return self._commit_batch(type_name, features, new_keys, check_ids=check_ids)
+
+    def _encode_batch(self, type_name: str, features):
+        """The pure half of a write: every index's write keys, built
+        before any store state mutates, so a failing encoder leaves the
+        store untouched. Returns (features, {index name -> WriteKeys})."""
+        sft = self._schemas[type_name]
+        if not isinstance(features, FeatureCollection):
+            features = FeatureCollection.from_rows(sft, features)
+        if len(features) == 0:
+            return features, {}
+        return features, {idx.name: idx.write_keys(features) for idx in self._indexes[type_name]}
+
+    def _commit_batch(self, type_name: str, features: FeatureCollection,
+                      new_keys: Mapping, check_ids: bool = True) -> int:
+        """The serialized half of a write: the id check and the commit
+        are one critical section, so two racing writers cannot both pass
+        the id check."""
+        with self._write_lock:
+            if check_ids:
+                self._check_ids(type_name, np.asarray(features.ids))
+            self._widen_bin_ranges(type_name, new_keys)
+            self._chunks[type_name].append(features)
+            self._full[type_name] = None
+            for name, keys in new_keys.items():
+                self._key_chunks.setdefault((type_name, name), []).append(keys)
+            total = self.row_count(type_name)
+            main_rows = self._main_rows[type_name]
+            if main_rows == 0 or total - main_rows > max(conf.COMPACT_MIN_ROWS.get(), total // 8):
+                self.compact(type_name)
+        return len(features)
+
+    def delete_features(self, type_name: str, f: "Filter | str") -> int:
+        """Remove the features matching a filter; returns the count removed
+        (reference GeoTools removeFeatures). Rebuilds the chunks and index
+        tables without the removed rows (a major compaction)."""
+        with self._write_lock:
+            return self._delete_features_locked(type_name, f)
+
+    def upsert(self, type_name: str, features: "FeatureCollection | Sequence[Mapping]") -> int:
+        """Write a batch, replacing any existing features with the same ids
+        (reference FeatureWriter update semantics): a delete-and-rewrite
+        maintenance op, since replaced rows must leave every sorted index.
+        Returns the number of features written."""
         sft = self._schemas[type_name]
         if not isinstance(features, FeatureCollection):
             features = FeatureCollection.from_rows(sft, features)
         if len(features) == 0:
             return 0
-        # encode every index's keys before any state mutates: a failing
-        # encoder leaves the store untouched
-        new_keys = {idx.name: idx.write_keys(features) for idx in self._indexes[type_name]}
-        if check_ids:
-            self._check_ids(type_name, np.asarray(features.ids))
-        self._widen_bin_ranges(type_name, new_keys)
-        self._chunks[type_name].append(features)
-        self._full[type_name] = None
-        for name, keys in new_keys.items():
-            self._key_chunks.setdefault((type_name, name), []).append(keys)
-        total = self.row_count(type_name)
-        main_rows = self._main_rows[type_name]
-        if main_rows == 0 or total - main_rows > max(conf.COMPACT_MIN_ROWS.get(), total // 8):
-            self.compact(type_name)
+        self._validate_replacement(type_name, features)
+        with self._write_lock:
+            ids = tuple(np.asarray(features.ids).tolist())
+            # the delete returns the removed rows so that a write failure
+            # past the validation (a device out of memory, say) restores
+            # them instead of losing the replaced rows
+            existing = self._delete_features_locked(type_name, IdFilter(ids), return_removed=True)
+            try:
+                return self.write(type_name, features)
+            except BaseException:
+                if len(existing):
+                    self.write(type_name, existing)  # best-effort rollback
+                raise
+
+    def fold_upsert(
+        self,
+        type_name: str,
+        features: "FeatureCollection | Sequence[Mapping]",
+        keys: "Mapping | None" = None,
+        presorted: "Mapping | None" = None,
+        slice_rows: "int | None" = None,
+        pacer=None,
+        on_slice=None,
+    ) -> int:
+        """Incremental :meth:`upsert`: replace existing ids and append the
+        rest without the whole-table rebuild of the delete-and-rewrite
+        path. Results are bit-identical to :meth:`upsert`: survivors keep
+        their sorted order, the batch sorts alone and two-run merges in
+        (storage.table.folded_table), and only device blocks past the
+        first touched sorted row change; with the device fold plan
+        (``geomesa.stream.fold.device``) only the batch's rows go to the
+        device at all.
+
+        ``keys``: the batch's pre-encoded write keys; ``presorted`` maps
+        index names to the batch's stable (bin, z) argsort, so the fold
+        skips its batch sort.
+
+        A batch larger than ``slice_rows`` (default
+        ``geomesa.stream.fold.slice.rows``; 0 disables) folds in
+        batch-contiguous slices, each published atomically: every
+        intermediate state is the fold of the applied prefix, and the
+        final state is bit-identical to the monolithic fold. Between
+        slices the fold calls ``pacer()``; ``on_slice(ids)`` fires after
+        each publish with the ids that just became resident. The write
+        lock is held across all slices; readers never take it."""
+        sft = self._schemas[type_name]
+        if not isinstance(features, FeatureCollection):
+            features = FeatureCollection.from_rows(sft, features)
+        if len(features) == 0:
+            return 0
+        ids = np.asarray(features.ids)
+        if len(np.unique(ids)) != len(ids):
+            raise ValueError("duplicate feature ids in replacement batch")
+        if keys is None:
+            features, keys = self._encode_batch(type_name, features)
+        with self._write_lock:
+            # one id probe for the whole batch: per-slice ordinals derive
+            # from it by subtracting earlier slices' removals
+            found = self._id_find(type_name, ids)
+            replaced = found[found >= 0]
+            if not len(replaced):
+                # nothing to replace: a plain append rides the delta tier
+                n = self._commit_batch(type_name, features, keys, check_ids=False)
+                if on_slice is not None:
+                    on_slice([str(i) for i in ids.tolist()])
+                return n
+            # the fold works on a fully compacted prefix: merge any
+            # outstanding delta first, so sorted rows are table rows
+            # (ordinals survive: the compaction keeps ordinal order)
+            if self._main_rows.get(type_name, 0) != self.row_count(type_name):
+                self.compact(type_name)
+            elif len(self._chunks[type_name]) > 1:
+                # collapse earlier folds' chunk splits (no re-sort) so the
+                # replaced ordinals land in chunk 0
+                self._chunks[type_name] = [self.features(type_name)]
+            n_batch = len(features)
+            sr = slice_rows if slice_rows is not None else conf.STREAM_FOLD_SLICE_ROWS.get()
+            if not (sr and 0 < sr < n_batch) or not self._fold_sliceable(type_name, keys):
+                t0 = time.perf_counter()
+                self._fold_slice_locked(type_name, features, keys, replaced, presorted)
+                self.last_fold_report = {
+                    "rows": n_batch, "slices": 1, "slice_s": [time.perf_counter() - t0],
+                }
+                if on_slice is not None:
+                    on_slice([str(i) for i in ids.tolist()])
+                return n_batch
+            self._fold_sliced_locked(
+                type_name, features, keys, presorted, found, sr, pacer, on_slice,
+            )
         return len(features)
 
-    def compact(self, type_name: str) -> None:
-        """Merge the delta tier into the device tables: concatenate the
-        key and feature chunks and rebuild each index table from all rows,
-        the delta's rows sorted into the old table's (bin, z) order ahead
-        of old rows with an equal key, as the JAX package's merge places
-        them (storage.table.merged_perm). Also collapses the feature
-        chunks into one collection."""
+    def _fold_sliceable(self, type_name: str, keys: Mapping) -> bool:
+        """Whether every index of ``type_name`` takes the incremental fold
+        (a built table and the batch's keys): a fold whose indexes
+        rebuild outright would pay a full build per slice, so it stays
+        monolithic."""
+        for idx in self._indexes[type_name]:
+            if keys.get(idx.name) is None:
+                return False
+            if not isinstance(self._tables.get((type_name, idx.name)), IndexTable):
+                return False
+        return True
+
+    def _fold_sliced_locked(
+        self, type_name, features, keys, presorted, found, sr, pacer, on_slice,
+    ) -> None:
+        """The sliced fold loop (write lock held; see :meth:`fold_upsert`).
+        Slices are batch-contiguous, so the final chunk layout (survivors,
+        then the batch's rows in batch order) equals the monolithic
+        fold's. ``found`` is the whole-batch id probe against the pre-fold
+        table; each slice's current ordinals subtract the rank of the
+        ordinals earlier slices removed (replaced ids are pre-fold rows,
+        so removals only land in the surviving first chunk)."""
+        n_batch = len(features)
+        n_slices = -(-n_batch // sr)
+        self._fold_progress[type_name] = (0, n_slices)
+        removed_cum = np.zeros(0, dtype=np.int64)  # sorted pre-fold ordinals
+        ids = np.asarray(features.ids)
+        slice_s: list[float] = []
+        try:
+            for si, s in enumerate(range(0, n_batch, sr)):
+                e = min(s + sr, n_batch)
+                t0 = time.perf_counter()
+                sub_fc = features.take(np.arange(s, e, dtype=np.int64))
+                sub_keys = {name: _slice_keys(k, s, stop=e) for name, k in keys.items()}
+                sub_pre = None
+                if presorted:
+                    sub_pre = {}
+                    for name, perm in presorted.items():
+                        perm = np.asarray(perm)
+                        sel = (perm >= s) & (perm < e)
+                        sub_pre[name] = perm[sel] - s
+                sub_found = found[s:e]
+                rep = np.sort(sub_found[sub_found >= 0])
+                # pre-fold ordinal -> current ordinal: subtract the rank of
+                # earlier slices' removals (appends land after the first
+                # chunk and never shift it)
+                cur = rep - np.searchsorted(removed_cum, rep, side="left")
+                self._fold_slice_locked(type_name, sub_fc, sub_keys, cur, sub_pre)
+                removed_cum = np.union1d(removed_cum, rep)
+                self._fold_progress[type_name] = (si + 1, n_slices)
+                slice_s.append(time.perf_counter() - t0)
+                if on_slice is not None:
+                    on_slice([str(i) for i in ids[s:e].tolist()])
+                if pacer is not None and e < n_batch:
+                    pacer()
+        finally:
+            self._fold_progress.pop(type_name, None)
+            self.last_fold_report = {"rows": n_batch, "slices": n_slices, "slice_s": slice_s}
+
+    def _fold_slice_locked(self, type_name, features, keys, replaced, presorted) -> None:
+        """Fold one batch (or batch slice) whose ``replaced`` current
+        ordinals all lie in chunk 0, and publish it atomically (write lock
+        held; a seqlock-bracketed, assignment-only swap). Removals only
+        touch the surviving first chunk, so the sliced loop never
+        re-concatenates the appended slices."""
+        chunks = self._chunks[type_name]
+        main = chunks[0]
+        n0 = len(main)
+        n = sum(len(c) for c in chunks)
+        keep0 = np.ones(n0, dtype=bool)
+        keep0[replaced] = False
+        keep_ordinal = (
+            np.concatenate([keep0, np.ones(n - n0, dtype=bool)]) if n > n0 else keep0
+        )
+        # old ordinal -> post-delete ordinal (valid at kept rows)
+        ordinal_map = np.cumsum(keep_ordinal, dtype=np.int64) - 1
+        survivors0 = main.mask(keep0)
+        nk = int(keep_ordinal.sum())
+
+        def mask_concat(old_col, new_col):
+            """survivors ++ batch in one output allocation."""
+            out = np.empty((nk + len(new_col),) + old_col.shape[1:], dtype=old_col.dtype)
+            np.compress(keep_ordinal, old_col, axis=0, out=out[:nk])
+            out[nk:] = new_col
+            return out
+
+        # build every index's merged keys and folded table before any
+        # store state mutates: the publish below is assignment-only, so a
+        # failure mid-build leaves the store untouched
+        staged: list = []  # (index, merged keys, new table)
+        for idx in self._indexes[type_name]:
+            parts = self._key_chunks.get((type_name, idx.name)) or []
+            dk = keys[idx.name]
+            if parts:
+                old_keys = concat_keys(parts)
+                merged = WriteKeys(
+                    bins=mask_concat(old_keys.bins, dk.bins),
+                    zs=mask_concat(old_keys.zs, dk.zs),
+                    device_cols={
+                        k: mask_concat(v, dk.device_cols[k])
+                        for k, v in old_keys.device_cols.items()
+                    },
+                )
+            else:
+                merged = dk
+            old_table = self._tables.get((type_name, idx.name))
+            if old_table is not None:
+                dperm = presorted.get(idx.name) if presorted else None
+                new_table = folded_table(
+                    old_table, merged, keep_ordinal, ordinal_map, dk,
+                    delta_perm=dperm, tile=self.tile,
+                )
+            else:
+                new_table = IndexTable(idx, merged, tile=self.tile, device=self.device)
+            staged.append((idx, merged, new_table))
+        # -- publish: assignment-only, seqlock-bracketed --------------------
+        self._widen_bin_ranges(type_name, keys)
+        self._publish_seq += 1  # odd: the swap is in flight
+        for idx, merged, new_table in staged:
+            self._key_chunks[(type_name, idx.name)] = [merged]
+            self._tables[(type_name, idx.name)] = new_table
+        self._chunks[type_name] = (
+            ([survivors0] if len(survivors0) else []) + list(chunks[1:]) + [features]
+        )
+        self._full[type_name] = None
+        self._publish_seq += 1  # even: pinned readers may proceed
+        self._main_rows[type_name] = n - len(replaced) + len(features)
+
+    def _validate_replacement(self, type_name: str, features) -> None:
+        """Fail before any row is deleted: a replacement batch that cannot
+        be written (duplicate ids within it, unencodable keys) leaves the
+        store untouched."""
+        ids = np.asarray(features.ids)
+        if len(np.unique(ids)) != len(ids):
+            raise ValueError("duplicate feature ids in replacement batch")
+        for idx in self._indexes[type_name]:
+            idx.write_keys(features)  # dry-run encode; raises on bad data
+
+    def modify_features(self, type_name: str, updates: Mapping,
+                        f: "Filter | str" = INCLUDE) -> int:
+        """Set attribute values on every feature matching ``f`` (reference
+        FeatureStore.modifyFeatures). ``updates`` maps attribute name ->
+        new value (a scalar, or a geometry for the geometry attribute).
+        Index keys are derived again, so geometry and time updates move
+        rows to their new index cells. Returns the modified count."""
+        sft = self._schemas[type_name]
+        # the lock spans query, delete and write, so the matched snapshot
+        # cannot go stale under a racing writer
+        with self._write_lock:
+            matched = self.query(type_name, f)
+            n = len(matched)
+            if n == 0:
+                return 0
+            cols = dict(matched.columns)
+            for name, value in updates.items():
+                attr = sft.attr(name)  # raises KeyError on unknown names
+                if attr.is_geometry:
+                    # the column class follows the schema's geometry kind:
+                    # a point schema stores a PointColumn, an extent schema
+                    # a packed column
+                    if sft.is_points:
+                        if not isinstance(value, geo.Point):
+                            kind = getattr(value, "geom_type", type(value).__name__)
+                            raise TypeError(
+                                f"{type_name!r} stores points; cannot set geometry to a {kind}"
+                            )
+                        cols[name] = PointColumn(np.full(n, value.x), np.full(n, value.y))
+                    else:
+                        cols[name] = geo.PackedGeometryColumn.from_geometries([value] * n)
+                elif attr.type == "Date":
+                    cols[name] = np.full(n, _date_to_millis(value), dtype=np.int64)
+                else:
+                    base = np.asarray(matched.columns[name])
+                    if base.dtype == object:
+                        cols[name] = np.array([value] * n, dtype=object)
+                    elif base.dtype.kind in "US":
+                        # natural width: np.full at the stored column's
+                        # fixed width would truncate a longer value
+                        cols[name] = np.full(n, str(value))
+                    else:
+                        # NaN is the store's null: None and NaN both null a
+                        # float attribute (not a lossy cast)
+                        if value is None and np.issubdtype(base.dtype, np.floating):
+                            value = float("nan")
+                        arr = np.full(n, value, dtype=base.dtype)
+                        try:
+                            nan_null = np.issubdtype(base.dtype, np.floating) and bool(
+                                np.isnan(value)
+                            )
+                        except TypeError:
+                            nan_null = False
+                        if not (nan_null or np.all(arr == value)):
+                            raise TypeError(  # lossy cast refused
+                                f"value {value!r} does not fit attribute {name!r} ({base.dtype})"
+                            )
+                        cols[name] = arr
+            updated = FeatureCollection(sft, matched.ids, cols)
+            self._validate_replacement(type_name, updated)
+            self.delete_features(type_name, IdFilter(tuple(np.asarray(matched.ids).tolist())))
+            try:
+                self.write(type_name, updated)
+            except BaseException:
+                # matched is the pre-delete snapshot: restore it so a write
+                # failure past validation does not lose the rows
+                self.write(type_name, matched)  # best-effort rollback
+                raise
+            return n
+
+    def age_off(self, type_name: str, ttl_ms: int | None = None,
+                now_ms: int | None = None) -> int:
+        """Remove features older than ``ttl_ms`` by the schema's time
+        attribute (reference AgeOffIterator compaction semantics). Returns
+        the rows removed.
+
+        ``ttl_ms=None`` reads the schema's ``geomesa.feature.expiry``
+        user-data key (``"7 days"``, ``"24 hours"``, ``"30 min"``,
+        ``"90 s"``, a plain millisecond count, or ``"dtg(7 days)"``).
+
+        Deviation from the reference: GeoMesa's ``FeatureExpiration``
+        treats a plain duration as ingest-time expiry (rows age out N ms
+        after they were written) and only ``dtg(7 days)`` as
+        attribute-based expiry. This store does not track ingest time, so
+        both forms sweep by the time attribute: a feature written
+        recently with an old ``dtg`` is removed here and kept by the
+        reference until its ingest TTL lapses."""
+        sft = self._schemas[type_name]
+        if ttl_ms is None:
+            spec = sft.user_data.get("geomesa.feature.expiry")
+            if spec is None:
+                raise ValueError(
+                    f"{type_name!r}: no ttl_ms given and no "
+                    "geomesa.feature.expiry user-data key on the schema"
+                )
+            ttl_ms = parse_expiry_ms(str(spec), dtg_field=sft.dtg_field)
+        if sft.dtg_field is None:
+            raise ValueError(f"{type_name!r} has no time attribute to age off")
+        now = now_ms if now_ms is not None else int(time.time() * 1000)
+        return self.delete_features(type_name, Cmp(sft.dtg_field, "<", now - ttl_ms))
+
+    def _delete_features_locked(self, type_name: str, f: "Filter | str",
+                                return_removed: bool = False):
+        """``return_removed=True`` returns the removed rows (the rollback
+        snapshot of compound ops: one scan, not two) instead of the
+        count."""
+        # the maintenance scan is an ordinary plan + execute
+        out = self.planner.execute(self.planner.plan(type_name, f))
+        if len(out) == 0:
+            return out if return_removed else 0
+        ordinals = self.id_lookup(type_name, out.ids)
         full = self.features(type_name)
-        self._chunks[type_name] = [full] if len(full) else []
-        main_rows = self._main_rows[type_name]
+        keep = np.ones(len(full), dtype=bool)
+        keep[ordinals] = False
+        new_full = full.mask(keep)
+        self._chunks[type_name] = [new_full] if len(new_full) else []
+        self._full[type_name] = None
         for idx in self._indexes[type_name]:
             key = (type_name, idx.name)
             parts = self._key_chunks.get(key)
-            if not parts:
+            if parts:
+                keys = concat_keys(parts)
+                self._key_chunks[key] = [WriteKeys(
+                    bins=keys.bins[keep],
+                    zs=keys.zs[keep],
+                    device_cols={k: v[keep] for k, v in keys.device_cols.items()},
+                )]
+        self._main_rows[type_name] = 0  # forces a full table rebuild
+        self.compact(type_name)
+        return out if return_removed else int((~keep).sum())
+
+    def warmup(self, type_name: str) -> int:
+        """Launch every scan-kernel shape of every index table once (M
+        bucket ladder x predicate flags, and the fused chunk shapes), so
+        the first queries pay no kernel-library load. Returns the total
+        kernel calls issued."""
+        total = 0
+        for idx in self._indexes[type_name]:
+            try:
+                table = self.table(type_name, idx.name)
+            except KeyError:
                 continue
-            keys = concat_keys(parts)
-            self._key_chunks[key] = [keys]
-            old = self._tables.get(key)
-            if old is not None and old.n == len(keys.zs) == main_rows:
-                continue  # empty delta: the table is current
-            perm = None
-            if old is not None and old.n == main_rows < len(keys.zs):
-                perm = merged_perm(old.perm, keys, main_rows)
-            # release the old device columns before the rebuild uploads
-            self._tables.pop(key, None)
-            self._tables[key] = IndexTable(
-                idx, keys, tile=self.tile, device=self.device, perm=perm
-            )
-        self._main_rows[type_name] = len(full)
+            main = getattr(table, "main", table)  # unwrap the delta tier
+            total += main.warmup()
+        return total
+
+    def compact(self, type_name: str) -> None:
+        """Merge the delta tier into the device tables and collapse the
+        feature chunks into one collection. Where the old table holds
+        exactly the compacted prefix, only the delta sorts and merges in
+        (storage.table.merged_table: delta rows ahead of old rows with an
+        equal key, device blocks before the first insertion reused);
+        otherwise the table rebuilds from all rows."""
+        with self._write_lock:
+            main_rows = self._main_rows[type_name]
+            full = self.features(type_name)
+            self._chunks[type_name] = [full] if len(full) else []
+            for idx in self._indexes[type_name]:
+                key = (type_name, idx.name)
+                parts = self._key_chunks.get(key)
+                if not parts:
+                    continue
+                keys = concat_keys(parts)
+                self._key_chunks[key] = [keys]
+                del parts  # no second copy of the key columns during the build
+                old = self._tables.get(key)
+                if old is not None and old.n == len(keys.zs) == main_rows:
+                    continue  # empty delta: the table is current
+                if isinstance(old, IndexTable) and old.n == main_rows and 0 < main_rows < len(
+                    keys.zs
+                ):
+                    table = merged_table(old, keys, _slice_keys(keys, main_rows), tile=self.tile)
+                else:
+                    # release the old device columns before the rebuild uploads
+                    self._tables.pop(key, None)
+                    table = IndexTable(idx, keys, tile=self.tile, device=self.device)
+                self._tables[key] = table
+            self._main_rows[type_name] = len(full)
 
     def _check_ids(self, type_name: str, ids: np.ndarray) -> None:
+        """Reject duplicate ids within the batch or against the store,
+        through the per-chunk id index."""
         if len(np.unique(ids)) != len(ids):
             raise ValueError("duplicate feature ids in write batch")
-        for chunk in self._chunks[type_name]:
-            stored = np.asarray(chunk.ids)
-            probe = ids.astype(str) if stored.dtype.kind in "US" else ids
-            if np.isin(probe, stored).any():
+        for sorted_ids, _ in self._id_index(type_name):
+            if not len(sorted_ids):
+                continue
+            probe = ids
+            if probe.dtype.kind != sorted_ids.dtype.kind:
+                if sorted_ids.dtype.kind in "US":
+                    # natural-width cast: astype(sorted_ids.dtype) would
+                    # truncate to the stored width ('12345' -> '123') and
+                    # report false duplicates
+                    probe = probe.astype(str)
+                else:
+                    try:
+                        probe = probe.astype(sorted_ids.dtype)
+                    except (ValueError, TypeError):
+                        continue  # incomparable with this chunk only
+            pos = np.searchsorted(sorted_ids, probe)
+            pos = np.clip(pos, 0, len(sorted_ids) - 1)
+            if np.any(sorted_ids[pos] == probe):
                 raise ValueError("duplicate feature ids in write batch")
+
+    def _id_index(self, type_name: str, chunks: "list | None" = None) -> list:
+        """Per-chunk ``(sorted ids, global argsort order)`` pairs for id
+        lookups, built lazily per chunk (no Python dict over every id),
+        so an appended chunk sorts only itself. Each cached entry holds
+        the chunk object it was built from and is rebuilt when the chunk
+        at its position is another object: every mutation that renumbers
+        ordinals replaces chunk objects, so no invalidation at the
+        mutation sites can be missed. ``chunks``: a
+        :meth:`chunk_snapshot` to resolve against."""
+        if chunks is None:
+            chunks = list(self._chunks.get(type_name, []))
+        with self._id_lock:
+            entries = self._id_sorted.get(type_name)
+            if not isinstance(entries, list):
+                entries = []
+                self._id_sorted[type_name] = entries
+            while len(entries) < len(chunks):
+                entries.append(None)
+            del entries[len(chunks):]  # collapsed chunks: drop the stale tail
+            out = []
+            base = 0
+            for i, c in enumerate(chunks):
+                e = entries[i]
+                if e is None or e[0] is not c:
+                    ids = np.asarray(c.ids)
+                    order = np.argsort(ids, kind="stable")
+                    e = (c, ids[order], order.astype(np.int64) + base)
+                    entries[i] = e
+                out.append((e[1], e[2]))
+                base += len(c)
+            return out
 
     def _widen_bin_ranges(self, type_name: str, new_keys: Mapping) -> None:
         """Widen each index's known time-bin range (open-ended temporal
@@ -212,16 +772,17 @@ class DataStore:
         """The scan surface of one index: the device table, wrapped with
         the host delta tier while writes since the last compaction exist."""
         table = self._tables[(type_name, index_name)]
-        main_rows = self._main_rows[type_name]
-        if self.row_count(type_name) == main_rows:
+        main_rows = self._main_rows.get(type_name, 0)
+        if self.row_count(type_name) <= main_rows:
             return table
-        # a compaction leaves one key part of exactly main_rows rows and
-        # each later write appends one part, so the delta is whole parts
+        # the delta is the rows past the compacted prefix, found by walking
+        # the key parts (their boundaries align with the feature chunks)
         delta, seen = [], 0
         for p in self._key_chunks[(type_name, index_name)]:
-            if seen >= main_rows:
-                delta.append(p)
-            seen += len(p.zs)
+            n = len(p.zs)
+            if seen + n > main_rows:
+                delta.append(_slice_keys(p, max(main_rows - seen, 0)))
+            seen += n
         return TieredTable(table, concat_keys(delta), main_rows)
 
     def features(self, type_name: str) -> FeatureCollection:
@@ -231,7 +792,7 @@ class DataStore:
         if len(chunks) == 1:
             return chunks[0]
         full = self._full.get(type_name)
-        if full is None:
+        if full is None or len(full) != sum(len(c) for c in chunks):
             full = FeatureCollection.concat(chunks)
             self._full[type_name] = full
         return full
@@ -239,9 +800,90 @@ class DataStore:
     def row_count(self, type_name: str) -> int:
         return sum(len(c) for c in self._chunks.get(type_name, []))
 
-    def gather(self, type_name: str, ordinals: np.ndarray) -> FeatureCollection:
-        """Features at the given ordinals, in ``ordinals`` order."""
-        return self.features(type_name).take(ordinals)
+    def pin_scan_state(self, type_name: str, index_name: str):
+        """(scan table, chunk snapshot) captured consistently against the
+        fold's publishes: the two reads retry while ``_publish_seq`` is
+        odd or moved (the publish is an assignment-only swap, so retries
+        are brief). A scan launched on the returned table gathers its
+        ordinals against the returned snapshot however long the device
+        work takes: publishes swap in fresh lists and never mutate a
+        pinned one."""
+        table = chunks = None
+        for _ in range(64):
+            s0 = self._publish_seq
+            table = self.table(type_name, index_name)
+            chunks = self.chunk_snapshot(type_name)
+            if self._publish_seq == s0 and not (s0 & 1):
+                break
+        return table, chunks
+
+    def chunk_snapshot(self, type_name: str) -> list:
+        """A point-in-time copy of the chunk list, for ordinals resolved
+        now and gathered later: renumbering mutations (delete, fold) swap
+        in a new list and never mutate the old one."""
+        return list(self._chunks.get(type_name, []))
+
+    def gather(self, type_name: str, ordinals: np.ndarray,
+               chunks: "list | None" = None) -> FeatureCollection:
+        """Features at the given ordinals, in ``ordinals`` order, gathered
+        per chunk without building the full concat. ``chunks``: the
+        :meth:`chunk_snapshot` the ordinals were resolved against."""
+        if chunks is None:
+            chunks = self._chunks.get(type_name, [])
+        if not chunks:
+            return FeatureCollection.from_rows(self._schemas[type_name], [])
+        if len(chunks) == 1:
+            return chunks[0].take(ordinals)
+        ordinals = np.asarray(ordinals, dtype=np.int64)
+        bases = np.cumsum([0] + [len(c) for c in chunks])
+        which = np.searchsorted(bases, ordinals, side="right") - 1
+        parts, positions = [], []
+        for ci in range(len(chunks)):
+            sel = np.flatnonzero(which == ci)
+            if len(sel):
+                parts.append(chunks[ci].take(ordinals[sel] - bases[ci]))
+                positions.append(sel)
+        if not parts:
+            return chunks[0].take(np.zeros(0, np.int64))
+        if len(parts) == 1 and len(parts[0]) == len(ordinals):
+            return parts[0]  # one chunk holds every hit: already in order
+        cat = FeatureCollection.concat(parts)
+        inv = np.empty(len(ordinals), np.int64)
+        inv[np.concatenate(positions)] = np.arange(len(ordinals))
+        return cat.take(inv)
+
+    def _id_find(self, type_name: str, ids: Iterable, chunks: "list | None" = None) -> np.ndarray:
+        """Per-input ordinal (or -1) of each requested id, probing every
+        chunk's sorted index (ids are store-unique, so at most one chunk
+        hits per input)."""
+        want = np.asarray(list(ids))
+        found = np.full(len(want), -1, dtype=np.int64)
+        for sorted_ids, order in self._id_index(type_name, chunks=chunks):
+            if not len(sorted_ids):
+                continue
+            probe = want
+            if probe.dtype.kind != sorted_ids.dtype.kind:
+                try:
+                    probe = probe.astype(sorted_ids.dtype)
+                except (ValueError, TypeError):
+                    continue
+            for s in range(0, len(probe), self._ID_PROBE_SLICE):
+                sub = probe[s : s + self._ID_PROBE_SLICE]
+                pos = np.searchsorted(sorted_ids, sub)
+                pos = np.clip(pos, 0, len(sorted_ids) - 1)
+                hit = sorted_ids[pos] == sub
+                found[s : s + self._ID_PROBE_SLICE][hit] = order[pos[hit]]
+        return found
+
+    def id_lookup(self, type_name: str, ids: Iterable,
+                  chunks: "list | None" = None) -> np.ndarray:
+        """Ordinals of the stored ids among ``ids``, in ``ids`` order."""
+        found = self._id_find(type_name, ids, chunks=chunks)
+        return found[found >= 0]
+
+    def id_exists_mask(self, type_name: str, ids: Iterable) -> np.ndarray:
+        """Boolean mask aligned with ``ids``: which are in the store."""
+        return self._id_find(type_name, ids) >= 0
 
     # -- queries ---------------------------------------------------------
     def query(
@@ -296,7 +938,7 @@ class DataStore:
     def _device_aggregable(self, type_name: str, plan) -> bool:
         """Whether the gather-free aggregation kernels decide this plan's
         filter (never for a polygon config: they test the box only)."""
-        return plan.index is not None and mask_decides_filter(
+        return plan.ids is None and plan.index is not None and mask_decides_filter(
             plan.filter, plan.config, self._schemas[type_name], for_aggregation=True
         )
 
@@ -310,7 +952,8 @@ class DataStore:
         membership outright and only the boundary residue refines."""
         cfg = plan.config
         return (
-            plan.index is not None
+            plan.ids is None
+            and plan.index is not None
             and cfg is not None
             and not cfg.disjoint
             and cfg.rast is not None

@@ -313,3 +313,32 @@ def _merge_intervals(ivs: Sequence[Interval]) -> list[Interval]:
         else:
             out.append(iv)
     return out
+
+
+# ---------------------------------------------------------------------------
+# id extraction
+# ---------------------------------------------------------------------------
+
+
+def extract_ids(f: Filter) -> FilterValues:
+    """Feature ids from IdFilter terms (AND intersects, OR unions)."""
+    if isinstance(f, IdFilter):
+        return FilterValues(values=sorted(set(f.ids)), precise=True)
+    if isinstance(f, And):
+        parts = [extract_ids(c) for c in f.filters]
+        parts = [p for p in parts if p.values or p.disjoint]
+        if not parts:
+            return FilterValues.nothing()
+        ids = set(parts[0].values)
+        for p in parts[1:]:
+            ids &= set(p.values)
+        return FilterValues(values=sorted(ids)) if ids else FilterValues.disjoint_()
+    if isinstance(f, Or):
+        parts = [extract_ids(c) for c in f.filters]
+        if any(p.empty for p in parts):
+            return FilterValues.nothing()
+        ids: set = set()
+        for p in parts:
+            ids |= set(p.values)
+        return FilterValues(values=sorted(ids))
+    return FilterValues.nothing()

@@ -15,7 +15,9 @@ single index serves plans as a union over its DNF disjuncts when each
 disjunct has an index (``bbox(...) OR dtg DURING ...``: one scan per
 disjunct, results deduplicated in first-seen order); otherwise (no
 spatio-temporal constraint) it takes the full-table host scan, with
-identical results. Explain says which.
+identical results. Explain says which. An id filter (``IN ('a', 'b')``)
+plans ahead of every index as an id lookup: the sorted ids probe the
+store's per-chunk id index, and the rows come back in sorted-id order.
 """
 
 from __future__ import annotations
@@ -28,13 +30,14 @@ import numpy as np
 
 from geomesa_tpu_torch.features import FeatureCollection
 from geomesa_tpu_torch.filter import ecql
+from geomesa_tpu_torch.filter.extract import extract_ids
 from geomesa_tpu_torch.filter.predicates import Filter, Include
 from geomesa_tpu_torch.index.api import ScanConfig
 from geomesa_tpu_torch.planning.explain import Explainer, ExplainNull
 
 # index selection priority (reference cost multipliers: z3 / xz3 = 1.1
-# with bounded time, z2 / xz2 = 2.0). Lower = preferred.
-INDEX_PRIORITY = {"z3": 1.1, "xz3": 1.1, "z2": 2.0, "xz2": 2.0}
+# with bounded time, z2 / xz2 = 2.0, id lookups 0.5). Lower = preferred.
+INDEX_PRIORITY = {"z3": 1.1, "xz3": 1.1, "z2": 2.0, "xz2": 2.0, "id": 0.5}
 
 
 def index_priority(name: str) -> float:
@@ -49,6 +52,7 @@ class QueryPlan:
     filter: Filter
     index: Optional[str]  # None = full-table host scan
     config: Optional[ScanConfig]
+    ids: Optional[list] = None  # id-lookup plan
     limit: Optional[int] = None
     planning_s: float = 0.0
     # multi-index union plan (reference FilterSplitter OR options): each
@@ -59,6 +63,8 @@ class QueryPlan:
     def strategy(self) -> str:
         if self.union is not None:
             return "union(" + "+".join(p.strategy for p in self.union) + ")"
+        if self.ids is not None:
+            return "id-lookup"
         return "full-scan" if self.index is None else self.index
 
 
@@ -160,7 +166,7 @@ class QueryPlanner:
 
     def _select(self, type_name: str, f: Filter, limit: Optional[int], exp) -> QueryPlan:
         plan = self._select_single(type_name, f, limit, exp)
-        if plan.index is not None:
+        if plan.index is not None or plan.ids is not None:
             return plan
         # no single index serves the whole filter: try a multi-index union
         # over the DNF disjuncts (reference FilterSplitter.scala:61-147)
@@ -176,22 +182,18 @@ class QueryPlanner:
         if disjuncts is None or len(disjuncts) < 2:
             return None
         subs: list[QueryPlan] = []
-        empty = None
         for d in disjuncts:
             sp = self._select_single(type_name, d, None, exp)
             if sp.config is not None and sp.config.disjoint:
                 exp("Union: disjunct unsatisfiable, dropped")
-                empty = empty or sp
                 continue  # contributes nothing to the union
-            if sp.index is None:
+            if sp.index is None and sp.ids is None:
                 exp("Union: a disjunct needs a full scan -> single-scan plan")
                 return None  # one full scan beats full scan + index scans
             subs.append(sp)
         if not subs:
-            # every disjunct unsatisfiable: an empty scan answers the query
-            # (the JAX package plans an empty id lookup, which the port
-            # does not carry)
-            return QueryPlan(type_name, f, empty.index, empty.config, limit=limit)
+            # every disjunct unsatisfiable: an empty id lookup answers it
+            return QueryPlan(type_name, f, None, ScanConfig.empty("union"), ids=[])
         if len(subs) == 1:
             # every other disjunct was unsatisfiable: the live branch IS the
             # query (its disjunct filter is equivalent to the whole filter)
@@ -207,6 +209,14 @@ class QueryPlanner:
     def _select_single(
         self, type_name: str, f: Filter, limit: Optional[int], exp
     ) -> QueryPlan:
+        # id filters take absolute priority (reference IdFilterStrategy)
+        ids = extract_ids(f)
+        if ids.disjoint:
+            exp("Id extraction: disjoint -> empty plan")
+            return QueryPlan(type_name, f, None, ScanConfig.empty("id"), ids=[])
+        if ids.values:
+            exp(f"Strategy: id-lookup ({len(ids.values)} ids)")
+            return QueryPlan(type_name, f, "id", None, ids=list(ids.values), limit=limit)
         options: list[tuple[float, str, ScanConfig]] = []
         for idx in self.store.indexes(type_name):
             cfg = idx.scan_config(f)
@@ -241,8 +251,19 @@ class QueryPlanner:
     # -- execution -------------------------------------------------------
     def execute(self, plan: QueryPlan, explain: Explainer | None = None) -> FeatureCollection:
         exp = explain or ExplainNull()
+        prog = self.store._fold_progress.get(plan.type_name)
+        if prog is not None:
+            # the query interleaves with a sliced fold (lock-free snapshot)
+            exp(f"Streaming fold in progress: slice {prog[0]}/{prog[1]}")
         if plan.union is not None:
             return self._execute_union(plan, exp)
+        if plan.ids is not None:  # id lookup
+            # one snapshot resolves AND gathers: a fold publishing in
+            # between cannot shift the ordinals under the gather
+            chunks = self.store.chunk_snapshot(plan.type_name)
+            ordinals = self.store.id_lookup(plan.type_name, plan.ids, chunks=chunks)
+            candidates = self.store.gather(plan.type_name, ordinals, chunks=chunks)
+            return self._refine_and_post(plan, candidates, None, exp)
         if plan.index is None:  # full host scan
             fc = self.store.features(plan.type_name)
             with exp.span("Full-table host scan"):
@@ -281,7 +302,9 @@ class QueryPlanner:
         launch ahead of finish(); one predicate shared by submit and
         submit_many so their routing cannot drift."""
         return (
-            plan.index is not None
+            plan.union is None
+            and plan.ids is None
+            and plan.index is not None
             and plan.config is not None
             and self.store.row_count(plan.type_name) > 0
         )
@@ -289,8 +312,8 @@ class QueryPlanner:
     def submit(self, plan: QueryPlan, explain: Explainer | None = None):
         """Stage one query: launch its device scan now, return a zero-arg
         ``finish()`` producing the FeatureCollection. A plan without a
-        simple index scan (a union, a full host scan, an empty store) runs
-        inside finish()."""
+        simple index scan (a union, an id lookup, a full host scan, an
+        empty store) runs inside finish()."""
         exp = explain or ExplainNull()
         if not self._is_simple(plan):
             return lambda: self.execute(plan, explain=exp)
@@ -313,12 +336,14 @@ class QueryPlanner:
             if len(idxs) == 1:
                 finishes[idxs[0]] = self.submit(plans[idxs[0]])
                 continue
-            table = self.store.table(tname, iname)
+            table, chunks = self.store.pin_scan_state(tname, iname)
             scan_fins = table.scan_submit_many(
                 [plans[j].config for j in idxs], clock=self.store.clock
             )
             for j, scan_fin in zip(idxs, scan_fins):
-                finishes[j] = self._submit_simple(plans[j], ExplainNull(), finish_scan=scan_fin)
+                finishes[j] = self._submit_simple(
+                    plans[j], ExplainNull(), finish_scan=scan_fin, chunks=chunks
+                )
         return finishes
 
     def execute_many(self, plans) -> list:
@@ -326,21 +351,27 @@ class QueryPlanner:
         result is pulled; scans sharing a table fuse (submit_many)."""
         return [f() for f in self.submit_many(plans)]
 
-    def _submit_simple(self, plan: QueryPlan, exp, finish_scan=None):
+    def _submit_simple(self, plan: QueryPlan, exp, finish_scan=None, chunks=None):
         """Launch a simple index-scan plan's device work now (or take the
         ``finish_scan`` of an already launched fused chunk); return
-        ``finish()`` -> FeatureCollection."""
+        ``finish()`` -> FeatureCollection. The chunk snapshot is pinned at
+        launch, beside the table (``pin_scan_state``): the scan's ordinals
+        gather against the rows it scanned, however a mutation publishes
+        in between. ``chunks``: the snapshot a fused chunk was launched
+        on."""
         clock = self.store.clock
         if finish_scan is None:
-            table = self.store.table(plan.type_name, plan.index)
+            table, chunks = self.store.pin_scan_state(plan.type_name, plan.index)
             finish_scan = table.scan_submit(plan.config, clock=clock)
+        elif chunks is None:
+            chunks = self.store.chunk_snapshot(plan.type_name)
 
         def finish() -> FeatureCollection:
             with exp.span(f"Device scan [{plan.index}]"):
                 ordinals, certain = finish_scan()
             exp(f"Candidates: {len(ordinals)}")
             with clock.host("decode"):
-                candidates = self.store.gather(plan.type_name, ordinals)
+                candidates = self.store.gather(plan.type_name, ordinals, chunks=chunks)
             return self._refine_and_post(plan, candidates, certain, exp)
 
         return finish

@@ -21,8 +21,13 @@ certifies a geometry: an extent box scan writes and pulls the wide plane
 alone, every hit refines on the host, and the polygon legs never run
 (extent members fuse with empty edge and raster stacks).
 
-The delta tier (storage.delta) wraps a table between compactions; a
-compaction rebuilds the table from all rows (no fold or block reuse).
+The delta tier (storage.delta) wraps a table between compactions. A
+compaction sorts only the delta and merges it into the old sort order
+(``merged_table``), and a replace batch folds in without any whole-table
+sort (``folded_table``); both keep every device block before the first
+changed row. A fold on a CUDA table computes its columns on the card
+from the old table's blocks and the batch's rows (``_fold_cols_device``),
+so only the batch crosses PCIe.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from geomesa_tpu_torch import conf
 from geomesa_tpu_torch.index.api import IndexKeySpace, ScanConfig, WriteKeys
 from geomesa_tpu_torch.scan import aggregations
 from geomesa_tpu_torch.scan import block_kernels as bk
@@ -64,8 +70,22 @@ FUSED_CHUNK_Q = 128
 
 def _block_rows(tile: "int | None") -> int:
     """Rows per device scan block for a ``tile`` request (multiples of
-    4096, so SUB is a multiple of 32)."""
+    4096, so SUB is a multiple of 32); shared by IndexTable and the fold
+    plan's eligibility check so they cannot drift."""
     return bk.BLOCK if tile is None else max(4096, -(-int(tile) // 4096) * 4096)
+
+
+def _device_fold_enabled(device: torch.device) -> bool:
+    """Whether folded_table builds its columns through the device-side
+    fold plan (``geomesa.stream.fold.device``): 'on' forces it; 'auto'
+    (the default) takes it on a CUDA table, where the PCIe upload of the
+    changed suffix is the cost it saves, and keeps the host gather on a
+    CPU table, where every "upload" is a copy; 'off' never. The two
+    builds are bit-identical."""
+    mode = str(conf.STREAM_FOLD_DEVICE.get()).lower()
+    if mode in ("on", "1", "true"):
+        return True
+    return mode == "auto" and device.type == "cuda"
 
 
 class SortedKeys:
@@ -73,14 +93,20 @@ class SortedKeys:
     back to feature ordinals, and searchsorted range -> row-span pruning."""
 
     def __init__(self, keyspace: IndexKeySpace, keys: WriteKeys, tile: int,
-                 perm: "np.ndarray | None" = None):
+                 sorted_state: "np.ndarray | None" = None):
         self.keyspace = keyspace
         self.tile = tile
         self.n = len(keys.bins)
-        if perm is None:
+        if sorted_state is not None:
+            # the caller already knows the sort order (merged_table,
+            # folded_table): no sort at all
+            perm = sorted_state
+            self.rows_sorted = 0
+        else:
             # stable (bin, z) sort (np.lexsort: LAST key is most significant)
             perm = np.lexsort((keys.zs, keys.bins))
-        self.perm = perm  # table row -> feature ordinal
+            self.rows_sorted = self.n
+        self.perm = perm  # table row -> feature ordinal (u32 or i64)
         self.bins = bins = keys.bins[perm]
         self.zs = keys.zs[perm]
         n = self.n
@@ -126,18 +152,6 @@ class SortedKeys:
                 if z > a:
                     (contained if c else overlap).append((a, z))
         return _merge_spans(overlap), _merge_spans(contained)
-
-
-def merged_perm(old_perm: np.ndarray, keys: WriteKeys, main_rows: int) -> np.ndarray:
-    """The sort order of a compaction that folds rows [main_rows, n) of
-    ``keys`` into a table sorted as ``old_perm``: the stable (bin, z) sort
-    of the new rows in ordinal order followed by the old table's rows, so
-    a new row sorts before an old row with the same key. That is the order
-    of the JAX package's two-run merge (``merged_table``, insertion at
-    ``searchsorted(side="left")``), here by one full sort."""
-    order = np.concatenate([np.arange(main_rows, len(keys.zs), dtype=np.int64),
-                            np.asarray(old_perm, np.int64)])
-    return order[np.lexsort((keys.zs[order], keys.bins[order]))]
 
 
 def _merge_spans(spans: list[tuple[int, int]]) -> list[tuple[int, int]]:
@@ -218,22 +232,24 @@ class IndexTable(SortedKeys):
         keys: WriteKeys,
         tile: int | None = None,
         device="cuda",
-        perm: "np.ndarray | None" = None,
+        sorted_state: "np.ndarray | None" = None,
+        reuse: "tuple[IndexTable, int] | None" = None,
+        fold_plan: "tuple | None" = None,
     ):
-        """``perm``: the table's sort order (row -> feature ordinal), or
-        None for the stable (bin, z) sort of ``keys``."""
+        """``sorted_state``: the table's sort order (row -> feature
+        ordinal), or None for the stable (bin, z) sort of ``keys``.
+        ``reuse``: (old table, first changed sorted row): every device
+        block before that row is taken from the old table and only the
+        suffix uploads. ``fold_plan``: folded_table's description of a
+        fold, from which the columns are computed on the device."""
         block = _block_rows(tile)
-        super().__init__(keyspace, keys, block, perm)
+        super().__init__(keyspace, keys, block, sorted_state)
         self._set_layout(block, keys.device_cols, torch.device(device))
-        # sort-gather each column, pad it, upload it, release the host copy
-        # before the next column (host peak: one padded column)
-        self.cols3 = {}
-        for k in self.col_names:
-            out = np.empty(self.n_pad, dtype=keys.device_cols[k].dtype)
-            out[: self.n] = keys.device_cols[k][self.perm]
-            out[self.n :] = _SENTINELS[k]  # pad rows never match
-            self.cols3[k] = self._upload(out)
-            del out
+        self._reuse = reuse
+        if fold_plan is not None:
+            self._fold_cols_device(fold_plan)
+        else:
+            self._stream_cols(keys)
 
     @classmethod
     def from_state(cls, keyspace: IndexKeySpace, state: dict, device) -> "IndexTable":
@@ -265,8 +281,95 @@ class IndexTable(SortedKeys):
         self.device = device
 
     def _upload(self, col: np.ndarray) -> torch.Tensor:
-        v3 = np.ascontiguousarray(col).reshape(self.n_blocks, self.sub, bk.LANES)
+        v3 = np.ascontiguousarray(col).reshape(-1, self.sub, bk.LANES)
         return torch.from_numpy(v3).to(self.device)
+
+    def _reuse_prefix(self, col_names) -> tuple:
+        """(old table, first reusable block count) from ``self._reuse``,
+        or (None, 0) when nothing can be reused."""
+        if self._reuse is not None:
+            cand, first_row = self._reuse
+            if cand.block == self.block and set(cand.col_names) == set(col_names):
+                return cand, min(first_row // self.block, cand.n_blocks, self.n_blocks)
+        return None, 0
+
+    def _stream_cols(self, keys: WriteKeys) -> None:
+        """Build and upload the sorted padded columns one at a time,
+        gathering each through block-aligned spans of
+        ``geomesa.tpu.compact.span.rows`` rows, and release the host copy
+        before the next column (host peak: one padded column). With
+        ``self._reuse`` set, only rows past the first changed block are
+        gathered and uploaded; the prefix blocks stay the old table's."""
+        old, first_block = self._reuse_prefix(set(keys.device_cols))
+        self.rows_uploaded = (self.n_blocks - first_block) * self.block
+        lo = first_block * self.block  # first sorted row to (re)build
+        span = max(self.block, (conf.COMPACT_SPAN_ROWS.get() // self.block) * self.block)
+        self.cols3 = {}
+        for k in self.col_names:
+            col = keys.device_cols[k]
+            out = np.empty(self.n_pad - lo, dtype=col.dtype)
+            for s in range(lo, self.n, span):
+                e = min(s + span, self.n)
+                out[s - lo : e - lo] = col[self.perm[s:e]]
+            out[self.n - lo :] = _SENTINELS[k]  # pad rows never match
+            suffix = self._upload(out)
+            if old is not None and first_block > 0:
+                self.cols3[k] = torch.cat([old.cols3[k][:first_block], suffix])
+            else:
+                self.cols3[k] = suffix
+            del out, suffix
+
+    def _fold_cols_device(self, plan) -> None:
+        """The device-side fold plan: the new sorted columns are a
+        permutation of the old table's device rows plus the batch's, so
+        only the fold's description (removed sorted positions, insert
+        destinations, the batch's sorted rows) goes to the device, and
+        the device computes each new row's source:
+
+        - a non-insert destination ``i`` holds survivor rank
+          ``r = i - #inserts<=i``; its old sorted position solves
+          ``p = r + #removed<=p``, one searchsorted over
+          ``removed - arange`` (a non-decreasing key);
+        - an insert destination takes the batch's sorted row;
+        - pad rows past ``self.n`` take the never-matching sentinels.
+
+        PyTorch ops on the table's device, one gather per column.
+        Bit-identical to the host build: every value is a copy of an old
+        table or batch value. ``rows_uploaded`` records the rows that
+        crossed to the device: the batch's."""
+        old, removed, delta_dest, delta_sorted_cols = plan
+        nr, nd = len(removed), len(delta_dest)
+        dev = self.device
+        # i32 position math: folded_table gates the plan to < 2**31 rows
+        i = torch.arange(self.n_pad, dtype=torch.int32, device=dev)
+        is_ins = ins_idx = None
+        if nd:
+            dd = torch.from_numpy(np.asarray(delta_dest, np.int32)).to(dev)
+            k_ins = torch.searchsorted(dd, i, right=True, out_int32=True)
+            ins_idx = torch.clamp(k_ins - 1, 0, nd - 1)
+            is_ins = (k_ins > 0) & (dd[ins_idx] == i)
+            r = i - k_ins
+        else:
+            r = i
+        if nr:
+            rem_adj = np.asarray(removed, np.int64) - np.arange(nr, dtype=np.int64)
+            rem_adj = torch.from_numpy(rem_adj.astype(np.int32)).to(dev)
+            src = r + torch.searchsorted(rem_adj, r, right=True, out_int32=True)
+        else:
+            src = r
+        # PyTorch raises on an index past the end where the JAX take clamps
+        src = torch.clamp(src, 0, max(old.n_pad - 1, 0))
+        valid = i < self.n
+        self.rows_uploaded = nd  # only the batch's rows cross to the device
+        self.cols3 = {}
+        for k in self.col_names:
+            vals = old.cols3[k].reshape(-1)[src]
+            if is_ins is not None:
+                dvals = torch.from_numpy(np.ascontiguousarray(delta_sorted_cols[k])).to(dev)
+                vals = torch.where(is_ins, dvals[ins_idx], vals)
+            pad = torch.tensor(_SENTINELS[k], dtype=vals.dtype, device=dev)
+            vals = torch.where(valid, vals, pad)
+            self.cols3[k] = vals.reshape(self.n_blocks, self.sub, bk.LANES)
 
     # -- scanning --------------------------------------------------------
     def candidate_blocks(self, spans: list[tuple[int, int]]) -> np.ndarray:
@@ -748,6 +851,230 @@ class IndexTable(SortedKeys):
 
         return finish
 
+    # -- warm-up ---------------------------------------------------------
+    def warmup(self) -> int:
+        """Launch every scan-kernel shape this table can hit once: each M
+        bucket up to the table's size (and the full-table shape past the
+        ladder) for the table's natural predicate flags, then the fused
+        chunk shape per flag combination, with the edge and interval
+        buckets on a point table. On the card the first launch loads each
+        kernel library. Returns the number of kernel calls issued (the
+        JAX package's count for the same table)."""
+        if self.n == 0:
+            return 0
+        sizes = sorted({
+            *(m for m in bk.M_BUCKETS if m <= self.n_blocks),
+            min(bk.bucket_of(self.n_blocks), max(self.n_blocks, bk.M_BUCKETS[0])),
+        })
+        if self.n_blocks > bk.M_BUCKETS[-1]:
+            sizes.append(bk.M_BUCKETS[-1] + 1)  # the full-scan shape
+        has_windows = bool({"tbin", "tw"} & set(self.col_names))
+        # (False, False) is the no-predicate (validity column) variant
+        flag_combos = [(True, False), (False, False)]
+        if has_windows:
+            flag_combos = [(True, True), (True, False), (False, True), (False, False)]
+
+        def make_cfg(has_boxes: bool, has_w: bool) -> ScanConfig:
+            return ScanConfig(
+                index="warmup",
+                range_bins=np.zeros(1, np.int32),
+                range_lo=np.zeros(1, np.uint64),
+                range_hi=np.zeros(1, np.uint64),
+                boxes=np.array([[0.0, 0.0, 1e-6, 1e-6]], np.float32) if has_boxes else None,
+                windows=np.array([[0, 0, 0]], np.int32) if has_w else None,
+            )
+
+        calls = 0
+        for m in sizes:
+            blocks = np.arange(min(m, self.n_blocks), dtype=np.int64)
+            for has_boxes, has_w in flag_combos:
+                self._device_scan_submit(blocks, make_cfg(has_boxes, has_w))()
+                calls += 1
+        # the fused chunk shape: E = R = 0 for box members; point tables
+        # also take the edge and interval buckets (polygon members always
+        # carry a box)
+        pip_ok = not self.extent and {"x", "y"} <= set(self.col_names)
+        for has_boxes, has_w in flag_combos:
+            if not (has_boxes or has_w):
+                continue  # the fused path needs a predicate
+            ladder = [(0, 0)] + (
+                [(e, 0) for e in bk.FUSED_E_BUCKETS] + [(0, r) for r in bk.FUSED_R_BUCKETS]
+                if (pip_ok and has_boxes) else []
+            )
+            for n_e, n_r in ladder:
+                cfg = make_cfg(has_boxes, has_w)
+                if n_e:
+                    cfg.poly = np.zeros((n_e, bk.LANES), np.float32)
+                if n_r:
+                    cfg.rast = np.zeros((1 + n_r, bk.LANES), np.float32)
+                    cfg.rast[1:, 0] = 1.0  # pad intervals never match
+                names = self._scan_cols(cfg)
+                # half a chunk of blocks over two members: past the
+                # small-batch routing threshold, so the fused kernel runs
+                blk = (np.arange(max(self.fused_pack_capacity // 4, 1))
+                       % self.n_blocks).astype(np.int64)
+                fins: list = [None, None]
+                self._submit_fused_chunk(
+                    [(0, cfg, blk, []), (1, cfg, blk, [])], names, has_boxes, has_w, fins,
+                )
+                for f in fins:
+                    f()
+                calls += 1
+        return calls
+
     @property
     def nbytes_device(self) -> int:
         return sum(int(v.numel() * v.element_size()) for v in self.cols3.values())
+
+
+def folded_table(
+    old: IndexTable,
+    merged_keys: WriteKeys,
+    keep_ordinal: "np.ndarray | None",
+    ordinal_map: "np.ndarray | None",
+    delta_keys: WriteKeys,
+    delta_perm: "np.ndarray | None" = None,
+    tile: int | None = None,
+) -> IndexTable:
+    """Incremental replace-merge: fold a delete + insert batch into a
+    sorted table without a whole-table sort (the streaming hot -> cold
+    merge, ``DataStore.fold_upsert``):
+
+    - survivors keep their relative sorted order;
+    - the batch sorts alone (or arrives sorted as ``delta_perm``) and
+      two-run merges into the survivors with ``side='right'`` ties: new
+      rows land after equal-key survivors, where the stable whole-table
+      sort of ``concat(survivors, batch)`` puts them, so the result is
+      bit-identical to a full rebuild;
+    - device blocks before the first touched sorted row are reused;
+      with the device fold plan (``geomesa.stream.fold.device``) the
+      columns are computed on the device and only the batch uploads.
+
+    ``merged_keys`` must be ``concat(masked old keys, delta_keys)`` in
+    ordinal order; ``keep_ordinal`` is the survivor mask over old feature
+    ordinals (None = nothing deleted) and ``ordinal_map`` maps old
+    ordinals to post-delete ordinals. The table stays on ``old``'s
+    device."""
+    nd = len(delta_keys.zs)
+    if old.n == 0:
+        return IndexTable(old.keyspace, merged_keys, tile=tile, device=old.device)
+    if keep_ordinal is None:
+        keep_sorted = None
+        nm = old.n
+        sbins, szs = old.bins, old.zs
+        sperm = np.asarray(old.perm, dtype=np.int64)
+        first_del = old.n
+    else:
+        # survivor mask in sorted order: a sorted row survives when its
+        # feature ordinal does
+        keep_sorted = keep_ordinal[np.asarray(old.perm, dtype=np.int64)]
+        nm = int(keep_sorted.sum())
+        if nm == 0:
+            return IndexTable(old.keyspace, merged_keys, tile=tile, device=old.device)
+        sbins = old.bins[keep_sorted]
+        szs = old.zs[keep_sorted]
+        sperm = ordinal_map[np.asarray(old.perm, dtype=np.int64)[keep_sorted]]
+        first_del = int(np.argmax(~keep_sorted)) if not keep_sorted.all() else old.n
+
+    if nd == 0:
+        perm = sperm
+        first_change = first_del
+    else:
+        if delta_perm is not None and len(delta_perm) == nd:
+            dperm = np.asarray(delta_perm, dtype=np.int64)
+        else:
+            dperm = np.lexsort((delta_keys.zs, delta_keys.bins))
+        db = delta_keys.bins[dperm]
+        dz = delta_keys.zs[dperm]
+        # per-bin survivor segments for the insertion searchsorted
+        subins, sstarts = np.unique(sbins, return_index=True)
+        sstarts = np.append(sstarts, nm).astype(np.int64)
+        pos = np.empty(nd, np.int64)
+        for b in np.unique(db):
+            i = int(np.searchsorted(subins, b))
+            if i < len(subins) and subins[i] == b:
+                s, e = int(sstarts[i]), int(sstarts[i + 1])
+            else:
+                s = e = int(sstarts[i]) if i < len(sstarts) else nm
+            sel = db == b
+            # side='right': batch rows land after equal-key survivors
+            pos[sel] = np.searchsorted(szs[s:e], dz[sel], side="right") + s
+        main_dest = np.arange(nm, dtype=np.int64) + np.searchsorted(
+            pos, np.arange(nm, dtype=np.int64), side="right"
+        )
+        delta_dest = pos + np.arange(nd, dtype=np.int64)
+        perm = np.empty(nm + nd, dtype=np.int64)
+        perm[main_dest] = sperm
+        perm[delta_dest] = nm + dperm
+        first_change = min(first_del, int(pos.min()))
+    if len(perm) < 2**32:
+        perm = perm.astype(np.uint32)
+
+    fold_plan = None
+    if (
+        _device_fold_enabled(old.device)
+        and old.block == _block_rows(tile)
+        and set(old.col_names) == set(merged_keys.device_cols)
+        and max(old.n_pad, nm + nd) < 2**31  # i32 position math
+    ):
+        removed = (
+            np.flatnonzero(~keep_sorted) if keep_sorted is not None
+            else np.zeros(0, np.int64)
+        )
+        delta_sorted_cols = (
+            {k: v[dperm] for k, v in delta_keys.device_cols.items()} if nd else {}
+        )
+        dest = delta_dest if nd else np.zeros(0, np.int64)
+        fold_plan = (old, removed, dest, delta_sorted_cols)
+
+    table = IndexTable(
+        old.keyspace, merged_keys, tile=tile, device=old.device,
+        sorted_state=perm, reuse=(old, first_change), fold_plan=fold_plan,
+    )
+    table.rows_sorted = nd
+    return table
+
+
+def merged_table(
+    old: IndexTable, merged_keys: WriteKeys, delta_keys: WriteKeys, tile: int | None = None
+) -> IndexTable:
+    """Merge compaction: the table is sorted by (bin, z), so folding a
+    delta in needs no global sort, only a sort of the delta and a
+    positional merge (``side='left'``: delta rows land before equal-key
+    old rows), and every device block before the first insertion point
+    is reused. ``merged_keys`` must be ``concat(old keys, delta_keys)``
+    in ordinal order. The table stays on ``old``'s device."""
+    nm, nd = old.n, len(delta_keys.zs)
+    if nm == 0 or nd == 0:
+        return IndexTable(old.keyspace, merged_keys, tile=tile, device=old.device)
+    dperm = np.lexsort((delta_keys.zs, delta_keys.bins))
+    db = delta_keys.bins[dperm]
+    dz = delta_keys.zs[dperm]
+    # insertion position in the old sorted order for every delta row,
+    # resolved per bin segment (lexicographic (bin, z) searchsorted)
+    pos = np.empty(nd, np.int64)
+    for b in np.unique(db):
+        i = int(np.searchsorted(old.ubins, b))
+        if i < len(old.ubins) and old.ubins[i] == b:
+            s, e = int(old.bin_starts[i]), int(old.bin_starts[i + 1])
+        else:
+            # bin absent from the old table: insert at the segment boundary
+            s = e = int(old.bin_starts[i]) if i < len(old.bin_starts) else nm
+        sel = db == b
+        pos[sel] = np.searchsorted(old.zs[s:e], dz[sel], side="left") + s
+    # stable two-run merge by destination index
+    main_dest = np.arange(nm, dtype=np.int64) + np.searchsorted(
+        pos, np.arange(nm, dtype=np.int64), side="right"
+    )
+    delta_dest = pos + np.arange(nd, dtype=np.int64)
+    perm = np.empty(nm + nd, dtype=np.int64)
+    perm[main_dest] = np.asarray(old.perm, dtype=np.int64)
+    perm[delta_dest] = nm + np.asarray(dperm, dtype=np.int64)
+    if nm + nd < 2**32:
+        perm = perm.astype(np.uint32)
+    table = IndexTable(
+        old.keyspace, merged_keys, tile=tile, device=old.device,
+        sorted_state=perm, reuse=(old, int(pos.min())),
+    )
+    table.rows_sorted = nd
+    return table

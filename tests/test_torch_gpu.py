@@ -832,3 +832,138 @@ def test_probe_kernels_on_staging_cases(probe_cols, case, m):
         b = out["bounds"]
         assert float(b[:, 0].sum()) == 0 and float(out["grid"].sum()) == 0
         assert bool((b[:, [1, 3]] == float("inf")).all() and (b[:, [2, 4]] == -float("inf")).all())
+
+
+# -- the mutation surface and the incremental fold on the card -------------
+
+T0_MS = int(np.datetime64("2024-01-01T00:00:00", "ms").astype(np.int64))
+DAY_MS = 86_400_000
+
+
+def _mutation_rows(seed, n, id0, t_lo=0, t_hi=28):
+    rng = np.random.default_rng(seed)
+    return (np.arange(id0, id0 + n), rng.uniform(-180, 180, n), rng.uniform(-85, 85, n),
+            T0_MS + rng.integers(t_lo * DAY_MS, t_hi * DAY_MS, n))
+
+
+def _mutation_fc(sft, rows):
+    from geomesa_tpu_torch import FeatureCollection
+
+    ids, x, y, t = rows
+    return FeatureCollection.from_columns(sft, ids, {"dtg": t, "geom": (x, y)})
+
+
+def _mutation_tables(device, rows_old, rows_new, keep):
+    """Per index: (old table on ``device``, merged keys, the batch's keys)
+    over the same seeded rows."""
+    from geomesa_tpu_torch import FeatureType
+    from geomesa_tpu_torch.index import Z2Index, Z3Index
+    from geomesa_tpu_torch.storage.delta import concat_keys
+    from geomesa_tpu_torch.storage.table import IndexTable
+    from geomesa_tpu_torch.index.api import WriteKeys
+
+    sft = FeatureType.from_spec("t", "dtg:Date,*geom:Point:srid=4326")
+    out = {}
+    for idx in (Z3Index(sft), Z2Index(sft)):
+        ok = idx.write_keys(_mutation_fc(sft, rows_old))
+        dk = idx.write_keys(_mutation_fc(sft, rows_new))
+        old = IndexTable(idx, ok, tile=4096, device=device)
+        if keep is not None:
+            ok = WriteKeys(bins=ok.bins[keep], zs=ok.zs[keep],
+                           device_cols={k: v[keep] for k, v in ok.device_cols.items()})
+        out[idx.name] = (old, concat_keys([ok, dk]), dk)
+    return out
+
+
+@pytest.fixture
+def fold_knob():
+    from geomesa_tpu_torch import conf
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    yield conf.STREAM_FOLD_DEVICE
+    conf.STREAM_FOLD_DEVICE.clear()
+
+
+def test_fold_cols_device_equals_the_host_fold(fold_knob):
+    """folded_table on a CUDA table: the device fold plan (the default
+    'auto' there) gives the host path's columns bit for bit and uploads
+    only the batch's rows."""
+    from geomesa_tpu_torch.storage.table import folded_table
+
+    rows_old = _mutation_rows(1, 60_000, 0)
+    rows_new = _mutation_rows(2, 7_000, 60_000, t_lo=20)
+    keep = np.ones(60_000, bool)
+    keep[np.random.default_rng(3).choice(60_000, 5_000, replace=False)] = False
+    ordinal_map = np.cumsum(keep, dtype=np.int64) - 1
+    for name, (old, merged, dk) in _mutation_tables("cuda", rows_old, rows_new, keep).items():
+        dev = folded_table(old, merged, keep, ordinal_map, dk, tile=4096)
+        fold_knob.set("off")
+        host = folded_table(old, merged, keep, ordinal_map, dk, tile=4096)
+        fold_knob.clear()
+        assert dev.rows_uploaded == 7_000 and host.rows_uploaded == host.n_pad
+        assert np.array_equal(dev.perm, host.perm)
+        for k in host.cols3:
+            assert dev.cols3[k].is_cuda and torch.equal(dev.cols3[k], host.cols3[k]), (name, k)
+
+
+def test_merged_table_keeps_the_prefix_and_uploads_the_suffix():
+    """merged_table on a CUDA table: blocks before the first insertion
+    keep the old table's values, only the suffix uploads, and the whole
+    equals a full build."""
+    from geomesa_tpu_torch.storage.table import IndexTable, merged_table
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rows_old = _mutation_rows(4, 60_000, 0)
+    rows_new = _mutation_rows(5, 5_000, 60_000, t_lo=26)  # the last two days
+    tables = _mutation_tables("cuda", rows_old, rows_new, None)
+    old, merged, dk = tables["z3"]
+    table = merged_table(old, merged, dk, tile=4096)
+    first = (table.n_pad - table.rows_uploaded) // table.block
+    assert 0 < first < table.n_blocks
+    full = IndexTable(old.keyspace, merged, tile=4096, device="cuda")
+    for k in table.cols3:
+        assert torch.equal(table.cols3[k][:first], old.cols3[k][:first])
+        assert torch.equal(table.cols3[k], full.cols3[k])
+
+
+def test_mutated_store_queries_equal_a_cpu_store():
+    """The same write, fold (monolithic and sliced), upsert, modify,
+    delete and age-off sequence on a CUDA store and a CPU store: the same
+    rows, the same table columns and the same query ids in order."""
+    from geomesa_tpu_torch import DataStore, FeatureType
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    queries = [
+        "bbox(geom, -40, -30, 30, 40) AND dtg DURING 2024-01-03T00:00:00Z/2024-01-10T00:00:00Z",
+        "bbox(geom, 60, -45, 120, 10)",
+        "IN ('5', '17', '40', '2000', '65001')",
+    ]
+    stores = []
+    for device in ("cuda", "cpu"):
+        sft = FeatureType.from_spec("t", "dtg:Date,*geom:Point:srid=4326")
+        ds = DataStore(device=device, tile=4096)
+        ds.create_schema(sft)
+        ds.write("t", _mutation_fc(sft, _mutation_rows(6, 60_000, 0)))
+        ids, x, y, t = _mutation_rows(7, 8_000, 0, t_lo=20)
+        ids = np.concatenate([np.arange(0, 60_000, 10)[:4_000], 65_000 + np.arange(4_000)])
+        ds.fold_upsert("t", _mutation_fc(sft, (ids, x, y, t)), slice_rows=0)
+        ds.fold_upsert("t", _mutation_fc(sft, (ids + 1, x, y, t)), slice_rows=1_500)
+        ds.upsert("t", _mutation_fc(sft, _mutation_rows(8, 500, 100)))
+        ds.modify_features("t", {"dtg": T0_MS + 2 * DAY_MS}, "bbox(geom, 0, 0, 40, 40)")
+        ds.delete_features("t", "bbox(geom, -100, -40, -60, 0)")
+        ds.age_off("t", ttl_ms=25 * DAY_MS, now_ms=T0_MS + 28 * DAY_MS)
+        stores.append(ds)
+    gpu, cpu = stores
+    assert np.array_equal(gpu.features("t").ids, cpu.features("t").ids)
+    for iname in ("z3", "z2"):
+        a, b = gpu.table("t", iname), cpu.table("t", iname)
+        assert np.array_equal(a.perm, b.perm)
+        for k in a.cols3:
+            assert torch.equal(a.cols3[k].cpu(), b.cols3[k])
+    for q in queries:
+        got = np.asarray(gpu.query("t", q).ids)
+        assert len(got) and np.array_equal(got, np.asarray(cpu.query("t", q).ids)), q
+    assert gpu.warmup("t") == cpu.warmup("t") > 0
