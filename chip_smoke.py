@@ -8,8 +8,10 @@ Run from the root of a checkout, with no arguments:
 Phases, each printing one JSON line:
 
 1. device: the card (nvidia-smi name and power limit, torch's device
-   name) and the kernels' build time — every CUDA kernel builds from
-   geomesa_tpu_torch/csrc with nvcc for sm_90a;
+   name, the host's CPU count) and the build times — every CUDA kernel
+   builds from geomesa_tpu_torch/csrc with nvcc for sm_90a, and the
+   native host helpers (geomesa_tpu_torch/native) with g++, loaded
+   before any path;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the main path's shapes (SUB = 128 over as many blocks as
    the 100M-row table; K1 at M in {32, 256, 4096} and the whole table
@@ -118,16 +120,31 @@ Phases, each printing one JSON line:
    fold of the same slice and (last) a full build, bitwise on the card,
    and upload only the slice's rows; on the final store ``query_many``
    of 16, 4 count estimates, densities and bounds against the plain
-   versions, and ``warmup()``.
+   versions, and ``warmup()``;
+13. gdelt-attr-10M: 10,000,000 GDELT-shaped points with two string
+   attribute indexes (``EventCode``: 300 CAMEO-shaped codes of 2-4
+   digits; ``Actor1Name``: 2,000 upper-case names of 3-40 characters,
+   many sharing an 8-byte prefix; both Zipf-Mandelbrot skewed) beside Z3
+   and Z2, all four tables on the card; 16 code equalities, 8 name
+   ranges and 8 codes AND BBOX AND DURING against a numpy brute force
+   in the reference's order (value, then id; the z order where a z
+   index plans) and under ``limit=10``, ``query_many`` of the 32 and of
+   16 rare-code regional queries (fused), 4 count estimates >= the
+   exact counts; then two 50k-row appends with names of other widths
+   stay in the delta and the 32 queries run again.
 
-Launch counts (and the legs' counts) are zeroed just before each of the
-nine paths and read just after it; each path must have launched the
-kernels and legs it names (main: K1, K3, K4; batch: K2, K1p, K3; Z3
-polygon: K1 and K2 each with PIP, raster and both legs; packed time:
-all five; Z2 polygon: K1's raster leg, K2 with stacks; XZ2: all five
-with the extent leg; XZ3: K1 and K2 with the extent leg; tiered and
-mutate: all five); the probe phase zeroes and reads its own (each probe
-kernel, and each density variant, launched).
+Launch counts (and the legs' counts) and the native helpers' call counts
+are zeroed just before each of the ten paths and read just after it;
+each path must have launched the kernels and legs it names (main: K1,
+K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP, raster
+and both legs; packed time: all five; Z2 polygon: K1's raster leg, K2
+with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
+extent leg; tiered and mutate: all five; attribute: K1 and K2) and
+called the native helpers ``check_native`` names (the ranges where it
+plans, ``sort_bins_z`` where it ingests, the plane decode where it
+decodes, point-in-polygon on the polygon paths); the probe phase zeroes
+and reads its own (each probe kernel, and each density variant,
+launched).
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -1367,10 +1384,21 @@ def run_queries(ds, queries, type_name="gdelt"):
 
 
 def zero_launches() -> None:
+    """Zero every system kernel's launch counts and the native host
+    helpers' call counts."""
+    from geomesa_tpu_torch import native
     from geomesa_tpu_torch.kernels import KERNELS
 
     for k in KERNELS:
         k.reset_counts()
+    native.reset_counts()
+
+
+def read_native() -> dict:
+    """Calls into the native host helpers since the last zero_launches()."""
+    from geomesa_tpu_torch import native
+
+    return dict(native.calls)
 
 
 def read_launches() -> dict:
@@ -1543,6 +1571,7 @@ def batch_path(torch, ds, measured, outs, seq_wall: float) -> dict:
     hits = sum(len(o) for o in many)
     return {
         "phase": "batch_path", "cell": "gdelt-z3-100M-batch", "launches": launches,
+        "native": read_native(),
         "n_queries": len(filters), "hits_total": hits,
         "query_many_s": many_s, "query_many_queries_per_s": len(filters) / many_s,
         "query_many_features_per_s": hits / many_s,
@@ -1773,7 +1802,7 @@ def polygon_path(torch, ds, src, index: str, warm, measured, n_brute: int, n_set
         check(np.array_equal(grid, ref) and grid.sum() == len(ids), "polygon density vs brute")
     hits = sum(len(o) for o in outs)
     return {
-        "launches": launches, "leg_launches": leg_launches,
+        "launches": launches, "leg_launches": leg_launches, "native": read_native(),
         "n_points": table.n, "index": index, "n_blocks": table.n_blocks,
         "n_queries": len(measured), "hits_total": hits,
         "query_kinds": {kd: sum(1 for *_, k2 in measured if k2 == kd)
@@ -1980,6 +2009,7 @@ def xz2_path(torch, device) -> dict:
     hits = sum(len(o) for o in outs)
     rec = {
         "phase": "extent_path_xz2", "cell": "osm-xz2-50M", "launches": launches,
+        "native": read_native(),
         "leg_launches": leg_launches, "n_features": N_XZ2, "index": "xz2",
         "generate_s": gen_s, "ingest_s": ingest_s, "ingest_rows_per_s": N_XZ2 / ingest_s,
         "device_gb": table.nbytes_device / 1e9, "n_blocks": table.n_blocks,
@@ -2240,6 +2270,7 @@ def xz3_path(torch, device) -> dict:
     hits = sum(len(o) for o in outs)
     rec = {
         "phase": "extent_path_xz3", "cell": "xz3-10M-mixed", "launches": launches,
+        "native": read_native(),
         "leg_launches": leg_launches, "n_features": N_XZ3, "n_non_rectangles": N_XZ3_OTHER,
         "index": "xz3", "generate_s": gen_s, "ingest_s": ingest_s,
         "ingest_rows_per_s": N_XZ3 / ingest_s, "device_gb": table.nbytes_device / 1e9,
@@ -2267,11 +2298,12 @@ def xz3_path(torch, device) -> dict:
 
 
 def main_path(torch, device):
-    """Nine paths, each with its own launch counts (zeroed just before it
-    runs, read just after): the single-query main path, the batch path
-    and the polygon path on the same store, the packed-time cell, the Z2
-    polygon cell, the two extent cells (XZ2, XZ3), the tiered store with
-    its union queries, and the mutated store."""
+    """Ten paths, each with its own launch and native call counts (zeroed
+    just before it runs, read just after): the single-query main path,
+    the batch path and the polygon path on the same store, the
+    packed-time cell, the Z2 polygon cell, the two extent cells (XZ2,
+    XZ3), the tiered store with its union queries, the mutated store and
+    the attribute-indexed store."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -2295,6 +2327,7 @@ def main_path(torch, device):
     launches = read_launches()
     rec = {
         "phase": "main_path", "cell": "gdelt-z3-100M", "launches": launches,
+        "native": read_native(),
         "n_points": N_MAIN, "index": "z3",
         "ingest_s": ingest_s, "ingest_rows_per_s": N_MAIN / ingest_s,
         "device_gb": table.nbytes_device / 1e9,
@@ -2341,7 +2374,7 @@ def main_path(torch, device):
     n_counts = check_counts(torch, ds, counted, [exact[q] for q, _ in counted], estimates)
     packed = {
         "phase": "main_path_packed_time", "cell": "gdelt-z3-packed-10M",
-        "launches": launches, "n_points": N_PACKED,
+        "launches": launches, "native": read_native(), "n_points": N_PACKED,
         "ingest_s": ingest_s, "device_gb": table.nbytes_device / 1e9,
         "n_queries": len(queries), "hits_total": sum(len(o) for o in outs),
         "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
@@ -2355,6 +2388,7 @@ def main_path(torch, device):
 
     zero_launches()
     ds, src, ingest_s = build_store(torch, device, N_Z2, index="z2", seed=SEED + 30)
+    ingest_native = read_native()  # polygon_path zeroes the counts again
     centres = cluster_centres(SEED + 30)
     z2 = polygon_path(
         torch, ds, src, "z2", polygon_query_set(SEED + 31, 4, centres, False, False),
@@ -2362,11 +2396,13 @@ def main_path(torch, device):
         n_brute=4, n_settings=8, n_agg=2, n_full_scan=1,
     )
     z2 = {"phase": "polygon_path_z2", "cell": "gdelt-z2-20M-polygon", "ingest_s": ingest_s,
+          "native_ingest": ingest_native,
           "device_gb": ds.table("gdelt", "z2").nbytes_device / 1e9, **z2}
     del ds, src
     torch.cuda.empty_cache()
     return (rec, batch, poly, packed, z2, xz2_path(torch, device), xz3_path(torch, device),
-            tiered_union_path(torch, device), mutation_path(torch, device))
+            tiered_union_path(torch, device), mutation_path(torch, device),
+            attribute_path(torch, device))
 
 
 # -- the delta tier and union plans ----------------------------------------
@@ -2571,6 +2607,7 @@ def tiered_union_path(torch, device) -> dict:
     launches = read_launches()
     rec = {
         "phase": "tiered_union_path", "cell": "gdelt-z3-10M-tiered", "launches": launches,
+        "native": read_native(),
         "n_points": N_TIERED, "n_append": N_APPEND, "indexes": ["z3", "z2"],
         "ingest_s": ingest_s, "append_s": append_s, "compaction_s": compact_s,
         "one_write_12M_s": once_s,
@@ -2940,6 +2977,7 @@ def mutation_path(torch, device) -> dict:
     slice_ms = np.asarray(report["slice_s"]) * 1e3
     rec = {
         "phase": "mutation_path", "cell": "gdelt-z3-10M-mutate", "launches": launches,
+        "native": read_native(),
         "n_points": N_MUTATE, "indexes": ["z3", "z2"], "n_queries": len(queries),
         "reduced": {"n_points": {"cell": 10_000_000, "run": N_MUTATE},
                     "why": "the script's 1200 s limit (944 s with the path at 10M)"},
@@ -2965,7 +3003,380 @@ def mutation_path(torch, device) -> dict:
     return rec
 
 
+# -- attribute indexes -------------------------------------------------------
+
+N_ATTR = 10_000_000
+N_ATTR_APPEND = 50_000  # each of the two appends kept in the delta tier
+N_ATTR_BATCH = 16  # rare-code regional queries in one query_many
+N_ACTORS = 2_000
+# Zipf-Mandelbrot skew of both attributes: P(rank k) ~ (k + q)^-s
+ATTR_ZIPF_S, ATTR_ZIPF_Q = 1.1, 2.7
+ATTR_LIMIT = 10
+ATTR_SPEC = ("EventCode:String:index=true,Actor1Name:String:index=true,"
+             "dtg:Date,*geom:Point:srid=4326")
+# the stems of compound actor names: countries, organisations and roles
+# (GDELT's Actor1Name values are upper-case CAMEO actor names); several
+# share an 8-byte prefix ("UNITED S", "UNITED K", "PRESIDEN")
+ACTOR_STEMS = (
+    "UNITED STATES", "UNITED STATES", "UNITED STATES", "UNITED KINGDOM", "UNITED NATIONS",
+    "UNITED ARAB EMIRATES", "PRESIDENT", "PRESIDENTIAL GUARD", "GOVERNMENT", "POLICE",
+    "MILITARY", "SECURITY FORCES", "PRIME MINISTER", "EUROPEAN UNION", "CHINA", "RUSSIA",
+    "IRAN", "ISRAEL", "INDIA", "PAKISTAN", "AFGHANISTAN", "NIGERIA", "SOUTH AFRICA",
+)
+
+
+def cameo_codes(rng) -> np.ndarray:
+    """300 CAMEO-shaped event codes of 2-4 digits: the 20 root codes, their
+    200 three-digit children and 80 four-digit children of 16 of those."""
+    roots = [f"{i:02d}" for i in range(1, 21)]
+    three = [f"{r}{d}" for r in roots for d in range(10)]
+    four = [f"{c}{d}" for c in rng.choice(three, 16, replace=False) for d in range(1, 6)]
+    return np.array(roots + three + four)
+
+
+def actor_names(rng, n, lo_len=3, hi_len=40) -> np.ndarray:
+    """n distinct upper-case actor names of lo_len..hi_len characters:
+    three in five a stem and a word, the rest one word."""
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    out: dict = {}
+    while len(out) < n:
+        word = "".join(rng.choice(letters, int(rng.integers(3, 13))))
+        if rng.random() < 0.6:
+            word = f"{ACTOR_STEMS[int(rng.integers(len(ACTOR_STEMS)))]} {word}"
+        word = word[:hi_len]
+        if len(word) >= lo_len:
+            out.setdefault(word, None)
+    return np.array(list(out))
+
+
+def zipf_ranks(rng, n_values, n) -> np.ndarray:
+    """n draws of value ranks 0..n_values-1, Zipf-Mandelbrot skewed."""
+    p = (np.arange(1, n_values + 1) + ATTR_ZIPF_Q) ** -ATTR_ZIPF_S
+    cdf = np.cumsum(p / p.sum())
+    return np.minimum(np.searchsorted(cdf, rng.random(n), side="right"), n_values - 1)
+
+
+class AttrRows:
+    """The attribute cell's rows by id: points, times, and each row's event
+    code and actor name as indexes into their vocabularies."""
+
+    def __init__(self, rng):
+        self.codes = cameo_codes(rng)  # vocabulary, in rank order of the skew
+        self.actors = actor_names(rng, N_ACTORS)
+        n_all = N_ATTR + 2 * N_ATTR_APPEND
+        self.x, self.y = gdelt_points(n_all, rng)
+        perm = rng.permutation(n_all)
+        self.x, self.y = self.x[perm], self.y[perm]
+        self.t = T0_MS + rng.integers(0, SPAN_MS, n_all)
+        self.code = zipf_ranks(rng, len(self.codes), n_all)
+        # the appends' names have other word widths: one batch at most 16
+        # bytes (one secondary word), one of 41-48 bytes (five), so the
+        # delta's key parts pad when they join (_concat_sub)
+        short = self.actors[np.char.str_len(self.actors) <= 16]
+        longer = np.array([f"{a} REGIONAL OFFICE"[:48] for a in self.actors
+                           if 41 <= len(f"{a} REGIONAL OFFICE") <= 48])
+        self.names = np.concatenate([self.actors, short, longer])
+        a = N_ATTR
+        self.actor = np.concatenate([
+            zipf_ranks(rng, N_ACTORS, a),
+            len(self.actors) + rng.integers(0, len(short), N_ATTR_APPEND),
+            len(self.actors) + len(short) + rng.integers(0, len(longer), N_ATTR_APPEND),
+        ])
+        # each value's rank in sorted (byte) order: the index's value order
+        self.code_pos = np.searchsorted(np.unique(self.codes), self.codes)
+        self.name_pos = np.searchsorted(np.unique(self.names), self.names)
+
+    def fc(self, sft, lo, hi):
+        from geomesa_tpu_torch import FeatureCollection
+
+        return FeatureCollection.from_columns(sft, np.arange(lo, hi), {
+            "EventCode": self.codes[self.code[lo:hi]], "Actor1Name": self.names[self.actor[lo:hi]],
+            "dtg": self.t[lo:hi], "geom": (self.x[lo:hi], self.y[lo:hi]),
+        })
+
+
+def attr_queries(rows: AttrRows, seed) -> list:
+    """[(ecql, kind, predicate)]: 16 EventCode equalities (the 8 commonest
+    codes, 8 of ranks 200-299), 8 Actor1Name BETWEEN ranges whose bounds
+    are longer than 8 bytes and share their 8-byte prefix, and 8
+    EventCode IN (...) AND BBOX AND DURING queries."""
+    r = np.random.default_rng(seed)
+    out = []
+    for k in [*range(8), *r.choice(np.arange(200, 300), 8, replace=False)]:
+        out.append((f"EventCode = '{rows.codes[k]}'", "code", ("eq", int(k))))
+    names = np.sort(rows.actors[np.char.str_len(rows.actors) > 8])
+    prefix = np.array([n[:8] for n in names])
+    groups = [np.flatnonzero(prefix == p) for p in np.unique(prefix)]
+    groups = [g for g in groups if len(g) >= 4]
+    for g in [groups[i] for i in r.choice(len(groups), 8, replace=len(groups) < 8)]:
+        i = int(r.integers(0, len(g) - 1))
+        j = int(r.integers(i + 1, min(len(g), i + 1 + max(1, len(g) // 3))))
+        lo, hi = names[g[i]], names[g[j]]
+        out.append((f"Actor1Name BETWEEN '{lo}' AND '{hi}'", "name", ("between", lo, hi)))
+    # half: three common codes in a box of 1-40 degrees over 6 h-14 d (the
+    # z index is cheaper); half: one rare code over a 40-degree region and
+    # 14 days (the attribute index is cheaper, so its plan runs K1 with
+    # the box and window legs and clips to the value spans)
+    common = query_set(seed + 1, 4)
+    for k in range(8):
+        if k % 2:
+            q, box = common[k // 2]
+            ks = r.choice(10, 3, replace=False)
+            lst = ", ".join(f"'{rows.codes[c]}'" for c in ks)
+            out.append((f"EventCode IN ({lst}) AND {q}", "mixed", ("in", [int(c) for c in ks], box)))
+        else:
+            out.append(rare_region_query(rows, r))
+    return out
+
+
+def rare_region_query(rows: AttrRows, r):
+    """EventCode IN (one code of rank 250-299) AND a 40-degree box AND a
+    14-day window: where did a rare event happen in a region over two
+    weeks."""
+    x0, y0 = r.uniform(-170, 130), r.uniform(-60, 20)
+    lo = int(T0_MS + r.integers(0, SPAN_MS - 14 * 86_400_000))
+    hi = lo + 14 * 86_400_000
+    box = (round(x0, 4), round(y0, 4), round(x0 + 40, 4), round(y0 + 40, 4), lo, hi)
+    k = int(r.integers(250, 300))
+    q = (f"EventCode IN ('{rows.codes[k]}') AND bbox(geom, {box[0]:.4f}, {box[1]:.4f}, "
+         f"{box[2]:.4f}, {box[3]:.4f}) AND dtg DURING {np.datetime64(lo, 'ms')}Z/"
+         f"{np.datetime64(hi, 'ms')}Z")
+    return q, "mixed", ("in", [k], box)
+
+
+def attr_hits(rows: AttrRows, pred, n) -> np.ndarray:
+    """Ascending ids < n that pass the query, by an f64 / string brute force."""
+    kind = pred[0]
+    if kind == "eq":
+        m = rows.code[:n] == pred[1]
+    elif kind == "between":
+        ok = (rows.names >= pred[1]) & (rows.names <= pred[2])
+        m = ok[rows.actor[:n]]
+    else:
+        x0, y0, x1, y1, lo, hi = pred[2]
+        x, y, t = rows.x[:n], rows.y[:n], rows.t[:n]
+        m = (np.isin(rows.code[:n], pred[1]) & (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
+             & (t >= lo) & (t < hi))
+    return np.flatnonzero(m)
+
+
+def attr_order(ds, rows: AttrRows, index: str, hits, main_rows) -> np.ndarray:
+    """``hits`` in the order the reference returns them for a plan on
+    ``index``: an attribute index's main rows by value (full string
+    bytes) then id, then the delta tier's rows by id; a z index's by
+    ``expected_order``."""
+    if not index.startswith("attr_"):
+        return expected_order(ds, index, hits)
+    pos = rows.code_pos[rows.code[hits]] if index == "attr_EventCode" \
+        else rows.name_pos[rows.actor[hits]]
+    delta = hits >= main_rows
+    return hits[np.lexsort((hits, np.where(delta, 0, pos), delta))]
+
+
+@contextmanager
+def ingest_recorder(ds, type_name):
+    """Seconds per index of one write: its write keys and its table build."""
+    import geomesa_tpu_torch.datastore as dsm
+
+    spent: dict = {}
+    real_table = dsm.IndexTable
+
+    class TimedTable(real_table):
+        def __init__(self, keyspace, keys, **kw):
+            s = time.perf_counter()
+            super().__init__(keyspace, keys, **kw)
+            spent[f"{keyspace.name}.table"] = time.perf_counter() - s
+
+    def timed_keys(idx):
+        real = idx.write_keys
+
+        def run(fc):
+            s = time.perf_counter()
+            out = real(fc)
+            spent[f"{idx.name}.keys"] = time.perf_counter() - s
+            return out
+        return run
+
+    idxs = ds.indexes(type_name)
+    for idx in idxs:
+        idx.write_keys = timed_keys(idx)
+    dsm.IndexTable = TimedTable
+    try:
+        yield spent
+    finally:
+        dsm.IndexTable = real_table
+        for idx in idxs:
+            del idx.write_keys
+
+
+def check_attr_queries(ds, rows, queries, n, main_rows, stage) -> dict:
+    """Each query's ids against the brute force in the reference's order,
+    and its limit page against their prefix; returns {ecql: index}."""
+    plans = {}
+    for q, kind, pred in queries:
+        plan = ds.planner.plan("gdelt", q)
+        plans[q] = plan.index
+        if kind != "mixed":
+            check(plan.index == ("attr_EventCode" if kind == "code" else "attr_Actor1Name"),
+                  f"{stage}: a pure attribute query plans its attribute index: {q}")
+        got = np.asarray(ds.planner.execute(plan).ids, np.int64)
+        want = attr_order(ds, rows, plan.index, attr_hits(rows, pred, n), main_rows)
+        check(np.array_equal(got, want), f"{stage}: ids in the reference's order: {q}")
+        page = np.asarray(ds.query("gdelt", q, limit=ATTR_LIMIT).ids, np.int64)
+        check(np.array_equal(page, want[:ATTR_LIMIT]), f"{stage}: limit page: {q}")
+    return plans
+
+
+def attribute_path(torch, device) -> dict:
+    """gdelt-attr-10M: 10M GDELT-shaped points with two attribute indexes
+    (EventCode, Actor1Name) beside Z3 and Z2, all four tables on the card.
+    32 queries (16 EventCode equalities, 8 Actor1Name ranges, 8 EventCode
+    IN + BBOX + DURING) against a numpy brute force in the reference's
+    order and under limit 10, ``query_many`` against the sequential ids,
+    4 count estimates >= the exact counts; then two 50k-row appends of
+    other name widths kept in the delta, and the 32 queries again. Launch
+    and native call counts are zeroed before and read after."""
+    from geomesa_tpu_torch import DataStore, FeatureType
+    from geomesa_tpu_torch.storage.delta import TieredTable
+    from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
+
+    zero_launches()
+    t_gen = time.perf_counter()
+    rows = AttrRows(np.random.default_rng(SEED + 60))
+    gen_s = time.perf_counter() - t_gen
+    sft = FeatureType.from_spec("gdelt", ATTR_SPEC)
+    ds = DataStore(device=device)
+    ds.create_schema(sft)
+    check([i.name for i in ds.indexes("gdelt")] == ["z3", "z2", "attr_EventCode",
+                                                    "attr_Actor1Name"], "four indexes")
+    fc = rows.fc(sft, 0, N_ATTR)
+    with ingest_recorder(ds, "gdelt") as per_index:
+        t_in = time.perf_counter()
+        ds.write("gdelt", fc, check_ids=False)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t_in
+    del fc
+    tables = {i.name: ds.table("gdelt", i.name) for i in ds.indexes("gdelt")}
+    check(tables["attr_Actor1Name"].subkeys is not None
+          and tables["attr_EventCode"].subkeys is None,
+          "names past 8 bytes carry secondary sort words; codes do not")
+    queries = attr_queries(rows, SEED + 61)
+    filters = [q for q, _, _ in queries]
+
+    run_queries(ds, [(q,) for q in filters[:8]])  # warm-up
+    lat, outs, wall = run_queries(ds, [(q,) for q in filters])
+    ds.clock = clock = PhaseClock()
+    _, _, traced_wall = run_queries(ds, [(q,) for q in filters])
+    phases = {k: v / len(filters) * 1e3 for k, v in clock.settle().items()}
+    ds.clock = NULL_CLOCK
+    device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
+    hits = sum(len(o) for o in outs)
+
+    t_chk = time.perf_counter()
+    plans = check_attr_queries(ds, rows, queries, N_ATTR, N_ATTR, "main")
+    s = time.perf_counter()
+    many = ds.query_many("gdelt", filters)
+    many_s = time.perf_counter() - s
+    check_same_ids(many, outs, "attribute query_many vs sequential query")
+    # a dashboard's batch of 16 rare-code regional queries: more than 8
+    # attribute plans with box and window legs fuse into K2's chunks
+    r = np.random.default_rng(SEED + 62)
+    batch = [rare_region_query(rows, r) for _ in range(N_ATTR_BATCH)]
+    with chunk_recorder() as fused:
+        many_batch = ds.query_many("gdelt", [q for q, _, _ in batch])
+    check_same_ids(many_batch, [ds.query("gdelt", q) for q, _, _ in batch],
+                   "rare-code batch query_many vs sequential query")
+    batch_plans = check_attr_queries(ds, rows, batch, N_ATTR, N_ATTR, "batch")
+    counted = [queries[i] for i in (0, 12, 16, 24)]
+    estimates = [ds.stats_query("gdelt", "Count()", q, estimate=True)[0].count
+                 for q, _, _ in counted]
+    for (q, _, pred), est in zip(counted, estimates):
+        check(est >= len(attr_hits(rows, pred, N_ATTR)), f"count estimate >= exact: {q}")
+    check_s = time.perf_counter() - t_chk
+
+    append_s = []
+    for lo in (N_ATTR, N_ATTR + N_ATTR_APPEND):
+        t_in = time.perf_counter()
+        ds.write("gdelt", rows.fc(sft, lo, lo + N_ATTR_APPEND), check_ids=False)
+        torch.cuda.synchronize()
+        append_s.append(time.perf_counter() - t_in)
+    n_all = N_ATTR + 2 * N_ATTR_APPEND
+    names = ds.table("gdelt", "attr_Actor1Name")
+    check(isinstance(names, TieredTable) and ds.row_count("gdelt") == n_all,
+          "both appends stay in the delta tier")
+    sub = names.delta.sub
+    check(sub is not None and sub.shape == (2 * N_ATTR_APPEND, 5)
+          and not sub[:N_ATTR_APPEND, 1:].any(),
+          "the delta's secondary words join at the widest batch's width, zero-padded")
+    lat_tiered, outs_tiered, _ = run_queries(ds, [(q,) for q in filters])
+    check_attr_queries(ds, rows, queries, n_all, N_ATTR, "tiered")
+    many = ds.query_many("gdelt", filters)
+    check_same_ids(many, outs_tiered, "tiered attribute query_many vs sequential query")
+    delta_hits = sum(int((np.asarray(o.ids) >= N_ATTR).sum()) for o in outs_tiered)
+    check(delta_hits > 0, "the queries see delta rows")
+
+    launches = read_launches()
+    rec = {
+        "phase": "attribute_path", "cell": "gdelt-attr-10M", "launches": launches,
+        "native": read_native(),
+        "source": "GDELT 1.0 event codebook (EventCode: CAMEO, 2-4 digits; Actor1Name) on "
+                  "BASELINE.md config 1's points (bench.py:155-226)",
+        "reduced": {"rows": "GDELT 1.0 holds hundreds of millions of events; cut to "
+                            "10,000,000 for the script's 1200 s limit"},
+        "n_points": N_ATTR, "n_append": 2 * N_ATTR_APPEND,
+        "indexes": list(tables), "n_event_codes": len(rows.codes), "n_actors": N_ACTORS,
+        "top_code_share": float(np.mean(rows.code[:N_ATTR] == 0)),
+        "actors_past_8_bytes": float(np.mean(np.char.str_len(rows.actors) > 8)),
+        "data_gen_s": gen_s, "ingest_s": ingest_s, "ingest_s_by_index": per_index,
+        "append_s": append_s,
+        "n_queries": len(filters), "hits_total": hits, "delta_hits_total": delta_hits,
+        "strategies": {q: plans[q] for q, kind, _ in queries if kind == "mixed"},
+        "batch_strategies": sorted(batch_plans.values()), "batch_fused_chunks": fused,
+        "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
+        "latency_p84_ms": float(np.percentile(lat, 84) * 1e3),
+        "latency_p99_ms": float(np.percentile(lat, 99) * 1e3),
+        "latency_p50_ms_tiered": float(np.percentile(lat_tiered, 50) * 1e3),
+        "features_per_s": hits / wall,
+        "query_many_queries_per_s": len(filters) / many_s,
+        "phase_ms_per_query": phases,
+        "traced_ms_per_query": traced_wall / len(filters) * 1e3,
+        "device_busy_share": device_ms / (traced_wall / len(filters) * 1e3),
+        "count_estimates": estimates, "check_s": check_s,
+        "device_gb": sum(t.nbytes_device for t in tables.values()) / 1e9,
+    }
+    del ds, rows, outs, outs_tiered, many, tables, names
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- entry point -------------------------------------------------------------
+
+
+def check_native(records) -> None:
+    """Each path must have called the native host helpers it runs: the
+    ranges wherever it plans, the radix sort wherever it ingests, the
+    plane decode wherever it decodes (the wide plane alone on the extent
+    cells), point-in-polygon on the polygon paths."""
+    natives = {r["cell"]: r["native"] for r in records}
+    natives["gdelt-z2-20M-polygon-ingest"] = next(
+        r["native_ingest"] for r in records if r["cell"] == "gdelt-z2-20M-polygon")
+    point = ("zranges", "sort_bins_z", "bitmask_decode_pair")
+    expected_native = {
+        "gdelt-z3-100M": point,
+        "gdelt-z3-100M-batch": ("zranges", "bitmask_decode_pair"),
+        "gdelt-z3-100M-polygon": ("zranges", "bitmask_decode_pair", "points_in_polygon"),
+        "gdelt-z3-packed-10M": point,
+        "gdelt-z2-20M-polygon": ("zranges", "bitmask_decode_pair", "points_in_polygon"),
+        "gdelt-z2-20M-polygon-ingest": ("sort_bins_z",),
+        "osm-xz2-50M": ("xz_index", "xz_ranges", "sort_bins_z", "bitmask_decode"),
+        "xz3-10M-mixed": ("xz_index", "xz_ranges", "sort_bins_z", "bitmask_decode"),
+        "gdelt-z3-10M-tiered": point,
+        "gdelt-z3-10M-mutate": point,
+        "gdelt-attr-10M": point,
+    }
+    for cell, names in expected_native.items():
+        for name in names:
+            check(natives[cell][name] > 0, f"native helper {name} called on the {cell} path")
 
 
 def nvidia_smi() -> str:
@@ -2982,6 +3393,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    from geomesa_tpu_torch import native
     from geomesa_tpu_torch.kernels import KERNELS, PROBE_KERNELS, build_all
 
     t_start = time.perf_counter()
@@ -2989,8 +3401,13 @@ def main() -> int:
     torch.cuda.set_device(device)
     smi = nvidia_smi()
     build_s = build_all((*KERNELS, *PROBE_KERNELS))  # every source at once
+    # the native host helpers: built with g++ and loaded before any path
+    t_native = time.perf_counter()
+    native.library()
+    check(native.loaded(), "the native host helpers are built and loaded")
     emit({"phase": "device", "nvidia_smi": smi, "torch_device": torch.cuda.get_device_name(0),
-          "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s})
+          "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s,
+          "native_build_s": time.perf_counter() - t_native, "host_cpus": os.cpu_count()})
 
     timings = kernel_phase(torch, device)
     emit({"phase": "kernels_vs_plain", **{k: v for k, v in timings.items()}})
@@ -3013,10 +3430,12 @@ def main() -> int:
         "xz3-10M-mixed": ("block_scan", "block_scan_multi"),
         "gdelt-z3-10M-tiered": tuple(k.name for k in KERNELS),
         "gdelt-z3-10M-mutate": tuple(k.name for k in KERNELS),
+        "gdelt-attr-10M": ("block_scan", "block_scan_multi"),
     }
     for cell, names in expected.items():
         for name in names:
             check(paths[cell][name] > 0, f"kernel {name} launched on the {cell} path")
+    check_native(records)
     # ... and the polygon legs they are meant to run
     leg_paths = {r["cell"]: r["leg_launches"] for r in records if "leg_launches" in r}
     expected_legs = {

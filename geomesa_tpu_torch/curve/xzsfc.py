@@ -19,10 +19,11 @@ construction rather than translated:
 Sequence codes fit in int64 for the default precision g=12
 (2-D: (4^13-1)/3 ~ 2.2e7; 3-D: (8^13-1)/7 ~ 7.8e10).
 
-The port's copy of geomesa_tpu/curve/xzsfc.py, numpy paths only (the JAX
-package takes its C++ ``xz_index`` / ``xz_ranges`` when they load; the
-port's copy of those helpers is later work). ``index`` runs over rows in
-chunks of ``INDEX_CHUNK``, so a large ingest never holds more than a few
+The port's copy of geomesa_tpu/curve/xzsfc.py. ``index`` and ``ranges``
+run in the native helpers (``native.xz_index`` / ``native.xz_ranges``);
+the numpy paths below are their plain versions, taken under
+``native.disabled()``. The numpy ``index`` runs over rows in chunks of
+``INDEX_CHUNK``, so a large ingest never holds more than a few
 chunk-sized temporaries per tree level; the codes are those of one pass.
 """
 
@@ -33,6 +34,7 @@ from typing import Sequence
 
 import numpy as np
 
+from geomesa_tpu_torch import native
 from geomesa_tpu_torch.curve.zranges import IndexRange, merge_ranges
 
 # rows per chunk of XZSFC.index
@@ -117,10 +119,14 @@ class XZSFC:
     def index(self, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
         """Element boxes [n, dims] -> XZ codes [n]. Reference XZ2SFC.index:54.
 
-        Chunks of INDEX_CHUNK rows, each through length_at and
+        The native helper's scalar pass; under ``native.disabled()``,
+        chunks of INDEX_CHUNK rows, each through length_at and
         sequence_code (~2*g full passes of numpy per chunk)."""
         lo = np.atleast_2d(np.asarray(lo, dtype=np.float64))
         hi = np.atleast_2d(np.asarray(hi, dtype=np.float64))
+        out = native.xz_index(lo, hi, self.dims, self.g, self.subtree_size)
+        if out is not None:
+            return out
         out = np.empty(len(lo), dtype=np.int64)
         for a in range(0, len(lo), INDEX_CHUNK):
             c_lo, c_hi = lo[a : a + INDEX_CHUNK], hi[a : a + INDEX_CHUNK]
@@ -136,9 +142,10 @@ class XZSFC:
     ) -> list[IndexRange]:
         """Covering code ranges for the union of normalized query boxes.
 
-        Reference: XZ2SFC.ranges:146-252. The BFS runs one tree level
-        at a time over arrays of cells (the JAX package's numpy path walks
-        the cells one by one); the ranges are the same.
+        Reference: XZ2SFC.ranges:146-252. The native helper's BFS; under
+        ``native.disabled()`` the numpy BFS, one tree level at a time over
+        arrays of cells (the JAX package's numpy path walks the cells one
+        by one; the ranges are the same).
         """
         if not queries:
             return []
@@ -148,6 +155,16 @@ class XZSFC:
             max_ranges = SCAN_RANGES_TARGET.get()
         if max_ranges < 1:
             raise ValueError(f"max_ranges must be >= 1: {max_ranges}")
+        nat = native.xz_ranges(
+            self.dims, self.g, self.subtree_size,
+            np.array([q.lo for q in queries]), np.array([q.hi for q in queries]), max_ranges,
+        )
+        if nat is not None:
+            lo, hi, cont = nat
+            return [
+                IndexRange(int(a), int(b), bool(c))
+                for a, b, c in zip(lo.tolist(), hi.tolist(), cont.tolist())
+            ]
         qlo = np.array([q.lo for q in queries], dtype=np.float64)[None]  # [1, nq, dims]
         qhi = np.array([q.hi for q in queries], dtype=np.float64)[None]
 

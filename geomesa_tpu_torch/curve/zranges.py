@@ -1,14 +1,16 @@
 """Decomposition of query boxes into covering Z-curve ranges.
 
-The port's copy of the numpy path of geomesa_tpu/curve/zranges.py
+The port's copy of geomesa_tpu/curve/zranges.py
 (reference geomesa-z3 ZN.scala:110-242): breadth-first quad/oct-tree
 traversal from the longest common prefix of the query corners, emitting
 *contained* ranges (cells fully inside the query; rows need no filter)
 and *overlapping* ranges (rows need the device scan mask). The
 traversal is budgeted by `max_ranges` (``geomesa.scan.ranges.target``)
 and `max_recurse`; a hit budget emits coarse overlapping ranges, always
-a superset of the query. The JAX package's C++ helper for this BFS is
-not carried over: this is its numpy fallback.
+a superset of the query. The BFS runs in the native helper
+(``native.zranges``); the numpy BFS below is its plain version, taken
+only under ``native.disabled()``. The two may emit different (equally
+covering) range lists.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Sequence
 
 import numpy as np
 
+from geomesa_tpu_torch import native
 from geomesa_tpu_torch.curve.zorder import longest_common_prefix, zdiv
 
 DEFAULT_MAX_RECURSE = 7
@@ -86,6 +89,14 @@ def zranges(
         # inverted inner dims (mins > maxes) never contain anything
         imins = np.array([b.mins for b in inner_boxes], dtype=np.uint64)
         imaxes = np.array([b.maxes for b in inner_boxes], dtype=np.uint64)
+
+    nat = native.zranges(dims, bits_per_dim, mins, maxes, imins, imaxes, max_ranges, max_recurse)
+    if nat is not None:
+        lo, hi, cont = nat
+        return [
+            IndexRange(int(l), int(h), bool(c))
+            for l, h, c in zip(lo.tolist(), hi.tolist(), cont.tolist())
+        ]
 
     zmins = [int(curve.index(*b.mins)) for b in boxes]
     zmaxes = [int(curve.index(*b.maxes)) for b in boxes]

@@ -37,7 +37,7 @@ from geomesa_tpu_torch.features import FeatureCollection, _date_to_millis
 from geomesa_tpu_torch.filter.predicates import (
     INCLUDE, Cmp, Filter, IdFilter, Include, PointColumn,
 )
-from geomesa_tpu_torch.index import XZ2Index, XZ3Index, Z2Index, Z3Index
+from geomesa_tpu_torch.index import AttributeIndex, XZ2Index, XZ3Index, Z2Index, Z3Index
 from geomesa_tpu_torch.index.api import WriteKeys
 from geomesa_tpu_torch.planning.explain import Explainer
 from geomesa_tpu_torch.planning.planner import QueryPlanner, mask_decides_filter
@@ -98,7 +98,15 @@ def _slice_keys(keys: WriteKeys, start: int, stop: "int | None" = None) -> Write
         bins=keys.bins[sl],
         zs=keys.zs[sl],
         device_cols={k: v[sl] for k, v in keys.device_cols.items()},
+        sub=keys.sub[sl] if keys.sub is not None else None,
     )
+
+
+def _pad_words(a: np.ndarray, b: np.ndarray) -> tuple:
+    """Two secondary sort-word arrays zero-padded to one word count (0 is
+    the right pad: a shorter string sorts before any extension)."""
+    w = max(a.shape[1], b.shape[1])
+    return tuple(np.pad(x, ((0, 0), (0, w - x.shape[1]))) for x in (a, b))
 
 
 def resolve_device(device) -> torch.device:
@@ -192,11 +200,14 @@ class DataStore:
             if sft.dtg_field is not None:
                 indexes.append(XZ3Index(sft))
             indexes.append(XZ2Index(sft))
-        # reference `geomesa.indices.enabled` user-data hint
+        for attr in sft.indexed_attributes():
+            indexes.append(AttributeIndex(sft, attr))
+        # reference `geomesa.indices.enabled` user-data hint; "attr"
+        # enables every attribute index (the reference names them all "attr")
         enabled = sft.user_data.get("geomesa.indices.enabled")
         if enabled:
             names = {s.strip() for s in str(enabled).split(",")}
-            indexes = [i for i in indexes if i.name in names]
+            indexes = [i for i in indexes if i.name in names or i.name.split("_")[0] in names]
             if not indexes:
                 raise ValueError(f"no supported index in {enabled!r}")
         return indexes
@@ -380,13 +391,17 @@ class DataStore:
 
     def _fold_sliceable(self, type_name: str, keys: Mapping) -> bool:
         """Whether every index of ``type_name`` takes the incremental fold
-        (a built table and the batch's keys): a fold whose indexes
-        rebuild outright would pay a full build per slice, so it stays
-        monolithic."""
+        (a built table and the batch's keys, no secondary sort words): a
+        fold whose indexes rebuild outright would pay a full build per
+        slice, so it stays monolithic."""
         for idx in self._indexes[type_name]:
-            if keys.get(idx.name) is None:
+            k = keys.get(idx.name)
+            if k is None or k.sub is not None:
                 return False
             if not isinstance(self._tables.get((type_name, idx.name)), IndexTable):
+                return False
+            parts = self._key_chunks.get((type_name, idx.name)) or []
+            if any(p.sub is not None for p in parts):
                 return False
         return True
 
@@ -480,6 +495,10 @@ class DataStore:
                         k: mask_concat(v, dk.device_cols[k])
                         for k, v in old_keys.device_cols.items()
                     },
+                    sub=(
+                        mask_concat(*_pad_words(old_keys.sub, dk.sub))
+                        if old_keys.sub is not None else None
+                    ),
                 )
             else:
                 merged = dk
@@ -642,6 +661,7 @@ class DataStore:
                     bins=keys.bins[keep],
                     zs=keys.zs[keep],
                     device_cols={k: v[keep] for k, v in keys.device_cols.items()},
+                    sub=keys.sub[keep] if keys.sub is not None else None,
                 )]
         self._main_rows[type_name] = 0  # forces a full table rebuild
         self.compact(type_name)

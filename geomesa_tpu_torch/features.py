@@ -15,6 +15,7 @@ from typing import Mapping, Sequence
 import numpy as np
 
 from geomesa_tpu_torch import geometry as geo
+from geomesa_tpu_torch import native
 from geomesa_tpu_torch.filter.predicates import PointColumn
 from geomesa_tpu_torch.sft import COLUMN_DTYPES, FeatureType
 
@@ -85,15 +86,30 @@ class FeatureCollection:
 
     def take(self, idx) -> "FeatureCollection":
         idx = np.asarray(idx)
+        # the threaded native gather (native.take) for u32-indexable
+        # numeric columns; other columns, and negative or out-of-range
+        # indices (numpy raises; the C++ gather is unchecked), take numpy
+        idx_u32 = None
+        if idx.dtype.kind in "iu" and len(idx) and len(self.ids) < (1 << 32):
+            if int(idx.min()) >= 0 and int(idx.max()) < len(self.ids):
+                idx_u32 = idx.astype(np.uint32, copy=False)
+
+        def g(col):
+            if idx_u32 is not None:
+                out = native.take(np.asarray(col), idx_u32)
+                if out is not None:
+                    return out
+            return np.asarray(col)[idx]
+
         cols = {}
         for name, col in self.columns.items():
             if isinstance(col, PointColumn):
-                cols[name] = PointColumn(col.x[idx], col.y[idx])
+                cols[name] = PointColumn(g(col.x), g(col.y))
             elif isinstance(col, geo.PackedGeometryColumn):
                 cols[name] = col.take(idx)
             else:
-                cols[name] = np.asarray(col)[idx]
-        return FeatureCollection(self.sft, self.ids[idx], cols)
+                cols[name] = g(col)
+        return FeatureCollection(self.sft, g(self.ids), cols)
 
     def mask(self, m: np.ndarray) -> "FeatureCollection":
         return self.take(np.nonzero(np.asarray(m))[0])

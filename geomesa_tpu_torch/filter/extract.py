@@ -26,6 +26,7 @@ from geomesa_tpu_torch.filter.predicates import (
     Exclude,
     Filter,
     IdFilter,
+    In,
     Include,
     Intersects,
     Not,
@@ -342,3 +343,85 @@ def extract_ids(f: Filter) -> FilterValues:
             ids |= set(p.values)
         return FilterValues(values=sorted(ids))
     return FilterValues.nothing()
+
+
+# ---------------------------------------------------------------------------
+# attribute bounds extraction (for the attribute index)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Bounds:
+    """Closed-open attribute value bounds; None = unbounded."""
+
+    lo: object
+    hi: object
+    lo_inclusive: bool = True
+    hi_inclusive: bool = True
+
+
+def extract_attribute_bounds(f: Filter, prop: str) -> FilterValues:
+    """Value bounds on an attribute (reference: extractAttributeBounds)."""
+    if isinstance(f, Cmp) and f.prop == prop:
+        v = f.value
+        if f.op == "=":
+            return FilterValues(values=[Bounds(v, v)])
+        if f.op == "<":
+            return FilterValues(values=[Bounds(None, v, hi_inclusive=False)])
+        if f.op == "<=":
+            return FilterValues(values=[Bounds(None, v)])
+        if f.op == ">":
+            return FilterValues(values=[Bounds(v, None, lo_inclusive=False)])
+        if f.op == ">=":
+            return FilterValues(values=[Bounds(v, None)])
+        return FilterValues.nothing()  # <> is not indexable
+    if isinstance(f, Between) and f.prop == prop:
+        return FilterValues(values=[Bounds(f.lo, f.hi)])
+    if isinstance(f, In) and f.prop == prop:
+        return FilterValues(values=[Bounds(v, v) for v in f.values])
+    if isinstance(f, And):
+        all_parts = [extract_attribute_bounds(c, prop) for c in f.filters]
+        if any(p.disjoint for p in all_parts):
+            return FilterValues.disjoint_()
+        imprecise = _imprecise_children(all_parts, f.filters, prop)
+        parts = [p for p in all_parts if p.values]
+        if not parts:
+            return FilterValues.nothing()
+        out = parts[0]
+        for p in parts[1:]:
+            merged = []
+            for a in out.values:
+                for b in p.values:
+                    m = _intersect_bounds(a, b)
+                    if m:
+                        merged.append(m)
+            if not merged:
+                return FilterValues.disjoint_()
+            out = FilterValues(values=merged, precise=out.precise and p.precise)
+        if imprecise:
+            out = FilterValues(values=out.values, precise=False)
+        return out
+    if isinstance(f, Or):
+        parts = [extract_attribute_bounds(c, prop) for c in f.filters]
+        if any(p.empty for p in parts):
+            return FilterValues.nothing()
+        vals: list = []
+        precise = True
+        for p in parts:
+            vals.extend(p.values)
+            precise &= p.precise
+        return FilterValues(values=vals, precise=precise)
+    return FilterValues.nothing()
+
+
+def _intersect_bounds(a: Bounds, b: Bounds) -> Bounds | None:
+    lo, lo_inc = a.lo, a.lo_inclusive
+    if b.lo is not None and (lo is None or b.lo > lo or (b.lo == lo and not b.lo_inclusive)):
+        lo, lo_inc = b.lo, b.lo_inclusive
+    hi, hi_inc = a.hi, a.hi_inclusive
+    if b.hi is not None and (hi is None or b.hi < hi or (b.hi == hi and not b.hi_inclusive)):
+        hi, hi_inc = b.hi, b.hi_inclusive
+    if lo is not None and hi is not None:
+        if lo > hi or (lo == hi and not (lo_inc and hi_inc)):
+            return None
+    return Bounds(lo, hi, lo_inc, hi_inc)

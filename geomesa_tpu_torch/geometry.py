@@ -17,6 +17,8 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from geomesa_tpu_torch import native
+
 # geometry type codes
 POINT = 1
 LINESTRING = 2
@@ -365,6 +367,17 @@ def is_rectangle(g: "Geometry") -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _gather_rows(src: np.ndarray, flat: np.ndarray) -> np.ndarray:
+    """out[i] = src[flat[i]] through the threaded native row gather
+    (``native.take_rows``) when the pull is big enough to matter and the
+    indices fit u32; numpy indexing otherwise."""
+    if len(flat) > (1 << 16) and int(flat.min()) >= 0 and int(flat.max()) < (1 << 32):
+        out = native.take_rows(src, flat)
+        if out is not None:
+            return out
+    return src[flat]
+
+
 @dataclass
 class PackedGeometryColumn:
     """Arrow-style nested-list layout for a column of geometries.
@@ -607,27 +620,28 @@ class PackedGeometryColumn:
             self.ring_offsets[r_flat + 1].astype(np.int64),
         )
 
+        rows = _gather_rows
         col = PackedGeometryColumn(
-            coords=self.coords[c_flat],
+            coords=rows(self.coords, c_flat),
             ring_offsets=ro,
             part_ring_offsets=pro,
             geom_part_offsets=gpo,
             types=self.types[idx],
-            bboxes=self.bboxes[idx],
+            bboxes=rows(self.bboxes, idx),
         )
         cached = getattr(self, "_box_info", None)
         if cached is not None:  # rectangle classification survives a subset
-            col._box_info = (cached[0][idx], cached[1][idx])
+            col._box_info = (cached[0][idx], rows(cached[1], idx))
         return col
 
     def _take_uniform_rect(self, idx: np.ndarray) -> "PackedGeometryColumn":
         """take() fast path for from_boxes columns: every geometry is one
         5-vertex ring, so the subset is a single [n, 10] row gather plus
         arange offsets — ~5x fewer latency-bound lookups than the generic
-        nested expansion. (The JAX package routes these gathers through its
-        threaded C++ take; the port indexes with numpy.)"""
+        nested expansion."""
+        rows = _gather_rows
         n = len(idx)
-        coords10 = np.ascontiguousarray(self.coords).reshape(len(self), 10)[idx]
+        coords10 = rows(np.ascontiguousarray(self.coords).reshape(len(self), 10), idx)
         off = np.arange(n + 1, dtype=np.int32)
         col = PackedGeometryColumn(
             coords=coords10.reshape(-1, 2),
@@ -635,11 +649,11 @@ class PackedGeometryColumn:
             part_ring_offsets=off,
             geom_part_offsets=off,
             types=self.types[idx],
-            bboxes=self.bboxes[idx],
+            bboxes=rows(self.bboxes, idx),
         )
         cached = getattr(self, "_box_info", None)
         if cached is not None:
-            col._box_info = (cached[0][idx], cached[1][idx])
+            col._box_info = (cached[0][idx], rows(cached[1], idx))
         col._uniform_rect = True
         return col
 
@@ -731,12 +745,23 @@ _PIP_CHUNK = 65536
 def points_in_polygon(px, py, poly: "Polygon | MultiPolygon") -> np.ndarray:
     """Point-in-polygon with holes via even-odd parity over all rings.
 
-    Large 1-D batches go through in chunks of _PIP_CHUNK points, so the
-    [n_points, n_edges] crossing matrix stays bounded (the JAX package's
-    C++ ray cast, with the identical crossing construction, is not carried
-    over)."""
+    1-D batches of more than 4096 points go through the native threaded
+    ray cast (``native.points_in_polygon``, the identical crossing
+    construction); under ``native.disabled()`` large batches go through
+    numpy in chunks of _PIP_CHUNK points, so the [n_points, n_edges]
+    crossing matrix stays bounded."""
     px = np.asarray(px, dtype=np.float64)
     py = np.asarray(py, dtype=np.float64)
+    if px.ndim == 1 and px.shape == py.shape and len(px) > 4096:
+        parts = poly.parts if isinstance(poly, MultiPolygon) else [poly]
+        rings, ring_part = [], []
+        for pi, p in enumerate(parts):
+            for r in [p.shell, *p.holes]:
+                rings.append(np.asarray(r, dtype=np.float64))
+                ring_part.append(pi)
+        out = native.points_in_polygon(px, py, rings, ring_part)
+        if out is not None:
+            return out
     if px.ndim == 1 and px.shape == py.shape and len(px) > _PIP_CHUNK:
         return np.concatenate([
             points_in_polygon(px[s : s + _PIP_CHUNK], py[s : s + _PIP_CHUNK], poly)

@@ -1,13 +1,14 @@
 """Index layer: key spaces mapping features to sort keys and filters to
 scan configurations (the port's Z3 and Z2 point indexes and its XZ3 and
-XZ2 extent indexes)."""
+XZ2 extent indexes, and the attribute index)."""
 
 from geomesa_tpu_torch.index.api import IndexKeySpace, ScanConfig, WriteKeys
+from geomesa_tpu_torch.index.attribute import AttributeIndex
 from geomesa_tpu_torch.index.xz2 import XZ2Index
 from geomesa_tpu_torch.index.xz3 import XZ3Index
 from geomesa_tpu_torch.index.z2 import Z2Index
 from geomesa_tpu_torch.index.z3 import Z3Index
 
 __all__ = [
-    "IndexKeySpace", "ScanConfig", "WriteKeys", "XZ2Index", "XZ3Index", "Z2Index", "Z3Index",
+    "AttributeIndex", "IndexKeySpace", "ScanConfig", "WriteKeys", "XZ2Index", "XZ3Index", "Z2Index", "Z3Index",
 ]

@@ -25,12 +25,16 @@ class WriteKeys:
     - ``bins``: int32 [n] — coarse sort key (time bin; 0 for atemporal)
     - ``zs``:   uint64 [n] — fine sort key (z sequence code)
     - ``device_cols``: name -> numpy array [n], the columns the scan kernel
-      tests (f32 coords / i32 time parts)
+      tests (f32 coords / i32 time parts / f32 bboxes)
+    - ``sub``: optional uint64 [n, W] — secondary sort words breaking
+      ``zs`` ties (attribute indexes over strings: lexicode bytes past the
+      8-byte prefix, so equality and range predicates prune exactly)
     """
 
     bins: np.ndarray
     zs: np.ndarray
     device_cols: dict
+    sub: "np.ndarray | None" = None
 
 
 @dataclass
@@ -71,6 +75,13 @@ class ScanConfig:
     # hits -> host refinement touches only wide & ~inner boundary rows
     boxes_inner: Optional[np.ndarray] = None
     windows_inner: Optional[np.ndarray] = None
+    # row spans are exact (attribute-index value ranges): kernel hits
+    # (block granular) clip back to the spans before refinement
+    clip_rows: bool = False
+    # secondary sort-word bounds (string attribute indexes: lexicode bytes
+    # past the 8-byte prefix) narrow the boundary tie-runs of each range
+    range_lo2: Optional[np.ndarray] = None
+    range_hi2: Optional[np.ndarray] = None
     # point-in-polygon leg: the query polygon's packed [E, 128] edge block
     # (block_kernels.pack_edges); the scan's spatial test is the even-odd
     # parity instead of the box slots, and only the f32-uncertainty band

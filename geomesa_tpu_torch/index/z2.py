@@ -13,6 +13,7 @@ from typing import Optional
 
 import numpy as np
 
+from geomesa_tpu_torch import native
 from geomesa_tpu_torch.curve.z2sfc import Z2SFC
 from geomesa_tpu_torch.features import FeatureCollection
 from geomesa_tpu_torch.filter.extract import extract_geometries, geometry_bounds
@@ -40,6 +41,10 @@ class Z2Index:
         col = fc.columns[self.geom]
         if not isinstance(col, PointColumn):
             raise TypeError("z2 index requires a point geometry column")
+        fused = native.z2_write_keys(col.x, col.y)
+        if fused is not None:
+            z, device_cols = fused
+            return WriteKeys(bins=np.zeros(len(col), dtype=np.int32), zs=z, device_cols=device_cols)
         z = self.sfc.index(col.x, col.y)
         return WriteKeys(
             bins=np.zeros(len(col), dtype=np.int32),

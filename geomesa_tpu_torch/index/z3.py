@@ -14,7 +14,8 @@ from typing import Optional
 
 import numpy as np
 
-from geomesa_tpu_torch.curve.binnedtime import BinnedTime, TimePeriod
+from geomesa_tpu_torch import native
+from geomesa_tpu_torch.curve.binnedtime import MAX_BIN, MAX_OFFSET, BinnedTime, TimePeriod
 from geomesa_tpu_torch.curve.z3sfc import Z3SFC
 from geomesa_tpu_torch.features import FeatureCollection
 from geomesa_tpu_torch.filter.extract import extract_geometries, extract_intervals, geometry_bounds
@@ -130,6 +131,15 @@ class Z3Index:
         if not isinstance(col, PointColumn):
             raise TypeError("z3 index requires a point geometry column")
         millis = np.asarray(fc.columns[self.dtg], dtype=np.int64)
+
+        # the native encoder (bit-exact with the numpy path below) for the
+        # fixed-width periods; calendar periods take the numpy path
+        fused = native.z3_write_keys(
+            col.x, col.y, millis, self.period.value, MAX_OFFSET[self.period], MAX_BIN,
+        )
+        if fused is not None:
+            bins, zs, device_cols = fused
+            return WriteKeys(bins=bins, zs=zs, device_cols=self._pack_cols(device_cols))
 
         binned = self.binner.to_binned(millis)
         z = self.sfc.index(col.x, col.y, binned.offset.astype(np.float64))

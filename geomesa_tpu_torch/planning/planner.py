@@ -36,12 +36,15 @@ from geomesa_tpu_torch.index.api import ScanConfig
 from geomesa_tpu_torch.planning.explain import Explainer, ExplainNull
 
 # index selection priority (reference cost multipliers: z3 / xz3 = 1.1
-# with bounded time, z2 / xz2 = 2.0, id lookups 0.5). Lower = preferred.
-INDEX_PRIORITY = {"z3": 1.1, "xz3": 1.1, "z2": 2.0, "xz2": 2.0, "id": 0.5}
+# with bounded time, z2 / xz2 = 2.0, attribute indexes 2.5, id lookups
+# 0.5). Lower = preferred.
+INDEX_PRIORITY = {"z3": 1.1, "xz3": 1.1, "z2": 2.0, "xz2": 2.0, "attr": 2.5, "id": 0.5}
 
 
 def index_priority(name: str) -> float:
-    return INDEX_PRIORITY.get(name, 3.0)
+    """Cost multiplier for an index name; attribute indexes are named
+    ``attr_<attribute>`` and share the ``attr`` multiplier."""
+    return INDEX_PRIORITY.get(name, INDEX_PRIORITY.get(name.split("_")[0], 3.0))
 
 
 @dataclass

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from geomesa_tpu_torch import native
 from geomesa_tpu_torch.timing import NULL_CLOCK
 
 LANES = 128
@@ -1015,10 +1016,24 @@ def decode_bits_pair(wide_plane, inner_plane, bids, n_real):
     """(rows, certain) — rows ascending, certain[i] True when row i is in
     the inner plane (no host refinement needed). ``inner_plane=None``
     (extent box scans, :func:`skip_inner_plane`) decodes the wide plane
-    alone with certain all False."""
+    alone with certain all False. The planes are host int32 arrays; the
+    native decode (``native.bitmask_decode_pair`` / ``bitmask_decode``)
+    runs unless ``native.disabled()``, the numpy unpack below otherwise."""
     if n_real == 0:
         return np.zeros(0, np.int64), np.zeros(0, bool)
     block = wide_plane.shape[1] * 32 * LANES
+    bids64 = np.asarray(bids, np.int64)
+    if inner_plane is None:
+        rows = native.bitmask_decode(wide_plane, bids64, n_real, block)
+        nat = None if rows is None else (rows, np.zeros(len(rows), bool))
+    else:
+        nat = native.bitmask_decode_pair(wide_plane, inner_plane, bids64, n_real, block)
+    if nat is not None:
+        rows, certain = nat
+        if not _bids_sorted(bids, n_real):
+            order = np.argsort(rows, kind="stable")
+            rows, certain = rows[order], certain[order]
+        return rows, certain
     wb = unpack_plane(wide_plane, n_real)
     blk, local = np.nonzero(wb)
     rows = bids[:n_real][blk].astype(np.int64) * block + local

@@ -62,6 +62,11 @@ class AttributeDescriptor:
     def is_geometry(self) -> bool:
         return self.type in GEOMETRY_TYPES
 
+    @property
+    def indexed(self) -> bool:
+        v = self.options.get("index", "false")
+        return str(v).lower() in ("true", "full", "join")
+
     def __post_init__(self):
         if self.type not in GEOMETRY_TYPES and self.type not in SCALAR_TYPES:
             raise ValueError(f"unknown attribute type {self.type!r} for {self.name!r}")
@@ -129,6 +134,9 @@ class FeatureType:
         return int(self.user_data.get("geomesa.xz.precision", 12))
 
     # -- spec DSL --------------------------------------------------------
+    def indexed_attributes(self) -> list[str]:
+        return [a.name for a in self.attributes if a.indexed and not a.is_geometry]
+
     @staticmethod
     def from_spec(name: str, spec: str) -> "FeatureType":
         """Parse the SFT spec DSL (reference SimpleFeatureTypes.createType)."""

@@ -23,10 +23,8 @@ from geomesa_tpu_torch.timing import NULL_CLOCK
 
 
 def concat_keys(parts: list[WriteKeys]) -> WriteKeys:
-    """Concatenate per-batch write keys in write (ordinal) order. The
-    port's WriteKeys carry no secondary sort word (no attribute index is
-    ported), so there is nothing of the reference's ``_concat_sub`` to
-    join."""
+    """Concatenate per-batch write keys in write (ordinal) order, the
+    secondary sort words of string attribute indexes included."""
     if len(parts) == 1:
         return parts[0]
     return WriteKeys(
@@ -36,7 +34,26 @@ def concat_keys(parts: list[WriteKeys]) -> WriteKeys:
             k: np.concatenate([p.device_cols[k] for p in parts])
             for k in parts[0].device_cols
         },
+        sub=_concat_sub(parts),
     )
+
+
+def _concat_sub(parts: list[WriteKeys]) -> "np.ndarray | None":
+    """Concatenate variable-width secondary sort words, zero-padding
+    narrower batches to the widest word count (0 is the right pad: a
+    shorter string sorts before any extension)."""
+    subs = [p.sub for p in parts]
+    if all(s is None for s in subs):
+        return None
+    w = max(s.shape[1] for s in subs if s is not None)
+    out = []
+    for p, s in zip(parts, subs):
+        if s is None:
+            s = np.zeros((len(p.bins), w), dtype=np.uint64)
+        elif s.shape[1] < w:
+            s = np.pad(s, ((0, 0), (0, w - s.shape[1])))
+        out.append(s)
+    return np.concatenate(out)
 
 
 def delta_wide_mask(
@@ -44,7 +61,8 @@ def delta_wide_mask(
 ) -> np.ndarray:
     """Wide-predicate mask over delta rows, bit-compatible with the
     kernels' wide plane: f32 widened boxes, per-bin windows, bbox-intersects
-    for extents. ``packed_shift``: the keyspace's packed-time tick shift
+    for extents, and the value ranges of an attribute scan (a pure range
+    scan, or ``clip_rows`` beside a predicate). ``packed_shift``: the keyspace's packed-time tick shift
     (tw column)."""
     cols = keys.device_cols
     n = len(keys.zs)
@@ -79,8 +97,9 @@ def delta_wide_mask(
         for b, lo, hi in np.asarray(wins, np.int64):
             hit |= (tb == b) & (to >= lo) & (to <= hi)
         m &= hit
-    if config.boxes is None and config.windows is None:
-        # no predicate column: match the sort-key ranges
+    if (config.boxes is None and config.windows is None) or config.clip_rows:
+        # a pure range scan (attribute primary), or an attribute scan
+        # with a secondary predicate: rows must be in a value range
         hit = np.zeros(n, dtype=bool)
         for b, lo, hi in zip(
             config.range_bins.tolist(), config.range_lo.tolist(), config.range_hi.tolist()

@@ -35,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import conf
+from geomesa_tpu_torch import conf, native
 from geomesa_tpu_torch.index.api import IndexKeySpace, ScanConfig, WriteKeys
 from geomesa_tpu_torch.scan import aggregations
 from geomesa_tpu_torch.scan import block_kernels as bk
@@ -102,13 +102,25 @@ class SortedKeys:
             # folded_table): no sort at all
             perm = sorted_state
             self.rows_sorted = 0
+        elif keys.sub is not None:
+            # secondary sort words (string attribute indexes): the full
+            # (bin, z, sub[0], ..., sub[W-1]) order, so z-tie runs stay
+            # value-sorted and candidate_spans_split can narrow boundary
+            # runs (np.lexsort: LAST key is most significant)
+            sub_keys = tuple(keys.sub[:, j] for j in range(keys.sub.shape[1] - 1, -1, -1))
+            perm = np.lexsort(sub_keys + (keys.zs, keys.bins))
+            self.rows_sorted = self.n
         else:
-            # stable (bin, z) sort (np.lexsort: LAST key is most significant)
-            perm = np.lexsort((keys.zs, keys.bins))
+            # stable (bin, z) sort: the native radix sort (equal to
+            # np.lexsort((zs, bins))), numpy under native.disabled()
+            perm = native.sort_bins_z(keys.bins, keys.zs)
+            if perm is None:
+                perm = np.lexsort((keys.zs, keys.bins))
             self.rows_sorted = self.n
         self.perm = perm  # table row -> feature ordinal (u32 or i64)
-        self.bins = bins = keys.bins[perm]
-        self.zs = keys.zs[perm]
+        self.bins = bins = _take(keys.bins, perm)
+        self.zs = _take(keys.zs, perm)
+        self.subkeys = keys.sub[perm] if keys.sub is not None else None  # [n, W]
         n = self.n
         # per-bin segments for searchsorted pruning: bins are sorted, so
         # segment boundaries come from one linear diff pass
@@ -119,6 +131,39 @@ class SortedKeys:
             starts = np.zeros(0, np.int64)
             self.ubins = bins[:0]
         self.bin_starts = np.append(starts, n).astype(np.int64)
+
+    def _narrow_lo(self, a: int, ae: int, words: np.ndarray) -> int:
+        """First row >= the bound within the primary tie-run [a, ae):
+        descend word by word: rows below the word are dropped, the
+        word-tie run recurses, and final-level ties stay included."""
+        for j in range(self.subkeys.shape[1]):
+            if ae <= a:
+                return a
+            col = self.subkeys[a:ae, j]
+            w = words[j] if j < len(words) else 0
+            left = a + int(np.searchsorted(col, w, side="left"))
+            right = a + int(np.searchsorted(col, w, side="right"))
+            if right <= left:
+                return left  # no exact ties at this word: done
+            a, ae = left, right
+        return a
+
+    def _narrow_hi(self, hs: int, z: int, words: np.ndarray) -> int:
+        """One past the last row <= the bound within the primary tie-run
+        [hs, z): rows below the word are kept whole, the word-tie run
+        recurses, rows above are dropped."""
+        U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+        for j in range(self.subkeys.shape[1]):
+            if z <= hs:
+                return z
+            col = self.subkeys[hs:z, j]
+            w = words[j] if j < len(words) else U64
+            left = hs + int(np.searchsorted(col, w, side="left"))
+            right = hs + int(np.searchsorted(col, w, side="right"))
+            if right <= left:
+                return left  # everything below the word is included
+            hs, z = left, right
+        return z
 
     # -- pruning ---------------------------------------------------------
     def candidate_spans(self, config: ScanConfig) -> list[tuple[int, int]]:
@@ -144,6 +189,19 @@ class SortedKeys:
             seg = self.zs[s:e]
             lo = np.searchsorted(seg, config.range_lo[sel], side="left") + s
             hi = np.searchsorted(seg, config.range_hi[sel], side="right") + s
+            if self.subkeys is not None and config.range_lo2 is not None:
+                # narrow each range's boundary tie-runs by the secondary
+                # sort words: rows sharing the lo (hi) primary code are
+                # value-sorted by the word columns, so long-string bounds
+                # prune exactly past the 8-byte prefix (ties at every word
+                # stay included: a superset, refined exactly on the host)
+                lo_end = np.searchsorted(seg, config.range_lo[sel], side="right") + s
+                hi_start = np.searchsorted(seg, config.range_hi[sel], side="left") + s
+                lo2 = config.range_lo2[sel]
+                hi2 = config.range_hi2[sel]
+                for k in range(len(lo)):
+                    lo[k] = self._narrow_lo(int(lo[k]), int(lo_end[k]), lo2[k])
+                    hi[k] = self._narrow_hi(int(hi_start[k]), int(hi[k]), hi2[k])
             if use_contained:
                 cf = cont_flags[sel]
             else:
@@ -152,6 +210,15 @@ class SortedKeys:
                 if z > a:
                     (contained if c else overlap).append((a, z))
         return _merge_spans(overlap), _merge_spans(contained)
+
+
+def _take(col: np.ndarray, perm: np.ndarray) -> np.ndarray:
+    """col[perm]: the native gather for a u32 permutation, numpy otherwise."""
+    if perm.dtype == np.uint32:
+        out = native.take(col, perm)
+        if out is not None:
+            return out
+    return col[perm]
 
 
 def _merge_spans(spans: list[tuple[int, int]]) -> list[tuple[int, int]]:
@@ -261,6 +328,8 @@ class IndexTable(SortedKeys):
         self.perm = np.asarray(state["perm"])
         self.bins = np.asarray(state["bins"])
         self.zs = np.asarray(state["zs"])
+        sub = state.get("subkeys")
+        self.subkeys = None if sub is None else np.asarray(sub)
         self.ubins = np.asarray(state["ubins"])
         self.bin_starts = np.asarray(state["bin_starts"], np.int64)
         block = int(state["block"])
@@ -310,7 +379,7 @@ class IndexTable(SortedKeys):
             out = np.empty(self.n_pad - lo, dtype=col.dtype)
             for s in range(lo, self.n, span):
                 e = min(s + span, self.n)
-                out[s - lo : e - lo] = col[self.perm[s:e]]
+                out[s - lo : e - lo] = _take(col, self.perm[s:e])
             out[self.n - lo :] = _SENTINELS[k]  # pad rows never match
             suffix = self._upload(out)
             if old is not None and first_block > 0:
@@ -393,11 +462,18 @@ class IndexTable(SortedKeys):
         if config.disjoint or self.n == 0:
             return lambda: (np.zeros(0, np.int64), np.zeros(0, bool))
         overlap, contained = self.candidate_spans_split(config)
+        if config.boxes is None and config.windows is None:
+            # a pure range scan (an attribute index's value ranges): the
+            # spans are row-exact and no kernel runs
+            cont_rows = _span_rows(contained)
+            rows = np.union1d(_span_rows(overlap), cont_rows) if overlap else cont_rows
+            out = (self.perm[rows].astype(np.int64), np.ones(len(rows), bool))
+            return lambda: out
         blocks = self.candidate_blocks(overlap)
         if len(blocks) == 0:
             return self._contained_only(contained)
         return self._make_finish(
-            self._device_scan_submit(blocks, config, clock), contained, clock
+            self._device_scan_submit(blocks, config, clock), config, overlap, contained, clock
         )
 
     def _contained_only(self, contained):
@@ -407,26 +483,35 @@ class IndexTable(SortedKeys):
         out = (self.perm[cont_rows].astype(np.int64), np.ones(len(cont_rows), bool))
         return lambda: out
 
-    def _make_finish(self, finish_device, contained, clock=NULL_CLOCK):
+    def _make_finish(self, finish_device, config, overlap, contained, clock=NULL_CLOCK):
         """finish() over a launched device scan: decode + _post_decode.
         Shared by scan_submit and the fused path's single-query members."""
 
         def finish() -> tuple[np.ndarray, np.ndarray]:
             rows, certain = finish_device()
             with clock.host("decode"):
-                return self._post_decode(rows, certain, contained)
+                return self._post_decode(rows, certain, config, overlap, contained)
 
         return finish
 
-    def _post_decode(self, rows, certain, contained):
-        """Decoded kernel rows -> (feature ordinals, certain): union with
-        the contained spans' rows (all certain), then the permutation to
-        feature ordinals."""
+    def _post_decode(self, rows, certain, config, overlap, contained):
+        """Decoded kernel rows -> (feature ordinals, certain): clipped
+        back to the spans where they are row-exact (``clip_rows``: kernel
+        hits are block granular), united with the contained spans' rows
+        (all certain; the native two-pointer merge), then the permutation
+        to feature ordinals. Shared by the per-query and fused paths."""
+        if config.clip_rows:
+            keep = _rows_in_spans(rows, _merge_spans(overlap + contained))
+            rows, certain = rows[keep], certain[keep]
         if contained:
-            dup = _rows_in_spans(rows, contained)
-            rows, certain = _merge_sorted_rows(
-                _span_rows(contained), rows[~dup], certain[~dup]
-            )
+            merged = native.merge_rows_spans(contained, rows, certain)
+            if merged is not None:
+                rows, certain = merged
+            else:
+                dup = _rows_in_spans(rows, contained)
+                rows, certain = _merge_sorted_rows(
+                    _span_rows(contained), rows[~dup], certain[~dup]
+                )
         return self.perm[rows].astype(np.int64), certain
 
     # -- fused multi-query scans -----------------------------------------
@@ -460,6 +545,11 @@ class IndexTable(SortedKeys):
                 out = (np.zeros(0, np.int64), np.zeros(0, bool))
                 finishes[j] = lambda out=out: out
                 continue
+            if config.boxes is None and config.windows is None:
+                # pure range scans (row-exact spans, no kernel) keep the
+                # per-query path
+                finishes[j] = self.scan_submit(config, clock)
+                continue
             overlap, contained = self.candidate_spans_split(config)
             blocks = self.candidate_blocks(overlap)
             if len(blocks) == 0:
@@ -478,7 +568,7 @@ class IndexTable(SortedKeys):
                 0 if self.extent else bk.fused_e_bucket(bk.n_edges_of(config.poly)),
                 0 if self.extent else bk.fused_r_bucket(bk.n_rints_of(config.rast)),
             )
-            groups.setdefault(key, []).append((j, config, blocks, contained))
+            groups.setdefault(key, []).append((j, config, blocks, overlap, contained))
 
         slots = self.fused_pack_capacity
         for (names, has_boxes, has_windows, _e, _r), members in groups.items():
@@ -511,9 +601,10 @@ class IndexTable(SortedKeys):
             len(members) <= 8
             and sum(len(m[2]) for m in members) < self.fused_pack_capacity // 8
         ):
-            for j, config, blocks, contained in members:
+            for j, config, blocks, overlap, contained in members:
                 finishes[j] = self._make_finish(
-                    self._device_scan_submit(blocks, config, clock), contained, clock
+                    self._device_scan_submit(blocks, config, clock), config, overlap,
+                    contained, clock,
                 )
             return True
         return False
@@ -618,14 +709,14 @@ class IndexTable(SortedKeys):
         pull = self._fused_pull(planes, clock)
 
         def member_finish(k: int):
-            _, _, blocks, contained = members[k]
+            _, config, blocks, overlap, contained = members[k]
             s, e = segs[k]
             host = pull()
             with clock.host("decode"):
                 rows, certain = bk.decode_bits_pair(
                     *_host_planes(host, slice(s, e)), blocks, e - s,
                 )
-                return self._post_decode(rows, certain, contained)
+                return self._post_decode(rows, certain, config, overlap, contained)
 
         for k, m in enumerate(members):
             finishes[m[0]] = lambda k=k: member_finish(k)
@@ -763,6 +854,11 @@ class IndexTable(SortedKeys):
             return 0
         overlap, contained = self.candidate_spans_split(config)
         cont_total = sum(z - a for a, z in contained)
+        if config.boxes is None and config.windows is None:
+            return cont_total + sum(z - a for a, z in overlap)
+        if config.clip_rows:  # span-exact clipping needs the rows
+            rows, _ = self.scan_submit(config, clock)()
+            return len(rows)
         blocks = self.candidate_blocks(overlap)
         if len(blocks) == 0:
             return cont_total
@@ -915,7 +1011,7 @@ class IndexTable(SortedKeys):
                        % self.n_blocks).astype(np.int64)
                 fins: list = [None, None]
                 self._submit_fused_chunk(
-                    [(0, cfg, blk, []), (1, cfg, blk, [])], names, has_boxes, has_w, fins,
+                    [(0, cfg, blk, [], []), (1, cfg, blk, [], [])], names, has_boxes, has_w, fins,
                 )
                 for f in fins:
                     f()
@@ -925,6 +1021,15 @@ class IndexTable(SortedKeys):
     @property
     def nbytes_device(self) -> int:
         return sum(int(v.numel() * v.element_size()) for v in self.cols3.values())
+
+
+def _sort_bins_z(keys: WriteKeys) -> np.ndarray:
+    """i64 stable (bin, z) sort order of ``keys``: the native radix sort,
+    np.lexsort under native.disabled()."""
+    perm = native.sort_bins_z(keys.bins, keys.zs)
+    if perm is None:
+        perm = np.lexsort((keys.zs, keys.bins))
+    return np.asarray(perm, dtype=np.int64)
 
 
 def folded_table(
@@ -954,9 +1059,10 @@ def folded_table(
     ordinal order; ``keep_ordinal`` is the survivor mask over old feature
     ordinals (None = nothing deleted) and ``ordinal_map`` maps old
     ordinals to post-delete ordinals. The table stays on ``old``'s
-    device."""
+    device. Tables with a secondary sort word rebuild outright, like
+    :func:`merged_table`."""
     nd = len(delta_keys.zs)
-    if old.n == 0:
+    if old.n == 0 or merged_keys.sub is not None:
         return IndexTable(old.keyspace, merged_keys, tile=tile, device=old.device)
     if keep_ordinal is None:
         keep_sorted = None
@@ -983,7 +1089,7 @@ def folded_table(
         if delta_perm is not None and len(delta_perm) == nd:
             dperm = np.asarray(delta_perm, dtype=np.int64)
         else:
-            dperm = np.lexsort((delta_keys.zs, delta_keys.bins))
+            dperm = _sort_bins_z(delta_keys)
         db = delta_keys.bins[dperm]
         dz = delta_keys.zs[dperm]
         # per-bin survivor segments for the insertion searchsorted
@@ -1045,9 +1151,13 @@ def merged_table(
     is reused. ``merged_keys`` must be ``concat(old keys, delta_keys)``
     in ordinal order. The table stays on ``old``'s device."""
     nm, nd = old.n, len(delta_keys.zs)
-    if nm == 0 or nd == 0:
+    if nm == 0 or nd == 0 or merged_keys.sub is not None:
+        # tables with a secondary sort word (string attribute indexes)
+        # rebuild outright: the positional merge below compares (bin, z)
+        # only, which would interleave z-tie runs out of sub order and
+        # break the boundary-run narrowing of candidate_spans_split
         return IndexTable(old.keyspace, merged_keys, tile=tile, device=old.device)
-    dperm = np.lexsort((delta_keys.zs, delta_keys.bins))
+    dperm = _sort_bins_z(delta_keys)
     db = delta_keys.bins[dperm]
     dz = delta_keys.zs[dperm]
     # insertion position in the old sorted order for every delta row,

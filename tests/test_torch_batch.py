@@ -17,6 +17,7 @@ import torch
 
 import geomesa_tpu
 import geomesa_tpu_torch
+from geomesa_tpu_torch import native as tnative
 from geomesa_tpu.scan import block_kernels as jbk
 from geomesa_tpu_torch.scan import block_kernels as tbk
 from test_torch_store import SPATIAL_QUERIES, TIME_QUERIES, _build, _data, _dur
@@ -55,7 +56,7 @@ def stores():
     from geomesa_tpu import native
 
     data = _data()
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         yield {
             cell: (_build(geomesa_tpu, cell, data),

@@ -25,6 +25,7 @@ from geomesa_tpu_torch.curve import xz3sfc as txz3
 from geomesa_tpu_torch.curve import xzsfc as txz
 from geomesa_tpu_torch.scan import aggregations as tagg
 from geomesa_tpu_torch.scan import block_kernels as tbk
+from geomesa_tpu_torch import native as tnative
 
 # the suite runs in several test processes side by side: one intra-op
 # thread each keeps torch's CPU kernels from oversubscribing the cores
@@ -265,15 +266,16 @@ def test_decode_one_plane_equals_jax(columns, monkeypatch):
     from geomesa_tpu import native
 
     monkeypatch.setattr(native, "_lib", False)  # the numpy decode path
-    for blocks in (np.array([0, 2, 3, 5, 7]), np.array([5, 0, 2, 7, 3])):
-        bids, n_real = tbk.pad_bids(blocks, NB)
-        w, i = tbk.block_scan(_torch_cols(columns, EXT), bids, BOXES, WINS, col_names=EXT,
-                              has_boxes=True, has_windows=False, extent=True)
-        assert i is None
-        rows, cert = tbk.decode_bits_pair(w.numpy(), None, bids, n_real)
-        jrows, jcert = jbk.decode_bits_pair(w.numpy(), None, bids, n_real)
-        assert np.array_equal(rows, jrows) and np.array_equal(cert, jcert)
-        assert len(rows) and not cert.any()
+    with tnative.disabled():
+        for blocks in (np.array([0, 2, 3, 5, 7]), np.array([5, 0, 2, 7, 3])):
+            bids, n_real = tbk.pad_bids(blocks, NB)
+            w, i = tbk.block_scan(_torch_cols(columns, EXT), bids, BOXES, WINS, col_names=EXT,
+                                  has_boxes=True, has_windows=False, extent=True)
+            assert i is None
+            rows, cert = tbk.decode_bits_pair(w.numpy(), None, bids, n_real)
+            jrows, jcert = jbk.decode_bits_pair(w.numpy(), None, bids, n_real)
+            assert np.array_equal(rows, jrows) and np.array_equal(cert, jcert)
+            assert len(rows) and not cert.any()
 
 
 # ----------------------------------------------------------------- curves
@@ -292,19 +294,20 @@ def test_xz2_index_and_ranges_equal_jax_numpy(g, monkeypatch):
     from geomesa_tpu import native
 
     monkeypatch.setattr(native, "_lib", False)
-    # several index chunks, one of them ragged
-    monkeypatch.setattr(txz, "INDEX_CHUNK", 1000)
-    rng = np.random.default_rng(g)
-    x0, y0, x1, y1 = _boxes(rng, 3500)
-    t, j = txz2.XZ2SFC.for_precision(g), jxz2.XZ2SFC.for_precision(g)
-    got = t.index(x0, y0, x1, y1)
-    assert got.dtype == np.int64 and np.array_equal(got, j.index(x0, y0, x1, y1))
-    for bounds in ([(-30.0, -25.0, 10.0, -5.0)], [(0.5, 0.5, 2.5, 1.0), (100, -10, 120, 5)]):
-        for max_ranges in (None, 64):
-            tr, jr = t.ranges(bounds, max_ranges), j.ranges(bounds, max_ranges)
-            assert [(r.lower, r.upper, r.contained) for r in tr] == \
-                [(r.lower, r.upper, r.contained) for r in jr]
-            assert tr
+    with tnative.disabled():
+        # several index chunks, one of them ragged
+        monkeypatch.setattr(txz, "INDEX_CHUNK", 1000)
+        rng = np.random.default_rng(g)
+        x0, y0, x1, y1 = _boxes(rng, 3500)
+        t, j = txz2.XZ2SFC.for_precision(g), jxz2.XZ2SFC.for_precision(g)
+        got = t.index(x0, y0, x1, y1)
+        assert got.dtype == np.int64 and np.array_equal(got, j.index(x0, y0, x1, y1))
+        for bounds in ([(-30.0, -25.0, 10.0, -5.0)], [(0.5, 0.5, 2.5, 1.0), (100, -10, 120, 5)]):
+            for max_ranges in (None, 64):
+                tr, jr = t.ranges(bounds, max_ranges), j.ranges(bounds, max_ranges)
+                assert [(r.lower, r.upper, r.contained) for r in tr] == \
+                    [(r.lower, r.upper, r.contained) for r in jr]
+                assert tr
 
 
 @pytest.mark.parametrize("period", ["week", "day"])
@@ -312,15 +315,16 @@ def test_xz3_index_and_ranges_equal_jax_numpy(period, monkeypatch):
     from geomesa_tpu import native
 
     monkeypatch.setattr(native, "_lib", False)
-    monkeypatch.setattr(txz, "INDEX_CHUNK", 1000)
-    rng = np.random.default_rng(3)
-    x0, y0, x1, y1 = _boxes(rng, 2500)
-    t, j = txz3.XZ3SFC.for_period(period, 12), jxz3.XZ3SFC.for_period(period, 12)
-    top = t.tmax
-    t0 = rng.uniform(0, top, len(x0))
-    got = t.index(x0, y0, t0, x1, y1, t0)
-    assert np.array_equal(got, j.index(x0, y0, t0, x1, y1, t0))
-    bounds = [(-30.0, -25.0, 0.1 * top, 10.0, -5.0, 0.4 * top), (5, 5, 0.0, 6, 6, top)]
-    tr, jr = t.ranges(bounds), j.ranges(bounds)
-    assert tr and [(r.lower, r.upper, r.contained) for r in tr] == \
-        [(r.lower, r.upper, r.contained) for r in jr]
+    with tnative.disabled():
+        monkeypatch.setattr(txz, "INDEX_CHUNK", 1000)
+        rng = np.random.default_rng(3)
+        x0, y0, x1, y1 = _boxes(rng, 2500)
+        t, j = txz3.XZ3SFC.for_period(period, 12), jxz3.XZ3SFC.for_period(period, 12)
+        top = t.tmax
+        t0 = rng.uniform(0, top, len(x0))
+        got = t.index(x0, y0, t0, x1, y1, t0)
+        assert np.array_equal(got, j.index(x0, y0, t0, x1, y1, t0))
+        bounds = [(-30.0, -25.0, 0.1 * top, 10.0, -5.0, 0.4 * top), (5, 5, 0.0, 6, 6, top)]
+        tr, jr = t.ranges(bounds), j.ranges(bounds)
+        assert tr and [(r.lower, r.upper, r.contained) for r in tr] == \
+            [(r.lower, r.upper, r.contained) for r in jr]

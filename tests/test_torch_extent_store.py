@@ -23,6 +23,7 @@ import torch
 
 import geomesa_tpu
 import geomesa_tpu_torch
+from geomesa_tpu_torch import native as tnative
 from geomesa_tpu.scan import block_kernels as jbk
 from geomesa_tpu_torch.scan import block_kernels as tbk
 from geomesa_tpu_torch.state import load_table_state
@@ -135,7 +136,7 @@ def stores():
     from geomesa_tpu import native
 
     data = _data()
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         yield {
             cell: (_build(geomesa_tpu, cell, data),
@@ -386,7 +387,7 @@ def tiered():
     from geomesa_tpu import native
 
     data = _tiered_data()
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         yield {
             cell: (_tiered_store(geomesa_tpu, cell, data, WRITES),
@@ -463,7 +464,7 @@ def test_compaction_keeps_the_reference_order(tiered, cell):
     from geomesa_tpu_torch.storage.table import IndexTable
 
     data = tiered[1]
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         jconf.COMPACT_MIN_ROWS.set(1_000)
         tconf.COMPACT_MIN_ROWS.set(1_000)

@@ -967,3 +967,27 @@ def test_mutated_store_queries_equal_a_cpu_store():
         got = np.asarray(gpu.query("t", q).ids)
         assert len(got) and np.array_equal(got, np.asarray(cpu.query("t", q).ids)), q
     assert gpu.warmup("t") == cpu.warmup("t") > 0
+
+
+def test_native_helpers_load_on_the_card_host_and_plan_z3():
+    """On the card's host the port's g++ library builds and loads, and a
+    Z3 store's plan decomposes its ranges natively; the query ids equal a
+    CPU store's (both native)."""
+    from geomesa_tpu_torch import DataStore, FeatureType, native
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    native.library()
+    assert native.loaded()
+    q = "bbox(geom, -40, -30, 30, 40) AND dtg DURING 2024-01-03T00:00:00Z/2024-01-10T00:00:00Z"
+    got = []
+    for device in ("cuda", "cpu"):
+        sft = FeatureType.from_spec("t", "dtg:Date,*geom:Point:srid=4326")
+        ds = DataStore(device=device, tile=4096)
+        ds.create_schema(sft)
+        ds.write("t", _mutation_fc(sft, _mutation_rows(9, 50_000, 0)))
+        before = native.calls["zranges"]
+        plan = ds.planner.plan("t", q)
+        assert plan.index == "z3" and native.calls["zranges"] > before
+        got.append(np.asarray(ds.query("t", q).ids))
+    assert len(got[0]) and np.array_equal(got[0], got[1])

@@ -21,6 +21,7 @@ import torch
 
 import geomesa_tpu
 import geomesa_tpu_torch
+from geomesa_tpu_torch import native as tnative
 
 # one intra-op thread per test process (the suite runs several side by side)
 torch.set_num_threads(1)
@@ -74,7 +75,7 @@ def stores():
     from geomesa_tpu import native
 
     data = _data()
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         yield {
             cell: (_build(geomesa_tpu, cell, data),

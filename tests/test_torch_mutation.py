@@ -33,6 +33,7 @@ import torch
 
 import geomesa_tpu
 import geomesa_tpu_torch
+from geomesa_tpu_torch import native as tnative
 from geomesa_tpu import conf as jconf
 from geomesa_tpu.storage import table as jtable
 from geomesa_tpu_torch import conf as tconf
@@ -60,7 +61,7 @@ def _planning():
 
     jconf.SCAN_RANGES_TARGET.set(100)
     tconf.SCAN_RANGES_TARGET.set(100)
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         yield
     jconf.SCAN_RANGES_TARGET.clear()
@@ -252,7 +253,7 @@ def runs():
     from geomesa_tpu import native
 
     out = {}
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         for cell in CELLS:
             jds = _store(geomesa_tpu, cell)
@@ -341,7 +342,7 @@ def test_upsert_rolls_back_when_the_write_fails(cell):
     rows = Rows(21, 6_000, 0)
     ups = Rows(22, 50, 0).take(np.arange(100, 150))
     snaps = []
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         for pkg, kw in ((geomesa_tpu, {}), (geomesa_tpu_torch, {"device": "cpu"})):
             ds = _store(pkg, cell, **kw)
@@ -370,7 +371,7 @@ def test_refused_modifications_leave_the_store_untouched(cell):
 
     rows = Rows(23, 5_000, 0)
     snaps = []
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         for pkg, kw in ((geomesa_tpu, {}), (geomesa_tpu_torch, {"device": "cpu"})):
             ds = _store(pkg, cell, **kw)
@@ -429,7 +430,7 @@ def test_delete_schema_and_type_names_equal_jax():
     from geomesa_tpu import native
 
     rows = Rows(31, 3_000, 0)
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         pair = []
         for pkg, kw in ((geomesa_tpu, {}), (geomesa_tpu_torch, {"device": "cpu"})):
@@ -504,7 +505,7 @@ def test_merged_table_equals_jax(cell):
     old_rows = Rows(41, 14_000, 0)
     # recent rows: they merge into the last bins, so a prefix is reused
     new_rows = Rows(42, 3_000, 14_000, t_lo=24, t_hi=28)
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         for name, pair in _tables(cell, old_rows, new_rows, None).items():
             (jold, jm, jd), (told, tm, td) = pair
@@ -531,7 +532,7 @@ def test_folded_table_equals_jax(cell, mode):
     keep = np.ones(14_000, bool)
     keep[rng.choice(14_000, 1_500, replace=False)] = False
     ordinal_map = np.cumsum(keep, dtype=np.int64) - 1
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         jconf.STREAM_FOLD_DEVICE.set(mode)
         tconf.STREAM_FOLD_DEVICE.set(mode)
@@ -568,7 +569,7 @@ def test_folded_table_without_deletes_reuses_the_prefix():
 
     old_rows = Rows(46, 14_000, 0)
     new_rows = Rows(47, 1_000, 14_000, t_lo=26, t_hi=28)
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         for name, pair in _tables("z3", old_rows, new_rows, None).items():
             (jold, jm, jd), (told, tm, td) = pair

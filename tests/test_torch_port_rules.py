@@ -10,7 +10,10 @@
   CPU and raise for a device without a kernel;
 - every kernel, the system's five and the chip-side probes' three, has
   its CUDA source in the checkout and builds for sm_90a without fast
-  math.
+  math;
+- the native host helpers (``geomesa_tpu_torch/native``) are the port's
+  own copy: the same C++ code as the JAX package's, built with
+  ``-ffp-contract=off``, by a loader that reads no environment variable.
 """
 
 import importlib.util
@@ -56,7 +59,7 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
     # the submodules of the many-query and polygon slices are among them
     for name in ("serving.scheduler", "stats.stat_spec", "stats.sketches", "utils.hashing",
                  "filter.raster", "scan.probe_kernels", "scripts.probe_pallas",
-                 "scripts.probe_agg"):
+                 "scripts.probe_agg", "native", "index.attribute", "utils.lexicode"):
         assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
@@ -315,3 +318,30 @@ def test_scan_columns_must_start_on_16_bytes():
     with pytest.raises(ValueError, match="16-byte aligned"):
         tbk.check_aligned({"x": view})
     tbk.check_aligned({"x": torch.zeros((2, 32, 128), dtype=torch.float32)})
+
+
+def _code_lines(path) -> list:
+    """The C++ lines of ``path`` without comments and blank lines."""
+    out = []
+    for line in open(path).read().splitlines():
+        code = line.split("//", 1)[0].rstrip()
+        if code.strip():
+            out.append(code)
+    return out
+
+
+def test_native_helpers_are_the_port_s_own_copy():
+    """The port's C++ is the JAX package's line for line (comments aside),
+    built with -ffp-contract=off (point-in-polygon stays bit-exact with
+    numpy) and OpenMP where g++ has it; the loader reads no environment
+    variable and falls back on nothing."""
+    from geomesa_tpu_torch import native
+
+    src = os.path.join(ROOT, "geomesa_tpu_torch", "native", "geomesa_native.cpp")
+    ref = os.path.join(ROOT, "geomesa_tpu", "native", "geomesa_native.cpp")
+    assert _code_lines(src) == _code_lines(ref)
+    assert "-ffp-contract=off" in native.GXX_FLAGS and "-O3" in native.GXX_FLAGS
+    loader = inspect.getsource(native)
+    assert "environ" not in loader and "getenv" not in loader
+    assert native.LIB_PATH.parent == native.BUILD_DIR
+    assert native.BUILD_DIR == __import__("pathlib").Path(ROOT, "geomesa_tpu_torch", "build")

@@ -14,6 +14,7 @@ import torch
 
 import geomesa_tpu
 import geomesa_tpu_torch
+from geomesa_tpu_torch import native as tnative
 from test_torch_batch import BATCHES, CELLS
 from test_torch_store import _build, _data
 
@@ -27,7 +28,7 @@ def stores():
     from geomesa_tpu import native
 
     data = _data()
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         yield {
             cell: (_build(geomesa_tpu, cell, data),

@@ -19,6 +19,7 @@ import torch
 
 import geomesa_tpu
 import geomesa_tpu_torch
+from geomesa_tpu_torch import native as tnative
 from geomesa_tpu.scan import block_kernels as jbk
 from geomesa_tpu_torch.scan import block_kernels as tbk
 from geomesa_tpu_torch.state import load_table_state
@@ -92,7 +93,7 @@ def stores():
     from geomesa_tpu import native
 
     data = _data()
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         out = {
             cell: (_build(geomesa_tpu, cell, data),
@@ -219,7 +220,7 @@ def tiered():
     from geomesa_tpu import native
 
     data = _data(seed=11, n=N_TIERED)
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         yield {
             cell: (_build(geomesa_tpu, cell, data, writes=WRITES),
@@ -287,7 +288,7 @@ def test_compaction_keeps_the_reference_order(tiered, cell):
 
     data = tiered[1]
     queries = TIERED_QUERIES[cell][:2]
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         jconf.COMPACT_MIN_ROWS.set(4_000)
         tconf.COMPACT_MIN_ROWS.set(4_000)

@@ -21,6 +21,7 @@ import torch
 
 import geomesa_tpu
 import geomesa_tpu_torch
+from geomesa_tpu_torch import native as tnative
 from geomesa_tpu.filter import dnf as jdnf
 from geomesa_tpu_torch.filter import dnf as tdnf
 
@@ -71,7 +72,7 @@ def stores():
     from geomesa_tpu import native
 
     data = _data()
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
         mp.setattr(native, "_lib", False)
         yield {
             cell: (_build(geomesa_tpu, cell, data), _build(geomesa_tpu_torch, cell, data,
