@@ -49,7 +49,8 @@ Phases, each printing one JSON line:
    columns are freed before the main path;
 4. main path: a GDELT-shaped Z3 point table of 100,000,000 rows (the
    reference benchmark's configuration 1, cut from 500M for the run's
-   time) in ``DataStore(device="cuda")``, 16 warm-up and 64 measured
+   time; with GDELT's ``EventRootCode`` as a host string column) in
+   ``DataStore(device="cuda")``, 16 warm-up and 64 measured
    BBOX + DURING queries (latency untraced, then a traced pass of the same
    queries for the per-phase split), 8 of them checked against an f64 brute-force
    filter, 4 density grids and 4 bounds estimates checked against the
@@ -74,6 +75,29 @@ Phases, each printing one JSON line:
    over 4 of them, and the full-table host scan the port used to run on
    2; ids, counts, envelopes and grids checked against an f64 brute
    force, every other path's ids against the sequential queries';
+6b. gdelt-z3-100M-hints, the query controls on the same store (no new
+   table): 16 of the measured queries (the fewest hits past one page)
+   sorted by ``dtg`` ascending and descending against the f64 brute force
+   stably sorted with the reference's tie rule, their ``offset`` pages
+   of 1,000 concatenating to the whole, and the same through
+   ``query_many``; ``sample=0.1`` plain and by ``EventRootCode`` equal to
+   ``FeatureCollection.sample`` of the exact result; transforms (``dtg``,
+   ``st_x``, ``st_y``) equal to the source columns; ``EPSG:3857``
+   coordinates within 1e-6 m of the f64 formula; ``loose=True`` ids equal
+   to the rows K1's plain version marks in the wide plane (a superset of
+   the exact ids) with no refinement time, p50 beside the exact queries';
+   ``QueryHints(timeout=1e-6)`` raising QueryTimeout on a query, on
+   ``query_many`` and on an id-or-box union, each counted in
+   ``geomesa.query.timeout``, exact ids after it and under a generous
+   store timeout; ``block_full_table_scans`` rejecting a full-table scan
+   and passing INCLUDE, a ``TemporalQueryGuard`` rejecting a window past
+   a week; a MetricsRegistry and an AuditWriter over the 64 measured
+   queries (counts and hits equal the main path's, the scan histogram's
+   p50 within one bucket of the measured one, one audited event per
+   query); then the 64 queries untraced and traced (sample 1, a 1 ms
+   slow log), the Chrome export holding plan, dispatch, scan and decode
+   for each query, the slow ring non-empty, the trace's phase breakdown
+   beside PhaseClock's; tracing is disarmed in every other measured pass;
 7. a 10,000,000-row table with packed time, 16 queries, ``query_many``
    and two count estimates;
 8. a Z2 table of 20,000,000 points (the reference benchmark's
@@ -105,7 +129,7 @@ Phases, each printing one JSON line:
    DURING`` queries plan as
    unions of a Z2 and a Z3 scan: the box branch's ids, then the window
    branch's unseen ids, each branch equal to an f64 brute force;
-12. gdelt-z3-10M-mutate (cut to 5,000,000 rows for the run's time): a
+12. gdelt-z3-10M-mutate (10,000,000 rows): a
    GDELT-shaped store on Z3 and Z2 takes ``fold_upsert`` of 1,000,000
    rows (500k moving objects reporting again in the span's last 21
    days, 500k new ids; 16 slices of 65,536 rows on the device fold),
@@ -134,10 +158,10 @@ Phases, each printing one JSON line:
    stay in the delta and the 32 queries run again.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the ten paths and read just after it;
-each path must have launched the kernels and legs it names (main: K1,
-K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP, raster
-and both legs; packed time: all five; Z2 polygon: K1's raster leg, K2
+are zeroed just before each of the eleven paths and read just after
+it; each path must have launched the kernels and legs it names (main:
+K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
+raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
 with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
 extent leg; tiered and mutate: all five; attribute: K1 and K2) and
 called the native helpers ``check_native`` names (the ranges where it
@@ -158,6 +182,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 
@@ -1294,9 +1319,20 @@ def extent_kernels(torch, device, n_blocks, sub, boxes1, wins1, dev):
 # -- phase 4: the main path --------------------------------------------------
 
 
-def build_store(torch, device, n, packed: bool = False, index: str = "z3", seed: int = SEED):
+def root_codes(n, seed) -> np.ndarray:
+    """GDELT's ``EventRootCode``: the 20 CAMEO root codes "01".."20",
+    skewed toward the verbal ones as GDELT's are (a host column only)."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, 21)
+    return np.array([f"{c:02d}" for c in range(1, 21)])[rng.choice(20, n, p=w / w.sum())]
+
+
+def build_store(torch, device, n, packed: bool = False, index: str = "z3", seed: int = SEED,
+                with_root_code: bool = False):
     """A GDELT-shaped point table of n rows: (dtg, geom) on Z3, or geom
-    alone on Z2 (the reference benchmark's points of its configuration 4).
+    alone on Z2 (the reference benchmark's points of its configuration 4);
+    ``with_root_code`` adds the string attribute ``EventRootCode`` (drawn
+    from its own seed, so the points and times stay the same).
     Returns (store, (x, y, t | None), ingest seconds)."""
     from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
 
@@ -1304,6 +1340,8 @@ def build_store(torch, device, n, packed: bool = False, index: str = "z3", seed:
     x, y = gdelt_points(n, rng)
     t = T0_MS + rng.integers(0, SPAN_MS, n) if index == "z3" else None
     spec = "dtg:Date,*geom:Point:srid=4326" if index == "z3" else "*geom:Point:srid=4326"
+    if with_root_code:
+        spec = "EventRootCode:String," + spec
     sft = FeatureType.from_spec("gdelt", spec)
     sft.user_data["geomesa.indices.enabled"] = index
     if packed:
@@ -1311,6 +1349,8 @@ def build_store(torch, device, n, packed: bool = False, index: str = "z3", seed:
     ds = DataStore(device=device)
     ds.create_schema(sft)
     cols = {"geom": (x, y)} if t is None else {"dtg": t, "geom": (x, y)}
+    if with_root_code:
+        cols["EventRootCode"] = root_codes(n, seed + 7)
     fc = FeatureCollection.from_columns(sft, np.arange(n), cols)
     t_in = time.perf_counter()
     ds.write("gdelt", fc, check_ids=False)
@@ -2297,17 +2337,308 @@ def xz3_path(torch, device) -> dict:
     return rec
 
 
+# -- the query controls on the main store ----------------------------------
+
+N_HINT_QUERIES = 16
+HINT_PAGE = 1_000
+HINT_SLOW_MS = 1.0  # the slow-query log's threshold while the path traces
+GENEROUS_TIMEOUT_S = 3600.0
+
+
+def hint_queries(outs, n) -> list:
+    """Indexes of the n measured queries with the fewest hits past one
+    page (each pages at least twice), topped up with the largest results
+    under a page."""
+    hits = np.array([len(o) for o in outs])
+    order = np.argsort(hits, kind="stable")
+    pick = [int(i) for i in order if hits[i] > HINT_PAGE][:n]
+    small = [int(i) for i in order[::-1] if 0 < hits[i] <= HINT_PAGE]
+    return pick + small[: n - len(pick)]
+
+
+def sorted_ids(col, ids, desc: bool) -> np.ndarray:
+    """``ids`` (in the query's order) stably sorted by ``col[ids]``, the
+    reference's tie rule: equal values keep the query's order, ascending
+    or descending (``FeatureCollection.sort_values``)."""
+    v = col[ids]
+    if desc:
+        order = np.argsort(-np.unique(v, return_inverse=True)[1], kind="stable")
+    else:
+        order = np.argsort(v, kind="stable")
+    return ids[order]
+
+
+def wide_plane_ids(torch, ds, q) -> np.ndarray:
+    """The rows K1's plain version marks in the wide plane over the query's
+    candidate blocks, with the contained spans' rows, in table order: the
+    answer the ``loose`` hint accepts."""
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    table = ds.table("gdelt", "z3")
+    cfg = ds.planner.plan("gdelt", q).config
+    overlap, contained = table.candidate_spans_split(cfg)
+    rows = np.concatenate([np.arange(a, z, dtype=np.int64) for a, z in contained]) \
+        if contained else np.zeros(0, np.int64)
+    blocks = table.candidate_blocks(overlap)
+    if len(blocks):
+        bids, n_real = bk.pad_bids(table._full_or(blocks), table.n_blocks)
+        boxes, wins = table._params(cfg)
+        names = table._scan_cols(cfg)
+        kw = table._scan_kernel_kwargs(cfg, names)
+        dv = table.device
+        wide, _ = bk.block_scan_plain(
+            dict(zip(names, table._cols_args(names))), torch.from_numpy(bids).to(dv),
+            torch.from_numpy(boxes).to(dv), torch.from_numpy(wins).to(dv),
+            has_boxes=kw["has_boxes"], has_windows=kw["has_windows"], extent=kw["extent"],
+        )
+        wide_rows, _ = bk.decode_bits_pair(wide.cpu().numpy(), None, bids, n_real)
+        rows = np.union1d(rows, wide_rows)
+    return table.perm[rows].astype(np.int64)
+
+
+def union_query(q, ids) -> str:
+    """An id lookup OR a box-and-window query: on a store with a Z3 index
+    alone no single index serves it, so it plans as a union."""
+    return "IN (" + ", ".join(f"'{i}'" for i in ids) + f") OR ({q})"
+
+
+def hints_path(torch, ds, src, measured, outs, main_lat, clock_phases) -> dict:
+    """The query controls on the main path's store (no new table): sort and
+    offset pages, sample and stratified sample, transforms, reprojection,
+    ``loose``, timeouts (single query, ``query_many``, a union), guards,
+    and the observability core (metrics, audit, tracing). Launch counts
+    zeroed before, read after; every check raises."""
+    from bisect import bisect_left
+
+    from geomesa_tpu_torch import conf
+    from geomesa_tpu_torch.audit import AuditWriter
+    from geomesa_tpu_torch.crs import MAX_LAT_3857
+    from geomesa_tpu_torch.metrics import HIST_EDGES, MetricsRegistry
+    from geomesa_tpu_torch.obs import trace as otrace
+    from geomesa_tpu_torch.planning.errors import QueryGuardError, QueryTimeout
+    from geomesa_tpu_torch.planning.guards import TemporalQueryGuard
+    from geomesa_tpu_torch.planning.hints import QueryHints
+    from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
+
+    x, y, t = src
+    picks = hint_queries(outs, N_HINT_QUERIES)
+    chosen = [measured[i] for i in picks]
+    exact = [np.asarray(outs[i].ids, np.int64) for i in picks]
+    filters = [q for q, _ in chosen]
+    check(len(chosen) == N_HINT_QUERIES, "the hints path has its queries")
+    zero_launches()
+    t_path = time.perf_counter()
+
+    # sort, and offset pages under a limit
+    bases, sorted_by = [], []
+    n_pages = 0
+    for (q, box), got0 in zip(chosen, exact):
+        base = expected_order(ds, "z3", brute_ids(src, box))
+        check(np.array_equal(got0, base), f"exact ids vs the f64 brute force in (bin, z) order: {q}")
+        bases.append(base)
+        for key in ("dtg", "-dtg"):
+            want = sorted_ids(t, base, key.startswith("-"))
+            got = np.asarray(ds.query("gdelt", q, hints=QueryHints(sort_by=key)).ids, np.int64)
+            check(np.array_equal(got, want), f"sort_by={key} vs the sorted brute force: {q}")
+            pages = [np.zeros(0, np.int64)]
+            for off in range(0, len(want), HINT_PAGE):
+                page = ds.query("gdelt", q, limit=HINT_PAGE, hints=QueryHints(sort_by=key, offset=off))
+                pages.append(np.asarray(page.ids, np.int64))
+                n_pages += 1
+            check(np.array_equal(np.concatenate(pages), want),
+                  f"pages of {HINT_PAGE} ({key}) concatenate to the sorted result: {q}")
+            if key == "-dtg":
+                sorted_by.append(want)
+    # the same hints through query_many (fused on K2), one per query
+    many = ds.query_many("gdelt", filters, hints=[QueryHints(sort_by="-dtg")] * len(filters))
+    for q, m, want in zip(filters, many, sorted_by):
+        check(np.array_equal(np.asarray(m.ids, np.int64), want), f"query_many sort_by=-dtg: {q}")
+
+    # sample: the port's own FeatureCollection.sample of the exact result
+    n_sampled = 0
+    for q in filters:
+        whole = ds.query("gdelt", q)
+        for kw in ({"sample": 0.1}, {"sample": 0.1, "sample_by": "EventRootCode"}):
+            got = np.asarray(ds.query("gdelt", q, hints=QueryHints(**kw)).ids, np.int64)
+            want = np.asarray(whole.sample(kw["sample"], kw.get("sample_by")).ids, np.int64)
+            again = np.asarray(ds.query("gdelt", q, hints=QueryHints(**kw)).ids, np.int64)
+            check(np.array_equal(got, want) and np.array_equal(got, again),
+                  f"sample {kw} equals FeatureCollection.sample, deterministically: {q}")
+            check(len(got) < len(whole) or len(whole) < 10, f"sample {kw} drops rows: {q}")
+            n_sampled += len(got)
+
+    # transforms and reprojection against the source columns
+    r = 6378137.0
+    reproj_err = 0.0
+    for q, base in zip(filters, bases):
+        got = ds.query("gdelt", q, hints=QueryHints(transforms=["dtg", "lon=st_x(geom)", "lat=st_y(geom)"]))
+        ids = np.asarray(got.ids, np.int64)
+        check(np.array_equal(ids, base) and list(got.columns) == ["dtg", "lon", "lat"],
+              f"transforms keep the ids and name the columns: {q}")
+        check(np.array_equal(got.columns["dtg"], t[ids]) and np.array_equal(got.columns["lon"], x[ids])
+              and np.array_equal(got.columns["lat"], y[ids]), f"transformed columns vs brute force: {q}")
+        got = ds.query("gdelt", q, hints=QueryHints(reproject="EPSG:3857"))
+        ids = np.asarray(got.ids, np.int64)
+        check(np.array_equal(ids, base), f"reproject keeps the ids: {q}")
+        ex = r * np.radians(x[ids])
+        ey = r * np.log(np.tan(np.pi / 4.0 + np.radians(np.clip(y[ids], -MAX_LAT_3857, MAX_LAT_3857)) / 2.0))
+        col = got.geom_column
+        err = float(max(np.abs(col.x - ex).max(initial=0.0), np.abs(col.y - ey).max(initial=0.0)))
+        check(err <= 1e-6, f"EPSG:3857 coordinates within 1e-6 m of the f64 formula ({err}): {q}")
+        reproj_err = max(reproj_err, err)
+
+    # loose: K1's wide plane is the answer, nothing refines
+    exact_lat, loose_lat, extra = [], [], 0
+    for q, base in zip(filters, bases):
+        s = time.perf_counter()
+        ds.query("gdelt", q)
+        exact_lat.append(time.perf_counter() - s)
+        s = time.perf_counter()
+        got = ds.query("gdelt", q, hints=QueryHints(loose=True))
+        loose_lat.append(time.perf_counter() - s)
+        ids = np.asarray(got.ids, np.int64)
+        check(set(base.tolist()) <= set(ids.tolist()), f"loose ids include the exact ids: {q}")
+        check(np.array_equal(ids, wide_plane_ids(torch, ds, q)), f"loose ids are K1's wide plane: {q}")
+        extra += len(ids) - len(base)
+    ds.clock = clock = PhaseClock()
+    for q in filters:
+        ds.query("gdelt", q, hints=QueryHints(loose=True))
+    loose_phases = {k: v / len(filters) * 1e3 for k, v in clock.settle().items()}
+    ds.clock = NULL_CLOCK
+    check(loose_phases.get("refine", 0.0) == 0.0, "loose queries spend no time refining")
+
+    # timeouts: a single query, query_many, a union; each raise counted
+    ds.metrics = metrics = MetricsRegistry()
+    tiny = QueryHints(timeout=1e-6)
+    uq = union_query(filters[0], bases[0][:2].tolist() + [bases[-1][0]])
+    check(ds.planner.plan("gdelt", uq).union is not None, "the id-or-box query plans as a union")
+    for what, call in (("query", lambda: ds.query("gdelt", filters[0], hints=tiny)),
+                       ("query_many", lambda: ds.query_many("gdelt", filters, hints=tiny)),
+                       ("union", lambda: ds.query("gdelt", uq, hints=tiny))):
+        try:
+            call()
+        except QueryTimeout:
+            continue
+        check(False, f"timeout=1e-6 raises QueryTimeout on {what}")
+    check(metrics.counter_value("geomesa.query.timeout") == 3, "geomesa.query.timeout counts each raise")
+    after = np.asarray(ds.query("gdelt", filters[0]).ids, np.int64)
+    check(np.array_equal(after, bases[0]), "the query after a timeout is exact")
+    uout = np.asarray(ds.query("gdelt", uq).ids, np.int64)
+    check(set(uout.tolist()) == set(bases[0].tolist()) | {int(bases[-1][0])}, "the union's ids")
+    ds.query_timeout = GENEROUS_TIMEOUT_S
+    for q, base in zip(filters, bases):
+        check(np.array_equal(np.asarray(ds.query("gdelt", q).ids, np.int64), base),
+              f"a generous store timeout answers as before: {q}")
+    ds.query_timeout = None
+
+    # guards
+    full_q = "EventRootCode = '14'"
+    check(ds.planner.plan("gdelt", full_q).strategy == "full-scan", "the attribute filter plans full-scan")
+    ds.block_full_table_scans = True
+    try:
+        ds.query("gdelt", full_q)
+        check(False, "block_full_table_scans rejects a full-table scan")
+    except QueryGuardError:
+        pass
+    check(ds.planner.plan("gdelt", "INCLUDE").strategy == "full-scan", "INCLUDE passes the guard")
+    ds.block_full_table_scans = False
+    ds.guards = [TemporalQueryGuard(max_ms=7 * 86_400_000)]
+    long_q = [q for q, (*_, lo, hi) in measured if hi - lo > 7 * 86_400_000]
+    short_q = [q for q, (*_, lo, hi) in chosen if hi - lo <= 7 * 86_400_000]
+    check(bool(long_q) and bool(short_q), "the measured set has windows on both sides of a week")
+    try:
+        ds.planner.plan("gdelt", long_q[0])
+        check(False, "TemporalQueryGuard rejects a window longer than its limit")
+    except QueryGuardError:
+        pass
+    ds.planner.plan("gdelt", short_q[0])
+    ds.guards = []
+
+    # metrics and audit over the main path's 64 queries
+    ds.metrics = metrics = MetricsRegistry()
+    ds.audit = audit = AuditWriter()
+    exec_lat, hits = [], []
+    for q, _ in measured:
+        plan = ds.planner.plan("gdelt", q)
+        s = time.perf_counter()
+        hits.append(len(ds.planner.execute(plan)))
+        exec_lat.append(time.perf_counter() - s)
+    check(metrics.counter_value("geomesa.query.count") == len(measured), "geomesa.query.count")
+    check(metrics.counter_value("geomesa.query.hits") == sum(len(o) for o in outs) == sum(hits),
+          "geomesa.query.hits equals the main path's hits")
+    reg_p50 = metrics.histogram_quantile("geomesa.query.scan", 0.5)
+    own_p50 = float(np.percentile(exec_lat, 50))
+    check(abs(bisect_left(HIST_EDGES, reg_p50) - bisect_left(HIST_EDGES, own_p50)) <= 1,
+          f"scan histogram p50 {reg_p50} within a bucket of the measured {own_p50}")
+    events = audit.drain()
+    check(len(events) == len(measured) and [e["hits"] for e in events] == hits,
+          "one audited event per query, with its hits")
+    ds.metrics = ds.audit = None
+
+    # tracing: the same 64 queries untraced, then traced
+    lat_untraced, _, _ = run_queries(ds, measured)
+    conf.OBS_TRACE_SAMPLE.set(1)
+    conf.OBS_SLOW_MS.set(HINT_SLOW_MS)
+    tr = otrace.install(otrace.Tracer())
+    try:
+        lat_traced, _, _ = run_queries(ds, measured)
+        with tempfile.TemporaryDirectory() as out_dir:
+            with open(ds.dump_trace(os.path.join(out_dir, "hints_trace.json"))) as fh:
+                events = json.load(fh)["traceEvents"]
+        traces = tr.traces()
+        slow = ds.slow_queries("gdelt")
+    finally:
+        conf.OBS_TRACE_SAMPLE.set(0)
+        conf.OBS_SLOW_MS.set(0)
+        otrace.install(otrace.Tracer())
+    by_trace: dict = {}
+    for ev in events:
+        check(set(ev) == {"name", "ph", "pid", "tid", "ts", "dur", "args"} and ev["ph"] == "X",
+              "Chrome trace events")
+        by_trace.setdefault(ev["pid"], set()).add(ev["name"])
+    queries_traced = [names for names in by_trace.values() if "query" in names]
+    check(len(traces) == len(measured) and len(queries_traced) == len(measured),
+          "one retained trace per query")
+    for names in queries_traced:
+        check({"plan", "dispatch", "scan", "decode"} <= names, f"a query's spans: {sorted(names)}")
+    check(len(slow) > 0, "the slow-query ring holds entries")
+    phase_ms: dict = {}
+    for trc in traces:
+        for sp in trc.phases():
+            phase_ms[sp.name] = phase_ms.get(sp.name, 0.0) + sp.dur_s * 1e3 / len(traces)
+    launches = read_launches()
+    return {
+        "phase": "hints_path", "cell": "gdelt-z3-100M-hints", "launches": launches,
+        "native": read_native(), "n_queries": len(chosen),
+        "hits": [len(b) for b in bases], "pages": n_pages, "sampled_rows": n_sampled,
+        "reproject_max_err_m": reproj_err,
+        "exact_p50_ms": float(np.percentile(exact_lat, 50) * 1e3),
+        "loose_p50_ms": float(np.percentile(loose_lat, 50) * 1e3),
+        "loose_extra_rows": int(extra), "loose_phase_ms_per_query": loose_phases,
+        "timeouts_counted": 3,
+        "registry_scan_p50_ms": reg_p50 * 1e3, "measured_execute_p50_ms": own_p50 * 1e3,
+        "audited_events": len(measured),
+        "main_p50_ms": float(np.percentile(main_lat, 50) * 1e3),
+        "untraced_p50_ms": float(np.percentile(lat_untraced, 50) * 1e3),
+        "traced_p50_ms": float(np.percentile(lat_traced, 50) * 1e3),
+        "trace_phase_ms_per_query": phase_ms, "phaseclock_ms_per_query": clock_phases,
+        "slow_queries": len(slow), "trace_events": len(events),
+        "wall_s": time.perf_counter() - t_path,
+    }
+
+
 def main_path(torch, device):
-    """Ten paths, each with its own launch and native call counts (zeroed
-    just before it runs, read just after): the single-query main path,
-    the batch path and the polygon path on the same store, the
+    """Eleven paths, each with its own launch and native call counts
+    (zeroed just before it runs, read just after): the single-query main
+    path, the batch path, the polygon path and the query controls on the
+    same store, the
     packed-time cell, the Z2 polygon cell, the two extent cells (XZ2,
     XZ3), the tiered store with its union queries, the mutated store and
     the attribute-indexed store."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
-    ds, src, ingest_s = build_store(torch, device, N_MAIN, packed=False)
+    ds, src, ingest_s = build_store(torch, device, N_MAIN, packed=False, with_root_code=True)
     table = ds.table("gdelt", "z3")
     warm = query_set(SEED + 1, N_WARMUP)
     measured = query_set(SEED + 2, N_MEASURED)
@@ -2354,6 +2685,7 @@ def main_path(torch, device):
         n_brute=8, n_settings=16, n_agg=4, n_full_scan=2,
     )
     poly = {"phase": "polygon_path", "cell": "gdelt-z3-100M-polygon", **poly}
+    hints = hints_path(torch, ds, src, measured, outs, lat, phases)
     del ds, src, outs, table
     torch.cuda.empty_cache()
 
@@ -2400,7 +2732,7 @@ def main_path(torch, device):
           "device_gb": ds.table("gdelt", "z2").nbytes_device / 1e9, **z2}
     del ds, src
     torch.cuda.empty_cache()
-    return (rec, batch, poly, packed, z2, xz2_path(torch, device), xz3_path(torch, device),
+    return (rec, batch, poly, hints, packed, z2, xz2_path(torch, device), xz3_path(torch, device),
             tiered_union_path(torch, device), mutation_path(torch, device),
             attribute_path(torch, device))
 
@@ -2636,7 +2968,7 @@ def tiered_union_path(torch, device) -> dict:
 # (NVIDIA H100 80GB HBM3, 700 W; 671 s without the path), too near its
 # 1200 s limit on a slower host; the fold's slices and the maintenance ops
 # scale with the rows
-N_MUTATE = 5_000_000
+N_MUTATE = 10_000_000
 N_FOLD = 1_000_000  # half replace existing ids, half are new
 N_UPSERT = 10_000
 N_MUTATE_QUERIES = 8
@@ -2814,7 +3146,7 @@ def check_fold_builds(torch, device, kept, last: int) -> dict:
 
 
 def mutation_path(torch, device) -> dict:
-    """gdelt-z3-10M-mutate, cut to N_MUTATE = 5M rows: a GDELT-shaped
+    """gdelt-z3-10M-mutate, N_MUTATE = 10M rows: a GDELT-shaped
     point store (Z3 and Z2, ids 0..N-1, written once) takes, in order,
     ``fold_upsert`` of 1M rows
     (500k existing ids moved to new positions in the span's last 21 days,
@@ -2979,8 +3311,8 @@ def mutation_path(torch, device) -> dict:
         "phase": "mutation_path", "cell": "gdelt-z3-10M-mutate", "launches": launches,
         "native": read_native(),
         "n_points": N_MUTATE, "indexes": ["z3", "z2"], "n_queries": len(queries),
-        "reduced": {"n_points": {"cell": 10_000_000, "run": N_MUTATE},
-                    "why": "the script's 1200 s limit (944 s with the path at 10M)"},
+        **({"reduced": {"n_points": {"cell": 10_000_000, "run": N_MUTATE}}}
+           if N_MUTATE != 10_000_000 else {}),
         "ingest_s": ingest_s,
         "fold": {"rows": N_FOLD, "replaced": N_FOLD - n_new, "new": n_new, "s": fold_s,
                  "slices": report["slices"], "slice_rows": slice_rows,
@@ -3365,6 +3697,7 @@ def check_native(records) -> None:
         "gdelt-z3-100M": point,
         "gdelt-z3-100M-batch": ("zranges", "bitmask_decode_pair"),
         "gdelt-z3-100M-polygon": ("zranges", "bitmask_decode_pair", "points_in_polygon"),
+        "gdelt-z3-100M-hints": ("zranges", "bitmask_decode_pair"),
         "gdelt-z3-packed-10M": point,
         "gdelt-z2-20M-polygon": ("zranges", "bitmask_decode_pair", "points_in_polygon"),
         "gdelt-z2-20M-polygon-ingest": ("sort_bins_z",),
@@ -3415,6 +3748,12 @@ def main() -> int:
     probes, probe_kernels = probe_phase(torch, device)
     emit(probes)
 
+    # tracing stays disarmed in every measured pass (the slow-query log
+    # arms it by default); the hints path arms it for its own traced pass
+    from geomesa_tpu_torch import conf
+
+    conf.OBS_TRACE_SAMPLE.set(0)
+    conf.OBS_SLOW_MS.set(0)
     records = main_path(torch, device)
     for rec in records:
         emit(rec)
@@ -3424,6 +3763,7 @@ def main() -> int:
         "gdelt-z3-100M": ("block_scan", "density", "bounds"),
         "gdelt-z3-100M-batch": ("block_scan_multi", "block_pops", "density"),
         "gdelt-z3-100M-polygon": ("block_scan", "block_scan_multi"),
+        "gdelt-z3-100M-hints": ("block_scan", "block_scan_multi"),
         "gdelt-z3-packed-10M": tuple(k.name for k in KERNELS),
         "gdelt-z2-20M-polygon": ("block_scan", "block_scan_multi"),
         "osm-xz2-50M": tuple(k.name for k in KERNELS),

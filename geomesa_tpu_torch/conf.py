@@ -70,6 +70,19 @@ COMPACT_SPAN_ROWS = SystemProperty(
     "materializing the whole sorted column set)",
 )
 
+# -- query deadlines and guards (planning.errors, planning.guards) ---------
+
+QUERY_TIMEOUT = SystemProperty(
+    "geomesa.query.timeout", None, float,
+    "default per-query wall-clock budget in seconds (None = unbounded)",
+)
+GUARD_TEMPORAL_MAX = SystemProperty(
+    "geomesa.guard.temporal.max.duration", 7 * 86_400_000, int,
+    "ms cap on a query's temporal span for TemporalQueryGuard."
+    "from_properties() (reference TemporalQueryGuard's property of the "
+    "same name; default one week)",
+)
+
 # -- the incremental fold (DataStore.fold_upsert) --------------------------
 
 STREAM_FOLD_SLICE_ROWS = SystemProperty(
@@ -138,4 +151,32 @@ SERVING_QUEUE_MAX = SystemProperty(
 SERVING_BATCH_MAX = SystemProperty(
     "geomesa.serving.batch.max", 128, int,
     "max queries drained into one fused micro-batch dispatch",
+)
+
+
+# -- observability: tracing and the slow-query log (obs.trace) ------------
+
+OBS_TRACE_SAMPLE = SystemProperty(
+    "geomesa.obs.trace.sample", 0, int,
+    "structured-tracing sample rate: 0 disarms tracing entirely (span "
+    "entry is a no-op thread-local check), 1 traces every root "
+    "operation, N retains every Nth root's span tree in the trace "
+    "buffer (slow queries are captured regardless — see "
+    "geomesa.obs.slow.ms)",
+)
+OBS_TRACE_BUFFER = SystemProperty(
+    "geomesa.obs.trace.buffer", 256, int,
+    "bounded in-memory trace ring: completed sampled traces retained "
+    "for DataStore.dump_trace (oldest evicted first)",
+)
+OBS_SLOW_MS = SystemProperty(
+    "geomesa.obs.slow.ms", 1000.0, float,
+    "always-on slow-query log threshold: a root operation slower than "
+    "this captures its full span tree + plan fingerprint into the "
+    "slow-query ring (DataStore.slow_queries); 0 disables the slow log "
+    "(and, with geomesa.obs.trace.sample=0, disarms tracing outright)",
+)
+OBS_SLOW_MAX = SystemProperty(
+    "geomesa.obs.slow.max", 64, int,
+    "slow-query ring capacity (oldest captures evicted first)",
 )

@@ -6,10 +6,17 @@ density / density_many / bounds / stats_query / explain, serve() for
 concurrent callers, and the mutation surface: upsert, fold_upsert (the
 incremental fold), delete_features, modify_features, age_off,
 delete_schema, plus id_lookup / id_exists_mask over a per-chunk sorted
-id index. Point schemas get a Z3 index (when a time attribute
-exists) and a Z2 index; extent schemas (polygons, lines, multi-geometries)
-an XZ3 and an XZ2 index; both narrowed by the ``geomesa.indices.enabled``
-user data. Each index is a sorted IndexTable whose predicate columns live
+id index. Queries take the reference's controls: ``QueryHints`` (sort,
+sample, offset, transforms, reprojection, ``loose``, ``timeout``),
+guards and interceptors (``apply_guards`` / ``apply_interceptors``), a
+store-wide ``query_timeout``, and the observability core: every executed
+plan is recorded in the optional MetricsRegistry and AuditWriter
+(``record_query``), and armed tracing keeps span trees
+(``dump_trace``, ``slow_queries``).
+
+Point schemas get a Z3 index (when a time attribute exists) and a Z2
+index; extent schemas (polygons, lines, multi-geometries) an XZ3 and an
+XZ2 index; both narrowed by the ``geomesa.indices.enabled`` user data. Each index is a sorted IndexTable whose predicate columns live
 on the store's device.
 
 The device is explicit: ``DataStore(device="cuda")`` (the default) raises
@@ -39,6 +46,7 @@ from geomesa_tpu_torch.filter.predicates import (
 )
 from geomesa_tpu_torch.index import AttributeIndex, XZ2Index, XZ3Index, Z2Index, Z3Index
 from geomesa_tpu_torch.index.api import WriteKeys
+from geomesa_tpu_torch.planning.errors import check_deadline
 from geomesa_tpu_torch.planning.explain import Explainer
 from geomesa_tpu_torch.planning.planner import QueryPlanner, mask_decides_filter
 from geomesa_tpu_torch.sft import FeatureType
@@ -134,9 +142,33 @@ class DataStore:
     # each hold for concurrent readers
     _ID_PROBE_SLICE = 8192
 
-    def __init__(self, device="cuda", tile: int | None = None):
+    def __init__(
+        self,
+        device="cuda",
+        tile: int | None = None,
+        block_full_table_scans: bool = False,
+        guards: Sequence | None = None,
+        interceptors: Sequence | None = None,
+        audit=None,
+        metrics=None,
+        query_timeout: float | None = None,
+    ):
+        """``guards`` / ``interceptors``: planning.guards hooks; ``audit``
+        an AuditWriter; ``metrics`` a MetricsRegistry.
+        ``block_full_table_scans`` adds a FullTableScanGuard at query time.
+        ``query_timeout``: default per-query wall-clock budget in seconds
+        (QueryTimeout when exceeded; a QueryHints.timeout overrides it per
+        query); None reads ``geomesa.query.timeout``."""
         self.device = resolve_device(device)
         self.tile = tile
+        self.block_full_table_scans = block_full_table_scans
+        self.guards = list(guards or [])
+        self.interceptors = list(interceptors or [])
+        self.audit = audit
+        self.metrics = metrics
+        if query_timeout is None:
+            query_timeout = conf.QUERY_TIMEOUT.get()
+        self.query_timeout = query_timeout
         self._schemas: dict[str, FeatureType] = {}
         self._chunks: dict[str, list[FeatureCollection]] = {}
         self._full: dict[str, FeatureCollection | None] = {}
@@ -415,9 +447,16 @@ class DataStore:
         table; each slice's current ordinals subtract the rank of the
         ordinals earlier slices removed (replaced ids are pre-fold rows,
         so removals only land in the surviving first chunk)."""
+        from geomesa_tpu_torch.metrics import resolve
+        from geomesa_tpu_torch.obs.trace import span as _ospan
+
+        # the reference also passes the fault point "stream.fold.slice"
+        # at each slice's start (fault.py, not ported yet)
+        metrics = resolve(self.metrics)
         n_batch = len(features)
         n_slices = -(-n_batch // sr)
         self._fold_progress[type_name] = (0, n_slices)
+        metrics.gauge("geomesa.stream.fold.progress", 0.0)
         removed_cum = np.zeros(0, dtype=np.int64)  # sorted pre-fold ordinals
         ids = np.asarray(features.ids)
         slice_s: list[float] = []
@@ -425,31 +464,37 @@ class DataStore:
             for si, s in enumerate(range(0, n_batch, sr)):
                 e = min(s + sr, n_batch)
                 t0 = time.perf_counter()
-                sub_fc = features.take(np.arange(s, e, dtype=np.int64))
-                sub_keys = {name: _slice_keys(k, s, stop=e) for name, k in keys.items()}
-                sub_pre = None
-                if presorted:
-                    sub_pre = {}
-                    for name, perm in presorted.items():
-                        perm = np.asarray(perm)
-                        sel = (perm >= s) & (perm < e)
-                        sub_pre[name] = perm[sel] - s
-                sub_found = found[s:e]
-                rep = np.sort(sub_found[sub_found >= 0])
-                # pre-fold ordinal -> current ordinal: subtract the rank of
-                # earlier slices' removals (appends land after the first
-                # chunk and never shift it)
-                cur = rep - np.searchsorted(removed_cum, rep, side="left")
-                self._fold_slice_locked(type_name, sub_fc, sub_keys, cur, sub_pre)
-                removed_cum = np.union1d(removed_cum, rep)
-                self._fold_progress[type_name] = (si + 1, n_slices)
-                slice_s.append(time.perf_counter() - t0)
-                if on_slice is not None:
-                    on_slice([str(i) for i in ids[s:e].tolist()])
+                with _ospan("fold.slice", index=si, rows=e - s):
+                    sub_fc = features.take(np.arange(s, e, dtype=np.int64))
+                    sub_keys = {name: _slice_keys(k, s, stop=e) for name, k in keys.items()}
+                    sub_pre = None
+                    if presorted:
+                        sub_pre = {}
+                        for name, perm in presorted.items():
+                            perm = np.asarray(perm)
+                            sel = (perm >= s) & (perm < e)
+                            sub_pre[name] = perm[sel] - s
+                    sub_found = found[s:e]
+                    rep = np.sort(sub_found[sub_found >= 0])
+                    # pre-fold ordinal -> current ordinal: subtract the rank
+                    # of earlier slices' removals (appends land after the
+                    # first chunk and never shift it)
+                    cur = rep - np.searchsorted(removed_cum, rep, side="left")
+                    self._fold_slice_locked(type_name, sub_fc, sub_keys, cur, sub_pre)
+                    removed_cum = np.union1d(removed_cum, rep)
+                    self._fold_progress[type_name] = (si + 1, n_slices)
+                    metrics.gauge("geomesa.stream.fold.progress", (si + 1) / n_slices)
+                    metrics.counter("geomesa.stream.fold.slices")
+                    slice_s.append(time.perf_counter() - t0)
+                    # the per-slice pause as a live histogram
+                    metrics.observe("geomesa.stream.fold.slice", slice_s[-1])
+                    if on_slice is not None:
+                        on_slice([str(i) for i in ids[s:e].tolist()])
                 if pacer is not None and e < n_batch:
                     pacer()
         finally:
             self._fold_progress.pop(type_name, None)
+            metrics.gauge("geomesa.stream.fold.progress", 0.0)
             self.last_fold_report = {"rows": n_batch, "slices": n_slices, "slice_s": slice_s}
 
     def _fold_slice_locked(self, type_name, features, keys, replaced, presorted) -> None:
@@ -641,8 +686,9 @@ class DataStore:
         """``return_removed=True`` returns the removed rows (the rollback
         snapshot of compound ops: one scan, not two) instead of the
         count."""
-        # the maintenance scan is an ordinary plan + execute
-        out = self.planner.execute(self.planner.plan(type_name, f))
+        # the maintenance scan: the raw filter decides what is removed (no
+        # interceptor rewrites it, no guard rejects it)
+        out = self.planner.execute(self.planner.plan(type_name, f, intercept=False))
         if len(out) == 0:
             return out if return_removed else 0
         ordinals = self.id_lookup(type_name, out.ids)
@@ -905,6 +951,37 @@ class DataStore:
         """Boolean mask aligned with ``ids``: which are in the store."""
         return self._id_find(type_name, ids) >= 0
 
+    # -- query controls --------------------------------------------------
+    def apply_interceptors(self, type_name: str, f: Filter) -> Filter:
+        """Run filter-rewriting interceptors in order (reference
+        QueryInterceptor SPI, hooked at QueryPlanner.scala:155). An
+        interceptor may define ``applies_to(sft) -> bool`` to scope itself
+        to matching schemas (AgeOffInterceptor skips types without its
+        time attribute)."""
+        sft = self._schemas.get(type_name)
+        for ic in self.interceptors:
+            applies = getattr(ic, "applies_to", None)
+            if applies is not None and sft is not None and not applies(sft):
+                continue
+            f = ic.rewrite(type_name, f)
+        return f
+
+    def apply_guards(self, plan) -> None:
+        """Run every configured guard over a finished plan; guards raise
+        QueryGuardError to reject (reference planning/guard/). The
+        ``block_full_table_scans`` flag is read at query time so it can be
+        toggled on a live store."""
+        from geomesa_tpu_torch.planning.guards import FullTableScanGuard
+
+        sft = self._schemas[plan.type_name]
+        guards = list(self.guards)
+        if self.block_full_table_scans and not any(
+            isinstance(g, FullTableScanGuard) for g in guards
+        ):
+            guards.append(FullTableScanGuard())
+        for g in guards:
+            g.guard(plan, sft)
+
     # -- queries ---------------------------------------------------------
     def query(
         self,
@@ -912,22 +989,96 @@ class DataStore:
         f: "Filter | str" = INCLUDE,
         limit: Optional[int] = None,
         explain: Explainer | None = None,
+        hints=None,
     ) -> FeatureCollection:
-        """Run a query; returns the matching features as a collection."""
-        plan = self.planner.plan(type_name, f, limit=limit, explain=explain)
-        return self.planner.execute(plan, explain=explain)
+        """Run a query; returns the matching features as a collection.
+        ``hints`` is an optional planning.hints.QueryHints.
+
+        When tracing is armed the whole call is one trace (plan, scan and
+        decode phases), retained per ``geomesa.obs.trace.sample``, captured
+        into the slow-query ring past ``geomesa.obs.slow.ms``, and
+        appended to ``explain`` as a per-phase breakdown."""
+        from geomesa_tpu_torch.obs.trace import phase_breakdown, tracer
+
+        with tracer().trace("query", type=type_name) as trace:
+            plan = self.planner.plan(type_name, f, limit=limit, explain=explain)
+            if trace is not None:
+                trace.fingerprint = {
+                    "type": type_name,
+                    "strategy": plan.strategy,
+                    "filter": str(plan.filter),
+                }
+            out = self.planner.execute(plan, explain=explain, hints=hints)
+        if explain is not None and trace is not None:
+            for line in phase_breakdown(trace):
+                explain(line)
+            explain.trace = trace
+        return out
 
     def query_many(
         self,
         type_name: str,
         filters: "Sequence[Filter | str]",
         limit: Optional[int] = None,
+        hints=None,
     ) -> list[FeatureCollection]:
         """Run several queries with every device scan launched before any
         result is pulled; index scans on one table fuse into one kernel
-        launch per chunk. Per-query results equal sequential ``query``."""
+        launch per chunk. Per-query results equal sequential ``query``.
+        ``hints``: one QueryHints for all, or one per filter."""
         plans = [self.planner.plan(type_name, f, limit=limit) for f in filters]
-        return self.planner.execute_many(plans)
+        return self.planner.execute_many(plans, hints=hints)
+
+    def record_query(self, plan, hits: int, scan_s: float) -> None:
+        """Audit and metrics sink for every executed plan: the planner
+        calls it from execute(), and the aggregation fast paths call it
+        directly, so density, count and bounds scans are recorded like row
+        queries (reference AuditWriter covers all query types). The
+        reference's estimate-accuracy block needs the plan-time sketch
+        estimate of the stats store, and its cache and tuning lines wait
+        for those tiers."""
+        if self.metrics is not None:
+            self.metrics.counter("geomesa.query.count")
+            self.metrics.counter("geomesa.query.hits", max(hits, 0))
+            self.metrics.timer_update("geomesa.query.plan", plan.planning_s)
+            # query latency as a live histogram (p50 / p99 off the registry)
+            self.metrics.observe("geomesa.query.scan", scan_s)
+        if self.audit is not None:
+            from geomesa_tpu_torch.audit import AuditedEvent
+            from geomesa_tpu_torch.obs.trace import tracer
+
+            # cross-reference key: the active trace's id, shared with the
+            # slow-query ring and the Chrome export (None when disarmed)
+            cur = tracer().current()
+            self.audit.write(
+                AuditedEvent(
+                    type_name=plan.type_name,
+                    filter=str(plan.filter),
+                    strategy=plan.strategy,
+                    n_ranges=plan.config.n_ranges if plan.config is not None else 0,
+                    hits=hits,
+                    planning_ms=plan.planning_s * 1e3,
+                    scanning_ms=scan_s * 1e3,
+                    trace_id=cur.trace.trace_id if cur is not None else None,
+                )
+            )
+
+    def dump_trace(self, path: str) -> str:
+        """Write every retained trace (sampled buffer and slow-query ring)
+        as Chrome trace-event JSON (chrome://tracing, Perfetto) and return
+        the path. Tracing arms with ``geomesa.obs.trace.sample`` /
+        ``geomesa.obs.slow.ms``."""
+        from geomesa_tpu_torch.obs.trace import tracer
+
+        return tracer().dump(path)
+
+    def slow_queries(self, type_name: "str | None" = None) -> list:
+        """The slow-query ring (newest last): operations over
+        ``geomesa.obs.slow.ms``, each with wall time, plan fingerprint and
+        span tree. ``type_name`` filters by the fingerprint's schema."""
+        from geomesa_tpu_torch.obs.trace import tracer
+
+        return tracer().slow_queries(type_name=type_name)
 
     def serve(self, config=None):
         """Attach (or return) the micro-batch serving tier: concurrent
@@ -947,8 +1098,9 @@ class DataStore:
 
     def count(self, type_name: str, f: "Filter | str" = INCLUDE) -> int:
         """Exact hit count (scan + refine; a polygon filter with a raster
-        counts its certain rows without gathering them)."""
-        if isinstance(f, Include):
+        counts its certain rows without gathering them). INCLUDE counts
+        the rows outright unless an interceptor may hide some."""
+        if isinstance(f, Include) and not self.interceptors:
             return self.row_count(type_name)
         plan = self.planner.plan(type_name, f)
         if self._raster_agg_eligible(type_name, plan):
@@ -961,6 +1113,27 @@ class DataStore:
         return plan.ids is None and plan.index is not None and mask_decides_filter(
             plan.filter, plan.config, self._schemas[type_name], for_aggregation=True
         )
+
+    def _agg_deadline(self):
+        """Deadline of a device aggregation call from the store default
+        (the aggregation entry points take no hints; a launched kernel
+        runs to its end, so the check lands at the next stage boundary)."""
+        from geomesa_tpu_torch.planning.errors import deadline_from
+
+        return deadline_from(self.query_timeout)
+
+    def _agg_check_deadline(self, deadline, stage: str) -> None:
+        """check_deadline for the aggregation fast paths, with the
+        planner's timeout accounting: an overdue density, count or bounds
+        scan counts in ``geomesa.query.timeout``."""
+        from geomesa_tpu_torch.planning.errors import QueryTimeout
+
+        try:
+            check_deadline(deadline, stage)
+        except QueryTimeout:
+            if self.metrics is not None:
+                self.metrics.counter("geomesa.query.timeout")
+            raise
 
     # -- raster aggregation push-down ------------------------------------
     def _raster_agg_eligible(self, type_name: str, plan) -> bool:
@@ -983,15 +1156,21 @@ class DataStore:
     def _raster_agg_scan(self, type_name: str, plan, explain=None):
         """(hit count, hit ordinals) of a raster-eligible plan: the scan's
         certain rows (full cells, contained ranges) are accepted without a
-        gather; only the uncertain residue gathers and refines in f64."""
+        gather; only the uncertain residue gathers and refines in f64.
+        Recorded (``record_query``, ``geomesa.query.raster_agg``) like the
+        other aggregation fast paths."""
+        deadline = self._agg_deadline()
+        t0 = time.perf_counter()
         ordinals, certain = self.table(type_name, plan.index).scan_submit(
             plan.config, clock=self.clock
         )()
+        self._agg_check_deadline(deadline, "raster aggregation scan")
         cert_ords = ordinals[certain]
         unc = ordinals[~certain]
         if len(unc):
             with self.clock.host("refine"):
                 m = plan.filter.evaluate(self.gather(type_name, unc).batch)
+            self._agg_check_deadline(deadline, "raster residue refinement")
             hits = np.concatenate([cert_ords, unc[m]])
         else:
             hits = cert_ords
@@ -1001,6 +1180,9 @@ class DataStore:
                 f"(full cells / contained ranges), {len(unc)} residue rows "
                 "re-checked exactly"
             )
+        if self.metrics is not None:
+            self.metrics.counter("geomesa.query.raster_agg")
+        self.record_query(plan, len(hits), time.perf_counter() - t0)
         return len(hits), hits
 
     def _raster_agg_bounds(self, type_name: str, plan, explain=None):
@@ -1054,17 +1236,26 @@ class DataStore:
             if weight is not None or not self._device_aggregable(type_name, plan):
                 staged.append(("host", (plan, envelope)))
             elif plan.config.disjoint:
+                self.record_query(plan, 0, 0.0)
                 staged.append(("empty", None))
             else:
-                staged.append(("device", self.table(type_name, plan.index).density_submit(
+                staged.append(("device", (plan, self.table(type_name, plan.index).density_submit(
                     plan.config, envelope, width, height, clock=self.clock
-                )))
+                ))))
         out: list = []
         for kind, payload in staged:
             if kind == "empty":
                 out.append(np.zeros((height, width), dtype=np.float32))
             elif kind == "device":
-                out.append(payload())
+                # a fresh deadline and timing per tile, as sequential
+                # density() calls have
+                plan, finish = payload
+                deadline = self._agg_deadline()
+                t0 = time.perf_counter()
+                grid = finish()
+                self._agg_check_deadline(deadline, "density scan")
+                self.record_query(plan, int(grid.sum()), time.perf_counter() - t0)
+                out.append(grid)
             else:
                 plan, envelope = payload
                 rows = self.planner.execute(plan, explain=explain)
@@ -1107,10 +1298,14 @@ class DataStore:
             and all(t.kind == "count" for t in terms)
             and self._device_aggregable(type_name, plan)
         ):
+            deadline = self._agg_deadline()
+            t0 = time.perf_counter()
             n = (
                 0 if plan.config.disjoint
                 else self.table(type_name, plan.index).count(plan.config, clock=self.clock)
             )
+            self._agg_check_deadline(deadline, "count scan")
+            self.record_query(plan, n, time.perf_counter() - t0)
             out = []
             for _ in terms:
                 c = CountStat()
@@ -1139,10 +1334,15 @@ class DataStore:
             and self._device_aggregable(type_name, plan)
         ):
             if plan.config.disjoint:
+                self.record_query(plan, 0, 0.0)
                 return None
-            _, env = self.table(type_name, plan.index).bounds_stats(
+            deadline = self._agg_deadline()
+            t0 = time.perf_counter()
+            cnt, env = self.table(type_name, plan.index).bounds_stats(
                 plan.config, clock=self.clock
             )
+            self._agg_check_deadline(deadline, "bounds scan")
+            self.record_query(plan, cnt, time.perf_counter() - t0)
             return env
         return _exact_bounds(self.planner.execute(plan, explain=explain))
 

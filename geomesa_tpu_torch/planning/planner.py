@@ -18,6 +18,17 @@ spatio-temporal constraint) it takes the full-table host scan, with
 identical results. Explain says which. An id filter (``IN ('a', 'b')``)
 plans ahead of every index as an id lookup: the sorted ids probe the
 store's per-chunk id index, and the rows come back in sorted-id order.
+
+Around the scan sit the reference's query controls: interceptors rewrite
+the filter and guards inspect the plan (``DataStore.apply_interceptors``
+/ ``apply_guards``); a deadline from the ``timeout`` hint or the store's
+``query_timeout`` is checked at every stage boundary, never between a
+kernel launch and the copy that ends it (QueryTimeout, counted in
+``geomesa.query.timeout``); the ``loose`` hint accepts the widened device
+plane where the mask decides the filter; ``_post`` samples, sorts, pages,
+reprojects and transforms; every executed plan is recorded
+(``DataStore.record_query``); and the phases open trace spans (``plan``,
+``plan.probe``, ``plan.decompose``, ``dispatch``, ``scan``, ``decode``).
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from geomesa_tpu_torch.filter import ecql
 from geomesa_tpu_torch.filter.extract import extract_ids
 from geomesa_tpu_torch.filter.predicates import Filter, Include
 from geomesa_tpu_torch.index.api import ScanConfig
+from geomesa_tpu_torch.obs.trace import span as _ospan
 from geomesa_tpu_torch.planning.explain import Explainer, ExplainNull
 
 # index selection priority (reference cost multipliers: z3 / xz3 = 1.1
@@ -61,6 +73,9 @@ class QueryPlan:
     # multi-index union plan (reference FilterSplitter OR options): each
     # sub-plan scans one DNF disjunct on its own index; results dedup-union
     union: Optional[list["QueryPlan"]] = None
+    # the reference's estimate accountability adds the plan-time sketch
+    # estimate and the matched rows here (estimated_rows, actual_rows);
+    # they come with the stats store
 
     @property
     def strategy(self) -> str:
@@ -69,6 +84,13 @@ class QueryPlan:
         if self.ids is not None:
             return "id-lookup"
         return "full-scan" if self.index is None else self.index
+
+
+# re-exported for importers of the planner; the definitions live in the
+# leaf module planning.errors so the storage layer can use them too
+from geomesa_tpu_torch.planning.errors import (  # noqa: E402
+    QueryGuardError, QueryTimeout, check_deadline, deadline_from,
+)
 
 
 def _filter_leaf_kinds(
@@ -153,19 +175,47 @@ class QueryPlanner:
         f: "Filter | str",
         limit: Optional[int] = None,
         explain: Explainer | None = None,
+        intercept: bool = True,
+        guard: "bool | None" = None,
     ) -> QueryPlan:
+        """``intercept=False`` skips the interceptor rewrite: for internal
+        maintenance scans (delete_features, age_off), which guards must
+        not reject either (``guard`` defaults to ``intercept``), and for
+        callers that already applied the rewrite (pass ``guard=True`` to
+        keep guarding those)."""
+        if guard is None:
+            guard = intercept
         t0 = time.perf_counter()
         exp = explain or ExplainNull()
-        with self.store.clock.host("plan"):
+        with _ospan("plan", type=type_name), self.store.clock.host("plan"):
             if isinstance(f, str):
                 f = ecql.parse(f)
             from geomesa_tpu_torch.filter.predicates import normalize_antimeridian
 
             f = normalize_antimeridian(f)
+            if intercept:
+                f = self.store.apply_interceptors(type_name, f)
+                # the reference closes attribute-level visibility here
+                # (_check_attr_visibility); the port's visibility tier
+                # (security.py) is not ported yet
             exp(f"Planning query on '{type_name}': {type(f).__name__}")
             plan = self._select(type_name, f, limit, exp)
+            # the reference resolves the stats-sketch row estimate here
+            # (_estimate_rows); it needs the stats store, not ported yet
+            if guard:
+                self.store.apply_guards(plan)
         plan.planning_s = time.perf_counter() - t0
         return plan
+
+    def _scan_config(self, idx, f: Filter):
+        """``idx.scan_config(f)`` under the reference's two planning
+        spans: ``plan.probe`` (where the reference probes its scan-config
+        memo; the port has no memo yet, so the probe finds nothing) and
+        ``plan.decompose`` (the range decomposition itself)."""
+        with _ospan("plan.probe", index=idx.name):
+            pass
+        with _ospan("plan.decompose", index=idx.name):
+            return idx.scan_config(f)
 
     def _select(self, type_name: str, f: Filter, limit: Optional[int], exp) -> QueryPlan:
         plan = self._select_single(type_name, f, limit, exp)
@@ -222,7 +272,7 @@ class QueryPlanner:
             return QueryPlan(type_name, f, "id", None, ids=list(ids.values), limit=limit)
         options: list[tuple[float, str, ScanConfig]] = []
         for idx in self.store.indexes(type_name):
-            cfg = idx.scan_config(f)
+            cfg = self._scan_config(idx, f)
             if cfg is None:
                 continue
             if cfg.disjoint:
@@ -252,52 +302,113 @@ class QueryPlanner:
         return (rows + 1) * mult
 
     # -- execution -------------------------------------------------------
-    def execute(self, plan: QueryPlan, explain: Explainer | None = None) -> FeatureCollection:
+    def execute(
+        self,
+        plan: QueryPlan,
+        explain: Explainer | None = None,
+        hints=None,
+        deadline=None,
+    ) -> FeatureCollection:
+        """Run a plan and record it (``DataStore.record_query``); a
+        QueryTimeout counts in ``geomesa.query.timeout`` and propagates.
+        ``deadline``: an optional pre-anchored Deadline; by default the
+        clock starts here, from the hint or store timeout. (The reference
+        probes its result cache here first; the port has no cache tier
+        yet.)"""
+        t0 = time.perf_counter()
+        try:
+            out = self._execute(plan, explain, hints, deadline=deadline)
+        except QueryTimeout:
+            self._record_timeout(plan)
+            raise
+        self.store.record_query(plan, len(out), time.perf_counter() - t0)
+        return out
+
+    def _record_timeout(self, plan) -> None:
+        """A timed-out scan is still recorded: the timeout counter makes
+        overdue queries visible in metrics instead of vanishing with the
+        exception."""
+        metrics = getattr(self.store, "metrics", None)
+        if metrics is not None:
+            metrics.counter("geomesa.query.timeout")
+
+    def _deadline(self, hints):
+        """Monotonic cutoff from the hint timeout or the store default."""
+        timeout = getattr(hints, "timeout", None) if hints is not None else None
+        if timeout is None:
+            timeout = getattr(self.store, "query_timeout", None)
+        return deadline_from(timeout)
+
+    def _execute(
+        self,
+        plan: QueryPlan,
+        explain: Explainer | None = None,
+        hints=None,
+        deadline=None,
+    ) -> FeatureCollection:
         exp = explain or ExplainNull()
+        if hints is not None:
+            hints.validate()
+        if deadline is None:
+            deadline = self._deadline(hints)
         prog = self.store._fold_progress.get(plan.type_name)
         if prog is not None:
             # the query interleaves with a sliced fold (lock-free snapshot)
             exp(f"Streaming fold in progress: slice {prog[0]}/{prog[1]}")
         if plan.union is not None:
-            return self._execute_union(plan, exp)
+            return self._execute_union(plan, exp, hints, deadline)
         if plan.ids is not None:  # id lookup
             # one snapshot resolves AND gathers: a fold publishing in
             # between cannot shift the ordinals under the gather
             chunks = self.store.chunk_snapshot(plan.type_name)
             ordinals = self.store.id_lookup(plan.type_name, plan.ids, chunks=chunks)
             candidates = self.store.gather(plan.type_name, ordinals, chunks=chunks)
-            return self._refine_and_post(plan, candidates, None, exp)
-        if plan.index is None:  # full host scan
+        elif plan.index is None:  # full host scan
             fc = self.store.features(plan.type_name)
-            with exp.span("Full-table host scan"):
-                mask = plan.filter.evaluate(fc.batch)
-            return self._post(fc.mask(mask), plan, exp)
-        if self.store.row_count(plan.type_name) == 0:
+            check_deadline(deadline, "full-table scan start")
+            with _ospan("scan", index="full"):
+                with exp.span("Full-table host scan"):
+                    mask = plan.filter.evaluate(fc.batch)
+            check_deadline(deadline, "full-table scan")
+            with _ospan("decode", candidates=int(mask.sum())):
+                return self._post(fc.mask(mask), plan, hints, exp)
+        elif self.store.row_count(plan.type_name) == 0:
             # schema exists but nothing written yet: no index tables
-            return self._refine_and_post(
-                plan, self.store.features(plan.type_name), None, exp
-            )
-        return self._submit_simple(plan, exp)()
+            candidates = self.store.features(plan.type_name)
+        else:
+            # a simple index scan: the shared launch/finish implementation
+            # (finish runs at once here; query_many defers it)
+            return self._submit_simple(plan, exp, hints, deadline=deadline)()
+        return self._refine_and_post(plan, candidates, None, hints, exp, deadline)
 
-    def _execute_union(self, plan: QueryPlan, exp) -> FeatureCollection:
+    def _execute_union(self, plan: QueryPlan, exp, hints, deadline) -> FeatureCollection:
         """Run every union branch on its own index, each refined with its
         own disjunct filter, and dedup-union by feature id: branches in
         disjunct order, each row where it first appears (reference:
         per-option scans merged client-side with deduplication,
-        FilterSplitter OR semantics). The limit applies after the merge."""
+        FilterSplitter OR semantics). The query's one deadline bounds all
+        branches: each gets the remaining budget, not a fresh one. The
+        hints' stages apply once, after the merge."""
+        from geomesa_tpu_torch.planning.hints import QueryHints
+
         parts = []
         for sp in plan.union:
+            sub_hints = None
+            if deadline is not None:
+                check_deadline(deadline, f"union branch [{sp.strategy}]")
+                sub_hints = QueryHints(timeout=max(deadline.remaining(), 1e-9))
             with exp.span(f"Union branch [{sp.strategy}]"):
-                parts.append(self.execute(sp, explain=exp))
+                parts.append(self._execute(sp, explain=exp, hints=sub_hints))
+        check_deadline(deadline, "union merge")
         nonempty = [p for p in parts if len(p)]
         if not nonempty:
-            return self._post(parts[0], plan, exp)
+            return self._post(parts[0], plan, hints, exp)
         out = nonempty[0] if len(nonempty) == 1 else FeatureCollection.concat(nonempty)
         _, first = np.unique(np.asarray(out.ids), return_index=True)
         if len(first) != len(out):
             exp(f"Union dedup: {len(out)} -> {len(first)} rows")
             out = out.take(np.sort(first))
-        return self._post(out, plan, exp)
+        return self._post(out, plan, hints, exp)
 
     # -- pipelined multi-query execution ---------------------------------
     def _is_simple(self, plan: QueryPlan) -> bool:
@@ -312,105 +423,190 @@ class QueryPlanner:
             and self.store.row_count(plan.type_name) > 0
         )
 
-    def submit(self, plan: QueryPlan, explain: Explainer | None = None):
+    def submit(self, plan: QueryPlan, explain: Explainer | None = None,
+               hints=None, deadline=None):
         """Stage one query: launch its device scan now, return a zero-arg
         ``finish()`` producing the FeatureCollection. A plan without a
         simple index scan (a union, an id lookup, a full host scan, an
-        empty store) runs inside finish()."""
+        empty store) runs inside finish(). An explicit ``deadline`` bounds
+        both paths; by default each budget starts at finish()."""
         exp = explain or ExplainNull()
         if not self._is_simple(plan):
-            return lambda: self.execute(plan, explain=exp)
-        return self._submit_simple(plan, exp)
+            return lambda: self.execute(plan, explain=exp, hints=hints, deadline=deadline)
+        if hints is not None:
+            hints.validate()
+        return self._record_wrap(plan, self._submit_simple(plan, exp, hints, deadline=deadline))
 
-    def submit_many(self, plans) -> list:
+    def _record_wrap(self, plan, inner):
+        """finish() wrapper that records the query (timing, timeouts): one
+        implementation for submit and submit_many's fused finishes, so
+        batched and single queries are recorded alike."""
+
+        def finish() -> FeatureCollection:
+            t0 = time.perf_counter()
+            try:
+                out = inner()
+            except QueryTimeout:
+                self._record_timeout(plan)
+                raise
+            self.store.record_query(plan, len(out), time.perf_counter() - t0)
+            return out
+
+        return finish
+
+    def submit_many(self, plans, hints=None, explains=None, deadlines=None) -> list:
         """Stage many queries: simple index-scan plans sharing a (type,
         index) table go through the table's fused multi-query scan
         (``scan_submit_many``: one kernel launch per chunk instead of one
         per query); the rest take :meth:`submit`. Returns one ``finish()``
-        per plan, in input order."""
+        per plan, in input order.
+
+        ``hints``: one QueryHints for every plan, or a sequence aligned
+        with ``plans`` (hints shape only post-processing and deadlines,
+        never the device scan, so plans with different hints still fuse).
+        ``explains``: optional per-plan Explainers. ``deadlines``: optional
+        per-plan Deadlines anchoring each plan's budget at an earlier
+        instant instead of at its finish()."""
+        def aligned(seq, what):
+            if seq is None:
+                return [None] * len(plans)
+            if len(seq) != len(plans):
+                raise ValueError(f"{what} sequence length {len(seq)} != plans {len(plans)}")
+            return list(seq)
+
+        per = aligned(hints, "hints") if isinstance(hints, (list, tuple)) else [hints] * len(plans)
+        exps = aligned(explains, "explains")
+        dls = aligned(deadlines, "deadlines")
         finishes: list = [None] * len(plans)
         groups: dict[tuple, list[int]] = {}
         for j, plan in enumerate(plans):
             if self._is_simple(plan):
                 groups.setdefault((plan.type_name, plan.index), []).append(j)
             else:
-                finishes[j] = self.submit(plan)
+                finishes[j] = self.submit(plan, explain=exps[j], hints=per[j], deadline=dls[j])
+        seen: set = set()  # validate each distinct hints object once
+        for idxs in groups.values():
+            for j in idxs:
+                h = per[j]
+                if h is not None and id(h) not in seen:
+                    seen.add(id(h))
+                    h.validate()
         for (tname, iname), idxs in groups.items():
             if len(idxs) == 1:
-                finishes[idxs[0]] = self.submit(plans[idxs[0]])
+                j = idxs[0]
+                finishes[j] = self.submit(plans[j], explain=exps[j], hints=per[j], deadline=dls[j])
                 continue
             table, chunks = self.store.pin_scan_state(tname, iname)
             scan_fins = table.scan_submit_many(
                 [plans[j].config for j in idxs], clock=self.store.clock
             )
             for j, scan_fin in zip(idxs, scan_fins):
-                finishes[j] = self._submit_simple(
-                    plans[j], ExplainNull(), finish_scan=scan_fin, chunks=chunks
-                )
+                finishes[j] = self._record_wrap(plans[j], self._submit_simple(
+                    plans[j], exps[j] or ExplainNull(), per[j],
+                    finish_scan=scan_fin, deadline=dls[j], chunks=chunks,
+                ))
         return finishes
 
-    def execute_many(self, plans) -> list:
+    def execute_many(self, plans, hints=None) -> list:
         """Execute several plans with every device scan launched before any
         result is pulled; scans sharing a table fuse (submit_many)."""
-        return [f() for f in self.submit_many(plans)]
+        return [f() for f in self.submit_many(plans, hints=hints)]
 
-    def _submit_simple(self, plan: QueryPlan, exp, finish_scan=None, chunks=None):
+    def _submit_simple(self, plan: QueryPlan, exp, hints, finish_scan=None,
+                       deadline=None, chunks=None):
         """Launch a simple index-scan plan's device work now (or take the
         ``finish_scan`` of an already launched fused chunk); return
-        ``finish()`` -> FeatureCollection. The chunk snapshot is pinned at
-        launch, beside the table (``pin_scan_state``): the scan's ordinals
-        gather against the rows it scanned, however a mutation publishes
-        in between. ``chunks``: the snapshot a fused chunk was launched
-        on."""
+        ``finish()`` -> FeatureCollection. The deadline clock starts when
+        finish() runs unless an explicit ``deadline`` anchors it earlier;
+        its first check follows the copy that ends the scan. The chunk
+        snapshot is pinned at launch, beside the table
+        (``pin_scan_state``): the scan's ordinals gather against the rows
+        it scanned, however a mutation publishes in between. ``chunks``:
+        the snapshot a fused chunk was launched on."""
         clock = self.store.clock
         if finish_scan is None:
-            table, chunks = self.store.pin_scan_state(plan.type_name, plan.index)
-            finish_scan = table.scan_submit(plan.config, clock=clock)
+            with _ospan("dispatch", index=plan.index):
+                table, chunks = self.store.pin_scan_state(plan.type_name, plan.index)
+                finish_scan = table.scan_submit(plan.config, clock=clock)
         elif chunks is None:
             chunks = self.store.chunk_snapshot(plan.type_name)
 
-        def finish() -> FeatureCollection:
-            with exp.span(f"Device scan [{plan.index}]"):
-                ordinals, certain = finish_scan()
+        def finish(deadline=deadline) -> FeatureCollection:
+            if deadline is None:
+                deadline = self._deadline(hints)
+            with _ospan("scan", index=plan.index):
+                with exp.span(f"Device scan [{plan.index}]"):
+                    ordinals, certain = finish_scan()
+                check_deadline(deadline, "scan result pull")
             exp(f"Candidates: {len(ordinals)}")
-            with clock.host("decode"):
-                candidates = self.store.gather(plan.type_name, ordinals, chunks=chunks)
-            return self._refine_and_post(plan, candidates, certain, exp)
+            with _ospan("decode", candidates=len(ordinals)):
+                with clock.host("decode"):
+                    candidates = self.store.gather(plan.type_name, ordinals, chunks=chunks)
+                return self._refine_and_post(plan, candidates, certain, hints, exp, deadline)
 
         return finish
 
-    def _refine_and_post(self, plan, candidates, certain, exp):
+    def _refine_and_post(self, plan, candidates, certain, hints, exp, deadline):
         """Refinement tiers (reference Z3IndexKeySpace.useFullFilter):
-        where the device mask decides the filter, only the uncertain
-        boundary rows (wide & ~inner) re-check on host; otherwise the full
-        filter refines every candidate."""
+        - the device mask decides the filter: only the uncertain boundary
+          rows (wide & ~inner) re-check on host;
+        - the ``loose`` hint, where the mask decides the filter: the
+          widened device plane is the answer, nothing refines (reference
+          LOOSE_BBOX);
+        - otherwise the full filter refines every candidate."""
         decided = mask_decides_filter(
             plan.filter, plan.config, self.store.get_schema(plan.type_name)
         )
-        with self.store.clock.host("refine"):
-            if decided and isinstance(plan.filter, Include):
-                exp("Device mask accepted without refinement")
-            elif decided and certain is not None:
-                unc = np.flatnonzero(~certain)
-                exp(f"Refinement: {len(unc)} uncertain of {len(certain)} candidates")
-                if len(unc):
-                    with exp.span("Boundary refinement"):
-                        sub_mask = plan.filter.evaluate(candidates.take(unc).batch)
+        loose_ok = hints is not None and getattr(hints, "loose", False) and decided
+        clock = self.store.clock
+        if loose_ok or (decided and isinstance(plan.filter, Include)):
+            exp("Loose mode: device mask accepted without refinement")
+        elif decided and certain is not None:
+            unc = np.flatnonzero(~certain)
+            exp(f"Refinement: {len(unc)} uncertain of {len(certain)} candidates")
+            if len(unc):
+                check_deadline(deadline, "boundary refinement start")
+                with clock.host("refine"), exp.span("Boundary refinement"):
+                    sub_mask = plan.filter.evaluate(candidates.take(unc).batch)
                     keep = certain.copy()
                     keep[unc] = sub_mask
                     if not bool(keep.all()):
                         candidates = candidates.mask(keep)
-            elif not isinstance(plan.filter, Include):
-                with exp.span("Residual filter refinement"):
-                    mask = plan.filter.evaluate(candidates.batch)
+        elif not isinstance(plan.filter, Include):
+            check_deadline(deadline, "residual refinement start")
+            with clock.host("refine"), exp.span("Residual filter refinement"):
+                mask = plan.filter.evaluate(candidates.batch)
                 if not bool(np.all(mask)):
                     candidates = candidates.mask(mask)
-        return self._post(candidates, plan, exp)
+        check_deadline(deadline, "refinement")
+        return self._post(candidates, plan, hints, exp)
 
-    @staticmethod
-    def _post(out, plan, exp):
-        """Client-side reduce: the limit (reference QueryPlanner.scala:66-102)."""
+    def _post(self, out, plan, hints, exp):
+        """Client-side reduce pipeline: sample -> sort -> offset -> limit
+        -> reproject -> transform (reference QueryPlanner.scala:66-102:
+        reducer, sort, startIndex, maxFeatures, projection). The
+        reference's row and attribute visibility stages run first; the
+        port's visibility tier is not ported yet."""
         exp(f"Hits: {len(out)}")
-        if plan.limit is not None and len(out) > plan.limit:
-            out = out.take(np.arange(plan.limit))
+        if hints is not None:  # validated at _execute entry
+            if hints.sample is not None:
+                out = out.sample(hints.sample, hints.sample_by)
+                exp(f"Sampled: {len(out)}")
+            if hints.sort_by:
+                out = out.sort_values(hints.sort_by)
+        off = hints.offset if hints is not None and hints.offset else 0
+        if off or (plan.limit is not None and len(out) > plan.limit):
+            # one gather for the page
+            lo = min(off, len(out))
+            hi = len(out) if plan.limit is None else min(lo + plan.limit, len(out))
+            out = out.take(np.arange(lo, hi))
+            if off:
+                exp(f"Offset {off}: rows [{lo}, {hi})")
+        if hints is not None and hints.reproject is not None:
+            from geomesa_tpu_torch.crs import reproject_collection
+
+            out = reproject_collection(out, hints.reproject)
+            exp(f"Reprojected to {hints.reproject}")
+        if hints is not None and hints.transforms is not None:
+            out = out.transform(hints.transforms)
         return out

@@ -157,20 +157,20 @@ class TieredTable:
             )
         )
 
-    def scan(self, config: ScanConfig):
-        return self.scan_submit(config)()
+    def scan(self, config: ScanConfig, deadline=None):
+        return self.scan_submit(config, deadline=deadline)()
 
-    def scan_submit(self, config: ScanConfig, clock=NULL_CLOCK):
+    def scan_submit(self, config: ScanConfig, clock=NULL_CLOCK, deadline=None):
         """Launch the main table's scan now; finish() appends the delta
         hits, scanned on the host."""
-        finish_main = self.main.scan_submit(config, clock=clock)
+        finish_main = self.main.scan_submit(config, clock=clock, deadline=deadline)
         return self._with_delta(config, finish_main, clock)
 
-    def scan_submit_many(self, configs, clock=NULL_CLOCK):
+    def scan_submit_many(self, configs, clock=NULL_CLOCK, deadline=None):
         """The main table's fused multi-query scan (one launch per chunk,
         IndexTable.scan_submit_many), each query's delta hits appended at
         its finish as in scan_submit. One finish() per config."""
-        fins = self.main.scan_submit_many(configs, clock=clock)
+        fins = self.main.scan_submit_many(configs, clock=clock, deadline=deadline)
         return [self._with_delta(c, f, clock) for c, f in zip(configs, fins)]
 
     def _with_delta(self, config, finish_main, clock):

@@ -37,6 +37,7 @@ import torch
 
 from geomesa_tpu_torch import conf, native
 from geomesa_tpu_torch.index.api import IndexKeySpace, ScanConfig, WriteKeys
+from geomesa_tpu_torch.planning.errors import check_deadline
 from geomesa_tpu_torch.scan import aggregations
 from geomesa_tpu_torch.scan import block_kernels as bk
 from geomesa_tpu_torch.timing import NULL_CLOCK
@@ -450,17 +451,23 @@ class IndexTable(SortedKeys):
         ]
         return np.unique(np.concatenate(ids))
 
-    def scan(self, config: ScanConfig) -> tuple[np.ndarray, np.ndarray]:
+    def scan(self, config: ScanConfig, deadline=None) -> tuple[np.ndarray, np.ndarray]:
         """One-call device scan -> (ordinals, certain): feature ordinals of
         all candidate hits, ascending in table order, and per row whether
-        it is a certain f64-exact hit (inner plane or contained range)."""
-        return self.scan_submit(config)()
+        it is a certain f64-exact hit (inner plane or contained range).
 
-    def scan_submit(self, config: ScanConfig, clock=NULL_CLOCK):
+        ``deadline``: an optional Deadline (or monotonic cutoff); the scan
+        checks it at stage boundaries (range pruning, before the launch,
+        after the copy that ends it) and raises QueryTimeout when overdue
+        (reference ThreadManagement scan timeouts)."""
+        return self.scan_submit(config, deadline=deadline)()
+
+    def scan_submit(self, config: ScanConfig, clock=NULL_CLOCK, deadline=None):
         """Launch the device work now; return ``finish()`` -> (ordinals,
         certain)."""
         if config.disjoint or self.n == 0:
             return lambda: (np.zeros(0, np.int64), np.zeros(0, bool))
+        check_deadline(deadline, "range pruning")
         overlap, contained = self.candidate_spans_split(config)
         if config.boxes is None and config.windows is None:
             # a pure range scan (an attribute index's value ranges): the
@@ -472,8 +479,10 @@ class IndexTable(SortedKeys):
         blocks = self.candidate_blocks(overlap)
         if len(blocks) == 0:
             return self._contained_only(contained)
+        check_deadline(deadline, "device scan dispatch")
         return self._make_finish(
-            self._device_scan_submit(blocks, config, clock), config, overlap, contained, clock
+            self._device_scan_submit(blocks, config, clock), config, overlap, contained, clock,
+            deadline,
         )
 
     def _contained_only(self, contained):
@@ -483,12 +492,15 @@ class IndexTable(SortedKeys):
         out = (self.perm[cont_rows].astype(np.int64), np.ones(len(cont_rows), bool))
         return lambda: out
 
-    def _make_finish(self, finish_device, config, overlap, contained, clock=NULL_CLOCK):
+    def _make_finish(self, finish_device, config, overlap, contained, clock=NULL_CLOCK,
+                     deadline=None):
         """finish() over a launched device scan: decode + _post_decode.
-        Shared by scan_submit and the fused path's single-query members."""
+        Shared by scan_submit and the fused path's single-query members.
+        The deadline check follows the copy that ends the scan."""
 
         def finish() -> tuple[np.ndarray, np.ndarray]:
             rows, certain = finish_device()
+            check_deadline(deadline, "bitmask decode")
             with clock.host("decode"):
                 return self._post_decode(rows, certain, config, overlap, contained)
 
@@ -528,7 +540,7 @@ class IndexTable(SortedKeys):
         slot count, on a one-device table)."""
         return self.fused_slots
 
-    def scan_submit_many(self, configs: list, clock=NULL_CLOCK) -> list:
+    def scan_submit_many(self, configs: list, clock=NULL_CLOCK, deadline=None) -> list:
         """Fused form of :meth:`scan_submit` for many queries: configs
         group by kernel variant (projected columns, boxes, windows, and
         the fused edge and interval buckets of polygon members), pack
@@ -545,10 +557,11 @@ class IndexTable(SortedKeys):
                 out = (np.zeros(0, np.int64), np.zeros(0, bool))
                 finishes[j] = lambda out=out: out
                 continue
+            check_deadline(deadline, "range pruning")
             if config.boxes is None and config.windows is None:
                 # pure range scans (row-exact spans, no kernel) keep the
                 # per-query path
-                finishes[j] = self.scan_submit(config, clock)
+                finishes[j] = self.scan_submit(config, clock, deadline=deadline)
                 continue
             overlap, contained = self.candidate_spans_split(config)
             blocks = self.candidate_blocks(overlap)
@@ -590,10 +603,12 @@ class IndexTable(SortedKeys):
             if cur:
                 chunks.append(cur)
             for chunk in chunks:
-                self._submit_fused_chunk(chunk, names, has_boxes, has_windows, finishes, clock)
+                self._submit_fused_chunk(
+                    chunk, names, has_boxes, has_windows, finishes, clock, deadline,
+                )
         return finishes
 
-    def _fused_route_single(self, members, finishes, clock=NULL_CLOCK) -> bool:
+    def _fused_route_single(self, members, finishes, clock=NULL_CLOCK, deadline=None) -> bool:
         """Send a one-member or near-empty chunk to the single-query kernel
         (the fixed fused shape would spend most of its work on pad slots);
         returns True when routed."""
@@ -604,7 +619,7 @@ class IndexTable(SortedKeys):
             for j, config, blocks, overlap, contained in members:
                 finishes[j] = self._make_finish(
                     self._device_scan_submit(blocks, config, clock), config, overlap,
-                    contained, clock,
+                    contained, clock, deadline,
                 )
             return True
         return False
@@ -675,14 +690,15 @@ class IndexTable(SortedKeys):
         return pull
 
     def _submit_fused_chunk(self, members, names, has_boxes, has_windows, finishes,
-                            clock=NULL_CLOCK) -> None:
+                            clock=NULL_CLOCK, deadline=None) -> None:
         """Launch one fused chunk: slot segments per member, pad slots
         (bid 0, qid 0, spip 0) after them up to ``fused_slots``; with
         polygon members, the edge and raster stacks and a per-slot
         selector ``spip`` (1 where the slot's query takes the polygon
         legs)."""
-        if self._fused_route_single(members, finishes, clock):
+        if self._fused_route_single(members, finishes, clock, deadline):
             return
+        check_deadline(deadline, "device scan dispatch")
         boxes, wins = self._fused_param_stacks(members)
         chunk_e, edges, pip = self._chunk_edge_stack(members)
         chunk_r, rasts, has_rast = self._chunk_raster_stack(members)
@@ -712,6 +728,7 @@ class IndexTable(SortedKeys):
             _, config, blocks, overlap, contained = members[k]
             s, e = segs[k]
             host = pull()
+            check_deadline(deadline, "bitmask decode")
             with clock.host("decode"):
                 rows, certain = bk.decode_bits_pair(
                     *_host_planes(host, slice(s, e)), blocks, e - s,

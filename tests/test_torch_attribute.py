@@ -30,6 +30,7 @@ import torch
 
 import geomesa_tpu
 import geomesa_tpu_torch
+from test_torch_native import ensure_jax_native
 
 torch.set_num_threads(1)
 
@@ -92,6 +93,7 @@ def _build(pkg, schema, cell, data, **kw):
 
 @pytest.fixture(scope="module")
 def stores():
+    ensure_jax_native()  # both packages native, whatever a build race left
     data = _data()
     return {
         (schema, cell): (_build(geomesa_tpu, schema, cell, data),

@@ -991,3 +991,77 @@ def test_native_helpers_load_on_the_card_host_and_plan_z3():
         assert plan.index == "z3" and native.calls["zranges"] > before
         got.append(np.asarray(ds.query("t", q).ids))
     assert len(got[0]) and np.array_equal(got[0], got[1])
+
+
+def _hint_store(device, n=60_000):
+    """A GDELT-shaped point store (a string attribute, ids 0..n-1) on
+    ``device``, from a fixed seed."""
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+
+    rng = np.random.default_rng(31)
+    sft = FeatureType.from_spec("t", "code:String,dtg:Date,*geom:Point:srid=4326")
+    ds = DataStore(device=device, tile=4096)
+    ds.create_schema(sft)
+    t0 = int(np.datetime64("2024-01-01T00:00:00", "ms").astype(np.int64))
+    cols = {"geom": (rng.uniform(-60, 60, n), rng.uniform(-40, 40, n)),
+            "dtg": t0 + rng.integers(0, 20 * 86_400_000, n),
+            "code": np.array(["01", "04", "14", "19"])[rng.integers(0, 4, n)]}
+    ds.write("t", FeatureCollection.from_columns(sft, np.arange(n), cols))
+    return ds
+
+
+HINT_QUERIES = [
+    "bbox(geom, -30, -25, 10, 15) AND dtg DURING 2024-01-03T00:00:00Z/2024-01-13T00:00:00Z",
+    "INTERSECTS(geom, POLYGON ((0 -10, 30 -10, 25 20, 5 15, 0 -10)))",
+    "IN ('7', '70') OR (bbox(geom, -5, -5, 5, 5) AND dtg DURING "
+    "2024-01-02T00:00:00Z/2024-01-05T00:00:00Z)",
+]
+
+
+def test_query_controls_on_the_card_equal_the_cpu_store():
+    """Hints, ``query_many`` hints, timeouts and tracing on a CUDA store
+    give the CPU store's results (the kernels are exact, so the ids, the
+    loose wide plane and every column agree)."""
+    from geomesa_tpu_torch import conf
+    from geomesa_tpu_torch.obs import trace as otrace
+    from geomesa_tpu_torch.planning.errors import QueryTimeout
+    from geomesa_tpu_torch.planning.hints import QueryHints
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gpu, cpu = _hint_store("cuda"), _hint_store("cpu")
+    kinds = [{}, {"sort_by": "-dtg", "offset": 5}, {"sample": 0.2, "sample_by": "code"},
+             {"loose": True}, {"transforms": ["code", "lon=st_x(geom)"]},
+             {"reproject": "EPSG:3857"}]
+    for q in HINT_QUERIES:
+        for kw in kinds:
+            a = gpu.query("t", q, limit=50 if "offset" in kw else None, hints=QueryHints(**kw))
+            b = cpu.query("t", q, limit=50 if "offset" in kw else None, hints=QueryHints(**kw))
+            assert np.array_equal(np.asarray(a.ids), np.asarray(b.ids)), (q, kw)
+            for name in a.columns:
+                ca, cb = a.columns[name], b.columns[name]
+                if hasattr(ca, "x"):
+                    assert np.array_equal(ca.x, cb.x) and np.array_equal(ca.y, cb.y), (q, kw)
+                else:
+                    assert np.array_equal(np.asarray(ca), np.asarray(cb)), (q, kw)
+    hs = [QueryHints(sort_by="dtg"), QueryHints(loose=True), QueryHints(sample=0.5)]
+    for a, b in zip(gpu.query_many("t", HINT_QUERIES, hints=hs),
+                    cpu.query_many("t", HINT_QUERIES, hints=hs)):
+        assert np.array_equal(np.asarray(a.ids), np.asarray(b.ids))
+    with pytest.raises(QueryTimeout):
+        gpu.query("t", HINT_QUERIES[0], hints=QueryHints(timeout=1e-6))
+    with pytest.raises(QueryTimeout):
+        gpu.query_many("t", HINT_QUERIES, hints=QueryHints(timeout=1e-6))
+    # a timed-out query leaves nothing behind: the next one is exact
+    assert np.array_equal(np.asarray(gpu.query("t", HINT_QUERIES[0]).ids),
+                          np.asarray(cpu.query("t", HINT_QUERIES[0]).ids))
+    conf.OBS_TRACE_SAMPLE.set(1)
+    old = otrace.tracer()
+    tr = otrace.install(otrace.Tracer())
+    try:
+        gpu.query("t", HINT_QUERIES[0])
+        names = [s["name"] for s in tr.traces()[0].to_dict()["spans"]]
+    finally:
+        conf.OBS_TRACE_SAMPLE.clear()
+        otrace.install(old)
+    assert {"query", "plan", "dispatch", "scan", "decode"} <= set(names)

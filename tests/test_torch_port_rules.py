@@ -13,7 +13,10 @@
   math;
 - the native host helpers (``geomesa_tpu_torch/native``) are the port's
   own copy: the same C++ code as the JAX package's, built with
-  ``-ffp-contract=off``, by a loader that reads no environment variable.
+  ``-ffp-contract=off``, by a loader that reads no environment variable;
+- every knob of ``geomesa_tpu_torch.conf`` is a knob of the JAX package
+  under the same name, with the same default and the same parsing: the
+  port adds no knob of its own.
 """
 
 import importlib.util
@@ -59,7 +62,9 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
     # the submodules of the many-query and polygon slices are among them
     for name in ("serving.scheduler", "stats.stat_spec", "stats.sketches", "utils.hashing",
                  "filter.raster", "scan.probe_kernels", "scripts.probe_pallas",
-                 "scripts.probe_agg", "native", "index.attribute", "utils.lexicode"):
+                 "scripts.probe_agg", "native", "index.attribute", "utils.lexicode",
+                 "metrics", "audit", "obs.trace", "planning.errors", "planning.hints",
+                 "planning.guards", "io.converters", "sql.functions"):
         assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
@@ -345,3 +350,34 @@ def test_native_helpers_are_the_port_s_own_copy():
     assert "environ" not in loader and "getenv" not in loader
     assert native.LIB_PATH.parent == native.BUILD_DIR
     assert native.BUILD_DIR == __import__("pathlib").Path(ROOT, "geomesa_tpu_torch", "build")
+
+
+def _knobs(conf_module) -> dict:
+    return {
+        v.name: v for v in vars(conf_module).values()
+        if type(v).__name__ == "SystemProperty"
+    }
+
+
+def test_every_port_knob_is_a_jax_knob_with_its_default():
+    from geomesa_tpu import conf as jconf
+    from geomesa_tpu_torch import conf as tconf
+
+    port, ref = _knobs(tconf), _knobs(jconf)
+    assert len(port) >= 19
+    for name, knob in port.items():
+        assert name in ref, f"the port adds a knob the JAX package lacks: {name}"
+        assert knob.default == ref[name].default, name
+        for raw in ("1", "0", "2.5", "true", "off", "auto"):
+            try:
+                want = ref[name].parser(raw)
+            except (TypeError, ValueError):
+                with pytest.raises((TypeError, ValueError)):
+                    knob.parser(raw)
+                continue
+            assert knob.parser(raw) == want, (name, raw)
+    # this slice's knobs are among them
+    for name in ("geomesa.query.timeout", "geomesa.guard.temporal.max.duration",
+                 "geomesa.obs.trace.sample", "geomesa.obs.trace.buffer",
+                 "geomesa.obs.slow.ms", "geomesa.obs.slow.max"):
+        assert name in port, name
