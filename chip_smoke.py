@@ -155,15 +155,35 @@ Phases, each printing one JSON line:
    index plans) and under ``limit=10``, ``query_many`` of the 32 and of
    16 rare-code regional queries (fused), 4 count estimates >= the
    exact counts; then two 50k-row appends with names of other widths
-   stay in the delta and the 32 queries run again.
+   stay in the delta and the 32 queries run again;
+14. gdelt-z3-10M-persist: a 10,000,000-row GDELT Z3 store with
+   ``EventRootCode`` answers 16 measured queries, 4 densities, both
+   bounds and 4 count estimates; ``persist.save`` writes it to a
+   temporary directory on local disk (removed at the end) and
+   ``persist.load(device="cuda")`` reads it back: every table on the
+   card, ids identical and in order, grids, bounds and estimates
+   identical, ``query_many`` in order; 50k rows appended in the span's
+   last 21 days and a second save rewrite only the touched partitions,
+   and a load reads that save back whole; one byte flipped in one
+   committed partition: the load quarantines it (one ``checksum``
+   record, ``report.json``, ``geomesa.store.quarantined``), every plan
+   carries the degraded warning and ``geomesa.query.degraded`` counts
+   it, and the ids are the whole store's minus that partition's rows,
+   in order, and equal an f64 brute force over the source columns; a
+   crash at each of the seven ``persist.*`` fault points during a second
+   save over a committed 200k-row store loads the old or the new store,
+   never a mix; the same 10M rows on ``HostAdapter`` answer the 16
+   queries as the device store, in order; the lock witness armed around
+   a small write, query and fold workload gives an acyclic graph (its
+   edges in the record).
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the eleven paths and read just after
+are zeroed just before each of the twelve paths and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
 with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
-extent leg; tiered and mutate: all five; attribute: K1 and K2) and
+extent leg; tiered, mutate and persist: all five; attribute: K1 and K2) and
 called the native helpers ``check_native`` names (the ranges where it
 plans, ``sort_bins_z`` where it ingests, the plane decode where it
 decodes, point-in-polygon on the polygon paths); the probe phase zeroes
@@ -1328,11 +1348,12 @@ def root_codes(n, seed) -> np.ndarray:
 
 
 def build_store(torch, device, n, packed: bool = False, index: str = "z3", seed: int = SEED,
-                with_root_code: bool = False):
+                with_root_code: bool = False, adapter=None):
     """A GDELT-shaped point table of n rows: (dtg, geom) on Z3, or geom
     alone on Z2 (the reference benchmark's points of its configuration 4);
     ``with_root_code`` adds the string attribute ``EventRootCode`` (drawn
-    from its own seed, so the points and times stay the same).
+    from its own seed, so the points and times stay the same); ``adapter``
+    is the store's storage.adapter backend (None: the device tables).
     Returns (store, (x, y, t | None), ingest seconds)."""
     from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
 
@@ -1346,7 +1367,7 @@ def build_store(torch, device, n, packed: bool = False, index: str = "z3", seed:
     sft.user_data["geomesa.indices.enabled"] = index
     if packed:
         sft.user_data["geomesa.z3.packed-time"] = "true"
-    ds = DataStore(device=device)
+    ds = DataStore(device=device, adapter=adapter)
     ds.create_schema(sft)
     cols = {"geom": (x, y)} if t is None else {"dtg": t, "geom": (x, y)}
     if with_root_code:
@@ -2628,13 +2649,13 @@ def hints_path(torch, ds, src, measured, outs, main_lat, clock_phases) -> dict:
 
 
 def main_path(torch, device):
-    """Eleven paths, each with its own launch and native call counts
+    """Twelve paths, each with its own launch and native call counts
     (zeroed just before it runs, read just after): the single-query main
     path, the batch path, the polygon path and the query controls on the
     same store, the
     packed-time cell, the Z2 polygon cell, the two extent cells (XZ2,
-    XZ3), the tiered store with its union queries, the mutated store and
-    the attribute-indexed store."""
+    XZ3), the tiered store with its union queries, the mutated store, the
+    attribute-indexed store and the saved and loaded store."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -2734,7 +2755,7 @@ def main_path(torch, device):
     torch.cuda.empty_cache()
     return (rec, batch, poly, hints, packed, z2, xz2_path(torch, device), xz3_path(torch, device),
             tiered_union_path(torch, device), mutation_path(torch, device),
-            attribute_path(torch, device))
+            attribute_path(torch, device), persist_path(torch, device))
 
 
 # -- the delta tier and union plans ----------------------------------------
@@ -3073,12 +3094,13 @@ def check_mutated_ids(ds, model, removed, rng, op: str) -> None:
 
 @contextmanager
 def fold_recorder(keep_slices):
-    """Record every folded_table call of a fold: per index, each slice's
-    rows_uploaded and, for the slices in ``keep_slices``, the call's
-    arguments and result, to fold again on the host path afterwards."""
-    from geomesa_tpu_torch import datastore as dsm
+    """Record every folded_table call of a fold (the store's adapter calls
+    storage.table.folded_table): per index, each slice's rows_uploaded
+    and, for the slices in ``keep_slices``, the call's arguments and
+    result, to fold again on the host path afterwards."""
+    from geomesa_tpu_torch.storage import table as tbl
 
-    fold = dsm.folded_table
+    fold = tbl.folded_table
     uploaded: dict = {}
     kept: dict = {}
 
@@ -3091,11 +3113,11 @@ def fold_recorder(keep_slices):
             kept[(name, si)] = (old, merged, keep, omap, dk, tile, table)
         return table
 
-    dsm.folded_table = recording
+    tbl.folded_table = recording
     try:
         yield uploaded, kept
     finally:
-        dsm.folded_table = fold
+        tbl.folded_table = fold
 
 
 def check_fold_builds(torch, device, kept, last: int) -> dict:
@@ -3507,17 +3529,16 @@ def attr_order(ds, rows: AttrRows, index: str, hits, main_rows) -> np.ndarray:
 
 @contextmanager
 def ingest_recorder(ds, type_name):
-    """Seconds per index of one write: its write keys and its table build."""
-    import geomesa_tpu_torch.datastore as dsm
-
+    """Seconds per index of one write: its write keys and its table build
+    (through the store's adapter)."""
     spent: dict = {}
-    real_table = dsm.IndexTable
+    real_create = ds.adapter.create_table
 
-    class TimedTable(real_table):
-        def __init__(self, keyspace, keys, **kw):
-            s = time.perf_counter()
-            super().__init__(keyspace, keys, **kw)
-            spent[f"{keyspace.name}.table"] = time.perf_counter() - s
+    def timed_create(keyspace, keys, **kw):
+        s = time.perf_counter()
+        out = real_create(keyspace, keys, **kw)
+        spent[f"{keyspace.name}.table"] = time.perf_counter() - s
+        return out
 
     def timed_keys(idx):
         real = idx.write_keys
@@ -3532,11 +3553,11 @@ def ingest_recorder(ds, type_name):
     idxs = ds.indexes(type_name)
     for idx in idxs:
         idx.write_keys = timed_keys(idx)
-    dsm.IndexTable = TimedTable
+    ds.adapter.create_table = timed_create
     try:
         yield spent
     finally:
-        dsm.IndexTable = real_table
+        del ds.adapter.create_table
         for idx in idxs:
             del idx.write_keys
 
@@ -3681,6 +3702,350 @@ def attribute_path(torch, device) -> dict:
     return rec
 
 
+# -- persistence: save, load, quarantine, crash points, the host adapter -----
+
+N_PERSIST = 10_000_000
+N_PERSIST_APPEND = 50_000  # the span's last 21 days, kept in the delta tier
+N_PERSIST_QUERIES = 16
+N_CRASH = 200_000
+N_CRASH_APPEND = 10_000
+N_WITNESS = 100_000
+PERSIST_POINTS = (
+    "persist.partition.write", "persist.partition.rename", "persist.partition.commit",
+    "persist.manifest.write", "persist.manifest.rename", "persist.manifest.commit",
+    "persist.gc",
+)
+
+
+@contextmanager
+def time_recorder(targets):
+    """Seconds spent in each (owner, function name) of ``targets`` while
+    the block runs (a method patched on its class, a function on its
+    module), summed over calls."""
+    spent: dict = {}
+    saved = []
+    for owner, name in targets:
+        real = getattr(owner, name)
+
+        def timed(*a, _real=real, _name=name, **k):
+            s0 = time.perf_counter()
+            try:
+                return _real(*a, **k)
+            finally:
+                spent[_name] = spent.get(_name, 0.0) + time.perf_counter() - s0
+
+        saved.append((owner, name, real))
+        setattr(owner, name, timed)
+    try:
+        yield spent
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+
+
+def manifest_parts(root, type_name="gdelt") -> dict:
+    """The committed manifest's partitions of one type: key -> entry."""
+    with open(os.path.join(root, "metadata.json")) as fh:
+        return json.load(fh)["types"][type_name]["partitions"]
+
+
+def append_rows(n, n_new, seed, with_root_code=True):
+    """n_new GDELT-shaped rows with ids n.. and times in the span's last
+    21 days (a day's loads into a standing table): (ids, x, y, t, codes)."""
+    rng = np.random.default_rng(seed)
+    x, y = gdelt_points(n_new, rng)
+    t = T0_MS + SPAN_MS - RECENT_MS + rng.integers(0, RECENT_MS, n_new)
+    codes = root_codes(n_new, seed + 7) if with_root_code else None
+    return np.arange(n, n + n_new), x, y, t, codes
+
+
+def write_rows(ds, rows) -> float:
+    from geomesa_tpu_torch import FeatureCollection
+
+    ids, x, y, t, codes = rows
+    sft = ds.get_schema("gdelt")
+    cols = {"dtg": t, "geom": (x, y)}
+    if codes is not None:
+        cols["EventRootCode"] = codes
+    t_in = time.perf_counter()
+    ds.write("gdelt", FeatureCollection.from_columns(sft, ids, cols), check_ids=False)
+    return time.perf_counter() - t_in
+
+
+def ids_of(outs) -> list:
+    return [np.asarray(o.ids, np.int64) for o in outs]
+
+
+def crash_points(torch, device, root) -> dict:
+    """A 200k-row store saved and committed, then 10k appended rows: a
+    second save over the committed directory crashes at each persist.*
+    fault point, and each load must give the old store or the new one,
+    never a mix. Returns point -> "old" | "new"."""
+    import shutil
+
+    from geomesa_tpu_torch import fault
+    from geomesa_tpu_torch.storage import persist
+
+    small, _, _ = build_store(torch, device, N_CRASH, with_root_code=True, seed=SEED + 72)
+    base = os.path.join(root, "crash-base")
+    persist.save(small, base)
+    old = np.arange(N_CRASH)
+    write_rows(small, append_rows(N_CRASH, N_CRASH_APPEND, SEED + 73))
+    new = np.arange(N_CRASH + N_CRASH_APPEND)
+    outcome = {}
+    for point in PERSIST_POINTS:
+        d = os.path.join(root, f"crash-{point}")
+        shutil.copytree(base, d)
+        crashed = False
+        with fault.inject(point, kind="crash") as spec:
+            try:
+                persist.save(small, d)
+            except fault.InjectedCrash:
+                crashed = True
+        check(crashed and spec.fired == 1, f"the save crashed at {point}")
+        back = persist.load(d, device=device)
+        got = np.sort(np.asarray(back.features("gdelt").ids, np.int64))
+        state = "old" if np.array_equal(got, old) else "new" if np.array_equal(got, new) else None
+        check(state is not None, f"a crash at {point} loads the old or the new store")
+        check(back.store_health.status == "ok", f"a crash at {point} damages nothing committed")
+        outcome[point] = state
+        del back
+        shutil.rmtree(d)
+    check(outcome["persist.partition.write"] == "old" and outcome["persist.gc"] == "new",
+          "the manifest's rename is the commit point")
+    del small
+    return outcome
+
+
+def witness_workload(torch, device) -> dict:
+    """The lock witness armed around a small write, query and fold
+    workload (the store is built after arming, so its locks are
+    wrapped): the observed acquisition graph must be acyclic."""
+    from geomesa_tpu_torch import FeatureCollection, lockwitness
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+
+    lockwitness.enable()
+    try:
+        ds, src, _ = build_store(torch, device, N_WITNESS, seed=SEED + 74)
+        ds.metrics = MetricsRegistry()
+        qs = [q for q, _ in query_set(SEED + 75, 8)]
+        for q in qs:
+            ds.query("gdelt", q)
+        ds.query_many("gdelt", qs)
+        x, y, t = src
+        rows = np.arange(0, N_WITNESS, 5)
+        fc = FeatureCollection.from_columns(ds.get_schema("gdelt"), rows, {
+            "dtg": t[rows] + 3_600_000, "geom": (x[rows], y[rows])})
+        paced = []
+        ds.fold_upsert("gdelt", fc, slice_rows=5_000, pacer=lambda: paced.append(1))
+        snap = lockwitness.REPORT.snapshot()
+        cycle = lockwitness.REPORT.cycle()
+    finally:
+        lockwitness.disable()
+    check(cycle is None, f"the witnessed lock graph is acyclic: {cycle}")
+    check({"DataStore._write_lock", "DataStore._id_lock", "MetricsRegistry._lock"}
+          <= set(snap["seen"]), "the store's locks were witnessed")
+    check(len(paced) == -(-len(rows) // 5_000) - 1, "the fold paced between its slices")
+    del ds
+    return {"edges": [f"{a} -> {b}" for a, b in snap["edges"]], "seen": snap["seen"],
+            "blocking": snap["blocking"]}
+
+
+def persist_path(torch, device) -> dict:
+    """gdelt-z3-10M-persist: a 10M-row GDELT Z3 store with
+    ``EventRootCode`` answers 16 measured queries, densities and bounds;
+    ``persist.save`` writes it to a temporary directory on local disk
+    (removed at the end) and ``persist.load(device="cuda")`` reads it
+    back: ids identical and in order, grids and bounds identical, the
+    loaded tables on the card and their queries launching K1 (K2 through
+    ``query_many``, K1p through count estimates, K3 and K4 through the
+    aggregations). 50k rows appended in the span's last 21 days and a
+    second save rewrite only the touched partitions; a load reads the
+    save back whole. One byte flipped in one committed partition: the
+    load quarantines it (one checksum record), every plan warns and
+    ``geomesa.query.degraded`` counts, and the ids are the whole store's
+    minus that partition's rows, in order, and equal an f64 brute force
+    over the source columns. Then a crash at each persist.* point on a
+    200k-row store, the same 10M rows on ``HostAdapter`` (its 16 results
+    equal the device store's, in order), and the lock witness around a
+    small workload. Launch and native counts are zeroed before, read
+    after."""
+    import shutil
+
+    from geomesa_tpu_torch import DataStore
+    from geomesa_tpu_torch.kernels import BLOCK_SCAN
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.storage import persist
+    from geomesa_tpu_torch.storage.adapter import HostAdapter
+
+    zero_launches()
+    ds, src, ingest_s = build_store(torch, device, N_PERSIST, with_root_code=True,
+                                    seed=SEED + 70)
+    queries = query_set(SEED + 71, N_PERSIST_QUERIES)
+    busy = busiest(queries, [ds.query("gdelt", q) for q, _ in queries], 4)
+    lat_before, outs, _ = run_queries(ds, queries)
+    want = ids_of(outs)
+    check(sum(map(len, want)) > 0, "the persist path's queries have hits")
+
+    def aggregates(store):
+        return ([store.density("gdelt", q, envelope=box[:4], width=256, height=256)
+                 for q, box in busy],
+                [store.bounds("gdelt", q, estimate=e) for q, _ in busy for e in (True, False)],
+                count_estimates(store, busy))
+
+    grids, envs, ests = aggregates(ds)
+    root = tempfile.mkdtemp(prefix="geomesa_persist_")
+    try:
+        # where a save's and a load's time goes: packing, the content
+        # signature, the partition files (compress, checksum, durable
+        # write), the manifest; reading, unpacking, the keys, the builds
+        save_parts = [(persist, n) for n in ("_pack_columns", "_signature", "_write_partition",
+                                              "_commit_manifest", "_collect_garbage")]
+        with time_recorder(save_parts) as save_phases:
+            t0 = time.perf_counter()
+            persist.save(ds, root)
+            save_s = time.perf_counter() - t0
+        parts1 = manifest_parts(root)
+        files1 = {k: e["file"] for k, e in parts1.items()}
+        bytes1 = sum(e["bytes"] for e in parts1.values())
+        on_disk = sum(os.path.getsize(os.path.join(root, "gdelt", f)) for f in files1.values())
+        check(len(parts1) >= 5 and on_disk == bytes1,
+              "the 120-day span saves as 5-6 partitions of 28 days, every byte committed")
+        check(sum(e["rows"] for e in parts1.values()) == N_PERSIST, "every row saved")
+
+        load_parts = [(persist, "_read_bytes"), (persist, "_unpack_columns"),
+                      (DataStore, "_encode_batch"), (DataStore, "compact")]
+        with time_recorder(load_parts) as load_phases:
+            t0 = time.perf_counter()
+            back = persist.load(root, device=device)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        check(back.store_health.status == "ok", "the saved store loads healthy")
+        check(all(t.device == back.device and type(t).__name__ == "IndexTable"
+                  for t in back._tables.values()), "the load builds every table on the card")
+        k1 = BLOCK_SCAN.launches
+        run_queries(back, queries[:4])  # warm the loaded store's first calls
+        lat_after, outs_after, _ = run_queries(back, queries)
+        check(BLOCK_SCAN.launches > k1, "the loaded store's queries launch K1")
+        for (q, _), a, b in zip(queries, ids_of(outs_after), want):
+            check(np.array_equal(a, b), f"loaded ids identical and in order: {q}")
+        g2, e2, c2 = aggregates(back)
+        check(all(np.array_equal(a, b) for a, b in zip(g2, grids)), "loaded density grids")
+        check(e2 == envs, "loaded bounds, both modes")
+        check(c2 == ests, "loaded count estimates")
+        many = back.query_many("gdelt", [q for q, _ in queries])
+        check(all(np.array_equal(a, b) for a, b in zip(ids_of(many), want)),
+              "query_many on the loaded store, in order")
+        del back, outs_after, many
+        torch.cuda.empty_cache()
+
+        # an append in the span's last 21 days and an incremental save
+        rows = append_rows(N_PERSIST, N_PERSIST_APPEND, SEED + 76)
+        append_s = write_rows(ds, rows)
+        t0 = time.perf_counter()
+        persist.save(ds, root)
+        save2_s = time.perf_counter() - t0
+        parts2 = manifest_parts(root)
+        touched = {f"p{int(p)}" for p in np.unique(rows[3] // persist.PARTITION_MS)}
+        rewritten = {k for k, e in parts2.items() if files1.get(k) != e["file"]}
+        check(rewritten == touched, f"only the touched partitions {sorted(touched)} rewritten")
+        check(set(os.listdir(os.path.join(root, "gdelt"))) ==
+              {e["file"] for e in parts2.values()}, "the replaced files were collected")
+        t0 = time.perf_counter()
+        full = persist.load(root, device=device)
+        load2_s = time.perf_counter() - t0
+        n_all = N_PERSIST + N_PERSIST_APPEND
+        check(full.row_count("gdelt") == n_all and np.array_equal(
+            np.sort(np.asarray(full.features("gdelt").ids, np.int64)), np.arange(n_all)),
+            "the incremental save reads back whole")
+        full_ids = ids_of(full.query("gdelt", q) for q, _ in queries)
+        cur_ids = ids_of(ds.query("gdelt", q) for q, _ in queries)
+        check(all(np.array_equal(np.sort(a), np.sort(b)) for a, b in zip(full_ids, cur_ids)),
+              "the reloaded store answers as the in-memory one")
+        del full
+        torch.cuda.empty_cache()
+
+        # one flipped byte in one committed partition, not one the append touched
+        bad_key = sorted(set(parts2) - touched, key=lambda k: int(k[1:]))[0]
+        bad_file = os.path.join(root, "gdelt", parts2[bad_key]["file"])
+        with open(bad_file, "rb+") as fh:
+            size = os.path.getsize(bad_file)
+            fh.seek(size // 2)
+            b = fh.read(1)
+            fh.seek(size // 2)
+            fh.write(bytes([b[0] ^ 0x20]))
+        reg = MetricsRegistry()
+        t0 = time.perf_counter()
+        degraded = persist.load(root, device=device, metrics=reg)
+        load3_s = time.perf_counter() - t0
+        health = degraded.store_health
+        check(health.status == "degraded" and [d.reason for d in health.damage] == ["checksum"]
+              and health.damage[0].file == parts2[bad_key]["file"],
+              "one checksum record for the flipped partition")
+        check(reg.counter_value("geomesa.store.quarantined") == 1, "the quarantine is counted")
+        check(os.path.exists(os.path.join(root, "_quarantine", "report.json"))
+              and not os.path.exists(bad_file), "the damaged file moved to _quarantine/")
+        warning = health.warning_for("gdelt")
+        x, y, t = src
+        _, ax, ay, at, _ = rows
+        x_all, y_all, t_all = (np.concatenate(v) for v in ((x, ax), (y, ay), (t, at)))
+        lost = (t_all // persist.PARTITION_MS) == int(bad_key[1:])
+        check(degraded.row_count("gdelt") == n_all - int(lost.sum()),
+              "the degraded store holds every other partition's rows")
+        for (q, box), ids in zip(queries, full_ids):
+            check(degraded.planner.plan("gdelt", q).warnings == [warning],
+                  f"the plan over the degraded type warns: {q}")
+            got = np.asarray(degraded.query("gdelt", q).ids, np.int64)
+            check(np.array_equal(got, ids[~lost[ids]]),
+                  f"degraded ids: the whole store's minus the partition's, in order: {q}")
+            check(np.array_equal(np.sort(got),
+                                 np.setdiff1d(brute_ids((x_all, y_all, t_all), box),
+                                              np.flatnonzero(lost))),
+                  f"degraded ids vs the f64 brute force over the source columns: {q}")
+        check(reg.counter_value("geomesa.query.degraded") == len(queries),
+              "geomesa.query.degraded counts every degraded query")
+        del degraded
+        torch.cuda.empty_cache()
+        crash = crash_points(torch, device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del ds, outs
+    torch.cuda.empty_cache()
+
+    hds, _, host_ingest_s = build_store(torch, device, N_PERSIST, with_root_code=True,
+                                        seed=SEED + 70, adapter=HostAdapter())
+    check(all(t.nbytes_device == 0 for t in hds._tables.values()),
+          "the host adapter keeps nothing on the card")
+    lat_host, outs_host, _ = run_queries(hds, queries)
+    for (q, _), a, b in zip(queries, ids_of(outs_host), want):
+        check(np.array_equal(a, b), f"the host adapter's ids equal the device store's: {q}")
+    del hds, outs_host
+    witness = witness_workload(torch, device)
+    launches = read_launches()
+    torch.cuda.empty_cache()
+    return {
+        "phase": "persist_path", "cell": "gdelt-z3-10M-persist", "launches": launches,
+        "native": read_native(),
+        "n_points": N_PERSIST, "n_append": N_PERSIST_APPEND, "n_queries": len(queries),
+        "ingest_s": ingest_s, "append_s": append_s,
+        "save_s": save_s, "load_s": load_s, "save_incremental_s": save2_s,
+        "save_phase_s": save_phases, "load_phase_s": load_phases,
+        "load_after_append_s": load2_s, "load_degraded_s": load3_s,
+        "bytes_on_disk": bytes1, "bytes_on_disk_after_append": sum(
+            e["bytes"] for e in parts2.values()),
+        "bytes_per_row": bytes1 / N_PERSIST,
+        "partitions_written": len(parts1),
+        "partitions_rewritten_by_append": len(rewritten),
+        "partitions_reused_by_append": len(parts2) - len(rewritten),
+        "partitions_quarantined": len(health.damage), "rows_quarantined": int(lost.sum()),
+        "latency_p50_ms_before_load": float(np.percentile(lat_before, 50) * 1e3),
+        "latency_p50_ms_after_load": float(np.percentile(lat_after, 50) * 1e3),
+        "latency_p50_ms_host_adapter": float(np.percentile(lat_host, 50) * 1e3),
+        "host_adapter_ingest_s": host_ingest_s,
+        "crash_points": crash, "witness": witness,
+    }
+
+
 # -- entry point -------------------------------------------------------------
 
 
@@ -3706,6 +4071,7 @@ def check_native(records) -> None:
         "gdelt-z3-10M-tiered": point,
         "gdelt-z3-10M-mutate": point,
         "gdelt-attr-10M": point,
+        "gdelt-z3-10M-persist": point,
     }
     for cell, names in expected_native.items():
         for name in names:
@@ -3771,6 +4137,7 @@ def main() -> int:
         "gdelt-z3-10M-tiered": tuple(k.name for k in KERNELS),
         "gdelt-z3-10M-mutate": tuple(k.name for k in KERNELS),
         "gdelt-attr-10M": ("block_scan", "block_scan_multi"),
+        "gdelt-z3-10M-persist": tuple(k.name for k in KERNELS),
     }
     for cell, names in expected.items():
         for name in names:

@@ -180,3 +180,18 @@ OBS_SLOW_MAX = SystemProperty(
     "geomesa.obs.slow.max", 64, int,
     "slow-query ring capacity (oldest captures evicted first)",
 )
+
+
+# -- lock-witness runtime (lockwitness) ------------------------------------
+
+LOCK_WITNESS = SystemProperty(
+    "geomesa.tpu.lock.witness", False, _parse_bool,
+    "arm the dynamic lock witness: locks constructed AFTER arming wrap in "
+    "an order-recording proxy; the observed acquisition graph must stay "
+    "acyclic (resolves from GEOMESA_TPU_LOCK_WITNESS=1 like every knob)",
+)
+LOCK_WITNESS_ARTIFACT = SystemProperty(
+    "geomesa.tpu.lock.witness.artifact", "/tmp/lock_witness.json", str,
+    "where lockwitness.dump() writes the observed edge graph / blocking "
+    "events so a failure is diagnosable from logs alone",
+)

@@ -16,8 +16,13 @@ plan is recorded in the optional MetricsRegistry and AuditWriter
 
 Point schemas get a Z3 index (when a time attribute exists) and a Z2
 index; extent schemas (polygons, lines, multi-geometries) an XZ3 and an
-XZ2 index; both narrowed by the ``geomesa.indices.enabled`` user data. Each index is a sorted IndexTable whose predicate columns live
-on the store's device.
+XZ2 index; both narrowed by the ``geomesa.indices.enabled`` user data.
+Each index is a scan surface built by the store's adapter
+(storage.adapter): by default a sorted IndexTable whose predicate
+columns live on the store's device. The catalog (storage.metadata) keeps
+each schema's spec, user data and index names; ``persist.save`` and
+``persist.load`` (storage.persist) write a store to disk and read it
+back, and ``store_health`` reports partitions quarantined at load.
 
 The device is explicit: ``DataStore(device="cuda")`` (the default) raises
 when no CUDA device is present; tests pass ``device="cpu"``, where every
@@ -30,6 +35,7 @@ serialize on one lock; readers take none and see whole publishes.
 
 from __future__ import annotations
 
+import json
 import re
 import threading
 import time
@@ -38,7 +44,7 @@ from typing import Iterable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import conf
+from geomesa_tpu_torch import conf, fault
 from geomesa_tpu_torch import geometry as geo
 from geomesa_tpu_torch.features import FeatureCollection, _date_to_millis
 from geomesa_tpu_torch.filter.predicates import (
@@ -46,12 +52,14 @@ from geomesa_tpu_torch.filter.predicates import (
 )
 from geomesa_tpu_torch.index import AttributeIndex, XZ2Index, XZ3Index, Z2Index, Z3Index
 from geomesa_tpu_torch.index.api import WriteKeys
+from geomesa_tpu_torch.lockwitness import witness
 from geomesa_tpu_torch.planning.errors import check_deadline
 from geomesa_tpu_torch.planning.explain import Explainer
 from geomesa_tpu_torch.planning.planner import QueryPlanner, mask_decides_filter
 from geomesa_tpu_torch.sft import FeatureType
 from geomesa_tpu_torch.storage.delta import TieredTable, concat_keys
-from geomesa_tpu_torch.storage.table import IndexTable, folded_table, merged_table
+from geomesa_tpu_torch.storage.adapter import merge_applies
+from geomesa_tpu_torch.storage.table import IndexTable
 from geomesa_tpu_torch.timing import NULL_CLOCK
 
 _EXPIRY_UNITS_MS = {
@@ -152,13 +160,23 @@ class DataStore:
         audit=None,
         metrics=None,
         query_timeout: float | None = None,
+        adapter=None,
+        metadata=None,
     ):
         """``guards`` / ``interceptors``: planning.guards hooks; ``audit``
         an AuditWriter; ``metrics`` a MetricsRegistry.
         ``block_full_table_scans`` adds a FullTableScanGuard at query time.
         ``query_timeout``: default per-query wall-clock budget in seconds
         (QueryTimeout when exceeded; a QueryHints.timeout overrides it per
-        query); None reads ``geomesa.query.timeout``."""
+        query); None reads ``geomesa.query.timeout``. ``adapter``: a
+        storage.adapter.IndexAdapter backend (default: InProcessAdapter
+        on ``device``; an InProcessAdapter without a device takes this
+        store's). ``metadata``: a storage.metadata catalog backend
+        (default: an in-memory catalog behind a read cache)."""
+        from geomesa_tpu_torch.storage.adapter import InProcessAdapter
+        from geomesa_tpu_torch.storage.metadata import CachedMetadata, InMemoryMetadata
+        from geomesa_tpu_torch.storage.persist import StoreHealth
+
         self.device = resolve_device(device)
         self.tile = tile
         self.block_full_table_scans = block_full_table_scans
@@ -184,23 +202,32 @@ class DataStore:
         # writers (write, compact, every mutation) serialize on this lock
         # so a reader never observes half-updated chunk or table state;
         # readers take no lock
-        self._write_lock = threading.RLock()
+        self._write_lock = witness(threading.RLock(), "DataStore._write_lock")
         # serializes only the id-index entry cache
-        self._id_lock = threading.Lock()
+        self._id_lock = witness(threading.Lock(), "DataStore._id_lock")
         # seqlock of the fold's publishes: odd while the assignment-only
         # swap of tables and chunks is in flight, so pin_scan_state's
         # lock-free readers capture a consistent (table, chunks) pair
         self._publish_seq = 0  # guarded-by: _write_lock
         # sliced-fold progress (type -> (published, total) slices)
         self._fold_progress: dict[str, tuple] = {}  # guarded-by: _write_lock
+        # backend seam and catalog tier
+        if adapter is None:
+            adapter = InProcessAdapter(tile=tile, device=self.device)
+        elif isinstance(adapter, InProcessAdapter) and adapter.device is None:
+            adapter.device = self.device
+        self.adapter = adapter
+        self.metadata = metadata if metadata is not None else CachedMetadata(InMemoryMetadata())
+        # damage accounting: persist.load replaces it with the outcome of
+        # its verification; a store with quarantined partitions answers
+        # queries degraded (a warning on every plan and a counter)
+        self.health = StoreHealth()
         self.planner = QueryPlanner(self)
         # per-phase timing of the scan path (timing.PhaseClock), or the
         # clock that records nothing
         self.clock = NULL_CLOCK
-        # the serving tier (serve()); the lock keeps concurrent first
-        # callers from starting two schedulers
+        # the serving tier (serve())
         self.scheduler = None
-        self._serve_lock = threading.Lock()
 
     # -- schema lifecycle ------------------------------------------------
     def create_schema(self, sft: "FeatureType | str", spec: str | None = None) -> FeatureType:
@@ -219,6 +246,15 @@ class DataStore:
         self._full[sft.name] = None
         self._main_rows[sft.name] = 0
         self._id_sorted[sft.name] = None
+        # catalog entries (reference MetadataBackedDataStore.createSchema)
+        self.metadata.insert(f"{sft.name}~schema", sft.to_spec())
+        self.metadata.insert(
+            f"{sft.name}~user_data",
+            json.dumps({str(k): str(v) for k, v in sft.user_data.items()}),
+        )
+        self.metadata.insert(
+            f"{sft.name}~indices", ",".join(i.name for i in self._indexes[sft.name])
+        )
         return sft
 
     @staticmethod
@@ -244,6 +280,13 @@ class DataStore:
                 raise ValueError(f"no supported index in {enabled!r}")
         return indexes
 
+    @property
+    def store_health(self):
+        """This store's storage.persist.StoreHealth: ``status`` is ``"ok"``
+        or ``"degraded"`` (partitions quarantined at load); ``damage``
+        lists the quarantine records."""
+        return self.health
+
     def get_schema(self, type_name: str) -> FeatureType:
         return self._schemas[type_name]
 
@@ -259,8 +302,12 @@ class DataStore:
             self._main_rows.pop(type_name, None)
             self._id_sorted.pop(type_name, None)
             for idx in self._indexes.pop(type_name, []):
-                self._tables.pop((type_name, idx.name), None)
+                table = self._tables.pop((type_name, idx.name), None)
+                if table is not None:
+                    self.adapter.delete_table(table)
                 self._key_chunks.pop((type_name, idx.name), None)
+            for key in (f"{type_name}~schema", f"{type_name}~user_data", f"{type_name}~indices"):
+                self.metadata.remove(key)
 
     def indexes(self, type_name: str) -> list:
         return self._indexes[type_name]
@@ -312,6 +359,35 @@ class DataStore:
             if main_rows == 0 or total - main_rows > max(conf.COMPACT_MIN_ROWS.get(), total // 8):
                 self.compact(type_name)
         return len(features)
+
+    def _bulk_commit(
+        self,
+        type_name: str,
+        fcs: Sequence[FeatureCollection],
+        keys_by_index: Mapping,
+        check_ids: bool = True,
+    ) -> int:
+        """Atomic multi-chunk publish (``persist.load``; the reference's
+        bulk ingest): one write-lock section appends every chunk and
+        compacts once. ``keys_by_index`` holds one WriteKeys per index
+        covering all chunks, in chunk order. Nothing is visible until this
+        returns. (The reference also folds the chunks' stats sketches and
+        takes its pipelined ingest's presorted runs here; the port's stats
+        store and ingest pipeline are not ported yet.)"""
+        fcs = [fc for fc in fcs if len(fc)]
+        total_new = sum(len(fc) for fc in fcs)
+        if total_new == 0:
+            return 0
+        with self._write_lock:
+            if check_ids:
+                self._check_ids(type_name, np.concatenate([np.asarray(fc.ids) for fc in fcs]))
+            self._widen_bin_ranges(type_name, keys_by_index)
+            self._chunks[type_name].extend(fcs)
+            self._full[type_name] = None
+            for name, keys in keys_by_index.items():
+                self._key_chunks.setdefault((type_name, name), []).append(keys)
+            self.compact(type_name)
+        return total_new
 
     def delete_features(self, type_name: str, f: "Filter | str") -> int:
         """Remove the features matching a filter; returns the count removed
@@ -426,6 +502,8 @@ class DataStore:
         (a built table and the batch's keys, no secondary sort words): a
         fold whose indexes rebuild outright would pay a full build per
         slice, so it stays monolithic."""
+        if getattr(self.adapter, "fold_table", None) is None:
+            return False
         for idx in self._indexes[type_name]:
             k = keys.get(idx.name)
             if k is None or k.sub is not None:
@@ -450,8 +528,6 @@ class DataStore:
         from geomesa_tpu_torch.metrics import resolve
         from geomesa_tpu_torch.obs.trace import span as _ospan
 
-        # the reference also passes the fault point "stream.fold.slice"
-        # at each slice's start (fault.py, not ported yet)
         metrics = resolve(self.metrics)
         n_batch = len(features)
         n_slices = -(-n_batch // sr)
@@ -463,6 +539,7 @@ class DataStore:
         try:
             for si, s in enumerate(range(0, n_batch, sr)):
                 e = min(s + sr, n_batch)
+                fault.fault_point("stream.fold.slice")
                 t0 = time.perf_counter()
                 with _ospan("fold.slice", index=si, rows=e - s):
                     sub_fc = features.take(np.arange(s, e, dtype=np.int64))
@@ -527,7 +604,8 @@ class DataStore:
         # build every index's merged keys and folded table before any
         # store state mutates: the publish below is assignment-only, so a
         # failure mid-build leaves the store untouched
-        staged: list = []  # (index, merged keys, new table)
+        fold = getattr(self.adapter, "fold_table", None)
+        staged: list = []  # (index, merged keys, new table, old table)
         for idx in self._indexes[type_name]:
             parts = self._key_chunks.get((type_name, idx.name)) or []
             dk = keys[idx.name]
@@ -548,19 +626,20 @@ class DataStore:
             else:
                 merged = dk
             old_table = self._tables.get((type_name, idx.name))
-            if old_table is not None:
+            new_table = None
+            if fold is not None and old_table is not None:
                 dperm = presorted.get(idx.name) if presorted else None
-                new_table = folded_table(
-                    old_table, merged, keep_ordinal, ordinal_map, dk,
-                    delta_perm=dperm, tile=self.tile,
+                new_table = fold(
+                    idx, old_table, merged, keep_ordinal, ordinal_map, dk, delta_perm=dperm,
                 )
-            else:
-                new_table = IndexTable(idx, merged, tile=self.tile, device=self.device)
-            staged.append((idx, merged, new_table))
+            if new_table is None:
+                new_table = self.adapter.create_table(idx, merged)
+            staged.append((idx, merged, new_table, old_table))
+        fault.fault_point("stream.fold.publish")
         # -- publish: assignment-only, seqlock-bracketed --------------------
         self._widen_bin_ranges(type_name, keys)
         self._publish_seq += 1  # odd: the swap is in flight
-        for idx, merged, new_table in staged:
+        for idx, merged, new_table, _ in staged:
             self._key_chunks[(type_name, idx.name)] = [merged]
             self._tables[(type_name, idx.name)] = new_table
         self._chunks[type_name] = (
@@ -568,6 +647,9 @@ class DataStore:
         )
         self._full[type_name] = None
         self._publish_seq += 1  # even: pinned readers may proceed
+        for _, _, new_table, old_table in staged:
+            if old_table is not None and old_table is not new_table:
+                self.adapter.delete_table(old_table)
         self._main_rows[type_name] = n - len(replaced) + len(features)
 
     def _validate_replacement(self, type_name: str, features) -> None:
@@ -729,12 +811,14 @@ class DataStore:
         return total
 
     def compact(self, type_name: str) -> None:
-        """Merge the delta tier into the device tables and collapse the
-        feature chunks into one collection. Where the old table holds
-        exactly the compacted prefix, only the delta sorts and merges in
+        """Merge the delta tier into the index tables and collapse the
+        feature chunks into one collection, every table built by the
+        store's adapter. Where the old table holds exactly the compacted
+        prefix, only the delta sorts and merges in
         (storage.table.merged_table: delta rows ahead of old rows with an
         equal key, device blocks before the first insertion reused);
-        otherwise the table rebuilds from all rows."""
+        otherwise the old table is released and the table rebuilds from
+        all rows."""
         with self._write_lock:
             main_rows = self._main_rows[type_name]
             full = self.features(type_name)
@@ -750,14 +834,14 @@ class DataStore:
                 old = self._tables.get(key)
                 if old is not None and old.n == len(keys.zs) == main_rows:
                     continue  # empty delta: the table is current
-                if isinstance(old, IndexTable) and old.n == main_rows and 0 < main_rows < len(
-                    keys.zs
-                ):
-                    table = merged_table(old, keys, _slice_keys(keys, main_rows), tile=self.tile)
-                else:
+                if old is not None and not merge_applies(old, main_rows, len(keys.zs)):
                     # release the old device columns before the rebuild uploads
                     self._tables.pop(key, None)
-                    table = IndexTable(idx, keys, tile=self.tile, device=self.device)
+                    self.adapter.delete_table(old)
+                    old = None
+                table = self.adapter.create_table(idx, keys, old=old, main_rows=main_rows)
+                if old is not None and old is not table:
+                    self.adapter.delete_table(old)
                 self._tables[key] = table
             self._main_rows[type_name] = len(full)
 
@@ -1040,6 +1124,9 @@ class DataStore:
         if self.metrics is not None:
             self.metrics.counter("geomesa.query.count")
             self.metrics.counter("geomesa.query.hits", max(hits, 0))
+            if plan.warnings:
+                # degraded-mode answer: results exclude quarantined data
+                self.metrics.counter("geomesa.query.degraded")
             self.metrics.timer_update("geomesa.query.plan", plan.planning_s)
             # query latency as a live histogram (p50 / p99 off the registry)
             self.metrics.observe("geomesa.query.scan", scan_s)
@@ -1086,10 +1173,12 @@ class DataStore:
         and compatible index scans coalesce into fused launches.
         ``config``: None builds a ServingConfig from the conf.py knobs; a
         ServingConfig is used as given. Returns the attached scheduler
-        while it is open; a closed one is replaced. Thread-safe."""
+        while it is open; a closed one is replaced. Thread-safe: the
+        write lock keeps concurrent first callers from starting two
+        schedulers."""
         from geomesa_tpu_torch.serving import QueryScheduler
 
-        with self._serve_lock:
+        with self._write_lock:
             sched = self.scheduler
             if sched is not None and not sched.closed:
                 return sched

@@ -102,9 +102,9 @@ class MetricsRegistry:
     :meth:`timer_update` takes the lock."""
 
     def __init__(self):
-        # the reference wraps this lock in its lock-order witness
-        # (geomesa_tpu/lockwitness.py), which the port does not carry yet
-        self._lock = threading.Lock()
+        from geomesa_tpu_torch.lockwitness import witness
+
+        self._lock = witness(threading.Lock(), "MetricsRegistry._lock")
         self.counters: dict[str, int] = defaultdict(int)    # guarded-by: _lock
         self.gauges: dict[str, float] = {}                  # guarded-by: _lock
         self.timers: dict[str, Timer] = defaultdict(Timer)  # guarded-by: _lock

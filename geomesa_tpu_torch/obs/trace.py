@@ -226,9 +226,9 @@ class Tracer:
     cross-tier trace one tree."""
 
     def __init__(self, metrics=None):
-        # the reference wraps this lock in its lock-order witness
-        # (geomesa_tpu/lockwitness.py), which the port does not carry yet
-        self._lock = threading.Lock()
+        from geomesa_tpu_torch.lockwitness import witness
+
+        self._lock = witness(threading.Lock(), "Tracer._lock")
         self.buffer = TraceBuffer(conf.OBS_TRACE_BUFFER.get())  # guarded-by: _lock
         self.slow: list[dict] = []   # guarded-by: _lock
         self._n_roots = 0            # guarded-by: _lock

@@ -73,6 +73,9 @@ class QueryPlan:
     # multi-index union plan (reference FilterSplitter OR options): each
     # sub-plan scans one DNF disjunct on its own index; results dedup-union
     union: Optional[list["QueryPlan"]] = None
+    # degraded-mode notices (quarantined partitions excluded from results):
+    # set at plan time from the store's health, counted by record_query
+    warnings: Optional[list] = None
     # the reference's estimate accountability adds the plan-time sketch
     # estimate and the matched rows here (estimated_rows, actual_rows);
     # they come with the stats store
@@ -204,6 +207,14 @@ class QueryPlanner:
             # (_estimate_rows); it needs the stats store, not ported yet
             if guard:
                 self.store.apply_guards(plan)
+            # degraded mode: a store that quarantined damaged partitions at
+            # load answers from the survivors and warns instead of raising
+            health = getattr(self.store, "health", None)
+            if health is not None:
+                w = health.warning_for(type_name)
+                if w is not None:
+                    plan.warnings = [w]
+                    exp.warn(w)
         plan.planning_s = time.perf_counter() - t0
         return plan
 

@@ -89,7 +89,9 @@ class QueryScheduler:
     def __init__(self, store, config: "ServingConfig | None" = None):
         self.store = store
         self.conf = config or ServingConfig()
-        self._cond = threading.Condition()
+        from geomesa_tpu_torch.lockwitness import witness
+
+        self._cond = witness(threading.Condition(), "QueryScheduler._cond")
         self._queue: "deque[_Item]" = deque()  # guarded-by: _cond
         self._closed = False                   # guarded-by: _cond
         self._thread: Optional[threading.Thread] = None  # guarded-by: _cond

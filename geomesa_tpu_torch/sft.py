@@ -165,3 +165,17 @@ class FeatureType:
                 options[k.strip()] = v.strip()
             attrs.append(AttributeDescriptor(attr_name, attr_type, default, options))
         return FeatureType(name, attrs, user_data)
+
+    def to_spec(self) -> str:
+        """The spec DSL string ``from_spec`` parses back to this type
+        (attributes with their options, then the user data)."""
+        parts = []
+        for a in self.attributes:
+            s = f"{'*' if a.default else ''}{a.name}:{a.type}"
+            for k, v in a.options.items():
+                s += f":{k}={v}"
+            parts.append(s)
+        spec = ",".join(parts)
+        if self.user_data:
+            spec += ";" + ",".join(f"{k}={v}" for k, v in self.user_data.items())
+        return spec

@@ -1,1 +1,2 @@
-"""Storage: the sorted, device-resident index tables."""
+"""Storage: the sorted index tables, the delta tier, the adapter seam,
+the catalog and persistence."""

@@ -1,0 +1,220 @@
+"""IndexAdapter: the pluggable backend seam.
+
+The port's copy of geomesa_tpu/storage/adapter.py (reference
+IndexAdapter.scala:27-86). An adapter turns (keyspace, write keys) into
+a *scan surface*, any object with the IndexTable interface (scan_submit,
+scan_submit_many, count, density_submit, bounds_stats, candidate_spans,
+nbytes_device), and owns its lifecycle. Every table build of a DataStore
+goes through its adapter: the first write's build, compaction, the
+incremental fold and delete_schema's release.
+
+- :class:`InProcessAdapter` (the default) builds the port's IndexTable on
+  the store's device; compactions of a table holding exactly the
+  compacted prefix take the partition-preserving merge
+  (storage.table.merged_table), and the fold takes folded_table.
+- :class:`HostAdapter` builds :class:`HostTable` surfaces: sorted host
+  keys and numpy predicate masks, no device at all. Only a caller who
+  passes it gets it; nothing selects it.
+
+The reference's mesh and pod tables (its ``mesh`` argument) and the
+cache tier's generation bump wait for those tiers of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Protocol, runtime_checkable
+
+import numpy as np
+
+from geomesa_tpu_torch.fault import fault_point, with_retries
+from geomesa_tpu_torch.index.api import IndexKeySpace, WriteKeys
+from geomesa_tpu_torch.timing import NULL_CLOCK
+
+
+@runtime_checkable
+class IndexAdapter(Protocol):
+    """Backend seam (reference IndexAdapter.createTable/deleteTables)."""
+
+    def create_table(self, keyspace: IndexKeySpace, keys: WriteKeys, old=None, main_rows: int = 0):
+        """Build (or update from ``old``) the scan surface of one index.
+        ``old`` is this adapter's previous table for the index (or None);
+        ``main_rows`` is the row count ``old`` was built from: rows past
+        it in ``keys`` are the freshly compacted delta. (The reference's
+        ``sorted_state``, its pipelined ingest's presorted runs, comes
+        with that ingest.)"""
+        ...
+
+    def delete_table(self, table) -> None:
+        """Release a table's resources (reference deleteTables)."""
+        ...
+
+
+def merge_applies(old, main_rows: int, n_rows: int) -> bool:
+    """Whether a compaction of ``n_rows`` key rows may merge its delta
+    into ``old`` (storage.table.merged_table): ``old`` is a device table
+    built from exactly the ``main_rows`` compacted prefix, and a delta
+    exists. Otherwise the table rebuilds outright."""
+    from geomesa_tpu_torch.storage.table import IndexTable
+
+    return isinstance(old, IndexTable) and old.n == main_rows and 0 < main_rows < n_rows
+
+
+class InProcessAdapter:
+    """The built-in backend: sorted columnar tables whose predicate
+    columns live on one device. ``device`` None takes the device of the
+    DataStore the adapter is given to."""
+
+    def __init__(self, tile: Optional[int] = None, device=None):
+        self.tile = tile
+        self.device = device
+
+    def create_table(self, keyspace, keys, old=None, main_rows: int = 0):
+        from geomesa_tpu_torch.datastore import _slice_keys
+        from geomesa_tpu_torch.storage.table import IndexTable, merged_table
+
+        # a table build is a pure function of (keyspace, keys), so a
+        # transient IO fault (an OSError) is safely retried; device errors
+        # are not retried
+        def attempt():
+            fault_point("adapter.create_table")
+            if merge_applies(old, main_rows, len(keys.zs)):
+                return merged_table(old, keys, _slice_keys(keys, main_rows), tile=self.tile)
+            return IndexTable(keyspace, keys, tile=self.tile, device=self.device)
+
+        return with_retries(attempt)
+
+    def fold_table(
+        self,
+        keyspace,
+        old,
+        merged_keys,
+        keep_ordinal=None,
+        ordinal_map=None,
+        delta_keys=None,
+        delta_perm=None,
+    ):
+        """Incremental replace-merge (storage.table.folded_table): fold a
+        delete and an insert batch into ``old`` without a whole-table
+        sort, bit-identical to a full build. Returns None when the table
+        cannot fold (secondary sort words, another table class): the
+        caller then builds it through :meth:`create_table`."""
+        from geomesa_tpu_torch.storage.table import IndexTable, folded_table
+
+        if merged_keys.sub is not None or type(old) is not IndexTable:
+            return None
+
+        def attempt():
+            fault_point("adapter.create_table")
+            return folded_table(
+                old, merged_keys, keep_ordinal, ordinal_map, delta_keys,
+                delta_perm=delta_perm, tile=self.tile,
+            )
+
+        return with_retries(attempt)
+
+    def delete_table(self, table) -> None:
+        pass  # device memory frees with the last reference
+
+
+class HostTable:
+    """Host-only scan surface: the IndexTable contract over sorted keys
+    and numpy predicate masks, no device anywhere (the reference's
+    in-memory backend tier). The second IndexAdapter implementation: the
+    DataStore and planner code run unchanged against it."""
+
+    def __init__(self, keyspace, keys: WriteKeys, tile=None):
+        from geomesa_tpu_torch.storage.table import SortedKeys
+
+        self._sk = SortedKeys(keyspace, keys, tile or 0)
+        self.keyspace = keyspace
+        # sorted host copies of the predicate columns
+        self._cols = {k: v[self._sk.perm] for k, v in keys.device_cols.items()}
+        self.nbytes_device = 0  # nothing lives on a device
+
+    @property
+    def n(self):
+        return self._sk.n
+
+    def candidate_spans(self, config):
+        return self._sk.candidate_spans(config)
+
+    # -- scan surface ----------------------------------------------------
+    def _wide_rows(self, config) -> np.ndarray:
+        """Sorted-table rows passing the WIDE predicate within the
+        candidate spans (numpy; bit-compatible with the kernels' wide
+        plane through delta_wide_mask)."""
+        from geomesa_tpu_torch.storage.delta import delta_wide_mask
+        from geomesa_tpu_torch.storage.table import _span_rows
+
+        rows = _span_rows(self.candidate_spans(config))
+        if len(rows) == 0:
+            return rows
+        sub = WriteKeys(
+            bins=self._sk.bins[rows],
+            zs=self._sk.zs[rows],
+            device_cols={k: v[rows] for k, v in self._cols.items()},
+        )
+        m = delta_wide_mask(
+            config, sub, packed_shift=getattr(self.keyspace, "packed_time", None),
+        )
+        return rows[m]
+
+    def scan_submit(self, config, clock=NULL_CLOCK, deadline=None):
+        if config.disjoint or self.n == 0:
+            return lambda: (np.zeros(0, np.int64), np.zeros(0, bool))
+        rows = self._wide_rows(config)
+        out = (
+            self._sk.perm[rows].astype(np.int64),
+            np.zeros(len(rows), bool),  # wide only: every row refines
+        )
+        return lambda: out
+
+    def scan_submit_many(self, configs, clock=NULL_CLOCK, deadline=None):
+        """IndexTable.scan_submit_many's contract (one finish per config);
+        a host table has no launch to share, so this loops."""
+        return [self.scan_submit(c, clock=clock, deadline=deadline) for c in configs]
+
+    def count(self, config, clock=NULL_CLOCK) -> int:
+        return int(len(self._wide_rows(config)))
+
+    # -- aggregation surface (wide semantics, like the device kernels;
+    # the representative-xy and grid-scatter rules are the delta tier's)
+    def density_submit(self, config, envelope, width, height, clock=NULL_CLOCK):
+        from geomesa_tpu_torch.storage.delta import rep_xy, scatter_density
+
+        rows = self._wide_rows(config)
+        x, y = rep_xy(self._cols, rows)
+        grid = scatter_density(x, y, envelope, width, height)
+        return lambda: grid
+
+    def bounds_stats(self, config, clock=NULL_CLOCK):
+        from geomesa_tpu_torch.storage.delta import rep_xy
+
+        rows = self._wide_rows(config)
+        if len(rows) == 0:
+            return 0, None
+        x, y = rep_xy(self._cols, rows)
+        return len(rows), (float(x.min()), float(y.min()), float(x.max()), float(y.max()))
+
+    def warmup(self) -> int:
+        return 0  # nothing to compile
+
+
+class HostAdapter:
+    """IndexAdapter producing HostTable scan surfaces (no device): the
+    backend for callers who want no accelerator in the path, or tiny
+    reference stores in tests. Compactions sort outright (no merge fast
+    path)."""
+
+    def __init__(self, tile=None):
+        self.tile = tile
+
+    def create_table(self, keyspace, keys, old=None, main_rows: int = 0):
+        def attempt():
+            fault_point("adapter.create_table")
+            return HostTable(keyspace, keys, tile=self.tile)
+
+        return with_retries(attempt)
+
+    def delete_table(self, table) -> None:
+        pass

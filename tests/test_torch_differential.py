@@ -11,7 +11,19 @@ schema (Z3 and Z2 indexes), half on a dated extent schema (XZ3 and XZ2),
 each written once and in two writes whose second stays in the delta
 tier. Both packages take their native host helpers. Required for every
 tree: the same ids in the same order, with and without the hints, and
-the same pages under ``limit`` and ``offset``. Tolerance: exact.
+the same pages under ``limit`` and ``offset``. The two-write stores run
+again after ``compact``.
+
+The aggregations run on a seeded subset of the trees, on the point and
+the dated extent store (once and tiered): ``count`` exact and as an
+estimate (``stats_query("Count()", estimate=True)``), ``density``,
+``bounds`` in both modes, ``stats_query`` in both modes, and
+``density_many`` over batches of trees. Two seeded 25-step mutation
+sequences, one per schema, draw from ``fold_upsert`` (monolithic and
+sliced with a small ``slice_rows``), ``upsert``, ``write``,
+``compact``, ``delete_features``, ``modify_features`` and ``age_off``;
+after each step the stores' rows and a few trees' ids (with and without
+``limit``) must agree in order. Tolerance: exact.
 """
 
 import numpy as np
@@ -140,7 +152,7 @@ def cases(schema):
 
 
 CASES = {"pts": cases("pts"), "ext": cases("ext")}
-STORES = [(s, w) for s in ("pts", "ext") for w in ("once", "tiered")]
+STORES = [(s, w) for s in ("pts", "ext") for w in ("once", "tiered", "compacted")]
 
 
 @pytest.fixture(scope="module")
@@ -156,6 +168,9 @@ def stores():
         else:
             pair = (extent_store(geomesa_tpu, edata, writes=writes),
                     extent_store(geomesa_tpu_torch, edata, writes=writes, device="cpu"))
+        if w == "compacted":
+            for ds in pair:
+                ds.compact(schema)
         out[(schema, w)] = pair
     return out
 
@@ -182,3 +197,209 @@ def test_random_trees_agree_in_order(stores, schema, writes, chunk):
             ref = jds.query(schema, q, limit=5, hints=JHints(**page))
             assert np.asarray(got.ids).tolist() == np.asarray(ref.ids).tolist(), (q, page)
     assert nonempty  # every chunk exercises some non-empty results
+
+
+# -- aggregations -------------------------------------------------------------
+
+AGG_TREES = 30  # per schema: the first trees of CASES
+AGG_CHUNK = 10
+AGG_STORES = [(s, w) for s in ("pts", "ext") for w in ("once", "tiered")]
+AGG_PARAMS = [(s, w, c) for s, w in AGG_STORES for c in range(AGG_TREES // AGG_CHUNK)]
+ENVELOPE = (-60.0, -40.0, 60.0, 40.0)
+STAT_SPECS = {"pts": ["Count();MinMax(age)", "MinMax(dtg)"],
+              "ext": ["Count();MinMax(rank)", "MinMax(dtg)"]}
+
+
+def _stats_json(stats) -> list:
+    return [(type(s).__name__, s.to_json()) for s in stats]
+
+
+@pytest.mark.parametrize("schema,writes,chunk", AGG_PARAMS,
+                         ids=[f"{s}-{w}-{c}" for s, w, c in AGG_PARAMS])
+def test_aggregations_agree(stores, schema, writes, chunk):
+    jds, tds = stores[(schema, writes)]
+    for i, (q, _, _) in enumerate(CASES[schema][chunk * AGG_CHUNK:(chunk + 1) * AGG_CHUNK]):
+        assert tds.count(schema, q) == jds.count(schema, q), q
+        got = tds.stats_query(schema, "Count()", q, estimate=True)
+        ref = jds.stats_query(schema, "Count()", q, estimate=True)
+        assert _stats_json(got) == _stats_json(ref), q
+        env = ENVELOPE if i % 2 else None
+        got = tds.density(schema, q, envelope=env, width=32, height=16)
+        ref = jds.density(schema, q, envelope=env, width=32, height=16)
+        assert np.asarray(got).dtype == np.asarray(ref).dtype
+        assert np.array_equal(np.asarray(got), np.asarray(ref)), q
+        for estimate in (True, False):
+            assert tds.bounds(schema, q, estimate=estimate) == jds.bounds(
+                schema, q, estimate=estimate), (q, estimate)
+            spec = STAT_SPECS[schema][i % 2]
+            got = tds.stats_query(schema, spec, q, estimate=estimate)
+            ref = jds.stats_query(schema, spec, q, estimate=estimate)
+            assert _stats_json(got) == _stats_json(ref), (q, spec, estimate)
+
+
+@pytest.mark.parametrize("schema,writes", AGG_STORES, ids=[f"{s}-{w}" for s, w in AGG_STORES])
+def test_density_many_agrees(stores, schema, writes):
+    jds, tds = stores[(schema, writes)]
+    trees = [q for q, _, _ in CASES[schema][:AGG_TREES]]
+    for b in range(0, len(trees), 8):
+        reqs = [(q, ENVELOPE if k % 3 else None) for k, q in enumerate(trees[b:b + 8])]
+        got = tds.density_many(schema, reqs, width=24, height=12)
+        ref = jds.density_many(schema, reqs, width=24, height=12)
+        assert len(got) == len(ref) == len(reqs)
+        for (q, _), g, r in zip(reqs, got, ref):
+            assert np.array_equal(np.asarray(g), np.asarray(r)), q
+
+
+# -- mutation sequences -------------------------------------------------------
+
+N_STEPS = 25
+MUT_SEED = SEED + 7
+SLICE_ROWS = 97
+OPS = ("fold", "fold_sliced", "upsert", "write", "compact", "delete", "modify", "age_off")
+
+
+def _rows(rng, schema, ids):
+    """Seeded column arrays for a batch of ``ids`` (both packages build
+    their collections from these)."""
+    n = len(ids)
+    x0, y0 = rng.uniform(-60, 58, n), rng.uniform(-40, 38, n)
+    t = T0 + rng.integers(0, 20 * DAY, n)
+    name = NAMES[rng.integers(0, len(NAMES), n)]
+    num = rng.integers(0, 30, n).astype(np.int32)
+    if schema == "pts":
+        return {"geom": ("pts", x0, y0), "dtg": t, "age": num % 30,
+                "score": np.round(rng.normal(0, 10, n), 2), "name": name}
+    w, h = rng.uniform(0.01, 2.0, n), rng.uniform(0.01, 2.0, n)
+    return {"geom": ("ext", x0, y0, x0 + w, y0 + h), "dtg": t, "tag": name, "rank": num % 10}
+
+
+def _fc(pkg, ds, schema, ids, rows):
+    sft = ds.get_schema(schema)
+    cols = dict(rows)
+    g = rows["geom"]
+    cols["geom"] = (g[1], g[2]) if g[0] == "pts" else \
+        pkg.geometry.PackedGeometryColumn.from_boxes(*g[1:])
+    return pkg.FeatureCollection.from_columns(sft, np.asarray(ids), cols)
+
+
+def _mutation_steps(schema):
+    """The seeded sequence: (op, args) per step, ``args`` in numpy only,
+    plus the trees read after each step."""
+    rng = np.random.default_rng(MUT_SEED + (schema == "ext"))
+    live = list(range(N))
+    next_id = 100_000
+    cutoff = T0
+    steps = []
+    for _ in range(N_STEPS):
+        op = OPS[int(rng.integers(len(OPS)))]
+        if op in ("fold", "fold_sliced", "upsert"):
+            k_old = int(rng.integers(20, 200))
+            k_new = int(rng.integers(0, 100))
+            old = rng.choice(live, min(k_old, len(live)), replace=False).tolist()
+            ids = old + list(range(next_id, next_id + k_new))
+            next_id += k_new
+            live += ids[len(old):]
+            args = (ids, _rows(rng, schema, ids))
+        elif op == "write":
+            k = int(rng.integers(50, 400))
+            ids = list(range(next_id, next_id + k))
+            next_id += k
+            live += ids
+            args = (ids, _rows(rng, schema, ids))
+        elif op == "delete":
+            if rng.uniform() < 0.5:
+                gone = rng.choice(live, int(rng.integers(5, 60)), replace=False).tolist()
+                f = "IN (" + ", ".join(f"'{i}'" for i in gone) + ")"
+            else:
+                x0, y0 = rng.uniform(-60, 50), rng.uniform(-40, 30)
+                f = f"bbox(geom, {x0:.3f}, {y0:.3f}, {x0 + rng.uniform(1, 8):.3f}, {y0 + rng.uniform(1, 6):.3f})"
+            args = (f,)
+        elif op == "modify":
+            which = int(rng.integers(4))
+            if which == 0:
+                upd = {ATTRS[schema]["int"]: int(rng.integers(0, 10))}
+            elif which == 1:
+                upd = {ATTRS[schema]["str"]: str(NAMES[int(rng.integers(len(NAMES)))]) + "x"}
+            elif which == 2:
+                upd = {"dtg": _stamp(T0 + int(rng.integers(0, 20 * DAY)))}
+            else:
+                upd = {"geom": (float(rng.uniform(-50, 50)), float(rng.uniform(-30, 30)))}
+            sel = rng.choice(live, int(rng.integers(3, 40)), replace=False).tolist()
+            f = "IN (" + ", ".join(f"'{i}'" for i in sel) + ")"
+            if rng.uniform() < 0.3:
+                f = _tree(rng, schema)
+            args = (upd, f)
+        elif op == "age_off":
+            cutoff += int(rng.integers(0, DAY // 2))
+            args = (cutoff,)
+        else:
+            args = ()
+        trees = [_tree(rng, schema) for _ in range(3)] + [_leaf(rng, schema)]
+        steps.append((op, args, trees, int(rng.integers(1, 12))))
+    return steps
+
+
+def _apply(pkg, ds, schema, op, args):
+    if op in ("fold", "fold_sliced", "upsert", "write"):
+        fc = _fc(pkg, ds, schema, *args)
+        if op == "write":
+            return ds.write(schema, fc)
+        if op == "upsert":
+            return ds.upsert(schema, fc)
+        return ds.fold_upsert(schema, fc, slice_rows=SLICE_ROWS if op == "fold_sliced" else 0)
+    if op == "compact":
+        return ds.compact(schema)
+    if op == "delete":
+        return ds.delete_features(schema, args[0])
+    if op == "modify":
+        upd, f = args
+        if "geom" in upd:
+            x, y = upd["geom"]
+            g = pkg.geometry
+            upd = {"geom": g.Point(x, y) if schema == "pts" else g.Polygon(
+                np.array([[x, y], [x + 1, y], [x + 1, y + 1], [x, y + 1], [x, y]]))}
+        return ds.modify_features(schema, upd, f)
+    return ds.age_off(schema, ttl_ms=0, now_ms=args[0])
+
+
+@pytest.fixture(scope="module")
+def mutation_runs():
+    """Both sequences run once; per step the returns, rows and query ids
+    of each package."""
+    ensure_jax_native()
+    pdata, edata = point_data(seed=17, n=N), extent_data()
+    out = {}
+    for schema in ("pts", "ext"):
+        if schema == "pts":
+            pair = (point_store(geomesa_tpu, pdata), point_store(geomesa_tpu_torch, pdata, device="cpu"))
+        else:
+            pair = (extent_store(geomesa_tpu, edata), extent_store(geomesa_tpu_torch, edata, device="cpu"))
+        for op, args, trees, limit in _mutation_steps(schema):
+            rec = []
+            for pkg, ds in zip((geomesa_tpu, geomesa_tpu_torch), pair):
+                ret = _apply(pkg, ds, schema, op, args)
+                ids = np.asarray(ds.features(schema).ids).tolist()
+                res = [(np.asarray(ds.query(schema, q).ids).tolist(),
+                        np.asarray(ds.query(schema, q, limit=limit).ids).tolist()) for q in trees]
+                rec.append((ret, ids, res))
+            out.setdefault(schema, []).append((op, trees, rec))
+    return out
+
+
+MUT_PARAMS = [(s, i) for s in ("pts", "ext") for i in range(N_STEPS)]
+
+
+@pytest.mark.parametrize("schema,step", MUT_PARAMS, ids=[f"{s}-{i}" for s, i in MUT_PARAMS])
+def test_mutation_sequence_agrees(mutation_runs, schema, step):
+    op, trees, (ref, got) = mutation_runs[schema][step]
+    assert got[0] == ref[0], op
+    assert got[1] == ref[1], op  # the rows, in order
+    for q, (want, want_lim), (have, have_lim) in zip(trees, ref[2], got[2]):
+        assert have == want, (op, q)
+        assert have_lim == want_lim, (op, q)
+
+
+def test_mutation_sequences_draw_every_op():
+    """The seeds cover every operation and leave rows behind."""
+    drawn = {op for s in ("pts", "ext") for op, *_ in _mutation_steps(s)}
+    assert drawn == set(OPS)

@@ -1065,3 +1065,39 @@ def test_query_controls_on_the_card_equal_the_cpu_store():
         conf.OBS_TRACE_SAMPLE.clear()
         otrace.install(old)
     assert {"query", "plan", "dispatch", "scan", "decode"} <= set(names)
+
+
+def test_save_and_load_round_trip_on_the_card(tmp_path):
+    """persist.save of a CUDA store and persist.load(device="cuda"): the
+    loaded store builds every table on the card, and its queries launch
+    K1 (its density K3, its bounds estimate K4) and answer with the saved
+    store's ids in order; a CPU load of the same directory agrees."""
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.storage import persist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    src = _hint_store("cuda")
+    persist.save(src, tmp_path / "s")
+    back = persist.load(tmp_path / "s", device="cuda")
+    cpu = persist.load(tmp_path / "s", device="cpu")
+    assert back.store_health.status == "ok"
+    assert all(t.device.type == "cuda" for t in back._tables.values())
+    q = HINT_QUERIES[0]
+    for k in kernels.KERNELS:
+        k.reset_counts()
+    ids = np.asarray(back.query("t", q).ids)
+    grid = back.density("t", q, width=64, height=32)
+    env = back.bounds("t", q)
+    assert kernels.BLOCK_SCAN.launches > 0
+    assert kernels.DENSITY.launches > 0 and kernels.BOUNDS.launches > 0
+    src_ids = np.asarray(src.query("t", q).ids)
+    # the load orders rows by partition: compare the rows, then the order
+    # against the CPU load of the same directory
+    assert len(ids) and sorted(ids.tolist()) == sorted(src_ids.tolist())
+    assert np.array_equal(ids, np.asarray(cpu.query("t", q).ids))
+    assert np.array_equal(grid, cpu.density("t", q, width=64, height=32))
+    assert env == cpu.bounds("t", q)
+    for hq in HINT_QUERIES[1:]:
+        assert np.array_equal(np.asarray(back.query("t", hq).ids),
+                              np.asarray(cpu.query("t", hq).ids)), hq

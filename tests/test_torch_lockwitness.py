@@ -1,0 +1,286 @@
+"""The port's lock witness (geomesa_tpu_torch.lockwitness) against the
+JAX package's, on the CPU.
+
+The runtime's contract, in both packages alike: disarmed, ``witness``
+returns the lock it was given; armed, nested acquisitions record
+edges, a re-entrant acquisition records nothing, two instances under one
+name record an ``aliased`` event, a two-thread inversion is reported as
+a cycle, a Condition's wait releases its held frame, and a fault point
+reached under a witnessed lock records a ``blocking`` event.
+
+The reference's static lock model (``geomesa_tpu/analysis/``) is not
+ported, so the workload check holds the two runtimes against each
+other: both witnesses armed, the same seeded workload (write, query,
+``query_many``, a sliced ``fold_upsert`` with a pacer, ``serve()`` with a
+few submits, tracing and a metrics registry on) runs through each
+package, and the observed edge sets and blocking events must be equal,
+both graphs acyclic, and each of the port's five locks witnessed. The
+graphs are dumped into ``tmp_path``.
+"""
+
+import json
+import threading
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import geomesa_tpu
+import geomesa_tpu_torch
+from geomesa_tpu import conf as jconf
+from geomesa_tpu import fault as jfault
+from geomesa_tpu import lockwitness as jlw
+from geomesa_tpu import metrics as jmetrics
+from geomesa_tpu.obs import trace as jtrace
+from geomesa_tpu_torch import conf as tconf
+from geomesa_tpu_torch import fault as tfault
+from geomesa_tpu_torch import lockwitness as tlw
+from geomesa_tpu_torch import metrics as tmetrics
+from geomesa_tpu_torch.obs import trace as ttrace
+
+torch.set_num_threads(1)
+
+JAX = SimpleNamespace(name="jax", pkg=geomesa_tpu, lw=jlw, fault=jfault, conf=jconf,
+                      metrics=jmetrics, trace=jtrace, kw={})
+PORT = SimpleNamespace(name="port", pkg=geomesa_tpu_torch, lw=tlw, fault=tfault, conf=tconf,
+                       metrics=tmetrics, trace=ttrace, kw={"device": "cpu"})
+BOTH = (JAX, PORT)
+PORT_LOCKS = {"DataStore._write_lock", "DataStore._id_lock", "MetricsRegistry._lock",
+              "Tracer._lock", "QueryScheduler._cond"}
+
+
+@pytest.fixture(autouse=True)
+def _disarm():
+    """Every test leaves both witnesses disarmed, both injectors clean and
+    fresh tracers installed (objects built while armed keep their
+    wrappers; they only feed the report, which enable() resets)."""
+    yield
+    for P in BOTH:
+        P.lw.disable()
+        P.fault.injector().reset()
+        P.conf.OBS_TRACE_SAMPLE.clear()
+        P.trace.install(P.trace.Tracer())
+
+
+@pytest.mark.parametrize("ctor", [threading.Lock, threading.RLock, threading.Condition])
+def test_disarmed_witness_is_passthrough(ctor):
+    for P in BOTH:
+        P.lw.disable()
+        lock = ctor()
+        assert P.lw.witness(lock, "X._lock") is lock
+
+
+def test_armed_witness_wraps_and_delegates():
+    tlw.enable()
+    lock = tlw.witness(threading.Lock(), "X._lock")
+    assert lock is not None and not lock.locked()
+    assert lock.acquire(timeout=1.0)
+    assert lock.locked() and tlw.held_locks() == ("X._lock",)
+    lock.release()
+    assert tlw.held_locks() == ()
+    assert "X._lock" in tlw.REPORT.snapshot()["seen"]
+
+
+def _nesting(lw):
+    a = lw.witness(threading.Lock(), "Fix._a")
+    b = lw.witness(threading.RLock(), "Fix._b")
+    b2 = lw.witness(threading.RLock(), "Fix._b")
+    held = []
+    with a:
+        held.append(lw.held_locks())
+        with b:
+            with b:  # re-entrant, same instance: no edge, not aliased
+                pass
+            with b2:  # another instance, same name: aliased, not an edge
+                held.append(lw.held_locks())
+    held.append(lw.held_locks())
+    return held
+
+
+def test_edges_reentrancy_and_aliasing():
+    snaps = []
+    for P in BOTH:
+        P.lw.enable()
+        held = _nesting(P.lw)
+        snap = P.lw.REPORT.snapshot()
+        assert held[0] == ("Fix._a",) and held[-1] == ()
+        assert ("Fix._a", "Fix._b") in P.lw.REPORT.edges
+        assert ("Fix._b", "Fix._b") not in P.lw.REPORT.edges
+        assert snap["aliased"] == {"Fix._b ~ Fix._b": 1}
+        assert P.lw.REPORT.cycle() is None
+        snaps.append((held, snap))
+        P.lw.disable()
+    assert snaps[0] == snaps[1]
+
+
+def test_two_thread_inversion_reports_cycle(tmp_path):
+    """Thread one nests A -> B, thread two (strictly after) B -> A: the
+    witness reports the cycle though the run never deadlocked."""
+    payloads = []
+    for P in BOTH:
+        P.lw.enable()
+        a = P.lw.witness(threading.Lock(), "Inv._a")
+        b = P.lw.witness(threading.Lock(), "Inv._b")
+        first_done = threading.Event()
+
+        def t1():
+            with a:
+                with b:
+                    pass
+            first_done.set()
+
+        def t2():
+            first_done.wait()
+            with b:
+                with a:
+                    pass
+
+        threads = [threading.Thread(target=t) for t in (t1, t2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        cyc = P.lw.REPORT.cycle()
+        assert cyc is not None and set(cyc) == {"Inv._a", "Inv._b"}
+        out = P.lw.dump(str(tmp_path / f"{P.name}.json"))
+        payload = json.load(open(out))
+        assert payload["cycle"] is not None
+        assert "Inv._a -> Inv._b" in payload["edge_counts"]
+        payloads.append(payload)
+        P.lw.disable()
+    assert payloads[0] == payloads[1]
+
+
+def test_dump_defaults_to_the_artifact_knob(tmp_path):
+    tlw.enable()
+    with tlw.witness(threading.Lock(), "K._a"):
+        with tlw.witness(threading.Lock(), "K._b"):
+            pass
+    tconf.LOCK_WITNESS_ARTIFACT.set(str(tmp_path / "w.json"))
+    try:
+        path = tlw.dump()
+    finally:
+        tconf.LOCK_WITNESS_ARTIFACT.clear()
+    assert path == str(tmp_path / "w.json")
+    assert json.load(open(path))["edges"] == [["K._a", "K._b"]]
+
+
+def test_condition_wait_releases_held_frame():
+    for P in BOTH:
+        P.lw.enable()
+        cond = P.lw.witness(threading.Condition(), "Fix._cond")
+        during = []
+
+        def waker():
+            with cond:
+                cond.notify_all()
+
+        with cond:
+            assert P.lw.held_locks() == ("Fix._cond",)
+            t = threading.Thread(target=waker)
+            t.start()
+            cond.wait(timeout=5.0)
+            during.append(P.lw.held_locks())
+            t.join()
+            assert cond.wait_for(lambda: True, timeout=1.0)
+        assert during == [("Fix._cond",)]
+        assert P.lw.held_locks() == ()
+        P.lw.disable()
+
+
+def test_fault_points_record_blocking_events():
+    snaps = []
+    for P in BOTH:
+        P.lw.enable()
+        lock = P.lw.witness(threading.Lock(), "Fix._hot")
+        P.fault.fault_point("persist.gc")  # no lock held: no event
+        with lock:
+            P.fault.fault_point("persist.gc")
+        snaps.append(P.lw.REPORT.snapshot()["blocking"])
+        P.lw.disable()
+    assert snaps[0] == snaps[1] == {"Fix._hot @ persist.gc": 1}
+
+
+def test_witness_knob_arms_at_import():
+    """``geomesa.tpu.lock.witness`` (env GEOMESA_TPU_LOCK_WITNESS) arms
+    the witness when the module loads, as the JAX package's does."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("from geomesa_tpu_torch import lockwitness as w, metrics as m; "
+            "print(w.ENABLED, type(m.MetricsRegistry()._lock).__name__)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, GEOMESA_TPU_LOCK_WITNESS="1", PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True", "_WitnessedLock"]
+
+
+# -- the workload, held against the JAX package's ------------------------------
+
+SPEC = "name:String,age:Integer,dtg:Date,*geom:Point:srid=4326"
+T0 = int(np.datetime64("2024-01-01T00:00:00", "ms").astype(np.int64))
+DAY = 86_400_000
+QUERIES = [
+    "bbox(geom, -30, -20, 10, 10)",
+    "bbox(geom, 0, 0, 40, 30) AND dtg DURING 2024-01-02T00:00:00Z/2024-01-09T00:00:00Z",
+    "name = 'b'",
+]
+
+
+def _workload(P):
+    """Arm, build and drive one store; return the witness snapshot and
+    the query answers (the workload's own correctness check)."""
+    P.lw.enable()
+    P.conf.OBS_TRACE_SAMPLE.set(1)
+    P.trace.install(P.trace.Tracer())  # constructed armed: its lock is wrapped
+    reg = P.metrics.MetricsRegistry()
+    rng = np.random.default_rng(21)
+    n = 2_000
+    cols = {"name": np.array(["a", "b", "c"])[rng.integers(0, 3, n)],
+            "age": rng.integers(0, 50, n).astype(np.int32),
+            "dtg": T0 + rng.integers(0, 10 * DAY, n),
+            "geom": (rng.uniform(-50, 50, n), rng.uniform(-50, 50, n))}
+    sft = P.pkg.FeatureType.from_spec("t", SPEC)
+    ds = P.pkg.DataStore(tile=1024, metrics=reg, **P.kw)
+    ds.create_schema(sft)
+    head = {k: (v[0][:1500], v[1][:1500]) if k == "geom" else v[:1500] for k, v in cols.items()}
+    ds.write("t", P.pkg.FeatureCollection.from_columns(sft, np.arange(1500), head))
+    answers = [np.asarray(ds.query("t", q).ids).tolist() for q in QUERIES]
+    answers += [np.asarray(r.ids).tolist() for r in ds.query_many("t", QUERIES)]
+    tail = {k: (v[0][1000:], v[1][1000:]) if k == "geom" else v[1000:] for k, v in cols.items()}
+    paced = []
+    ds.fold_upsert("t", P.pkg.FeatureCollection.from_columns(sft, np.arange(1000, n), tail),
+                   slice_rows=300, pacer=lambda: paced.append(1))
+    sched = ds.serve()
+    futs = [sched.submit("t", q) for q in QUERIES * 2]
+    answers += [np.asarray(f.result(timeout=60).ids).tolist() for f in futs]
+    sched.close()
+    snap = P.lw.REPORT.snapshot()
+    cycle = P.lw.REPORT.cycle()
+    P.lw.disable()
+    P.conf.OBS_TRACE_SAMPLE.clear()
+    return snap, cycle, answers, len(paced)
+
+
+def test_workload_edges_equal_the_jax_package(tmp_path):
+    runs = {P.name: _workload(P) for P in BOTH}
+    (jsnap, jcyc, jans, jpaced), (tsnap, tcyc, tans, tpaced) = runs["jax"], runs["port"]
+    assert tans == jans and tpaced == jpaced == 3
+    assert jcyc is None and tcyc is None  # both graphs acyclic
+    assert tsnap["edges"] == jsnap["edges"]
+    assert tsnap["blocking"] == jsnap["blocking"]
+    assert PORT_LOCKS <= set(tsnap["seen"])  # each of the five locks witnessed
+    assert set(tsnap["seen"]) <= set(jsnap["seen"])
+    assert tsnap["aliased"] == jsnap["aliased"] == {}
+    # the fold's points under the write lock, and the table builds
+    assert tsnap["blocking"]["DataStore._write_lock @ stream.fold.publish"] == 4
+    assert tsnap["blocking"]["DataStore._write_lock @ stream.fold.slice"] == 4
+    assert ("DataStore._write_lock", "QueryScheduler._cond") in tsnap["edges"]
+    PORT.lw.REPORT.reset()
+    PORT.lw.REPORT.edges.update({e: 1 for e in tsnap["edges"]})
+    out = json.load(open(PORT.lw.dump(str(tmp_path / "port.json"))))
+    assert out["cycle"] is None and out["edges"] == [list(e) for e in tsnap["edges"]]

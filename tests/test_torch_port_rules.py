@@ -16,7 +16,12 @@
   ``-ffp-contract=off``, by a loader that reads no environment variable;
 - every knob of ``geomesa_tpu_torch.conf`` is a knob of the JAX package
   under the same name, with the same default and the same parsing: the
-  port adds no knob of its own.
+  port adds no knob of its own;
+- the persistence slice's modules (``fault``, ``lockwitness``,
+  ``storage.metadata``, ``storage.adapter``, ``storage.persist``) import
+  neither jax nor anything of ``geomesa_tpu``, each on its own in a fresh
+  interpreter, and ``lockwitness.witness`` hands back the lock it was
+  given while the witness is disarmed.
 """
 
 import importlib.util
@@ -64,7 +69,8 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
                  "filter.raster", "scan.probe_kernels", "scripts.probe_pallas",
                  "scripts.probe_agg", "native", "index.attribute", "utils.lexicode",
                  "metrics", "audit", "obs.trace", "planning.errors", "planning.hints",
-                 "planning.guards", "io.converters", "sql.functions"):
+                 "planning.guards", "io.converters", "sql.functions", "fault",
+                 "lockwitness", "storage.metadata", "storage.adapter", "storage.persist"):
         assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
@@ -379,5 +385,49 @@ def test_every_port_knob_is_a_jax_knob_with_its_default():
     # this slice's knobs are among them
     for name in ("geomesa.query.timeout", "geomesa.guard.temporal.max.duration",
                  "geomesa.obs.trace.sample", "geomesa.obs.trace.buffer",
-                 "geomesa.obs.slow.ms", "geomesa.obs.slow.max"):
+                 "geomesa.obs.slow.ms", "geomesa.obs.slow.max",
+                 "geomesa.tpu.lock.witness", "geomesa.tpu.lock.witness.artifact"):
         assert name in port, name
+
+
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
+print(bad)
+"""
+
+
+@pytest.mark.parametrize("module", ["fault", "lockwitness", "storage.metadata",
+                                    "storage.adapter", "storage.persist"])
+def test_persistence_modules_import_no_jax_and_nothing_of_geomesa_tpu(module):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE, f"geomesa_tpu_torch.{module}"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    src = open(os.path.join(ROOT, "geomesa_tpu_torch", *module.split(".")) + ".py").read()
+    assert "import jax" not in src and "from geomesa_tpu." not in src
+    assert "from geomesa_tpu import" not in src
+
+
+@pytest.mark.parametrize("ctor", ["Lock", "RLock", "Condition"])
+def test_disarmed_witness_returns_the_lock_it_was_given(ctor, monkeypatch):
+    import threading
+
+    from geomesa_tpu_torch import lockwitness
+
+    monkeypatch.setattr(lockwitness, "ENABLED", False)
+    lock = getattr(threading, ctor)()
+    assert lockwitness.witness(lock, "X._lock") is lock
+    # the port's stores and registries then hold plain locks
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+
+    assert type(MetricsRegistry()._lock) is type(threading.Lock())
+    ds = DataStore(device="cpu")
+    assert type(ds._write_lock) is type(threading.RLock())
