@@ -175,18 +175,56 @@ Phases, each printing one JSON line:
    never a mix; the same 10M rows on ``HostAdapter`` answer the 16
    queries as the device store, in order; the lock witness armed around
    a small write, query and fold workload gives an acyclic graph (its
-   edges in the record).
+   edges in the record);
+15. gdelt-z3-10M-secure-cached: 10,000,000 GDELT-shaped events on Z3 and
+   Z2 with ``EventRootCode`` declared ``vis=secret`` and a ``vis`` label
+   column from the path's own seed (50 % public, 20 % ``analyst``, 15 %
+   ``analyst&secret``, 10 % ``secret|ops``, 5 % ``ops``): analysts with
+   different clearances share one event store, dashboards repeat the
+   same queries and counts. Statistics: ``stats_for`` (count, min/max of
+   x, y and dtg, the top-k) against numpy, ``estimate_count`` of the 64
+   main queries with each error factor against the exact count (median
+   and p90 printed); ``delete_features`` of one region and ``age_off`` of
+   the first 7 days, then ``analyze_stats`` equal to a ``StatsStore.build``
+   of the surviving rows; a fold that moves one region's rows away and,
+   with auto-analyze on and a forced stale window, one query from each of
+   8 ``serve()`` threads: exactly one analyze. Visibility: four stores by
+   auths (None, (), analyst, analyst+secret): the 64 queries' ids in
+   order equal the None store's filtered by the script's own label
+   evaluator (and the masked f64 brute force), ``query_many`` launches
+   K2, count, both Count() forms, density and both bounds over the 4
+   busiest equal the host brute force over the visible rows, each
+   visibility-active aggregation counted in ``geomesa.query.vis_fallback``
+   and launching no K1p, K3 or K4 (K1 scans), while the None store's
+   launch all three; a filter on ``EventRootCode`` raises without
+   ``secret``, whose results lack the column. Views: the rows split by
+   id parity into two 5M stores; a ``MergedView`` gives the 10M store's
+   ids as a set, its counts, grids and both bounds; a ``RoutedView`` by
+   time half answers as the store it routes to. Cache: a
+   ``DataStore(cache=True)`` runs the 64 queries cold then warm (64
+   result hits, no K1 launch, ids identical), 32 panned dashboard boxes
+   through ``count`` and exact ``bounds`` twice (equal to the brute
+   force; the second pass reuses tiles), then a ``fold_upsert`` of 10k
+   rows in one box, a 50k ``write`` in another and a ``delete_features``:
+   after each, every query equals a ``cache="bypass"`` query in order and
+   the brute force, and the entries away from the mutated box stay hits
+   (the delete rebuilds the tables, so all fill again); then
+   ``persist.save`` and ``persist.load(cache=...)`` with the warm cache:
+   no stale hit, the same answers.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the twelve paths and read just after
+are zeroed just before each of the thirteen paths and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
 with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
-extent leg; tiered, mutate and persist: all five; attribute: K1 and K2) and
+extent leg; tiered, mutate, persist and secure-cached: all five;
+attribute: K1 and K2) and
 called the native helpers ``check_native`` names (the ranges where it
-plans, ``sort_bins_z`` where it ingests, the plane decode where it
-decodes, point-in-polygon on the polygon paths); the probe phase zeroes
+plans new filters, since the batch path's repeated plans take the
+planner's scan-config memo; ``sort_bins_z`` where it ingests, the plane
+decode where it decodes, point-in-polygon on the polygon paths); the
+probe phase zeroes
 and reads its own (each probe kernel, and each density variant,
 launched).
 
@@ -1724,20 +1762,23 @@ def leg_of(config) -> str:
 
 
 @contextmanager
-def raster_knob(name, value):
-    """One raster knob set for the block (the raster cache dropped around
-    it)."""
+def raster_knob(name, value, ds):
+    """One raster knob set for the block (the raster cache and the store
+    planner's scan-config memo dropped around it: a memoized config holds
+    the legs of the setting it was planned under)."""
     from geomesa_tpu_torch import conf
     from geomesa_tpu_torch.filter import raster as fr
 
     prop = getattr(conf, name)
     prop.set(value)
     fr.clear_cache()
+    ds.planner.invalidate_config_memo()
     try:
         yield
     finally:
         prop.clear()
         fr.clear_cache()
+        ds.planner.invalidate_config_memo()
 
 
 def host_density(x, y, envelope, width, height) -> np.ndarray:
@@ -1806,7 +1847,7 @@ def polygon_path(torch, ds, src, index: str, warm, measured, n_brute: int, n_set
     settings = {}
     for label, name, value in (("device_residue", "RASTER_RESIDUE", "device"),
                                ("raster_off", "RASTER_ENABLED", False)):
-        with raster_knob(name, value):
+        with raster_knob(name, value, ds):
             s_lat, s_outs, _ = run_queries(ds, measured[:n_settings])
             # every query through query_many: groups of more than 8
             # members fuse (smaller ones go to K1), so the chunks of this
@@ -2649,13 +2690,14 @@ def hints_path(torch, ds, src, measured, outs, main_lat, clock_phases) -> dict:
 
 
 def main_path(torch, device):
-    """Twelve paths, each with its own launch and native call counts
+    """Thirteen paths, each with its own launch and native call counts
     (zeroed just before it runs, read just after): the single-query main
     path, the batch path, the polygon path and the query controls on the
     same store, the
     packed-time cell, the Z2 polygon cell, the two extent cells (XZ2,
     XZ3), the tiered store with its union queries, the mutated store, the
-    attribute-indexed store and the saved and loaded store."""
+    attribute-indexed store, the saved and loaded store, and the secure,
+    cached event store."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -2755,7 +2797,8 @@ def main_path(torch, device):
     torch.cuda.empty_cache()
     return (rec, batch, poly, hints, packed, z2, xz2_path(torch, device), xz3_path(torch, device),
             tiered_union_path(torch, device), mutation_path(torch, device),
-            attribute_path(torch, device), persist_path(torch, device))
+            attribute_path(torch, device), persist_path(torch, device),
+            secure_cached_path(torch, device))
 
 
 # -- the delta tier and union plans ----------------------------------------
@@ -4046,21 +4089,653 @@ def persist_path(torch, device) -> dict:
     }
 
 
+# -- statistics, visibility, federated views and the cache tier --------------
+
+N_SECURE = 10_000_000
+N_SECURE_AGG = 4
+N_TILE_VIEWS = 4  # dashboard views, each panned 8 times: 32 tile boxes
+N_SECURE_WRITE = 50_000
+N_SECURE_FOLD = 10_000  # half replace rows in the fold box, half are new ids
+N_SERVE_THREADS = 8
+# the result cache sized to the dashboard's working set: the 64 queries'
+# rows and the 32 boxes' (a box count the tile tier's cost gate declines
+# answers through the row path, whose result the cache admits: up to
+# ~100 MB a box at 10M rows); the default 256 MB would evict the measured
+# entries before the scoped-invalidation checks read them
+SECURE_CACHE_BYTES = 4 << 30
+SECURE_SPEC = "EventRootCode:String:vis=secret,vis:String,dtg:Date,*geom:Point:srid=4326"
+# the label mix of the shared event store, and the four analysts' auths
+VIS_LABELS = np.array(["", "analyst", "analyst&secret", "secret|ops", "ops"])
+VIS_SHARES = (0.50, 0.20, 0.15, 0.10, 0.05)
+SECURE_AUTHS = {"none": None, "public": (), "analyst": ("analyst",),
+                "analyst-secret": ("analyst", "secret")}
+SECURE_WRITE_BOX = (100.0, -10.0, 115.0, 0.0)
+SECURE_FOLD_BOX = (-75.0, 35.0, -65.0, 45.0)
+SECURE_DELETE_BOX = (10.0, 40.0, 20.0, 50.0)
+SECURE_DRIFT_BOX = (-20.0, -40.0, 0.0, -20.0)  # the rows a fold moves away (stale stats)
+SECURE_AGE_OFF_MS = 7 * 86_400_000
+
+
+def secure_rows(n, seed):
+    """The path's rows: GDELT-shaped points and times, ``EventRootCode``,
+    and a ``vis`` label drawn from its own seed (label index in
+    ``vis_idx``)."""
+    rng = np.random.default_rng(seed)
+    x, y = gdelt_points(n, rng)
+    t = T0_MS + rng.integers(0, SPAN_MS, n)
+    vis_idx = np.random.default_rng(seed + 1).choice(len(VIS_LABELS), n, p=VIS_SHARES)
+    return {"ids": np.arange(n), "x": x, "y": y, "t": t, "codes": root_codes(n, seed + 7),
+            "vis_idx": vis_idx, "vis": VIS_LABELS[vis_idx]}
+
+
+def label_visible(vis_idx, auths) -> np.ndarray:
+    """The script's own label evaluator (not the port's): each of the five
+    labels written out by hand."""
+    if auths is None:
+        return np.ones(len(vis_idx), bool)
+    a = set(auths)
+    lut = np.array([True, "analyst" in a, "analyst" in a and "secret" in a,
+                    "secret" in a or "ops" in a, "ops" in a])
+    return lut[vis_idx]
+
+
+def secure_fc(sft, r, sel=None):
+    from geomesa_tpu_torch import FeatureCollection
+
+    if sel is not None:
+        r = {k: v[sel] for k, v in r.items()}
+    return FeatureCollection.from_columns(sft, r["ids"], {
+        "EventRootCode": r["codes"], "vis": r["vis"], "dtg": r["t"], "geom": (r["x"], r["y"])})
+
+
+def secure_store(torch, device, rows, sel=None, auths=None, cache=None):
+    """A Z3 + Z2 store of ``rows`` (or the ``sel`` subset) whose schema
+    names the ``vis`` label field; returns (store, ingest seconds)."""
+    from geomesa_tpu_torch import DataStore, FeatureType
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.security import VIS_FIELD_KEY
+
+    sft = FeatureType.from_spec("gdelt", SECURE_SPEC)
+    sft.user_data["geomesa.indices.enabled"] = "z3,z2"
+    sft.user_data[VIS_FIELD_KEY] = "vis"
+    ds = DataStore(device=device, auths=auths, cache=cache, metrics=MetricsRegistry())
+    ds.create_schema(sft)
+    t0 = time.perf_counter()
+    ds.write("gdelt", secure_fc(sft, rows, sel), check_ids=False)
+    torch.cuda.synchronize()
+    return ds, time.perf_counter() - t0
+
+
+def launch_delta(before: dict) -> dict:
+    now = read_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def exact_env(x, y, ids):
+    if not len(ids):
+        return None
+    return (float(x[ids].min()), float(y[ids].min()), float(x[ids].max()), float(y[ids].max()))
+
+
+def secure_stats_checks(ds, rows, measured, brute) -> dict:
+    """The sketches after the write against numpy, and estimate_count's
+    error factor for each measured query against its exact count."""
+    from geomesa_tpu_torch.obs.accuracy import error_factor
+
+    st = ds.stats_for("gdelt")
+    x, y, t = rows["x"], rows["y"], rows["t"]
+    check(st.total_count() == len(x), "stats_for counts every row")
+    for name, col in (("geom.x", x), ("geom.y", y), ("dtg", t)):
+        check(st.attribute_bounds(name) == (col.min(), col.max()), f"stats_for min/max of {name}")
+    for attr, col in (("EventRootCode", rows["codes"]), ("vis", rows["vis"])):
+        vals, cnts = np.unique(col, return_counts=True)
+        want = sorted(zip(vals.tolist(), cnts.tolist()), key=lambda kv: -kv[1])[:10]
+        check(st.topk[attr].top() == want, f"stats_for top-k of {attr}")
+    errs, ests = [], []
+    t0 = time.perf_counter()
+    for (q, _), ids in zip(measured, brute):
+        est = ds.estimate_count("gdelt", q)
+        ests.append(est)
+        errs.append(error_factor(est, len(ids)))
+    est_s = time.perf_counter() - t0
+    return {"estimate_error_median": float(np.median(errs)),
+            "estimate_error_p90": float(np.percentile(errs, 90)),
+            "estimate_error_max": float(np.max(errs)),
+            "estimate_ms_per_query": est_s / len(measured) * 1e3,
+            "estimates_vs_exact": [[int(e), int(len(b))] for e, b in zip(ests[:8], brute[:8])]}
+
+
+def secure_aggregations(ds, rows, busy, brute_busy, auths) -> list:
+    """count, both Count() forms, density, both bounds over the busiest
+    queries; on a visibility store every answer equals the host brute
+    force over the rows its auths see."""
+    from geomesa_tpu_torch.planning.explain import Explainer
+
+    x, y = rows["x"], rows["y"]
+    out = []
+    for (q, box), ids in zip(busy, brute_busy):
+        seen = ids[label_visible(rows["vis_idx"][ids], auths)]
+        exp = Explainer()
+        res = (ds.count("gdelt", q),
+               ds.stats_query("gdelt", "Count()", q, estimate=True, explain=exp)[0].count,
+               ds.stats_query("gdelt", "Count()", q)[0].count,
+               ds.density("gdelt", q, envelope=box[:4], width=256, height=256, explain=exp),
+               ds.bounds("gdelt", q, estimate=True, explain=exp),
+               ds.bounds("gdelt", q, estimate=False))
+        check(res[0] == res[2] == len(seen), f"count and Count() vs brute force ({auths}): {q}")
+        check(res[5] == exact_env(x, y, seen), f"exact bounds vs brute force ({auths}): {q}")
+        vis_lines = [l for l in exp.lines if "fast path disabled" in l]
+        if auths is not None:
+            check(res[1] == len(seen), f"Count() estimate under visibility is exact: {q}")
+            check(np.array_equal(res[3], host_density(x[seen], y[seen], box[:4], 256, 256)),
+                  f"density under visibility vs brute force ({auths}): {q}")
+            check(res[4] == res[5], f"bounds estimate under visibility is exact: {q}")
+            check(len(vis_lines) == 3, f"explain signals each visibility fallback: {q}")
+        else:
+            check(res[1] >= len(seen) and not vis_lines, f"Count() estimate covers the hits: {q}")
+        out.append(res)
+    return out
+
+
+def visibility_checks(torch, device, rows, base, measured, base_outs, brute, busy_idx) -> dict:
+    """Four stores over the same rows (auths None is ``base``): the
+    measured queries' ids in order equal the None store's filtered by the
+    script's evaluator (the None store's ids equal the brute force), the
+    aggregations equal the host brute force over the visible rows, K1p,
+    K3 and K4 launch only on the None store, and a filter on the
+    ``vis=secret`` attribute raises without ``secret``."""
+    from geomesa_tpu_torch.kernels import BLOCK_SCAN_MULTI
+    from geomesa_tpu_torch.planning.errors import QueryGuardError
+
+    busy = [measured[k] for k in busy_idx]
+    brute_busy = [brute[k] for k in busy_idx]
+    code_q = f"EventRootCode = '01' AND {busy[0][0]}"
+    code_ids = brute_busy[0][rows["codes"][brute_busy[0]] == "01"]
+    out = {"vis_fallback": {}, "aggregation_launches": {}, "latency_p50_ms": {},
+           "query_many_k2": {}, "ingest_s": {}}
+    for name, auths in SECURE_AUTHS.items():
+        if auths is None:
+            ds = base
+        else:
+            ds, out["ingest_s"][name] = secure_store(torch, device, rows, auths=auths)
+        lat, outs, _ = run_queries(ds, measured)
+        out["latency_p50_ms"][name] = float(np.percentile(lat, 50) * 1e3)
+        for (q, _), got, ref, ids in zip(measured, outs, base_outs, brute):
+            got = np.asarray(got.ids, np.int64)
+            want = np.asarray(ref.ids, np.int64)
+            want = want[label_visible(rows["vis_idx"][want], auths)]
+            check(np.array_equal(got, want), f"ids in order under auths {auths}: {q}")
+            check(np.array_equal(np.sort(got), ids[label_visible(rows["vis_idx"][ids], auths)]),
+                  f"ids vs the masked f64 brute force under auths {auths}: {q}")
+        k2 = BLOCK_SCAN_MULTI.launches
+        many = ds.query_many("gdelt", [q for q, _ in measured])
+        out["query_many_k2"][name] = BLOCK_SCAN_MULTI.launches - k2
+        check(out["query_many_k2"][name] > 0, f"query_many under auths {auths} launches K2")
+        check_same_ids(many, outs, f"query_many under auths {auths}")
+        fallback0 = ds.metrics.counter_value("geomesa.query.vis_fallback")
+        before = read_launches()
+        secure_aggregations(ds, rows, busy, brute_busy, auths)
+        d = launch_delta(before)
+        out["aggregation_launches"][name] = d
+        out["vis_fallback"][name] = ds.metrics.counter_value("geomesa.query.vis_fallback") - fallback0
+        aggs = (d["block_pops"], d["density"], d["bounds"])
+        if auths is None:
+            check(all(a > 0 for a in aggs) and out["vis_fallback"][name] == 0,
+                  "the None store's aggregations launch K1p, K3 and K4")
+        else:
+            check(aggs == (0, 0, 0) and d["block_scan"] > 0,
+                  f"no K1p, K3 or K4 launch with visibility active ({auths}); K1 scans")
+            check(out["vis_fallback"][name] == 3 * len(busy),
+                  f"geomesa.query.vis_fallback counts each aggregation ({auths})")
+        hidden = auths is not None and "secret" not in auths
+        check(("EventRootCode" in outs[0].columns) != hidden,
+              f"EventRootCode projected out exactly for auths without secret ({auths})")
+        if hidden:
+            try:
+                ds.query("gdelt", code_q)
+                raised = False
+            except QueryGuardError:
+                raised = True
+            check(raised, f"a filter on EventRootCode raises for auths {auths}")
+        else:
+            got = np.sort(np.asarray(ds.query("gdelt", code_q).ids, np.int64))
+            want = code_ids[label_visible(rows["vis_idx"][code_ids], auths)]
+            check(np.array_equal(got, want), f"EventRootCode filter under auths {auths}")
+        if ds is not base:
+            del ds, many
+            torch.cuda.empty_cache()
+    return out
+
+
+def view_checks(torch, device, rows, base, measured, base_outs, busy_idx) -> dict:
+    """Two 5M stores split by id parity: a MergedView gives the 10M
+    store's ids as a set, its counts, density grids and both bounds; a
+    RoutedView by time half answers each query as the store it routes
+    to."""
+    from geomesa_tpu_torch.filter.extract import extract_intervals
+    from geomesa_tpu_torch.views import MergedView, RoutedView
+
+    even, s_even = secure_store(torch, device, rows, sel=rows["ids"] % 2 == 0)
+    odd, s_odd = secure_store(torch, device, rows, sel=rows["ids"] % 2 == 1)
+    merged = MergedView([even, odd], "gdelt")
+    t0 = time.perf_counter()
+    for (q, _), ref in zip(measured, base_outs):
+        got = np.sort(np.asarray(merged.query(q).ids, np.int64))
+        check(np.array_equal(got, np.sort(np.asarray(ref.ids, np.int64))),
+              f"MergedView ids equal the 10M store's as a set: {q}")
+    merged_s = time.perf_counter() - t0
+    for k in busy_idx:
+        q, box = measured[k]
+        check(merged.count(q) == len(base_outs[k]), f"MergedView count: {q}")
+        check(np.array_equal(merged.density(q, envelope=box[:4], width=256, height=256),
+                             base.density("gdelt", q, envelope=box[:4], width=256, height=256)),
+              f"MergedView density grid: {q}")
+        for est in (True, False):
+            check(merged.bounds(q, estimate=est) == base.bounds("gdelt", q, estimate=est),
+                  f"MergedView bounds (estimate={est}): {q}")
+    mid = T0_MS + SPAN_MS // 2
+
+    def by_half(f):
+        iv = extract_intervals(f, "dtg")
+        return None if not iv.values else int(max(i.hi for i in iv.values) > mid)
+
+    routed = RoutedView([even, odd], "gdelt", by_half, default=0)
+    routes = [0, 0]
+    for q, (_, _, _, _, lo, hi) in measured:
+        target = int(hi > mid)
+        routes[target] += 1
+        want = (even, odd)[target].query("gdelt", q)
+        check(np.array_equal(np.asarray(routed.query(q).ids), np.asarray(want.ids)),
+              f"RoutedView answers as the store it routes to: {q}")
+    del even, odd, merged, routed
+    torch.cuda.empty_cache()
+    return {"ingest_s": s_even + s_odd, "merged_ms_per_query": merged_s / len(measured) * 1e3,
+            "routes": routes}
+
+
+def tile_boxes(seed):
+    """Dashboard boxes: N_TILE_VIEWS views of 30-60 degrees, each panned 8
+    times by up to a tenth of its size (the repeated and shifted bboxes a
+    dashboard sends), as (ecql, box)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(N_TILE_VIEWS):
+        w = float(rng.uniform(30, 60))
+        h = w / 2
+        cx, cy = float(rng.uniform(-150 + w, 150 - w)), float(rng.uniform(-60 + h, 60 - h))
+        for _ in range(8):
+            x0 = round(cx - w / 2 + float(rng.uniform(-0.1, 0.1)) * w, 4)
+            y0 = round(cy - h / 2 + float(rng.uniform(-0.1, 0.1)) * h, 4)
+            box = (x0, y0, round(x0 + w, 4), round(y0 + h, 4))
+            out.append((f"bbox(geom, {box[0]}, {box[1]}, {box[2]}, {box[3]})", box))
+    return out
+
+
+def cell_span(box):
+    from geomesa_tpu_torch.cache.generations import _cell_span
+
+    return _cell_span(box)
+
+
+def spans_meet(a, b) -> bool:
+    return not (a[1] < b[0] or b[1] < a[0] or a[3] < b[2] or b[3] < a[2])
+
+
+def cached_queries(ds, model, measured, op):
+    """Every measured query through the cache, against a bypass query (ids
+    in order) and the model's brute force; returns (per-query status,
+    latencies): "hit", "invalidated" (a miss whose entry a mutation
+    invalidated) or "miss" (no entry under the query's key: evicted, or a
+    new key, when the mutation changed the plan's index choice)."""
+    from geomesa_tpu_torch.planning.hints import QueryHints
+
+    status, lat = [], []
+    m = ds.metrics
+    for q, (x0, y0, x1, y1, lo, hi) in measured:
+        h0 = m.counter_value("geomesa.cache.hit")
+        i0 = m.counter_value("geomesa.cache.invalidation")
+        s = time.perf_counter()
+        got = ds.query("gdelt", q)
+        lat.append(time.perf_counter() - s)
+        status.append("hit" if m.counter_value("geomesa.cache.hit") > h0 else
+                      "invalidated" if m.counter_value("geomesa.cache.invalidation") > i0 else
+                      "miss")
+        ref = ds.query("gdelt", q, hints=QueryHints(cache="bypass"))
+        check(np.array_equal(np.asarray(got.ids), np.asarray(ref.ids)),
+              f"after {op}: the cached answer equals a bypass query, in order: {q}")
+        check(np.array_equal(np.sort(np.asarray(got.ids, np.int64)),
+                             model.hits((x0, y0, x1, y1), lo, hi)),
+              f"after {op}: the cached answer equals the brute force: {q}")
+    return status, np.array(lat)
+
+
+def tile_pass(ds, model, boxes, op) -> dict:
+    """count and bounds of every tile box against the model; returns the
+    tile counters' movement."""
+    m = ds.metrics
+    r0, f0 = m.counter_value("geomesa.cache.tile.reused"), m.counter_value("geomesa.cache.tile.filled")
+    s = time.perf_counter()
+    for q, box in boxes:
+        ids = model.hits(box)
+        check(ds.count("gdelt", q) == len(ids), f"{op}: tile-composed count vs brute force: {q}")
+        check(ds.bounds("gdelt", q, estimate=False) == exact_env(model.x, model.y, ids),
+              f"{op}: tile-composed bounds vs brute force: {q}")
+    return {"reused": m.counter_value("geomesa.cache.tile.reused") - r0,
+            "filled": m.counter_value("geomesa.cache.tile.filled") - f0,
+            "ms_per_box": (time.perf_counter() - s) / len(boxes) * 1e3}
+
+
+def cache_checks(torch, device, rows, measured, base_outs) -> dict:
+    """DataStore(cache=True) over the same rows: cold then warm (64 result
+    hits, no K1 launch), tile-composed counts and bounds twice, then a
+    fold, a write and a delete, each followed by every query against a
+    bypass query and the brute force (entries away from the mutated
+    region stay hits), then save and load with the warm cache."""
+    import shutil
+
+    from geomesa_tpu_torch.cache import collection_nbytes
+    from geomesa_tpu_torch.storage import persist
+
+    from geomesa_tpu_torch import conf
+
+    n = len(rows["x"])
+    conf.CACHE_MAX_BYTES.set(SECURE_CACHE_BYTES)
+    try:
+        ds, ingest_s = secure_store(torch, device, rows, cache=True)
+    finally:
+        conf.CACHE_MAX_BYTES.clear()
+    m = ds.metrics
+    steps = {}
+    before = read_launches()
+    lat_cold, cold, _ = run_queries(ds, measured)
+    steps["cold"] = launch_delta(before)
+    check(steps["cold"]["block_scan"] > 0, "the cold pass launches K1")
+    h0 = m.counter_value("geomesa.cache.hit")
+    before = read_launches()
+    lat_warm, warm, _ = run_queries(ds, measured)
+    steps["warm"] = launch_delta(before)
+    check(m.counter_value("geomesa.cache.hit") - h0 == len(measured),
+          f"the warm pass: 64 result hits ({len(ds.cache.result)} entries, "
+          f"{ds.cache.result.bytes_resident} bytes)")
+    check(steps["warm"]["block_scan"] == 0, "the warm pass launches no K1")
+    for (q, _), w, c, b in zip(measured, warm, cold, base_outs):
+        check(np.array_equal(np.asarray(w.ids), np.asarray(c.ids)),
+              f"warm ids identical to cold, in order: {q}")
+        check(np.array_equal(np.asarray(c.ids), np.asarray(b.ids)),
+              f"the cached store's ids equal the uncached store's, in order: {q}")
+
+    model = PointModel(n + N_SECURE_WRITE + N_SECURE_FOLD, rows["x"], rows["y"], rows["t"], n)
+    boxes = tile_boxes(SEED + 84)
+    before = read_launches()
+    tiles = {"pass1": tile_pass(ds, model, boxes, "pass 1"),
+             "pass2": tile_pass(ds, model, boxes, "pass 2")}
+    steps["tiles"] = launch_delta(before)
+    check(tiles["pass2"]["reused"] > 0, "the second pass reuses tiles")
+
+    sft = ds.get_schema("gdelt")
+    rng = np.random.default_rng(SEED + 85)
+    spans = [cell_span(box[:4]) for _, box in measured]
+    mutations = {}
+
+    def mutate(op, fn, regions):
+        before = read_launches()
+        e0 = m.counter_value("geomesa.cache.eviction")
+        s = time.perf_counter()
+        fn()
+        mut_s = time.perf_counter() - s
+        status, lat = cached_queries(ds, model, measured, op)
+        away = [k for k, sp in enumerate(spans)
+                if not any(spans_meet(sp, cell_span(r)) for r in regions)]
+        tile = tile_pass(ds, model, boxes, f"after {op}")
+        steps[op] = launch_delta(before)
+        mutations[op] = {"seconds": mut_s, "hits": status.count("hit"),
+                         "invalidated": status.count("invalidated"), "away": len(away),
+                         "away_hits": sum(status[k] == "hit" for k in away),
+                         "away_invalidated": sum(status[k] == "invalidated" for k in away),
+                         "evictions": m.counter_value("geomesa.cache.eviction") - e0,
+                         "bytes": ds.cache.result.bytes_resident,
+                         "entries": len(ds.cache.result),
+                         "p50_ms": float(np.percentile(lat, 50) * 1e3), "tiles": tile}
+        return away, status
+
+    def scoped(op, away, status):
+        """Scoped invalidation: no entry away from the mutated box was
+        invalidated (the away queries that miss have a new key: the
+        mutation moved their plan to the other index, counted in
+        ``away_hits``)."""
+        rec = mutations[op]
+        check(rec["away_invalidated"] == 0 and rec["away_hits"] > 0,
+              f"after the {op}, no entry away from its box is invalidated ({rec})")
+
+    # the fold: half the batch replaces rows inside the fold box, half are
+    # new ids, all placed in the box
+    fx0, fy0, fx1, fy1 = SECURE_FOLD_BOX
+    in_box = model.hits(SECURE_FOLD_BOX)
+    k_old = min(N_SECURE_FOLD // 2, len(in_box))
+    fold_ids = np.concatenate([rng.choice(in_box, k_old, replace=False),
+                               n + np.arange(N_SECURE_FOLD - k_old)])
+    f_rows = {"ids": fold_ids, "x": rng.uniform(fx0, fx1, len(fold_ids)),
+              "y": rng.uniform(fy0, fy1, len(fold_ids)),
+              "t": T0_MS + rng.integers(0, SPAN_MS, len(fold_ids)),
+              "codes": root_codes(len(fold_ids), SEED + 86),
+              "vis": np.full(len(fold_ids), "")}
+
+    def fold():
+        ds.fold_upsert("gdelt", secure_fc(sft, f_rows))
+        model.set(fold_ids, f_rows["x"], f_rows["y"], f_rows["t"])
+
+    scoped("fold_upsert", *mutate("fold_upsert", fold, [SECURE_FOLD_BOX]))
+
+    wx0, wy0, wx1, wy1 = SECURE_WRITE_BOX
+    w_ids = n + N_SECURE_FOLD + np.arange(N_SECURE_WRITE)
+    w_rows = {"ids": w_ids, "x": rng.uniform(wx0, wx1, N_SECURE_WRITE),
+              "y": rng.uniform(wy0, wy1, N_SECURE_WRITE),
+              "t": T0_MS + rng.integers(0, SPAN_MS, N_SECURE_WRITE),
+              "codes": root_codes(N_SECURE_WRITE, SEED + 87),
+              "vis": np.full(N_SECURE_WRITE, "analyst")}
+
+    def write():
+        ds.write("gdelt", secure_fc(sft, w_rows), check_ids=False)
+        model.set(w_ids, w_rows["x"], w_rows["y"], w_rows["t"])
+
+    scoped("write", *mutate("write", write, [SECURE_WRITE_BOX]))
+
+    def delete():
+        x0, y0, x1, y1 = SECURE_DELETE_BOX
+        gone = model.hits(SECURE_DELETE_BOX)
+        check(ds.delete_features("gdelt", f"bbox(geom, {x0}, {y0}, {x1}, {y1})") == len(gone),
+              "delete_features removes the box's rows")
+        model.alive[gone] = False
+
+    # the delete rebuilds every table (a major compaction), and a table
+    # build bumps the whole type's generation: every entry fills again
+    mutate("delete_features", delete, [SECURE_DELETE_BOX])
+
+    root = tempfile.mkdtemp(prefix="geomesa_cache_")
+    try:
+        last = [np.sort(np.asarray(o.ids, np.int64)) for o in run_queries(ds, measured)[1]]
+        entries = len(ds.cache.result)
+        s = time.perf_counter()
+        persist.save(ds, root)
+        back = persist.load(root, device=device, cache=ds.cache, metrics=m)
+        torch.cuda.synchronize()
+        reload_s = time.perf_counter() - s
+        check(back.cache is ds.cache, "the loaded store takes the warm cache")
+        h0, mi0 = m.counter_value("geomesa.cache.hit"), m.counter_value("geomesa.cache.miss")
+        before = read_launches()
+        _, outs, _ = run_queries(back, measured)
+        steps["after_load"] = launch_delta(before)
+        reload_hits = m.counter_value("geomesa.cache.hit") - h0
+        check(reload_hits == 0 and m.counter_value("geomesa.cache.miss") - mi0 == len(measured),
+              "after the load every entry is revalidated: no stale hit")
+        for (q, _), o, want in zip(measured, outs, last):
+            check(np.array_equal(np.sort(np.asarray(o.ids, np.int64)), want),
+                  f"the loaded store answers as before the save: {q}")
+        del back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record = {
+        "ingest_s": ingest_s, "warm_entries": len(warm), "cold_result_bytes":
+        sum(collection_nbytes(o) for o in cold),
+        "latency_p50_ms_cold": float(np.percentile(lat_cold, 50) * 1e3),
+        "latency_p50_ms_warm": float(np.percentile(lat_warm, 50) * 1e3),
+        "latency_p99_ms_cold": float(np.percentile(lat_cold, 99) * 1e3),
+        "latency_p99_ms_warm": float(np.percentile(lat_warm, 99) * 1e3),
+        "tiles": tiles, "mutations": mutations, "entries_before_save": entries,
+        "save_load_s": reload_s, "launches_by_step": steps,
+        "counters": {k: v for k, v in sorted(m.counters.items()) if k.startswith("geomesa.cache")},
+    }
+    del ds
+    torch.cuda.empty_cache()
+    return record
+
+
+def stats_mutation_checks(torch, base, rows, measured) -> dict:
+    """On the None store: delete_features of one region and age_off of the
+    span's first 7 days, then analyze_stats equals a StatsStore.build of
+    the surviving numpy rows; then a fold that moves the rows of one
+    region away (the sketches only accumulate) and, with auto-analyze on
+    and a stale window forced, one query from each of 8 serve() threads:
+    exactly one analyze trips."""
+    import threading
+
+    from geomesa_tpu_torch import conf
+    from geomesa_tpu_torch.stats import StatsStore
+
+    x0, y0, x1, y1 = SECURE_DELETE_BOX
+    base.delete_features("gdelt", f"bbox(geom, {x0}, {y0}, {x1}, {y1})")
+    base.age_off("gdelt", ttl_ms=0, now_ms=T0_MS + SECURE_AGE_OFF_MS)
+    x, y, t = rows["x"], rows["y"], rows["t"]
+    keep = ~((x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)) & (t >= T0_MS + SECURE_AGE_OFF_MS)
+    check(base.row_count("gdelt") == int(keep.sum()), "delete and age-off leave the survivors")
+    s = time.perf_counter()
+    fresh = base.analyze_stats("gdelt")
+    analyze_s = time.perf_counter() - s
+    want = StatsStore.build(base.get_schema("gdelt"), secure_fc(base.get_schema("gdelt"), rows, keep))
+    check(fresh.to_json() == want.to_json(), "analyze_stats equals a build of the survivors")
+    for k, h in want.histograms.items():
+        g = fresh.histograms[k]
+        check((g.lo, g.hi) == (h.lo, h.hi) and np.array_equal(g.counts, h.counts),
+              f"analyze_stats histogram {k} equals the survivors'")
+    for k, f in want.frequencies.items():
+        check(np.array_equal(fresh.frequencies[k].table, f.table), f"frequency sketch {k}")
+
+    # move every row of the drift box away: estimates over it go stale
+    dx0, dy0, dx1, dy1 = SECURE_DRIFT_BOX
+    live = np.flatnonzero(keep)
+    moved = live[(x[live] >= dx0) & (x[live] <= dx1) & (y[live] >= dy0) & (y[live] <= dy1)]
+    sft = base.get_schema("gdelt")
+    drift = {k: v[moved] for k, v in rows.items()}
+    drift["x"] = drift["x"] + 120.0  # into the eastern Indian Ocean
+    base.fold_upsert("gdelt", secure_fc(sft, drift))
+    sub = [f"bbox(geom, {dx0 + i}, {dy0 + i}, {dx0 + i + 8}, {dy0 + i + 8})"
+           for i in range(N_SERVE_THREADS)]  # inside the drift box
+    index = base.planner.plan("gdelt", sub[0]).index
+    conf.PLAN_ESTIMATE_AUTO_ANALYZE.set(True)
+    conf.PLAN_ESTIMATE_MIN_COUNT.set(8)
+    analyze0 = base.metrics.counter_value("geomesa.plan.estimate.analyze")
+    for _ in range(8):  # a stale window: eight recorded 1000x misestimates
+        base.accuracy.record("gdelt", index, 1000.0, 0.0)
+    check(any(tn == "gdelt" for tn, _, _ in base.accuracy.stale()), "the forced window is stale")
+    sched = base.serve()
+    barrier = threading.Barrier(N_SERVE_THREADS)
+    served = [None] * N_SERVE_THREADS
+
+    def client(i):
+        barrier.wait()
+        served[i] = sched.submit("gdelt", sub[i]).result(600)
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(N_SERVE_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        sched.close()
+        conf.PLAN_ESTIMATE_AUTO_ANALYZE.clear()
+        conf.PLAN_ESTIMATE_MIN_COUNT.clear()
+    trips = base.metrics.counter_value("geomesa.plan.estimate.analyze") - analyze0
+    check(all(len(o) == 0 for o in served), "the drifted region is empty")
+    check(trips == 1, f"eight serve() threads trip exactly one analyze ({trips})")
+    return {"analyze_s": analyze_s, "survivors": int(keep.sum()), "drift_rows": int(len(moved)),
+            "auto_analyze_trips": trips, "accuracy_report": base.accuracy.report()["indexes"]}
+
+
+def secure_cached_path(torch, device) -> dict:
+    """gdelt-z3-10M-secure-cached: 10M GDELT-shaped events on Z3 and Z2
+    with ``EventRootCode`` (declared ``vis=secret``) and a ``vis`` label
+    column (50 % public, 20 % ``analyst``, 15 % ``analyst&secret``, 10 %
+    ``secret|ops``, 5 % ``ops``): analysts with different clearances
+    query one shared event store, and dashboards repeat the same queries
+    and counts. Statistics (stats_for against numpy, estimate_count's
+    error factors over the 64 main queries, analyze_stats after a delete
+    and an age-off, one auto-analyze trip under 8 serve() threads),
+    visibility (four stores by auths: ids in order, aggregations against
+    the host brute force, the device aggregations launching only without
+    auths), views (a MergedView and a RoutedView over the rows split by
+    id parity) and the cache tier (cold and warm, tile composition,
+    scoped invalidation after a fold, a write and a delete, a reload with
+    the warm cache). Launch and native counts are zeroed before, read
+    after."""
+    zero_launches()
+    t_path = time.perf_counter()
+    rows = secure_rows(N_SECURE, SEED + 80)
+    base, ingest_s = secure_store(torch, device, rows)
+    measured = query_set(SEED + 2, N_MEASURED)
+    src = (rows["x"], rows["y"], rows["t"])
+    brute = [brute_ids(src, box) for _, box in measured]
+    lat, base_outs, _ = run_queries(base, measured)
+    for (q, _), o, ids in zip(measured, base_outs, brute):
+        check(np.array_equal(np.sort(np.asarray(o.ids, np.int64)), ids),
+              f"the None store's ids vs the f64 brute force: {q}")
+    busy_idx = list(np.argsort([-len(b) for b in brute], kind="stable")[:N_SECURE_AGG])
+    sections = {"build_and_check": time.perf_counter() - t_path}
+
+    def timed(name, fn, *a):
+        s = time.perf_counter()
+        out = fn(*a)
+        sections[name] = time.perf_counter() - s
+        return out
+
+    stats = timed("stats", secure_stats_checks, base, rows, measured, brute)
+    vis = timed("visibility", visibility_checks, torch, device, rows, base, measured, base_outs,
+                brute, busy_idx)
+    views = timed("views", view_checks, torch, device, rows, base, measured, base_outs, busy_idx)
+    cache = timed("cache", cache_checks, torch, device, rows, measured, base_outs)
+    stats.update(timed("stats_mutations", stats_mutation_checks, torch, base, rows, measured))
+    launches = read_launches()
+    rec = {
+        "phase": "secure_cached_path", "cell": "gdelt-z3-10M-secure-cached",
+        "launches": launches, "native": read_native(), "n_points": N_SECURE,
+        "ingest_s": ingest_s, "n_queries": len(measured),
+        "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
+        "hits_total": int(sum(len(b) for b in brute)),
+        "stats": stats, "visibility": vis, "views": views, "cache": cache,
+        "section_s": sections, "path_s": time.perf_counter() - t_path,
+    }
+    del base
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- entry point -------------------------------------------------------------
 
 
 def check_native(records) -> None:
     """Each path must have called the native host helpers it runs: the
-    ranges wherever it plans, the radix sort wherever it ingests, the
-    plane decode wherever it decodes (the wide plane alone on the extent
-    cells), point-in-polygon on the polygon paths."""
+    ranges wherever it plans new filters, the radix sort wherever it
+    ingests, the plane decode wherever it decodes (the wide plane alone on
+    the extent cells), point-in-polygon on the polygon paths."""
     natives = {r["cell"]: r["native"] for r in records}
     natives["gdelt-z2-20M-polygon-ingest"] = next(
         r["native_ingest"] for r in records if r["cell"] == "gdelt-z2-20M-polygon")
     point = ("zranges", "sort_bins_z", "bitmask_decode_pair")
     expected_native = {
         "gdelt-z3-100M": point,
-        "gdelt-z3-100M-batch": ("zranges", "bitmask_decode_pair"),
+        # the batch path plans the main path's 64 queries again: the
+        # planner's scan-config memo serves their ranges
+        "gdelt-z3-100M-batch": ("bitmask_decode_pair",),
         "gdelt-z3-100M-polygon": ("zranges", "bitmask_decode_pair", "points_in_polygon"),
         "gdelt-z3-100M-hints": ("zranges", "bitmask_decode_pair"),
         "gdelt-z3-packed-10M": point,
@@ -4072,6 +4747,7 @@ def check_native(records) -> None:
         "gdelt-z3-10M-mutate": point,
         "gdelt-attr-10M": point,
         "gdelt-z3-10M-persist": point,
+        "gdelt-z3-10M-secure-cached": point,
     }
     for cell, names in expected_native.items():
         for name in names:
@@ -4138,6 +4814,7 @@ def main() -> int:
         "gdelt-z3-10M-mutate": tuple(k.name for k in KERNELS),
         "gdelt-attr-10M": ("block_scan", "block_scan_multi"),
         "gdelt-z3-10M-persist": tuple(k.name for k in KERNELS),
+        "gdelt-z3-10M-secure-cached": tuple(k.name for k in KERNELS),
     }
     for cell, names in expected.items():
         for name in names:

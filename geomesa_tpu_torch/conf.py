@@ -195,3 +195,71 @@ LOCK_WITNESS_ARTIFACT = SystemProperty(
     "where lockwitness.dump() writes the observed edge graph / blocking "
     "events so a failure is diagnosable from logs alone",
 )
+
+
+# -- query and aggregation cache tier (cache) ------------------------------
+
+CACHE_MAX_BYTES = SystemProperty(
+    "geomesa.cache.result.max.bytes", 256 << 20, int,
+    "LRU byte budget for cached query results (0 disables the result cache)",
+)
+CACHE_TTL = SystemProperty(
+    "geomesa.cache.ttl", None, float,
+    "seconds a cached entry stays servable (None = until invalidated)",
+)
+CACHE_TTL_JITTER = SystemProperty(
+    "geomesa.cache.ttl.jitter", 0.0, float,
+    "deterministic per-key TTL spread as a fraction of the TTL (0..1): a "
+    "burst of same-TTL entries admitted together expires staggered "
+    "instead of stampeding the store in lockstep (0 = exact TTLs)",
+)
+CACHE_MIN_COST = SystemProperty(
+    "geomesa.cache.min.cost", 0.0, float,
+    "cost-aware admission: cache only results whose measured scan took at "
+    "least this many seconds (0 = admit everything)",
+)
+CACHE_TILE_BITS = SystemProperty(
+    "geomesa.cache.tile.bits", 6, int,
+    "tile-aggregate cache resolution: the world splits into 2^bits x "
+    "2^bits SFC-aligned tiles whose partial aggregates are memoized",
+)
+CACHE_TILE_MAX = SystemProperty(
+    "geomesa.cache.tile.max.entries", 65_536, int,
+    "max resident tile aggregates before LRU eviction (0 disables the "
+    "tile cache)",
+)
+CACHE_TILES_PER_QUERY = SystemProperty(
+    "geomesa.cache.tile.max.per.query", 1024, int,
+    "bbox queries spanning more interior tiles than this skip tile "
+    "composition (the per-tile bookkeeping would beat the scan)",
+)
+
+
+# -- planner estimate accountability (obs.accuracy) ------------------------
+
+PLAN_ESTIMATE = SystemProperty(
+    "geomesa.plan.estimate.enabled", True, _parse_bool,
+    "record the stats-sketch row estimate on every plan and compare it "
+    "against the rows the executed scan actually produced (the "
+    "geomesa.plan.estimate.error histogram and the per-index accuracy "
+    "windows); False skips the plan-time sketch probe entirely",
+)
+PLAN_ESTIMATE_STALE_P90 = SystemProperty(
+    "geomesa.plan.estimate.stale.p90", 4.0, float,
+    "misestimate threshold: when a (type, index)'s p90 estimate error "
+    "factor exceeds this, the stats count as stale (and the auto-analyze "
+    "hook may fire); 0 disables staleness detection",
+)
+PLAN_ESTIMATE_MIN_COUNT = SystemProperty(
+    "geomesa.plan.estimate.min.count", 64, int,
+    "recorded estimate-vs-actual samples a (type, index) window needs "
+    "before its p90 can trip the staleness threshold (a handful of "
+    "unlucky queries must not flag a whole store stale)",
+)
+PLAN_ESTIMATE_AUTO_ANALYZE = SystemProperty(
+    "geomesa.plan.estimate.auto.analyze", False, _parse_bool,
+    "when the staleness threshold trips, re-run DataStore.analyze_stats "
+    "for the offending type automatically (once per trip; the accuracy "
+    "window resets after). Off by default: a full re-sketch on a large "
+    "store is a deliberate maintenance op",
+)

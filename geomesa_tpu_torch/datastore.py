@@ -14,6 +14,21 @@ plan is recorded in the optional MetricsRegistry and AuditWriter
 (``record_query``), and armed tracing keeps span trees
 (``dump_trace``, ``slow_queries``).
 
+Each write sketches its batch (stats.StatsStore: counts, min/max,
+histograms, top-k, the z-prefix sketch) and merges it onto the type's
+sketch; ``stats_for`` returns it, ``estimate_count`` answers from it
+without a scan, ``analyze_stats`` sketches the stored rows afresh, and
+every executed plan's estimate is held against the rows it matched
+(``accuracy``, obs.accuracy). ``DataStore(auths=...)`` turns on
+visibility (security): rows whose ``geomesa.vis.field`` label the auths
+cannot satisfy are masked out of every result, and every device
+aggregation (the count estimate, density and bounds kernels) steps aside
+for the host path, since the scan mask cannot read a label.
+``DataStore(cache=True)`` attaches the result and tile cache tier
+(cache): every committed mutation bumps the generations over its key
+range, so a cached answer is served only while nothing it covers has
+changed.
+
 Point schemas get a Z3 index (when a time attribute exists) and a Z2
 index; extent schemas (polygons, lines, multi-geometries) an XZ3 and an
 XZ2 index; both narrowed by the ``geomesa.indices.enabled`` user data.
@@ -162,9 +177,17 @@ class DataStore:
         query_timeout: float | None = None,
         adapter=None,
         metadata=None,
+        auths: Sequence[str] | None = None,
+        cache=None,
     ):
         """``guards`` / ``interceptors``: planning.guards hooks; ``audit``
-        an AuditWriter; ``metrics`` a MetricsRegistry.
+        an AuditWriter; ``metrics`` a MetricsRegistry. ``auths``: the
+        visibility authorizations of every query (None turns security
+        off; ``[]`` sees public rows only). ``cache``: the query and
+        aggregation cache tier: ``True`` builds a cache.QueryCache from
+        the conf knobs, a cache.CacheConfig builds one from that config,
+        a QueryCache is used as given (shared across a reload through
+        ``persist.load(root, cache=...)``); None attaches none.
         ``block_full_table_scans`` adds a FullTableScanGuard at query time.
         ``query_timeout``: default per-query wall-clock budget in seconds
         (QueryTimeout when exceeded; a QueryHints.timeout overrides it per
@@ -189,6 +212,11 @@ class DataStore:
         self.query_timeout = query_timeout
         self._schemas: dict[str, FeatureType] = {}
         self._chunks: dict[str, list[FeatureCollection]] = {}
+        # per-type stats sketches (stats.StatsStore), merged per write
+        self._stats: dict[str, object] = {}
+        # None = security off; [] = public rows only (reference
+        # AuthorizationsProvider semantics)
+        self.auths = auths
         self._full: dict[str, FeatureCollection | None] = {}
         self._indexes: dict[str, list] = {}
         self._tables: dict[tuple[str, str], IndexTable] = {}
@@ -223,11 +251,50 @@ class DataStore:
         # queries degraded (a warning on every plan and a counter)
         self.health = StoreHealth()
         self.planner = QueryPlanner(self)
+        # estimate accountability: per-(type, index) estimate-vs-actual
+        # windows fed by record_query
+        from geomesa_tpu_torch.obs.accuracy import EstimateAccuracy
+
+        self.accuracy = EstimateAccuracy()
+        # the query and aggregation cache tier
+        self.cache = None
+        if cache is not None and cache is not False:
+            self.attach_cache(cache)
         # per-phase timing of the scan path (timing.PhaseClock), or the
         # clock that records nothing
         self.clock = NULL_CLOCK
         # the serving tier (serve())
         self.scheduler = None
+
+    def attach_cache(self, cache) -> None:
+        """Install (or replace) the cache tier: ``True`` or a CacheConfig
+        build a fresh QueryCache; an existing QueryCache attaches as
+        given; ``None`` detaches. Wires the adapter's generation hook, so
+        table rebuilds (compactions) bump generations too."""
+        from geomesa_tpu_torch.cache import CacheConfig, QueryCache
+
+        if cache is True:
+            cache = QueryCache(metrics=self.metrics)
+        elif isinstance(cache, CacheConfig):
+            cache = QueryCache(cache, metrics=self.metrics)
+        self.cache = cache
+        generations = cache.generations if cache is not None else None
+        try:
+            self.adapter.generations = generations
+        except AttributeError:  # adapters without the hook still work
+            pass
+
+    def _bump_cache(self, type_name: str, fc=None) -> None:
+        """Generation bump for one committed mutation (invalidates
+        overlapping cached entries). Runs after the mutation is visible to
+        readers, so a racing fill that read the old state lands with an
+        older tick and is dropped, never served. Every mutation path
+        lands here, so this is also where the planner's scan-config memo
+        drops: scan_config clamps time bins to the index's bin_range,
+        which grows with writes."""
+        self.planner.invalidate_config_memo()
+        if self.cache is not None:
+            self.cache.on_mutation(type_name, fc)
 
     # -- schema lifecycle ------------------------------------------------
     def create_schema(self, sft: "FeatureType | str", spec: str | None = None) -> FeatureType:
@@ -301,6 +368,7 @@ class DataStore:
             self._full.pop(type_name, None)
             self._main_rows.pop(type_name, None)
             self._id_sorted.pop(type_name, None)
+            self._stats.pop(type_name, None)
             for idx in self._indexes.pop(type_name, []):
                 table = self._tables.pop((type_name, idx.name), None)
                 if table is not None:
@@ -308,6 +376,9 @@ class DataStore:
                 self._key_chunks.pop((type_name, idx.name), None)
             for key in (f"{type_name}~schema", f"{type_name}~user_data", f"{type_name}~indices"):
                 self.metadata.remove(key)
+            self.planner.invalidate_config_memo()
+            if self.cache is not None:
+                self.cache.on_schema_dropped(type_name)
 
     def indexes(self, type_name: str) -> list:
         return self._indexes[type_name]
@@ -325,30 +396,47 @@ class DataStore:
         when :meth:`compact` runs (the JAX package's commit rule).
         ``check_ids=False`` skips the duplicate id check for bulk loads
         with known-unique ids."""
-        features, new_keys = self._encode_batch(type_name, features)
+        features, new_keys, batch_stats = self._encode_batch(type_name, features)
         if len(features) == 0:
             return 0
-        return self._commit_batch(type_name, features, new_keys, check_ids=check_ids)
+        return self._commit_batch(
+            type_name, features, new_keys, batch_stats, check_ids=check_ids
+        )
 
     def _encode_batch(self, type_name: str, features):
-        """The pure half of a write: every index's write keys, built
-        before any store state mutates, so a failing encoder leaves the
-        store untouched. Returns (features, {index name -> WriteKeys})."""
+        """The pure half of a write: the batch's stats sketch and every
+        index's write keys, built before any store state mutates, so a
+        failing encoder leaves the store untouched. Returns (features,
+        {index name -> WriteKeys}, StatsStore | None)."""
+        from geomesa_tpu_torch.stats.store import StatsStore
+
         sft = self._schemas[type_name]
         if not isinstance(features, FeatureCollection):
             features = FeatureCollection.from_rows(sft, features)
         if len(features) == 0:
-            return features, {}
-        return features, {idx.name: idx.write_keys(features) for idx in self._indexes[type_name]}
+            return features, {}, None
+        batch_stats = StatsStore.build(sft, features)
+        new_keys: dict = {}
+        sketch_index = _sketch_index(self._indexes[type_name])
+        for idx in self._indexes[type_name]:
+            keys = idx.write_keys(features)
+            new_keys[idx.name] = keys
+            if idx.name == sketch_index and len(keys.zs):
+                # the sketch sees the batch only (the store-level sketch
+                # accumulates); cells are codec-defined, so they align
+                _observe_sketch(batch_stats, idx, keys)
+        return features, new_keys, batch_stats
 
     def _commit_batch(self, type_name: str, features: FeatureCollection,
-                      new_keys: Mapping, check_ids: bool = True) -> int:
-        """The serialized half of a write: the id check and the commit
-        are one critical section, so two racing writers cannot both pass
-        the id check."""
+                      new_keys: Mapping, batch_stats, check_ids: bool = True) -> int:
+        """The serialized half of a write: the id check, the stats merge
+        and the commit are one critical section, so two racing writers
+        can neither both pass the id check nor both merge onto the same
+        prior sketch."""
         with self._write_lock:
             if check_ids:
                 self._check_ids(type_name, np.asarray(features.ids))
+            self._merge_stats(type_name, batch_stats)
             self._widen_bin_ranges(type_name, new_keys)
             self._chunks[type_name].append(features)
             self._full[type_name] = None
@@ -358,22 +446,35 @@ class DataStore:
             main_rows = self._main_rows[type_name]
             if main_rows == 0 or total - main_rows > max(conf.COMPACT_MIN_ROWS.get(), total // 8):
                 self.compact(type_name)
+            self._bump_cache(type_name, features)
         return len(features)
+
+    def _merge_stats(self, type_name: str, stats) -> None:
+        """Merge a batch sketch onto the type's sketch (write lock held):
+        the first batch's sketch becomes the type's, later ones merge
+        onto it in place."""
+        if stats is None:
+            return
+        prev = self._stats.get(type_name)
+        self._stats[type_name] = prev.merge(stats) if prev is not None else stats
 
     def _bulk_commit(
         self,
         type_name: str,
         fcs: Sequence[FeatureCollection],
         keys_by_index: Mapping,
+        stats_list: Sequence,
         check_ids: bool = True,
     ) -> int:
         """Atomic multi-chunk publish (``persist.load``; the reference's
-        bulk ingest): one write-lock section appends every chunk and
+        bulk ingest): one write-lock section appends every chunk, folds
+        the chunks' stats sketches in chunk order (the left fold the
+        sequential write path makes, so histograms bin alike) and
         compacts once. ``keys_by_index`` holds one WriteKeys per index
         covering all chunks, in chunk order. Nothing is visible until this
-        returns. (The reference also folds the chunks' stats sketches and
-        takes its pipelined ingest's presorted runs here; the port's stats
-        store and ingest pipeline are not ported yet.)"""
+        returns. (The reference also takes its pipelined ingest's
+        presorted runs here; the port's ingest pipeline is not ported
+        yet.)"""
         fcs = [fc for fc in fcs if len(fc)]
         total_new = sum(len(fc) for fc in fcs)
         if total_new == 0:
@@ -381,18 +482,23 @@ class DataStore:
         with self._write_lock:
             if check_ids:
                 self._check_ids(type_name, np.concatenate([np.asarray(fc.ids) for fc in fcs]))
+            for st in stats_list:
+                self._merge_stats(type_name, st)
             self._widen_bin_ranges(type_name, keys_by_index)
             self._chunks[type_name].extend(fcs)
             self._full[type_name] = None
             for name, keys in keys_by_index.items():
                 self._key_chunks.setdefault((type_name, name), []).append(keys)
             self.compact(type_name)
+            self._bump_cache(type_name)
         return total_new
 
     def delete_features(self, type_name: str, f: "Filter | str") -> int:
         """Remove the features matching a filter; returns the count removed
         (reference GeoTools removeFeatures). Rebuilds the chunks and index
-        tables without the removed rows (a major compaction)."""
+        tables without the removed rows (a major compaction); the stats
+        are sketched afresh from the survivors, since sketches cannot
+        subtract."""
         with self._write_lock:
             return self._delete_features_locked(type_name, f)
 
@@ -425,6 +531,7 @@ class DataStore:
         type_name: str,
         features: "FeatureCollection | Sequence[Mapping]",
         keys: "Mapping | None" = None,
+        stats=None,
         presorted: "Mapping | None" = None,
         slice_rows: "int | None" = None,
         pacer=None,
@@ -439,9 +546,9 @@ class DataStore:
         (``geomesa.stream.fold.device``) only the batch's rows go to the
         device at all.
 
-        ``keys``: the batch's pre-encoded write keys; ``presorted`` maps
-        index names to the batch's stable (bin, z) argsort, so the fold
-        skips its batch sort.
+        ``keys`` / ``stats``: the batch's pre-encoded write keys and stats
+        sketch; ``presorted`` maps index names to the batch's stable
+        (bin, z) argsort, so the fold skips its batch sort.
 
         A batch larger than ``slice_rows`` (default
         ``geomesa.stream.fold.slice.rows``; 0 disables) folds in
@@ -450,7 +557,13 @@ class DataStore:
         final state is bit-identical to the monolithic fold. Between
         slices the fold calls ``pacer()``; ``on_slice(ids)`` fires after
         each publish with the ids that just became resident. The write
-        lock is held across all slices; readers never take it."""
+        lock is held across all slices; readers never take it.
+
+        Cache invalidation is scoped to the replaced rows' key range plus
+        the batch's own (per slice, in the sliced form), unlike a
+        compaction's whole-type bump. The stats accumulate the batch
+        sketch (sketches cannot subtract the replaced rows): the drift
+        :meth:`analyze_stats` restores."""
         sft = self._schemas[type_name]
         if not isinstance(features, FeatureCollection):
             features = FeatureCollection.from_rows(sft, features)
@@ -460,7 +573,7 @@ class DataStore:
         if len(np.unique(ids)) != len(ids):
             raise ValueError("duplicate feature ids in replacement batch")
         if keys is None:
-            features, keys = self._encode_batch(type_name, features)
+            features, keys, stats = self._encode_batch(type_name, features)
         with self._write_lock:
             # one id probe for the whole batch: per-slice ordinals derive
             # from it by subtracting earlier slices' removals
@@ -468,7 +581,7 @@ class DataStore:
             replaced = found[found >= 0]
             if not len(replaced):
                 # nothing to replace: a plain append rides the delta tier
-                n = self._commit_batch(type_name, features, keys, check_ids=False)
+                n = self._commit_batch(type_name, features, keys, stats, check_ids=False)
                 if on_slice is not None:
                     on_slice([str(i) for i in ids.tolist()])
                 return n
@@ -485,7 +598,7 @@ class DataStore:
             sr = slice_rows if slice_rows is not None else conf.STREAM_FOLD_SLICE_ROWS.get()
             if not (sr and 0 < sr < n_batch) or not self._fold_sliceable(type_name, keys):
                 t0 = time.perf_counter()
-                self._fold_slice_locked(type_name, features, keys, replaced, presorted)
+                self._fold_slice_locked(type_name, features, keys, replaced, stats, presorted)
                 self.last_fold_report = {
                     "rows": n_batch, "slices": 1, "slice_s": [time.perf_counter() - t0],
                 }
@@ -493,7 +606,7 @@ class DataStore:
                     on_slice([str(i) for i in ids.tolist()])
                 return n_batch
             self._fold_sliced_locked(
-                type_name, features, keys, presorted, found, sr, pacer, on_slice,
+                type_name, features, keys, stats, presorted, found, sr, pacer, on_slice,
             )
         return len(features)
 
@@ -516,7 +629,7 @@ class DataStore:
         return True
 
     def _fold_sliced_locked(
-        self, type_name, features, keys, presorted, found, sr, pacer, on_slice,
+        self, type_name, features, keys, stats, presorted, found, sr, pacer, on_slice,
     ) -> None:
         """The sliced fold loop (write lock held; see :meth:`fold_upsert`).
         Slices are batch-contiguous, so the final chunk layout (survivors,
@@ -557,7 +670,12 @@ class DataStore:
                     # of earlier slices' removals (appends land after the
                     # first chunk and never shift it)
                     cur = rep - np.searchsorted(removed_cum, rep, side="left")
-                    self._fold_slice_locked(type_name, sub_fc, sub_keys, cur, sub_pre)
+                    # the batch sketch merges once, with the last slice,
+                    # as the monolithic fold merges it
+                    self._fold_slice_locked(
+                        type_name, sub_fc, sub_keys, cur,
+                        stats if e == n_batch else None, sub_pre,
+                    )
                     removed_cum = np.union1d(removed_cum, rep)
                     self._fold_progress[type_name] = (si + 1, n_slices)
                     metrics.gauge("geomesa.stream.fold.progress", (si + 1) / n_slices)
@@ -574,7 +692,7 @@ class DataStore:
             metrics.gauge("geomesa.stream.fold.progress", 0.0)
             self.last_fold_report = {"rows": n_batch, "slices": n_slices, "slice_s": slice_s}
 
-    def _fold_slice_locked(self, type_name, features, keys, replaced, presorted) -> None:
+    def _fold_slice_locked(self, type_name, features, keys, replaced, stats, presorted) -> None:
         """Fold one batch (or batch slice) whose ``replaced`` current
         ordinals all lie in chunk 0, and publish it atomically (write lock
         held; a seqlock-bracketed, assignment-only swap). Removals only
@@ -591,6 +709,7 @@ class DataStore:
         )
         # old ordinal -> post-delete ordinal (valid at kept rows)
         ordinal_map = np.cumsum(keep_ordinal, dtype=np.int64) - 1
+        removed = main.take(replaced)
         survivors0 = main.mask(keep0)
         nk = int(keep_ordinal.sum())
 
@@ -650,7 +769,15 @@ class DataStore:
         for _, _, new_table, old_table in staged:
             if old_table is not None and old_table is not new_table:
                 self.adapter.delete_table(old_table)
+        self._merge_stats(type_name, stats)
         self._main_rows[type_name] = n - len(replaced) + len(features)
+        # scoped invalidation: the replaced rows' range and the batch's
+        # own range, not a whole-type bump
+        self.planner.invalidate_config_memo()
+        if self.cache is not None:
+            if len(removed):
+                self.cache.on_mutation(type_name, removed)
+            self.cache.on_mutation(type_name, features)
 
     def _validate_replacement(self, type_name: str, features) -> None:
         """Fail before any row is deleted: a replacement batch that cannot
@@ -769,8 +896,12 @@ class DataStore:
         snapshot of compound ops: one scan, not two) instead of the
         count."""
         # the maintenance scan: the raw filter decides what is removed (no
-        # interceptor rewrites it, no guard rejects it)
-        out = self.planner.execute(self.planner.plan(type_name, f, intercept=False))
+        # interceptor rewrites it, no guard rejects it), past the result
+        # cache (the bump below would invalidate the entry at once)
+        from geomesa_tpu_torch.planning.hints import QueryHints
+
+        plan = self.planner.plan(type_name, f, intercept=False)
+        out = self.planner.execute(plan, hints=QueryHints(cache="bypass"))
         if len(out) == 0:
             return out if return_removed else 0
         ordinals = self.id_lookup(type_name, out.ids)
@@ -791,9 +922,65 @@ class DataStore:
                     device_cols={k: v[keep] for k, v in keys.device_cols.items()},
                     sub=keys.sub[keep] if keys.sub is not None else None,
                 )]
+        self._stats[type_name] = (
+            self._build_stats_fresh(type_name, new_full) if len(new_full) else None
+        )
         self._main_rows[type_name] = 0  # forces a full table rebuild
         self.compact(type_name)
+        self._bump_cache(type_name, out)  # the removed rows' key range
         return out if return_removed else int((~keep).sum())
+
+    def _build_stats_fresh(self, type_name: str, fc: FeatureCollection):
+        from geomesa_tpu_torch.stats.store import StatsStore
+
+        stats = StatsStore.build(self._schemas[type_name], fc)
+        sketch_index = _sketch_index(self._indexes[type_name])
+        for idx in self._indexes[type_name]:
+            if idx.name == sketch_index and len(fc):
+                _observe_sketch(stats, idx, idx.write_keys(fc))
+        return stats
+
+    def analyze_stats(self, type_name: str):
+        """Sketch this type's stored rows afresh (reference geomesa-tools
+        ``stats-analyze``: sketches accumulated across writes drift after
+        deletes and updates; a full re-sketch restores them). Returns the
+        fresh StatsStore."""
+        with self._write_lock:
+            fc = self.features(type_name)
+            stats = self._build_stats_fresh(type_name, fc) if len(fc) else None
+            self._stats[type_name] = stats
+        return stats
+
+    def stats_for(self, type_name: str):
+        """The type's stats sketches (stats.StatsStore), or None before
+        its first write."""
+        return self._stats.get(type_name)
+
+    def _vis_active(self, type_name: str) -> bool:
+        """True when row-level visibility applies: auths configured and the
+        schema names a visibility field. The device aggregations must
+        then step aside: the scan mask cannot evaluate a label, so they
+        would leak restricted rows into counts, grids and bounds."""
+        from geomesa_tpu_torch.security import VIS_FIELD_KEY
+
+        return self.auths is not None and bool(
+            self._schemas[type_name].user_data.get(VIS_FIELD_KEY)
+        )
+
+    def _note_vis_fallback(self, explain, what: str) -> None:
+        """Signal that row-level visibility disabled a device aggregation:
+        a notice to the explain trail and the ``geomesa.query.vis_fallback``
+        counter. Results are unchanged (the host path applies visibility
+        exactly)."""
+        msg = (
+            f"{what} device fast path disabled: visibility filtering is "
+            "active (store auths + schema visibility field); falling back "
+            "to row scan + host-side aggregation"
+        )
+        if explain is not None:
+            explain(msg)
+        if self.metrics is not None:
+            self.metrics.counter("geomesa.query.vis_fallback")
 
     def warmup(self, type_name: str) -> int:
         """Launch every scan-kernel shape of every index table once (M
@@ -1118,9 +1305,33 @@ class DataStore:
         calls it from execute(), and the aggregation fast paths call it
         directly, so density, count and bounds scans are recorded like row
         queries (reference AuditWriter covers all query types). The
-        reference's estimate-accuracy block needs the plan-time sketch
-        estimate of the stats store, and its cache and tuning lines wait
-        for those tiers."""
+        plan's sketch estimate is held against the rows it matched (not
+        for cache hits, which scanned nothing); a misestimate past the
+        staleness threshold checks the window and, with
+        ``geomesa.plan.estimate.auto.analyze`` on, sketches the type
+        afresh, once per trip. (The reference's tuning line waits for
+        that tier.)"""
+        if plan.estimated_rows is not None and plan.cache_status not in ("hit", "coalesced"):
+            actual = plan.actual_rows if plan.actual_rows is not None else hits
+            err = self.accuracy.record(plan.type_name, plan.index, plan.estimated_rows, actual)
+            if self.metrics is not None:
+                self.metrics.observe("geomesa.plan.estimate.error", err)
+            if (
+                err > float(conf.PLAN_ESTIMATE_STALE_P90.get() or 0)
+                and conf.PLAN_ESTIMATE_AUTO_ANALYZE.get()
+                and any(t == plan.type_name for t, _, _ in self.accuracy.stale())
+                # one trip fires one analyze: concurrent threads past the
+                # stale check race to this atomic claim, exactly one wins
+                and self.accuracy.claim_analyze(plan.type_name)
+            ):
+                if self.metrics is not None:
+                    self.metrics.counter("geomesa.plan.estimate.analyze")
+                try:
+                    self.analyze_stats(plan.type_name)
+                finally:
+                    # the fresh sketches earn their own record (this also
+                    # releases the claim, even after a failed analyze)
+                    self.accuracy.reset(plan.type_name)
         if self.metrics is not None:
             self.metrics.counter("geomesa.query.count")
             self.metrics.counter("geomesa.query.hits", max(hits, 0))
@@ -1130,6 +1341,13 @@ class DataStore:
             self.metrics.timer_update("geomesa.query.plan", plan.planning_s)
             # query latency as a live histogram (p50 / p99 off the registry)
             self.metrics.observe("geomesa.query.scan", scan_s)
+            if self.cache is not None and plan.cache_status in (None, "miss"):
+                # a scanned query feeds the tile tier's cost gate (hits
+                # measure the cache, not the scan being replaced)
+                self.cache.tiles.note_scan(plan.type_name, scan_s)
+            if plan.cache_status is not None:
+                # cache overhead, apart from the scan time
+                self.metrics.timer_update("geomesa.query.cache_probe", plan.cache_probe_s)
         if self.audit is not None:
             from geomesa_tpu_torch.audit import AuditedEvent
             from geomesa_tpu_torch.obs.trace import tracer
@@ -1187,21 +1405,116 @@ class DataStore:
 
     def count(self, type_name: str, f: "Filter | str" = INCLUDE) -> int:
         """Exact hit count (scan + refine; a polygon filter with a raster
-        counts its certain rows without gathering them). INCLUDE counts
-        the rows outright unless an interceptor may hide some."""
-        if isinstance(f, Include) and not self.interceptors:
+        counts its certain rows without gathering them; a pure-bbox count
+        on a cached store composes from the tile-aggregate cache, still
+        exact). INCLUDE counts the rows outright unless visibility or an
+        interceptor may hide some."""
+        if isinstance(f, Include) and not self._vis_active(type_name) and not self.interceptors:
             return self.row_count(type_name)
         plan = self.planner.plan(type_name, f)
+        if self.cache is not None:
+            t0 = time.perf_counter()
+            comp = self._tile_compose(type_name, plan.filter)
+            if comp is not None:
+                self._record_composed(plan, comp, t0)
+                return comp.count
         if self._raster_agg_eligible(type_name, plan):
             return self._raster_agg_scan(type_name, plan)[0]
         return len(self.planner.execute(plan))
 
-    def _device_aggregable(self, type_name: str, plan) -> bool:
-        """Whether the gather-free aggregation kernels decide this plan's
-        filter (never for a polygon config: they test the box only)."""
-        return plan.ids is None and plan.index is not None and mask_decides_filter(
+    def estimate_count(self, type_name: str, f: "Filter | str" = INCLUDE) -> int:
+        """Estimated hit count from the stats sketches, without a scan
+        (reference GeoMesaStats.getCount / StatsBasedEstimator): the
+        marginal-histogram product first, then the z-prefix sketch over
+        the index that feeds it, then an exact count where no sketch
+        covers the filter. With visibility active the count is exact (the
+        sketches cannot see labels)."""
+        from geomesa_tpu_torch.filter import ecql
+
+        if isinstance(f, str):
+            f = ecql.parse(f)
+        if self._vis_active(type_name):
+            return self.count(type_name, f)
+        # interceptor rewrites apply to estimates too: the sketch tiers
+        # never reach the planner's rewrite hook
+        f = self.apply_interceptors(type_name, f)
+        if isinstance(f, Include):
+            return len(self.features(type_name))
+        stats = self.stats_for(type_name)
+        if stats is not None:
+            est = stats.estimate_filter(self._schemas[type_name], f)
+            if est is not None:
+                return int(round(est))
+            # the z-prefix sketch over the index that feeds it (z2 ranges
+            # against a z3-keyed sketch would estimate ~0)
+            idx = next((i for i in self._indexes[type_name] if i.name == stats.z_index), None)
+            if idx is not None:
+                cfg = idx.scan_config(f)
+                if cfg is not None:
+                    if cfg.disjoint:
+                        return 0
+                    est = stats.estimate_scan(idx.name, cfg)
+                    if est is not None:
+                        return int(round(est))
+        # exact fallback on the already rewritten filter: no second
+        # interceptor pass, but guarded (a user-facing query)
+        plan = self.planner.plan(type_name, f, intercept=False, guard=True)
+        return len(self.planner.execute(plan))
+
+    def _device_aggregable(self, type_name: str, plan, explain=None, what: str = "") -> bool:
+        """Whether a gather-free aggregation kernel may answer this plan:
+        the kernels decide its filter (never for a polygon config: they
+        test the box only) and visibility is off. Where only visibility
+        stands in the way, the fallback is signalled
+        (``_note_vis_fallback``) and the host path answers."""
+        eligible = plan.ids is None and plan.index is not None and mask_decides_filter(
             plan.filter, plan.config, self._schemas[type_name], for_aggregation=True
         )
+        if eligible and self._vis_active(type_name):
+            self._note_vis_fallback(explain, what)
+            return False
+        return eligible
+
+    def _tile_compose(self, type_name: str, f, explain=None):
+        """Tile-aggregate composition for a pure-bbox aggregation: cached
+        interior tiles plus fresh edge scans, or None when ineligible. The
+        tile tier serves point schemas with no row visibility and no
+        interceptors (both change per-row membership in ways a cached
+        tile cannot represent), for one in-world BBox on the geometry
+        field."""
+        from geomesa_tpu_torch.filter.predicates import BBox
+
+        cache = self.cache
+        if cache is None or not cache.tiles.enabled or not isinstance(f, BBox):
+            return None
+        sft = self._schemas[type_name]
+        if (
+            f.prop != sft.geom_field
+            or not sft.is_points
+            or self._vis_active(type_name)
+            or self.interceptors
+            or not (-180.0 <= f.xmin <= f.xmax <= 180.0)
+            or not (-90.0 <= f.ymin <= f.ymax <= 90.0)
+        ):
+            return None
+        if not cache.tiles.worth_composing(type_name):
+            # the cost gate: measured compositions lose to the plain scan
+            return None
+        comp = cache.tiles.compose(self, type_name, f)
+        if comp is not None and explain is not None:
+            status = "hit" if comp.tiles_filled == 0 else "partial"
+            explain(
+                f"cache: {status} ({comp.tiles_reused}/{comp.tiles_total} "
+                f"tiles reused, probe {comp.probe_s * 1e3:.3f}ms)"
+            )
+        return comp
+
+    def _record_composed(self, plan, comp, t0: float) -> None:
+        """Record a tile composition as a cache-served plan, so its own
+        duration stays out of the tile tier's plain-scan baseline."""
+        plan.cache_status = "hit" if comp.tiles_filled == 0 else "partial"
+        plan.cache_probe_s = comp.probe_s
+        self.record_query(plan, comp.count, time.perf_counter() - t0)
 
     def _agg_deadline(self):
         """Deadline of a device aggregation call from the store default
@@ -1231,15 +1544,19 @@ class DataStore:
         filter. Such configs stay off the gather-free aggregations (their
         kernels test the box only), but count, bounds and Count() stats
         can still skip the full candidate gather: full raster cells decide
-        membership outright and only the boundary residue refines."""
+        membership outright and only the boundary residue refines. Only on
+        a point schema without row visibility."""
         cfg = plan.config
+        sft = self._schemas[type_name]
         return (
             plan.ids is None
             and plan.index is not None
             and cfg is not None
             and not cfg.disjoint
             and cfg.rast is not None
-            and mask_decides_filter(plan.filter, cfg, self._schemas[type_name])
+            and sft.is_points
+            and not self._vis_active(type_name)
+            and mask_decides_filter(plan.filter, cfg, sft)
         )
 
     def _raster_agg_scan(self, type_name: str, plan, explain=None):
@@ -1322,7 +1639,9 @@ class DataStore:
             if envelope is None:
                 envelope = (-180.0, -90.0, 180.0, 90.0)
             plan = self.planner.plan(type_name, f, explain=explain)
-            if weight is not None or not self._device_aggregable(type_name, plan):
+            if weight is not None or not self._device_aggregable(
+                type_name, plan, explain, "density"
+            ):
                 staged.append(("host", (plan, envelope)))
             elif plan.config.disjoint:
                 self.record_query(plan, 0, 0.0)
@@ -1366,15 +1685,27 @@ class DataStore:
         when the scan mask decides the filter: a count-only kernel with no
         row gather (loose f32-widened semantics, like the reference's
         estimate-only stats). ``Count()`` alone over a polygon filter with
-        a raster takes the raster push-down, exact, either way."""
+        a raster takes the raster push-down, exact, either way, and a
+        pure-bbox ``Count()`` on a cached store composes from the tile
+        cache, exact, either way."""
         from geomesa_tpu_torch.stats import stat_spec
         from geomesa_tpu_torch.stats.sketches import CountStat
 
         terms = stat_spec.parse(spec)
         plan = self.planner.plan(type_name, f, explain=explain)
-        if all(t.kind == "count" for t in terms) and self._raster_agg_eligible(
-            type_name, plan
-        ):
+        counts_only = all(t.kind == "count" for t in terms)
+        if counts_only:
+            t0 = time.perf_counter()
+            comp = self._tile_compose(type_name, plan.filter, explain=explain)
+            if comp is not None:
+                self._record_composed(plan, comp, t0)
+                out = []
+                for _ in terms:
+                    c = CountStat()
+                    c.count = comp.count
+                    out.append(c)
+                return out
+        if counts_only and self._raster_agg_eligible(type_name, plan):
             n = self._raster_agg_scan(type_name, plan, explain=explain)[0]
             out = []
             for _ in terms:
@@ -1384,8 +1715,8 @@ class DataStore:
             return out
         if (
             estimate
-            and all(t.kind == "count" for t in terms)
-            and self._device_aggregable(type_name, plan)
+            and counts_only
+            and self._device_aggregable(type_name, plan, explain, "count estimate")
         ):
             deadline = self._agg_deadline()
             t0 = time.perf_counter()
@@ -1413,14 +1744,21 @@ class DataStore:
         gather when the scan mask decides the filter (loose f32
         semantics); otherwise exact from the refined results. A polygon
         filter with a raster gives the exact envelope through the raster
-        push-down, either way."""
+        push-down, either way, and a pure-bbox filter on a cached store
+        composes its exact envelope from the tile cache."""
         plan = self.planner.plan(type_name, f, explain=explain)
+        if not isinstance(plan.filter, Include):
+            t0 = time.perf_counter()
+            comp = self._tile_compose(type_name, plan.filter, explain=explain)
+            if comp is not None:
+                self._record_composed(plan, comp, t0)
+                return comp.bounds
         if not isinstance(plan.filter, Include) and self._raster_agg_eligible(type_name, plan):
             return self._raster_agg_bounds(type_name, plan, explain=explain)[1]
         if (
             estimate
             and not isinstance(plan.filter, Include)
-            and self._device_aggregable(type_name, plan)
+            and self._device_aggregable(type_name, plan, explain, "bounds")
         ):
             if plan.config.disjoint:
                 self.record_query(plan, 0, 0.0)
@@ -1443,6 +1781,24 @@ class DataStore:
         if plan.config is not None and not plan.config.disjoint:
             exp(f"Ranges: {plan.config.n_ranges}")
         return exp.render()
+
+
+def _sketch_index(indexes) -> str:
+    """Which index's keys feed the z sketch: z3 when present, else z2 (one
+    sketch per store; its key space must match the ranges estimated
+    against it, StatsStore.z_index)."""
+    names = {i.name for i in indexes}
+    return "z3" if "z3" in names else "z2"
+
+
+def _observe_sketch(stats, idx, keys) -> None:
+    """Feed one index's write keys into the z sketch; the cell width is
+    codec-defined (dims x per-dim precision), so cells align across
+    batches. Shared by the write path and the full re-sketch."""
+    dims = 3 if idx.name == "z3" else 2
+    stats.observe_index_keys(
+        idx.name, keys.bins, keys.zs, dims * getattr(idx.sfc, "precision", 21),
+    )
 
 
 def _exact_bounds(fc: FeatureCollection) -> Optional[tuple]:

@@ -556,6 +556,40 @@ class Not(Filter):
         return ~self.filter.evaluate(batch)
 
 
+def canonical_key(f: Filter) -> str:
+    """Deterministic canonical string of a filter tree (the port's copy of
+    the JAX package's, letter for letter). Logically equal trees that
+    differ only in And/Or child order give the same string (children sort
+    by their own canonical keys), so cache fingerprints and the planner's
+    scan-config memo treat ``a AND b`` and ``b AND a`` as one query.
+    Geometries render as WKT; floats as repr (round-trip exact)."""
+    if isinstance(f, (And, Or)):
+        kids = sorted(canonical_key(c) for c in f.filters)
+        return f"{type(f).__name__}({','.join(kids)})"
+    if isinstance(f, Not):
+        return f"Not({canonical_key(f.filter)})"
+    from dataclasses import fields, is_dataclass
+
+    if not is_dataclass(f):  # pragma: no cover - all predicates are dataclasses
+        return repr(f)
+    parts = [f"{fd.name}={_canonical_value(getattr(f, fd.name))}" for fd in fields(f)]
+    return f"{type(f).__name__}({','.join(parts)})"
+
+
+def _canonical_value(v) -> str:
+    if isinstance(v, geo.Geometry):
+        return v.wkt
+    if isinstance(v, (bool, np.bool_)):
+        return repr(bool(v))
+    if isinstance(v, (float, np.floating)):
+        return repr(float(v))
+    if isinstance(v, (int, np.integer)):
+        return repr(int(v))
+    if isinstance(v, (tuple, list)):
+        return "(" + ",".join(_canonical_value(x) for x in v) + ")"
+    return repr(v)
+
+
 def wrap_box(prop: str, x0: float, y0: float, x1: float, y1: float) -> Filter:
     """A lon/lat box as a filter, WRAPPING across the antimeridian
     (GeoTools BBOX semantics: a box past +/-180 crosses the seam and

@@ -3,8 +3,9 @@
 The port's copy of geomesa_tpu/planning/hints.py (reference
 QueryHints.scala: SAMPLING, LOOSE_BBOX, plus GeoTools-level
 transforms/sort/limit). Hints are one typed dataclass handed to
-DataStore.query. The ``cache`` field validates as the reference's does;
-the port has no result-cache tier yet, so no path reads it.
+DataStore.query. The ``cache`` field steers the result cache of a store
+with a cache tier (``DataStore(cache=True)``): the planner's
+``_execute_or_cached`` reads it.
 """
 
 from __future__ import annotations

@@ -28,12 +28,27 @@ kernel launch and the copy that ends it (QueryTimeout, counted in
 plane where the mask decides the filter; ``_post`` samples, sorts, pages,
 reprojects and transforms; every executed plan is recorded
 (``DataStore.record_query``); and the phases open trace spans (``plan``,
-``plan.probe``, ``plan.decompose``, ``dispatch``, ``scan``, ``decode``).
+``plan.probe``, ``plan.decompose``, ``dispatch``, ``scan``, ``decode``,
+``probe``).
+
+With a store configured with ``auths``, attribute visibility closes at
+plan depth (a filter over a hidden attribute raises) and ``_post`` masks
+rows by their visibility label and projects hidden attributes out,
+before sample, sort and page; a union applies it once over the merged
+rows. Every plan carries the stats sketch's row estimate
+(``estimated_rows``) and, once executed, the rows it matched after
+refinement (``actual_rows``), for the store's estimate accounting. With
+a cache tier (``DataStore(cache=True)``) execution goes through the
+result cache (``_execute_or_cached``; the ``cache`` hint bypasses or
+pins), and the range decomposition is memoized per (index, canonical
+filter) between mutations.
 """
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional
 
@@ -45,6 +60,7 @@ from geomesa_tpu_torch.filter.extract import extract_ids
 from geomesa_tpu_torch.filter.predicates import Filter, Include
 from geomesa_tpu_torch.index.api import ScanConfig
 from geomesa_tpu_torch.obs.trace import span as _ospan
+from geomesa_tpu_torch.obs.trace import tracer as _otracer
 from geomesa_tpu_torch.planning.explain import Explainer, ExplainNull
 
 # index selection priority (reference cost multipliers: z3 / xz3 = 1.1
@@ -76,9 +92,18 @@ class QueryPlan:
     # degraded-mode notices (quarantined partitions excluded from results):
     # set at plan time from the store's health, counted by record_query
     warnings: Optional[list] = None
-    # the reference's estimate accountability adds the plan-time sketch
-    # estimate and the matched rows here (estimated_rows, actual_rows);
-    # they come with the stats store
+    # result-cache outcome for this execution ("hit" | "miss" |
+    # "coalesced" | "partial" for a tile composition | None = the cache
+    # was not consulted) and the time spent probing it, kept apart from
+    # the scan time
+    cache_status: Optional[str] = None
+    cache_probe_s: float = 0.0
+    # estimate accountability: the stats-sketch row estimate resolved at
+    # plan time (None = no sketch covered the filter, or
+    # geomesa.plan.estimate.enabled off) and the rows the executed scan
+    # matched after refinement, before limit and visibility
+    estimated_rows: Optional[float] = None
+    actual_rows: Optional[int] = None
 
     @property
     def strategy(self) -> str:
@@ -165,11 +190,58 @@ def mask_decides_filter(
     return True
 
 
+def _referenced_props(f: Filter) -> set:
+    """Every attribute name a filter tree references (``prop`` fields of
+    leaf predicates, recursing into And/Or/Not)."""
+    from geomesa_tpu_torch.filter.predicates import And, Not, Or
+
+    out: set = set()
+    if isinstance(f, (And, Or)):
+        for c in f.filters:
+            out |= _referenced_props(c)
+    elif isinstance(f, Not):
+        out |= _referenced_props(f.filter)
+    else:
+        prop = getattr(f, "prop", None)
+        if prop is not None:
+            out.add(prop)
+    return out
+
+
+# scan-config memo bound: repeated dashboard queries plan again and
+# again, the range decomposition is the dominant planning cost and a pure
+# function of (index instance, filter) between mutations
+_CONFIG_MEMO_MAX = 4096
+
+
 class QueryPlanner:
     """Plans and runs queries for one DataStore."""
 
     def __init__(self, store):
         self.store = store
+        # (index instance, canonical filter key) -> ScanConfig | None,
+        # LRU-bounded. Keyed by the index object, so a dropped and
+        # recreated schema can never serve a stale decomposition; the
+        # lock makes concurrent plan() calls safe
+        self._config_memo: "OrderedDict" = OrderedDict()
+        self._memo_lock = threading.Lock()
+        self._memo_epoch = 0  # bumped by every invalidation
+
+    @property
+    def mutation_epoch(self) -> int:
+        """Monotonic count of committed mutations (config-memo
+        invalidations)."""
+        return self._memo_epoch
+
+    def invalidate_config_memo(self) -> None:
+        """Drop every memoized scan config. The store calls this after
+        every committed mutation: scan_config is pure only between
+        mutations (bin_range clamping depends on the data). Bumping the
+        epoch stops a decomposition computed before the mutation
+        (outside the lock) from being inserted after it."""
+        with self._memo_lock:
+            self._memo_epoch += 1
+            self._config_memo.clear()
 
     # -- planning --------------------------------------------------------
     def plan(
@@ -198,13 +270,14 @@ class QueryPlanner:
             f = normalize_antimeridian(f)
             if intercept:
                 f = self.store.apply_interceptors(type_name, f)
-                # the reference closes attribute-level visibility here
-                # (_check_attr_visibility); the port's visibility tier
-                # (security.py) is not ported yet
+                # attribute-level visibility closes at plan depth: a
+                # predicate over a hidden attribute would evaluate against
+                # the hidden values, letting unauthorized auths
+                # reconstruct them by probing
+                self._check_attr_visibility(type_name, f)
             exp(f"Planning query on '{type_name}': {type(f).__name__}")
             plan = self._select(type_name, f, limit, exp)
-            # the reference resolves the stats-sketch row estimate here
-            # (_estimate_rows); it needs the stats store, not ported yet
+            self._estimate_rows(plan, exp)
             if guard:
                 self.store.apply_guards(plan)
             # degraded mode: a store that quarantined damaged partitions at
@@ -218,15 +291,81 @@ class QueryPlanner:
         plan.planning_s = time.perf_counter() - t0
         return plan
 
+    def _estimate_rows(self, plan: QueryPlan, exp) -> None:
+        """Resolve the stats-sketch row estimate of a finished plan: the
+        marginal-histogram product first, the z-prefix sketch of the
+        chosen index as the fallback (the two tiers ``estimate_count``
+        trusts). Skipped for id lookups (exact by construction) and
+        disjoint plans (nothing scans)."""
+        from geomesa_tpu_torch import conf
+
+        if not conf.PLAN_ESTIMATE.get():
+            return
+        if plan.ids is not None or (plan.config is not None and plan.config.disjoint):
+            return
+        stats = self.store.stats_for(plan.type_name)
+        if stats is None:
+            return
+        if isinstance(plan.filter, Include):
+            est = float(stats.total_count())
+        else:
+            sft = self.store.get_schema(plan.type_name)
+            est = stats.estimate_filter(sft, plan.filter)
+            if est is None and plan.index is not None and plan.config is not None:
+                est = stats.estimate_scan(plan.index, plan.config)
+        if est is not None:
+            plan.estimated_rows = float(est)
+            exp(f"Estimated rows: ~{est:.0f} (stats sketch)")
+
+    def _check_attr_visibility(self, type_name: str, f: Filter) -> None:
+        auths = getattr(self.store, "auths", None)
+        if auths is None:
+            return
+        sft = self.store.get_schema(type_name)
+        from geomesa_tpu_torch.security import visible
+
+        hidden = {
+            a.name
+            for a in sft.attributes
+            if a.options.get("vis") and not visible(str(a.options["vis"]), frozenset(auths))
+        }
+        if not hidden:
+            return
+        blocked = sorted(hidden & _referenced_props(f))
+        if blocked:
+            raise QueryGuardError(
+                f"filter references attribute(s) {blocked} whose "
+                "visibility the configured auths do not satisfy"
+            )
+
     def _scan_config(self, idx, f: Filter):
-        """``idx.scan_config(f)`` under the reference's two planning
-        spans: ``plan.probe`` (where the reference probes its scan-config
-        memo; the port has no memo yet, so the probe finds nothing) and
-        ``plan.decompose`` (the range decomposition itself)."""
+        """``idx.scan_config(f)`` through the memo: a warm repeated query
+        skips the range decomposition (``plan.probe`` span), a cold one
+        decomposes (``plan.decompose``). The decomposition runs outside
+        the lock: two racing planners may both compute (the result is
+        pure), never block each other on it."""
+        from geomesa_tpu_torch.filter.predicates import canonical_key
+
+        key = (idx, canonical_key(f))
         with _ospan("plan.probe", index=idx.name):
-            pass
+            with self._memo_lock:
+                memo = self._config_memo
+                if key in memo:
+                    memo.move_to_end(key)
+                    return memo[key]
+                epoch = self._memo_epoch
         with _ospan("plan.decompose", index=idx.name):
-            return idx.scan_config(f)
+            cfg = idx.scan_config(f)
+        with self._memo_lock:
+            if self._memo_epoch != epoch:
+                # a mutation invalidated mid-compute: usable for this
+                # query, never memoizable
+                return cfg
+            memo = self._config_memo
+            memo[key] = cfg
+            while len(memo) > _CONFIG_MEMO_MAX:
+                memo.popitem(last=False)
+        return cfg
 
     def _select(self, type_name: str, f: Filter, limit: Optional[int], exp) -> QueryPlan:
         plan = self._select_single(type_name, f, limit, exp)
@@ -320,19 +459,51 @@ class QueryPlanner:
         hints=None,
         deadline=None,
     ) -> FeatureCollection:
-        """Run a plan and record it (``DataStore.record_query``); a
-        QueryTimeout counts in ``geomesa.query.timeout`` and propagates.
-        ``deadline``: an optional pre-anchored Deadline; by default the
-        clock starts here, from the hint or store timeout. (The reference
-        probes its result cache here first; the port has no cache tier
-        yet.)"""
+        """Run a plan (through the result cache, when the store has one)
+        and record it (``DataStore.record_query``); a QueryTimeout counts
+        in ``geomesa.query.timeout`` and propagates. ``deadline``: an
+        optional pre-anchored Deadline; by default the clock starts here,
+        from the hint or store timeout."""
         t0 = time.perf_counter()
         try:
-            out = self._execute(plan, explain, hints, deadline=deadline)
+            out = self._execute_or_cached(plan, explain, hints, deadline)
         except QueryTimeout:
             self._record_timeout(plan)
             raise
         self.store.record_query(plan, len(out), time.perf_counter() - t0)
+        return out
+
+    def _execute_or_cached(self, plan: QueryPlan, explain=None, hints=None, deadline=None):
+        """The result-cache tier around :meth:`_execute`: probe by
+        canonical fingerprint, single-flight the scan on a miss, populate
+        under cost-aware admission. Generation validation inside the
+        cache guarantees a served entry reflects every committed
+        mutation; the ``cache`` hint bypasses or pins per query."""
+        cache = getattr(self.store, "cache", None)
+        mode = getattr(hints, "cache", None) if hints is not None else None
+        if cache is None or not cache.result.enabled or mode == "bypass":
+            return self._execute(plan, explain, hints, deadline=deadline)
+        exp = explain or ExplainNull()
+        sft = self.store.get_schema(plan.type_name)
+        key = cache.fingerprint_plan(plan, hints, sft, getattr(self.store, "auths", None))
+        key_range = cache.key_range(plan.filter, sft)
+
+        def compute():
+            s0 = time.perf_counter()
+            value = self._execute(plan, explain, hints, deadline=deadline)
+            return value, time.perf_counter() - s0
+
+        t_probe = time.perf_counter()
+        out, status, probe_s = cache.result.get_or_compute(
+            key, plan.type_name, key_range, compute, pinned=(mode == "pin")
+        )
+        plan.cache_status = status
+        plan.cache_probe_s = probe_s
+        # the probe phase is the get_or_compute prefix before any scan,
+        # recorded from the measured probe_s
+        tr = _otracer()
+        tr.add_span(tr.current(), "probe", t0=t_probe, end=t_probe + probe_s, status=status)
+        exp(f"cache: {status} (probe {probe_s * 1e3:.3f}ms, key {key[:12]})")
         return out
 
     def _record_timeout(self, plan) -> None:
@@ -355,6 +526,7 @@ class QueryPlanner:
         plan: QueryPlan,
         explain: Explainer | None = None,
         hints=None,
+        skip_visibility: bool = False,
         deadline=None,
     ) -> FeatureCollection:
         exp = explain or ExplainNull()
@@ -381,16 +553,21 @@ class QueryPlanner:
                 with exp.span("Full-table host scan"):
                     mask = plan.filter.evaluate(fc.batch)
             check_deadline(deadline, "full-table scan")
-            with _ospan("decode", candidates=int(mask.sum())):
-                return self._post(fc.mask(mask), plan, hints, exp)
+            self._note_actual(plan, int(mask.sum()), exp)
+            with _ospan("decode", candidates=plan.actual_rows):
+                return self._post(fc.mask(mask), plan, hints, exp, skip_visibility)
         elif self.store.row_count(plan.type_name) == 0:
             # schema exists but nothing written yet: no index tables
             candidates = self.store.features(plan.type_name)
         else:
             # a simple index scan: the shared launch/finish implementation
             # (finish runs at once here; query_many defers it)
-            return self._submit_simple(plan, exp, hints, deadline=deadline)()
-        return self._refine_and_post(plan, candidates, None, hints, exp, deadline)
+            return self._submit_simple(
+                plan, exp, hints, skip_visibility, deadline=deadline
+            )()
+        return self._refine_and_post(
+            plan, candidates, None, hints, exp, deadline, skip_visibility
+        )
 
     def _execute_union(self, plan: QueryPlan, exp, hints, deadline) -> FeatureCollection:
         """Run every union branch on its own index, each refined with its
@@ -398,8 +575,9 @@ class QueryPlanner:
         disjunct order, each row where it first appears (reference:
         per-option scans merged client-side with deduplication,
         FilterSplitter OR semantics). The query's one deadline bounds all
-        branches: each gets the remaining budget, not a fresh one. The
-        hints' stages apply once, after the merge."""
+        branches: each gets the remaining budget, not a fresh one.
+        Branches skip visibility; it and the hints' stages apply once,
+        after the merge."""
         from geomesa_tpu_torch.planning.hints import QueryHints
 
         parts = []
@@ -409,16 +587,23 @@ class QueryPlanner:
                 check_deadline(deadline, f"union branch [{sp.strategy}]")
                 sub_hints = QueryHints(timeout=max(deadline.remaining(), 1e-9))
             with exp.span(f"Union branch [{sp.strategy}]"):
-                parts.append(self._execute(sp, explain=exp, hints=sub_hints))
+                parts.append(
+                    self._execute(sp, explain=exp, hints=sub_hints, skip_visibility=True)
+                )
         check_deadline(deadline, "union merge")
         nonempty = [p for p in parts if len(p)]
         if not nonempty:
+            self._note_actual(plan, 0, exp)
             return self._post(parts[0], plan, hints, exp)
         out = nonempty[0] if len(nonempty) == 1 else FeatureCollection.concat(nonempty)
         _, first = np.unique(np.asarray(out.ids), return_index=True)
         if len(first) != len(out):
             exp(f"Union dedup: {len(out)} -> {len(first)} rows")
             out = out.take(np.sort(first))
+        # the union's matched rows before _post's limit and visibility
+        # (record_query's hits would compare the estimate against a
+        # truncated result)
+        self._note_actual(plan, len(out), exp)
         return self._post(out, plan, hints, exp)
 
     # -- pipelined multi-query execution ---------------------------------
@@ -523,8 +708,8 @@ class QueryPlanner:
         result is pulled; scans sharing a table fuse (submit_many)."""
         return [f() for f in self.submit_many(plans, hints=hints)]
 
-    def _submit_simple(self, plan: QueryPlan, exp, hints, finish_scan=None,
-                       deadline=None, chunks=None):
+    def _submit_simple(self, plan: QueryPlan, exp, hints, skip_visibility=False,
+                       finish_scan=None, deadline=None, chunks=None):
         """Launch a simple index-scan plan's device work now (or take the
         ``finish_scan`` of an already launched fused chunk); return
         ``finish()`` -> FeatureCollection. The deadline clock starts when
@@ -553,11 +738,14 @@ class QueryPlanner:
             with _ospan("decode", candidates=len(ordinals)):
                 with clock.host("decode"):
                     candidates = self.store.gather(plan.type_name, ordinals, chunks=chunks)
-                return self._refine_and_post(plan, candidates, certain, hints, exp, deadline)
+                return self._refine_and_post(
+                    plan, candidates, certain, hints, exp, deadline, skip_visibility
+                )
 
         return finish
 
-    def _refine_and_post(self, plan, candidates, certain, hints, exp, deadline):
+    def _refine_and_post(self, plan, candidates, certain, hints, exp, deadline,
+                         skip_visibility=False):
         """Refinement tiers (reference Z3IndexKeySpace.useFullFilter):
         - the device mask decides the filter: only the uncertain boundary
           rows (wide & ~inner) re-check on host;
@@ -590,14 +778,54 @@ class QueryPlanner:
                 if not bool(np.all(mask)):
                     candidates = candidates.mask(mask)
         check_deadline(deadline, "refinement")
-        return self._post(candidates, plan, hints, exp)
+        # estimate accountability: the post-refinement row count (what the
+        # sketch estimate predicts), before _post's limit and visibility
+        self._note_actual(plan, len(candidates), exp)
+        return self._post(candidates, plan, hints, exp, skip_visibility)
 
-    def _post(self, out, plan, hints, exp):
-        """Client-side reduce pipeline: sample -> sort -> offset -> limit
-        -> reproject -> transform (reference QueryPlanner.scala:66-102:
-        reducer, sort, startIndex, maxFeatures, projection). The
-        reference's row and attribute visibility stages run first; the
-        port's visibility tier is not ported yet."""
+    @staticmethod
+    def _note_actual(plan, actual: int, exp) -> None:
+        """Record one executed plan's matched-row count next to its
+        sketch estimate (explain line; record_query feeds the pair to the
+        error histogram and the per-index accuracy windows)."""
+        plan.actual_rows = actual
+        if plan.estimated_rows is not None:
+            from geomesa_tpu_torch.obs.accuracy import error_factor
+
+            exp(
+                f"Estimate vs actual: ~{plan.estimated_rows:.0f} est / "
+                f"{actual} matched "
+                f"({error_factor(plan.estimated_rows, actual):.2f}x)"
+            )
+
+    def _post(self, out, plan, hints, exp, skip_visibility: bool = False):
+        """Client-side reduce pipeline: visibility -> sample -> sort ->
+        offset -> limit -> reproject -> transform (reference
+        QueryPlanner.scala:66-102: reducer, sort, startIndex,
+        maxFeatures, projection)."""
+        # row-level security: mask rows whose visibility label the store's
+        # auths cannot satisfy (reference VisibilityEvaluator tier)
+        auths = None if skip_visibility else getattr(self.store, "auths", None)
+        if auths is not None:
+            from geomesa_tpu_torch.security import VIS_FIELD_KEY, visibility_mask, visible
+
+            sft = self.store.get_schema(plan.type_name)
+            vis_field = sft.user_data.get(VIS_FIELD_KEY)
+            if vis_field and len(out):
+                out = out.mask(visibility_mask(out.columns[vis_field], auths))
+                exp(f"Visibility filter: {len(out)} visible")
+            # attribute-level security: an attribute whose ``vis=<label>``
+            # option the auths cannot satisfy is projected out of the
+            # result (rows stay visible, the value does not)
+            hidden = [
+                a.name
+                for a in out.sft.attributes
+                if a.options.get("vis") and not visible(str(a.options["vis"]), frozenset(auths))
+            ]
+            if hidden:
+                keep = [a.name for a in out.sft.attributes if a.name not in hidden]
+                out = out.project(keep)
+                exp(f"Attribute visibility: hid {hidden}")
         exp(f"Hits: {len(out)}")
         if hints is not None:  # validated at _execute entry
             if hints.sample is not None:

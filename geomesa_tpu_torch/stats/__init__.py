@@ -1,5 +1,6 @@
-"""Stats: the Stat DSL's sketches (the port's copy of geomesa_tpu/stats,
-without the sketch store behind ``estimate_count``)."""
+"""Stats: the Stat DSL's sketches and the per-schema sketch store behind
+``estimate_count`` and the planner's row estimates (the port's copy of
+geomesa_tpu/stats)."""
 
 from geomesa_tpu_torch.stats.sketches import (
     CountStat,
@@ -11,6 +12,7 @@ from geomesa_tpu_torch.stats.sketches import (
     Z3Frequency,
     Z3Histogram,
 )
+from geomesa_tpu_torch.stats.store import StatsStore
 
 __all__ = [
     "CountStat",
@@ -21,4 +23,5 @@ __all__ = [
     "TopK",
     "Z3Frequency",
     "Z3Histogram",
+    "StatsStore",
 ]

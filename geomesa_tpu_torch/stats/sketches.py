@@ -165,6 +165,46 @@ def _to_u64_keys(col: np.ndarray) -> np.ndarray:
     return fnv_fold(col)
 
 
+# rows of a string column whose distinct values seed the fast
+# factorization in _unique_counts
+_FACTOR_SAMPLE = 65_536
+
+
+def _unique_counts(col: np.ndarray, inverse: bool = False):
+    """``np.unique(col, return_counts=True)`` (with ``return_inverse``
+    when asked), the same arrays, faster on a long fixed-width string
+    column of few distinct values (an ingest batch's ``EventRootCode``):
+    the rows hash on their raw words, each row finds its hash among the
+    distinct hashes of a leading sample, and every row is checked equal
+    to its representative. Any hash missing from the sample, or any
+    mismatch (a collision), takes numpy's exact sort instead."""
+    col = np.asarray(col)
+    n = len(col)
+    if col.dtype.kind not in "US" or n <= _FACTOR_SAMPLE or col.ndim != 1:
+        return np.unique(col, return_inverse=inverse, return_counts=True)
+    item = col.dtype.itemsize
+    raw = np.ascontiguousarray(col).view(np.uint8).reshape(n, item)
+    words = raw.view(np.uint64) if item % 8 == 0 else (
+        raw.view(np.uint32) if item % 4 == 0 else raw)
+    h = np.zeros(n, np.uint64)
+    for j in range(words.shape[1]):
+        h ^= words[:, j]
+        h *= np.uint64(0x100000001B3)
+        h ^= h >> np.uint64(29)
+    cand, first = np.unique(h[:_FACTOR_SAMPLE], return_index=True)
+    pos = np.minimum(np.searchsorted(cand, h), len(cand) - 1)
+    reps = col[first]
+    if not (np.array_equal(cand[pos], h) and np.array_equal(reps[pos], col)):
+        return np.unique(col, return_inverse=inverse, return_counts=True)
+    cnts = np.bincount(pos, minlength=len(cand))
+    order = np.argsort(reps, kind="stable")  # distinct values: numpy's order
+    if not inverse:
+        return reps[order], cnts[order]
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    return reps[order], rank[pos], cnts[order]
+
+
 class Frequency:
     """Count-min sketch for equality selectivity (reference Frequency.scala)."""
 
@@ -177,11 +217,26 @@ class Frequency:
     def observe(self, col: np.ndarray) -> None:
         if len(col) == 0:
             return
+        col = np.asarray(col)
+        if col.dtype.kind in "US" and len(col) > _FACTOR_SAMPLE:
+            self.observe_counts(*_unique_counts(col))
+            return
         self.count += len(col)
         idx = _cm_hashes(_to_u64_keys(col), self.depth, self.width)
         for d in range(self.depth):
             # bincount is ~20x np.add.at; runs per ingest batch
             self.table[d] += np.bincount(idx[d], minlength=self.width)
+
+    def observe_counts(self, vals: np.ndarray, cnts: np.ndarray) -> None:
+        """Observe ``cnts[i]`` rows of each distinct ``vals[i]``: each
+        value hashes once and adds its count, the same table as one
+        increment per row."""
+        self.count += int(cnts.sum())
+        idx = _cm_hashes(_to_u64_keys(vals), self.depth, self.width)
+        for d in range(self.depth):
+            self.table[d] += np.bincount(idx[d], weights=cnts, minlength=self.width).astype(
+                np.int64
+            )
 
     def __iadd__(self, other: "Frequency") -> "Frequency":
         self.table += other.table
@@ -207,7 +262,11 @@ class TopK:
         self.counts: dict = {}
 
     def observe(self, col: np.ndarray) -> None:
-        vals, cnts = np.unique(np.asarray(col), return_counts=True)
+        self.observe_counts(*_unique_counts(col))
+
+    def observe_counts(self, vals: np.ndarray, cnts: np.ndarray) -> None:
+        """Observe the distinct values ``vals`` (sorted, as np.unique
+        gives them) with their counts."""
         for v, c in zip(vals.tolist(), cnts.tolist()):
             self.counts[v] = self.counts.get(v, 0) + c
         if len(self.counts) > self.cap:

@@ -16,8 +16,11 @@ incremental fold and delete_schema's release.
   keys and numpy predicate masks, no device at all. Only a caller who
   passes it gets it; nothing selects it.
 
-The reference's mesh and pod tables (its ``mesh`` argument) and the
-cache tier's generation bump wait for those tiers of the port.
+With a cache tier attached (``DataStore.attach_cache`` sets the
+adapter's ``generations``), every ``create_table`` of the in-process
+adapter bumps the owning type's generation: a compaction is a mutation
+path of the cache's invalidation contract. The reference's mesh and pod
+tables (its ``mesh`` argument) wait for those tiers of the port.
 """
 
 from __future__ import annotations
@@ -59,6 +62,17 @@ def merge_applies(old, main_rows: int, n_rows: int) -> bool:
     return isinstance(old, IndexTable) and old.n == main_rows and 0 < main_rows < n_rows
 
 
+def _bump_generations(adapter, keyspace) -> None:
+    """Generation hook for table rebuilds: a DataStore with a cache tier
+    sets ``adapter.generations`` (cache.GenerationTracker) and every
+    create_table bumps the owning type, scoped to the whole type since
+    the adapter sees sort keys, not filters."""
+    generations = getattr(adapter, "generations", None)
+    sft = getattr(keyspace, "sft", None)
+    if generations is not None and sft is not None:
+        generations.bump(sft.name)
+
+
 class InProcessAdapter:
     """The built-in backend: sorted columnar tables whose predicate
     columns live on one device. ``device`` None takes the device of the
@@ -67,6 +81,7 @@ class InProcessAdapter:
     def __init__(self, tile: Optional[int] = None, device=None):
         self.tile = tile
         self.device = device
+        self.generations = None  # set by DataStore.attach_cache
 
     def create_table(self, keyspace, keys, old=None, main_rows: int = 0):
         from geomesa_tpu_torch.datastore import _slice_keys
@@ -81,7 +96,9 @@ class InProcessAdapter:
                 return merged_table(old, keys, _slice_keys(keys, main_rows), tile=self.tile)
             return IndexTable(keyspace, keys, tile=self.tile, device=self.device)
 
-        return with_retries(attempt)
+        table = with_retries(attempt)
+        _bump_generations(self, keyspace)
+        return table
 
     def fold_table(
         self,

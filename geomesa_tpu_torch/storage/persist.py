@@ -478,12 +478,21 @@ def load(root: str, on_damage: str = "quarantine", **store_kwargs):
             # publishes it: every index's keys encoded once, one
             # write-lock section, one compaction (DataStore._bulk_commit)
             fc = pieces[0] if len(pieces) == 1 else FeatureCollection.concat(pieces)
-            fc, keys = store._encode_batch(name, fc)
-            store._bulk_commit(name, [fc], keys, check_ids=False)
+            fc, keys, stats = store._encode_batch(name, fc)
+            store._bulk_commit(name, [fc], keys, [stats], check_ids=False)
     store.health = health
-    # the reference's cache branches (a reload invalidates a warm cache;
-    # a quarantine drops its entries over the damaged interval) come
-    # with the port's cache tier
+    cache = getattr(store, "cache", None)
+    if cache is not None:
+        # a reload is a mutation over every loaded type, one that loads
+        # zero rows included: the on-disk state may be older than what
+        # warm entries saw (unsaved writes roll back across a crash)
+        for name in meta["types"]:
+            cache.on_mutation(name)
+    if cache is not None and health.damage:
+        # a warm cache passed through ``load(root, cache=...)`` keeps no
+        # entry over a quarantined partition's key range: bump and drop
+        for d in health.damage:
+            cache.on_quarantine(d.type_name, _partition_interval(d.file))
     fresh = sum(1 for d in health.damage if d.fresh)
     if fresh:
         from geomesa_tpu_torch.metrics import resolve
@@ -492,6 +501,22 @@ def load(root: str, on_damage: str = "quarantine", **store_kwargs):
             "geomesa.store.quarantined", fresh
         )
     return store
+
+
+_PART_FILE = re.compile(r"^p(-?\d+)")
+
+
+def _partition_interval(fname) -> "tuple[int, int] | None":
+    """The [lo_ms, hi_ms) time interval a partition file covers, parsed
+    from its ``p<NNNN>[-sig]`` name (partition = dtg // PARTITION_MS, so
+    the cache tier's generation buckets align 1:1). None when the name
+    does not parse: the quarantine bump then covers the whole time
+    axis."""
+    m = _PART_FILE.match(str(fname))
+    if m is None:
+        return None
+    p = int(m.group(1))
+    return (p * PARTITION_MS, (p + 1) * PARTITION_MS)
 
 
 def _load_v3_type(root: str, name: str, sft: FeatureType, info: dict,

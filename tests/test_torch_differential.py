@@ -23,7 +23,13 @@ sequences, one per schema, draw from ``fold_upsert`` (monolithic and
 sliced with a small ``slice_rows``), ``upsert``, ``write``,
 ``compact``, ``delete_features``, ``modify_features`` and ``age_off``;
 after each step the stores' rows and a few trees' ids (with and without
-``limit``) must agree in order. Tolerance: exact.
+``limit``) must agree in order. The trees run again on a point store
+with visibility labels under two auths and on cached stores (each tree
+twice, the second time a cache hit); ``estimate_count`` joins the
+aggregations; and the mutation sequences run once more on cached stores,
+where every answer, cold and warm, equals the uncached sequence's and
+the stats sketches (``stats_for(...).to_json()``) and estimates equal
+the JAX package's after each step. Tolerance: exact.
 """
 
 import numpy as np
@@ -403,3 +409,134 @@ def test_mutation_sequences_draw_every_op():
     """The seeds cover every operation and leave rows behind."""
     drawn = {op for s in ("pts", "ext") for op, *_ in _mutation_steps(s)}
     assert drawn == set(OPS)
+
+
+# -- visibility, cache and estimate variants ------------------------------------
+#
+# The trees once more on a point store with a visibility label column
+# under two auths, and on cached stores where each tree runs twice (the
+# second run a cache hit); the aggregation subset's estimate_count; the
+# two mutation sequences once more on cached stores, with the stats
+# sketches checked after each step and every answer equal to the
+# uncached sequence's.
+
+VIS_LABELS = np.array(["", "analyst", "analyst&secret", "secret|ops"])
+VIS_AUTHS = {"vis-analyst": ("analyst",), "vis-secret": ("analyst", "secret")}
+VARIANTS = [("pts", "vis-analyst"), ("pts", "vis-secret"), ("pts", "cached"), ("ext", "cached")]
+
+
+def _vis_point_store(pkg, data, auths, **kw):
+    """point_store's rows with a ``vis`` label column drawn from a seed."""
+    from test_torch_hints import POINT_SPEC
+
+    sft = pkg.FeatureType.from_spec("pts", POINT_SPEC + ",vis:String")
+    sft.user_data["geomesa.vis.field"] = "vis"
+    ds = pkg.DataStore(tile=TILE, auths=auths, **kw)
+    ds.create_schema(sft)
+    x, y, t, age, score, name = data
+    vis = VIS_LABELS[np.random.default_rng(SEED + 11).integers(0, len(VIS_LABELS), len(x))]
+    ds.write("pts", pkg.FeatureCollection.from_columns(sft, np.arange(len(x)), {
+        "geom": (x, y), "dtg": t, "age": age, "score": score, "name": name, "vis": vis}))
+    return ds
+
+
+@pytest.fixture(scope="module")
+def variant_stores():
+    ensure_jax_native()
+    pdata, edata = point_data(seed=17, n=N), extent_data()
+    out = {}
+    for schema, v in VARIANTS:
+        pair = []
+        for pkg, kw in ((geomesa_tpu, {}), (geomesa_tpu_torch, {"device": "cpu"})):
+            if v in VIS_AUTHS:
+                pair.append(_vis_point_store(pkg, pdata, VIS_AUTHS[v], **kw))
+            else:
+                make, data = (point_store, pdata) if schema == "pts" else (extent_store, edata)
+                pair.append(make(pkg, data, writes=(2_500, 500), cache=True,
+                                 metrics=pkg.metrics.MetricsRegistry(), **kw))
+        out[(schema, v)] = tuple(pair)
+    return out
+
+
+VARIANT_TREES = 60  # per variant: the first trees of CASES
+VARIANT_PARAMS = [(s, v, c) for s, v in VARIANTS for c in range(VARIANT_TREES // (2 * CHUNK))]
+
+
+@pytest.mark.parametrize("schema,variant,chunk", VARIANT_PARAMS,
+                         ids=[f"{s}-{v}-{c}" for s, v, c in VARIANT_PARAMS])
+def test_random_trees_agree_on_variant_stores(variant_stores, schema, variant, chunk):
+    """The first VARIANT_TREES trees (twenty per parameter) on each variant:
+    ids in order with and without hints and limit; a cached store answers
+    each tree twice, the second time from its cache, and equal to the
+    JAX package's cached store both times."""
+    jds, tds = variant_stores[(schema, variant)]
+    runs = 2 if variant == "cached" else 1
+    for q, kw, limit in CASES[schema][2 * chunk * CHUNK:(2 * chunk + 2) * CHUNK]:
+        for _ in range(runs):
+            want = np.asarray(jds.query(schema, q).ids).tolist()
+            assert np.asarray(tds.query(schema, q).ids).tolist() == want, q
+            got = tds.query(schema, q, limit=limit, hints=THints(**kw))
+            ref = jds.query(schema, q, limit=limit, hints=JHints(**kw))
+            assert np.asarray(got.ids).tolist() == np.asarray(ref.ids).tolist(), (q, kw, limit)
+            assert list(got.columns) == list(ref.columns), (q, kw)
+            got = tds.query(schema, q, limit=7)
+            assert np.asarray(got.ids).tolist() == np.asarray(jds.query(schema, q, limit=7).ids).tolist()
+    if variant == "cached":
+        counters = [{k: v for k, v in ds.metrics.counters.items() if k.startswith("geomesa.cache.")}
+                    for ds in (jds, tds)]
+        assert counters[1] == counters[0] and counters[1]["geomesa.cache.hit"] > 0
+
+
+@pytest.mark.parametrize("schema,writes,chunk", AGG_PARAMS,
+                         ids=[f"{s}-{w}-{c}" for s, w, c in AGG_PARAMS])
+def test_estimate_count_agrees(stores, schema, writes, chunk):
+    jds, tds = stores[(schema, writes)]
+    for q, _, _ in CASES[schema][chunk * AGG_CHUNK:(chunk + 1) * AGG_CHUNK]:
+        assert tds.estimate_count(schema, q) == jds.estimate_count(schema, q), q
+    assert tds.stats_for(schema).to_json() == jds.stats_for(schema).to_json()
+
+
+@pytest.fixture(scope="module")
+def cached_mutation_runs():
+    """Both sequences once more on cached stores; per step the returns,
+    rows, query ids (each read twice: cold, then warm), the stats
+    sketches and estimate_count answers of each package."""
+    ensure_jax_native()
+    pdata, edata = point_data(seed=17, n=N), extent_data()
+    out = {}
+    for schema in ("pts", "ext"):
+        make = point_store if schema == "pts" else extent_store
+        data = pdata if schema == "pts" else edata
+        pair = (make(geomesa_tpu, data, cache=True),
+                make(geomesa_tpu_torch, data, cache=True, device="cpu"))
+        for op, args, trees, limit in _mutation_steps(schema):
+            rec = []
+            for pkg, ds in zip((geomesa_tpu, geomesa_tpu_torch), pair):
+                ret = _apply(pkg, ds, schema, op, args)
+                ids = np.asarray(ds.features(schema).ids).tolist()
+                res = []
+                for _ in range(2):
+                    res.append([(np.asarray(ds.query(schema, q).ids).tolist(),
+                                 np.asarray(ds.query(schema, q, limit=limit).ids).tolist())
+                                for q in trees])
+                st = ds.stats_for(schema)
+                rec.append((ret, ids, res, None if st is None else st.to_json(),
+                            [ds.estimate_count(schema, q) for q in trees]))
+            out.setdefault(schema, []).append((op, trees, rec))
+    return out
+
+
+@pytest.mark.parametrize("schema,step", MUT_PARAMS, ids=[f"{s}-{i}" for s, i in MUT_PARAMS])
+def test_cached_mutation_sequence_agrees(mutation_runs, cached_mutation_runs, schema, step):
+    """After every step of the sequence the cached stores answer like the
+    uncached ones, cold and warm, in order; the port's stats sketches and
+    estimates equal the JAX package's."""
+    op, trees, (ref, got) = cached_mutation_runs[schema][step]
+    _, _, (plain_ref, _) = mutation_runs[schema][step]
+    assert got[0] == ref[0] == plain_ref[0], op
+    assert got[1] == ref[1] == plain_ref[1], op
+    for cold_warm in (got[2], ref[2]):
+        for res in cold_warm:
+            assert res == plain_ref[2], (op, trees)
+    assert got[3] == ref[3], op
+    assert got[4] == ref[4], (op, trees)

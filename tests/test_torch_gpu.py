@@ -1101,3 +1101,76 @@ def test_save_and_load_round_trip_on_the_card(tmp_path):
     for hq in HINT_QUERIES[1:]:
         assert np.array_equal(np.asarray(back.query("t", hq).ids),
                               np.asarray(cpu.query("t", hq).ids)), hq
+
+
+def _vis_store(device, auths, n=60_000, cache=None):
+    """A GDELT-shaped point store with a ``vis`` label column (the
+    chip_smoke secure path's mix) and ``code`` declared ``vis=secret``."""
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+
+    rng = np.random.default_rng(41)
+    sft = FeatureType.from_spec(
+        "t", "code:String:vis=secret,vis:String,dtg:Date,*geom:Point:srid=4326")
+    sft.user_data["geomesa.vis.field"] = "vis"
+    ds = DataStore(device=device, tile=4096, auths=auths, cache=cache)
+    ds.create_schema(sft)
+    t0 = int(np.datetime64("2024-01-01T00:00:00", "ms").astype(np.int64))
+    labels = np.array(["", "analyst", "analyst&secret", "secret|ops", "ops"])
+    cols = {"geom": (rng.uniform(-60, 60, n), rng.uniform(-40, 40, n)),
+            "dtg": t0 + rng.integers(0, 20 * 86_400_000, n),
+            "code": np.array(["01", "04", "14", "19"])[rng.integers(0, 4, n)],
+            "vis": labels[rng.choice(5, n, p=[0.5, 0.2, 0.15, 0.1, 0.05])]}
+    ds.write("t", FeatureCollection.from_columns(sft, np.arange(n), cols))
+    return ds
+
+
+def _aggregate(ds, q):
+    return (ds.count("t", q), ds.stats_query("t", "Count()", q, estimate=True)[0].count,
+            ds.density("t", q, width=64, height=32).tolist(), ds.bounds("t", q, estimate=True),
+            ds.bounds("t", q, estimate=False), np.asarray(ds.query("t", q).ids).tolist())
+
+
+def test_visibility_gates_launch_no_aggregation_kernel_on_the_card():
+    """With visibility active the count estimate, density and bounds step
+    aside: K1p, K3 and K4 launch 0 times while K1 scans the rows, and the
+    answers equal a CPU store's; with auths None the same calls launch
+    K1p, K3 and K4."""
+    from geomesa_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q = HINT_QUERIES[0]
+    for auths in (("analyst",), None):
+        gpu, cpu = _vis_store("cuda", auths), _vis_store("cpu", auths)
+        for k in kernels.KERNELS:
+            k.reset_counts()
+        got = _aggregate(gpu, q)
+        aggs = [kernels.BLOCK_POPS.launches, kernels.DENSITY.launches, kernels.BOUNDS.launches]
+        assert kernels.BLOCK_SCAN.launches > 0
+        if auths is None:
+            assert all(a > 0 for a in aggs), aggs
+        else:
+            assert aggs == [0, 0, 0]
+        assert got == _aggregate(cpu, q)
+
+
+def test_warm_cache_launches_no_scan_on_the_card():
+    """A cached store on the card: the cold pass launches K1, the warm
+    pass serves every query from the result cache (K1 launches 0) with
+    identical ids, equal to a CPU store's."""
+    from geomesa_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gpu, cpu = _hint_store("cuda"), _hint_store("cpu")
+    from geomesa_tpu_torch.cache import QueryCache
+
+    gpu.attach_cache(QueryCache())
+    for k in kernels.KERNELS:
+        k.reset_counts()
+    cold = [np.asarray(gpu.query("t", q).ids).tolist() for q in HINT_QUERIES]
+    assert kernels.BLOCK_SCAN.launches > 0
+    kernels.BLOCK_SCAN.reset_counts()
+    warm = [np.asarray(gpu.query("t", q).ids).tolist() for q in HINT_QUERIES]
+    assert kernels.BLOCK_SCAN.launches == 0 and warm == cold
+    assert warm == [np.asarray(cpu.query("t", q).ids).tolist() for q in HINT_QUERIES]

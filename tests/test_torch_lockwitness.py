@@ -15,7 +15,11 @@ other: both witnesses armed, the same seeded workload (write, query,
 few submits, tracing and a metrics registry on) runs through each
 package, and the observed edge sets and blocking events must be equal,
 both graphs acyclic, and each of the port's five locks witnessed. The
-graphs are dumped into ``tmp_path``.
+graphs are dumped into ``tmp_path``. A second workload on a cached store
+(result hits, tile compositions, single-flight threads, a delete and a
+modify under the write lock, a fold, ``serve()``) witnesses the cache
+tier's three locks and the estimate accounting's lock under the JAX
+package's names, with the same edges and blocking events.
 """
 
 import json
@@ -284,3 +288,70 @@ def test_workload_edges_equal_the_jax_package(tmp_path):
     PORT.lw.REPORT.edges.update({e: 1 for e in tsnap["edges"]})
     out = json.load(open(PORT.lw.dump(str(tmp_path / "port.json"))))
     assert out["cycle"] is None and out["edges"] == [list(e) for e in tsnap["edges"]]
+
+
+CACHE_LOCKS = {"EstimateAccuracy._lock", "GenerationTracker._lock", "ResultCache._lock",
+               "TileAggregateCache._lock"}
+
+
+def _cached_workload(P):
+    """Arm, build and drive one store with the cache tier: repeated
+    queries (result hits), bbox counts and bounds (tile compositions),
+    single-flight under threads, a delete and a modify (maintenance scans
+    recorded under the write lock), a fold and serve(). Returns the
+    witness snapshot and the answers."""
+    P.lw.enable()
+    reg = P.metrics.MetricsRegistry()
+    rng = np.random.default_rng(22)
+    n = 2_000
+    sft = P.pkg.FeatureType.from_spec("t", SPEC)
+    ds = P.pkg.DataStore(tile=1024, metrics=reg, cache=True, **P.kw)
+    ds.create_schema(sft)
+    cols = {"name": np.array(["a", "b", "c"])[rng.integers(0, 3, n)],
+            "age": rng.integers(0, 50, n).astype(np.int32),
+            "dtg": T0 + rng.integers(0, 10 * DAY, n),
+            "geom": (rng.uniform(-50, 50, n), rng.uniform(-50, 50, n))}
+    ds.write("t", P.pkg.FeatureCollection.from_columns(sft, np.arange(n), cols))
+    answers = []
+    for _ in range(2):
+        answers += [np.asarray(ds.query("t", q).ids).tolist() for q in QUERIES]
+        answers += [ds.count("t", "bbox(geom, -40, -40, 40, 40)"),
+                    ds.bounds("t", "bbox(geom, -40, -40, 40, 40)")]
+    box = "bbox(geom, -20, -30, 30, 20)"
+    threads = [threading.Thread(target=lambda: answers.append(len(ds.query("t", box))))
+               for _ in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    answers.append(ds.delete_features("t", "bbox(geom, 0, 0, 10, 10)"))
+    answers.append(ds.modify_features("t", {"age": 3}, "name = 'b'"))
+    tail = {k: (v[0][:300], v[1][:300]) if k == "geom" else v[:300] for k, v in cols.items()}
+    ds.fold_upsert("t", P.pkg.FeatureCollection.from_columns(sft, np.arange(1700, 2000), tail))
+    sched = ds.serve()
+    futs = [sched.submit("t", q) for q in QUERIES]
+    answers += [np.asarray(f.result(timeout=60).ids).tolist() for f in futs]
+    sched.close()
+    answers.append(ds.estimate_count("t", QUERIES[1]))
+    snap = P.lw.REPORT.snapshot()
+    cycle = P.lw.REPORT.cycle()
+    P.lw.disable()
+    return snap, cycle, answers
+
+
+def test_cached_workload_edges_equal_the_jax_package():
+    """The cache tier's three locks and the accuracy lock, witnessed under
+    the JAX package's names: the same edges and blocking events."""
+    (jsnap, jcyc, jans), (tsnap, tcyc, tans) = (_cached_workload(P) for P in BOTH)
+    assert sorted(map(str, tans)) == sorted(map(str, jans))  # threads append in any order
+    assert jcyc is None and tcyc is None
+    assert CACHE_LOCKS <= set(tsnap["seen"]) and CACHE_LOCKS <= set(jsnap["seen"])
+    assert tsnap["edges"] == jsnap["edges"]
+    assert tsnap["blocking"] == jsnap["blocking"]
+    assert set(tsnap["seen"]) <= set(jsnap["seen"])
+    assert tsnap["aliased"] == jsnap["aliased"] == {}
+    # the accuracy lock is taken under the store's write lock (the
+    # maintenance scans record their plans), and the result cache's lock
+    # reaches the generation tracker's
+    assert ("DataStore._write_lock", "EstimateAccuracy._lock") in tsnap["edges"]
+    assert ("ResultCache._lock", "GenerationTracker._lock") in tsnap["edges"]

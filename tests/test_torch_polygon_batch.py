@@ -63,7 +63,7 @@ def _capture(monkeypatch, module, name):
 def test_query_many_and_fused_chunks_equal_jax(stores, cell, setting, monkeypatch):
     jds, tds = stores[0][cell]
     queries = _batch(cell)
-    with raster_setting(setting, jds):
+    with raster_setting(setting, jds, tds):
         jcalls = _capture(monkeypatch, jbk, "block_scan_multi")
         tcalls = _capture(monkeypatch, tbk, "scan_planes_multi")
         got = tds.query_many("pts", queries)
@@ -88,7 +88,7 @@ def test_query_many_and_fused_chunks_equal_jax(stores, cell, setting, monkeypatc
 @pytest.mark.parametrize("cell", CELLS)
 def test_polygon_aggregations_equal_jax(stores, cell, setting):
     jds, tds = stores[0][cell]
-    with raster_setting(setting, jds):
+    with raster_setting(setting, jds, tds):
         for pid in BATCH_PIDS[:3]:
             q = _filter(cell, POLYGONS[pid])
             assert tds.count("pts", q) == jds.count("pts", q), pid

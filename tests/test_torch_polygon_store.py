@@ -90,17 +90,18 @@ def _filter(cell, wkt, d0=2):
 
 
 @contextmanager
-def raster_setting(name, jds=None):
-    """The same raster knobs in both packages; the JAX planner's
-    scan-config memo and both raster caches are dropped around it."""
+def raster_setting(name, jds=None, tds=None):
+    """The same raster knobs in both packages; both planners' scan-config
+    memos and both raster caches are dropped around it."""
     knobs = {"device": ("RASTER_RESIDUE", "device"),
              "raster-off": ("RASTER_ENABLED", False)}.get(name)
 
     def reset():
         jfr.clear_cache()
         tfr.clear_cache()
-        if jds is not None:
-            jds.planner.invalidate_config_memo()
+        for ds in (jds, tds):
+            if ds is not None:
+                ds.planner.invalidate_config_memo()
 
     if knobs:
         for c in (jconf, tconf):
@@ -133,7 +134,7 @@ CONFIG_CASES = [(s, c, p) for s in SETTINGS for c in CELLS for p in PIDS]
 def test_scan_config_equals_jax(stores, setting, cell, pid):
     jds, tds = stores[0][cell]
     q = _filter(cell, POLYGONS[pid])
-    with raster_setting(setting, jds):
+    with raster_setting(setting, jds, tds):
         jp = jds.planner.plan("pts", q)
         tp = tds.planner.plan("pts", q)
     assert tp.index == jp.index  # the cheaper index, by the same costs
@@ -158,7 +159,7 @@ def test_scan_config_equals_jax(stores, setting, cell, pid):
 def test_query_ids_and_count_equal_jax(stores, cell, setting):
     (jds, tds), (x, y, t, _) = stores[0][cell], stores[1]
     seen = 0
-    with raster_setting(setting, jds):
+    with raster_setting(setting, jds, tds):
         for pid, wkt in POLYGONS.items():
             q = _filter(cell, wkt)
             got, ref = _ids(tds.query("pts", q)), _ids(jds.query("pts", q))

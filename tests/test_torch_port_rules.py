@@ -21,7 +21,9 @@
   ``storage.metadata``, ``storage.adapter``, ``storage.persist``) import
   neither jax nor anything of ``geomesa_tpu``, each on its own in a fresh
   interpreter, and ``lockwitness.witness`` hands back the lock it was
-  given while the witness is disarmed.
+  given while the witness is disarmed; so do the statistics, visibility,
+  view and cache modules (``stats.store``, ``obs.accuracy``,
+  ``security``, ``views``, ``cache`` and its four modules).
 """
 
 import importlib.util
@@ -70,7 +72,9 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
                  "scripts.probe_agg", "native", "index.attribute", "utils.lexicode",
                  "metrics", "audit", "obs.trace", "planning.errors", "planning.hints",
                  "planning.guards", "io.converters", "sql.functions", "fault",
-                 "lockwitness", "storage.metadata", "storage.adapter", "storage.persist"):
+                 "lockwitness", "storage.metadata", "storage.adapter", "storage.persist",
+                 "stats.store", "obs.accuracy", "security", "views", "cache",
+                 "cache.fingerprint", "cache.generations", "cache.result", "cache.tiles"):
         assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
@@ -386,7 +390,13 @@ def test_every_port_knob_is_a_jax_knob_with_its_default():
     for name in ("geomesa.query.timeout", "geomesa.guard.temporal.max.duration",
                  "geomesa.obs.trace.sample", "geomesa.obs.trace.buffer",
                  "geomesa.obs.slow.ms", "geomesa.obs.slow.max",
-                 "geomesa.tpu.lock.witness", "geomesa.tpu.lock.witness.artifact"):
+                 "geomesa.tpu.lock.witness", "geomesa.tpu.lock.witness.artifact",
+                 "geomesa.plan.estimate.enabled", "geomesa.plan.estimate.stale.p90",
+                 "geomesa.plan.estimate.min.count", "geomesa.plan.estimate.auto.analyze",
+                 "geomesa.cache.result.max.bytes", "geomesa.cache.ttl",
+                 "geomesa.cache.ttl.jitter", "geomesa.cache.min.cost",
+                 "geomesa.cache.tile.bits", "geomesa.cache.tile.max.entries",
+                 "geomesa.cache.tile.max.per.query"):
         assert name in port, name
 
 
@@ -412,6 +422,27 @@ def test_persistence_modules_import_no_jax_and_nothing_of_geomesa_tpu(module):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
     src = open(os.path.join(ROOT, "geomesa_tpu_torch", *module.split(".")) + ".py").read()
+    assert "import jax" not in src and "from geomesa_tpu." not in src
+    assert "from geomesa_tpu import" not in src
+
+
+@pytest.mark.parametrize("module", ["stats.store", "obs.accuracy", "security", "views", "cache",
+                                    "cache.fingerprint", "cache.generations", "cache.result",
+                                    "cache.tiles"])
+def test_stats_security_and_cache_modules_import_no_jax(module):
+    """The statistics, visibility, view and cache modules, each on its own
+    in a fresh interpreter: neither jax nor anything of geomesa_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE, f"geomesa_tpu_torch.{module}"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    path = os.path.join(ROOT, "geomesa_tpu_torch", *module.split("."))
+    src = open(path + ".py" if os.path.exists(path + ".py") else
+               os.path.join(path, "__init__.py")).read()
     assert "import jax" not in src and "from geomesa_tpu." not in src
     assert "from geomesa_tpu import" not in src
 
