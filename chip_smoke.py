@@ -210,16 +210,41 @@ Phases, each printing one JSON line:
    the brute force, and the entries away from the mutated box stay hits
    (the delete rebuilds the tables, so all fill again); then
    ``persist.save`` and ``persist.load(cache=...)`` with the warm cache:
-   no stale hit, the same answers.
+   no stale hit, the same answers;
+16. gdelt-z3-10M-served: 10,000,000 GDELT-shaped events on Z3 with
+   ``EventRootCode`` on a ``DataStore(cache=True)`` (result cache 1 GiB)
+   behind ``serve(ServingConfig(queue_max=256))`` with a
+   ``TenantRegistry`` (``gold`` weight 8 quota 64, ``bronze`` weight 1
+   quota 8), ``attach_slo()`` and ``serve_ops(port=0)`` on loopback:
+   dashboard clients of two teams query one shared event store while
+   operators scrape it. The fair mix: 16 client threads (8 a tenant) send
+   each of the 64 main queries 4 times in a seeded order, every answer's
+   ids in order equal to the sequential (cache-bypassing) query's, 16 of
+   them to the f64 brute force, identical queries coalesced, leaders +
+   coalesced + cache hits = 256, K2 launched; the 64 queries again: 64
+   result hits served at admission, no K1 or K2 launch, nothing queued;
+   a flood of 200 non-blocking ``bronze`` queries beside 16 ``gold``
+   ones: ``bronze`` sheds at its quota, ``gold`` sheds none, served +
+   shed = submitted per tenant; 16 queries with a 1 us timeout hint all
+   shed with QueryTimeout; on unstarted schedulers 8 copies each of nine
+   queries scan once per distinct query (K2 slots and lone K1
+   launches), and a query staged on either
+   side of a 50k-row write into its box gives two leaders and the new
+   rows; ``/metrics`` parses strictly with the registry's serving
+   counters, ``/health`` ready (then degraded with ``slo.breach`` under a
+   1 us objective), ``/stats`` equal to ``stats_for``, the debug routes
+   answer JSON, the p50 of 50 scrapes of each route; ``close()`` leaves no
+   serving or ops thread, the ops port rebinds at once, the store still
+   answers and ``serve()`` gives a fresh scheduler.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the thirteen paths and read just after
+are zeroed just before each of the fourteen paths and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
 with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
 extent leg; tiered, mutate, persist and secure-cached: all five;
-attribute: K1 and K2) and
+attribute and served: K1 and K2) and
 called the native helpers ``check_native`` names (the ranges where it
 plans new filters, since the batch path's repeated plans take the
 planner's scan-config memo; ``sort_bins_z`` where it ingests, the plane
@@ -1386,12 +1411,13 @@ def root_codes(n, seed) -> np.ndarray:
 
 
 def build_store(torch, device, n, packed: bool = False, index: str = "z3", seed: int = SEED,
-                with_root_code: bool = False, adapter=None):
+                with_root_code: bool = False, adapter=None, **store_kw):
     """A GDELT-shaped point table of n rows: (dtg, geom) on Z3, or geom
     alone on Z2 (the reference benchmark's points of its configuration 4);
     ``with_root_code`` adds the string attribute ``EventRootCode`` (drawn
     from its own seed, so the points and times stay the same); ``adapter``
-    is the store's storage.adapter backend (None: the device tables).
+    is the store's storage.adapter backend (None: the device tables);
+    ``store_kw`` (cache, metrics, audit) pass to the DataStore.
     Returns (store, (x, y, t | None), ingest seconds)."""
     from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
 
@@ -1405,7 +1431,7 @@ def build_store(torch, device, n, packed: bool = False, index: str = "z3", seed:
     sft.user_data["geomesa.indices.enabled"] = index
     if packed:
         sft.user_data["geomesa.z3.packed-time"] = "true"
-    ds = DataStore(device=device, adapter=adapter)
+    ds = DataStore(device=device, adapter=adapter, **store_kw)
     ds.create_schema(sft)
     cols = {"geom": (x, y)} if t is None else {"dtg": t, "geom": (x, y)}
     if with_root_code:
@@ -1606,6 +1632,14 @@ def check_same_ids(got, ref, what: str) -> None:
     check(len(got) == len(ref), f"{what}: one result per query")
 
 
+SERVING_COUNTERS = ("submitted", "shed", "coalesced", "batches", "batched_queries")
+
+
+def serving_counts(metrics) -> dict:
+    """The scheduler's geomesa.serving.* counters in a registry."""
+    return {k: metrics.counter_value(f"geomesa.serving.{k}") for k in SERVING_COUNTERS}
+
+
 def count_estimates(ds, queries) -> list:
     return [ds.stats_query("gdelt", "Count()", q, estimate=True)[0].count for q, _ in queries]
 
@@ -1638,6 +1672,7 @@ def batch_path(torch, ds, measured, outs, seq_wall: float) -> dict:
     device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
 
     sched = ds.serve()
+    counted0 = serving_counts(sched.metrics)
     try:
         def client(k):
             futs = [sched.submit("gdelt", q) for q in filters[k * 8:(k + 1) * 8]]
@@ -1648,7 +1683,8 @@ def batch_path(torch, ds, measured, outs, seq_wall: float) -> dict:
             served = [o for outs_k in ex.map(client, range(8)) for o in outs_k]
         serve_s = time.perf_counter() - t0
     finally:
-        sched.close()
+        ds.close()
+    served_counts = {k: v - counted0[k] for k, v in serving_counts(sched.metrics).items()}
 
     tiles = busiest(measured, outs, 4)
     requests = [(q, (x0, y0, x1, y1)) for q, (x0, y0, x1, y1, _, _) in tiles]
@@ -1663,6 +1699,9 @@ def batch_path(torch, ds, measured, outs, seq_wall: float) -> dict:
 
     check_same_ids(many, outs, "query_many vs sequential query")
     check_same_ids(served, outs, "scheduler vs sequential query")
+    check(served_counts["submitted"] == len(served)
+          == served_counts["batched_queries"] + served_counts["coalesced"],
+          f"the registry counts every served query once: {served_counts}")
     for (q, env), grid in zip(requests, grids):
         ref = ds.density("gdelt", q, envelope=env, width=256, height=256)
         check(np.array_equal(grid, ref) and float(grid.sum()) > 0, f"density_many vs density: {q}")
@@ -1680,7 +1719,9 @@ def batch_path(torch, ds, measured, outs, seq_wall: float) -> dict:
         "query_many_phase_ms": phases, "query_many_traced_s": traced_s,
         "query_many_device_busy_share": device_ms / (traced_s * 1e3),
         "scheduler_wall_s": serve_s, "scheduler_queries_per_s": len(served) / serve_s,
-        "scheduler_batches": sched.batches, "scheduler_batched_queries": sched.batched_queries,
+        "scheduler_batches": served_counts["batches"],
+        "scheduler_batched_queries": served_counts["batched_queries"],
+        "scheduler_coalesced": served_counts["coalesced"],
         "density_many_s": density_s, "count_estimate_ms": count_s / len(counted) * 1e3,
         "count_estimates": estimates, "exact_counts": [len(o) for o in outs[:8]],
         "checked_query_many": len(many), "checked_scheduler": len(served),
@@ -1842,7 +1883,7 @@ def polygon_path(torch, ds, src, index: str, warm, measured, n_brute: int, n_set
             served = [o for outs_k in ex.map(client, range(8)) for o in outs_k]
         serve_s = time.perf_counter() - t0
     finally:
-        sched.close()
+        ds.close()
 
     settings = {}
     for label, name, value in (("device_residue", "RASTER_RESIDUE", "device"),
@@ -2094,7 +2135,7 @@ def xz2_path(torch, device) -> dict:
             served = [o for outs_k in ex.map(client, range(8)) for o in outs_k]
         serve_s = time.perf_counter() - t0
     finally:
-        sched.close()
+        ds.close()
     t0 = time.perf_counter()
     n_agg = check_table_aggregations(torch, ds, "bld", "xz2", busiest(measured, outs, 4))
     agg_s = time.perf_counter() - t0
@@ -2690,14 +2731,15 @@ def hints_path(torch, ds, src, measured, outs, main_lat, clock_phases) -> dict:
 
 
 def main_path(torch, device):
-    """Thirteen paths, each with its own launch and native call counts
+    """Fourteen paths, each with its own launch and native call counts
     (zeroed just before it runs, read just after): the single-query main
     path, the batch path, the polygon path and the query controls on the
     same store, the
     packed-time cell, the Z2 polygon cell, the two extent cells (XZ2,
     XZ3), the tiered store with its union queries, the mutated store, the
-    attribute-indexed store, the saved and loaded store, and the secure,
-    cached event store."""
+    attribute-indexed store, the saved and loaded store, the secure,
+    cached event store, and the served store behind the scheduler and the
+    ops plane."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -2798,7 +2840,7 @@ def main_path(torch, device):
     return (rec, batch, poly, hints, packed, z2, xz2_path(torch, device), xz3_path(torch, device),
             tiered_union_path(torch, device), mutation_path(torch, device),
             attribute_path(torch, device), persist_path(torch, device),
-            secure_cached_path(torch, device))
+            secure_cached_path(torch, device), served_path(torch, device))
 
 
 # -- the delta tier and union plans ----------------------------------------
@@ -4652,7 +4694,7 @@ def stats_mutation_checks(torch, base, rows, measured) -> dict:
         for th in threads:
             th.join()
     finally:
-        sched.close()
+        base.close()
         conf.PLAN_ESTIMATE_AUTO_ANALYZE.clear()
         conf.PLAN_ESTIMATE_MIN_COUNT.clear()
     trips = base.metrics.counter_value("geomesa.plan.estimate.analyze") - analyze0
@@ -4719,6 +4761,481 @@ def secure_cached_path(torch, device) -> dict:
     return rec
 
 
+# -- the serving tier and the ops plane ------------------------------------
+
+N_SERVED = 10_000_000
+N_SERVED_CLIENTS = 16  # 8 per tenant
+N_SERVED_REPEAT = 4  # each main query sent this many times in the fair mix
+N_SERVED_BRUTE = 16
+N_FLOOD_BRONZE = 200
+N_FLOOD_GOLD = 16
+N_DEADLINE = 16
+N_COALESCE = 8  # copies of each query staged in one window
+N_WINDOW_QUERIES = 9  # distinct queries in that window: more than 8 always fuse
+N_EPOCH_WRITE = 50_000
+N_SCRAPES = 50
+SERVED_QUEUE_MAX = 256
+# the result cache sized to the path's working set: the 64 main queries'
+# results (a few MB each at 10M rows) and the flood's, with room to spare
+SERVED_CACHE_BYTES = 1 << 30
+TENANTS = {"gold": (8.0, 64), "bronze": (1.0, 8)}  # weight, admission quota
+OPS_ROUTES = ("/metrics", "/health", "/stats", "/debug/slow", "/debug/trace", "/debug/vars",
+              "/debug/audit")
+SERVING_THREADS = ("geomesa-serving", "geomesa-ops", "geomesa-telemetry")
+
+
+def parse_prometheus(text: str) -> dict:
+    """A strict parser of the exposition subset the registry emits:
+    {family: (type, [(sample name, labels, value)])}; raises on a line
+    outside the grammar, a repeated family or a sample outside its
+    family."""
+    import re
+
+    families: dict = {}
+    current = None
+    line_re = re.compile(r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+                         r"(?:\{(?P<labels>[^}]*)\})? (?P<value>\S+)$")
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            _, _, fam, kind = line.split(" ")
+            check(fam not in families and kind in ("counter", "gauge", "summary", "histogram"),
+                  f"/metrics: one TYPE line per family: {line!r}")
+            families[fam] = (kind, [])
+            current = fam
+            continue
+        m = line_re.match(line)
+        check(m is not None, f"/metrics: a well-formed sample line: {line!r}")
+        labels = m.group("labels")
+        if labels:
+            for pair in labels.split(","):
+                check(re.fullmatch(r'[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"', pair) is not None,
+                      f"/metrics: a well-formed label: {pair!r}")
+        check(current is not None and m.group("name").startswith(current),
+              f"/metrics: the sample belongs to its family: {line!r}")
+        families[current][1].append((m.group("name"), labels, float(m.group("value"))))
+    return families
+
+
+def http_get(url: str):
+    """(status, body) of one GET; a non-2xx answer still returns its body."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, e.read().decode()
+
+
+def serving_threads() -> list:
+    import threading
+
+    return [t.name for t in threading.enumerate() if t.name in SERVING_THREADS and t.is_alive()]
+
+
+def queue_wait_ms(exp):
+    """The queue wait the scheduler wrote into one query's explain trail
+    (None for a query served at admission, which never queued)."""
+    for line in exp.lines:
+        if line.strip().startswith("serving: queue wait "):
+            return float(line.split("queue wait ", 1)[1].split("ms", 1)[0])
+    return None
+
+
+def pcts(values) -> dict:
+    v = np.asarray([x for x in values if x is not None], np.float64)
+    if not len(v):
+        return {"n": 0, "p50": None, "p99": None}
+    return {"n": int(len(v)), "p50": float(np.percentile(v, 50)),
+            "p99": float(np.percentile(v, 99))}
+
+
+def tenant_rows(tenants) -> dict:
+    return {r["tenant"]: r for r in tenants.report()["tenants"]}
+
+
+def tenant_delta(before: dict, after: dict) -> dict:
+    keys = ("submitted", "shed", "served", "cache_hits", "errors")
+    return {t: {k: after[t][k] - before.get(t, {}).get(k, 0) for k in keys} for t in after}
+
+
+def fair_mix(ds, sched, measured, seq_ids, brute_rows) -> dict:
+    """16 client threads (8 gold, 8 bronze) send each main query 4 times in
+    a seeded order, each client all its queries at once; every answer's
+    ids equal the sequential query's in order, and a seeded 16 the f64
+    brute force."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from geomesa_tpu_torch.planning.explain import Explainer
+
+    m = sched.metrics
+    order = np.random.default_rng(SEED + 90).permutation(
+        np.repeat(np.arange(len(measured)), N_SERVED_REPEAT))
+    per = len(order) // N_SERVED_CLIENTS
+    clients = [("gold" if c < N_SERVED_CLIENTS // 2 else "bronze", order[c * per:(c + 1) * per])
+               for c in range(N_SERVED_CLIENTS)]
+    c0, h0, t0_rows = serving_counts(m), m.counter_value("geomesa.cache.hit"), \
+        tenant_rows(sched.tenants)
+
+    def client(spec):
+        tenant, idx = spec
+        sent = []
+        for i in idx:
+            exp = Explainer()
+            sent.append((i, exp, time.perf_counter(),
+                         sched.submit("gdelt", measured[i][0], explain=exp, tenant=tenant)))
+        got = []
+        for i, exp, s, fut in sent:
+            out = fut.result(600)
+            got.append((tenant, int(i), out, time.perf_counter() - s, queue_wait_ms(exp)))
+        return got
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(N_SERVED_CLIENTS) as ex:
+        answers = [a for got in ex.map(client, clients) for a in got]
+    wall = time.perf_counter() - t0
+    c = {k: v - c0[k] for k, v in serving_counts(m).items()}
+    hits = m.counter_value("geomesa.cache.hit") - h0
+    per_tenant = tenant_delta(t0_rows, tenant_rows(sched.tenants))
+    for tenant, i, out, _, _ in answers:
+        check(np.array_equal(np.asarray(out.ids), seq_ids[i]),
+              f"fair mix ({tenant}): ids equal the sequential query's, in order: {measured[i][0]}")
+    brute_pick = np.random.default_rng(SEED + 95).choice(len(answers), N_SERVED_BRUTE,
+                                                         replace=False)
+    for k in brute_pick:
+        _, i, out, _, _ = answers[k]
+        check(np.array_equal(np.sort(np.asarray(out.ids, np.int64)), brute_rows(measured[i][1])),
+              f"fair mix: ids equal the f64 brute force: {measured[i][0]}")
+    n = len(answers)
+    check(n == len(order) and c["submitted"] == n and c["shed"] == 0, f"fair mix: {n} served, {c}")
+    check(c["coalesced"] > 0, f"fair mix: identical queries coalesced ({c})")
+    check(c["batched_queries"] + c["coalesced"] + hits == n,
+          f"fair mix: leaders {c['batched_queries']} + coalesced {c['coalesced']} + cache hits "
+          f"{hits} == {n}")
+    for t, row in per_tenant.items():
+        check(row["served"] + row["cache_hits"] == row["submitted"] == n // 2 and not row["shed"],
+              f"fair mix: every {t} submission served or answered from the cache: {row}")
+    return {
+        "queries": n, "wall_s": wall, "served_queries_per_s": n / wall, "counters": c,
+        "cache_hits": hits, "mean_batch": c["batched_queries"] / max(c["batches"], 1),
+        "coalesced_share": c["coalesced"] / n, "tenants": per_tenant,
+        "wall_ms": {t: pcts([a[3] * 1e3 for a in answers if a[0] == t]) for t in TENANTS},
+        "queue_wait_ms": {t: pcts([a[4] for a in answers if a[0] == t]) for t in TENANTS},
+        "checked_in_order": n, "checked_vs_brute_force": N_SERVED_BRUTE,
+    }
+
+
+def flood(sched, gold_qs, bronze_qs) -> dict:
+    """bronze sends 200 new queries at once without blocking while gold
+    sends 16 (blocking): bronze sheds at its own quota, gold sheds none."""
+    import threading
+
+    from geomesa_tpu_torch.serving import ServingRejected
+
+    r0 = tenant_rows(sched.tenants)
+    shed_msgs, served = [], {"gold": 0, "bronze": 0}
+    lock = threading.Lock()
+    jobs = [("bronze", bronze_qs[k::8], False) for k in range(8)] + \
+        [("gold", gold_qs[k::2], True) for k in range(2)]
+    barrier = threading.Barrier(len(jobs))
+
+    def client(tenant, qs, block):
+        barrier.wait()
+        futs = [sched.submit("gdelt", q, block=block, tenant=tenant) for q, _ in qs]
+        for f in futs:
+            try:
+                f.result(600)
+                with lock:
+                    served[tenant] += 1
+            except ServingRejected as e:
+                with lock:
+                    shed_msgs.append((tenant, str(e)))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=j) for j in jobs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    d = tenant_delta(r0, tenant_rows(sched.tenants))
+    check(d["gold"]["shed"] == 0 and served["gold"] == len(gold_qs), f"flood: gold sheds 0: {d}")
+    check(d["bronze"]["shed"] > 0 and all(t == "bronze" for t, _ in shed_msgs),
+          f"flood: bronze sheds: {d}")
+    check(all("admission quota full" in msg for _, msg in shed_msgs),
+          f"flood: bronze sheds at its tenant quota: {shed_msgs[:2]}")
+    for t, row in d.items():
+        check(row["served"] + row["cache_hits"] + row["shed"] == row["submitted"],
+              f"flood: {t} served + shed == submitted: {row}")
+    check(d["bronze"]["submitted"] == len(bronze_qs) and d["gold"]["submitted"] == len(gold_qs),
+          f"flood: every submission counted: {d}")
+    return {"wall_s": wall, "tenants": d, "shed_message": shed_msgs[0][1] if shed_msgs else None}
+
+
+def deadlines(ds, sched, qs) -> dict:
+    """Queries with a 1 us timeout hint are shed before dispatch."""
+    from geomesa_tpu_torch.planning.errors import QueryTimeout
+    from geomesa_tpu_torch.planning.hints import QueryHints
+
+    m = sched.metrics
+    s0 = m.counter_value("geomesa.serving.shed")
+    futs = [sched.submit("gdelt", q, hints=QueryHints(timeout=1e-6), tenant="gold")
+            for q, _ in qs]
+    timed_out = 0
+    for f in futs:
+        try:
+            f.result(600)
+        except QueryTimeout:
+            timed_out += 1
+    shed = m.counter_value("geomesa.serving.shed") - s0
+    check(timed_out == len(qs), f"deadlines: {timed_out} of {len(qs)} time out")
+    check(shed == len(qs), f"deadlines: geomesa.serving.shed counts all {len(qs)} ({shed})")
+    return {"queries": len(qs), "timed_out": timed_out, "shed": shed}
+
+
+def staged_checks(torch, ds, qs) -> dict:
+    """On unstarted schedulers over the same store: 8 copies each of 9 new
+    queries in one window scan once per distinct query (K2 slots plus
+    the K1 launches of members the table sends alone), not once per
+    copy; one query, a 50k-row write into its box and window, the query
+    again: two leaders, none coalesced, the second answer holds the new
+    rows."""
+    from geomesa_tpu_torch import FeatureCollection
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.planning.hints import QueryHints
+    from geomesa_tpu_torch.serving import QueryScheduler, ServingConfig
+
+    window_qs = [q for q, _ in qs[:N_WINDOW_QUERIES]]
+    qe, (x0, y0, x1, y1, lo, hi) = qs[N_WINDOW_QUERIES]
+    reg = MetricsRegistry()
+    sched = QueryScheduler(ds, ServingConfig(), metrics=reg)
+    futs = [sched.submit("gdelt", q) for _ in range(N_COALESCE) for q in window_qs]
+    before = read_launches()
+    with chunk_recorder() as members:
+        sched.start()
+        outs = [f.result(600) for f in futs]
+        sched.close()
+    window = {"counters": serving_counts(reg), "chunk_members": members,
+              "launches": launch_delta(before)}
+    n_w = len(window_qs)
+    check(window["counters"]["coalesced"] == n_w * (N_COALESCE - 1)
+          and window["counters"]["batched_queries"] == n_w,
+          f"window: {n_w * N_COALESCE} queries, {n_w} leaders: {window['counters']}")
+    check(sum(members) > 0 and sum(members) + window["launches"]["block_scan"] == n_w,
+          f"window: one scan per distinct query ({n_w}), not one per copy: K2 slots "
+          f"{members}, K1 launches {window['launches']['block_scan']}")
+    for q, out in zip(window_qs * N_COALESCE, outs):
+        ref = ds.query("gdelt", q, hints=QueryHints(cache="bypass"))
+        check(np.array_equal(np.asarray(out.ids), np.asarray(ref.ids)),
+              f"window: coalesced ids equal a sequential query's, in order: {q}")
+
+    reg = MetricsRegistry()
+    sched = QueryScheduler(ds, ServingConfig(), metrics=reg)
+    e0 = ds.planner.mutation_epoch
+    f1 = sched.submit("gdelt", qe)
+    r = np.random.default_rng(SEED + 96)
+    n0 = ds.row_count("gdelt")
+    new_ids = np.arange(n0, n0 + N_EPOCH_WRITE)
+    sft = ds.get_schema("gdelt")
+    t_w = time.perf_counter()
+    ds.write("gdelt", FeatureCollection.from_columns(sft, new_ids, {
+        "EventRootCode": root_codes(N_EPOCH_WRITE, SEED + 97),
+        "dtg": r.integers(lo, hi, N_EPOCH_WRITE),
+        "geom": (r.uniform(x0, x1, N_EPOCH_WRITE), r.uniform(y0, y1, N_EPOCH_WRITE))}),
+        check_ids=False)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t_w
+    check(ds.planner.mutation_epoch > e0, "epoch: the write moved the mutation epoch")
+    f2 = sched.submit("gdelt", qe)
+    sched.start()
+    r1, r2 = f1.result(600), f2.result(600)
+    sched.close()
+    c = serving_counts(reg)
+    check(c["batched_queries"] == 2 and c["coalesced"] == 0,
+          f"epoch: two leaders, none coalesced across the write: {c}")
+    got = set(np.asarray(r2.ids, np.int64).tolist())
+    check(set(new_ids.tolist()) <= got, "epoch: the second answer holds the written rows")
+    ref = ds.query("gdelt", qe, hints=QueryHints(cache="bypass"))
+    check(np.array_equal(np.asarray(r2.ids), np.asarray(ref.ids)),
+          "epoch: the second answer equals a sequential query after the write, in order")
+    return {"window": window, "epoch": {"counters": c, "write_s": write_s,
+                                        "first_hits": len(r1), "second_hits": len(r2)}}
+
+
+def ops_checks(ds, sched, port_url) -> dict:
+    """/metrics parses strictly with the registry's serving counters;
+    /health ready; /stats equal to stats_for; the debug routes answer
+    JSON; the p50 of 50 scrapes of each route; then a 1 us query
+    objective and one query turn /health degraded with slo.breach."""
+    from geomesa_tpu_torch.obs.slo import SloObjective
+
+    code, text = http_get(port_url + "/metrics")
+    fams = parse_prometheus(text)
+    check(code == 200, f"/metrics answers 200 ({code})")
+    counts = serving_counts(sched.metrics)
+    for k, v in counts.items():
+        fam = f"geomesa_serving_{k}"
+        check(fams.get(fam, ("counter", [(fam, None, 0.0)]))[1][0][2] == v,
+              f"/metrics {fam} equals the registry's {v}")
+    check(fams["geomesa_serving_queue_wait_seconds"][0] == "histogram",
+          "/metrics carries the queue-wait histogram")
+    statuses = []
+    for _ in range(2):  # the first evaluation reads the sheds since the monitor began
+        code, body = http_get(port_url + "/health")
+        statuses.append(json.loads(body))
+    check(statuses[-1]["status"] == "ready" and code == 200,
+          f"/health is ready once the earlier sheds are read: {statuses[-1]['reasons']}")
+    code, body = http_get(port_url + "/stats")
+    want = json.loads(json.dumps(ds.stats_for("gdelt").to_json(), default=str))
+    check(code == 200 and json.loads(body)["gdelt"] == want, "/stats equals stats_for")
+    for path in OPS_ROUTES[3:]:
+        code, body = http_get(port_url + path)
+        check(code == 200, f"{path} answers 200")
+        json.loads(body)
+    scrape_ms = {}
+    for path in OPS_ROUTES:
+        lat = []
+        for _ in range(N_SCRAPES):
+            s = time.perf_counter()
+            http_get(port_url + path)
+            lat.append((time.perf_counter() - s) * 1e3)
+        scrape_ms[path] = float(np.percentile(lat, 50))
+    http_get(port_url + "/health")  # the scrapes' own reading
+    ds.attach_slo([SloObjective("query_p99", "geomesa.query.scan", 0.99, 1e-6)])
+    ds.query("gdelt", "bbox(geom, 0, 0, 1, 1)")
+    code, body = http_get(port_url + "/health")
+    breach = json.loads(body)
+    check(code == 200 and breach["status"] == "degraded"
+          and {r["reason"] for r in breach["reasons"]} == {"slo.breach"},
+          f"/health degraded with slo.breach under a 1 us objective: {breach['reasons']}")
+    return {"scrape_p50_ms": scrape_ms,
+            "health": [h["status"] for h in statuses] + [breach["status"]],
+            "health_reasons": [[r["reason"] for r in h["reasons"]] for h in statuses]
+            + [[r["reason"] for r in breach["reasons"]]],
+            "metrics_families": len(fams)}
+
+
+def close_checks(ds, port) -> dict:
+    """DataStore.close: scheduler and ops socket closed, no serving or ops
+    thread alive, the port rebinds at once, the store still answers and
+    serve() returns a fresh scheduler; then close again."""
+    sched, ops = ds.scheduler, ds.ops
+    t0 = time.perf_counter()
+    ds.close()
+    close_s = time.perf_counter() - t0
+    check(sched.closed and ops.closed, "close: the scheduler and the ops server are closed")
+    left = serving_threads()
+    check(left == [], f"close: no serving or ops thread alive: {left}")
+    ops2 = ds.serve_ops(port=port)
+    check(ops2 is not ops and ops2.port == port, "close: serve_ops rebinds the same port at once")
+    check(http_get(ops2.url + "/health")[0] == 200, "close: the rebound ops plane answers")
+    check(len(ds.query("gdelt", "bbox(geom, -10, -10, 10, 10)")) > 0, "close: query still answers")
+    sched2 = ds.serve()
+    check(sched2 is not sched and not sched2.closed, "close: serve() returns a fresh scheduler")
+    ds.close()
+    ds.close()
+    check(sched2.closed and ops2.closed and serving_threads() == [],
+          "close: the second close leaves nothing running")
+    return {"close_s": close_s}
+
+
+def served_path(torch, device) -> dict:
+    """gdelt-z3-10M-served: 10M GDELT-shaped events on Z3 with
+    ``EventRootCode`` on a cached store behind the serving tier (queue
+    256; tenants gold weight 8 quota 64 and bronze weight 1 quota 8), an
+    SLO tracker and the ops plane: dashboard clients of two teams query
+    one shared event store while operators scrape it. The fair mix, the
+    cache peek, the flood, the deadline sheds, the staged window and
+    epoch checks, the ops plane and close, each with its launch counts.
+    Launch and native counts are zeroed before, read after."""
+    from geomesa_tpu_torch import conf
+    from geomesa_tpu_torch.audit import AuditWriter
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.planning.hints import QueryHints
+    from geomesa_tpu_torch.serving import ServingConfig, TenantRegistry
+
+    zero_launches()
+    t_path = time.perf_counter()
+    conf.CACHE_MAX_BYTES.set(SERVED_CACHE_BYTES)
+    try:
+        ds, src, ingest_s = build_store(torch, device, N_SERVED, seed=SEED + 100,
+                                        with_root_code=True, cache=True,
+                                        metrics=MetricsRegistry(), audit=AuditWriter())
+    finally:
+        conf.CACHE_MAX_BYTES.clear()
+    measured = query_set(SEED + 2, N_MEASURED)
+    bypass = QueryHints(cache="bypass")
+    steps, sections = {}, {}
+    before = read_launches()
+    seq = [ds.query("gdelt", q, hints=bypass) for q, _ in measured]
+    seq_ids = [np.asarray(o.ids) for o in seq]
+    steps["sequential"] = launch_delta(before)
+    check(len(ds.cache.result) == 0, "the sequential reference bypassed the cache")
+
+    sched = ds.serve(ServingConfig(queue_max=SERVED_QUEUE_MAX))
+    tenants = TenantRegistry(metrics=ds.metrics)
+    for t, (w, quota) in TENANTS.items():
+        tenants.configure(t, weight=w, queue_max=quota)
+    sched.tenants = tenants
+    ds.attach_slo()
+    ops = ds.serve_ops(port=0)
+    check(ops.host == "127.0.0.1", "the ops plane binds loopback")
+
+    def step(name, fn, *a):
+        b = read_launches()
+        s = time.perf_counter()
+        out = fn(*a)
+        sections[name] = time.perf_counter() - s
+        steps[name] = launch_delta(b)
+        return out
+
+    mix = step("fair_mix", fair_mix, ds, sched, measured, seq_ids,
+               lambda box: brute_ids(src, box))
+    check(steps["fair_mix"]["block_scan_multi"] > 0, "fair mix: the fused dispatches launch K2")
+
+    m = ds.metrics
+    h0, c0 = m.counter_value("geomesa.cache.hit"), serving_counts(m)
+
+    def cached_pass():
+        outs = [sched.query("gdelt", q, wait=600) for q, _ in measured]
+        for (q, _), o, ref in zip(measured, outs, seq_ids):
+            check(np.array_equal(np.asarray(o.ids), ref), f"cache peek: ids in order: {q}")
+        return len(outs)
+
+    step("cache_peek", cached_pass)
+    peek = {"hits": m.counter_value("geomesa.cache.hit") - h0,
+            "counters": {k: v - c0[k] for k, v in serving_counts(m).items()}}
+    check(peek["hits"] == len(measured), f"cache peek: {len(measured)} result hits ({peek})")
+    check(steps["cache_peek"]["block_scan"] == 0 and steps["cache_peek"]["block_scan_multi"] == 0,
+          f"cache peek: no K1 and no K2 launch: {steps['cache_peek']}")
+    check(peek["counters"]["batched_queries"] == 0 and peek["counters"]["batches"] == 0,
+          f"cache peek: nothing queued: {peek['counters']}")
+
+    flooded = step("flood", flood, sched, query_set(SEED + 92, N_FLOOD_GOLD),
+                   query_set(SEED + 91, N_FLOOD_BRONZE))
+    dl = step("deadlines", deadlines, ds, sched, query_set(SEED + 93, N_DEADLINE))
+    staged = step("staged", staged_checks, torch, ds,
+                  query_set(SEED + 94, N_WINDOW_QUERIES + 1))
+    opsrec = step("ops", ops_checks, ds, sched, ops.url)
+    closed = step("close", close_checks, ds, ops.port)
+    launches = read_launches()
+    rec = {
+        "phase": "served_path", "cell": "gdelt-z3-10M-served", "launches": launches,
+        "native": read_native(), "n_points": N_SERVED, "ingest_s": ingest_s,
+        "n_queries": len(measured), "fair_mix": mix, "cache_peek": peek, "flood": flooded,
+        "deadlines": dl, "staged": staged, "ops": opsrec, "close": closed,
+        "tenant_report": tenants.report(), "slo": ds.slo_report(),
+        "step_launches": steps, "section_s": sections, "path_s": time.perf_counter() - t_path,
+    }
+    del ds, src, seq
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- entry point -------------------------------------------------------------
 
 
@@ -4748,6 +5265,7 @@ def check_native(records) -> None:
         "gdelt-attr-10M": point,
         "gdelt-z3-10M-persist": point,
         "gdelt-z3-10M-secure-cached": point,
+        "gdelt-z3-10M-served": point,
     }
     for cell, names in expected_native.items():
         for name in names:
@@ -4815,6 +5333,7 @@ def main() -> int:
         "gdelt-attr-10M": ("block_scan", "block_scan_multi"),
         "gdelt-z3-10M-persist": tuple(k.name for k in KERNELS),
         "gdelt-z3-10M-secure-cached": tuple(k.name for k in KERNELS),
+        "gdelt-z3-10M-served": ("block_scan", "block_scan_multi"),
     }
     for cell, names in expected.items():
         for name in names:

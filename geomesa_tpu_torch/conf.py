@@ -154,6 +154,27 @@ SERVING_BATCH_MAX = SystemProperty(
 )
 
 
+# -- multi-tenant fairness (serving.tenancy) -------------------------------
+
+TENANT_QUEUE_MAX = SystemProperty(
+    "geomesa.tenant.queue.max", 256, int,
+    "per-tenant admission quota: one tenant's queued queries past this "
+    "shed while other tenants' queues stay open — the bound that keeps a "
+    "flooding tenant from filling the shared queue",
+)
+TENANT_DEFAULT_WEIGHT = SystemProperty(
+    "geomesa.tenant.default.weight", 1.0, float,
+    "deficit-round-robin weight for tenants without an explicit "
+    "TenantRegistry.configure() entry: each drained micro-batch takes "
+    "from backlogged tenants in proportion to weight",
+)
+TENANT_SLO_P99_MS = SystemProperty(
+    "geomesa.tenant.slo.p99.ms", 500.0, float,
+    "per-tenant SLO objective: served-query wall p99 threshold for each "
+    "tenant's own SloTracker window (0 disables per-tenant objectives)",
+)
+
+
 # -- observability: tracing and the slow-query log (obs.trace) ------------
 
 OBS_TRACE_SAMPLE = SystemProperty(
@@ -179,6 +200,72 @@ OBS_SLOW_MS = SystemProperty(
 OBS_SLOW_MAX = SystemProperty(
     "geomesa.obs.slow.max", 64, int,
     "slow-query ring capacity (oldest captures evicted first)",
+)
+
+
+# -- SLO tracking (obs.slo) -------------------------------------------------
+
+OBS_SLO_WINDOW_S = SystemProperty(
+    "geomesa.obs.slo.window.s", 300.0, float,
+    "sliding evaluation window for SLO objectives (DataStore.slo_report)",
+)
+OBS_SLO_SLICES = SystemProperty(
+    "geomesa.obs.slo.slices", 30, int,
+    "sub-slices per SLO window: observations rotate through this many "
+    "interval sub-histograms, so the window slides with bounded memory "
+    "and at most window/slices staleness",
+)
+OBS_SLO_QUERY_P99_MS = SystemProperty(
+    "geomesa.obs.slo.query.p99.ms", 250.0, float,
+    "default query-latency objective: geomesa.query.scan p99 over the "
+    "sliding window must stay at or under this (0 drops the objective)",
+)
+OBS_SLO_FOLD_P99_MS = SystemProperty(
+    "geomesa.obs.slo.fold.p99.ms", 150.0, float,
+    "default fold-pause objective: geomesa.stream.fold.slice p99 must "
+    "stay at or under this (0 drops it)",
+)
+OBS_SLO_WAL_P99_MS = SystemProperty(
+    "geomesa.obs.slo.wal.p99.ms", 50.0, float,
+    "default durability objective: geomesa.stream.wal.fsync p99 must "
+    "stay at or under this (0 drops it)",
+)
+OBS_SLO_STANDING_P99_MS = SystemProperty(
+    "geomesa.obs.slo.standing.p99.ms", 250.0, float,
+    "default standing-query alert objective: geomesa.standing.latency "
+    "p99 must stay at or under this (0 drops it)",
+)
+OBS_SLO_REPLICA_STALENESS_P99_MS = SystemProperty(
+    "geomesa.obs.slo.replica.staleness.p99.ms", 2000.0, float,
+    "default replication objective: geomesa.replica.staleness.ms p99 "
+    "must stay at or under this (0 drops it)",
+)
+OBS_SLO_TILES_P99_MS = SystemProperty(
+    "geomesa.obs.slo.tiles.p99.ms", 100.0, float,
+    "default tile-serving objective: geomesa.tiles.fetch p99 must stay "
+    "at or under this (0 drops it)",
+)
+
+
+# -- the ops plane: /health + /metrics endpoints, telemetry history
+# (obs.ops) -----------------------------------------------------------------
+
+OBS_OPS_HOST = SystemProperty(
+    "geomesa.obs.ops.host", "127.0.0.1", str,
+    "bind address of the ops endpoint (DataStore.serve_ops): loopback "
+    "by default — exposing /metrics and /health beyond the host is an "
+    "explicit operator decision",
+)
+OBS_OPS_SAMPLE_MS = SystemProperty(
+    "geomesa.obs.ops.sample.ms", 1000.0, float,
+    "TelemetryRecorder sampling cadence: every tick snapshots the "
+    "metrics registry's gauges, counters and histogram p50/p99 into "
+    "bounded time-series rings (/debug/vars)",
+)
+OBS_OPS_HISTORY = SystemProperty(
+    "geomesa.obs.ops.history", 512, int,
+    "points retained per telemetry ring (oldest evicted first): at the "
+    "default 1 Hz cadence, ~8.5 minutes of history per series",
 )
 
 

@@ -27,7 +27,10 @@ for the host path, since the scan mask cannot read a label.
 ``DataStore(cache=True)`` attaches the result and tile cache tier
 (cache): every committed mutation bumps the generations over its key
 range, so a cached answer is served only while nothing it covers has
-changed.
+changed. ``serve()`` attaches the serving scheduler, ``serve_ops()`` the
+ops plane (``/metrics``, ``/health``), ``attach_slo()`` an SLO tracker
+(``slo_report``); ``close()`` stops the first two, and the store stays
+queryable.
 
 Point schemas get a Z3 index (when a time attribute exists) and a Z2
 index; extent schemas (polygons, lines, multi-geometries) an XZ3 and an
@@ -160,6 +163,13 @@ class DataStore:
     # publish seconds]}; None until a fold runs
     last_fold_report = None
 
+    # the attached QueryScheduler (serve()), OpsServer (serve_ops()) and
+    # SloTracker (attach_slo()), or None; class-level defaults beside the
+    # instance assignments in __init__
+    scheduler = None
+    ops = None
+    slo = None
+
     # probe rows per searchsorted call in _id_find: numpy's string
     # searchsorted holds the GIL for the whole call, so slicing bounds
     # each hold for concurrent readers
@@ -263,8 +273,11 @@ class DataStore:
         # per-phase timing of the scan path (timing.PhaseClock), or the
         # clock that records nothing
         self.clock = NULL_CLOCK
-        # the serving tier (serve())
+        # the serving tier (serve()), the ops plane (serve_ops()) and the
+        # SLO tracker (attach_slo())
         self.scheduler = None
+        self.ops = None
+        self.slo = None
 
     def attach_cache(self, cache) -> None:
         """Install (or replace) the cache tier: ``True`` or a CacheConfig
@@ -1345,6 +1358,10 @@ class DataStore:
                 # a scanned query feeds the tile tier's cost gate (hits
                 # measure the cache, not the scan being replaced)
                 self.cache.tiles.note_scan(plan.type_name, scan_s)
+            if plan.queue_wait_s:
+                # serving-tier attribution: the time queued behind the
+                # micro-batch window, apart from the scan time
+                self.metrics.observe("geomesa.serving.queue_wait", plan.queue_wait_s)
             if plan.cache_status is not None:
                 # cache overhead, apart from the scan time
                 self.metrics.timer_update("geomesa.query.cache_probe", plan.cache_probe_s)
@@ -1388,20 +1405,85 @@ class DataStore:
     def serve(self, config=None):
         """Attach (or return) the micro-batch serving tier: concurrent
         callers ``submit()`` through the returned, started QueryScheduler,
-        and compatible index scans coalesce into fused launches.
-        ``config``: None builds a ServingConfig from the conf.py knobs; a
-        ServingConfig is used as given. Returns the attached scheduler
-        while it is open; a closed one is replaced. Thread-safe: the
-        write lock keeps concurrent first callers from starting two
-        schedulers."""
-        from geomesa_tpu_torch.serving import QueryScheduler
+        and compatible index scans coalesce into fused launches. The
+        scheduler counts into this store's registry (or the process-global
+        one). ``config``: None or True builds a ServingConfig from the
+        conf.py knobs; a ServingConfig is used as given. Returns the
+        attached scheduler while it is open; a closed one is replaced.
+        Thread-safe: the write lock keeps concurrent first callers from
+        starting two schedulers. A TenantRegistry attaches as
+        ``serve().tenants``."""
+        from geomesa_tpu_torch.serving import QueryScheduler, ServingConfig
 
         with self._write_lock:
             sched = self.scheduler
             if sched is not None and not sched.closed:
                 return sched
+            if config is None or config is True:
+                config = ServingConfig()
             self.scheduler = QueryScheduler(self, config).start()
             return self.scheduler
+
+    def serve_ops(self, port: int = 0, host: "str | None" = None):
+        """Attach (or return) the ops plane: a threaded HTTP endpoint
+        serving ``/metrics``, the composite ``/health`` verdict, ``/stats``
+        and the debug surfaces, with a TelemetryRecorder writing bounded
+        history rings. ``port=0`` binds an ephemeral port (read it back
+        from ``ds.ops.port``); ``host`` defaults to the
+        ``geomesa.obs.ops.host`` knob (loopback). Returns the attached
+        server while it is open; a closed one is replaced."""
+        from geomesa_tpu_torch.obs.ops import OpsServer
+
+        with self._write_lock:
+            ops = self.ops
+            if ops is not None and not ops.closed:
+                return ops
+            self.ops = OpsServer(self, host=host, port=port).start()
+            return self.ops
+
+    def close(self) -> None:
+        """Release the attached background services: the serving scheduler
+        (drained, its dispatcher joined) and the ops endpoint (socket
+        closed, serve and telemetry threads joined, bounded). Idempotent;
+        the store itself stays queryable, and serve() / serve_ops()
+        attach fresh ones."""
+        sched = self.scheduler
+        if sched is not None:
+            sched.close()
+        ops = self.ops
+        if ops is not None:
+            ops.close()
+
+    def attach_slo(self, objectives=None):
+        """Attach an SLO tracker: declarative latency objectives evaluated
+        over sliding windows. ``objectives`` is a sequence of
+        obs.slo.SloObjective (default: the knob-configured
+        ``default_objectives()``) or an already-built SloTracker. A store
+        without a metrics registry gets one: the tracker subscribes to the
+        registry's histogram observations. Replacing this store's tracker
+        detaches the old one from the registry first. Returns the
+        tracker."""
+        from geomesa_tpu_torch.metrics import MetricsRegistry
+        from geomesa_tpu_torch.obs.slo import SloTracker
+
+        if self.metrics is None:
+            self.metrics = MetricsRegistry()
+        tracker = objectives if isinstance(objectives, SloTracker) else SloTracker(objectives)
+        # without the detach every re-attach would chain another fan-out
+        # layer onto the observer (attach fans out only for trackers it
+        # does not know: other stores sharing the registry)
+        if self.slo is not None and getattr(self.metrics, "observer", None) == self.slo.observe:
+            self.metrics.observer = None
+        self.slo = tracker.attach(self.metrics)
+        return self.slo
+
+    def slo_report(self) -> dict:
+        """The attached SLO tracker's report — the payload ``/health``
+        carries (status, per-objective windowed quantiles, burn rates). An
+        unattached store reports ok with no objectives."""
+        if self.slo is None:
+            return {"status": "ok", "window_s": 0.0, "objectives": []}
+        return self.slo.report()
 
     def count(self, type_name: str, f: "Filter | str" = INCLUDE) -> int:
         """Exact hit count (scan + refine; a polygon filter with a raster

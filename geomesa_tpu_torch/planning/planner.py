@@ -98,6 +98,10 @@ class QueryPlan:
     # the scan time
     cache_status: Optional[str] = None
     cache_probe_s: float = 0.0
+    # serving-tier attribution: the wall-clock seconds this plan waited
+    # behind the scheduler's micro-batch window before its fused dispatch
+    # (the geomesa.serving.queue_wait histogram), apart from scan time
+    queue_wait_s: float = 0.0
     # estimate accountability: the stats-sketch row estimate resolved at
     # plan time (None = no sketch covered the filter, or
     # geomesa.plan.estimate.enabled off) and the rows the executed scan

@@ -19,7 +19,14 @@ graphs are dumped into ``tmp_path``. A second workload on a cached store
 (result hits, tile compositions, single-flight threads, a delete and a
 modify under the write lock, a fold, ``serve()``) witnesses the cache
 tier's three locks and the estimate accounting's lock under the JAX
-package's names, with the same edges and blocking events.
+package's names, with the same edges and blocking events. A third
+workload drives the serving tier and the ops plane: tenant-tagged
+scheduler traffic on a cached store with an SLO tracker (misses through
+the dispatcher, hits served at admission, a staged flood shed at its
+tenant quota), then ``/metrics``, ``/health``, ``/stats`` and
+``/debug/vars`` scrapes and ``DataStore.close``; the tenant registry's,
+the SLO trackers' and the telemetry recorder's locks are witnessed, and
+the edges and blocking events equal the JAX package's.
 """
 
 import json
@@ -262,7 +269,7 @@ def _workload(P):
     sched = ds.serve()
     futs = [sched.submit("t", q) for q in QUERIES * 2]
     answers += [np.asarray(f.result(timeout=60).ids).tolist() for f in futs]
-    sched.close()
+    ds.close()
     snap = P.lw.REPORT.snapshot()
     cycle = P.lw.REPORT.cycle()
     P.lw.disable()
@@ -331,7 +338,7 @@ def _cached_workload(P):
     sched = ds.serve()
     futs = [sched.submit("t", q) for q in QUERIES]
     answers += [np.asarray(f.result(timeout=60).ids).tolist() for f in futs]
-    sched.close()
+    ds.close()
     answers.append(ds.estimate_count("t", QUERIES[1]))
     snap = P.lw.REPORT.snapshot()
     cycle = P.lw.REPORT.cycle()
@@ -355,3 +362,83 @@ def test_cached_workload_edges_equal_the_jax_package():
     # reaches the generation tracker's
     assert ("DataStore._write_lock", "EstimateAccuracy._lock") in tsnap["edges"]
     assert ("ResultCache._lock", "GenerationTracker._lock") in tsnap["edges"]
+
+
+SERVING_LOCKS = {"QueryScheduler._cond", "TenantRegistry._lock", "SloTracker._lock",
+                 "TelemetryRecorder._lock", "ResultCache._lock", "MetricsRegistry._lock"}
+
+
+def _serving_workload(P):
+    """Arm, build and drive the serving tier and the ops plane on a cached
+    store; return the witness snapshot, the cycle and the answers."""
+    import urllib.request
+
+    from importlib import import_module
+
+    serving = import_module(P.pkg.__name__ + ".serving")
+    P.lw.enable()
+    reg = P.metrics.MetricsRegistry()
+    rng = np.random.default_rng(23)
+    n = 2_000
+    sft = P.pkg.FeatureType.from_spec("t", SPEC)
+    ds = P.pkg.DataStore(tile=1024, metrics=reg, cache=True, **P.kw)
+    ds.create_schema(sft)
+    ds.write("t", P.pkg.FeatureCollection.from_columns(sft, np.arange(n), {
+        "name": np.array(["a", "b", "c"])[rng.integers(0, 3, n)],
+        "age": rng.integers(0, 50, n).astype(np.int32),
+        "dtg": T0 + rng.integers(0, 10 * DAY, n),
+        "geom": (rng.uniform(-50, 50, n), rng.uniform(-50, 50, n))}))
+    ds.attach_slo()
+    tenants = serving.TenantRegistry(metrics=reg)
+    tenants.configure("gold", weight=8.0)
+    tenants.configure("bronze", weight=1.0, queue_max=2)
+    sched = ds.serve()
+    sched.tenants = tenants
+    answers = []
+    for _ in range(2):  # misses through the dispatcher, then hits at admission
+        for q in QUERIES:
+            answers.append(np.asarray(sched.submit("t", q, tenant="gold").result(60).ids).tolist())
+    staged = serving.QueryScheduler(ds, serving.ServingConfig(queue_max=16), metrics=reg,
+                                    tenants=tenants)
+    boxes = [f"bbox(geom, {k}, -10, {k + 20}, 10)" for k in range(4)]
+    futs = [staged.submit("t", b, block=False, tenant="bronze") for b in boxes]
+    futs += [staged.submit("t", b, block=False, tenant="gold") for b in boxes[:2]]
+    staged.start()
+    for f in futs:
+        try:
+            answers.append(np.asarray(f.result(60).ids).tolist())
+        except serving.ServingRejected as e:
+            answers.append(str(e))
+    staged.close()
+    ops = ds.serve_ops()
+    for path in ("/metrics", "/health", "/stats", "/debug/vars"):
+        with urllib.request.urlopen(ops.url + path, timeout=30) as r:
+            answers.append((path, r.status))
+    ops.recorder.sample()
+    answers.append(tenants.report()["tenants"][0]["shed"])
+    ds.close()
+    snap = P.lw.REPORT.snapshot()
+    cycle = P.lw.REPORT.cycle()
+    P.lw.disable()
+    return snap, cycle, answers
+
+
+def test_serving_and_ops_workload_edges_equal_the_jax_package():
+    """Tenant-tagged scheduler traffic, cache hits at admission, a quota
+    shed and ops scrapes: the same edges and blocking events as the JAX
+    package's, acyclic, with the serving tier's and ops plane's locks
+    witnessed under the JAX package's names; no lock nests under the
+    scheduler's condition or the tenant registry's lock."""
+    (jsnap, jcyc, jans), (tsnap, tcyc, tans) = (_serving_workload(P) for P in BOTH)
+    assert tans == jans
+    assert jcyc is None and tcyc is None
+    assert SERVING_LOCKS <= set(tsnap["seen"]) and SERVING_LOCKS <= set(jsnap["seen"])
+    assert tsnap["edges"] == jsnap["edges"]
+    assert tsnap["blocking"] == jsnap["blocking"]
+    assert set(tsnap["seen"]) <= set(jsnap["seen"])
+    assert tsnap["aliased"] == jsnap["aliased"]
+    outers = {a for a, _ in tsnap["edges"]}
+    assert "TenantRegistry._lock" not in outers and "SloTracker._lock" not in outers
+    assert "TelemetryRecorder._lock" not in outers
+    assert not any(b in ("TenantRegistry._lock", "SloTracker._lock")
+                   for a, b in tsnap["edges"] if a == "QueryScheduler._cond")

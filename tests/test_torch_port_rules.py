@@ -74,7 +74,8 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
                  "planning.guards", "io.converters", "sql.functions", "fault",
                  "lockwitness", "storage.metadata", "storage.adapter", "storage.persist",
                  "stats.store", "obs.accuracy", "security", "views", "cache",
-                 "cache.fingerprint", "cache.generations", "cache.result", "cache.tiles"):
+                 "cache.fingerprint", "cache.generations", "cache.result", "cache.tiles",
+                 "serving.tenancy", "obs.slo", "obs.ops"):
         assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
@@ -396,7 +397,14 @@ def test_every_port_knob_is_a_jax_knob_with_its_default():
                  "geomesa.cache.result.max.bytes", "geomesa.cache.ttl",
                  "geomesa.cache.ttl.jitter", "geomesa.cache.min.cost",
                  "geomesa.cache.tile.bits", "geomesa.cache.tile.max.entries",
-                 "geomesa.cache.tile.max.per.query"):
+                 "geomesa.cache.tile.max.per.query", "geomesa.tenant.queue.max",
+                 "geomesa.tenant.default.weight", "geomesa.tenant.slo.p99.ms",
+                 "geomesa.obs.slo.window.s", "geomesa.obs.slo.slices",
+                 "geomesa.obs.slo.query.p99.ms", "geomesa.obs.slo.fold.p99.ms",
+                 "geomesa.obs.slo.wal.p99.ms", "geomesa.obs.slo.standing.p99.ms",
+                 "geomesa.obs.slo.replica.staleness.p99.ms", "geomesa.obs.slo.tiles.p99.ms",
+                 "geomesa.obs.ops.host", "geomesa.obs.ops.sample.ms",
+                 "geomesa.obs.ops.history"):
         assert name in port, name
 
 
@@ -432,6 +440,27 @@ def test_persistence_modules_import_no_jax_and_nothing_of_geomesa_tpu(module):
 def test_stats_security_and_cache_modules_import_no_jax(module):
     """The statistics, visibility, view and cache modules, each on its own
     in a fresh interpreter: neither jax nor anything of geomesa_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE, f"geomesa_tpu_torch.{module}"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    path = os.path.join(ROOT, "geomesa_tpu_torch", *module.split("."))
+    src = open(path + ".py" if os.path.exists(path + ".py") else
+               os.path.join(path, "__init__.py")).read()
+    assert "import jax" not in src and "from geomesa_tpu." not in src
+    assert "from geomesa_tpu import" not in src
+
+
+@pytest.mark.parametrize("module", ["serving.scheduler", "serving.tenancy", "obs.slo",
+                                    "obs.ops", "obs"])
+def test_serving_tier_and_ops_modules_import_no_jax(module):
+    """The serving tier, the SLO tracker and the ops plane, each on its own
+    in a fresh interpreter: neither jax nor anything of geomesa_tpu (the
+    ops plane's HTTP server is the standard library's)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run(

@@ -4,7 +4,10 @@ On a port ``DataStore(device="cpu")``: threaded submissions equal
 sequential queries per plan kind (fused index scans, a full-table host
 scan, an empty result, INCLUDE); a full queue sheds ``block=False``
 callers with ServingRejected; ``geomesa.serving.batch.max`` caps the
-batch; ``close`` drains what is queued. Equality is exact (sorted ids).
+batch; ``close`` drains what is queued. The scheduler's counters are read
+from the metrics registry it counts into (leaders in
+``batched_queries``, identical queries of one window in ``coalesced``).
+Equality is exact (sorted ids).
 """
 
 import sys
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType, conf
+from geomesa_tpu_torch.metrics import MetricsRegistry
 from geomesa_tpu_torch.serving import QueryScheduler, ServingConfig, ServingRejected
 
 # the suite runs in several test processes side by side: one intra-op
@@ -28,7 +32,7 @@ DAY = 86_400_000
 @pytest.fixture(scope="module")
 def store():
     sft = FeatureType.from_spec("ev", "kind:String,dtg:Date,*geom:Point:srid=4326")
-    ds = DataStore(device="cpu", tile=4096)
+    ds = DataStore(device="cpu", tile=4096, metrics=MetricsRegistry())
     ds.create_schema(sft)
     rng = np.random.default_rng(5)
     n = 30_000
@@ -59,9 +63,18 @@ def _ids(fc) -> np.ndarray:
     return np.sort(np.asarray(fc.ids, np.int64))
 
 
+SERVING = ("submitted", "shed", "coalesced", "batches", "batched_queries")
+
+
+def _counts(reg) -> dict:
+    return {k: reg.counter_value(f"geomesa.serving.{k}") for k in SERVING}
+
+
 def test_scheduler_threaded_equals_sequential(store):
     seq = [store.query("ev", q) for q in QUERIES]
+    c0 = _counts(store.metrics)
     sched = store.serve()
+    assert sched.metrics is store.metrics
     assert store.serve() is sched  # one scheduler while it is open
     try:
         def worker(_):
@@ -73,22 +86,25 @@ def test_scheduler_threaded_equals_sequential(store):
     finally:
         sched.close()
     assert sched.closed and store.serve() is not sched
-    store.scheduler.close()
+    store.close()
+    assert store.scheduler.closed
     for outs in all_outs:
         for a, b in zip(seq, outs):
             assert np.array_equal(_ids(a), _ids(b))
     assert sum(len(a) for a in seq) > 0
-    assert sched.submitted == sched.batched_queries == 4 * len(QUERIES)
-    assert 1 <= sched.batches <= 4 * len(QUERIES)
+    c = {k: v - c0[k] for k, v in _counts(store.metrics).items()}
+    assert c["submitted"] == c["batched_queries"] + c["coalesced"] == 4 * len(QUERIES)
+    assert 1 <= c["batches"] <= 4 * len(QUERIES) and c["shed"] == 0
 
 
 def test_full_queue_sheds_non_blocking_callers(store):
-    sched = QueryScheduler(store, ServingConfig(queue_max=2))  # not started
+    reg = MetricsRegistry()
+    sched = QueryScheduler(store, ServingConfig(queue_max=2), metrics=reg)  # not started
     queued = [sched.submit("ev", q) for q in QUERIES[:2]]
     shed = sched.submit("ev", QUERIES[2], block=False)
     with pytest.raises(ServingRejected):
         shed.result(0)
-    assert sched.shed == 1 and sched.queue_depth == 2
+    assert _counts(reg)["shed"] == 1 and sched.queue_depth == 2
     sched.start()
     sched.close()
     for q, f in zip(QUERIES, queued):
@@ -98,7 +114,8 @@ def test_full_queue_sheds_non_blocking_callers(store):
 def test_batch_max_caps_the_batch(store):
     conf.SERVING_BATCH_MAX.set(3)
     try:
-        sched = QueryScheduler(store)
+        reg = MetricsRegistry()
+        sched = QueryScheduler(store, metrics=reg)
         assert sched.conf.batch_max == 3
         futs = [sched.submit("ev", q) for q in QUERIES]
         sched.start()
@@ -106,7 +123,9 @@ def test_batch_max_caps_the_batch(store):
         sched.close()
     finally:
         conf.SERVING_BATCH_MAX.clear()
-    assert sched.batches == 3 and sched.batched_queries == len(QUERIES)  # 3 + 3 + 1
+    c = _counts(reg)
+    assert c["batches"] == 3 and c["batched_queries"] == len(QUERIES)  # 3 + 3 + 1
+    assert c["coalesced"] == 0
     for q, out in zip(QUERIES, outs):
         assert np.array_equal(_ids(out), _ids(store.query("ev", q)))
 
@@ -144,11 +163,12 @@ def test_window_adapts_to_load(store):
 
 def test_counters_survive_many_racing_submitters(store):
     """More threads than cores with a short switch interval: a lost
-    update of ``submitted`` or ``batched_queries`` would break the
-    totals."""
+    update of ``submitted``, ``batched_queries`` or ``coalesced`` would
+    break the totals."""
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
-    sched = QueryScheduler(store, ServingConfig(window_ms=1.0)).start()
+    reg = MetricsRegistry()
+    sched = QueryScheduler(store, ServingConfig(window_ms=1.0), metrics=reg).start()
     try:
         def worker(k):
             return [sched.submit("ev", QUERIES[(k + i) % 4]) for i in range(2)]
@@ -161,5 +181,6 @@ def test_counters_survive_many_racing_submitters(store):
         sched.close(timeout=120)
         sys.setswitchinterval(old)
     assert not sched._thread.is_alive()
-    assert sched.submitted == sched.batched_queries == threads * 2 == len(outs)
+    c = _counts(reg)
+    assert c["submitted"] == c["batched_queries"] + c["coalesced"] == threads * 2 == len(outs)
     assert threading.active_count() < 50
