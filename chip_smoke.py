@@ -145,8 +145,9 @@ Phases, each printing one JSON line:
    and upload only the slice's rows; on the final store ``query_many``
    of 16, 4 count estimates, densities and bounds against the plain
    versions, and ``warmup()``;
-13. gdelt-attr-10M: 10,000,000 GDELT-shaped points with two string
-   attribute indexes (``EventCode``: 300 CAMEO-shaped codes of 2-4
+13. gdelt-attr-10M: 5,000,000 GDELT-shaped points (the cell's 10M, cut
+   for the script's wall; ``reduced`` says so) with two string attribute
+   indexes (``EventCode``: 300 CAMEO-shaped codes of 2-4
    digits; ``Actor1Name``: 2,000 upper-case names of 3-40 characters,
    many sharing an 8-byte prefix; both Zipf-Mandelbrot skewed) beside Z3
    and Z2, all four tables on the card; 16 code equalities, 8 name
@@ -204,7 +205,9 @@ Phases, each printing one JSON line:
    ``DataStore(cache=True)`` runs the 64 queries cold then warm (64
    result hits, no K1 launch, ids identical), 32 panned dashboard boxes
    through ``count`` and exact ``bounds`` twice (equal to the brute
-   force; the second pass reuses tiles), then a ``fold_upsert`` of 10k
+   force; the second pass reuses tiles; the cache section runs on the
+   path's first 2,000,000 rows, held against an uncached store of them
+   and the brute force), then a ``fold_upsert`` of 10k
    rows in one box, a 50k ``write`` in another and a ``delete_features``:
    after each, every query equals a ``cache="bypass"`` query in order and
    the brute force, and the entries away from the mutated box stay hits
@@ -235,16 +238,38 @@ Phases, each printing one JSON line:
    1 us objective), ``/stats`` equal to ``stats_for``, the debug routes
    answer JSON, the p50 of 50 scrapes of each route; ``close()`` leaves no
    serving or ops thread, the ops port rebinds at once, the store still
-   answers and ``serve()`` gives a fresh scheduler.
+   answers and ``serve()`` gives a fresh scheduler;
+17. moving-z3-3M-stream: the reference's own streaming scenarios
+   (``bench.py`` ``config_stream`` and ``config_wal``). ``sustained``: a
+   cold Z3 store of 3,000,000 tracked objects (name, one day of times,
+   a point), ``serve()`` attached; 24 flushes, each a 20k-row batch (half
+   updates of existing ids with fresh positions and times, half new
+   ids) written in 2048-row sub-batches and ``flush()``ed, then
+   ``persist_hot()`` inside the timed wall, while 4 clients poll mixed
+   BBOX and BBOX + DURING boxes through ``LambdaStore.query`` every 150
+   ms; every one of 24 probe queries' ids and values equal a numpy model
+   of the final state; then the legacy flush for 4 flushes. ``wal``: a
+   200k store and the same write + flush workload with no WAL and under
+   ``sync`` off, interval and always (rows/s each, fsync times, the
+   interval / no-WAL ratio beside the reference's 0.85); a
+   ``checkpoint``, a crash and ``LambdaStore.recover`` on the card equal
+   to the live store; on the recovered store ``/health`` names
+   ``hot.occupancy`` over 2 x ``fold_rows`` and drops it after
+   ``persist_hot``, the scrapes launch nothing, the constructor refuses
+   a log with records past its cover, an explicitly opened one reports
+   ``wal.needs_recovery`` and ``recover`` clears it; then a recovery run
+   (streamed rows with a watermark per batch, a crash, ``recover`` timed
+   on the card, every row surfaced, the probes equal). ``close()`` of
+   every store leaves no streaming, serving or ops thread.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the fourteen paths and read just after
+are zeroed just before each of the fifteen paths and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
 with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
 extent leg; tiered, mutate, persist and secure-cached: all five;
-attribute and served: K1 and K2) and
+attribute, served and stream: K1 and K2) and
 called the native helpers ``check_native`` names (the ranges where it
 plans new filters, since the batch path's repeated plans take the
 planner's scan-config memo; ``sort_bins_z`` where it ingests, the plane
@@ -2840,7 +2865,8 @@ def main_path(torch, device):
     return (rec, batch, poly, hints, packed, z2, xz2_path(torch, device), xz3_path(torch, device),
             tiered_union_path(torch, device), mutation_path(torch, device),
             attribute_path(torch, device), persist_path(torch, device),
-            secure_cached_path(torch, device), served_path(torch, device))
+            secure_cached_path(torch, device), served_path(torch, device),
+            stream_path(torch, device))
 
 
 # -- the delta tier and union plans ----------------------------------------
@@ -3444,7 +3470,9 @@ def mutation_path(torch, device) -> dict:
 
 # -- attribute indexes -------------------------------------------------------
 
-N_ATTR = 10_000_000
+# 5M of the cell's 10M rows: with the streaming path added, the whole
+# script ran 851.3 s on the card against its 760 s budget
+N_ATTR = 5_000_000
 N_ATTR_APPEND = 50_000  # each of the two appends kept in the delta tier
 N_ATTR_BATCH = 16  # rare-code regional queries in one query_many
 N_ACTORS = 2_000
@@ -3666,8 +3694,9 @@ def check_attr_queries(ds, rows, queries, n, main_rows, stage) -> dict:
 
 
 def attribute_path(torch, device) -> dict:
-    """gdelt-attr-10M: 10M GDELT-shaped points with two attribute indexes
-    (EventCode, Actor1Name) beside Z3 and Z2, all four tables on the card.
+    """gdelt-attr-10M: ``N_ATTR`` (5M of the cell's 10M) GDELT-shaped points
+    with two attribute indexes (EventCode, Actor1Name) beside Z3 and Z2,
+    all four tables on the card.
     32 queries (16 EventCode equalities, 8 Actor1Name ranges, 8 EventCode
     IN + BBOX + DURING) against a numpy brute force in the reference's
     order and under limit 10, ``query_many`` against the sequential ids,
@@ -3760,7 +3789,9 @@ def attribute_path(torch, device) -> dict:
         "source": "GDELT 1.0 event codebook (EventCode: CAMEO, 2-4 digits; Actor1Name) on "
                   "BASELINE.md config 1's points (bench.py:155-226)",
         "reduced": {"rows": "GDELT 1.0 holds hundreds of millions of events; cut to "
-                            "10,000,000 for the script's 1200 s limit"},
+                            "10,000,000 for the script's 1200 s limit",
+                    **({"cell_rows": {"cell": 10_000_000, "run": N_ATTR}}
+                       if N_ATTR != 10_000_000 else {})},
         "n_points": N_ATTR, "n_append": 2 * N_ATTR_APPEND,
         "indexes": list(tables), "n_event_codes": len(rows.codes), "n_actors": N_ACTORS,
         "top_code_share": float(np.mean(rows.code[:N_ATTR] == 0)),
@@ -4136,6 +4167,9 @@ def persist_path(torch, device) -> dict:
 N_SECURE = 10_000_000
 N_SECURE_AGG = 4
 N_TILE_VIEWS = 4  # dashboard views, each panned 8 times: 32 tile boxes
+# the cache section's rows: a seeded prefix of the path's rows (the
+# persist path measures a 10M save and load at full depth)
+N_SECURE_CACHE = 2_000_000
 N_SECURE_WRITE = 50_000
 N_SECURE_FOLD = 10_000  # half replace rows in the fold box, half are new ids
 N_SERVE_THREADS = 8
@@ -4632,6 +4666,28 @@ def cache_checks(torch, device, rows, measured, base_outs) -> dict:
     return record
 
 
+def cache_section(torch, device, rows, measured) -> dict:
+    """The cache checks on the first ``N_SECURE_CACHE`` of the path's
+    seeded rows: an uncached store of that subset answers the 64 queries
+    (held against the f64 brute force over the subset), and cache_checks
+    holds the cached store's answers to it."""
+    n = min(N_SECURE_CACHE, len(rows["x"]))
+    sub = {k: v[:n] for k, v in rows.items()}
+    s = time.perf_counter()
+    ref, _ = secure_store(torch, device, sub)
+    _, ref_outs, _ = run_queries(ref, measured)
+    src = (sub["x"], sub["y"], sub["t"])
+    for (q, box), o in zip(measured, ref_outs):
+        check(np.array_equal(np.sort(np.asarray(o.ids, np.int64)), brute_ids(src, box)),
+              f"the cache section's uncached store vs the f64 brute force: {q}")
+    ref_s = time.perf_counter() - s
+    del ref
+    torch.cuda.empty_cache()
+    out = cache_checks(torch, device, sub, measured, ref_outs)
+    out.update({"n_points": n, "reference_store_s": ref_s})
+    return out
+
+
 def stats_mutation_checks(torch, base, rows, measured) -> dict:
     """On the None store: delete_features of one region and age_off of the
     span's first 7 days, then analyze_stats equals a StatsStore.build of
@@ -4744,7 +4800,7 @@ def secure_cached_path(torch, device) -> dict:
     vis = timed("visibility", visibility_checks, torch, device, rows, base, measured, base_outs,
                 brute, busy_idx)
     views = timed("views", view_checks, torch, device, rows, base, measured, base_outs, busy_idx)
-    cache = timed("cache", cache_checks, torch, device, rows, measured, base_outs)
+    cache = timed("cache", cache_section, torch, device, rows, measured)
     stats.update(timed("stats_mutations", stats_mutation_checks, torch, base, rows, measured))
     launches = read_launches()
     rec = {
@@ -4754,6 +4810,8 @@ def secure_cached_path(torch, device) -> dict:
         "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
         "hits_total": int(sum(len(b) for b in brute)),
         "stats": stats, "visibility": vis, "views": views, "cache": cache,
+        **({"reduced": {"cache_rows": {"cell": 10_000_000, "run": N_SECURE_CACHE}}}
+           if N_SECURE_CACHE < N_SECURE else {}),
         "section_s": sections, "path_s": time.perf_counter() - t_path,
     }
     del base
@@ -5236,6 +5294,549 @@ def served_path(torch, device) -> dict:
     return rec
 
 
+# -- the streaming tier: write-ahead log, hot tier, flusher, LambdaStore ------
+
+STREAM_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
+STREAM_T0 = 1_717_200_000_000  # 2024-06-01T00:00:00Z
+STREAM_DAY = 86_400_000
+N_STREAM = 3_000_000  # tracked objects in the cold store
+STREAM_BATCH = 20_000  # rows per flush: half updates, half new ids
+STREAM_FLUSHES = 24
+STREAM_LEGACY_FLUSHES = 4  # of the reference's 12 (its per-flush cost is stationary)
+STREAM_CLIENTS = 4  # the reference's max(2, cpus // 2) on the card's 8-CPU host
+STREAM_POLL_MS = 150.0
+STREAM_PROBES = 24
+STREAM_SUB_BATCH = 2048  # the consumer loop's write size
+N_WAL_COLD = 200_000
+# the path's wall on the card passed 90 s at the reference's sizes (142.0 s,
+# the WAL section 100.5 of it): the WAL modes' rows are cut from 400k,
+# then the recovery run's from 1M (the record's "reduced" lists both)
+N_WAL_STREAM = 200_000  # streamed rows per WAL mode
+N_WAL_REPLAY = 500_000  # rows of the recovery run
+WAL_MODES = ("nowal", "off", "interval", "always")
+WAL_PROBES = ("bbox(geom, -40, -40, 0, 0)", "bbox(geom, 10, 10, 60, 50)",
+              "IN ('0', '1', 'a1', 'a2')")
+OPS_FOLD_ROWS = 20_000  # the recovered store's fold threshold for the occupancy check
+STREAM_THREADS = ("geomesa-wal-sync", "geomesa-stream", "geomesa-serving", "geomesa-ops",
+                  "geomesa-telemetry")
+
+
+def stream_threads() -> list:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate()
+                  if t.is_alive() and t.name.split("_")[0] in STREAM_THREADS)
+
+
+def stream_store(torch, device, n, seed, metrics=None):
+    """A cold Z3 store of n tracked objects (ids "0".."n-1", name "v", one
+    day of times from the seed), compacted; returns (store, (x, y, t),
+    ingest seconds)."""
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+
+    rng = np.random.default_rng(seed)
+    t = STREAM_T0 + rng.integers(0, STREAM_DAY, n)
+    x = rng.uniform(-170, 170, n)
+    y = rng.uniform(-80, 80, n)
+    sft = FeatureType.from_spec("mv", STREAM_SPEC)
+    ds = DataStore(device=device, metrics=metrics)
+    ds.create_schema(sft)
+    s = time.perf_counter()
+    ds.write("mv", FeatureCollection.from_columns(sft, np.arange(n).astype(str), {
+        "name": np.full(n, "v"), "dtg": t, "geom": (x, y)}), check_ids=False)
+    ds.compact("mv")
+    torch.cuda.synchronize()
+    return ds, (x, y, t), time.perf_counter() - s
+
+
+class StreamModel:
+    """The expected state of the sustained run, by id: the cold rows, then
+    the stream's new ids ("new{k}_{j}" -> n + k * half + j); name code -1
+    is the cold rows' "v", k is "r{k}"."""
+
+    def __init__(self, n, x, y, t, n_new):
+        self.n = n
+        self.half = STREAM_BATCH - STREAM_BATCH // 2
+        self.alive = np.zeros(n + n_new, bool)
+        self.alive[:n] = True
+        self.x = np.concatenate([x, np.zeros(n_new)])
+        self.y = np.concatenate([y, np.zeros(n_new)])
+        self.t = np.concatenate([t, np.zeros(n_new, np.int64)])
+        self.name = np.full(n + n_new, -1, np.int64)
+
+    def index(self, ids) -> np.ndarray:
+        out = np.empty(len(ids), np.int64)
+        for i, fid in enumerate(ids):
+            if fid.startswith("new"):
+                k, j = fid[3:].split("_")
+                out[i] = self.n + int(k) * self.half + int(j)
+            else:
+                out[i] = int(fid)
+        return out
+
+    def hits(self, q) -> np.ndarray:
+        x0, y0, x1, y1, during = q
+        m = (self.alive & (self.x >= x0) & (self.x <= x1) & (self.y >= y0)
+             & (self.y <= y1))
+        if during:
+            m &= (self.t >= STREAM_T0) & (self.t < STREAM_T0 + 9 * STREAM_DAY)
+        return np.flatnonzero(m)
+
+
+def stream_messages(n, flushes, seed, prefix="new"):
+    """The producer side, prebuilt: per flush, half updates of cold ids
+    (fresh positions and times) and half new ids; rows are dicts with Point
+    geometries, as a consumer hands them over."""
+    from geomesa_tpu_torch import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    half = STREAM_BATCH // 2
+    out = []
+    for k in range(flushes):
+        upd = rng.choice(n, half, replace=False)
+        ids = [str(i) for i in upd.tolist()] + [f"{prefix}{k}_{j}"
+                                                for j in range(STREAM_BATCH - half)]
+        xs = rng.uniform(-170, 170, STREAM_BATCH)
+        ys = rng.uniform(-80, 80, STREAM_BATCH)
+        ts = STREAM_T0 + 8 * STREAM_DAY + rng.integers(0, STREAM_DAY, STREAM_BATCH)
+        rows = [{"name": f"r{k}", "dtg": int(t), "geom": geo.Point(float(a), float(b))}
+                for a, b, t in zip(xs.tolist(), ys.tolist(), ts.tolist())]
+        out.append((rows, ids, upd, xs, ys, ts))
+    return out
+
+
+def stream_queries(seed, n=256):
+    """Dashboard windows: small boxes (0.5 to 2 degrees), 30 % with a DURING
+    over the stream's days; (ecql, (x0, y0, x1, y1, during)) with the bounds
+    as the parser reads them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        w = float(rng.choice([0.5, 1.0, 2.0]))
+        qx = rng.uniform(-165, 165 - w)
+        qy = rng.uniform(-75, 75 - w / 2)
+        b = (f"{qx:.3f}", f"{qy:.3f}", f"{qx + w:.3f}", f"{qy + w / 2:.3f}")
+        q = f"bbox(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
+        during = bool(rng.random() < 0.3)
+        if during:
+            q += " AND dtg DURING 2024-06-01T00:00:00Z/2024-06-10T00:00:00Z"
+        out.append((q, (*(float(v) for v in b), during)))
+    return out
+
+
+def consume(lam, rows, ids) -> None:
+    """The consumer loop: messages apply in sub-batches, as a stream
+    consumer polls."""
+    for s in range(0, len(rows), STREAM_SUB_BATCH):
+        lam.write(rows[s : s + STREAM_SUB_BATCH], ids=ids[s : s + STREAM_SUB_BATCH])
+
+
+def sustained_section(torch, device) -> dict:
+    """The reference's config_stream at its defaults: 24 flushes of 20k rows
+    (write, flush) into a 3M-object cold store under 4 polling query
+    clients, a final persist_hot inside the timed wall, the identical
+    check against the numpy model, then the legacy flush for 4 flushes."""
+    import threading
+
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.streaming import LambdaStore, StreamConfig
+
+    ds, (x, y, t), ingest_s = stream_store(torch, device, N_STREAM, SEED + 90,
+                                           metrics=MetricsRegistry())
+    s = time.perf_counter()
+    stream = stream_messages(N_STREAM, STREAM_FLUSHES, SEED + 91)
+    build_msgs_s = time.perf_counter() - s
+    model = StreamModel(N_STREAM, x, y, t, STREAM_FLUSHES * (STREAM_BATCH - STREAM_BATCH // 2))
+    reg = ds.metrics
+    # the fold threshold above the run's updates: the one fold is the final
+    # persist, timed as the fold window
+    lam = LambdaStore(ds, "mv", config=StreamConfig(fold_rows=STREAM_BATCH * STREAM_FLUSHES + 1))
+    lam.serve()
+    s = time.perf_counter()
+    warm_calls = ds.warmup("mv")
+    pool = stream_queries(SEED + 92)
+    for q, _ in pool[:8]:
+        lam.query(q)
+    ds.query_many("mv", [q for q, _ in pool[8:16]])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - s
+    stop = threading.Event()
+    lat: list = []
+    lat_lock = threading.Lock()
+
+    def client(seed):
+        qs = [q for q, _ in stream_queries(seed)]
+        local, i = [], 0
+        while not stop.is_set():
+            s0 = time.perf_counter()
+            lam.query(qs[i % len(qs)])
+            dt = time.perf_counter() - s0
+            local.append((s0, dt))
+            i += 1
+            stop.wait(max(STREAM_POLL_MS / 1e3 - dt, 0.0))
+        with lat_lock:
+            lat.extend(local)
+
+    threads = [threading.Thread(target=client, args=(SEED + 100 + c,))
+               for c in range(STREAM_CLIENTS)]
+    for th in threads:
+        th.start()
+    t0 = time.perf_counter()
+    flush_s = []
+    for k, (rows, ids, upd, xs, ys, ts) in enumerate(stream):
+        consume(lam, rows, ids)
+        f0 = time.perf_counter()
+        lam.flush()
+        flush_s.append(time.perf_counter() - f0)
+    fold_t0 = time.perf_counter()
+    lam.persist_hot()
+    torch.cuda.synchronize()
+    fold_t1 = time.perf_counter()
+    stop.set()
+    for th in threads:
+        th.join()
+    streamed_s = fold_t1 - t0
+    streamed_rps = STREAM_FLUSHES * STREAM_BATCH / streamed_s
+    steady = np.array([d for s0, d in lat if s0 + d < fold_t0]) * 1e3
+    in_fold = np.array([d for s0, d in lat if s0 + d >= fold_t0]) * 1e3
+    check(len(steady) > 0, "the query clients ran during the stream")
+    report = ds.last_fold_report or {}
+    slice_ms = np.asarray(report.get("slice_s", []), np.float64) * 1e3
+    check(len(slice_ms) > 0, "the final persist folded the pending updates")
+    check(len(lam.hot) == 0, "persist_hot drained the hot tier")
+
+    # the expected final state, then the identical flag: ids and every value
+    for k, (rows, ids, upd, xs, ys, ts) in enumerate(stream):
+        half = len(upd)
+        new = N_STREAM + k * model.half + np.arange(STREAM_BATCH - half)
+        idx = np.concatenate([upd, new])
+        model.alive[idx] = True
+        model.x[idx], model.y[idx], model.t[idx], model.name[idx] = xs, ys, ts, k
+    identical, n_hits = True, 0
+    for q, params in stream_queries(SEED + 93)[:STREAM_PROBES]:
+        got = lam.query(q)
+        gids = [str(i) for i in np.asarray(got.ids).tolist()]
+        gi = model.index(gids)
+        order = np.argsort(gi)
+        want = model.hits(params)
+        n_hits += len(want)
+        g = got.geom_column
+        names = np.asarray(got.columns["name"])
+        want_names = np.where(model.name[want] < 0, "v",
+                              np.char.add("r", model.name[want].astype(str)))
+        same = (len(gids) == len(set(gids)) and np.array_equal(gi[order], want)
+                and np.array_equal(np.asarray(g.x)[order], model.x[want])
+                and np.array_equal(np.asarray(g.y)[order], model.y[want])
+                and np.array_equal(np.asarray(got.columns["dtg"], np.int64)[order], model.t[want])
+                and np.array_equal(names[order], want_names))
+        if not same:
+            identical = False
+            emit({"phase": "stream_mismatch", "query": q, "got": len(gids), "want": len(want)})
+    check(identical, "sustained: every probe query equals the numpy model (ids and values)")
+    check(n_hits > 0, "sustained: the probes hit rows")
+    prestaged = reg.counter_value("geomesa.stream.fold.prestaged")
+    snap = reg.snapshot()["histograms"]
+
+    # the legacy flush (delete-and-rewrite of the whole cold table per
+    # flush), on the same store, no query load
+    legacy = stream_messages(N_STREAM, STREAM_LEGACY_FLUSHES, SEED + 94, prefix="old")
+    t0 = time.perf_counter()
+    for rows, ids, *_ in legacy:
+        consume(lam, rows, ids)
+        lam.persist_hot(incremental=False)
+    torch.cuda.synchronize()
+    legacy_s = time.perf_counter() - t0
+    legacy_rps = STREAM_LEGACY_FLUSHES * STREAM_BATCH / legacy_s
+    n_cold = len(ds.features("mv"))
+    check(n_cold == N_STREAM + (STREAM_FLUSHES + STREAM_LEGACY_FLUSHES) * (
+        STREAM_BATCH - STREAM_BATCH // 2), f"the legacy flushes published their rows ({n_cold})")
+    lam.close()
+    ds.close()
+    return {
+        "cold_rows": N_STREAM, "batch_rows": STREAM_BATCH, "flushes": STREAM_FLUSHES,
+        "ingest_s": ingest_s, "build_messages_s": build_msgs_s, "warmup_s": warm_s,
+        "warmup_calls": warm_calls,
+        "streamed_s": streamed_s, "streamed_rows_per_s": streamed_rps,
+        "flush_ms_p50": float(np.percentile(flush_s, 50) * 1e3),
+        "flush_ms_max": float(np.max(flush_s) * 1e3),
+        "legacy_flushes": STREAM_LEGACY_FLUSHES, "legacy_s": legacy_s,
+        "legacy_rows_per_s": legacy_rps, "speedup": streamed_rps / legacy_rps,
+        "identical": identical, "probe_hits": n_hits, "host_cpus": os.cpu_count(),
+        "query": {
+            "clients": STREAM_CLIENTS, "poll_ms": STREAM_POLL_MS, "queries": len(lat),
+            "p50_ms": float(np.percentile(steady, 50)), "p99_ms": float(np.percentile(steady, 99)),
+            "fold_window_s": fold_t1 - fold_t0, "in_fold_queries": int(len(in_fold)),
+            "fold_window_p99_ms": float(np.percentile(in_fold, 99)) if len(in_fold) else None,
+        },
+        "fold": {
+            "rows": int(report.get("rows", 0)), "slices": int(report.get("slices", 0)),
+            "slice_pause_ms_p50": float(np.percentile(slice_ms, 50)),
+            "slice_pause_ms_max": float(slice_ms.max()), "prestaged_rows": int(prestaged),
+        },
+        "stage_p99_ms": {k.rsplit(".", 1)[1]: v["p99_s"] * 1e3 for k, v in snap.items()
+                         if k in ("geomesa.stream.parse", "geomesa.stream.keys",
+                                  "geomesa.stream.sort", "geomesa.stream.commit")},
+    }
+
+
+def wal_rows(n_cold, n, seed, prefix="a"):
+    """Prebuilt (ids, rows) batches: half updates of cold ids, half arrivals;
+    identical across every mode."""
+    from geomesa_tpu_torch import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    out, arrivals = [], 0
+    for s in range(0, n, STREAM_BATCH):
+        k = min(STREAM_BATCH, n - s)
+        upd = rng.integers(0, n_cold, k // 2) if n_cold else np.zeros(0, np.int64)
+        xs, ys = rng.uniform(-170, 170, k), rng.uniform(-80, 80, k)
+        ids = [str(i) for i in upd.tolist()]
+        ids += [f"{prefix}{arrivals + j + 1}" for j in range(k - len(ids))]
+        arrivals += k - len(upd)
+        rows = [{"name": "u", "dtg": STREAM_T0 + s + j, "geom": geo.Point(a, b)}
+                for j, (a, b) in enumerate(zip(xs.tolist(), ys.tolist()))]
+        out.append((ids, rows))
+    return out
+
+
+def probe_values(lam) -> list:
+    """Each WAL probe's (id, name, x, y, dtg) rows, sorted by id."""
+    out = []
+    for q in WAL_PROBES:
+        fc = lam.query(q)
+        g = fc.geom_column
+        out.append(sorted(zip(
+            (str(i) for i in np.asarray(fc.ids).tolist()),
+            np.asarray(fc.columns["name"]).tolist(), np.asarray(g.x).tolist(),
+            np.asarray(g.y).tolist(), np.asarray(fc.columns["dtg"], np.int64).tolist())))
+    return out
+
+
+def wal_section(torch, device, tmp) -> dict:
+    """The reference's config_wal: the same micro-batch write + flush
+    workload with no WAL and under sync off, interval and always; a
+    checkpoint and a crash of the always store, recovered on the card
+    equal to the live one; the ops plane on that recovered store
+    (hot.occupancy raised and cleared, an unreplayed log refused and
+    reported, recover clearing it); then the recovery run (streamed rows
+    with a flush watermark per batch, a crash, recover timed on the
+    card)."""
+    import json as _json
+
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.obs.ops import HealthMonitor
+    from geomesa_tpu_torch.storage import persist
+    from geomesa_tpu_torch.streaming import (LambdaStore, StreamConfig, WalConfig, WalError,
+                                             WriteAheadLog)
+
+    def root_of(name, save=False):
+        """A 200k cold store and its root (saved where a recovery reads it;
+        the other modes' logs only live under it)."""
+        ds, _, _ = stream_store(torch, device, N_WAL_COLD, SEED + 95, metrics=MetricsRegistry())
+        root = os.path.join(tmp, name)
+        if save:
+            persist.save(ds, root)
+        return ds, root
+
+    stream = wal_rows(N_WAL_COLD, N_WAL_STREAM, SEED + 96)
+    dsw, _ = root_of("warm")  # one discarded short run: the first mode pays no first calls
+    lamw = LambdaStore(dsw, "mv", config=StreamConfig())
+    for ids, rows in stream[:3]:
+        lamw.write(rows, ids=ids)
+        lamw.flush()
+    lamw.close()
+    del dsw, lamw
+    modes, keep = {}, None
+    for mode in WAL_MODES:
+        ds, root = root_of(mode, save=mode == "always")
+        kw = {} if mode == "nowal" else dict(
+            wal_dir=os.path.join(root, "_wal"), wal_config=WalConfig(sync=mode))
+        lam = LambdaStore(ds, "mv", config=StreamConfig(), **kw)
+        t0 = time.perf_counter()
+        for ids, rows in stream:
+            lam.write(rows, ids=ids)
+            lam.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        h = ds.metrics.snapshot()["histograms"].get("geomesa.stream.wal.fsync")
+        modes[mode] = {"rows_per_s": N_WAL_STREAM / dt, "seconds": dt,
+                       "fsyncs": ds.metrics.counter_value("geomesa.stream.wal.syncs"),
+                       "fsync_p50_ms": h["p50_s"] * 1e3 if h else None,
+                       "fsync_p99_ms": h["p99_s"] * 1e3 if h else None}
+        if mode == "always":
+            keep = (lam, root)
+        else:
+            lam.close()
+            ds.close()
+    lam, root = keep
+    live = probe_values(lam)
+    s = time.perf_counter()
+    lam.checkpoint(root)
+    checkpoint_s = time.perf_counter() - s
+    lam.wal.crash()
+    lam.flusher.close()
+    lam.cold.close()
+    del lam
+    rec = LambdaStore.recover(root, config=StreamConfig(fold_rows=OPS_FOLD_ROWS))
+    check(rec.cold.device.type == "cuda", "recover loads the cold store onto the card")
+    identical = probe_values(rec) == live and rec.cold.store_health.status == "ok"
+    check(identical, "the always store, checkpointed and crashed, recovers equal to the live one")
+
+    # the ops plane on the recovered LambdaStore: hot.occupancy raised and
+    # cleared, the scrapes launch nothing
+    ops = rec.serve_ops()
+    scrapes = {}
+
+    def health(name):
+        before = read_launches()
+        code, body = http_get(ops.url + "/health")
+        scrapes[name] = launch_delta(before)
+        rep = _json.loads(body)
+        return code, rep["status"], [r["reason"] for r in rep["reasons"]], rep["hot"]
+
+    h0 = health("recovered")
+    check(h0[1] == "ready" and h0[2] == [], f"the recovered store is ready: {h0}")
+    occ = wal_rows(N_WAL_COLD, 3 * OPS_FOLD_ROWS, SEED + 98, prefix="o")
+    for ids, rows in occ:
+        rec.write(rows, ids=ids)
+    h1 = health("occupied")
+    check(h1[0] == 200 and "hot.occupancy" in h1[2] and h1[3]["rows"] > 2 * OPS_FOLD_ROWS,
+          f"/health names hot.occupancy over 2 x fold_rows: {h1}")
+    rec.persist_hot()
+    h2 = health("drained")
+    check("hot.occupancy" not in h2[2] and h2[3]["rows"] == 0,
+          f"/health drops hot.occupancy after persist_hot: {h2}")
+    check(all(sum(v.values()) == 0 for v in scrapes.values()),
+          f"the scrapes launch no kernel: {scrapes}")
+    # a WAL with records past its cover: the constructor refuses it; an
+    # explicitly opened log reports needs_recovery; recover clears it
+    rec.write(occ[0][1][:100], ids=occ[0][0][:100])
+    rec.wal.crash()
+    rec.flusher.close()
+    try:
+        LambdaStore(rec.cold, "mv", wal_dir=os.path.join(root, "_wal"))
+        refused = False
+    except WalError:
+        refused = True
+    check(refused, "the constructor refuses a WAL with records past its cover")
+    wal = WriteAheadLog(os.path.join(root, "_wal"))
+    held = LambdaStore(rec.cold, "mv", wal=wal)
+    verdict = HealthMonitor(rec.cold, lam=held).evaluate()
+    check(verdict["status"] == "unhealthy"
+          and [r["reason"] for r in verdict["reasons"]] == ["wal.needs_recovery"],
+          f"/health: wal.needs_recovery is unhealthy ({verdict['reasons']})")
+    held.close()
+    rec.cold.close()
+    again = LambdaStore.recover(root)
+    verdict2 = HealthMonitor(again.cold, lam=again).evaluate()
+    check(not again.wal.needs_recovery and verdict2["status"] == "ready"
+          and len(again.hot) == 100, f"recover clears the state ({verdict2['reasons']})")
+    again.close()
+    again.cold.close()
+    del rec, again, held
+    torch.cuda.empty_cache()
+
+    # the recovery run: streamed rows with a flush watermark per batch,
+    # crashed, recovered on the card
+    ds, root = root_of("replay", save=True)
+    lam = LambdaStore(ds, "mv", config=StreamConfig(), wal_dir=os.path.join(root, "_wal"),
+                      wal_config=WalConfig(sync="off"))
+    replay_stream = wal_rows(0, N_WAL_REPLAY, SEED + 97, prefix="r")
+    t0 = time.perf_counter()
+    for ids, rows in replay_stream:
+        lam.write(rows, ids=ids)
+        lam.flush()
+    stream_s = time.perf_counter() - t0
+    live = probe_values(lam)
+    lam.wal.sync()  # sync=off: drains the buffer to the file (no fsync)
+    lam.wal.crash()
+    lam.flusher.close()
+    ds.close()
+    wal_bytes = sum(os.path.getsize(os.path.join(root, "_wal", f))
+                    for f in os.listdir(os.path.join(root, "_wal")))
+    del lam, ds, replay_stream
+    torch.cuda.empty_cache()
+    progress = []
+    t0 = time.perf_counter()
+    rec = LambdaStore.recover(root, on_progress=lambda *a: progress.append(a),
+                              metrics=MetricsRegistry())
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    replayed = len(rec.cold.features("mv")) + len(rec.hot) - N_WAL_COLD
+    check(replayed == N_WAL_REPLAY, f"recovery surfaced every streamed row ({replayed})")
+    check(probe_values(rec) == live, "the recovered store answers every probe as the live one")
+    check(rec.cold.device.type == "cuda", "recover loads the cold store onto the card")
+    check(len(progress) > 0 and rec.cold.metrics.gauges.get(
+        "geomesa.replica.replay.progress", -1) >= 0, "replay reported its progress")
+    rec.close()
+    rec.cold.close()
+    return {
+        "cold_rows": N_WAL_COLD, "streamed_rows": N_WAL_STREAM, "batch": STREAM_BATCH,
+        "modes": modes,
+        "interval_over_nowal": modes["interval"]["rows_per_s"] / modes["nowal"]["rows_per_s"],
+        "interval_over_nowal_bound": 0.85,
+        "always_over_nowal": modes["always"]["rows_per_s"] / modes["nowal"]["rows_per_s"],
+        "checkpoint_s": checkpoint_s, "identical": identical,
+        "replay": {"rows": N_WAL_REPLAY, "stream_s": stream_s, "wal_bytes": wal_bytes,
+                   "recover_s": recover_s, "rows_per_s": N_WAL_REPLAY / recover_s,
+                   "progress_calls": len(progress)},
+        "ops": {"health": {"recovered": h0[:3], "occupied": h1[:3], "drained": h2[:3]},
+                "scrape_launches": scrapes, "constructor_refused": refused,
+                "needs_recovery_verdict": verdict["status"], "after_recover": verdict2["status"]},
+    }
+
+
+def stream_path(torch, device) -> dict:
+    """moving-z3-3M-stream: fleet, vessel and courier trackers report new
+    positions every few seconds into one store while dashboards query the
+    live picture: the reference's own streaming scenarios at their own
+    sizes. ``sustained`` (config_stream) and ``wal`` (config_wal), each
+    timed; ``close()`` of every store leaves no thread. Launch and native
+    counts are zeroed before, read after."""
+    import gc
+    import shutil
+    import tempfile
+
+    # the objects earlier paths left behind stay out of the collector's
+    # full passes, so the path is timed as it would be in a process of its
+    # own (the hot tier's own rows are not frozen)
+    gc.collect()
+    gc.freeze()
+    zero_launches()
+    t_path = time.perf_counter()
+    threads0 = stream_threads()
+    sections = {}
+    s = time.perf_counter()
+    sustained = sustained_section(torch, device)
+    sections["sustained"] = time.perf_counter() - s
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="geomesa_stream_")
+    try:
+        s = time.perf_counter()
+        wal = wal_section(torch, device, tmp)
+        sections["wal"] = time.perf_counter() - s
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = [t for t in stream_threads() if t not in threads0]
+    check(left == [], f"close() of every store leaves no streaming, serving or ops thread: {left}")
+    launches = read_launches()
+    reduced = {"legacy_flushes": {"cell": 12, "run": STREAM_LEGACY_FLUSHES},
+               "wal_mode_repeats": {"cell": 2, "run": 1}}
+    if N_WAL_STREAM != 400_000:
+        reduced["wal_mode_rows"] = {"cell": 400_000, "run": N_WAL_STREAM}
+    if N_WAL_REPLAY != 1_000_000:
+        reduced["recovery_rows"] = {"cell": 1_000_000, "run": N_WAL_REPLAY}
+    gc.unfreeze()
+    rec = {
+        "phase": "stream_path", "cell": "moving-z3-3M-stream", "launches": launches,
+        "native": read_native(), "n_points": N_STREAM, "reduced": reduced,
+        "sustained": sustained, "wal": wal, "section_s": sections,
+        "path_s": time.perf_counter() - t_path,
+    }
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- entry point -------------------------------------------------------------
 
 
@@ -5266,6 +5867,7 @@ def check_native(records) -> None:
         "gdelt-z3-10M-persist": point,
         "gdelt-z3-10M-secure-cached": point,
         "gdelt-z3-10M-served": point,
+        "moving-z3-3M-stream": point,
     }
     for cell, names in expected_native.items():
         for name in names:
@@ -5334,6 +5936,7 @@ def main() -> int:
         "gdelt-z3-10M-persist": tuple(k.name for k in KERNELS),
         "gdelt-z3-10M-secure-cached": tuple(k.name for k in KERNELS),
         "gdelt-z3-10M-served": ("block_scan", "block_scan_multi"),
+        "moving-z3-3M-stream": ("block_scan", "block_scan_multi"),
     }
     for cell, names in expected.items():
         for name in names:

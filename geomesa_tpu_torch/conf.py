@@ -103,6 +103,85 @@ STREAM_FOLD_DEVICE = SystemProperty(
     "bit-identical",
 )
 
+# -- the streaming tier (streaming/) ----------------------------------------
+
+INGEST_MERGE_MIN_BINS = SystemProperty(
+    "geomesa.ingest.merge.min.bins", 2, int,
+    "distinct sort bins below which a sharded sort's commit falls back to "
+    "the whole-batch LSD radix sort (spanwise merging has nothing to "
+    "parallelize over few bins)",
+)
+STREAM_WORKERS = SystemProperty(
+    "geomesa.stream.workers", 0, int,
+    "worker count for the stream flusher's parse/key/shard-sort stages "
+    "(0 = one per host core); the pool stays warm across flushes",
+)
+STREAM_CHUNK_ROWS = SystemProperty(
+    "geomesa.stream.chunk.rows", 65_536, int,
+    "rows per flush micro-chunk: the hot snapshot stages through the "
+    "warm workers in chunks of this many rows (also the shard size of "
+    "the per-chunk radix sorts)",
+)
+STREAM_QUEUE_DEPTH = SystemProperty(
+    "geomesa.stream.queue.depth", 4, int,
+    "bounded admission window: flush micro-chunks queued in the worker "
+    "pool at once before staging blocks; overflow waits are counted by "
+    "the geomesa.stream.queue_full metric",
+)
+STREAM_FOLD_ROWS = SystemProperty(
+    "geomesa.stream.fold.rows", 131_072, int,
+    "pending UPDATE rows before a micro-batch flush folds them into the "
+    "cold tables: below it, updated ids stay resident in the hot overlay "
+    "(reads remain exact through the hot-wins-by-id merge), so the "
+    "steady-state flush pays O(batch) for appends instead of O(table); a "
+    "full persist (persist_hot/checkpoint) always folds everything",
+)
+STREAM_FOLD_YIELD_MS = SystemProperty(
+    "geomesa.stream.fold.yield.ms", 15.0, float,
+    "cap on the between-slice scheduler yield: after each published fold "
+    "slice the folding thread waits up to this long for the cold store's "
+    "QueryScheduler admission queue to drain; an idle queue returns at "
+    "once",
+)
+STREAM_FOLD_PRESTAGE = SystemProperty(
+    "geomesa.stream.fold.prestage", True, _parse_bool,
+    "parse and key-encode pending update rows through the warm flush "
+    "workers at micro-flush time, so the eventual fold window pays only "
+    "merge and publish; rows re-updated after staging re-stage at fold "
+    "time. False defers all staging to the fold",
+)
+STREAM_WAL_SYNC = SystemProperty(
+    "geomesa.stream.wal.sync", "always", str,
+    "streaming WAL fsync policy: 'always' = every acknowledged write is "
+    "fsync'd first (group-committed), 'interval' = fsync at most every "
+    "geomesa.stream.wal.sync.interval.ms (bounded loss window), 'off' = "
+    "never fsync (redo-from-checkpoint workloads)",
+)
+STREAM_WAL_SYNC_INTERVAL_MS = SystemProperty(
+    "geomesa.stream.wal.sync.interval.ms", 50.0, float,
+    "fsync cadence under geomesa.stream.wal.sync=interval: a hard kill "
+    "loses at most the writes acknowledged since the last sync",
+)
+STREAM_WAL_SEGMENT_BYTES = SystemProperty(
+    "geomesa.stream.wal.segment.bytes", 64 << 20, int,
+    "streaming WAL segment size: the active log rotates past this many "
+    "bytes; sealed segments retire only once a checkpoint watermark "
+    "covers them (LambdaStore.checkpoint)",
+)
+STREAM_WAL_REPLAY_BATCH = SystemProperty(
+    "geomesa.stream.wal.replay.batch.rows", 262_144, int,
+    "recovery-side replay batching: contiguous WAL upsert records "
+    "coalesce into one bulk hot-tier apply of up to this many rows "
+    "(one lock hold, vectorised grid-index insert); 0 replays record "
+    "at a time",
+)
+STREAM_INCREMENTAL = SystemProperty(
+    "geomesa.stream.incremental", True, _parse_bool,
+    "fold flushes into the cold tables incrementally "
+    "(DataStore.fold_upsert: no whole-table re-sort, scoped cache "
+    "invalidation); False = the legacy delete-and-rewrite upsert flush",
+)
+
 # -- raster-interval polygon approximations (filter.raster) ---------------
 
 RASTER_ENABLED = SystemProperty(

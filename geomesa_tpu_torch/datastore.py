@@ -1424,13 +1424,15 @@ class DataStore:
             self.scheduler = QueryScheduler(self, config).start()
             return self.scheduler
 
-    def serve_ops(self, port: int = 0, host: "str | None" = None):
+    def serve_ops(self, port: int = 0, host: "str | None" = None, lam=None):
         """Attach (or return) the ops plane: a threaded HTTP endpoint
         serving ``/metrics``, the composite ``/health`` verdict, ``/stats``
         and the debug surfaces, with a TelemetryRecorder writing bounded
         history rings. ``port=0`` binds an ephemeral port (read it back
         from ``ds.ops.port``); ``host`` defaults to the
-        ``geomesa.obs.ops.host`` knob (loopback). Returns the attached
+        ``geomesa.obs.ops.host`` knob (loopback). ``lam``: the LambdaStore
+        whose hot tier and WAL join the health surface
+        (``LambdaStore.serve_ops`` passes itself). Returns the attached
         server while it is open; a closed one is replaced."""
         from geomesa_tpu_torch.obs.ops import OpsServer
 
@@ -1438,7 +1440,7 @@ class DataStore:
             ops = self.ops
             if ops is not None and not ops.closed:
                 return ops
-            self.ops = OpsServer(self, host=host, port=port).start()
+            self.ops = OpsServer(self, lam=lam, host=host, port=port).start()
             return self.ops
 
     def close(self) -> None:

@@ -343,6 +343,89 @@ def from_wkt(text: str) -> Geometry:
     return g
 
 
+
+# ---------------------------------------------------------------------------
+# WKB codec (little-endian, 2-D): the write-ahead log's geometry encoding
+# (geomesa_tpu/geometry.py:371-447, reference WkbSerialization)
+# ---------------------------------------------------------------------------
+
+
+def to_wkb(g: Geometry) -> bytes:
+    import struct
+
+    def header(code: int) -> bytes:
+        return struct.pack("<BI", 1, code)
+
+    def pts(a: np.ndarray) -> bytes:
+        return struct.pack("<I", len(a)) + a.astype("<f8").tobytes()
+
+    if isinstance(g, Point):
+        return header(POINT) + struct.pack("<dd", g.x, g.y)
+    if isinstance(g, LineString):
+        return header(LINESTRING) + pts(g.coords)
+    if isinstance(g, Polygon):
+        rings = [g.shell] + g.holes
+        return header(POLYGON) + struct.pack("<I", len(rings)) + b"".join(pts(r) for r in rings)
+    if isinstance(g, (MultiPoint, MultiLineString, MultiPolygon)):
+        return (
+            header(g.type_code)
+            + np.uint32(len(g.parts)).tobytes()
+            + b"".join(to_wkb(p) for p in g.parts)
+        )
+    raise ValueError(f"cannot serialize {type(g)}")
+
+
+def from_wkb(data: bytes) -> Geometry:
+    g, _ = _read_wkb(memoryview(data), 0)
+    return g
+
+
+def _read_wkb(buf: memoryview, pos: int) -> tuple[Geometry, int]:
+    import struct
+
+    byte_order = buf[pos]
+    endian = "<" if byte_order == 1 else ">"
+    (code,) = struct.unpack_from(endian + "I", buf, pos + 1)
+    pos += 5
+    if code & 0x20000000:  # EWKB SRID flag: skip the 4-byte SRID payload
+        pos += 4
+    if code & 0xC0000000:  # EWKB Z/M flags: 3-/4-D coords unsupported
+        raise ValueError(f"unsupported WKB dimension flags in type 0x{code:x}")
+    code &= 0x1FFFFFFF
+    if code > MULTIPOLYGON:  # ISO WKB Z/M variants (1001, 2001, ...) too
+        raise ValueError(f"unsupported WKB geometry type {code}")
+
+    def read_pts(pos: int) -> tuple[np.ndarray, int]:
+        (n,) = struct.unpack_from(endian + "I", buf, pos)
+        pos += 4
+        a = np.frombuffer(buf, dtype=endian + "f8", count=2 * n, offset=pos).reshape(n, 2)
+        return a.copy(), pos + 16 * n
+
+    if code == POINT:
+        x, y = struct.unpack_from(endian + "dd", buf, pos)
+        return Point(x, y), pos + 16
+    if code == LINESTRING:
+        a, pos = read_pts(pos)
+        return LineString(a), pos
+    if code == POLYGON:
+        (nrings,) = struct.unpack_from(endian + "I", buf, pos)
+        pos += 4
+        rings = []
+        for _ in range(nrings):
+            r, pos = read_pts(pos)
+            rings.append(r)
+        return Polygon(rings[0], rings[1:]), pos
+    if code in (MULTIPOINT, MULTILINESTRING, MULTIPOLYGON):
+        (nparts,) = struct.unpack_from(endian + "I", buf, pos)
+        pos += 4
+        parts = []
+        for _ in range(nparts):
+            p, pos = _read_wkb(buf, pos)
+            parts.append(p)
+        cls = {MULTIPOINT: MultiPoint, MULTILINESTRING: MultiLineString, MULTIPOLYGON: MultiPolygon}
+        return cls[code](parts), pos
+    raise ValueError(f"unsupported WKB type {code}")
+
 def is_rectangle(g: "Geometry") -> bool:
     """True when ``g`` is a plain axis-aligned rectangle polygon (its
     geometry IS its bbox): bbox algebra then answers spatial predicates

@@ -23,10 +23,17 @@ the worst severity present — ``ready`` with no reasons (HTTP 200),
 ``degraded`` (still 200: serving, with caveats), ``unhealthy`` (503: load
 balancers stop routing). Checks:
 
-- ``store.quarantine`` (degraded): partitions quarantined at load;
+- ``store.quarantine`` (degraded): partitions quarantined at load (and
+  damage a WAL replay quarantined);
+- ``wal.needs_recovery`` (unhealthy): the attached LambdaStore's WAL
+  holds mutation records past its last checkpoint cover — continuing
+  would let a checkpoint retire acknowledged-but-unapplied records;
 - ``slo.breach`` (degraded): an attached SLO objective's windowed
   quantile is over threshold (one reason per objective, burn rate in
   the detail);
+- ``hot.occupancy`` (degraded): the streaming hot tier holds more than
+  ``HOT_OCCUPANCY_FACTOR`` x ``fold_rows`` pending rows — flushes are
+  falling behind;
 - ``scheduler.shedding`` (degraded): queries were shed since the
   previous evaluation; ``scheduler.queue`` (degraded) past half the
   bounded queue; ``scheduler.saturated`` (unhealthy) at a FULL queue;
@@ -35,10 +42,11 @@ balancers stop routing). Checks:
 - ``stats.stale`` (degraded): a (type, index) p90 estimate error over
   ``geomesa.plan.estimate.stale.p90``.
 
-The reference's write-ahead-log, hot-tier and replica reasons read its
-streaming store, which the port does not have yet; the port's monitor
-evaluates a plain DataStore exactly as the reference's does with no
-streaming store attached.
+The streaming reasons read the LambdaStore passed as ``lam``
+(``LambdaStore.serve_ops`` passes itself); the verdict then also carries
+a ``hot`` section (rows, fold_rows). The reference's replica and shipper
+reasons read its replica tier, which the port does not have yet (ROADMAP
+A10b).
 
 Counter-rate checks compare against the PREVIOUS evaluation's snapshot,
 seeded at construction; the swap is one reference assignment, so
@@ -69,6 +77,10 @@ from urllib.parse import parse_qs, urlparse
 
 from geomesa_tpu_torch import conf
 from geomesa_tpu_torch.metrics import resolve
+
+#: pending hot-tier rows over this multiple of the fold threshold flag
+#: ``hot.occupancy``: the overlay outgrew what one fold was sized to absorb
+HOT_OCCUPANCY_FACTOR = 2.0
 
 
 class TelemetryRecorder:
@@ -158,8 +170,9 @@ class HealthMonitor:
     #: counters the rate checks watch between evaluations
     RATE_COUNTERS = ("geomesa.serving.shed", "geomesa.standing.dropped")
 
-    def __init__(self, store):
+    def __init__(self, store, lam=None):
         self.store = store
+        self.lam = lam
         # the previous counter snapshot, SEEDED with the current totals:
         # the first evaluation measures "since this monitor existed", so
         # a shed storm from before serve_ops does not degrade the first
@@ -194,6 +207,26 @@ class HealthMonitor:
                 f"{len(health.damage)} quarantined partition(s) over "
                 f"types {sorted(health.degraded_types())}",
             )
+        # streaming tier: WAL recovery debt and hot-tier occupancy
+        lam = self.lam
+        if lam is not None:
+            wal = getattr(lam, "wal", None)
+            if wal is not None and getattr(wal, "needs_recovery", False):
+                add(
+                    "wal.needs_recovery", "unhealthy",
+                    "WAL holds mutation records past its last checkpoint "
+                    "cover — open through LambdaStore.recover() before "
+                    "serving writes",
+                )
+            hot_rows = len(lam.hot)
+            fold_rows = max(int(lam.config.fold_rows), 1)
+            if hot_rows > HOT_OCCUPANCY_FACTOR * fold_rows:
+                add(
+                    "hot.occupancy", "degraded",
+                    f"hot tier holds {hot_rows} rows > "
+                    f"{HOT_OCCUPANCY_FACTOR:g}x the {fold_rows}-row fold "
+                    "threshold — flushes are falling behind ingest",
+                )
         # SLO objectives
         slo = store.slo_report()
         for row in slo["objectives"]:
@@ -255,6 +288,8 @@ class HealthMonitor:
         out = {"status": status, "reasons": reasons, "slo": slo, "estimates": estimates}
         if scheduler_info is not None:
             out["scheduler"] = scheduler_info
+        if lam is not None:
+            out["hot"] = {"rows": len(lam.hot), "fold_rows": int(lam.config.fold_rows)}
         return out
 
 
@@ -268,12 +303,13 @@ def stats_payload(store) -> dict:
     return out
 
 
-def ops_report(store, monitor: "HealthMonitor | None" = None, slow_n: int = 10) -> dict:
+def ops_report(store, lam=None, monitor: "HealthMonitor | None" = None,
+               slow_n: int = 10) -> dict:
     """One-shot ops snapshot without HTTP: the health verdict and
     reasons (SLO report and estimate accuracy inside) and the top-N slow
     queries."""
     if monitor is None:
-        monitor = HealthMonitor(store)
+        monitor = HealthMonitor(store, lam=lam)
     health = monitor.evaluate()
     slow = store.slow_queries()
     slow.sort(key=lambda e: e.get("wall_ms", 0.0), reverse=True)
@@ -295,10 +331,11 @@ class OpsRoutes:
     recorder and the ``handle()`` dispatch. :class:`OpsServer` wraps one
     for the ops port."""
 
-    def __init__(self, store, audit=None):
+    def __init__(self, store, lam=None, audit=None):
         self.store = store
+        self.lam = lam
         self.audit = audit if audit is not None else getattr(store, "audit", None)
-        self.monitor = HealthMonitor(store)
+        self.monitor = HealthMonitor(store, lam=lam)
         self.recorder = TelemetryRecorder(getattr(store, "metrics", None))
 
     def handle(self, path: str, query: dict):
@@ -357,9 +394,11 @@ class OpsServer:
     releases the socket and joins the serve and telemetry threads —
     idempotent, and called by ``DataStore.close()``."""
 
-    def __init__(self, store, host: "str | None" = None, port: int = 0, audit=None):
+    def __init__(self, store, lam=None, host: "str | None" = None, port: int = 0,
+                 audit=None):
         self.store = store
-        self.routes = OpsRoutes(store, audit=audit)
+        self.lam = lam
+        self.routes = OpsRoutes(store, lam=lam, audit=audit)
         self.audit = self.routes.audit
         self.monitor = self.routes.monitor
         self.recorder = self.routes.recorder

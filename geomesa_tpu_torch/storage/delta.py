@@ -22,20 +22,33 @@ from geomesa_tpu_torch.index.api import ScanConfig, WriteKeys
 from geomesa_tpu_torch.timing import NULL_CLOCK
 
 
-def concat_keys(parts: list[WriteKeys]) -> WriteKeys:
+def concat_keys(parts: list[WriteKeys], consume: bool = False) -> WriteKeys:
     """Concatenate per-batch write keys in write (ordinal) order, the
-    secondary sort words of string attribute indexes included."""
+    secondary sort words of string attribute indexes included.
+    ``consume=True`` releases each part's arrays as their column finishes
+    concatenating, so the transient peak is one column set plus one
+    column. Only for parts the caller owns alone (the stream flusher's
+    staged chunks): parts published in a store may be shared with
+    concurrent readers and must never be consumed."""
     if len(parts) == 1:
         return parts[0]
-    return WriteKeys(
-        bins=np.concatenate([p.bins for p in parts]),
-        zs=np.concatenate([p.zs for p in parts]),
-        device_cols={
-            k: np.concatenate([p.device_cols[k] for p in parts])
-            for k in parts[0].device_cols
-        },
-        sub=_concat_sub(parts),
-    )
+    names = tuple(parts[0].device_cols)
+    sub = _concat_sub(parts)
+    if consume:
+        for p in parts:
+            p.sub = None
+    device_cols = {}
+    for name in names:
+        device_cols[name] = np.concatenate(
+            [p.device_cols.pop(name) if consume else p.device_cols[name] for p in parts]
+        )
+    bins = np.concatenate([p.bins for p in parts])
+    zs = np.concatenate([p.zs for p in parts])
+    if consume:
+        for p in parts:
+            p.bins = p.bins[:0]
+            p.zs = p.zs[:0]
+    return WriteKeys(bins=bins, zs=zs, device_cols=device_cols, sub=sub)
 
 
 def _concat_sub(parts: list[WriteKeys]) -> "np.ndarray | None":

@@ -26,7 +26,12 @@ the dispatcher, hits served at admission, a staged flood shed at its
 tenant quota), then ``/metrics``, ``/health``, ``/stats`` and
 ``/debug/vars`` scrapes and ``DataStore.close``; the tenant registry's,
 the SLO trackers' and the telemetry recorder's locks are witnessed, and
-the edges and blocking events equal the JAX package's.
+the edges and blocking events equal the JAX package's. A fourth
+workload drives the streaming tier: a LambdaStore with a write-ahead log
+over a served store, a sliced fold flush racing a writer thread and a
+query thread, then a delete, a checkpoint and a health scrape; the WAL's,
+the hot tier's, the flusher's and the LambdaStore's locks are witnessed
+under the JAX package's names, with the same edges and blocking points.
 """
 
 import json
@@ -442,3 +447,113 @@ def test_serving_and_ops_workload_edges_equal_the_jax_package():
     assert "TelemetryRecorder._lock" not in outers
     assert not any(b in ("TenantRegistry._lock", "SloTracker._lock")
                    for a, b in tsnap["edges"] if a == "QueryScheduler._cond")
+
+
+STREAM_LOCKS = {"WriteAheadLog._lock", "WriteAheadLog._sync_lock", "StreamingFeatureCache._lock",
+                "StreamFlusher._pool_lock", "StreamFlusher._stage_lock", "LambdaStore._sub_lock",
+                "DataStore._write_lock", "QueryScheduler._cond"}
+
+
+def _streaming_workload(P, tmp):
+    """Arm, build and drive the streaming tier: a LambdaStore with a
+    write-ahead log (``sync=always``, small segments, so appends rotate)
+    over a served store; a writer thread and a query thread race a sliced
+    fold flush (its pacer waits on the scheduler), then a delete, a
+    checkpoint and a health scrape. Returns the witness snapshot, the
+    cycle and the answers."""
+    import os
+    import urllib.request
+
+    from importlib import import_module
+
+    st = import_module(P.pkg.__name__ + ".streaming")
+    geo = import_module(P.pkg.__name__ + ".geometry")
+    P.lw.enable()
+    reg = P.metrics.MetricsRegistry()
+    rng = np.random.default_rng(29)
+    n = 2_000
+    sft = P.pkg.FeatureType.from_spec("t", SPEC)
+    ds = P.pkg.DataStore(tile=1024, metrics=reg, **P.kw)
+    ds.create_schema(sft)
+    ds.write("t", P.pkg.FeatureCollection.from_columns(sft, [str(i) for i in range(n)], {
+        "name": np.array(["a", "b", "c"])[rng.integers(0, 3, n)],
+        "age": rng.integers(0, 50, n).astype(np.int32),
+        "dtg": T0 + rng.integers(0, 10 * DAY, n),
+        "geom": (rng.uniform(-50, 50, n), rng.uniform(-50, 50, n))}))
+    ds.compact("t")
+    root = os.path.join(tmp, P.name)
+    lam = st.LambdaStore(
+        ds, "t", config=st.StreamConfig(workers=2, chunk_rows=64, fold_rows=200,
+                                        slice_rows=100, fold_yield_ms=1.0),
+        wal_dir=os.path.join(root, "_wal"),
+        wal_config=st.WalConfig(sync="always", segment_bytes=1 << 14))
+    lam.serve()
+
+    def rows(seed, k):
+        r = np.random.default_rng(seed)
+        return [{"name": "u", "age": 1, "dtg": int(T0 + j),
+                 "geom": geo.Point(float(x), float(y))}
+                for j, (x, y) in enumerate(zip(r.uniform(-50, 50, k), r.uniform(-50, 50, k)))]
+
+    lam.write(rows(1, 300), ids=[str(i) for i in range(300)])  # updates: deferred, staged
+    lam.flush()
+    answers = []
+    start = threading.Event()
+
+    def writer():
+        start.wait()
+        for b in range(4):
+            lam.write(rows(10 + b, 50), ids=[f"w{b}_{j}" for j in range(50)])
+
+    def reader():
+        start.wait()
+        for q in QUERIES:
+            lam.query(q)
+
+    threads = [threading.Thread(target=writer), threading.Thread(target=reader)]
+    for t in threads:
+        t.start()
+    start.set()
+    lam.persist_hot()  # the sliced fold, racing the writer and the reader
+    for t in threads:
+        t.join(60)
+    lam.delete(["w0_0", "w0_1"])
+    lam.checkpoint(root)
+    answers += [sorted(map(str, np.asarray(lam.query(q).ids).tolist())) for q in QUERIES]
+    ops = lam.serve_ops()
+    with urllib.request.urlopen(ops.url + "/health", timeout=30) as r:
+        answers.append(json.loads(r.read())["status"])
+    lam.close()
+    ds.close()
+    snap = P.lw.REPORT.snapshot()
+    cycle = P.lw.REPORT.cycle()
+    P.lw.disable()
+    return snap, cycle, answers
+
+
+def test_streaming_workload_edges_equal_the_jax_package(tmp_path):
+    """A flush racing writes and queries through the streaming tier: the
+    write-ahead log's, the hot tier's, the flusher's and the LambdaStore's
+    locks witnessed under the JAX package's names, the same edges (and
+    blocking points) as the JAX package's, acyclic. The fold publishes
+    under the write lock and its pacer waits on the scheduler; the WAL's
+    locks nest under the write lock (the per-slice watermark) and the hot
+    tier's (the delete's record); only the metrics registry's lock nests
+    under the WAL's append lock."""
+    (jsnap, jcyc, jans), (tsnap, tcyc, tans) = (_streaming_workload(P, str(tmp_path))
+                                                for P in BOTH)
+    assert tans == jans
+    assert jcyc is None and tcyc is None
+    assert STREAM_LOCKS <= set(tsnap["seen"]) and STREAM_LOCKS <= set(jsnap["seen"])
+    assert tsnap["edges"] == jsnap["edges"]
+    # counts of fault points under a lock follow the race (group commits)
+    assert set(tsnap["blocking"]) == set(jsnap["blocking"])
+    assert tsnap["aliased"] == jsnap["aliased"]
+    edges = set(map(tuple, tsnap["edges"]))
+    assert ("DataStore._write_lock", "QueryScheduler._cond") in edges
+    assert ("DataStore._write_lock", "WriteAheadLog._lock") in edges
+    assert ("StreamingFeatureCache._lock", "WriteAheadLog._lock") in edges
+    assert ("StreamingFeatureCache._lock", "StreamFlusher._stage_lock") in edges
+    assert ("WriteAheadLog._sync_lock", "WriteAheadLog._lock") in edges
+    # under the WAL's append lock only the registry's (the bytes gauge)
+    assert {b for a, b in edges if a == "WriteAheadLog._lock"} == {"MetricsRegistry._lock"}

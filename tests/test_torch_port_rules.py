@@ -17,6 +17,11 @@
 - every knob of ``geomesa_tpu_torch.conf`` is a knob of the JAX package
   under the same name, with the same default and the same parsing: the
   port adds no knob of its own;
+- the streaming tier's modules (``streaming`` and its five modules,
+  ``utils.spatial_index``, ``io.varint``, ``ingest.sort``) import neither
+  jax nor anything of ``geomesa_tpu``, each on its own in a fresh
+  interpreter, and ``LambdaStore.recover`` loads onto the card unless
+  told otherwise (it raises where there is none);
 - the persistence slice's modules (``fault``, ``lockwitness``,
   ``storage.metadata``, ``storage.adapter``, ``storage.persist``) import
   neither jax nor anything of ``geomesa_tpu``, each on its own in a fresh
@@ -75,7 +80,9 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
                  "lockwitness", "storage.metadata", "storage.adapter", "storage.persist",
                  "stats.store", "obs.accuracy", "security", "views", "cache",
                  "cache.fingerprint", "cache.generations", "cache.result", "cache.tiles",
-                 "serving.tenancy", "obs.slo", "obs.ops"):
+                 "serving.tenancy", "obs.slo", "obs.ops", "streaming", "streaming.wal",
+                 "streaming.cache", "streaming.flush", "streaming.store", "streaming.stream",
+                 "utils.spatial_index", "io.varint", "ingest", "ingest.sort"):
         assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
@@ -404,7 +411,13 @@ def test_every_port_knob_is_a_jax_knob_with_its_default():
                  "geomesa.obs.slo.wal.p99.ms", "geomesa.obs.slo.standing.p99.ms",
                  "geomesa.obs.slo.replica.staleness.p99.ms", "geomesa.obs.slo.tiles.p99.ms",
                  "geomesa.obs.ops.host", "geomesa.obs.ops.sample.ms",
-                 "geomesa.obs.ops.history"):
+                 "geomesa.obs.ops.history", "geomesa.ingest.merge.min.bins",
+                 "geomesa.stream.workers", "geomesa.stream.chunk.rows",
+                 "geomesa.stream.queue.depth", "geomesa.stream.fold.rows",
+                 "geomesa.stream.fold.yield.ms", "geomesa.stream.fold.prestage",
+                 "geomesa.stream.wal.sync", "geomesa.stream.wal.sync.interval.ms",
+                 "geomesa.stream.wal.segment.bytes", "geomesa.stream.wal.replay.batch.rows",
+                 "geomesa.stream.incremental"):
         assert name in port, name
 
 
@@ -491,3 +504,42 @@ def test_disarmed_witness_returns_the_lock_it_was_given(ctor, monkeypatch):
     assert type(MetricsRegistry()._lock) is type(threading.Lock())
     ds = DataStore(device="cpu")
     assert type(ds._write_lock) is type(threading.RLock())
+
+
+@pytest.mark.parametrize("module", ["streaming", "streaming.wal", "streaming.cache",
+                                    "streaming.flush", "streaming.store", "streaming.stream",
+                                    "utils.spatial_index", "io.varint", "ingest.sort"])
+def test_streaming_modules_import_no_jax(module):
+    """The streaming tier's modules, each on its own in a fresh
+    interpreter: neither jax nor anything of geomesa_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE, f"geomesa_tpu_torch.{module}"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    path = os.path.join(ROOT, "geomesa_tpu_torch", *module.split("."))
+    src = open(path + ".py" if os.path.exists(path + ".py") else
+               os.path.join(path, "__init__.py")).read()
+    assert "import jax" not in src and "from geomesa_tpu." not in src
+    assert "from geomesa_tpu import" not in src
+
+
+def test_recover_loads_onto_the_card_by_default(monkeypatch, tmp_path):
+    """``LambdaStore.recover`` has no CPU fallback: without ``device=`` it
+    loads the cold store onto the card, and raises where there is none."""
+    from geomesa_tpu_torch import FeatureType
+    from geomesa_tpu_torch.storage import persist
+    from geomesa_tpu_torch.streaming import LambdaStore
+
+    ds = DataStore(device="cpu")
+    ds.create_schema(FeatureType.from_spec("t", "dtg:Date,*geom:Point:srid=4326"))
+    persist.save(ds, str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LambdaStore.recover(str(tmp_path))
+    lam = LambdaStore.recover(str(tmp_path), device="cpu")
+    assert lam.cold.device == torch.device("cpu")
+    lam.close()
