@@ -26,7 +26,10 @@ Phases, each printing one JSON line:
    each with and without the window, the window alone and the validity
    leg, K3 and K4 over the bbox centres; K3 again on a clustered shape,
    the main shape's columns with half of the rows in 64 gaussian clusters
-   of sigma 0.5 degrees); results must be
+   of sigma 0.5 degrees); K2 at the standing matcher's shape (a
+   20,000-row batch in 5 blocks of SUB = 32 with +inf pad rows, a full
+   chunk of 128 star geofences per fused E bucket 16, 64 and 256, pad
+   slots to the 1,024-slot bucket, columns x and y only); results must be
    equal word for word; each kernel's and leg's time (CUDA events, median
    of 25 runs after warm-up: the launch alone, and the whole wrapper with
    its staging) beside its bound and the plain version's time, K3's on
@@ -260,16 +263,54 @@ Phases, each printing one JSON line:
    ``wal.needs_recovery`` and ``recover`` clears it; then a recovery run
    (streamed rows with a watermark per batch, a crash, ``recover`` timed
    on the card, every row surfaced, the probes equal). ``close()`` of
-   every store leaves no streaming, serving or ops thread.
+   every store leaves no streaming, serving or ops thread;
+18. moving-standing-1M: the reference's ``config_standing`` at its
+   sizes but for the events. 1,000,000 tiny squares (half-widths 0.005-0.03 degrees), 96
+   jagged stars of 8-120 arms in the hotspot box (0, 10, 12, 22) and 16
+   convex rings, 1,000,112 in all, registered through
+   ``register_geofences`` on a WAL-backed LambdaStore whose cold store is
+   on the card, every fused E bucket warmed with the gate; 100,000 events
+   (the reference's 200,000 halved, as the path's 75 s budget asks when
+   it runs over; listed in ``reduced``; 20 % in the hotspot) in 20k
+   batches, each ``write`` then ``flush``,
+   with the matcher off and on (rows/s and their ratio beside the
+   reference's 0.9); the inverted index per event against the naive
+   evaluation of every subscription on 16 sampled events (beside the
+   reference's 50x floor); alerts, fused dispatches, ``gate.host``, and
+   the ``geomesa.standing.latency`` p99 beside the 250 ms objective.
+   Checks: over 1,500 sampled events the match sets equal a plain f64
+   even-odd ray cast over each event's bbox candidates (written here);
+   every hotspot event of every batch gives the same match set through a
+   fused engine (gate off, one point enough) and a host one, and K2
+   launches with its point-in-polygon leg; 1,000 fences ``subscribe()``d
+   after a checkpoint survive ``wal.crash()`` and ``recover`` on the card,
+   the recovered engine matching one batch as the live one; ``close()``
+   leaves no thread;
+19. moving-replica-60k: the reference's ``config_replica`` at its
+   defaults: a leader over a 60,000-row cold store, two ReplicaStore
+   followers over PipeTransport bootstrapped on the card, every probe's
+   ids equal to the leader's in order once caught up (before and after
+   the first streamed batch); one 2 s read window per store (q/s at 0, 1
+   and 2 followers, the scaling beside the reference's 1.5x); 40,000 rows
+   streamed in 2,000-row batches under ``sync=always`` with the shipper
+   and apply threads running, the staleness p99 beside the 2,000 ms
+   objective; the leader killed at 70 % of the stream (``wal.crash()``)
+   and a follower promoted from the dead leader's WAL (timed): no
+   acknowledged row lost, none invented, the lagging follower holding
+   nothing never written, a term-0 shipment refused; ``serve_ops()`` of
+   the lagging follower: ``/health`` with the ``replica`` section,
+   ``/stats`` answering, no kernel launched by the scrapes; ``close()``
+   of every store and the shipper leaves no thread.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the fifteen paths and read just after
+are zeroed just before each of the seventeen paths and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
 with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
 extent leg; tiered, mutate, persist and secure-cached: all five;
-attribute, served and stream: K1 and K2) and
+attribute, served and stream: K1 and K2; standing: K2 with its
+point-in-polygon leg; replica: K1) and
 called the native helpers ``check_native`` names (the ranges where it
 plans new filters, since the batch path's repeated plans take the
 planner's scan-config memo; ``sort_bins_z`` where it ingests, the plane
@@ -717,6 +758,10 @@ def kernel_phase(torch, device):
     out["block_scan"]["max_abs_err"] = max(out["block_scan"]["max_abs_err"], err1)
     out["block_scan_multi"]["max_abs_err"] = max(out["block_scan_multi"]["max_abs_err"], err2)
     out["polygon_leg_checks"] = n_poly
+    mk, m_err, n_match = matcher_kernels(torch, device, dev)
+    out["block_scan_multi"]["legs"].update(mk)
+    out["block_scan_multi"]["max_abs_err"] = max(out["block_scan_multi"]["max_abs_err"], m_err)
+    out["matcher_checks"] = n_match
     del cols
     torch.cuda.empty_cache()
     for name, leg in extent_kernels(torch, device, n_blocks, sub, boxes, wins, dev).items():
@@ -2756,15 +2801,15 @@ def hints_path(torch, ds, src, measured, outs, main_lat, clock_phases) -> dict:
 
 
 def main_path(torch, device):
-    """Fourteen paths, each with its own launch and native call counts
+    """Seventeen paths, each with its own launch and native call counts
     (zeroed just before it runs, read just after): the single-query main
     path, the batch path, the polygon path and the query controls on the
     same store, the
     packed-time cell, the Z2 polygon cell, the two extent cells (XZ2,
     XZ3), the tiered store with its union queries, the mutated store, the
     attribute-indexed store, the saved and loaded store, the secure,
-    cached event store, and the served store behind the scheduler and the
-    ops plane."""
+    cached event store, the served store behind the scheduler and the
+    ops plane, the streaming tier, standing queries and replication."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -2866,7 +2911,8 @@ def main_path(torch, device):
             tiered_union_path(torch, device), mutation_path(torch, device),
             attribute_path(torch, device), persist_path(torch, device),
             secure_cached_path(torch, device), served_path(torch, device),
-            stream_path(torch, device))
+            stream_path(torch, device), standing_path(torch, device),
+            replica_path(torch, device))
 
 
 # -- the delta tier and union plans ----------------------------------------
@@ -5837,6 +5883,678 @@ def stream_path(torch, device) -> dict:
     return rec
 
 
+# -- standing queries (moving-standing-1M) -----------------------------------
+
+GEOFENCE_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
+N_SUBS = 1_000_000  # tiny squares; with the 96 stars and 16 rings: 1,000,112
+N_GEOFENCE_EVENTS = 100_000  # the reference's 200,000, halved for the 75 s budget
+GEOFENCE_BATCH = 20_000
+N_GEOFENCE_ORACLE = 1_500
+N_GEOFENCE_NAIVE = 16
+N_CRASH_SUBS = 1_000
+GEOFENCE_HOT = (0.0, 10.0, 12.0, 22.0)  # x0, y0, x1, y1: 20 % of the events
+GEOFENCE_T0 = 1_717_200_000_000
+STANDING_P99_MS = 250.0  # geomesa.obs.slo.standing.p99.ms
+GEOFENCE_BUDGET_S = 75.0
+MATCH_ROWS = 20_000  # the kernel phase's matcher batch: 5 blocks of 4,096 rows
+
+
+def geofence_ring(cx, cy, r, n=24):
+    from geomesa_tpu_torch import geometry as geo
+
+    a = np.linspace(0, 2 * np.pi, n + 1)
+    return geo.Polygon([(cx + r * np.cos(t), cy + r * np.sin(t)) for t in a])
+
+
+def squares(cx, cy, w):
+    """Axis-aligned squares of half-width w, each a closed 5-point ring in
+    the reference's vertex order."""
+    from geomesa_tpu_torch import geometry as geo
+
+    sh = np.empty((len(cx), 5, 2))
+    sh[:, 0, 0], sh[:, 0, 1] = cx - w, cy - w
+    sh[:, 1, 0], sh[:, 1, 1] = cx + w, cy - w
+    sh[:, 2, 0], sh[:, 2, 1] = cx + w, cy + w
+    sh[:, 3, 0], sh[:, 3, 1] = cx - w, cy + w
+    sh[:, 4] = sh[:, 0]
+    return [geo.Polygon(s) for s in sh]
+
+
+def geofence_population(seed):
+    """The reference's population and stream (``bench.py``
+    ``config_standing``, its seed and draw order): 1,000,000 tiny squares
+    (half-widths 0.005-0.03 degrees, centres over +-170 x +-80), 96 jagged
+    stars of 8-120 arms in the hotspot and 16 convex rings whose interiors
+    classify FULL; N_GEOFENCE_EVENTS events, 20 % in the hotspot, in 20k
+    batches."""
+    rng = np.random.default_rng(seed)
+    cx = rng.uniform(-170, 170, N_SUBS)
+    cy = rng.uniform(-80, 80, N_SUBS)
+    w = rng.uniform(0.005, 0.03, N_SUBS)
+    geoms = squares(cx, cy, w)
+    hot = GEOFENCE_HOT
+    dense = []
+    for k in range(96):
+        arms = int(rng.integers(8, 121))  # E buckets 16..256
+        dense.append((f"dense{k}", star(
+            float(rng.uniform(hot[0] + 2, hot[2] - 2)), float(rng.uniform(hot[1] + 2, hot[3] - 2)),
+            float(rng.uniform(0.8, 2.5)), arms, np.random.default_rng(SEED + k))))
+    for k in range(16):
+        dense.append((f"fence{k}", geofence_ring(
+            float(rng.uniform(-160, 160)), float(rng.uniform(-70, 70)),
+            float(rng.uniform(2.0, 4.0)))))
+    ids = [f"s{i}" for i in range(N_SUBS)] + [i for i, _ in dense]
+    geoms += [g for _, g in dense]
+    # the squares' bboxes as the population drew them (each shell vertex
+    # is one of these sums), for the oracle
+    tiny_bbox = np.stack([cx - w, cy - w, cx + w, cy + w], axis=1)
+    n = N_GEOFENCE_EVENTS
+    n_hot = n // 5
+    ex = np.concatenate([rng.uniform(-170, 170, n - n_hot), rng.uniform(hot[0], hot[2], n_hot)])
+    ey = np.concatenate([rng.uniform(-80, 80, n - n_hot), rng.uniform(hot[1], hot[3], n_hot)])
+    order = rng.permutation(n)
+    return ids, geoms, tiny_bbox, ex[order], ey[order], rng
+
+
+def geofence_batches(ex, ey):
+    from geomesa_tpu_torch import geometry as geo
+
+    out = []
+    for s in range(0, len(ex), GEOFENCE_BATCH):
+        k = min(GEOFENCE_BATCH, len(ex) - s)
+        out.append(([f"e{s + j}" for j in range(k)],
+                    [{"name": "e", "dtg": GEOFENCE_T0 + s + j,
+                      "geom": geo.Point(float(ex[s + j]), float(ey[s + j]))} for j in range(k)]))
+    return out
+
+
+def ring_segments(geom) -> np.ndarray:
+    """[n, 4] (x0, y0, x1, y1) edges of every ring of a polygon."""
+    parts = []
+    for r in [geom.shell, *geom.holes]:
+        c = np.asarray(r, np.float64)
+        parts.append(np.concatenate([c[:-1], c[1:]], axis=1))
+    return np.concatenate(parts)
+
+
+def ray_cast(px, py, segs) -> bool:
+    """The plain f64 even-odd test of one point against one polygon's
+    edges: an edge crosses where it spans the point's y, at the abscissa
+    x0 + t (x1 - x0), t = (py - y0) / (y1 - y0), right of the point."""
+    y0, y1 = segs[:, 1], segs[:, 3]
+    s = segs[(y0 <= py) != (y1 <= py)]
+    t = (py - s[:, 1]) / (s[:, 3] - s[:, 1])
+    xi = s[:, 0] + t * (s[:, 2] - s[:, 0])
+    return int((xi > px).sum()) % 2 == 1
+
+
+class GeofenceOracle:
+    """Each event's matches by brute force: the subscriptions whose closed
+    bbox holds it (the tiny squares found through their x-sorted left
+    edges, the 112 large fences checked all), each decided by
+    :func:`ray_cast`."""
+
+    def __init__(self, geoms, tiny_bbox):
+        self.geoms = geoms
+        self.bbox = np.concatenate([tiny_bbox, [g.bounds() for g in geoms[N_SUBS:]]])
+        self.order = np.argsort(tiny_bbox[:, 0], kind="stable")
+        self.x0 = tiny_bbox[self.order, 0]
+        self.width = float((tiny_bbox[:, 2] - tiny_bbox[:, 0]).max())
+        self.big = np.arange(N_SUBS, len(geoms))
+        self.segs: dict = {}
+
+    def matches(self, px, py) -> set:
+        lo = np.searchsorted(self.x0, px - self.width, side="left")
+        hi = np.searchsorted(self.x0, px, side="right")
+        cand = np.concatenate([self.order[lo:hi], self.big])
+        b = self.bbox[cand]
+        cand = cand[(b[:, 0] <= px) & (b[:, 2] >= px) & (b[:, 1] <= py) & (b[:, 3] >= py)]
+        out = set()
+        for o in cand.tolist():
+            segs = self.segs.get(o)
+            if segs is None:
+                segs = self.segs[o] = ring_segments(self.geoms[o])
+            if ray_cast(px, py, segs):
+                out.add(o)
+        return out
+
+
+def match_pairs(eng, x, y, ids=None) -> list:
+    """Sorted (row, subscription id) pairs of a batch through an engine."""
+    pt, ords = eng.match_points(x, y)
+    names = eng.index._ids
+    out = sorted((int(p), names[int(o)]) for p, o in zip(pt, ords))
+    return out if ids is None else [p for p in out if p[1] in ids]
+
+
+def standing_ingest(torch, device, batches, population=None):
+    """One streamed run over the prebuilt batches into a WAL-backed
+    LambdaStore (the default sync policy) whose cold store is on the card;
+    with ``population`` (ids, geoms) the engine registers it in bulk and
+    warms every fused E bucket at the batch shape, with the gate. Returns
+    (rows/s, store, root, registration seconds)."""
+    from geomesa_tpu_torch import DataStore, FeatureType
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.scan import block_kernels as bk
+    from geomesa_tpu_torch.streaming import LambdaStore, StreamConfig
+
+    ds = DataStore(device=device, metrics=MetricsRegistry())
+    ds.create_schema(FeatureType.from_spec("ev", GEOFENCE_SPEC))
+    root = tempfile.mkdtemp(prefix="geomesa_standing_")
+    lam = LambdaStore(ds, "ev", config=StreamConfig(), wal_dir=os.path.join(root, "_wal"))
+    reg_s = None
+    if population is not None:
+        eng = lam.standing()
+        s = time.perf_counter()
+        eng.index.register_geofences(*population)
+        reg_s = time.perf_counter() - s
+        for e in bk.FUSED_E_BUCKETS:
+            eng.matcher.warmup(e, n_rows=GEOFENCE_BATCH, gate=eng.gate)
+    wids, wrows = batches[0]
+    lam.write(wrows, ids=[f"w{j}" for j in range(len(wids))])
+    lam.flush()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids, rows in batches:
+        lam.write(rows, ids=ids)
+        lam.flush()
+    torch.cuda.synchronize()
+    return N_GEOFENCE_EVENTS / (time.perf_counter() - t0), lam, root, reg_s
+
+
+def fused_host_check(torch, device, ids, geoms, ex, ey) -> dict:
+    """Every hotspot event of every batch through an engine that fuses
+    every eligible candidate (gate off, one routed point enough) and one
+    that keeps all on the host ray cast, over the population that reaches
+    the hotspot (its stars and rings, and the tiny squares whose bbox meets
+    it): the match sets must be equal bit for bit, and K2 must launch."""
+    from geomesa_tpu_torch import FeatureType
+    from geomesa_tpu_torch.streaming.standing import StandingConfig, StandingQueryEngine
+
+    hot = GEOFENCE_HOT
+    keep = [i for i, g in enumerate(geoms)
+            if (lambda b: b[0] <= hot[2] and b[2] >= hot[0] and b[1] <= hot[3]
+                and b[3] >= hot[1])(g.bounds())]
+    sft = FeatureType.from_spec("ev", GEOFENCE_SPEC)
+    engines = {}
+    # the fused engine fuses every star, so it builds no match-time
+    # raster; the host engine keeps the shipped host path, rasters on
+    for label, cfg in (("fused", StandingConfig(fused_gate=False, fused_min_points=1,
+                                                raster_cells=0)),
+                       ("host", StandingConfig(fused_min_points=0))):
+        eng = StandingQueryEngine(sft, cfg, device=device)
+        eng.index.register_geofences([ids[i] for i in keep], [geoms[i] for i in keep])
+        engines[label] = eng
+    pairs = 0
+    t = {"fused": 0.0, "host": 0.0}
+    for s in range(0, len(ex), GEOFENCE_BATCH):
+        x, y = ex[s: s + GEOFENCE_BATCH], ey[s: s + GEOFENCE_BATCH]
+        m = (x >= hot[0]) & (x <= hot[2]) & (y >= hot[1]) & (y <= hot[3])
+        got = {}
+        for label, eng in engines.items():
+            t0 = time.perf_counter()
+            got[label] = match_pairs(eng, x[m], y[m])
+            t[label] += time.perf_counter() - t0
+        check(got["fused"] == got["host"],
+              f"standing: fused and host match sets equal on batch {s // GEOFENCE_BATCH}")
+        pairs += len(got["fused"])
+    fused = engines["fused"].metrics.counter_value("geomesa.standing.fused")
+    check(fused > 0, "standing: the fused engine dispatched K2")
+    return {"subscriptions": len(keep), "pairs": pairs, "fused_dispatches": fused,
+            "fused_s": t["fused"], "host_s": t["host"]}
+
+
+def standing_crash_check(torch, device, lam, root, batch_xy) -> dict:
+    """Subscriptions survive a crash: a checkpoint, then 1,000 fences more
+    through ``subscribe()`` (each WAL-logged before it is acknowledged),
+    ``wal.crash()`` and ``LambdaStore.recover(root)`` on the card; the
+    recovered engine's matches on one batch equal the live engine's
+    matches of those 1,000."""
+    from geomesa_tpu_torch.streaming import LambdaStore
+    from geomesa_tpu_torch.streaming.standing import Subscription
+
+    lam.checkpoint(root)
+    rng = np.random.default_rng(SEED + 141)
+    hot = GEOFENCE_HOT
+    cx = rng.uniform(hot[0], hot[2], N_CRASH_SUBS)
+    cy = rng.uniform(hot[1], hot[3], N_CRASH_SUBS)
+    w = rng.uniform(0.05, 0.3, N_CRASH_SUBS)
+    names = [f"crash{i}" for i in range(N_CRASH_SUBS)]
+    s = time.perf_counter()
+    for name, g in zip(names, squares(cx, cy, w)):
+        lam.subscribe(Subscription(name, "geofence", geom=g))
+    subscribe_s = time.perf_counter() - s
+    x, y = batch_xy
+    live = match_pairs(lam.standing(), x, y, ids=set(names))
+    lam.wal.crash()
+    lam.flusher.close()
+    s = time.perf_counter()
+    rec = LambdaStore.recover(root, device=device)
+    recover_s = time.perf_counter() - s
+    try:
+        check(rec.cold.device.type == "cuda", "standing: recover loads onto the card")
+        check(rec.standing().index.subscription_ids() == sorted(names),
+              "standing: every acknowledged subscribe() survives the crash")
+        got = match_pairs(rec.standing(), x, y)
+        check(got == live and len(got) > 0, "standing: the recovered engine matches as the live one")
+    finally:
+        rec.close()
+        rec.cold.close()
+    return {"subscribed": N_CRASH_SUBS, "subscribe_s": subscribe_s, "recover_s": recover_s,
+            "pairs": len(live)}
+
+
+def standing_path(torch, device) -> dict:
+    """moving-standing-1M: geofencing and alerting services (fleet
+    operators, asset trackers, maritime watch) hold about a million
+    persistent fences and want an alert within a fraction of a second of
+    each position report. The reference's ``config_standing`` at its
+    sizes but for the events (halved, in ``reduced``): ingest with the matcher off and on, the inverted index against
+    the naive evaluation, the ``identical`` oracle, the alert latency;
+    then fused against host, and a crash with ``subscribe()``d fences.
+    Launch and native counts are zeroed before, read after."""
+    import gc
+    import shutil
+
+    from geomesa_tpu_torch.streaming.standing import _ragged_pip
+
+    gc.collect()
+    gc.freeze()
+    zero_launches()
+    t_path = time.perf_counter()
+    threads0 = stream_threads()
+    sections = {}
+    s = time.perf_counter()
+    ids, geoms, tiny_bbox, ex, ey, rng = geofence_population(SEED + 140)
+    batches = geofence_batches(ex, ey)
+    gc.freeze()  # the million fences stay out of the collector's full passes
+    sections["population"] = time.perf_counter() - s
+    roots = []
+    try:
+        s = time.perf_counter()
+        off_rate, off_lam, root, _ = standing_ingest(torch, device, batches)
+        roots.append(root)
+        off_lam.close()
+        off_lam.cold.close()
+        sections["ingest_off"] = time.perf_counter() - s
+        s = time.perf_counter()
+        on_rate, lam, root, reg_s = standing_ingest(torch, device, batches, (ids, geoms))
+        roots.append(root)
+        sections["ingest_on"] = time.perf_counter() - s
+        eng = lam.standing()
+        reg = lam.cold.metrics
+        check(len(eng.index) == N_SUBS + 112, "standing: 1,000,112 subscriptions registered")
+        alerts = reg.counter_value("geomesa.standing.alerts")
+        fused_timed = reg.counter_value("geomesa.standing.fused")
+        gate_host = reg.counter_value("geomesa.standing.gate.host")
+        errors = reg.counter_value("geomesa.standing.errors")
+        check(errors == 0, "standing: no matcher fault in the timed run")
+        check(alerts > 0, "standing: the timed run delivered alerts")
+        p99_ms = reg.histogram_quantile("geomesa.standing.latency", 0.99) * 1e3
+        # the inverted index per event, then the naive evaluation of every
+        # subscription on a sample
+        s = time.perf_counter()
+        t0 = time.perf_counter()
+        for k in range(0, len(ex), GEOFENCE_BATCH):
+            eng.match_points(ex[k: k + GEOFENCE_BATCH], ey[k: k + GEOFENCE_BATCH])
+        inverted_us = (time.perf_counter() - t0) / len(ex) * 1e6
+        _, eoff, segs, bbox, _ = eng.index._ensure_arrays()
+        sample = rng.choice(len(ex), size=N_GEOFENCE_NAIVE, replace=False)
+        t0 = time.perf_counter()
+        for e in sample.tolist():
+            px, py = float(ex[e]), float(ey[e])
+            cand = np.flatnonzero((bbox[:, 0] <= px) & (bbox[:, 2] >= px)
+                                  & (bbox[:, 1] <= py) & (bbox[:, 3] >= py))
+            if len(cand):
+                _ragged_pip(np.full(len(cand), px), np.full(len(cand), py),
+                            cand.astype(np.int64), eoff, segs)
+        naive_us = (time.perf_counter() - t0) / N_GEOFENCE_NAIVE * 1e6
+        sections["inverted_naive"] = time.perf_counter() - s
+        # identical: the matcher against the plain ray cast over each
+        # sampled event's bbox candidates
+        s = time.perf_counter()
+        osample = rng.choice(len(ex), size=N_GEOFENCE_ORACLE, replace=False)
+        opt, oords = eng.match_points(ex[osample], ey[osample])
+        got = {}
+        for p, o in zip(opt.tolist(), oords.tolist()):
+            got.setdefault(p, set()).add(o)
+        oracle = GeofenceOracle(geoms, tiny_bbox)
+        mismatches = sum(oracle.matches(float(ex[e]), float(ey[e])) != got.get(row, set())
+                         for row, e in enumerate(osample.tolist()))
+        oracle_pairs = len(opt)
+        del oracle
+        check(mismatches == 0, f"standing: identical to the f64 ray cast ({mismatches} events differ)")
+        sections["oracle"] = time.perf_counter() - s
+        s = time.perf_counter()
+        fused_host = fused_host_check(torch, device, ids, geoms, ex, ey)
+        sections["fused_vs_host"] = time.perf_counter() - s
+        s = time.perf_counter()
+        crash = standing_crash_check(torch, device, lam, root, (ex[:GEOFENCE_BATCH],
+                                                               ey[:GEOFENCE_BATCH]))
+        sections["crash"] = time.perf_counter() - s
+        lam.cold.close()
+    finally:
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    left = [t for t in stream_threads() if t not in threads0]
+    check(left == [], f"standing: close() leaves no thread: {left}")
+    launches = read_launches()
+    legs = read_leg_launches()
+    path_s = time.perf_counter() - t_path
+    reduced = {}
+    if N_GEOFENCE_EVENTS != 200_000:
+        reduced["events"] = {"cell": 200_000, "run": N_GEOFENCE_EVENTS}
+    gc.unfreeze()
+    del ids, geoms, eng, lam
+    gc.collect()
+    rec = {
+        "phase": "standing_path", "cell": "moving-standing-1M", "launches": launches,
+        "leg_launches": legs, "native": read_native(), "reduced": reduced,
+        "subscriptions": N_SUBS + 112, "events": N_GEOFENCE_EVENTS, "batch": GEOFENCE_BATCH,
+        "register_s": reg_s,
+        "matcher_off_rows_per_s": off_rate, "matcher_on_rows_per_s": on_rate,
+        "ingest_ratio": on_rate / off_rate, "ingest_ratio_bound": 0.9,
+        "naive_us_per_event": naive_us, "inverted_us_per_event": inverted_us,
+        "speedup_vs_naive": naive_us / max(inverted_us, 1e-9), "speedup_floor": 50.0,
+        "alerts": alerts, "fused_dispatches_timed": fused_timed, "gate_host": gate_host,
+        "alert_p99_ms": p99_ms, "alert_p99_objective_ms": STANDING_P99_MS,
+        "oracle_events": N_GEOFENCE_ORACLE, "oracle_pairs": oracle_pairs, "identical": True,
+        "fused_vs_host": fused_host, "crash": crash,
+        "section_s": sections, "path_s": path_s, "budget_s": GEOFENCE_BUDGET_S,
+    }
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- WAL-shipping replication (moving-replica-60k) ---------------------------
+
+REPLICA_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
+N_REPLICA_COLD = 60_000
+N_REPLICA_STREAM = 40_000
+REPLICA_BATCH = 2_000
+REPLICA_READ_S = 2.0
+REPLICA_STALENESS_P99_MS = 2000.0  # geomesa.obs.slo.replica.staleness.p99.ms
+REPLICA_BUDGET_S = 35.0
+REPLICA_PROBES = ("bbox(geom, -40, -40, 0, 0)", "bbox(geom, 10, 10, 60, 50)",
+                  "bbox(geom, -170, -80, -100, 0)")
+REPLICA_THREADS = ("geomesa-replica-ship", "geomesa-replica-apply", "geomesa-serving",
+                   "geomesa-ops", "geomesa-telemetry", "geomesa-wal-sync", "geomesa-stream")
+
+
+def replica_threads() -> list:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate()
+                  if t.is_alive() and t.name.split("_")[0] in REPLICA_THREADS)
+
+
+def probe_ids(store) -> list:
+    return [[str(i) for i in store.query(q).ids.tolist()] for q in REPLICA_PROBES]
+
+
+def replica_path(torch, device) -> dict:
+    """moving-replica-60k: read-heavy tracking deployments put read
+    replicas beside the ingesting leader and need a leader's death to lose
+    no acknowledged write. The reference's ``config_replica`` at its
+    defaults: a leader LambdaStore over a 60,000-row cold store, 40,000
+    rows streamed in 2,000-row batches under ``sync=always``, two
+    ReplicaStore followers over PipeTransport, all three stores on the one
+    card: read scaling, bounded staleness, and a kill of the leader
+    mid-ingest with a promotion. Launch and native counts are zeroed
+    before, read after."""
+    import json as _json
+    import shutil
+
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+    from geomesa_tpu_torch import geometry as geo
+    from geomesa_tpu_torch.storage import persist
+    from geomesa_tpu_torch.streaming import (
+        LambdaStore, PipeTransport, ReplicaStore, SegmentShipper, StreamConfig, WalConfig,
+    )
+
+    zero_launches()
+    t_path = time.perf_counter()
+    threads0 = replica_threads()
+    t0_ms = GEOFENCE_T0
+    tmp = tempfile.mkdtemp(prefix="geomesa_replica_")
+    rng = np.random.default_rng(SEED + 98)
+    n_cold = N_REPLICA_COLD
+    sections = {}
+    try:
+        s = time.perf_counter()
+        ds = DataStore(device=device)
+        sft = FeatureType.from_spec("rv", REPLICA_SPEC)
+        ds.create_schema(sft)
+        ds.write("rv", FeatureCollection.from_columns(sft, np.arange(n_cold).astype(str), {
+            "name": np.array(["v"] * n_cold), "dtg": t0_ms + rng.integers(0, 86_400_000, n_cold),
+            "geom": (rng.uniform(-170, 170, n_cold), rng.uniform(-80, 80, n_cold))}),
+            check_ids=False)
+        ds.compact("rv")
+        root = os.path.join(tmp, "s")
+        persist.save(ds, root)
+        lam = LambdaStore(ds, "rv", config=StreamConfig(), wal_dir=os.path.join(root, "_wal"),
+                          wal_config=WalConfig(sync="always"))
+        ship = SegmentShipper(lam, giveup_s=2.0)
+        fols = []
+        for i in range(2):
+            a, b = PipeTransport.pair()
+            fols.append(ReplicaStore(root, os.path.join(tmp, f"f{i}", "_wal"), b, type_name="rv",
+                                     config=StreamConfig(), device=device))
+            ship.attach(a, name=f"f{i}")
+        for fol in fols:
+            check(fol.store.cold.device.type == "cuda", "replica: a follower bootstraps on the card")
+        ship.pump()
+        for fol in fols:
+            fol.drain()
+        sections["bootstrap"] = time.perf_counter() - s
+        # 1. read scaling: each store alone, full-tilt for one window
+        s = time.perf_counter()
+        for store in (lam, *fols):
+            for q in REPLICA_PROBES:
+                store.query(q)
+        lead = probe_ids(lam)
+        for fol in fols:
+            check(probe_ids(fol) == lead, "replica: a caught-up follower's probe ids equal the "
+                                          "leader's, in order")
+
+        def measure(store):
+            n = 0
+            t0 = time.perf_counter()
+            while True:
+                store.query(REPLICA_PROBES[n % len(REPLICA_PROBES)])
+                n += 1
+                dt = time.perf_counter() - t0
+                if dt >= REPLICA_READ_S:
+                    return n / dt
+
+        rates = [measure(st) for st in (lam, *fols)]
+        qps = {k: sum(rates[: k + 1]) for k in (0, 1, 2)}
+        scaling = qps[2] / max(qps[0], 1e-9)
+        sections["read_scaling"] = time.perf_counter() - s
+        # the first batch ships synchronously: caught up, the followers
+        # answer as the leader with its hot tier in the merge
+        s = time.perf_counter()
+        acked = []
+
+        def batch_rows(start):
+            k = min(REPLICA_BATCH, N_REPLICA_STREAM - start)
+            xs, ys = rng.uniform(-170, 170, k), rng.uniform(-80, 80, k)
+            return ([f"r{start + j}" for j in range(k)],
+                    [{"name": "r", "dtg": t0_ms + start + j,
+                      "geom": geo.Point(float(xs[j]), float(ys[j]))} for j in range(k)])
+
+        ids0, rows0 = batch_rows(0)
+        lam.write(rows0, ids=ids0)
+        acked.extend(ids0)
+        ship.pump()
+        for fol in fols:
+            fol.drain()
+            check(fol.replayed == lam.wal.last_seq, "replica: a follower replays the leader's log")
+            check(probe_ids(fol) == probe_ids(lam),
+                  "replica: after catch-up the probes equal the leader's with its hot tier")
+        # 2. bounded staleness under sustained ingest, rolling into 3. the
+        # mid-ingest kill
+        ship.start()
+        for fol in fols:
+            fol.start()
+        kill_at = max(1, (N_REPLICA_STREAM // REPLICA_BATCH) * 7 // 10)
+        for bi, start in enumerate(range(REPLICA_BATCH, N_REPLICA_STREAM, REPLICA_BATCH), 1):
+            ids, rows = batch_rows(start)
+            lam.write(rows, ids=ids)
+            acked.extend(ids)  # sync=always: the return is the acknowledgment
+            if bi + 1 == kill_at:
+                lam.wal.crash()  # kill -9: the leader is gone mid-ingest
+                break
+        stale_p99_ms = max(fol.metrics.histogram_quantile("geomesa.replica.staleness.ms", 0.99)
+                           for fol in fols) * 1e3
+        ship.stop()
+        for fol in fols:
+            fol.stop()
+        sections["stream"] = time.perf_counter() - s
+        s = time.perf_counter()
+        t0 = time.perf_counter()
+        term = fols[0].promote(leader_wal_dir=os.path.join(root, "_wal"))
+        promote_s = time.perf_counter() - t0
+        got = {str(i) for i in fols[0].query("INCLUDE").ids.tolist()}
+        attempted = set(acked) | {str(i) for i in range(n_cold)}
+        acked_loss = sum(1 for fid in acked if fid not in got)
+        invented = sum(1 for fid in got if fid not in attempted)
+        lagging = {str(i) for i in fols[1].query("INCLUDE").ids.tolist()}
+        check(acked_loss == 0, f"replica: {acked_loss} acknowledged rows lost")
+        check(invented == 0, f"replica: {invented} rows invented")
+        check(lagging <= attempted, "replica: the lagging follower holds no row never written")
+        check(term == 1 and fols[0].writable, "replica: the promoted follower takes term 1")
+        # a deposed leader's late shipment carries term 0: refused
+        sizes = dict(fols[0]._sizes)
+        fenced0 = fols[0].metrics.counter_value("geomesa.replica.fenced")
+        fols[0]._handle({"m": "seg", "term": 0, "name": "wal-" + "0" * 20, "off": 0,
+                         "data": "QUJD", "sealed": False})
+        check(fols[0].metrics.counter_value("geomesa.replica.fenced") == fenced0 + 1
+              and dict(fols[0]._sizes) == sizes, "replica: a stale-term shipment is refused")
+        sections["failover"] = time.perf_counter() - s
+        # the ops plane of the lagging follower: the replica section, and
+        # the scrapes launch nothing
+        s = time.perf_counter()
+        srv = fols[1].serve_ops()
+        before = read_launches()
+        code, body = http_get(srv.url + "/health")
+        health = _json.loads(body)
+        stats_code, stats_body = http_get(srv.url + "/stats")
+        check(read_launches() == before, "replica: the ops scrapes launch no kernel")
+        check("replica" in health and health["replica"]["replayed"] == fols[1].replayed,
+              "replica: /health carries the replica section")
+        check(stats_code == 200 and "rv" in _json.loads(stats_body),
+              "replica: /stats answers with the follower's sketches")
+        sections["ops"] = time.perf_counter() - s
+        lam.flusher.close()
+        lam.cold.close()
+        for fol in fols:
+            fol.close()
+        check(srv.closed, "replica: close() closes the follower's ops plane")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = [t for t in replica_threads() if t not in threads0]
+    check(left == [], f"replica: close() of every store and the shipper leaves no thread: {left}")
+    launches = read_launches()
+    reduced = {}
+    if REPLICA_READ_S != 2.0:
+        reduced["read_s"] = {"cell": 2.0, "run": REPLICA_READ_S}
+    rec = {
+        "phase": "replica_path", "cell": "moving-replica-60k", "launches": launches,
+        "native": read_native(), "reduced": reduced,
+        "cold_rows": n_cold, "read_s": REPLICA_READ_S,
+        "qps_0f": qps[0], "qps_1f": qps[1], "qps_2f": qps[2], "qps_scaling_2f": scaling,
+        "qps_scaling_bound": 1.5, "streamed_rows": len(acked), "batch": REPLICA_BATCH,
+        "staleness_p99_ms": stale_p99_ms, "staleness_objective_ms": REPLICA_STALENESS_P99_MS,
+        "promote_s": promote_s, "acked_rows": len(acked), "acked_loss": acked_loss,
+        "invented": invented, "health_status": health["status"],
+        "health_reasons": sorted(r["reason"] for r in health["reasons"]),
+        "section_s": sections, "path_s": time.perf_counter() - t_path,
+        "budget_s": REPLICA_BUDGET_S,
+    }
+    torch.cuda.empty_cache()
+    return rec
+
+
+def matcher_kernels(torch, device, dev) -> tuple:
+    """K2 at the standing matcher's shape: a 20,000-row batch as the
+    matcher lays it out (5 blocks of SUB = 32, one word group a stripe,
+    +inf pad rows past the batch) and, per fused E bucket (16, 64, 256), a
+    full chunk of 128 jagged-star geofences staged as
+    ``FusedMatcher.stage`` stages a dispatch (spip = 1 on the 640 real
+    slots, the pad slots to the 1,024-slot bucket on the no-predicate
+    leg, columns x and y only). Each held against
+    ``block_scan_multi_plain`` word for word, then timed. Returns ({leg:
+    record}, max_abs_err, checks)."""
+    from geomesa_tpu_torch import FeatureType
+    from geomesa_tpu_torch.scan import block_kernels as bk
+    from geomesa_tpu_torch.streaming.standing import (
+        FusedMatcher, StandingConfig, StandingQueryEngine, _BatchColumns,
+    )
+
+    rng = np.random.default_rng(SEED + 142)
+    hot = GEOFENCE_HOT
+    x = rng.uniform(hot[0], hot[2], MATCH_ROWS)
+    y = rng.uniform(hot[1], hot[3], MATCH_ROWS)
+    cols = _BatchColumns(x, y, device)
+    cx, cy = cols.cols3()
+    named = {"x": cx, "y": cy}
+    out, err, checks = {}, 0.0, 0
+    for e_bucket, arms in ((16, (4, 9)), (64, (9, 33)), (256, (33, 129))):
+        eng = StandingQueryEngine(FeatureType.from_spec("ev", GEOFENCE_SPEC),
+                                  StandingConfig(raster_cells=0), device=device)
+        eng.index.register_geofences(
+            [f"k{q}" for q in range(128)],
+            [star(float(rng.uniform(hot[0] + 1, hot[2] - 1)),
+                  float(rng.uniform(hot[1] + 1, hot[3] - 1)),
+                  float(rng.uniform(0.8, 2.5)), int(rng.integers(*arms)), np.random.default_rng(q))
+             for q in range(128)])
+        members = [(q, eng.index.kernel_block(q)) for q in range(128)]
+        check({bk.fused_e_bucket(b.shape[0]) for _, b in members} == {e_bucket},
+              f"matcher stars land in E bucket {e_bucket}")
+        st = FusedMatcher.stage(cols, members)
+        bids, qids, spip, edges = st["bids"], st["qids"], st["spip"], st["edges"]
+        got = bk.scan_planes_multi(cols.cols3(), **st)
+        pw, pi = bk.block_scan_multi_plain(
+            named, dev(bids, torch.int32), dev(qids, torch.int32),
+            dev(st["boxes"], torch.float32), dev(st["wins"], torch.int32),
+            has_boxes=False, has_windows=False, edges=dev(edges, torch.float32),
+            spip=dev(spip, torch.int32))
+        err = max(err, max_abs_err(got[0], pw), max_abs_err(got[1], pi))
+        check(torch.equal(got[0], pw) and torch.equal(got[1], pi),
+              f"block_scan_multi matcher E{e_bucket}: planes equal to the plain version")
+        check(bool(got[0].any()) and bool(got[1].any()),
+              f"block_scan_multi matcher E{e_bucket} selects rows")
+        checks += 1
+        _, launch = bk.multi_launcher(named, bids, qids, st["boxes"], st["wins"],
+                                      has_boxes=False, has_windows=False, edges=edges, spip=spip)
+        m = len(bids)
+        rows = m * 32 * 128
+        # per slot row the packing, per real slot the polygon leg over its
+        # block's rows (the pad rows included: the kernel tests them too)
+        ops = rows * 6
+        for q in range(128):
+            ops += polygon_ops(torch, cx.reshape(-1), cy.reshape(-1), edges[q], None)
+        staged = bk.stage_multi_params(bids, qids, st["boxes"], st["wins"], spip=spip,
+                                       poly=bk.poly_words(edges, None, e_bucket, 0)).nbytes
+        out[f"matcher:E{e_bucket}"] = {
+            "ms": event_ms(launch),
+            "wrapper_ms": event_ms(lambda: bk.scan_planes_multi(cols.cols3(), **st)),
+            "plain_ms": event_ms(lambda: bk.block_scan_multi_plain(
+                named, dev(bids, torch.int32), dev(qids, torch.int32),
+                dev(st["boxes"], torch.float32), dev(st["wins"], torch.int32),
+                has_boxes=False, has_windows=False, edges=dev(edges, torch.float32),
+                spip=dev(spip, torch.int32)), runs=3, warmup=1),
+            **bound(rows * 4 * 2 + 2 * rows // 8 + staged, ops),
+            "library_ms": None,
+            "real_slots": int(spip.sum()),
+            "real_edges": int(bk.active_edges_many(edges[:128]).sum()),
+            "shape": f"M={m} Q=128 SUB=32 rows={MATCH_ROWS} cols=x,y E={e_bucket}",
+        }
+        del got, pw, pi
+    return out, err, checks
+
+
 # -- entry point -------------------------------------------------------------
 
 
@@ -5868,6 +6586,9 @@ def check_native(records) -> None:
         "gdelt-z3-10M-secure-cached": point,
         "gdelt-z3-10M-served": point,
         "moving-z3-3M-stream": point,
+        # the flushes ingest, the matcher decodes K2's planes
+        "moving-standing-1M": ("sort_bins_z", "bitmask_decode_pair"),
+        "moving-replica-60k": point,
     }
     for cell, names in expected_native.items():
         for name in names:
@@ -5937,6 +6658,8 @@ def main() -> int:
         "gdelt-z3-10M-secure-cached": tuple(k.name for k in KERNELS),
         "gdelt-z3-10M-served": ("block_scan", "block_scan_multi"),
         "moving-z3-3M-stream": ("block_scan", "block_scan_multi"),
+        "moving-standing-1M": ("block_scan_multi",),
+        "moving-replica-60k": ("block_scan",),
     }
     for cell, names in expected.items():
         for name in names:
@@ -5951,6 +6674,8 @@ def main() -> int:
         # the extent leg: every kernel on the XZ2 cell, the scans on XZ3
         "osm-xz2-50M": {k.name: ("extent",) for k in KERNELS},
         "xz3-10M-mixed": {"block_scan": ("extent",), "block_scan_multi": ("extent",)},
+        # the standing matcher: K2's point-in-polygon leg
+        "moving-standing-1M": {"block_scan_multi": ("pip",)},
     }
     for cell, kernels in expected_legs.items():
         for name, legs in kernels.items():

@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 
 from geomesa_tpu_torch.cache.generations import GenerationTracker, KeyRange
+from geomesa_tpu_torch.tuning.primitives import ProbeGate, ewma_step
 
 
 @dataclass
@@ -76,51 +77,11 @@ class TileCacheConf:
 # for fragmented edge-strip scans. The cache measures BOTH costs per type
 # (EWMAs) and gates composition off when it is losing, re-probing
 # periodically in case the balance shifts (store grew, tiles warmed).
-# The blend and explore/re-probe moves are the port's copy of the JAX
-# package's tuning primitives (ewma_step, ProbeGate).
+# The blend/explore/re-probe mechanics live in tuning/primitives.py —
+# this gate and standing's match gate share them.
 _EXPLORE_MIN = 6     # composes observed before the gate may trip
 _REPROBE_EVERY = 8   # gated attempts between re-explorations
 _EWMA_ALPHA = 0.25
-
-
-def ewma_step(prev: Optional[float], sample: float, alpha: float) -> float:
-    """One EWMA blend: the first sample seeds the average, later ones
-    fold in at weight ``alpha``."""
-    if prev is None:
-        return sample
-    return (1.0 - alpha) * prev + alpha * sample
-
-
-class ProbeGate:
-    """Explore-then-reprobe admission for a measured alternative: the
-    first ``explore_min`` trials pass unconditionally (the EWMAs need
-    samples first); once the measurement says "losing", every
-    ``reprobe_every``-th blocked attempt still passes, so a shift in the
-    workload can win the gate back."""
-
-    __slots__ = ("explore_min", "reprobe_every", "trials", "blocked")
-
-    def __init__(self, explore_min: int, reprobe_every: int):
-        self.explore_min = explore_min
-        self.reprobe_every = reprobe_every
-        self.trials = 0   # measured attempts let through so far
-        self.blocked = 0  # consecutive losses since the last re-probe
-
-    @property
-    def exploring(self) -> bool:
-        return self.trials < self.explore_min
-
-    def note_trial(self) -> None:
-        self.trials += 1
-
-    def block(self) -> bool:
-        """Record one losing decision. True = let this attempt through
-        anyway (the periodic re-probe, resetting the streak)."""
-        self.blocked += 1
-        if self.blocked >= self.reprobe_every:
-            self.blocked = 0
-            return True
-        return False
 
 
 def _accumulate(x, y):

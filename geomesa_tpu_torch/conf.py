@@ -182,6 +182,97 @@ STREAM_INCREMENTAL = SystemProperty(
     "invalidation); False = the legacy delete-and-rewrite upsert flush",
 )
 
+# -- standing queries: the inverted subscription index
+# (streaming.standing) ---------------------------------------------------
+
+STANDING_GRID_LEVEL = SystemProperty(
+    "geomesa.standing.grid.level", 12, int,
+    "Z2 routing-grid level of the SubscriptionIndex (2^level cells per "
+    "axis): arriving points route to the subscriptions covering their "
+    "cell; finer levels shrink candidate sets but grow each "
+    "subscription's registered cell count",
+)
+STANDING_CLASSIFY_CELLS = SystemProperty(
+    "geomesa.standing.classify.cells", 16384, int,
+    "per-subscription cell budget for FULL/PARTIAL registration-time "
+    "classification (the raster-interval machinery): geofences whose bbox "
+    "window exceeds it register every bbox cell PARTIAL — a superset, "
+    "never wrong, just no zero-geometry full-cell matches",
+)
+STANDING_FUSED_MIN_POINTS = SystemProperty(
+    "geomesa.standing.fused.min.points", 64, int,
+    "routed candidate rows a boundary geofence needs in one batch "
+    "before it joins a fused block_scan_multi dispatch; sparser "
+    "candidates take the vectorized host ray cast (<= 0 keeps "
+    "everything on the host path)",
+)
+STANDING_RASTER_CELLS = SystemProperty(
+    "geomesa.standing.raster.cells", 1_048_576, int,
+    "per-subscription cell budget for the MATCH-TIME raster grid built "
+    "for dense (>= 16-edge, non-rectangle) geofences at registration: "
+    "each candidate point classifies by one cell lookup — FULL cells "
+    "match, OUT cells miss, only the boundary residue pays the exact "
+    "ray cast (the raster-interval economics, inverted); much "
+    "finer than the routing grid, so jagged polygons' residue shrinks "
+    "~10x; 0 disables (every boundary pair pays edges)",
+)
+STANDING_FUSED_GATE = SystemProperty(
+    "geomesa.standing.fused.gate", True, _parse_bool,
+    "measured-cost gate on the standing matcher's fused kernel path "
+    "(the tile cache's adaptive-gate pattern): per-unit EWMAs of the "
+    "host ray cast and the fused dispatch — seeded by one bounded "
+    "probe chunk — keep each eligible geofence on whichever path "
+    "measures cheaper on THIS host (counted by "
+    "geomesa.standing.gate.host); false always fuses past "
+    "geomesa.standing.fused.min.points (differential tests, kernel "
+    "debugging)",
+)
+STANDING_QUEUE_MAX = SystemProperty(
+    "geomesa.standing.queue.max", 65_536, int,
+    "bounded alert-queue capacity: past it the OLDEST alerts drop "
+    "(counted by geomesa.standing.dropped) — delivery never blocks the "
+    "write ack path",
+)
+STANDING_WINDOW_PANES = SystemProperty(
+    "geomesa.standing.window.panes", 512, int,
+    "retained panes per continuous-window aggregate: panes older than "
+    "the newest this-many drop (counted by "
+    "geomesa.standing.window.dropped), bounding window state",
+)
+
+
+# -- replication: WAL shipping, read replicas, failover
+# (streaming.replica) ----------------------------------------------------
+
+REPLICA_SHIP_CHUNK_BYTES = SystemProperty(
+    "geomesa.replica.ship.chunk.bytes", 256 << 10, int,
+    "SegmentShipper transfer granularity: WAL segment bytes stream to "
+    "followers in frames of at most this many payload bytes (each "
+    "length-prefixed + checksummed), so one huge sealed segment never "
+    "monopolizes the transport between staleness marks",
+)
+REPLICA_SHIP_INTERVAL_MS = SystemProperty(
+    "geomesa.replica.ship.interval.ms", 25.0, float,
+    "SegmentShipper pump cadence: every tick ships newly durable WAL "
+    "bytes to each follower and broadcasts a staleness mark (the "
+    "leader's applied horizon + wall clock) — the floor of follower "
+    "staleness under an idle leader",
+)
+REPLICA_STALENESS_MAX_MS = SystemProperty(
+    "geomesa.replica.staleness.max.ms", 5000.0, float,
+    "follower health threshold: a ReplicaStore whose measured staleness "
+    "watermark exceeds this degrades /health with a replica.staleness "
+    "reason; 0 disables the check",
+)
+REPLICA_GIVEUP_S = SystemProperty(
+    "geomesa.replica.giveup.s", 10.0, float,
+    "SegmentShipper retry budget per pump, in seconds (fault."
+    "with_retries max_elapsed_s): past it the shipper stops retrying "
+    "that follower for the tick and trips the replica.ship.giveup "
+    "/health reason instead of spinning in backoff forever",
+)
+
+
 # -- raster-interval polygon approximations (filter.raster) ---------------
 
 RASTER_ENABLED = SystemProperty(

@@ -39,14 +39,21 @@ balancers stop routing). Checks:
   bounded queue; ``scheduler.saturated`` (unhealthy) at a FULL queue;
 - ``standing.drops`` (degraded): the counter moved since the previous
   evaluation;
+- ``replica.staleness`` (degraded): a follower's measured staleness
+  watermark is over ``geomesa.replica.staleness.max.ms``, or unmeasured
+  (no leader mark yet);
+- ``replica.ship.giveup`` (degraded): the leader's SegmentShipper
+  exhausted its retry budget (``geomesa.replica.giveup.s``) for a
+  follower;
 - ``stats.stale`` (degraded): a (type, index) p90 estimate error over
   ``geomesa.plan.estimate.stale.p90``.
 
 The streaming reasons read the LambdaStore passed as ``lam``
 (``LambdaStore.serve_ops`` passes itself); the verdict then also carries
-a ``hot`` section (rows, fold_rows). The reference's replica and shipper
-reasons read its replica tier, which the port does not have yet (ROADMAP
-A10b).
+a ``hot`` section (rows, fold_rows), and on a follower
+(``ReplicaStore.serve_ops``) a ``replica`` section (staleness_ms,
+replayed, term). The replica reasons read ``lam.replica`` (a follower's
+backref) and ``lam.shipper`` (a leader's).
 
 Counter-rate checks compare against the PREVIOUS evaluation's snapshot,
 seeded at construction; the swap is one reference assignment, so
@@ -227,6 +234,36 @@ class HealthMonitor:
                     f"{HOT_OCCUPANCY_FACTOR:g}x the {fold_rows}-row fold "
                     "threshold — flushes are falling behind ingest",
                 )
+            # replication: a follower's measured staleness watermark
+            # against its bound, and the leader-side shipper's bounded
+            # give-up
+            replica = getattr(lam, "replica", None)
+            if replica is not None:
+                limit = float(conf.REPLICA_STALENESS_MAX_MS.get())
+                st = replica.staleness_ms()
+                if limit > 0 and (st is None or st > limit):
+                    detail = (
+                        "staleness unmeasured — no leader mark received "
+                        "yet" if st is None
+                        else f"measured staleness {st:.0f}ms > {limit:g}ms"
+                    )
+                    add(
+                        "replica.staleness", "degraded",
+                        f"{detail} (geomesa.replica.staleness.max.ms): "
+                        f"replayed seqno {replica.replayed} lags the "
+                        "leader — reads here answer from the past",
+                    )
+            shipper = getattr(lam, "shipper", None)
+            if shipper is not None:
+                stuck = shipper.gave_up_report()
+                if stuck:
+                    add(
+                        "replica.ship.giveup", "degraded",
+                        "segment shipping exhausted its retry budget "
+                        f"(geomesa.replica.giveup.s) for follower(s) "
+                        f"{sorted(stuck)} — they fall stale until the "
+                        "transport recovers",
+                    )
         # SLO objectives
         slo = store.slo_report()
         for row in slo["objectives"]:
@@ -290,6 +327,13 @@ class HealthMonitor:
             out["scheduler"] = scheduler_info
         if lam is not None:
             out["hot"] = {"rows": len(lam.hot), "fold_rows": int(lam.config.fold_rows)}
+            replica = getattr(lam, "replica", None)
+            if replica is not None:
+                out["replica"] = {
+                    "staleness_ms": replica.staleness_ms(),
+                    "replayed": replica.replayed,
+                    "term": replica.term,
+                }
         return out
 
 

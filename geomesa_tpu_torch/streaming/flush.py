@@ -138,6 +138,11 @@ class StreamFlusher:
         )
         self._staged: list = []        # guarded-by: _stage_lock
         self._staged_rows: dict = {}   # guarded-by: _stage_lock
+        # standing-query arrival hook: called with the flush snapshot
+        # BEFORE staging. StandingQueryEngine.attach_flusher points it at
+        # the engine's batch pipeline for stores fed through the flusher
+        # directly (attach ONE arrival hook per engine)
+        self.on_batch = None
 
     # -- pool lifecycle ---------------------------------------------------
     def _ensure_pool(self) -> ThreadPoolExecutor:
@@ -388,6 +393,11 @@ class StreamFlusher:
             return 0
         if incremental is None:
             incremental = self.config.incremental
+        if self.on_batch is not None:
+            # standing-query matching at batch arrival; the engine's
+            # on_batch never raises (matcher faults are counted, not
+            # propagated into the publish)
+            self.on_batch(snapshot)
         # one trace per flush (sampling decides retention): stage spans
         # from the pool workers re-attach via the captured parent span
         with _otracer().trace(

@@ -9,10 +9,12 @@ exactly, under concurrent flushes. With a write-ahead log attached every
 hot-tier mutation is logged before it is acknowledged, and
 :meth:`LambdaStore.recover` replays the log over the last checkpoint.
 
-Two parts belong to later tiers of the port and raise
-``NotImplementedError`` naming them: standing queries (``standing``,
-``subscribe``, ``unsubscribe``; ROADMAP A10c) and the network data plane
-(``serve(port=...)``; ROADMAP A12b).
+Standing queries ride the write path: once ``standing()`` or
+``subscribe()`` attaches the engine (on the cold store's device), every
+acknowledged batch routes through its SubscriptionIndex
+(streaming/standing.py). The network data plane (``serve(port=...)``)
+belongs to a later tier of the port (ROADMAP A12b) and raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -40,8 +42,10 @@ WAL_DIR = "_wal"  # default WAL location under a store root
 class RecordApplier:
     """Incremental WAL-record applier: ONE implementation of the record
     semantics (upsert/delete/expire/watermark/subscription), shared by
-    open-time recovery (:meth:`LambdaStore._replay`) and, once the replica
-    tier is ported, a follower's continuous replay.
+    open-time recovery (:meth:`LambdaStore._replay`) and a follower's
+    continuous replay (:class:`~geomesa_tpu_torch.streaming.replica.
+    ReplicaStore`): the follower is "recovery that never stops", the same
+    apply path.
 
     Stateful so records can arrive in chunks over time: contiguous upsert
     records coalesce into bulk hot-tier applies of up to
@@ -52,11 +56,11 @@ class RecordApplier:
     record-at-a-time application exactly. Callers that stop feeding
     records MUST call :meth:`drain` to flush the trailing upsert batch.
 
-    Subscription records (``s``) keep the reference's bookkeeping: each
-    registration body is retained in ``LambdaStore._sub_records`` (so the
-    next checkpoint re-logs it above its cover) and an ``rm`` record pops
-    it. Registering the bodies into a standing-query engine comes with
-    the standing tier (ROADMAP A10c)."""
+    Subscription records (``s``) register into ``store.standing()`` and
+    an ``rm`` record unregisters; each live registration body is also
+    retained in ``LambdaStore._sub_records``, so the next checkpoint
+    re-logs it above its cover. A body that cannot register is skipped
+    with a warning (it was never acknowledged)."""
 
     def __init__(self, store: "LambdaStore"):
         from geomesa_tpu_torch import conf
@@ -122,15 +126,25 @@ class RecordApplier:
             if rm is not None:
                 with store._sub_lock:
                     store._sub_records.pop(str(rm), None)
+                if store._standing is not None:
+                    store._standing.unregister(str(rm))
                 return
-            sub = rec.get("sub")
-            if not isinstance(sub, Mapping) or "id" not in sub:
-                # a body without an id cannot have been acknowledged;
-                # skipping loses nothing, raising would poison recovery
-                log.warning("skipping WAL subscription record without an id: %r", sub)
+            from geomesa_tpu_torch.streaming.standing import Subscription
+
+            try:
+                store.standing().register(Subscription.from_record(rec["sub"]))
+            except (ValueError, TypeError, KeyError):
+                # a body that cannot register was never acknowledged
+                # (subscribe() validates before logging; an old or
+                # hand-written WAL may still carry one): skipping loses
+                # nothing, while raising would poison every recovery
+                log.warning(
+                    "skipping unregistrable WAL subscription record %r",
+                    rec.get("sub", {}).get("id"), exc_info=True,
+                )
                 return
             with store._sub_lock:
-                store._sub_records[str(sub["id"])] = sub
+                store._sub_records[str(rec["sub"]["id"])] = rec["sub"]
 
 
 class LambdaStore:
@@ -194,14 +208,21 @@ class LambdaStore:
         # (an id a direct cold delete removed) only downgrades that id's
         # fold to an append inside fold_upsert
         self._known_cold: set = set()
-        # WAL-logged subscription bodies, so checkpoint() re-logs the live
-        # set above its cover (segment retirement must never drop an
-        # acknowledged registration); _sub_lock serializes that re-log
-        # against the applier's bookkeeping
+        # standing-query engine: attached lazily by standing()/subscribe();
+        # write() feeds it every acknowledged batch. _sub_records retains
+        # WAL-logged registration bodies so checkpoint() can re-log the
+        # live set above its cover (segment retirement must never drop an
+        # acknowledged registration). _sub_lock serializes
+        # subscribe/unsubscribe against that re-log: without it, a
+        # checkpoint could snapshot a subscription, lose the race to an
+        # acknowledged unsubscribe's rm record, and re-log the
+        # registration ABOVE it (recovery would resurrect an acknowledged
+        # removal)
         from geomesa_tpu_torch.lockwitness import witness
 
         self._sub_lock = witness(threading.Lock(), "LambdaStore._sub_lock")
         self._sub_records: dict[str, dict] = {}  # guarded-by: _sub_lock
+        self._standing = None
         # a cache-enabled cold store: hot-tier upsert/delete/expiry bump
         # the shared generations, so merged answers over a mutated hot
         # tier never compose against stale cold cache entries
@@ -220,9 +241,15 @@ class LambdaStore:
         is one trace (WAL append and fsync spans under it)."""
         from geomesa_tpu_torch.obs.trace import tracer
 
+        eng = self._standing
+        t0 = time.perf_counter() if eng is not None else None
         with tracer().trace("write", type=self.type_name, rows=len(rows)):
-            if self.wal is not None:
+            if self.wal is not None or eng is not None:
+                # the standing matcher needs the batch's RESOLVED ids for
+                # its alerts, as the WAL needs them for replay: one
+                # resolution, shared
                 ids, next_id = self.hot.assign_ids(rows, ids)
+            if self.wal is not None:
                 seq = self.wal.log_upsert(ids, rows, next_id)
                 try:
                     n = self.hot.upsert(rows, ids)
@@ -233,6 +260,11 @@ class LambdaStore:
             else:
                 n = self.hot.upsert(rows, ids)
             self._gauge_hot()
+            if eng is not None:
+                # AFTER the ack path: a matcher fault never
+                # un-acknowledges the applied batch (on_batch never
+                # raises; alerts are at-most-once)
+                eng.on_batch(ids, rows, t0)
             return n
 
     def delete(self, ids: Sequence[str]) -> int:
@@ -274,27 +306,67 @@ class LambdaStore:
         if metrics is not None:
             metrics.gauge("geomesa.stream.hot_rows", len(self.hot))
 
-    # -- standing queries (ROADMAP A10c) ---------------------------------
+    # -- standing queries ------------------------------------------------
     def standing(self, config=None):
-        """The standing-query engine: not ported yet."""
-        raise NotImplementedError(
-            "standing queries are not ported yet: they come with the "
-            "standing tier (ROADMAP A10c)"
-        )
+        """The store's :class:`~geomesa_tpu_torch.streaming.standing.
+        StandingQueryEngine` (created on first use, on the cold store's
+        device): once attached, every acknowledged :meth:`write` batch
+        routes through its inverted SubscriptionIndex, matches, and
+        delivers alerts; see :meth:`subscribe`."""
+        if self._standing is None:
+            from geomesa_tpu_torch.streaming.standing import StandingQueryEngine
+
+            # double-checked under _sub_lock: two concurrent first
+            # subscribes must not build two engines (the loser's
+            # acknowledged, WAL-logged registration would land in an
+            # orphaned engine that write() never feeds)
+            with self._sub_lock:
+                if self._standing is None:
+                    self._standing = StandingQueryEngine(
+                        self.cold.get_schema(self.type_name), config,
+                        metrics=getattr(self.cold, "metrics", None),
+                        device=self.cold.device,
+                    )
+        return self._standing
 
     def subscribe(self, sub) -> None:
-        """Register a standing subscription: not ported yet."""
-        raise NotImplementedError(
-            "subscribe() is not ported yet: it comes with the standing "
-            "tier (ROADMAP A10c)"
-        )
+        """Register one standing subscription (a
+        :class:`~geomesa_tpu_torch.streaming.standing.Subscription`). With
+        a WAL attached the registration logs an ``s`` record BEFORE it is
+        acknowledged: like :meth:`write`, the return is the durability
+        guarantee (``recover`` rebuilds the SubscriptionIndex from the
+        log)."""
+        eng = self.standing()
+        # validate BEFORE the record lands: a body that cannot register
+        # must never reach the log (replay re-registers every 's' record,
+        # so a poison body would abort all future recoveries)
+        sub.validate()
+        with self._sub_lock:
+            if self.wal is not None:
+                rec = sub.to_record()
+                seq = self.wal.log_subscribe(rec)
+                try:
+                    eng.register(sub)
+                    self._sub_records[sub.sub_id] = rec
+                finally:
+                    self.wal.applied(seq)
+            else:
+                eng.register(sub)
 
     def unsubscribe(self, sub_id: str) -> bool:
-        """Remove a standing subscription: not ported yet."""
-        raise NotImplementedError(
-            "unsubscribe() is not ported yet: it comes with the standing "
-            "tier (ROADMAP A10c)"
-        )
+        """Remove a standing subscription (apply-then-record, like
+        :meth:`delete`: a failed append describes a removal that really
+        happened, so recovery can only resurrect an unacknowledged
+        unsubscribe, never lose an acknowledged registration)."""
+        if self._standing is None:
+            return False
+        with self._sub_lock:
+            ok = self._standing.unregister(str(sub_id))
+            if ok:
+                self._sub_records.pop(str(sub_id), None)
+                if self.wal is not None:
+                    self.wal.log_unsubscribe(str(sub_id))
+        return ok
 
     # -- flush -----------------------------------------------------------
     def flush(self, incremental: "bool | None" = None, full: bool = False) -> int:
@@ -422,7 +494,11 @@ class LambdaStore:
         persist.save(self.cold, root)
         if self.wal is not None:
             # re-log the live subscription set ABOVE the cover before the
-            # watermark retires the segments their records live in
+            # watermark lands: the checkpoint retires the segments their
+            # original records live in, and subscriptions (unlike rows)
+            # are not part of the persisted cold store. Under _sub_lock so
+            # an unsubscribe cannot land its rm record between our
+            # snapshot and our re-logged registration
             with self._sub_lock:
                 for rec in self._sub_records.values():
                     self.wal.append("s", {"sub": rec})

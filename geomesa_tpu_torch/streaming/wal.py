@@ -791,8 +791,9 @@ class WriteAheadLog:
 
     # -- shipping ---------------------------------------------------------
     def ship_state(self) -> dict:
-        """The leader-side shipping snapshot a segment shipper's pump reads (the replica
-        tier, not ported yet): the current term,
+        """The leader-side shipping snapshot a
+        :class:`~geomesa_tpu_torch.streaming.replica.SegmentShipper`'s
+        pump reads: the current term,
         the applied horizon (the staleness reference a follower measures
         against), a wall-clock stamp, and per segment ``(name,
         shippable_bytes, sealed)``. The active segment's shippable

@@ -29,7 +29,12 @@ twice, the second time a cache hit); ``estimate_count`` joins the
 aggregations; and the mutation sequences run once more on cached stores,
 where every answer, cold and warm, equals the uncached sequence's and
 the stats sketches (``stats_for(...).to_json()``) and estimates equal
-the JAX package's after each step. Tolerance: exact.
+the JAX package's after each step. A seeded 25-step standing-query
+sequence runs on both packages' LambdaStore: ``subscribe`` (geofence
+squares and stars, some fused, proximity and tube subscriptions, a
+replace), ``unsubscribe``, ``write`` and ``flush``; after each step the
+drained alert dicts, the live subscription ids and the store's ids in
+order must agree. Tolerance: exact.
 """
 
 import numpy as np
@@ -540,3 +545,128 @@ def test_cached_mutation_sequence_agrees(mutation_runs, cached_mutation_runs, sc
             assert res == plain_ref[2], (op, trees)
     assert got[3] == ref[3], op
     assert got[4] == ref[4], (op, trees)
+
+
+# -- standing queries on LambdaStore ---------------------------------------------
+
+SQ_STEPS = 25
+SQ_SEED = SEED + 19
+SQ_OPS = ("subscribe", "subscribe", "write", "write", "unsubscribe", "flush")
+SQ_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
+
+
+def _sq_steps():
+    """Package-neutral steps: (op, args) drawn from a fixed seed; the
+    first four subscribe one of each kind, then every other step
+    writes."""
+    rng = np.random.default_rng(SQ_SEED)
+    steps, live, n_sub, n_row = [], [], 0, 0
+    for i in range(SQ_STEPS):
+        op = ("subscribe" if i < 4 else "write" if i % 2 else
+              SQ_OPS[int(rng.integers(0, len(SQ_OPS)))])
+        if op == "unsubscribe" and not live:
+            op = "subscribe"
+        if op == "subscribe":
+            kinds = ("geofence", "star", "proximity", "tube")
+            kind = kinds[i] if i < 4 else kinds[int(rng.integers(0, 4))]
+            if live and rng.random() < 0.2:
+                sid = live[int(rng.integers(0, len(live)))]  # a replace
+            else:
+                sid = f"q{n_sub}"
+                n_sub += 1
+            args = {"id": sid, "kind": kind, "cx": float(rng.uniform(-15, 15)),
+                    "cy": float(rng.uniform(-15, 15)), "r": float(rng.uniform(1, 6)),
+                    "arms": int(rng.integers(5, 60)), "seed": int(rng.integers(0, 1 << 30))}
+            live = [x for x in live if x != sid] + [sid]
+        elif op == "unsubscribe":
+            sid = live.pop(int(rng.integers(0, len(live))))
+            args = {"id": sid if rng.random() < 0.9 else "never-registered"}
+        elif op == "write":
+            k = int(rng.integers(50, 400))
+            ids = [f"e{n_row + j}" if rng.random() < 0.8 else f"e{int(rng.integers(0, n_row + 1))}"
+                   for j in range(k)]
+            n_row += k
+            args = {"ids": list(dict.fromkeys(ids)), "seed": int(rng.integers(0, 1 << 30))}
+            args["x"] = np.random.default_rng(args["seed"]).uniform(-20, 20, len(args["ids"]))
+            args["y"] = np.random.default_rng(args["seed"] + 1).uniform(-20, 20, len(args["ids"]))
+        else:
+            args = {}
+        steps.append((op, args))
+    return steps
+
+
+def _sq_subscription(pkg, args):
+    from importlib import import_module
+
+    geo = import_module(pkg.__name__ + ".geometry")
+    sq = import_module(pkg.__name__ + ".streaming.standing")
+    cx, cy, r = args["cx"], args["cy"], args["r"]
+    if args["kind"] == "geofence":
+        return sq.Subscription(args["id"], "geofence", geom=geo.Polygon(
+            [(cx, cy), (cx + r, cy), (cx + r, cy + r), (cx, cy + r), (cx, cy)]),
+            attrs={"step": args["seed"] % 97})
+    if args["kind"] == "star":
+        rng = np.random.default_rng(args["seed"])
+        n = args["arms"]
+        a = np.linspace(0, 2 * np.pi, 2 * n + 1)[:-1]
+        rad = np.where(np.arange(2 * n) % 2 == 0, r, r * rng.uniform(0.3, 0.7, 2 * n))
+        return sq.Subscription(args["id"], "geofence", geom=geo.Polygon(
+            [(cx + rr * np.cos(t), cy + rr * np.sin(t)) for t, rr in zip(a, rad)]))
+    if args["kind"] == "proximity":
+        return sq.Subscription(args["id"], "proximity", points=[(cx, cy), (cy, cx)],
+                               distance_m=r * 50_000)
+    return sq.Subscription(args["id"], "tube", track_xy=[(cx, cy), (cx + r, cy - r)],
+                           track_times_ms=[T0, T0 + 400], buffer_m=r * 40_000)
+
+
+def _sq_run(pkg, kw):
+    from importlib import import_module
+
+    st = import_module(pkg.__name__ + ".streaming")
+    geo = import_module(pkg.__name__ + ".geometry")
+    ds = pkg.DataStore(**kw)
+    ds.create_schema(pkg.FeatureType.from_spec("t", SQ_SPEC))
+    lam = st.LambdaStore(ds, "t", config=st.StreamConfig(workers=2, chunk_rows=64,
+                                                          fold_rows=150, slice_rows=64))
+    # the gate off: which path a candidate takes must not follow the clock
+    eng = lam.standing(st.StandingConfig(fused_min_points=16, fused_gate=False))
+    out = []
+    try:
+        for op, args in _sq_steps():
+            if op == "subscribe":
+                lam.subscribe(_sq_subscription(pkg, args))
+            elif op == "unsubscribe":
+                lam.unsubscribe(args["id"])
+            elif op == "write":
+                lam.write([{"name": "n", "dtg": np.datetime64(T0 + j % 500, "ms"),
+                            "geom": geo.Point(float(x), float(y))}
+                           for j, (x, y) in enumerate(zip(args["x"], args["y"]))],
+                          ids=args["ids"])
+            else:
+                lam.flush()
+            out.append((eng.alerts.drain(), eng.index.subscription_ids(),
+                        [str(i) for i in lam.query("bbox(geom, -12, -12, 14, 9)").ids.tolist()],
+                        len(lam.hot)))
+    finally:
+        lam.close()
+    return out
+
+
+@pytest.fixture(scope="module")
+def standing_runs():
+    return [_sq_run(pkg, kw) for pkg, kw in ((geomesa_tpu, {}),
+                                            (geomesa_tpu_torch, {"device": "cpu"}))]
+
+
+@pytest.mark.parametrize("step", range(SQ_STEPS))
+def test_standing_sequence_agrees(standing_runs, step):
+    jax_run, port_run = standing_runs
+    assert port_run[step] == jax_run[step]
+
+
+def test_standing_sequence_draws_every_op(standing_runs):
+    ops = {op for op, _ in _sq_steps()}
+    kinds = {a["kind"] for op, a in _sq_steps() if op == "subscribe"}
+    assert ops == {"subscribe", "unsubscribe", "write", "flush"}
+    assert kinds == {"geofence", "star", "proximity", "tube"}
+    assert sum(len(alerts) for alerts, _, _, _ in standing_runs[1]) > 0

@@ -32,6 +32,14 @@ over a served store, a sliced fold flush racing a writer thread and a
 query thread, then a delete, a checkpoint and a health scrape; the WAL's,
 the hot tier's, the flusher's and the LambdaStore's locks are witnessed
 under the JAX package's names, with the same edges and blocking points.
+A fifth workload drives standing queries and replication: geofence,
+proximity and window subscriptions on a WAL-backed LambdaStore (fused and
+host matches, alerts drained, an unsubscribe, a checkpoint), then a
+segment shipper feeding a follower that catches up, answers a query and
+is promoted; the match gate's, the subscription index's, the window
+aggregator's, the alert queue's, the shipper's and the replica's locks
+are witnessed under the JAX package's names, with the same edges and
+blocking points.
 """
 
 import json
@@ -557,3 +565,90 @@ def test_streaming_workload_edges_equal_the_jax_package(tmp_path):
     assert ("WriteAheadLog._sync_lock", "WriteAheadLog._lock") in edges
     # under the WAL's append lock only the registry's (the bytes gauge)
     assert {b for a, b in edges if a == "WriteAheadLog._lock"} == {"MetricsRegistry._lock"}
+
+
+STANDING_LOCKS = {"_MatchGate._lock", "SubscriptionIndex._lock", "WindowedAggregator._lock",
+                  "AlertQueue._lock", "SegmentShipper._lock", "ReplicaStore._apply_lock"}
+
+
+def _standing_replica_workload(P, tmp):
+    """Arm, then drive standing queries and replication with no racing
+    thread: subscriptions on a WAL-backed LambdaStore, batches matched
+    fused (K2's plain version on the port) and on the host, alerts
+    drained, a window fed, an unsubscribe and a checkpoint; a shipper
+    pumps to a follower that drains, answers and is promoted. Returns the
+    witness snapshot, the cycle and the answers."""
+    import os
+
+    from importlib import import_module
+
+    st = import_module(P.pkg.__name__ + ".streaming")
+    geo = import_module(P.pkg.__name__ + ".geometry")
+    P.lw.enable()
+    reg = P.metrics.MetricsRegistry()
+    sft = P.pkg.FeatureType.from_spec("t", SPEC)
+    ds = P.pkg.DataStore(metrics=reg, **P.kw)
+    ds.create_schema(sft)
+    root = os.path.join(tmp, P.name)
+    P.pkg.storage.persist.save(ds, root)
+    lam = st.LambdaStore(ds, "t", config=st.StreamConfig(workers=2, chunk_rows=64),
+                         wal_dir=os.path.join(root, "_wal"),
+                         wal_config=st.WalConfig(sync="always", segment_bytes=1 << 14))
+    eng = lam.standing(st.StandingConfig(fused_min_points=4, fused_gate=False))
+    window = eng.add_window("n", st.WindowSpec(size_ms=1000, agg="count"))
+    a = np.linspace(0, 2 * np.pi, 41)[:-1]
+    lam.subscribe(st.Subscription("star", "geofence", geom=geo.Polygon(
+        [(10 * np.cos(t) * (1 + k % 2), 10 * np.sin(t) * (1 + k % 2))
+         for k, t in enumerate(a)])))
+    lam.subscribe(st.Subscription("sq", "geofence", geom=geo.Polygon(
+        [(-5, -5), (5, -5), (5, 5), (-5, 5), (-5, -5)]), attrs={"k": 1}))
+    lam.subscribe(st.Subscription("near", "proximity", points=[(0.0, 0.0)],
+                                  distance_m=200_000))
+    rng = np.random.default_rng(31)
+    answers = []
+    for b in range(3):
+        xs, ys = rng.uniform(-25, 25, 200), rng.uniform(-25, 25, 200)
+        lam.write([{"name": "u", "age": 1, "dtg": int(T0 + j), "geom": geo.Point(float(x), float(y))}
+                   for j, (x, y) in enumerate(zip(xs, ys))], ids=[f"b{b}_{j}" for j in range(200)])
+        answers.append(sorted((x["sub"], x["id"]) for x in eng.alerts.drain()))
+    lam.unsubscribe("near")
+    lam.flush()
+    lam.checkpoint(root)
+    answers.append(window.value(T0 + 1000))
+    a_end, b_end = st.PipeTransport.pair()
+    fol = st.ReplicaStore(root, os.path.join(tmp, P.name + "_f", "_wal"), b_end, type_name="t",
+                          **P.kw)
+    ship = st.SegmentShipper(lam, chunk_bytes=2048)
+    ship.attach(a_end, name="f")
+    lam.write([{"name": "v", "age": 2, "dtg": int(T0), "geom": geo.Point(1.0, 1.0)}],
+              ids=["late"])
+    ship.pump()
+    fol.drain()
+    answers.append(sorted(map(str, np.asarray(fol.query("INCLUDE").ids).tolist())))
+    answers.append((fol.replayed == lam.wal.last_seq, ship.gave_up_report()))
+    lam.wal.crash()
+    lam.flusher.close()
+    answers.append(fol.promote(leader_wal_dir=os.path.join(root, "_wal")))
+    fol.close()
+    ds.close()
+    snap = P.lw.REPORT.snapshot()
+    cycle = P.lw.REPORT.cycle()
+    P.lw.disable()
+    return snap, cycle, answers
+
+
+def test_standing_and_replica_workload_edges_equal_the_jax_package(tmp_path):
+    """Standing queries and replication under both witnesses: the six
+    locks of the two modules seen under the JAX package's names, the same
+    edges and blocking points, acyclic, the same answers."""
+    (jsnap, jcyc, jans), (tsnap, tcyc, tans) = (_standing_replica_workload(P, str(tmp_path))
+                                                for P in BOTH)
+    assert tans == jans and len(tans[0]) > 0
+    assert jcyc is None and tcyc is None
+    assert STANDING_LOCKS <= set(tsnap["seen"]) and STANDING_LOCKS <= set(jsnap["seen"])
+    assert tsnap["edges"] == jsnap["edges"]
+    assert set(tsnap["blocking"]) == set(jsnap["blocking"])
+    assert tsnap["aliased"] == jsnap["aliased"]
+    edges = set(map(tuple, tsnap["edges"]))
+    # a subscribe holds the store's subscription lock over the WAL append
+    assert ("LambdaStore._sub_lock", "WriteAheadLog._lock") in edges

@@ -417,7 +417,12 @@ def test_every_port_knob_is_a_jax_knob_with_its_default():
                  "geomesa.stream.fold.yield.ms", "geomesa.stream.fold.prestage",
                  "geomesa.stream.wal.sync", "geomesa.stream.wal.sync.interval.ms",
                  "geomesa.stream.wal.segment.bytes", "geomesa.stream.wal.replay.batch.rows",
-                 "geomesa.stream.incremental"):
+                 "geomesa.stream.incremental", "geomesa.standing.grid.level",
+                 "geomesa.standing.classify.cells", "geomesa.standing.fused.min.points",
+                 "geomesa.standing.raster.cells", "geomesa.standing.fused.gate",
+                 "geomesa.standing.queue.max", "geomesa.standing.window.panes",
+                 "geomesa.replica.ship.chunk.bytes", "geomesa.replica.ship.interval.ms",
+                 "geomesa.replica.staleness.max.ms", "geomesa.replica.giveup.s"):
         assert name in port, name
 
 
@@ -508,7 +513,9 @@ def test_disarmed_witness_returns_the_lock_it_was_given(ctor, monkeypatch):
 
 @pytest.mark.parametrize("module", ["streaming", "streaming.wal", "streaming.cache",
                                     "streaming.flush", "streaming.store", "streaming.stream",
-                                    "utils.spatial_index", "io.varint", "ingest.sort"])
+                                    "utils.spatial_index", "io.varint", "ingest.sort",
+                                    "streaming.standing", "streaming.replica",
+                                    "tuning.primitives", "process.knn"])
 def test_streaming_modules_import_no_jax(module):
     """The streaming tier's modules, each on its own in a fresh
     interpreter: neither jax nor anything of geomesa_tpu."""
@@ -543,3 +550,34 @@ def test_recover_loads_onto_the_card_by_default(monkeypatch, tmp_path):
     lam = LambdaStore.recover(str(tmp_path), device="cpu")
     assert lam.cold.device == torch.device("cpu")
     lam.close()
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_standing_matcher_takes_plain_on_cpu_and_raises_without_a_kernel(device):
+    """The fused matcher's columns live on the engine's device: a CPU
+    batch takes K2's plain version and launches nothing, a batch on a
+    device without a kernel raises (no fallback to the plain version or
+    the host ray cast)."""
+    from geomesa_tpu_torch import FeatureType, geometry
+    from geomesa_tpu_torch.kernels import KERNELS
+    from geomesa_tpu_torch.streaming.standing import (
+        StandingConfig, StandingQueryEngine, Subscription, _BatchColumns,
+    )
+
+    eng = StandingQueryEngine(FeatureType.from_spec("t", "*geom:Point:srid=4326"),
+                              StandingConfig(fused_min_points=1, fused_gate=False),
+                              device="cpu")
+    a = np.linspace(0, 2 * np.pi, 41)[:-1]
+    eng.register(Subscription("star", "geofence", geom=geometry.Polygon(
+        [(np.cos(t) * (1 + (k % 2)), np.sin(t) * (1 + (k % 2))) for k, t in enumerate(a)])))
+    x = np.linspace(-1.5, 1.5, 300)
+    cols = _BatchColumns(x, x[::-1].copy(), device)
+    assert {c.device.type for c in cols.cols3()} == {device}
+    before = [k.launches for k in KERNELS]
+    if device == "meta":
+        with pytest.raises(ValueError, match="no fused scan kernel"):
+            eng.matcher.match(cols, [0])
+        return
+    out, host = eng.matcher.match(cols, [0])
+    assert host == [] and len(out[0][0]) > 0
+    assert [k.launches for k in KERNELS] == before

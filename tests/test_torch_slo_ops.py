@@ -20,6 +20,15 @@ tier).
   Chrome cross-reference on one trace id, ``/stats``, a 404); and the
   ``DataStore.close`` lifecycle (no ops or serving thread left, the port
   rebinding at once, close idempotent);
+- fault C8: the lifecycle census counts every ops, telemetry and serving
+  thread in the process, and the JAX package's data-plane tests
+  (tests/test_serve_http.py: ``serve(port=)`` starts a scheduler its
+  ``DataServer.close`` leaves running) leave JAX schedulers alive in
+  their xdist worker. ``close_jax_services_left_open`` closes the JAX
+  package's leftover schedulers, ops planes and telemetry samplers before
+  every test here (never the port's, which the census must still catch);
+  a subprocess run puts a leaking file ahead of the census test, as
+  ``--dist loadfile`` did;
 - payloads: ``/health``, ``/stats`` and ``ops_report`` on the same seeded
   store equal the JAX package's apart from measured times.
 
@@ -28,6 +37,9 @@ from fields that hold a measured time.
 """
 
 import json
+import os
+import subprocess
+import sys
 import threading
 import time
 import urllib.error
@@ -54,9 +66,43 @@ KNOBS = ("OBS_TRACE_SAMPLE", "OBS_SLOW_MS", "OBS_SLOW_MAX", "PLAN_ESTIMATE",
          "OBS_SLO_REPLICA_STALENESS_P99_MS", "OBS_SLO_TILES_P99_MS")
 
 
+CENSUS = ("geomesa-ops", "geomesa-telemetry", "geomesa-serving")
+
+
+def census() -> list:
+    """Every live ops, telemetry or serving thread in the process."""
+    return [t for t in threading.enumerate() if t.name in CENSUS and t.is_alive()]
+
+
+def close_jax_services_left_open(timeout: float = 5.0) -> list:
+    """Close the JAX package's schedulers, ops planes and telemetry
+    samplers that earlier test files in this process left running, and
+    join their threads; returns the names of the threads ended. A census
+    thread's owner is its target's object; only owners from the JAX
+    package (module ``geomesa_tpu.*``) are closed, so a port service left
+    open still fails the census."""
+    ended = []
+    for t in census():
+        owner = getattr(getattr(t, "_target", None), "__self__", None)
+        if owner is None or not type(owner).__module__.startswith("geomesa_tpu."):
+            continue
+        if hasattr(owner, "shutdown") and hasattr(owner, "server_close"):
+            owner.shutdown()  # the ops plane's HTTP server
+            owner.server_close()
+        elif hasattr(owner, "close"):
+            owner.close()  # a QueryScheduler
+        else:
+            owner.stop()  # a TelemetryRecorder
+        t.join(timeout)
+        ended.append(t.name)
+    return ended
+
+
 @pytest.fixture(autouse=True)
 def _fresh():
-    """Both packages' native helpers, a fresh tracer, restored knobs."""
+    """Both packages' native helpers, a fresh tracer, restored knobs; no
+    JAX service an earlier file left open (fault C8)."""
+    close_jax_services_left_open()
     ensure_jax_native()
     for P in BOTH:
         P.obs.install(P.obs.Tracer())
@@ -579,6 +625,59 @@ def test_close_joins_threads_and_port_rebinds_immediately():
             time.sleep(0.02)
         assert leaked == [], leaked
         assert len(ds.query("t", Q)) > 0  # the store stays queryable
+
+
+def test_jax_services_left_open_are_closed_and_port_ones_still_counted():
+    """The repair's scope: a JAX scheduler left running the way the JAX
+    data-plane tests leave one (``serve(port=)`` then the server's
+    close) and a JAX ops plane left open are ended; a port scheduler left
+    open is not, so the census still sees it."""
+    jax_ds = _store(JAX, n=50)
+    JAX.pkg.DataStore.serve(jax_ds, port=0).close()
+    jax_ds.serve_ops()
+    port_ds = _store(PORT, n=50)
+    port_sched = port_ds.serve()
+    try:
+        owners = {type(t._target.__self__).__module__.split(".")[0] for t in census()}
+        assert owners >= {"geomesa_tpu", "geomesa_tpu_torch"}
+        ended = close_jax_services_left_open()
+        assert sorted(ended) == ["geomesa-ops", "geomesa-serving", "geomesa-telemetry"]
+        left = census()
+        assert [t.name for t in left] == ["geomesa-serving"]
+        assert left[0]._target.__self__ is port_sched
+    finally:
+        port_ds.close()
+        jax_ds.close()
+    assert census() == []
+
+
+def test_census_after_a_file_that_leaks_jax_schedulers(tmp_path):
+    """Fault C8 as a full xdist run met it: under ``--dist loadfile`` a worker ran
+    a file that leaves JAX schedulers running, then this file; the
+    lifecycle census failed on the leaked ``geomesa-serving`` threads. A
+    separate pytest process runs such a file and then the census test, in
+    that order."""
+    leaky = tmp_path / "test_a_leaky_file.py"
+    leaky.write_text(
+        "from geomesa_tpu.datastore import DataStore\n"
+        "from geomesa_tpu.sft import FeatureType\n\n"
+        "def test_leaves_a_scheduler():\n"
+        "    ds = DataStore()\n"
+        "    ds.create_schema(FeatureType.from_spec('t', 'name:String,*geom:Point:srid=4326'))\n"
+        "    ds.serve(port=0).close()  # the data plane's close leaves the scheduler\n"
+    )
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(here), here, os.environ.get("PYTHONPATH", "")]))
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "no:randomly",
+         "-p", "no:xdist", "--rootdir", str(tmp_path), "-c", os.devnull, str(leaky),
+         os.path.join(here, "test_torch_slo_ops.py")
+         + "::test_close_joins_threads_and_port_rebinds_immediately"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "2 passed" in r.stdout, r.stdout[-3000:]
 
 
 def test_serve_ops_idempotent_and_close_covers_scheduler():
