@@ -106,7 +106,8 @@ Phases, each printing one JSON line:
 8. a Z2 table of 20,000,000 points (the reference benchmark's
    configuration 4): the polygon path with 32 queries and no time;
 9. osm-xz2-50M: the reference benchmark's configuration 3, building
-   footprints on an XZ2 table, cut from 200M to 50,000,000 rectangles;
+   footprints on an XZ2 table, cut from 200M to 50M rectangles, and to
+   25,000,000 for the script's wall (``reduced``);
    8 warm-up and 40 measured INTERSECTS rectangle queries untraced, then
    traced, ``query_many``, the scheduler (8 threads x 5 queries),
    ``IndexTable.count`` / ``density`` / ``bounds_stats`` over 4 of them
@@ -132,7 +133,8 @@ Phases, each printing one JSON line:
    DURING`` queries plan as
    unions of a Z2 and a Z3 scan: the box branch's ids, then the window
    branch's unseen ids, each branch equal to an f64 brute force;
-12. gdelt-z3-10M-mutate (10,000,000 rows): a
+12. gdelt-z3-10M-mutate (5,000,000 rows, the cell's 10M cut for the
+   script's wall, ``reduced``): a
    GDELT-shaped store on Z3 and Z2 takes ``fold_upsert`` of 1,000,000
    rows (500k moving objects reporting again in the span's last 21
    days, 500k new ids; 16 slices of 65,536 rows on the device fold),
@@ -300,17 +302,37 @@ Phases, each printing one JSON line:
    nothing never written, a term-0 shipment refused; ``serve_ops()`` of
    the lagging follower: ``/health`` with the ``replica`` section,
    ``/stats`` answering, no kernel launched by the scrapes; ``close()``
-   of every store and the shipper leaves no thread.
+   of every store and the shipper leaves no thread;
+20. gdelt-ingest-20M: the reference's ``config_ingest``. 20M GDELT-shaped
+   rows over 80 days in 1M-row chunks on Z3 and Z2, loaded by the
+   sequential ``write`` loop and ``compact``, then by ``BulkLoader`` at 1
+   and 4 workers (the reference's 1, 2 and 4 cut for the path's 90 s;
+   ``reduced``), each store closed and released before the next; rows/s,
+   speedup, stage seconds; every load's tables identical to the
+   sequential one's by the reference's fingerprint (device columns read
+   back). On the last load: the 64 BBOX + DURING queries' ids equal the
+   sequential store's in order and an f64 brute force on 8, density and
+   bounds equal their plain versions on 4, ``bin_query`` on 8 equals
+   ``bin_format.encode`` of the brute-force rows; 312,500 rows (n/64)
+   appended and compacted under an RSS sampler (peak RSS over the host
+   column set; the reference's row is 100M, ``reduced``). Then 200k
+   seeded rows as 8 CSV splits with 1 % bad rows (half malformed, half
+   outside the ``z-bounds`` validator's domain) through
+   ``ingest_files(workers=4)``, its parse pool forked after CUDA and the
+   native helpers are up: the good rows' ids in split order, the error
+   reasons equal to numpy's counts; one query exported as CSV, GeoJSON,
+   Avro, Shapefile, TWKB and BIN and read back with equal ids (rows in
+   order where a format keeps no id) and coordinates.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the seventeen paths and read just after
+are zeroed just before each of the eighteen paths and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
 with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
 extent leg; tiered, mutate, persist and secure-cached: all five;
 attribute, served and stream: K1 and K2; standing: K2 with its
-point-in-polygon leg; replica: K1) and
+point-in-polygon leg; replica: K1; ingest: K1, K3, K4) and
 called the native helpers ``check_native`` names (the ranges where it
 plans new filters, since the batch path's repeated plans take the
 planner's scan-config memo; ``sort_bins_z`` where it ingests, the plane
@@ -354,9 +376,11 @@ N_POLY_MEASURED = 48
 N_Z2 = 20_000_000
 N_Z2_POLY_QUERIES = 32
 # the reference benchmark's configuration 3 (XZ2 building footprints), cut
-# from 200M for the host's numpy ingest and the run's time, and an XZ3
-# table of mixed extents with dates
-N_XZ2 = 50_000_000
+# from 200M for the host's numpy ingest and the run's time, then from the
+# cell's 50M to 25M for the script's 800 s once the ingest path came (48.9
+# s at 50M, 25.4 s of it the ingest; the record's ``reduced`` says so); and
+# an XZ3 table of mixed extents with dates
+N_XZ2 = 25_000_000
 N_XZ2_MEASURED = 40
 N_XZ3 = 10_000_000
 N_XZ3_OTHER = 100_000
@@ -2224,6 +2248,8 @@ def xz2_path(torch, device) -> dict:
         "phase": "extent_path_xz2", "cell": "osm-xz2-50M", "launches": launches,
         "native": read_native(),
         "leg_launches": leg_launches, "n_features": N_XZ2, "index": "xz2",
+        **({"reduced": {"n_features": {"cell": 50_000_000, "run": N_XZ2}}}
+           if N_XZ2 != 50_000_000 else {}),
         "generate_s": gen_s, "ingest_s": ingest_s, "ingest_rows_per_s": N_XZ2 / ingest_s,
         "device_gb": table.nbytes_device / 1e9, "n_blocks": table.n_blocks,
         "n_queries": len(measured), "hits_total": hits,
@@ -2801,7 +2827,7 @@ def hints_path(torch, ds, src, measured, outs, main_lat, clock_phases) -> dict:
 
 
 def main_path(torch, device):
-    """Seventeen paths, each with its own launch and native call counts
+    """Eighteen paths, each with its own launch and native call counts
     (zeroed just before it runs, read just after): the single-query main
     path, the batch path, the polygon path and the query controls on the
     same store, the
@@ -2809,7 +2835,9 @@ def main_path(torch, device):
     XZ3), the tiered store with its union queries, the mutated store, the
     attribute-indexed store, the saved and loaded store, the secure,
     cached event store, the served store behind the scheduler and the
-    ops plane, the streaming tier, standing queries and replication."""
+    ops plane, the streaming tier, standing queries, replication, and the
+    pipelined bulk loader with file ingest and export. Each path from the
+    XZ2 cell on carries its wall as ``wall_s``."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -2907,12 +2935,14 @@ def main_path(torch, device):
           "device_gb": ds.table("gdelt", "z2").nbytes_device / 1e9, **z2}
     del ds, src
     torch.cuda.empty_cache()
-    return (rec, batch, poly, hints, packed, z2, xz2_path(torch, device), xz3_path(torch, device),
-            tiered_union_path(torch, device), mutation_path(torch, device),
-            attribute_path(torch, device), persist_path(torch, device),
-            secure_cached_path(torch, device), served_path(torch, device),
-            stream_path(torch, device), standing_path(torch, device),
-            replica_path(torch, device))
+    records = [rec, batch, poly, hints, packed, z2]
+    for path in (xz2_path, xz3_path, tiered_union_path, mutation_path, attribute_path,
+                 persist_path, secure_cached_path, served_path, stream_path, standing_path,
+                 replica_path, ingest_path):
+        t0 = time.perf_counter()
+        records.append(path(torch, device))
+        records[-1]["wall_s"] = time.perf_counter() - t0
+    return tuple(records)
 
 
 # -- the delta tier and union plans ----------------------------------------
@@ -3142,11 +3172,11 @@ def tiered_union_path(torch, device) -> dict:
 
 # -- the mutation surface and the incremental fold --------------------------
 
-# cut from the cell's 10M rows: with the path at 10M the script took 944 s
-# (NVIDIA H100 80GB HBM3, 700 W; 671 s without the path), too near its
-# 1200 s limit on a slower host; the fold's slices and the maintenance ops
-# scale with the rows
-N_MUTATE = 10_000_000
+# cut from the cell's 10M rows, as it once was before: with the path at 10M and
+# the ingest path added the script took 846.2 s (NVIDIA H100 80GB HBM3,
+# 700.00 W; the path 116.6 s of it, the fold 65.0 s), over its 800 s; the
+# fold's slices and the maintenance ops scale with the rows
+N_MUTATE = 5_000_000
 N_FOLD = 1_000_000  # half replace existing ids, half are new
 N_UPSERT = 10_000
 N_MUTATE_QUERIES = 8
@@ -3325,7 +3355,7 @@ def check_fold_builds(torch, device, kept, last: int) -> dict:
 
 
 def mutation_path(torch, device) -> dict:
-    """gdelt-z3-10M-mutate, N_MUTATE = 10M rows: a GDELT-shaped
+    """gdelt-z3-10M-mutate, N_MUTATE = 5M rows: a GDELT-shaped
     point store (Z3 and Z2, ids 0..N-1, written once) takes, in order,
     ``fold_upsert`` of 1M rows
     (500k existing ids moved to new positions in the span's last 21 days,
@@ -6555,6 +6585,445 @@ def matcher_kernels(torch, device, dev) -> tuple:
     return out, err, checks
 
 
+# -- the pipelined bulk loader, file ingest and export ------------------------
+
+N_INGEST = 20_000_000
+INGEST_CHUNK = 1_000_000
+# config_ingest's 1, 2 and 4 workers, cut to 1 and 4 for the path's 90 s
+# (106.9 s with all three on an NVIDIA H100 80GB HBM3's 8-CPU host, where
+# x2 ran no faster than x1)
+INGEST_WORKERS = (1, 4)
+INGEST_SPAN_MS = 80 * 86_400_000  # config_ingest's span
+N_INGEST_QUERIES = 64
+N_INGEST_CHECK = 8
+N_FILE = 200_000
+FILE_SPLITS = 8
+FILE_BAD_SHARE = 0.01  # half malformed, half outside the curve's domain
+FILE_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
+INGEST_BUDGET_S = 90.0
+
+
+def rss_bytes() -> int:
+    """This process's resident set size (Linux /proc)."""
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def malloc_trim() -> None:
+    """Hand freed allocator arenas back before a baseline RSS reading, so
+    the ratio compares live bytes rather than glibc's retention."""
+    import ctypes
+
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
+@contextmanager
+def rss_peak(interval_s: float = 0.02):
+    """Peak RSS over the block, sampled by a thread: yields a dict whose
+    ``peak`` holds it after the block."""
+    import threading
+
+    out = {"peak": rss_bytes()}
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out["peak"] = max(out["peak"], rss_bytes())
+            stop.wait(interval_s)
+
+    t = threading.Thread(target=sample, name="rss-sampler", daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        t.join()
+        out["peak"] = max(out["peak"], rss_bytes())
+
+
+def column_set_bytes(ds, type_name: str) -> dict:
+    """One type's column set (bench.py's ``_ingest_column_set_bytes``),
+    split: the host's half (feature columns and ids, every index's keys,
+    each table's sorted keys and permutation) and the tables' device
+    columns on the card."""
+    from geomesa_tpu_torch.ingest.pipeline import _chunk_nbytes
+
+    host = sum(_chunk_nbytes(fc, {}) for fc in ds._chunks.get(type_name, []))
+    for (t, _), parts in ds._key_chunks.items():
+        if t == type_name:
+            for k in parts:
+                host += int(k.bins.nbytes) + int(k.zs.nbytes)
+                host += sum(int(v.nbytes) for v in k.device_cols.values())
+    device = 0
+    for (t, _), table in ds._tables.items():
+        if t == type_name:
+            device += int(table.nbytes_device)
+            host += sum(int(np.asarray(a).nbytes) for a in (table.perm, table.bins, table.zs))
+    return {"host": host, "device": device}
+
+
+def table_fingerprint(ds, type_name: str) -> str:
+    """bench.py's ``_table_fingerprint``: blake2b over every index table's
+    sorted keys, block layout and device columns (read back to the host)
+    and the stats sketch's JSON."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for (t, name) in sorted(ds._tables):
+        if t != type_name:
+            continue
+        tab = ds._tables[(t, name)]
+        h.update(f"{name}:{tab.n}:{tab.block}:{tab.n_blocks}".encode())
+        h.update(np.ascontiguousarray(tab.bins).tobytes())
+        h.update(np.ascontiguousarray(tab.zs).tobytes())
+        for k in tab.col_names:
+            h.update(tab.cols3[k].cpu().numpy().tobytes())
+    stats = ds.stats_for(type_name)
+    if stats is not None:
+        h.update(json.dumps(stats.to_json(), default=str, sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def ingest_chunks(seed):
+    """config_ingest's data: GDELT-shaped points over 80 days, in 1M-row
+    chunks of (ids, dtg, x, y); both load paths take the same arrays."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in range(0, N_INGEST, INGEST_CHUNK):
+        m = min(INGEST_CHUNK, N_INGEST - s)
+        x, y = gdelt_points(m, rng)
+        out.append((np.arange(s, s + m, dtype=np.int64),
+                    T0_MS + rng.integers(0, INGEST_SPAN_MS, m), x, y))
+    return out
+
+
+def bin_records_by_track(data: bytes) -> np.ndarray:
+    """BIN records in track order (ids are unique, so their track ids)."""
+    from geomesa_tpu_torch.utils import bin_format
+
+    rec = np.frombuffer(data, dtype=bin_format.RECORD)
+    return rec[np.argsort(rec["track"], kind="stable")]
+
+
+def write_split_files(root, seed) -> dict:
+    """FILE_SPLITS CSV files of N_FILE seeded GDELT-shaped rows (id,
+    actor name, lon, lat, ISO time); FILE_BAD_SHARE of the rows are bad:
+    half carry a longitude that does not parse, half one outside
+    [-180, 180] that the ``z-bounds`` validator rejects."""
+    rng = np.random.default_rng(seed)
+    x, y = gdelt_points(N_FILE, rng)
+    t = T0_MS + rng.integers(0, INGEST_SPAN_MS, N_FILE)
+    names = np.array([f"actor{i:04d}" for i in range(2_000)])[rng.integers(0, 2_000, N_FILE)]
+    bad = rng.choice(N_FILE, int(N_FILE * FILE_BAD_SHARE), replace=False)
+    malformed, outside = np.zeros(N_FILE, bool), np.zeros(N_FILE, bool)
+    malformed[bad[: len(bad) // 2]] = True
+    outside[bad[len(bad) // 2:]] = True
+    x, y = np.round(x, 4), np.round(y, 4)
+    lon = np.char.mod("%.4f", x)
+    lon[outside] = np.char.mod("%.4f", 180.0 + 1.0 + np.abs(x[outside]))
+    lon[malformed] = np.char.add("x", lon[malformed])
+    when = np.datetime_as_string(t.astype("datetime64[ms]"), unit="ms")
+    ids = np.char.add("e", np.arange(N_FILE).astype(str))
+    lines = np.char.add(np.char.add(np.char.add(np.char.add(np.char.add(
+        ids, ","), names), ","), lon), ",")
+    lines = np.char.add(np.char.add(np.char.add(np.char.add(lines, np.char.mod("%.4f", y)), ","),
+                                    when), "Z\n")
+    paths = []
+    for i, part in enumerate(np.array_split(np.arange(N_FILE), FILE_SPLITS)):
+        p = os.path.join(root, f"events-{i}.csv")
+        with open(p, "w") as fh:
+            fh.write("id,name,lon,lat,when\n")
+            fh.write("".join(lines[part].tolist()))
+        paths.append(p)
+    good = ~(malformed | outside)
+    return {"paths": paths, "ids": ids, "names": names, "x": x, "y": y, "t": t, "good": good,
+            "n_malformed": int(malformed.sum()), "n_outside": int(outside.sum())}
+
+
+def export_round_trip(ds, rows, q, root) -> dict:
+    """One query's result exported as CSV, GeoJSON, Avro, Shapefile, TWKB
+    and BIN and read back: ids (or, where a format keeps none, the
+    rows in export order) and coordinates equal the source rows."""
+    from geomesa_tpu_torch import FeatureType
+    from geomesa_tpu_torch.io import avro, converters, exporters, geojson, shapefile, twkb
+    from geomesa_tpu_torch.utils import bin_format
+
+    out = ds.query("files", q)
+    ids = np.asarray(out.ids).astype(str)
+    pos = np.searchsorted(rows["ids_sorted"], ids)
+    src = rows["order"][pos]
+    check(np.array_equal(rows["ids"][src], ids), "exported ids come from the files")
+    x, y, t = rows["x"][src], rows["y"][src], rows["t"][src]
+    col = out.geom_column
+    check(np.array_equal(col.x, x) and np.array_equal(col.y, y), "the result's coordinates")
+    sizes = {}
+
+    def same(fc, what, with_ids=True):
+        got = fc.geom_column
+        if with_ids:
+            check(np.array_equal(np.asarray(fc.ids).astype(str), ids), f"{what}: ids in order")
+        check(np.array_equal(got.x, x) and np.array_equal(got.y, y), f"{what}: coordinates")
+        check(np.array_equal(np.asarray(fc.columns["name"]).astype(str),
+                             rows["names"][src]), f"{what}: names")
+
+    text = exporters.export(out, "csv")
+    sizes["csv"] = len(text)
+    sft = FeatureType.from_spec("back", FILE_SPEC)
+    conv = converters.Converter(sft=sft, skip_lines=1, id_field="$1", drop_errors=False, fields=[
+        converters.FieldSpec("name", "$2"), converters.FieldSpec("dtg", "datetime($3)"),
+        converters.FieldSpec("geom", "geomFromWkt($4)")])
+    back = conv.convert(text)
+    same(back, "csv")
+    check(np.array_equal(back.columns["dtg"], t), "csv: times")
+    text = exporters.export(out, "geojson")
+    sizes["geojson"] = len(text)
+    same(geojson.read_geojson(text, sft=sft), "geojson")
+    data = exporters.export(out, "avro")
+    sizes["avro"] = len(data)
+    back = avro.read_avro(data, sft)
+    same(back, "avro")
+    check(np.array_equal(back.columns["dtg"], t), "avro: times")
+    base = os.path.join(root, "export")
+    shapefile.write_shapefile(out, base)
+    sizes["shapefile"] = sum(os.path.getsize(base + e) for e in (".shp", ".shx", ".dbf"))
+    same(shapefile.read_shapefile(base + ".shp"), "shapefile", with_ids=False)
+    blobs = [twkb.to_twkb(g) for g in out.geometries()]
+    sizes["twkb"] = sum(map(len, blobs))
+    pts = [twkb.from_twkb(b) for b in blobs]
+    check(np.array_equal([p.x for p in pts], x) and np.array_equal([p.y for p in pts], y),
+          "twkb: coordinates at precision 7")
+    data = ds.bin_query("files", q)
+    sizes["bin"] = len(data)
+    rec = np.frombuffer(data, dtype=bin_format.RECORD)
+    check(np.array_equal(rec["track"], bin_format.track_ids(ids))
+          and np.array_equal(rec["lon"], x.astype(np.float32))
+          and np.array_equal(rec["lat"], y.astype(np.float32))
+          and np.array_equal(rec["dtg"], (t // 1000).astype(np.int32)), "bin: the result's rows")
+    return {"rows": len(out), "bytes": sizes}
+
+
+def file_section(torch, device) -> dict:
+    """200k seeded rows as 8 CSV splits, ``ingest_files(workers=4)``
+    with the ``index`` validators into a store on the card (its parse
+    pool forks after CUDA and the native helpers are up), the good rows'
+    ids in split order, the error reasons counted as numpy counts them,
+    then one query's export round trip."""
+    import shutil
+
+    from geomesa_tpu_torch import DataStore, FeatureType
+    from geomesa_tpu_torch.ingest import ingest_files
+    from geomesa_tpu_torch.io.converters import Converter, FieldSpec
+
+    root = tempfile.mkdtemp(prefix="geomesa_files_")
+    try:
+        t0 = time.perf_counter()
+        rows = write_split_files(root, SEED + 111)
+        write_s = time.perf_counter() - t0
+        sft = FeatureType.from_spec("files", FILE_SPEC)
+        conv = Converter(sft=sft, skip_lines=1, id_field="$1", validators="index", fields=[
+            FieldSpec("name", "$2"), FieldSpec("geom", "point($3, $4)"),
+            FieldSpec("dtg", "datetime($5)")])
+        ds = DataStore(device=device)
+        ds.create_schema(sft)
+        t0 = time.perf_counter()
+        res = ingest_files(ds, conv, rows["paths"], workers=4)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        good = rows["good"]
+        check(res.splits == FILE_SPLITS and res.written == int(good.sum()),
+              "every good row written, one split a file")
+        check(np.array_equal(np.asarray(ds.features("files").ids).astype(str), rows["ids"][good]),
+              "the stored ids are the good rows, in split order")
+        reasons = res.error_reasons
+        check(reasons.get("parse", 0) == rows["n_malformed"]
+              and sum(v for k, v in reasons.items() if k.startswith("z-bounds:"))
+              == rows["n_outside"] and res.errors == rows["n_malformed"] + rows["n_outside"],
+              f"error reasons equal the numpy counts: {reasons}")
+        check(all(ds.table("files", i.name).device == torch.device(device)
+                  for i in ds.indexes("files")), "the file store's tables are on the card")
+        order = np.argsort(rows["ids"], kind="stable")
+        rows["order"], rows["ids_sorted"] = order, rows["ids"][order]
+        # a continent-scale box over the whole span: a few thousand rows
+        q = "bbox(geom, -10.0, 35.0, 30.0, 55.0)"
+        t0 = time.perf_counter()
+        exported = export_round_trip(ds, rows, q, root)
+        export_s = time.perf_counter() - t0
+        ds.close()
+        del ds
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"n_rows": N_FILE, "n_splits": res.splits, "write_files_s": write_s,
+            "ingest_s": ingest_s, "rows_per_s": N_FILE / ingest_s, "written": res.written,
+            "errors": res.errors, "error_reasons": reasons, "split_errors": res.split_errors,
+            "stage_seconds": res.stage_seconds, "export": exported, "export_s": export_s}
+
+
+def ingest_path(torch, device) -> dict:
+    """gdelt-ingest-20M: the reference's ``config_ingest``
+    (``bench.py:487-711``) on the card. 20M GDELT-shaped rows in 1M-row
+    chunks (``dtg:Date,*geom:Point:srid=4326``, ``z3,z2``) load through
+    the sequential ``write`` loop and ``compact``, then through
+    ``BulkLoader`` at 1 and 4 workers (``INGEST_WORKERS``), each store
+    released before the next loads; each load's tables must be identical to the sequential
+    one's by bench.py's fingerprint (device columns read back). On the
+    last store: the 64 BBOX + DURING queries equal the sequential store's
+    ids in order and an f64 brute force on 8, density and bounds equal
+    their plain versions on 4, ``bin_query`` on 8 equals
+    ``bin_format.encode`` of the brute-force rows; then 312,500 rows
+    (n/64) appended and compacted under an RSS sampler (the compaction
+    row; the reference's is 100M rows, ``reduced``). Then the file
+    section. Launch and native counts are zeroed before, read after."""
+    import gc
+
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+    from geomesa_tpu_torch.ingest import BulkLoader, PipelineConfig
+    from geomesa_tpu_torch.utils import bin_format
+
+    zero_launches()
+    t_path = time.perf_counter()
+    raw = ingest_chunks(SEED + 80)
+    gen_s = time.perf_counter() - t_path
+    queries = query_set(SEED + 2, N_INGEST_QUERIES, span_ms=INGEST_SPAN_MS)
+
+    def load(body):
+        sft = FeatureType.from_spec("gdelt", "dtg:Date,*geom:Point:srid=4326")
+        sft.user_data["geomesa.indices.enabled"] = "z3,z2"
+        ds = DataStore(device=device)
+        ds.create_schema(sft)
+        chunks = [FeatureCollection.from_columns(sft, ids, {"dtg": t, "geom": (x, y)})
+                  for ids, t, x, y in raw]
+        t0 = time.perf_counter()
+        extra = body(ds, chunks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fp = table_fingerprint(ds, "gdelt")
+        return ds, wall, fp, time.perf_counter() - t0, extra
+
+    def sequential(ds, chunks):
+        for fc in chunks:
+            ds.write("gdelt", fc, check_ids=False)
+        ds.compact("gdelt")
+
+    ds, seq_wall, seq_fp, fp_s, _ = load(sequential)
+    seq_ids = [np.asarray(ds.query("gdelt", q).ids) for q, _ in queries]
+    ds.close()
+    del ds
+    torch.cuda.empty_cache()
+    gc.collect()
+    loads = []
+    for i, w in enumerate(INGEST_WORKERS):
+        def pipelined(ds, chunks, w=w):
+            loader = BulkLoader(ds, "gdelt", check_ids=False, config=PipelineConfig(workers=w))
+            for fc in chunks:
+                loader.put(fc)
+            return loader.close()
+
+        last = i == len(INGEST_WORKERS) - 1
+        if last:  # the compaction row's baseline: before the store it measures
+            gc.collect()
+            malloc_trim()
+            rss_baseline = rss_bytes()
+        ds, wall, fp, _, res = load(pipelined)
+        check(res.written == N_INGEST, f"the x{w} load wrote every row")
+        check(fp == seq_fp, f"the x{w} load's tables are identical to the sequential load's")
+        loads.append({"workers": w, "seconds": wall, "rows_per_s": N_INGEST / wall,
+                      "speedup": seq_wall / wall, "identical_tables": fp == seq_fp,
+                      "stage_seconds": res.stage_seconds})
+        if not last:
+            ds.close()
+            del ds
+            torch.cuda.empty_cache()
+            gc.collect()
+
+    # the last pipelined store: the main path's queries, aggregations, BIN
+    x = np.concatenate([c[2] for c in raw])
+    y = np.concatenate([c[3] for c in raw])
+    t = np.concatenate([c[1] for c in raw])
+    del raw
+    lat, outs, wall = run_queries(ds, queries)
+    hits = sum(len(o) for o in outs)
+    for (q, _), a, b in zip(queries, outs, seq_ids):
+        check(np.array_equal(np.asarray(a.ids), b), f"pipelined ids equal the sequential store's "
+                                                     f"in order: {q}")
+    src = (x, y, t)
+    n_brute = check_queries(ds, src, queries, outs, N_INGEST_CHECK)
+    n_agg = check_aggregations(torch, ds, busiest(queries, outs, 4))
+    t0 = time.perf_counter()
+    for q, box in queries[:N_INGEST_CHECK]:
+        b = brute_ids(src, box)
+        want = bin_format.encode(x[b], y[b], t[b], b)
+        got = ds.bin_query("gdelt", q)
+        check(len(got) == len(want) and np.array_equal(
+            bin_records_by_track(got), bin_records_by_track(want)),
+            f"bin_query equals bin_format.encode of the brute-force rows: {q}")
+    bin_s = time.perf_counter() - t0
+    del seq_ids, outs
+
+    # the compaction row: n/64 rows appended into the delta, then compact
+    rng = np.random.default_rng(SEED + 81)
+    n_delta = N_INGEST // 64
+    dx, dy = gdelt_points(n_delta, rng)
+    dt = T0_MS + rng.integers(0, INGEST_SPAN_MS, n_delta)
+    ds.write("gdelt", FeatureCollection.from_columns(
+        ds.get_schema("gdelt"), np.arange(N_INGEST, N_INGEST + n_delta),
+        {"dtg": dt, "geom": (dx, dy)}), check_ids=False)
+    check(ds._main_rows["gdelt"] == N_INGEST, "the append stays in the delta tier")
+    gc.collect()
+    malloc_trim()
+    cset = column_set_bytes(ds, "gdelt")
+    torch.cuda.reset_peak_memory_stats()
+    dev_before = torch.cuda.memory_allocated()
+    with rss_peak() as rss:
+        before = rss["peak"]
+        t0 = time.perf_counter()
+        ds.compact("gdelt")
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+    dev_peak = torch.cuda.max_memory_allocated()
+    src = tuple(np.concatenate(v) for v in ((x, dx), (y, dy), (t, dt)))
+    check(ds.count("gdelt") == N_INGEST + n_delta, "the compacted store holds every row")
+    after = queries[N_INGEST_CHECK:2 * N_INGEST_CHECK]
+    n_brute += check_queries(ds, src, after, [ds.query("gdelt", q) for q, _ in after],
+                             N_INGEST_CHECK)
+    compaction = {
+        "n_rows": N_INGEST, "delta_rows": n_delta, "seconds": compact_s,
+        "column_set_host_bytes": cset["host"], "column_set_device_bytes": cset["device"],
+        "rss_baseline_bytes": rss_baseline, "rss_before_bytes": before,
+        "rss_peak_bytes": rss["peak"], "peak_extra_bytes": rss["peak"] - before,
+        "peak_over_column_set_host": (rss["peak"] - rss_baseline) / max(cset["host"], 1),
+        "device_peak_over_table_bytes": (dev_peak - dev_before) / max(cset["device"], 1),
+        "device_before_bytes": dev_before, "device_peak_bytes": dev_peak,
+    }
+    ds.close()
+    del ds, x, y, t, src
+    torch.cuda.empty_cache()
+    gc.collect()
+    loads_s = time.perf_counter() - t_path
+
+    files = file_section(torch, device)
+    launches = read_launches()
+    path_s = time.perf_counter() - t_path
+    return {
+        "phase": "ingest_path", "cell": "gdelt-ingest-20M", "launches": launches,
+        "native": read_native(), "n_rows": N_INGEST, "chunk_rows": INGEST_CHUNK,
+        "host_cpus": os.cpu_count(), "generate_s": gen_s,
+        "sequential": {"seconds": seq_wall, "rows_per_s": N_INGEST / seq_wall},
+        "pipelined": loads, "fingerprint_s": fp_s,
+        "identical_tables": all(r["identical_tables"] for r in loads),
+        "n_queries": len(queries), "hits_total": hits, "queries_wall_s": wall,
+        "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
+        "latency_p99_ms": float(np.percentile(lat, 99) * 1e3),
+        "checked_vs_brute_force": n_brute, "checked_aggregations": n_agg,
+        "checked_bin_queries": N_INGEST_CHECK, "bin_check_s": bin_s,
+        "compaction": compaction, "loads_s": loads_s, "files": files,
+        "path_s": path_s, "budget_s": INGEST_BUDGET_S,
+        "reduced": {"compaction_rows": {"cell": 100_000_000, "run": N_INGEST},
+                    "workers": {"cell": [1, 2, 4], "run": list(INGEST_WORKERS)}},
+    }
+
+
 # -- entry point -------------------------------------------------------------
 
 
@@ -6589,6 +7058,7 @@ def check_native(records) -> None:
         # the flushes ingest, the matcher decodes K2's planes
         "moving-standing-1M": ("sort_bins_z", "bitmask_decode_pair"),
         "moving-replica-60k": point,
+        "gdelt-ingest-20M": point,
     }
     for cell, names in expected_native.items():
         for name in names:
@@ -6660,6 +7130,7 @@ def main() -> int:
         "moving-z3-3M-stream": ("block_scan", "block_scan_multi"),
         "moving-standing-1M": ("block_scan_multi",),
         "moving-replica-60k": ("block_scan",),
+        "gdelt-ingest-20M": ("block_scan", "density", "bounds"),
     }
     for cell, names in expected.items():
         for name in names:

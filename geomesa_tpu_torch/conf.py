@@ -103,14 +103,33 @@ STREAM_FOLD_DEVICE = SystemProperty(
     "bit-identical",
 )
 
-# -- the streaming tier (streaming/) ----------------------------------------
+# -- the pipelined bulk ingest (ingest/) ------------------------------------
 
+INGEST_WORKERS = SystemProperty(
+    "geomesa.ingest.workers", 0, int,
+    "worker count for the pipelined ingest's parse/key/sort stages "
+    "(0 = one per host core)",
+)
+INGEST_QUEUE_DEPTH = SystemProperty(
+    "geomesa.ingest.queue.depth", 4, int,
+    "bounded admission window: chunks a producer may stage ahead of the "
+    "ordered writer before put() blocks; overflow waits are counted by "
+    "the geomesa.ingest.queue_full metric",
+)
+INGEST_CHUNK_ROWS = SystemProperty(
+    "geomesa.ingest.chunk.rows", 1 << 20, int,
+    "fixed-size sort shard rows: each chunk's (bin, z) keys radix-sort in "
+    "shards of this many rows, in parallel, merged spanwise at finalize",
+)
 INGEST_MERGE_MIN_BINS = SystemProperty(
     "geomesa.ingest.merge.min.bins", 2, int,
-    "distinct sort bins below which a sharded sort's commit falls back to "
-    "the whole-batch LSD radix sort (spanwise merging has nothing to "
-    "parallelize over few bins)",
+    "distinct sort bins below which the ingest finalize (and a sharded "
+    "sort's commit) falls back to the whole-batch LSD radix sort "
+    "(spanwise merging has nothing to parallelize over few bins)",
 )
+
+# -- the streaming tier (streaming/) ----------------------------------------
+
 STREAM_WORKERS = SystemProperty(
     "geomesa.stream.workers", 0, int,
     "worker count for the stream flusher's parse/key/shard-sort stages "

@@ -478,16 +478,17 @@ class DataStore:
         keys_by_index: Mapping,
         stats_list: Sequence,
         check_ids: bool = True,
+        presorted: "Mapping | None" = None,
     ) -> int:
-        """Atomic multi-chunk publish (``persist.load``; the reference's
-        bulk ingest): one write-lock section appends every chunk, folds
-        the chunks' stats sketches in chunk order (the left fold the
-        sequential write path makes, so histograms bin alike) and
-        compacts once. ``keys_by_index`` holds one WriteKeys per index
-        covering all chunks, in chunk order. Nothing is visible until this
-        returns. (The reference also takes its pipelined ingest's
-        presorted runs here; the port's ingest pipeline is not ported
-        yet.)"""
+        """Atomic multi-chunk publish (the pipelined bulk ingest,
+        ingest.BulkLoader, and ``persist.load``): one write-lock section
+        appends every chunk, folds the chunks' stats sketches in chunk
+        order (the left fold the sequential write path makes, so
+        histograms bin alike) and compacts once. ``keys_by_index`` holds
+        one WriteKeys per index covering all chunks, in chunk order;
+        ``presorted`` optionally maps index names to the full stable
+        (bin, z) argsort of those keys, so the compaction skips its radix
+        sort. Nothing is visible until this returns."""
         fcs = [fc for fc in fcs if len(fc)]
         total_new = sum(len(fc) for fc in fcs)
         if total_new == 0:
@@ -498,11 +499,14 @@ class DataStore:
             for st in stats_list:
                 self._merge_stats(type_name, st)
             self._widen_bin_ranges(type_name, keys_by_index)
+            total_before = sum(len(c) for c in self._chunks[type_name])
             self._chunks[type_name].extend(fcs)
             self._full[type_name] = None
             for name, keys in keys_by_index.items():
                 self._key_chunks.setdefault((type_name, name), []).append(keys)
-            self.compact(type_name)
+            # a presorted perm is ordinal-aligned only when the new rows
+            # are the whole table (a bulk load into an empty type)
+            self.compact(type_name, presorted=presorted if total_before == 0 else None)
             self._bump_cache(type_name)
         return total_new
 
@@ -1010,7 +1014,7 @@ class DataStore:
             total += main.warmup()
         return total
 
-    def compact(self, type_name: str) -> None:
+    def compact(self, type_name: str, presorted: "Mapping | None" = None) -> None:
         """Merge the delta tier into the index tables and collapse the
         feature chunks into one collection, every table built by the
         store's adapter. Where the old table holds exactly the compacted
@@ -1018,7 +1022,11 @@ class DataStore:
         (storage.table.merged_table: delta rows ahead of old rows with an
         equal key, device blocks before the first insertion reused);
         otherwise the old table is released and the table rebuilds from
-        all rows."""
+        all rows. ``presorted`` optionally maps index names to the full
+        stable (bin, z) argsort of that index's concatenated keys (the
+        pipelined ingest's merged runs): the build then skips its sort.
+        Adapters whose ``create_table`` takes no ``sorted_state`` are
+        told apart by signature and get the plain call."""
         with self._write_lock:
             main_rows = self._main_rows[type_name]
             full = self.features(type_name)
@@ -1039,11 +1047,37 @@ class DataStore:
                     self._tables.pop(key, None)
                     self.adapter.delete_table(old)
                     old = None
-                table = self.adapter.create_table(idx, keys, old=old, main_rows=main_rows)
+                sorted_state = None if presorted is None else presorted.get(idx.name)
+                if sorted_state is not None and len(sorted_state) != len(keys.zs):
+                    sorted_state = None
+                if sorted_state is not None and self._adapter_takes_sorted_state():
+                    table = self.adapter.create_table(
+                        idx, keys, old=old, main_rows=main_rows, sorted_state=sorted_state,
+                    )
+                else:
+                    table = self.adapter.create_table(idx, keys, old=old, main_rows=main_rows)
                 if old is not None and old is not table:
                     self.adapter.delete_table(old)
                 self._tables[key] = table
             self._main_rows[type_name] = len(full)
+
+    def _adapter_takes_sorted_state(self) -> bool:
+        """Whether this adapter's ``create_table`` accepts the optional
+        ``sorted_state`` keyword (a custom adapter may predate it and only
+        loses the skipped sort)."""
+        cached = getattr(self, "_adapter_sorted_state_ok", None)
+        if cached is None:
+            import inspect
+
+            try:
+                params = inspect.signature(self.adapter.create_table).parameters
+                cached = "sorted_state" in params or any(
+                    p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()
+                )
+            except (TypeError, ValueError):
+                cached = False
+            self._adapter_sorted_state_ok = cached
+        return cached
 
     def _check_ids(self, type_name: str, ids: np.ndarray) -> None:
         """Reject duplicate ids within the batch or against the store,
@@ -1486,6 +1520,32 @@ class DataStore:
         if self.slo is None:
             return {"status": "ok", "window_s": 0.0, "objectives": []}
         return self.slo.report()
+
+    def bin_query(
+        self,
+        type_name: str,
+        f: "Filter | str" = INCLUDE,
+        track: str | None = None,
+        label: str | None = None,
+        sort: bool = False,
+    ) -> bytes:
+        """Matching features as packed 16/24-byte BIN records (reference
+        BinAggregatingScan + BinaryOutputEncoder; utils.bin_format): the
+        query runs through the planner and its scan kernels, the records
+        encode on the host. ``track=None`` correlates by id."""
+        from geomesa_tpu_torch.utils import bin_format
+
+        sft = self._schemas[type_name]
+        out = self.query(type_name, f)
+        lon, lat = out.representative_xy()
+        dtg = (
+            np.asarray(out.columns[sft.dtg_field], dtype=np.int64)
+            if sft.dtg_field
+            else np.zeros(len(out), np.int64)
+        )
+        track_col = out.ids if track is None else out.columns[track]
+        label_col = out.columns[label] if label else None
+        return bin_format.encode(lon, lat, dtg, track_col, label_col, sort=sort)
 
     def count(self, type_name: str, f: "Filter | str" = INCLUDE) -> int:
         """Exact hit count (scan + refine; a polygon filter with a raster

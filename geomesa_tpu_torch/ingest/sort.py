@@ -1,13 +1,13 @@
 """Sharded (bin, z) sort: fixed-size chunk radix sorts and a spanwise
 k-way merge.
 
-The port's copy of geomesa_tpu/ingest/sort.py:35-165, as far as the stream
-flusher reads it (the pipelined bulk loader is not ported):
+The port's copy of geomesa_tpu/ingest/sort.py, read by the pipelined bulk
+loader (ingest.pipeline) and the stream flusher:
 
 1. every fixed-size chunk of keys radix-sorts on its own (the native LSD
    pass, ``native.sort_bins_z``), in worker threads (ctypes releases the
    GIL);
-2. at the commit, the sorted runs k-way merge per bin span: each run is
+2. at the finalize or commit, the sorted runs k-way merge per bin span: each run is
    sorted by (bin, z), so a bin's rows are one contiguous span per run,
    and bins merge independently. Within a bin the k spans merge by a
    positional two-run tree (searchsorted and scatter), ties resolved run

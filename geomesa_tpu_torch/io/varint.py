@@ -1,14 +1,24 @@
-"""LEB128 varint primitives.
+"""Shared zigzag + LEB128 varint primitives.
 
-The port's copy of geomesa_tpu/io/varint.py's two the write-ahead log's
-record framing reads (streaming/wal.py); the zigzag pair waits for the
-binary codecs that use it (Avro, TWKB)."""
+The port's copy of geomesa_tpu/io/varint.py: the write-ahead log's record
+framing (streaming/wal.py) reads the LEB128 pair. One definition for the
+binary codecs that use zigzag varints — Avro
+(io/avro.py container files) and TWKB (io/twkb.py geometries) — so the
+bit-twiddling can't drift between them."""
 
 from __future__ import annotations
 
 
+def zigzag(v: int) -> int:
+    return (v << 1) ^ (v >> 63)
+
+
+def unzigzag(v: int) -> int:
+    return (v >> 1) ^ -(v & 1)
+
+
 def append_uvarint(out: bytearray, v: int) -> None:
-    """LEB128-encode a non-negative value (truncated to 64 bits)."""
+    """LEB128-encode a (already zigzagged, non-negative) value."""
     v &= (1 << 64) - 1
     while True:
         b = v & 0x7F
@@ -21,7 +31,7 @@ def append_uvarint(out: bytearray, v: int) -> None:
 
 
 def read_uvarint(data: bytes, pos: int) -> tuple[int, int]:
-    """(value, new_pos): the inverse of append_uvarint."""
+    """(value, new_pos) — inverse of append_uvarint."""
     shift = 0
     v = 0
     while True:

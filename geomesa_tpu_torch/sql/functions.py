@@ -5,8 +5,9 @@ spark-jts GeometricConstructorFunctions, GeometricAccessorFunctions,
 GeometricOutputFunctions): the functions query transforms evaluate
 (``lon=st_x(geom)``) that the port's geometry module supports. Every
 function is registered in ``FUNCTIONS`` for name-based dispatch
-(``st_call``). The relation, measurement and processing functions come
-with the SQL tier.
+(``st_call``). ``_geom_from_geojson`` decodes a GeoJSON geometry for the
+GeoJSON reader (io.geojson), as in the reference. The relation,
+measurement and processing functions come with the SQL tier.
 """
 
 from __future__ import annotations
@@ -64,6 +65,35 @@ def st_makepolygon(shell: "geo.LineString | Sequence") -> geo.Polygon:
 @_register
 def st_geomfromwkt(wkt: str) -> geo.Geometry:
     return geo.from_wkt(wkt)
+
+
+def _geom_from_geojson(obj: dict) -> geo.Geometry:
+    t = obj["type"]
+    c = obj.get("coordinates")
+    if t == "Point":
+        return geo.Point(float(c[0]), float(c[1]))
+    if t == "LineString":
+        return geo.LineString(np.asarray(c, dtype=np.float64))
+    if t == "Polygon":
+        rings = [np.asarray(r, dtype=np.float64) for r in c]
+        return geo.Polygon(rings[0], rings[1:])
+    if t == "MultiPoint":
+        return geo.MultiPoint([geo.Point(float(p[0]), float(p[1])) for p in c])
+    if t == "MultiLineString":
+        return geo.MultiLineString([geo.LineString(np.asarray(l, dtype=np.float64)) for l in c])
+    if t == "MultiPolygon":
+        return geo.MultiPolygon(
+            [
+                geo.Polygon(
+                    np.asarray(p[0], dtype=np.float64),
+                    [np.asarray(r, dtype=np.float64) for r in p[1:]],
+                )
+                for p in c
+            ]
+        )
+    if t == "GeometryCollection":
+        raise ValueError("GeometryCollection is not supported")
+    raise ValueError(f"unknown GeoJSON type {t!r}")
 
 
 @_register

@@ -38,13 +38,22 @@ from geomesa_tpu_torch.timing import NULL_CLOCK
 class IndexAdapter(Protocol):
     """Backend seam (reference IndexAdapter.createTable/deleteTables)."""
 
-    def create_table(self, keyspace: IndexKeySpace, keys: WriteKeys, old=None, main_rows: int = 0):
+    def create_table(
+        self,
+        keyspace: IndexKeySpace,
+        keys: WriteKeys,
+        old=None,
+        main_rows: int = 0,
+        sorted_state=None,
+    ):
         """Build (or update from ``old``) the scan surface of one index.
         ``old`` is this adapter's previous table for the index (or None);
         ``main_rows`` is the row count ``old`` was built from: rows past
-        it in ``keys`` are the freshly compacted delta. (The reference's
-        ``sorted_state``, its pipelined ingest's presorted runs, comes
-        with that ingest.)"""
+        it in ``keys`` are the freshly compacted delta. ``sorted_state``:
+        an optional stable (bin, z) argsort of ``keys`` (the pipelined
+        ingest's merged runs) an adapter may build from instead of
+        sorting; ignoring it is always correct. DataStore passes it only
+        to adapters whose signature takes it."""
         ...
 
     def delete_table(self, table) -> None:
@@ -83,7 +92,7 @@ class InProcessAdapter:
         self.device = device
         self.generations = None  # set by DataStore.attach_cache
 
-    def create_table(self, keyspace, keys, old=None, main_rows: int = 0):
+    def create_table(self, keyspace, keys, old=None, main_rows: int = 0, sorted_state=None):
         from geomesa_tpu_torch.datastore import _slice_keys
         from geomesa_tpu_torch.storage.table import IndexTable, merged_table
 
@@ -92,6 +101,12 @@ class InProcessAdapter:
         # are not retried
         def attempt():
             fault_point("adapter.create_table")
+            if sorted_state is not None and len(sorted_state) == len(keys.zs) > 0:
+                # the pipelined ingest already merged the stable (bin, z)
+                # order: build straight from it, no sort
+                return IndexTable(
+                    keyspace, keys, tile=self.tile, device=self.device, sorted_state=sorted_state,
+                )
             if merge_applies(old, main_rows, len(keys.zs)):
                 return merged_table(old, keys, _slice_keys(keys, main_rows), tile=self.tile)
             return IndexTable(keyspace, keys, tile=self.tile, device=self.device)
@@ -139,10 +154,10 @@ class HostTable:
     in-memory backend tier). The second IndexAdapter implementation: the
     DataStore and planner code run unchanged against it."""
 
-    def __init__(self, keyspace, keys: WriteKeys, tile=None):
+    def __init__(self, keyspace, keys: WriteKeys, tile=None, sorted_state=None):
         from geomesa_tpu_torch.storage.table import SortedKeys
 
-        self._sk = SortedKeys(keyspace, keys, tile or 0)
+        self._sk = SortedKeys(keyspace, keys, tile or 0, sorted_state=sorted_state)
         self.keyspace = keyspace
         # sorted host copies of the predicate columns
         self._cols = {k: v[self._sk.perm] for k, v in keys.device_cols.items()}
@@ -226,10 +241,12 @@ class HostAdapter:
     def __init__(self, tile=None):
         self.tile = tile
 
-    def create_table(self, keyspace, keys, old=None, main_rows: int = 0):
+    def create_table(self, keyspace, keys, old=None, main_rows: int = 0, sorted_state=None):
         def attempt():
             fault_point("adapter.create_table")
-            return HostTable(keyspace, keys, tile=self.tile)
+            if sorted_state is not None and len(sorted_state) != len(keys.zs):
+                return HostTable(keyspace, keys, tile=self.tile)
+            return HostTable(keyspace, keys, tile=self.tile, sorted_state=sorted_state)
 
         return with_retries(attempt)
 

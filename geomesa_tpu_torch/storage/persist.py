@@ -474,12 +474,16 @@ def load(root: str, on_damage: str = "quarantine", **store_kwargs):
             pieces = _load_legacy_type(root, name, sft, info)
         pieces = [p for p in pieces if len(p)]
         if pieces:
-            # one batch, published as the reference's one-put bulk load
-            # publishes it: every index's keys encoded once, one
-            # write-lock section, one compaction (DataStore._bulk_commit)
+            # one batch through the staged ingest pipeline: key encoding
+            # and the (bin, z) sorts of the indexes run on worker threads,
+            # and the merged sort feeds the table build directly (a single
+            # chunk keeps the stats fold that of one write)
+            from geomesa_tpu_torch.ingest import BulkLoader
+
             fc = pieces[0] if len(pieces) == 1 else FeatureCollection.concat(pieces)
-            fc, keys, stats = store._encode_batch(name, fc)
-            store._bulk_commit(name, [fc], keys, [stats], check_ids=False)
+            loader = BulkLoader(store, name, check_ids=False)
+            loader.put(fc)
+            loader.close()
     store.health = health
     cache = getattr(store, "cache", None)
     if cache is not None:

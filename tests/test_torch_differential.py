@@ -23,7 +23,10 @@ sequences, one per schema, draw from ``fold_upsert`` (monolithic and
 sliced with a small ``slice_rows``), ``upsert``, ``write``,
 ``compact``, ``delete_features``, ``modify_features`` and ``age_off``;
 after each step the stores' rows and a few trees' ids (with and without
-``limit``) must agree in order. The trees run again on a point store
+``limit``) must agree in order. A pipelined ``BulkLoader`` load into an
+empty type and a ``BulkLoader`` append open a third sequence per schema,
+followed by the first mutation steps; after each, the rows, ids, counts,
+bounds, a density grid and the stats sketches agree. The trees run again on a point store
 with visibility labels under two auths and on cached stores (each tree
 twice, the second time a cache hit); ``estimate_count`` joins the
 aggregations; and the mutation sequences run once more on cached stores,
@@ -414,6 +417,77 @@ def test_mutation_sequences_draw_every_op():
     """The seeds cover every operation and leave rows behind."""
     drawn = {op for s in ("pts", "ext") for op, *_ in _mutation_steps(s)}
     assert drawn == set(OPS)
+
+
+# -- bulk loads in the mutation sequences ---------------------------------------
+#
+# A pipelined BulkLoader load into an empty type, a BulkLoader append to
+# the loaded type, then the first steps of the seeded mutation sequence:
+# after every step the rows, the trees' ids (with and without limit),
+# the counts, bounds, an INCLUDE density grid and the stats sketches of
+# both packages agree.
+
+BULK_STEPS = 2 + 6
+
+
+def _bulk(pkg, ds, schema, ids, rows, chunks):
+    loader = pkg.ingest.BulkLoader(ds, schema, config=pkg.ingest.PipelineConfig(workers=2, chunk_rows=700))
+    for part in np.array_split(np.arange(len(ids)), chunks):
+        loader.put(_fc(pkg, ds, schema, [ids[i] for i in part],
+                       {k: v[part] if k != "geom" else (v[0],) + tuple(a[part] for a in v[1:])
+                        for k, v in rows.items()}))
+    return loader.close().written
+
+
+@pytest.fixture(scope="module")
+def bulk_runs():
+    ensure_jax_native()
+    import geomesa_tpu.ingest  # noqa: F401 (pkg.ingest below)
+    import geomesa_tpu_torch.ingest  # noqa: F401
+
+    out = {}
+    for schema in ("pts", "ext"):
+        make = point_store if schema == "pts" else extent_store
+        data = point_data(seed=17, n=N) if schema == "pts" else extent_data()
+        pair = (make(geomesa_tpu, data, writes=()), make(geomesa_tpu_torch, data, writes=(), device="cpu"))
+        rng = np.random.default_rng(MUT_SEED + 11 + (schema == "ext"))
+        first, more = list(range(N)), list(range(200_000, 200_500))
+        steps = [("bulk", (first, _rows(rng, schema, first), 3)),
+                 ("bulk_append", (more, _rows(rng, schema, more), 2))]
+        steps += [(op, args) for op, args, _, _ in _mutation_steps(schema)[:BULK_STEPS - 2]]
+        for i, (op, args) in enumerate(steps):
+            trees = [_tree(rng, schema) for _ in range(3)] + [_leaf(rng, schema)]
+            rec = []
+            for pkg, ds in zip((geomesa_tpu, geomesa_tpu_torch), pair):
+                ret = _bulk(pkg, ds, schema, *args) if op.startswith("bulk") else \
+                    _apply(pkg, ds, schema, op, args)
+                st = ds.stats_for(schema)
+                rec.append((
+                    ret, np.asarray(ds.features(schema).ids).tolist(),
+                    [(np.asarray(ds.query(schema, q).ids).tolist(),
+                      np.asarray(ds.query(schema, q, limit=7).ids).tolist(),
+                      ds.count(schema, q), ds.bounds(schema, q, estimate=False)) for q in trees],
+                    np.asarray(ds.density(schema, envelope=(-60, -40, 60, 40), width=24, height=16)).tolist(),
+                    None if st is None else st.to_json(),
+                ))
+            out.setdefault(schema, []).append((op, trees, rec))
+    return out
+
+
+BULK_PARAMS = [(s, i) for s in ("pts", "ext") for i in range(BULK_STEPS)]
+
+
+@pytest.mark.parametrize("schema,step", BULK_PARAMS, ids=[f"{s}-{i}" for s, i in BULK_PARAMS])
+def test_bulk_load_sequence_agrees(bulk_runs, schema, step):
+    op, trees, (ref, got) = bulk_runs[schema][step]
+    assert got[0] == ref[0], op
+    assert got[1] == ref[1], op  # the rows, in order
+    for q, want, have in zip(trees, ref[2], got[2]):
+        assert have == want, (op, q)
+    assert got[3] == ref[3], op
+    assert got[4] == ref[4], op
+    if step < 2:
+        assert got[0] == (N if step == 0 else 500)
 
 
 # -- visibility, cache and estimate variants ------------------------------------

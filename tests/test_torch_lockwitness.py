@@ -12,8 +12,8 @@ The reference's static lock model (``geomesa_tpu/analysis/``) is not
 ported, so the workload check holds the two runtimes against each
 other: both witnesses armed, the same seeded workload (write, query,
 ``query_many``, a sliced ``fold_upsert`` with a pacer, ``serve()`` with a
-few submits, tracing and a metrics registry on) runs through each
-package, and the observed edge sets and blocking events must be equal,
+few submits, a pipelined ``BulkLoader`` load of a second type, tracing
+and a metrics registry on) runs through each package, and the observed edge sets and blocking events must be equal,
 both graphs acyclic, and each of the port's five locks witnessed. The
 graphs are dumped into ``tmp_path``. A second workload on a cached store
 (result hits, tile compositions, single-flight threads, a delete and a
@@ -54,11 +54,13 @@ import geomesa_tpu
 import geomesa_tpu_torch
 from geomesa_tpu import conf as jconf
 from geomesa_tpu import fault as jfault
+from geomesa_tpu import ingest as jingest
 from geomesa_tpu import lockwitness as jlw
 from geomesa_tpu import metrics as jmetrics
 from geomesa_tpu.obs import trace as jtrace
 from geomesa_tpu_torch import conf as tconf
 from geomesa_tpu_torch import fault as tfault
+from geomesa_tpu_torch import ingest as tingest
 from geomesa_tpu_torch import lockwitness as tlw
 from geomesa_tpu_torch import metrics as tmetrics
 from geomesa_tpu_torch.obs import trace as ttrace
@@ -66,9 +68,9 @@ from geomesa_tpu_torch.obs import trace as ttrace
 torch.set_num_threads(1)
 
 JAX = SimpleNamespace(name="jax", pkg=geomesa_tpu, lw=jlw, fault=jfault, conf=jconf,
-                      metrics=jmetrics, trace=jtrace, kw={})
+                      metrics=jmetrics, trace=jtrace, ingest=jingest, kw={})
 PORT = SimpleNamespace(name="port", pkg=geomesa_tpu_torch, lw=tlw, fault=tfault, conf=tconf,
-                       metrics=tmetrics, trace=ttrace, kw={"device": "cpu"})
+                       metrics=tmetrics, trace=ttrace, ingest=tingest, kw={"device": "cpu"})
 BOTH = (JAX, PORT)
 PORT_LOCKS = {"DataStore._write_lock", "DataStore._id_lock", "MetricsRegistry._lock",
               "Tracer._lock", "QueryScheduler._cond"}
@@ -275,6 +277,16 @@ def _workload(P):
     ds.write("t", P.pkg.FeatureCollection.from_columns(sft, np.arange(1500), head))
     answers = [np.asarray(ds.query("t", q).ids).tolist() for q in QUERIES]
     answers += [np.asarray(r.ids).tolist() for r in ds.query_many("t", QUERIES)]
+    # a pipelined bulk load of a second type: the loader's condition and
+    # stage lock, then its publish under the write lock
+    ds.create_schema(P.pkg.FeatureType.from_spec("b", SPEC))
+    loader = P.ingest.BulkLoader(ds, "b", config=P.ingest.PipelineConfig(workers=2, queue_depth=1))
+    for s in range(0, n, 500):
+        part = {k: (v[0][s:s + 500], v[1][s:s + 500]) if k == "geom" else v[s:s + 500]
+                for k, v in cols.items()}
+        loader.put(P.pkg.FeatureCollection.from_columns(ds.get_schema("b"), np.arange(s, s + 500), part))
+    answers.append(loader.close().written)
+    answers += [np.asarray(ds.query("b", q).ids).tolist() for q in QUERIES]
     tail = {k: (v[0][1000:], v[1][1000:]) if k == "geom" else v[1000:] for k, v in cols.items()}
     paced = []
     ds.fold_upsert("t", P.pkg.FeatureCollection.from_columns(sft, np.arange(1000, n), tail),
@@ -304,6 +316,8 @@ def test_workload_edges_equal_the_jax_package(tmp_path):
     assert tsnap["blocking"]["DataStore._write_lock @ stream.fold.publish"] == 4
     assert tsnap["blocking"]["DataStore._write_lock @ stream.fold.slice"] == 4
     assert ("DataStore._write_lock", "QueryScheduler._cond") in tsnap["edges"]
+    # the pipelined load's locks
+    assert {"BulkLoader._cv", "BulkLoader._stage_lock"} <= set(tsnap["seen"])
     PORT.lw.REPORT.reset()
     PORT.lw.REPORT.edges.update({e: 1 for e in tsnap["edges"]})
     out = json.load(open(PORT.lw.dump(str(tmp_path / "port.json"))))

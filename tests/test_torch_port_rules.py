@@ -28,7 +28,12 @@
   interpreter, and ``lockwitness.witness`` hands back the lock it was
   given while the witness is disarmed; so do the statistics, visibility,
   view and cache modules (``stats.store``, ``obs.accuracy``,
-  ``security``, ``views``, ``cache`` and its four modules).
+  ``security``, ``views``, ``cache`` and its four modules);
+- the bulk loader's and the I/O tier's modules (``ingest`` and its
+  pipeline and splits, ``io`` and its readers, writers and converters,
+  ``utils.bin_format``) import neither jax nor anything of
+  ``geomesa_tpu``, each on its own in a fresh interpreter, and
+  ``geomesa_tpu_torch.io`` imports without pyarrow.
 """
 
 import importlib.util
@@ -82,7 +87,9 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
                  "cache.fingerprint", "cache.generations", "cache.result", "cache.tiles",
                  "serving.tenancy", "obs.slo", "obs.ops", "streaming", "streaming.wal",
                  "streaming.cache", "streaming.flush", "streaming.store", "streaming.stream",
-                 "utils.spatial_index", "io.varint", "ingest", "ingest.sort"):
+                 "utils.spatial_index", "io.varint", "ingest", "ingest.sort",
+                 "ingest.pipeline", "ingest.splits", "io.exporters", "io.arrow",
+                 "utils.bin_format"):
         assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
@@ -581,3 +588,72 @@ def test_standing_matcher_takes_plain_on_cpu_and_raises_without_a_kernel(device)
     out, host = eng.matcher.match(cols, [0])
     assert host == [] and len(out[0][0]) > 0
     assert [k.launches for k in KERNELS] == before
+
+
+INGEST_IO_MODULES = ["ingest", "ingest.pipeline", "ingest.splits", "io", "io.converters",
+                     "io.validators", "io.ingest", "io.exporters", "io.geojson", "io.twkb",
+                     "io.avro", "io.shapefile", "io.osm", "io.arrow", "io.parquet", "io.orc",
+                     "utils.bin_format"]
+
+
+@pytest.fixture(scope="module")
+def ingest_io_imports():
+    """Each ingest and I/O module imported on its own in a fresh
+    interpreter, the interpreters started together: module -> (return
+    code, stdout, stderr)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    procs = {
+        m: subprocess.Popen([sys.executable, "-c", _IMPORT_ONE, f"geomesa_tpu_torch.{m}"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+        for m in INGEST_IO_MODULES
+    }
+    out = {}
+    for m, p in procs.items():
+        stdout, stderr = p.communicate(timeout=180)
+        out[m] = (p.returncode, stdout, stderr)
+    return out
+
+
+@pytest.mark.parametrize("module", INGEST_IO_MODULES)
+def test_ingest_and_io_modules_import_no_jax(ingest_io_imports, module):
+    """The bulk loader's, the readers' and the writers' modules, each on
+    its own in a fresh interpreter: neither jax nor anything of
+    geomesa_tpu."""
+    rc, stdout, stderr = ingest_io_imports[module]
+    assert rc == 0, stderr
+    assert stdout.strip() == "[]", stdout
+    path = os.path.join(ROOT, "geomesa_tpu_torch", *module.split("."))
+    src = open(path + ".py" if os.path.exists(path + ".py") else
+               os.path.join(path, "__init__.py")).read()
+    assert "import jax" not in src and "from geomesa_tpu." not in src
+    assert "from geomesa_tpu import" not in src
+
+
+_IMPORT_IO_WITHOUT_PYARROW = """
+import sys
+sys.modules["pyarrow"] = None  # an import of pyarrow now raises ImportError
+import geomesa_tpu_torch.io as io_pkg
+from geomesa_tpu_torch.io import arrow, exporters, orc, parquet
+from geomesa_tpu_torch import FeatureCollection, FeatureType
+sft = FeatureType.from_spec("t", "name:String,*geom:Point:srid=4326")
+fc = FeatureCollection.from_columns(sft, ["a"], {"name": ["x"], "geom": ([1.0], [2.0])})
+print(exporters.export(fc, "csv").splitlines()[1])
+try:
+    exporters.export(fc, "parquet")
+except ImportError:
+    print("parquet needs pyarrow")
+"""
+
+
+def test_io_imports_without_pyarrow():
+    """``import geomesa_tpu_torch.io`` (and its Arrow, Parquet and ORC
+    modules) needs no pyarrow: those modules import it in the functions
+    that write or read."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _IMPORT_IO_WITHOUT_PYARROW], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == ["a,x,POINT (1 2)", "parquet needs pyarrow"]
