@@ -322,17 +322,41 @@ Phases, each printing one JSON line:
    native helpers are up: the good rows' ids in split order, the error
    reasons equal to numpy's counts; one query exported as CSV, GeoJSON,
    Avro, Shapefile, TWKB and BIN and read back with equal ids (rows in
-   order where a format keeps no id) and coordinates.
+   order where a format keeps no id) and coordinates;
+21. gdelt-z2-20M-analytics: the analytics tier on the Z2 polygon cell's
+   20,000,000 GDELT points, built again with the cache tier. kNN
+   (``config_knn``): 64 points near the data, k = 10, through
+   ``knn_many`` (the rounds' windows fused into K2) and per point through
+   ``knn_search`` (K1), both equal in order to an f64 brute-force top k
+   (the card's f64 haversine over every row picks 64 candidates, numpy's
+   orders them). Joins (``config_pip_join``): ``spatial_join_indexed`` of
+   128 concave stars of 16-254 edges, ``contains`` and ``intersects``,
+   rasters off and on, pairs equal to an f64 even-odd ray cast run on the
+   card over each star's bbox; the host grid join exact and adaptive on a
+   seeded 2M-row sample, equal to each other and to the ray cast. The
+   tile pyramid at the reference's leaf zoom 3 and 256 px: all 170 tiles
+   of zooms 0-3 cold (leaves first) then warm, each equal to
+   ``TilePyramid.fresh`` bit for bit, every zoom counting each row once,
+   each kind rendered on 4 tiles and inflated; a 10k-row write inside one
+   leaf leaves far tiles warm at their ticks and recomposes the leaf and
+   its three ancestors, equal to ``fresh``. Eight ``sql_query``
+   statements (bbox, ``ST_Intersects``, ``ST_Contains``, ``ST_Within``,
+   ``ST_DWithin``, ``ORDER BY`` / ``LIMIT`` on an alias, residual
+   ``ST_DistanceSphere``, a residual with ``OFFSET``) equal to the f64
+   brute force. Then ``proximity_search``, ``tube_select`` and
+   ``route_search`` on a 1M-row Z3 + Z2 store with times and headings,
+   each equal to an f64 brute force over every row.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the eighteen paths and read just after
+are zeroed just before each of the nineteen paths and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
 with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
 extent leg; tiered, mutate, persist and secure-cached: all five;
 attribute, served and stream: K1 and K2; standing: K2 with its
-point-in-polygon leg; replica: K1; ingest: K1, K3, K4) and
+point-in-polygon leg; replica: K1; ingest: K1, K3, K4; analytics: K1
+and K2) and
 called the native helpers ``check_native`` names (the ranges where it
 plans new filters, since the batch path's repeated plans take the
 planner's scan-config memo; ``sort_bins_z`` where it ingests, the plane
@@ -2827,7 +2851,7 @@ def hints_path(torch, ds, src, measured, outs, main_lat, clock_phases) -> dict:
 
 
 def main_path(torch, device):
-    """Eighteen paths, each with its own launch and native call counts
+    """Nineteen paths, each with its own launch and native call counts
     (zeroed just before it runs, read just after): the single-query main
     path, the batch path, the polygon path and the query controls on the
     same store, the
@@ -2835,9 +2859,10 @@ def main_path(torch, device):
     XZ3), the tiered store with its union queries, the mutated store, the
     attribute-indexed store, the saved and loaded store, the secure,
     cached event store, the served store behind the scheduler and the
-    ops plane, the streaming tier, standing queries, replication, and the
-    pipelined bulk loader with file ingest and export. Each path from the
-    XZ2 cell on carries its wall as ``wall_s``."""
+    ops plane, the streaming tier, standing queries, replication, the
+    pipelined bulk loader with file ingest and export, and the analytics
+    tier (kNN, joins, the tile pyramid, SQL, processes). Each path from
+    the XZ2 cell on carries its wall as ``wall_s``."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -2938,7 +2963,7 @@ def main_path(torch, device):
     records = [rec, batch, poly, hints, packed, z2]
     for path in (xz2_path, xz3_path, tiered_union_path, mutation_path, attribute_path,
                  persist_path, secure_cached_path, served_path, stream_path, standing_path,
-                 replica_path, ingest_path):
+                 replica_path, ingest_path, analytics_path):
         t0 = time.perf_counter()
         records.append(path(torch, device))
         records[-1]["wall_s"] = time.perf_counter() - t0
@@ -7024,6 +7049,535 @@ def ingest_path(torch, device) -> dict:
     }
 
 
+# -- the analytics tier: kNN, joins, the tile pyramid, SQL, processes --------
+
+N_KNN_QUERIES = 64  # config_knn's queries
+KNN_K = 10
+KNN_CANDIDATES = 64  # the card's f64 pre-selection of the brute force's top k
+N_JOIN_STARS = 128  # config_pip_join's z2_polygon_join
+N_GRID_JOIN = 2_000_000  # config_pip_join's host_grid_join sample
+JOIN_PIP_CHUNK = 65_536  # points per block of the card's brute-force ray cast
+TILES_LEAF_ZOOM = 3  # the reference's geomesa.tiles.leaf.zoom default
+TILES_PX = 256  # and its geomesa.tiles.px
+N_TILE_WRITE = 10_000
+# inside leaf tile (3, 12, 3) and clear of its edges' cells in the cache
+# tier's 5.625-degree generation grid, whose spans are inclusive at the top
+TILE_WRITE_BOX = (97.0, 7.0, 110.0, 16.0)
+TILE_TOUCHED = ((3, 12, 3), (2, 6, 1), (1, 3, 0), (0, 1, 0))  # that leaf and its ancestors
+TILE_FAR = ((3, 0, 0), (2, 0, 3), (1, 0, 1), (0, 0, 0))  # tiles far west of it
+N_RENDERED = 4
+N_PROCESS = 1_000_000
+PROCESS_SPEC = "heading:Double,dtg:Date,*geom:Point:srid=4326"
+ANALYTICS_BUDGET_S = 90.0
+EARTH_R_M = 6_371_000.0
+M_PER_DEG = 111_320.0
+
+
+def haversine(lon1, lat1, lon2, lat2) -> np.ndarray:
+    """Great-circle metres in f64 numpy (the reference's formula)."""
+    lon1, lat1, lon2, lat2 = (np.radians(np.asarray(v, dtype=np.float64))
+                              for v in (lon1, lat1, lon2, lat2))
+    a = (np.sin((lat2 - lat1) / 2) ** 2
+         + np.cos(lat1) * np.cos(lat2) * np.sin((lon2 - lon1) / 2) ** 2)
+    return 2 * EARTH_R_M * np.arcsin(np.minimum(1.0, np.sqrt(a)))
+
+
+def knn_brute(torch, xs, ys, x, y, qx, qy, k) -> tuple:
+    """The k nearest rows to (qx, qy), nearest first (ties by id): the
+    card's f64 haversine over every row picks KNN_CANDIDATES candidates,
+    numpy's f64 haversine orders them. Returns (ids, their distances)."""
+    r = np.pi / 180.0
+    lat1, lon1 = qy * r, qx * r
+    lat2, lon2 = ys * r, xs * r
+    a = (torch.sin((lat2 - lat1) / 2) ** 2
+         + np.cos(lat1) * torch.cos(lat2) * torch.sin((lon2 - lon1) / 2) ** 2)
+    d = 2 * EARTH_R_M * torch.arcsin(torch.clamp(torch.sqrt(a), max=1.0))
+    cand = np.sort(torch.topk(d, KNN_CANDIDATES, largest=False).indices.cpu().numpy())
+    dc = haversine(qx, qy, x[cand], y[cand])
+    order = np.argsort(dc, kind="stable")[:k]
+    return cand[order], dc[order]
+
+
+def ring_edges_t(torch, geom, dev):
+    """Every ring edge of a (multi)polygon as f64 tensors (x1, y1, x2, y2)."""
+    from geomesa_tpu_torch import geometry as geo
+
+    parts = geom.parts if isinstance(geom, geo.MultiPolygon) else [geom]
+    rings = [np.asarray(r, np.float64) for p in parts for r in (p.shell, *p.holes)]
+    a = np.concatenate([r[:-1] for r in rings])
+    b = np.concatenate([r[1:] for r in rings])
+    return tuple(torch.as_tensor(v, device=dev) for v in (a[:, 0], a[:, 1], b[:, 0], b[:, 1]))
+
+
+def pip_brute(torch, xs, ys, geom, boundary: bool) -> np.ndarray:
+    """Rows of the card's f64 columns inside ``geom``: the bbox first,
+    then the even-odd ray cast over every ring edge (each crossing as the
+    standard construction computes it: edges spanning the point's y
+    half-open, the crossing's x past the point's), in blocks of rows on
+    the card; ``boundary`` adds the rows exactly on an edge (collinear
+    within the edge's bbox), as an intersects predicate counts them."""
+    x0, y0, x1, y1 = geom.bounds()
+    cand = torch.nonzero((xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)).flatten()
+    ex1, ey1, ex2, ey2 = ring_edges_t(torch, geom, xs.device)
+    dy = torch.where(ey2 == ey1, torch.full_like(ey1, float("inf")), ey2 - ey1)
+    keep = []
+    for s in range(0, len(cand), JOIN_PIP_CHUNK):
+        c = cand[s:s + JOIN_PIP_CHUNK]
+        px, py = xs[c][:, None], ys[c][:, None]
+        spans = (ey1 <= py) != (ey2 <= py)
+        xi = ex1 + (py - ey1) / dy * (ex2 - ex1)
+        inside = ((spans & (xi > px)).sum(dim=1) % 2) == 1
+        if boundary:
+            cross = (ex2 - ex1) * (py - ey1) - (ey2 - ey1) * (px - ex1)
+            on = ((cross == 0) & (torch.minimum(ex1, ex2) <= px) & (px <= torch.maximum(ex1, ex2))
+                  & (torch.minimum(ey1, ey2) <= py) & (py <= torch.maximum(ey1, ey2)))
+            inside |= on.any(dim=1)
+        keep.append(c[inside])
+    return torch.cat(keep).cpu().numpy() if keep else np.zeros(0, np.int64)
+
+
+def join_stars(seed):
+    """config_pip_join's join polygons: 128 concave stars of 16-254 edges
+    (8, 16, 50 or 127 arms), radii 1-6 degrees, centres over the lon
+    -150..150, lat -60..60 box."""
+    rng = np.random.default_rng(seed)
+    return [star(float(rng.uniform(-150, 150)), float(rng.uniform(-60, 60)),
+                 float(rng.uniform(1.0, 6.0)), int(rng.choice([8, 16, 50, 127])),
+                 np.random.default_rng(seed + 1000 + k))
+            for k in range(N_JOIN_STARS)]
+
+
+def polygons_fc(polys):
+    from geomesa_tpu_torch import FeatureCollection, FeatureType
+    from geomesa_tpu_torch import geometry as geo
+
+    return FeatureCollection.from_columns(
+        FeatureType.from_spec("adm", "*geom:Polygon:srid=4326"), np.arange(len(polys)),
+        {"geom": geo.PackedGeometryColumn.from_geometries(polys)})
+
+
+def pair_keys(li, ri, n) -> np.ndarray:
+    return np.asarray(li, np.int64) * n + np.asarray(ri, np.int64)
+
+
+def knn_section(torch, ds, xs, ys, x, y, rng) -> dict:
+    """config_knn: 64 query points near the data (source points moved up
+    to half a degree), k = 10, through ``knn_many`` (every round's
+    windows in one ``planner.submit_many``: K2) and per point through
+    ``knn_search``; both equal, in order, the f64 brute force."""
+    from geomesa_tpu_torch.process import knn_many, knn_search
+
+    pick = rng.choice(len(x), N_KNN_QUERIES, replace=False)
+    pts = [(float(np.clip(x[i] + rng.uniform(-0.5, 0.5), -179.5, 179.5)),
+            float(np.clip(y[i] + rng.uniform(-0.5, 0.5), -89.5, 89.5))) for i in pick]
+    knn_many(ds, "gdelt", pts[:8], k=KNN_K)  # warm-up
+    rounds = []
+    submit = ds.planner.submit_many
+
+    def counting(plans, *a, **kw):
+        rounds.append(len(plans))
+        return submit(plans, *a, **kw)
+
+    before = read_launches()
+    ds.planner.submit_many = counting
+    try:
+        t0 = time.perf_counter()
+        many = knn_many(ds, "gdelt", pts, k=KNN_K)
+        many_s = time.perf_counter() - t0
+    finally:
+        del ds.planner.submit_many
+    many_launch = launch_delta(before)
+    before = read_launches()
+    t0 = time.perf_counter()
+    single = [knn_search(ds, "gdelt", qx, qy, k=KNN_K) for qx, qy in pts]
+    single_s = time.perf_counter() - t0
+    single_launch = launch_delta(before)
+    check(many_launch["block_scan_multi"] > 0, "knn_many launched K2")
+    check(single_launch["block_scan"] > 0, "knn_search launched K1")
+    ties = 0
+    t0 = time.perf_counter()
+    for (qx, qy), got_m, got_s in zip(pts, many, single):
+        gm = np.asarray(got_m.ids, np.int64)
+        check(np.array_equal(gm, np.asarray(got_s.ids, np.int64)),
+              f"knn_many equals knn_search at {qx}, {qy}")
+        want, wd = knn_brute(torch, xs, ys, x, y, qx, qy, KNN_K)
+        if not np.array_equal(gm, want):
+            # equal distances have no order of their own: allowed only
+            # where the distances tie exactly
+            check(len(gm) == KNN_K and np.array_equal(haversine(qx, qy, x[gm], y[gm]), wd),
+                  f"knn ids in order vs the f64 brute force at {qx}, {qy}")
+            ties += 1
+    return {
+        "n_queries": N_KNN_QUERIES, "k": KNN_K,
+        "knn_many_s": many_s, "knn_many_qps": N_KNN_QUERIES / many_s,
+        "knn_search_s": single_s, "knn_search_qps": N_KNN_QUERIES / single_s,
+        "rounds": len(rounds), "windows_per_round": rounds,
+        "launches_knn_many": many_launch, "launches_knn_search": single_launch,
+        "brute_force_s": time.perf_counter() - t0, "tie_reorders": ties,
+    }
+
+
+def join_section(torch, ds, xs, ys, x, y) -> dict:
+    """config_pip_join: ``spatial_join_indexed`` of 128 concave stars
+    against the 20M points, ``contains`` and ``intersects``, rasters off
+    and on (one fused dispatch set through K2 each), each run cold (the
+    setting's first call builds the stars' rasters) and then timed warm,
+    as the reference's bench times it; pairs equal across the raster
+    settings and to the card's f64 ray cast; then the host grid join,
+    exact and adaptive (cold, then warm), on a seeded 2M-row sample."""
+    from geomesa_tpu_torch import FeatureCollection
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.sql import spatial_join, spatial_join_indexed
+
+    polys = join_stars(SEED + 92)
+    left = polygons_fc(polys)
+    n = len(x)
+    out, truth = {}, {}
+    t0 = time.perf_counter()
+    for pred in ("contains", "intersects"):
+        truth[pred] = np.sort(np.concatenate([
+            pair_keys(np.full(len(r), k), r, n)
+            for k, g in enumerate(polys) for r in [pip_brute(torch, xs, ys, g, pred == "intersects")]]))
+    brute_s = time.perf_counter() - t0
+    for pred in ("contains", "intersects"):
+        for raster in ("off", "on"):
+            reg = MetricsRegistry()
+            with raster_knob("RASTER_ENABLED", raster == "on", ds):
+                before = read_launches()
+                t0 = time.perf_counter()
+                cold = spatial_join_indexed(ds, "gdelt", left, pred)
+                cold_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                li, ri = spatial_join_indexed(ds, "gdelt", left, pred, metrics=reg)
+                wall = time.perf_counter() - t0
+                launched = launch_delta(before)
+            check(np.array_equal(pair_keys(*cold, n), pair_keys(li, ri, n)),
+                  f"cold and warm join pairs equal: {pred} {raster}")
+            keys = pair_keys(li, ri, n)
+            check(np.all(np.diff(keys) > 0), f"join pairs sorted by (left, right): {pred} {raster}")
+            check(np.array_equal(keys, truth[pred]),
+                  f"indexed join pairs vs the f64 ray cast: {pred}, rasters {raster}")
+            check(launched["block_scan_multi"] > 0, f"the indexed join launched K2: {pred} {raster}")
+            out[f"{pred}_rasters_{raster}"] = {
+                "ms": wall * 1e3, "cold_ms": cold_s * 1e3, "pairs": int(len(li)),
+                "launches": launched,
+                "strategy": {k: reg.counter_value(f"geomesa.join.strategy.{k}")
+                             for k in ("probe", "host_raster")},
+            }
+    # the host grid join on a seeded sample of the rows
+    rng = np.random.default_rng(SEED + 93)
+    sample = np.sort(rng.choice(n, N_GRID_JOIN, replace=False))
+    right = FeatureCollection.from_columns(
+        ds.get_schema("gdelt"), sample, {"geom": (x[sample], y[sample])})
+    host = {}
+    for strategy in ("exact", "auto", "auto"):  # adaptive cold (rasters built), then warm
+        reg = MetricsRegistry()
+        t0 = time.perf_counter()
+        li, ri = spatial_join(left, right, "intersects", strategy=strategy, metrics=reg)
+        host.setdefault(strategy, []).append((time.perf_counter() - t0, li, ri, {
+            k: reg.counter_value(f"geomesa.join.strategy.{k}") for k in ("exact", "raster")}))
+    (ex_s, el, er, ec), (ad_cold_s, *_), (ad_s, al, ar, ac) = *host["exact"], *host["auto"]
+    for _, al_, ar_, _ in host["auto"]:
+        check(np.array_equal(el, al_) and np.array_equal(er, ar_), "host join: exact = adaptive pairs")
+    want = truth["intersects"][np.isin(truth["intersects"] % n, sample)]
+    check(np.array_equal(np.sort(pair_keys(el, sample[er], n)), want),
+          "host join pairs vs the f64 ray cast over the sample")
+    out["host_grid_join"] = {"rows": N_GRID_JOIN, "pairs": int(len(el)), "exact_ms": ex_s * 1e3,
+                             "adaptive_cold_ms": ad_cold_s * 1e3, "adaptive_ms": ad_s * 1e3,
+                             "exact_partitions": ec, "adaptive_partitions": ac}
+    out["brute_force_s"] = brute_s
+    out["n_polygons"] = N_JOIN_STARS
+    return out
+
+
+def pyramid_section(torch, ds, x, y) -> dict:
+    """The tile pyramid at the reference's leaf zoom 3 and 256 px: every
+    tile of zooms 0-3 (2 x 1, 4 x 2, 8 x 4 and 16 x 8: 170) fetched cold,
+    leaves first, then warm; each grid equal to ``TilePyramid.fresh`` bit
+    for bit and each zoom's total the table's rows; every kind rendered
+    on 4 tiles and inflated to its size; then a 10k-row write inside one
+    leaf: far tiles keep their ticks and compose nothing, the leaf and its
+    ancestors recompose equal to ``fresh``."""
+    import struct
+    import zlib
+
+    from geomesa_tpu_torch import FeatureCollection
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.tiles import KINDS, TilePyramid, TilesConfig, render
+
+    reg = MetricsRegistry()
+    pyr = TilePyramid(ds, TilesConfig.from_properties(), metrics=reg)
+    check((pyr.lattice.leaf_zoom, pyr.conf.px) == (TILES_LEAF_ZOOM, TILES_PX),
+          "the pyramid runs at the reference's leaf zoom and tile size")
+    tiles = [(z, tx, ty) for z in range(TILES_LEAF_ZOOM, -1, -1)
+             for tx in range(pyr.lattice.n_tiles(z)[0]) for ty in range(pyr.lattice.n_tiles(z)[1])]
+    before = read_launches()
+    cold, warm = {}, {}
+    for label, into in (("cold", cold), ("warm", warm)):
+        for z, tx, ty in tiles:
+            t0 = time.perf_counter()
+            pyr.fetch("gdelt", z, tx, ty)
+            into.setdefault(z, []).append(time.perf_counter() - t0)
+    launched = launch_delta(before)
+    check(launched["block_scan"] > 0, "the pyramid's leaf scans launched K1")
+    composed = reg.counter_value("geomesa.tiles.compose")
+    check(composed == len(tiles), "each tile composed once, then served warm")
+    t0 = time.perf_counter()
+    totals = {}
+    for z, tx, ty in tiles:
+        g = pyr.fetch("gdelt", z, tx, ty)
+        check(np.array_equal(g.grid, pyr.fresh("gdelt", z, tx, ty).grid),
+              f"tile {z}/{tx}/{ty} equals fresh")
+        totals[z] = totals.get(z, 0.0) + float(g.grid.sum())
+    fresh_s = time.perf_counter() - t0
+    n = len(x)
+    check(all(v == float(n) for v in totals.values()), "every zoom counts each row once")
+    pngs = 0
+    for z, tx, ty in tiles[-N_RENDERED:]:
+        grid = pyr.fetch("gdelt", z, tx, ty).grid
+        for kind in KINDS:
+            png = render(kind, grid)
+            w, h = struct.unpack(">II", png[16:24])
+            i = png.index(b"IDAT")
+            (length,) = struct.unpack(">I", png[i - 4:i])
+            raw = zlib.decompress(png[i + 4:i + 4 + length])
+            check((w, h) == (TILES_PX, TILES_PX) and len(raw) == h * (1 + w),
+                  f"{kind} PNG of {z}/{tx}/{ty} inflates to its size")
+            pngs += 1
+    # scoped invalidation: a localized write dirties only its leaf's chain
+    ticks = {t: pyr.fetch("gdelt", *t).tick for t in TILE_FAR + TILE_TOUCHED}
+    rng = np.random.default_rng(SEED + 94)
+    x0, y0, x1, y1 = TILE_WRITE_BOX
+    wx, wy = rng.uniform(x0, x1, N_TILE_WRITE), rng.uniform(y0, y1, N_TILE_WRITE)
+    ds.write("gdelt", FeatureCollection.from_columns(
+        ds.get_schema("gdelt"), np.arange(n, n + N_TILE_WRITE), {"geom": (wx, wy)}),
+        check_ids=False)
+    c0 = reg.counter_value("geomesa.tiles.compose")
+    for t in TILE_FAR:
+        check(pyr.peek("gdelt", *t) is not None, f"far tile {t} stays warm")
+        check(pyr.fetch("gdelt", *t).tick == ticks[t], f"far tile {t} keeps its tick")
+    check(reg.counter_value("geomesa.tiles.compose") == c0, "far tiles compose nothing")
+    for t in TILE_TOUCHED:
+        check(pyr.peek("gdelt", *t) is None, f"touched tile {t} is stale")
+    for t in TILE_TOUCHED:
+        g = pyr.fetch("gdelt", *t)
+        check(g.tick > ticks[t], f"touched tile {t} recomposed at a new tick")
+        check(np.array_equal(g.grid, pyr.fresh("gdelt", *t).grid), f"touched tile {t} equals fresh")
+    recomposed = reg.counter_value("geomesa.tiles.compose") - c0
+    check(recomposed == len(TILE_TOUCHED), "the write recomposes its leaf and its ancestors")
+    z0 = sum(float(pyr.fetch("gdelt", 0, tx, 0).grid.sum()) for tx in range(2))
+    check(z0 == float(n + N_TILE_WRITE), "zoom 0 counts the written rows")
+
+    def p50(d):
+        return {str(z): float(np.percentile(v, 50) * 1e3) for z, v in sorted(d.items())}
+
+    return {
+        "leaf_zoom": TILES_LEAF_ZOOM, "px": TILES_PX, "tiles": len(tiles),
+        "cold_fetch_p50_ms": float(np.percentile(sum(cold.values(), []), 50) * 1e3),
+        "warm_fetch_p50_ms": float(np.percentile(sum(warm.values(), []), 50) * 1e3),
+        "cold_fetch_p50_ms_by_zoom": p50(cold), "warm_fetch_p50_ms_by_zoom": p50(warm),
+        "cold_s": float(sum(sum(v) for v in cold.values())),
+        "warm_s": float(sum(sum(v) for v in warm.values())),
+        "fresh_check_s": fresh_s, "launches": launched, "pngs_checked": pngs,
+        "written_rows": N_TILE_WRITE, "recomposed_after_write": int(recomposed),
+        "leaf_scans": reg.counter_value("geomesa.tiles.leaf.scan"),
+        "stats": {k: v for k, v in pyr.stats().items()},
+    }
+
+
+def sql_statements(pip):
+    """(sql, brute-force mask over (x, y), ordered) for the 8 statements:
+    ``ordered`` is None where the statement fixes no order, else (output
+    column, descending, offset, limit) of the rows sorted by x; ``pip``
+    (geometry, boundary) -> the rows inside it, as a mask."""
+    from geomesa_tpu_torch import geometry as geo
+
+    rng = np.random.default_rng(SEED + 95)
+    s1 = star(30.0, 10.0, 4.0, 16, rng)
+    s2 = star(-60.0, -15.0, 3.0, 50, rng)
+    w1, w2 = geo.to_wkt(s1), geo.to_wkt(s2)
+    return [
+        ("SELECT * FROM gdelt WHERE st_bbox(geom, 10, 40, 20, 45)",
+         lambda x, y: (x >= 10) & (x <= 20) & (y >= 40) & (y <= 45), None),
+        (f"SELECT * FROM gdelt WHERE st_intersects(geom, st_geomfromwkt('{w1}'))",
+         lambda x, y: pip(s1, True), None),
+        (f"SELECT * FROM gdelt WHERE st_contains(st_geomfromwkt('{w2}'), geom)",
+         lambda x, y: pip(s2, False), None),
+        ("SELECT * FROM gdelt WHERE st_within(geom, st_makebbox(-10, -10, 0, 0))",
+         lambda x, y: (x > -10) & (x < 0) & (y > -10) & (y < 0), None),
+        ("SELECT * FROM gdelt WHERE st_dwithin(geom, st_point(2.35, 48.85), 1.5)",
+         lambda x, y: np.hypot(x - 2.35, y - 48.85) <= 1.5, None),
+        ("SELECT st_x(geom) AS lon, st_y(geom) AS lat FROM gdelt "
+         "WHERE st_bbox(geom, -80, 30, -70, 40) ORDER BY lon DESC LIMIT 25",
+         lambda x, y: (x >= -80) & (x <= -70) & (y >= 30) & (y <= 40), ("lon", True, 0, 25)),
+        ("SELECT * FROM gdelt WHERE st_bbox(geom, 30, 0, 32, 2) "
+         "AND st_distancesphere(geom, st_point(31, 1)) < 80000",
+         lambda x, y: ((x >= 30) & (x <= 32) & (y >= 0) & (y <= 2)
+                       & (haversine(x, y, 31.0, 1.0) < 80000)), None),
+        ("SELECT st_x(geom) AS lon FROM gdelt WHERE st_bbox(geom, 120, -40, 150, -10) "
+         "AND st_y(geom) > -20 ORDER BY lon LIMIT 10 OFFSET 5",
+         lambda x, y: (x >= 120) & (x <= 150) & (y >= -40) & (y <= -10) & (y > -20),
+         ("lon", False, 5, 10)),
+    ]
+
+
+def sql_section(torch, ds, xs, ys, x, y) -> dict:
+    """Eight ``sql_query`` statements over the 20M points: a bbox,
+    ``ST_Intersects`` with a star, ``ST_Contains`` by a star,
+    ``ST_Within`` a box, ``ST_DWithin``, ``ORDER BY`` / ``LIMIT`` on a
+    select alias, a residual ``ST_DistanceSphere`` and a residual with
+    ``OFFSET``; ids equal the f64 brute force (as sets where the statement
+    fixes no order), the ordered ones' coordinates equal the brute force
+    sorted."""
+    from geomesa_tpu_torch.sql import sql_query
+
+    def pip(geom, boundary):
+        mask = np.zeros(len(x), bool)
+        mask[pip_brute(torch, xs, ys, geom, boundary)] = True
+        return mask
+
+    out = []
+    for sql, brute, ordered in sql_statements(pip):
+        t0 = time.perf_counter()
+        got = sql_query(ds, sql)
+        wall = time.perf_counter() - t0
+        want = np.flatnonzero(brute(x, y))
+        if ordered is None:
+            check(np.array_equal(np.sort(np.asarray(got.ids, np.int64)), want), f"sql vs brute: {sql}")
+        else:
+            col, desc, off, lim = ordered
+            vals = np.sort(x[want])
+            vals = vals[::-1] if desc else vals
+            check(np.array_equal(np.asarray(got.columns[col], np.float64), vals[off:off + lim]),
+                  f"sql ordered rows vs brute: {sql}")
+        out.append({"sql": sql[:60], "rows": len(got), "ms": wall * 1e3})
+    return {"statements": out, "n": len(out)}
+
+
+def process_store(torch, device, n, seed):
+    """A GDELT-shaped Z3 + Z2 store of n tracked points with ``dtg`` over
+    the span and a compass ``heading``; returns (store, (x, y, t, h))."""
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+
+    rng = np.random.default_rng(seed)
+    x, y = gdelt_points(n, rng)
+    t = T0_MS + rng.integers(0, SPAN_MS, n)
+    h = rng.uniform(0, 360, n)
+    sft = FeatureType.from_spec("track", PROCESS_SPEC)
+    sft.user_data["geomesa.indices.enabled"] = "z3,z2"
+    ds = DataStore(device=device)
+    ds.create_schema(sft)
+    ds.write("track", FeatureCollection.from_columns(
+        sft, np.arange(n), {"heading": h, "dtg": t, "geom": (x, y)}), check_ids=False)
+    torch.cuda.synchronize()
+    return ds, (x, y, t, h)
+
+
+def route_brute(x, y, h, route, buffer_m, thr) -> np.ndarray:
+    """Rows within ``buffer_m`` of the route whose heading is within
+    ``thr`` degrees of the closest segment's bearing, in a local
+    equirectangular projection around each row (numpy f64)."""
+    a, b = route[:-1], route[1:]
+    best_d = np.full(len(x), np.inf)
+    best_b = np.zeros(len(x))
+    for s in range(len(a)):
+        scale = np.cos(np.radians(y)) * M_PER_DEG
+        ax, ay = (a[s, 0] - x) * scale, (a[s, 1] - y) * M_PER_DEG
+        bx, by = (b[s, 0] - x) * scale, (b[s, 1] - y) * M_PER_DEG
+        dx, dy = bx - ax, by - ay
+        tt = np.clip(-(ax * dx + ay * dy) / np.maximum(dx * dx + dy * dy, 1e-12), 0.0, 1.0)
+        cx, cy = ax + tt * dx, ay + tt * dy
+        d = np.sqrt(cx * cx + cy * cy)
+        bearing = (np.degrees(np.arctan2(dx, dy)) + 360.0) % 360.0
+        better = d < best_d
+        best_d[better], best_b[better] = d[better], bearing[better]
+    diff = np.abs(best_b - h)
+    diff = np.where(diff > 180.0, np.abs(diff - 360.0), diff)
+    return np.flatnonzero((best_d <= buffer_m) & (diff <= thr))
+
+
+def process_section(torch, device) -> dict:
+    """``proximity_search``, ``tube_select`` and ``route_search`` once
+    each on a 1M-row Z3 + Z2 store of tracked points (its own seed), each
+    against an f64 brute force over every row."""
+    from geomesa_tpu_torch.process import proximity_search, route_search, tube_select
+
+    t0 = time.perf_counter()
+    ds, (x, y, t, h) = process_store(torch, device, N_PROCESS, SEED + 96)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 97)
+    pts = np.stack([x, y], 1)[rng.choice(N_PROCESS, 8, replace=False)]
+    cx, cy = cluster_centres(SEED + 96)
+    out = {"build_s": build_s, "n_rows": N_PROCESS}
+    t0 = time.perf_counter()
+    got = proximity_search(ds, "track", pts, 50_000.0)
+    out["proximity_ms"] = (time.perf_counter() - t0) * 1e3
+    d = np.min([haversine(px, py, x, y) for px, py in pts], axis=0)
+    want = np.flatnonzero(d <= 50_000.0)
+    check(np.array_equal(np.sort(np.asarray(got.ids, np.int64)), want), "proximity vs brute force")
+    out["proximity_hits"] = len(want)
+    track = np.stack([cx[0] + np.linspace(-4, 4, 20), cy[0] + np.linspace(-2, 2, 20)], 1)
+    times = T0_MS + np.linspace(0, 30 * 86_400_000, 20).astype(np.int64)
+    t0 = time.perf_counter()
+    got = tube_select(ds, "track", track, times, buffer_m=200_000.0)
+    out["tube_ms"] = (time.perf_counter() - t0) * 1e3
+    live = (t >= times[0]) & (t <= times[-1])
+    px, py = np.interp(t, times, track[:, 0]), np.interp(t, times, track[:, 1])
+    want = np.flatnonzero(live & (haversine(x, y, px, py) <= 200_000.0))
+    check(np.array_equal(np.sort(np.asarray(got.ids, np.int64)), want), "tube vs brute force")
+    out["tube_hits"] = len(want)
+    route = np.array([[cx[1] - 3, cy[1] - 1], [cx[1], cy[1] - 1], [cx[1], cy[1] + 1],
+                      [cx[1] + 3, cy[1] + 2], [cx[1] + 4, cy[1] - 1]])
+    t0 = time.perf_counter()
+    got = route_search(ds, "track", route, 25_000.0, 30.0, heading_field="heading")
+    out["route_ms"] = (time.perf_counter() - t0) * 1e3
+    want = route_brute(x, y, h, route, 25_000.0, 30.0)
+    check(np.array_equal(np.sort(np.asarray(got.ids, np.int64)), want), "route vs brute force")
+    out["route_hits"] = len(want)
+    check(min(out["proximity_hits"], out["tube_hits"], out["route_hits"]) > 0,
+          "every process finds rows")
+    ds.close()
+    return out
+
+
+def analytics_path(torch, device) -> dict:
+    """gdelt-z2-20M-analytics: the analytics tier on the Z2 polygon
+    cell's 20M GDELT points, built again with the cache tier
+    (``DataStore(cache=True)``) so the pyramid caches and invalidates:
+    kNN (``config_knn``), the indexed and host joins
+    (``config_pip_join``), the tile pyramid (``config_tiles``' leaf zoom
+    and tile size), eight SQL statements, then proximity, tube and route
+    search on a 1M-row Z3 store with times and headings. Launch and
+    native counts are zeroed before, read after."""
+    zero_launches()
+    t_path = time.perf_counter()
+    ds, (x, y, _), ingest_s = build_store(torch, device, N_Z2, index="z2", seed=SEED + 30,
+                                          cache=True)
+    xs = torch.as_tensor(x, device=device)
+    ys = torch.as_tensor(y, device=device)
+    rng = np.random.default_rng(SEED + 91)
+    sections = {"ingest_s": ingest_s}
+    for name, fn in (("knn", lambda: knn_section(torch, ds, xs, ys, x, y, rng)),
+                     ("join", lambda: join_section(torch, ds, xs, ys, x, y)),
+                     ("sql", lambda: sql_section(torch, ds, xs, ys, x, y)),
+                     ("pyramid", lambda: pyramid_section(torch, ds, x, y))):
+        t0 = time.perf_counter()
+        sections[name] = fn()
+        sections[name]["section_s"] = time.perf_counter() - t0
+    ds.close()
+    del ds, xs, ys
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sections["process"] = process_section(torch, device)
+    sections["process"]["section_s"] = time.perf_counter() - t0
+    path_s = time.perf_counter() - t_path
+    return {
+        "phase": "analytics_path", "cell": "gdelt-z2-20M-analytics",
+        "launches": read_launches(), "native": read_native(), "n_points": N_Z2,
+        **sections, "path_s": path_s, "budget_s": ANALYTICS_BUDGET_S, "reduced": {},
+    }
+
+
 # -- entry point -------------------------------------------------------------
 
 
@@ -7059,6 +7613,8 @@ def check_native(records) -> None:
         "moving-standing-1M": ("sort_bins_z", "bitmask_decode_pair"),
         "moving-replica-60k": point,
         "gdelt-ingest-20M": point,
+        # the host grid join sorts by cell, the joins refine on the host
+        "gdelt-z2-20M-analytics": point + ("points_in_polygon", "counting_argsort"),
     }
     for cell, names in expected_native.items():
         for name in names:
@@ -7131,6 +7687,7 @@ def main() -> int:
         "moving-standing-1M": ("block_scan_multi",),
         "moving-replica-60k": ("block_scan",),
         "gdelt-ingest-20M": ("block_scan", "density", "bounds"),
+        "gdelt-z2-20M-analytics": ("block_scan", "block_scan_multi"),
     }
     for cell, names in expected.items():
         for name in names:

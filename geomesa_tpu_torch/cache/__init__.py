@@ -79,8 +79,7 @@ class QueryCache:
     counts as a mutation over everything it loads (the on-disk state may
     be older than what cached entries saw), so entries overlapping loaded
     data fill again rather than serve warm, and quarantined partitions
-    are swept eagerly. (The JAX package's tile-pyramid seam is not part
-    of the port.)"""
+    are swept eagerly."""
 
     def __init__(self, conf: "CacheConfig | None" = None, metrics=None):
         from geomesa_tpu_torch.metrics import resolve
@@ -98,6 +97,10 @@ class QueryCache:
             self.generations,
             metrics=self.metrics,
         )
+        #: the tile pyramid's composition seam (tiles.TilePyramid attaches
+        #: itself), so every mutation's key range also reaches the
+        #: pyramid's delta accounting
+        self.pyramid = None
         self.tiles = TileAggregateCache(
             TileCacheConf(
                 tile_bits=self.conf.tile_bits,
@@ -119,6 +122,12 @@ class QueryCache:
         return key_range_of(f, sft)
 
     # -- mutation hooks --------------------------------------------------
+    def attach_pyramid(self, pyramid) -> None:
+        """Register a TilePyramid for mutation forwarding (the flush and
+        fold deltas reach it through the same per-slice on_mutation calls
+        the scoped invalidation reads)."""
+        self.pyramid = pyramid
+
     def on_mutation(self, type_name: str, fc=None) -> None:
         """A batch of rows was written, replaced or removed: bump the
         covered key range (``fc=None`` = unknown range, bump everything)."""
@@ -126,11 +135,15 @@ class QueryCache:
         if fc is not None:
             bounds, time_range = mutation_range(fc)
         self.generations.bump(type_name, bounds=bounds, time_range=time_range)
+        if self.pyramid is not None:
+            self.pyramid.note_delta(type_name, bounds)
 
     def on_schema_dropped(self, type_name: str) -> None:
         self.generations.bump_schema(type_name)
         self.result.invalidate_type(type_name)
         self.tiles.invalidate_type(type_name)
+        if self.pyramid is not None:
+            self.pyramid.invalidate_type(type_name)
 
     def on_quarantine(self, type_name: str, time_range=None) -> int:
         """A loaded store quarantined a damaged partition: bump the
@@ -138,12 +151,18 @@ class QueryCache:
         (entries over the hole must not linger even unservable). Returns
         the entries dropped."""
         self.generations.bump(type_name, bounds=None, time_range=time_range)
-        return self.result.sweep(type_name) + self.tiles.invalidate_type(type_name)
+        dropped = self.result.sweep(type_name) + self.tiles.invalidate_type(type_name)
+        if self.pyramid is not None:
+            dropped += self.pyramid.sweep(type_name)
+        return dropped
 
     # -- introspection ---------------------------------------------------
     def stats(self) -> dict:
-        return {
+        out = {
             "result_entries": len(self.result),
             "result_bytes": self.result.bytes_resident,
             "tile_entries": len(self.tiles),
         }
+        if self.pyramid is not None:
+            out.update(self.pyramid.stats())
+        return out

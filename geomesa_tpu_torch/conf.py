@@ -324,6 +324,60 @@ RASTER_RESIDUE = SystemProperty(
     "kernel's f32 point-in-polygon leg beside the raster leg)",
 )
 
+# -- spatial joins (sql.join, process.join) --------------------------------
+
+JOIN_ADAPTIVE = SystemProperty(
+    "geomesa.join.adaptive", True, _parse_bool,
+    "pick the spatial-join strategy per partition from measured "
+    "selectivity (arXiv 1802.09488) instead of one fixed plan",
+)
+JOIN_SAMPLE = SystemProperty(
+    "geomesa.join.sample", 512, int,
+    "candidate rows sampled per join partition to measure boundary-cell "
+    "selectivity before picking a strategy",
+)
+JOIN_BROAD_FRACTION = SystemProperty(
+    "geomesa.join.broad.fraction", 0.25, float,
+    "indexed-join polygons whose candidate spans cover more than this "
+    "fraction of the table skip the fused-scan probe and classify the "
+    "whole point set against their raster on host",
+)
+JOIN_IN_SELECTIVITY = SystemProperty(
+    "geomesa.join.in.selectivity", 0.5, float,
+    "attribute-join IN push-down is skipped (host membership mask "
+    "instead) when the sampled fraction of matching secondary rows "
+    "exceeds this: the scan would return most rows anyway",
+)
+
+# -- the map-tile pyramid (tiles) ------------------------------------------
+
+TILES_LEAF_ZOOM = SystemProperty(
+    "geomesa.tiles.leaf.zoom", 3, int,
+    "the pyramid's finest zoom: leaf tiles aggregate rows once at this "
+    "level, every zoom above folds child partials",
+)
+TILES_PX = SystemProperty(
+    "geomesa.tiles.px", 256, int,
+    "tile raster edge in pixels (one tile is px x px)",
+)
+TILES_CACHE_MAX_BYTES = SystemProperty(
+    "geomesa.tiles.cache.max.bytes", 128 << 20, int,
+    "LRU byte budget for composed tile grids (the pyramid's own "
+    "ResultCache instance; 0 recomposes every fetch)",
+)
+TILES_TTL = SystemProperty(
+    "geomesa.tiles.ttl", None, float,
+    "seconds a composed tile grid stays servable past its compose "
+    "(None = until a generation bump invalidates it); spread by "
+    "geomesa.cache.ttl.jitter like every cached result",
+)
+TILES_MAX_AGE_S = SystemProperty(
+    "geomesa.tiles.max.age.s", 0.0, float,
+    "Cache-Control of served tiles: > 0 allows clients to reuse a tile "
+    "for N seconds without revalidating; 0 makes them revalidate "
+    "through the generation-derived ETag",
+)
+
 # -- concurrent query serving (serving.scheduler) -------------------------
 
 SERVING_WINDOW_MS = SystemProperty(

@@ -3,11 +3,12 @@ vectorized predicate math.
 
 The port's copy of the parts of geomesa_tpu/geometry.py that features,
 ECQL parsing, filter extraction and host refinement read: the geometry
-objects, the WKT codec, the packed extent column of non-point schemas
-(flat coordinates + nested offsets, per-geometry f32 bboxes that become
-the XZ indexes' device columns), the exact predicates (even-odd ray
-casting, orientation tests, intersects / contains / distance) and the
-raster cell classifier of polygon queries. WKB stays in the JAX package.
+objects with their planar length and area, the WKT and WKB codecs, the
+packed extent column of non-point schemas (flat coordinates + nested
+offsets, per-geometry f32 bboxes that become the XZ indexes' device
+columns), the exact predicates (even-odd ray casting, orientation tests,
+intersects / contains / distance) and the raster cell classifier of
+polygon queries.
 """
 
 from __future__ import annotations
@@ -112,6 +113,11 @@ class LineString(Geometry):
     def _coord_count(self):
         return len(self.coords)
 
+    @property
+    def length(self) -> float:
+        d = np.diff(self.coords, axis=0)
+        return float(np.sqrt((d**2).sum(axis=1)).sum())
+
 
 class Polygon(Geometry):
     """Shell + holes, each a closed ring (first point == last point; the
@@ -133,6 +139,11 @@ class Polygon(Geometry):
 
     def _coord_count(self):
         return len(self.shell) + sum(len(h) for h in self.holes)
+
+    @property
+    def area(self) -> float:
+        a = _ring_area(self.shell)
+        return abs(a) - sum(abs(_ring_area(h)) for h in self.holes)
 
 
 class _Multi(Geometry):
@@ -178,6 +189,11 @@ def _close_ring(ring: np.ndarray) -> np.ndarray:
     if not np.array_equal(ring[0], ring[-1]):
         ring = np.vstack([ring, ring[:1]])
     return ring
+
+
+def _ring_area(ring: np.ndarray) -> float:
+    x, y = ring[:, 0], ring[:, 1]
+    return float(0.5 * np.sum(x[:-1] * y[1:] - x[1:] * y[:-1]))
 
 
 def box(xmin: float, ymin: float, xmax: float, ymax: float) -> Polygon:

@@ -143,7 +143,8 @@ def _chunk_nbytes(fc: FeatureCollection, keys_by_index: dict) -> int:
 
 
 class _Chunk:
-    __slots__ = ("idx", "base", "fc", "keys", "stats", "runs", "event", "error")
+    __slots__ = ("idx", "base", "fc", "keys", "stats", "runs", "event", "error",
+                 "slot_held")
 
     def __init__(self, idx: int, base: int, fc: FeatureCollection):
         self.idx = idx
@@ -154,6 +155,7 @@ class _Chunk:
         self.runs: dict = {}  # index name -> list[SortRun]
         self.event = threading.Event()
         self.error: "BaseException | None" = None
+        self.slot_held = True  # guarded-by: BulkLoader._cv
 
 
 class BulkLoader:
@@ -230,6 +232,14 @@ class BulkLoader:
         if self._error is not None:
             raise self._error
 
+    def _release_slot(self, ch: _Chunk) -> None:
+        """Give the chunk's admission slot back, once: the writer and a
+        put() whose submit met a dead pool can both reach one chunk."""
+        with self._cv:
+            held, ch.slot_held = ch.slot_held, False
+        if held:
+            self._sem.release()
+
     # -- producer ---------------------------------------------------------
     def put(self, features: "FeatureCollection | Sequence") -> int:
         """Stage one chunk. Blocks when the admission window is full
@@ -266,7 +276,21 @@ class BulkLoader:
                 )
                 self._writer.start()
             self._cv.notify_all()
-        self._pool.submit(self._encode, ch)
+        try:
+            self._pool.submit(self._encode, ch)
+        except RuntimeError:
+            # a stage failed after the check above and _fail shut the
+            # pool: this chunk never runs. Free its slot and its event
+            # (_fail may have listed the chunks before this one joined)
+            # and raise the pipeline's first error, not the pool's.
+            with self._cv:
+                error = self._error
+            if error is None:
+                raise
+            ch.error = error
+            ch.event.set()
+            self._release_slot(ch)
+            raise error from None
         self._count("geomesa.ingest.chunks")
         return len(features)
 
@@ -333,7 +357,7 @@ class BulkLoader:
                 ch = self._chunks[i]
             ch.event.wait()
             if ch.error is not None:
-                self._sem.release()
+                self._release_slot(ch)
                 return  # _fail already recorded it
             try:
                 t0 = time.perf_counter()
@@ -343,7 +367,7 @@ class BulkLoader:
                 self._fail(e)
                 return
             finally:
-                self._sem.release()
+                self._release_slot(ch)
             i += 1
 
     # -- finalize -----------------------------------------------------------

@@ -297,3 +297,29 @@ def reduce_bounds(stats, n_real: int):
         float(s[:, 1].min()), float(s[:, 3].min()),
         float(s[:, 2].max()), float(s[:, 4].max()),
     )
+
+
+# ---------------------------------------------------- tile-pyramid partials
+# Host-side exact aggregation for the map-tile tier (tiles.pyramid), as in
+# the JAX package: counts are integers in f64 (exact to 2^53), and the
+# bincount/block-sum pair keeps a zoom-z pixel bit-identical to a
+# from-scratch aggregation of the same rows however the pyramid associates
+# its partial sums.
+
+
+def tile_partial(col, row, w: int, h: int):
+    """Windowed density partial of one tile: per-pixel counts of rows
+    already binned to LOCAL pixel indices (``0 <= col < w``,
+    ``0 <= row < h``, row 0 = north). One ``bincount``: no scatter
+    races, deterministic."""
+    flat = np.asarray(row, np.int64) * w + np.asarray(col, np.int64)
+    return np.bincount(flat, minlength=h * w).reshape(h, w).astype(np.float64)
+
+
+def block_sum(grid, k: int):
+    """Exact ``k x k`` block-sum downsample of a 2-D f64 grid: the
+    pyramid's parent recompose (4 children fold with k=2). Integer
+    counts in f64 sum exactly in any association order."""
+    g = np.asarray(grid, np.float64)
+    hh, ww = g.shape
+    return g.reshape(hh // k, k, ww // k, k).sum(axis=(1, 3))

@@ -37,7 +37,12 @@ sequence runs on both packages' LambdaStore: ``subscribe`` (geofence
 squares and stars, some fused, proximity and tube subscriptions, a
 replace), ``unsubscribe``, ``write`` and ``flush``; after each step the
 drained alert dicts, the live subscription ids and the store's ids in
-order must agree. Tolerance: exact.
+order must agree. A seeded 12-step analytics sequence on a cached point
+store with a tile pyramid attached draws from LambdaStore writes and
+flushes, writes into the delta tier and ``compact``; after each step
+``knn_many`` ids in order, ``spatial_join_indexed`` pairs and the
+pyramid's grids at every zoom (each also equal to ``fresh``) agree.
+Tolerance: exact.
 """
 
 import numpy as np
@@ -744,3 +749,109 @@ def test_standing_sequence_draws_every_op(standing_runs):
     assert ops == {"subscribe", "unsubscribe", "write", "flush"}
     assert kinds == {"geofence", "star", "proximity", "tube"}
     assert sum(len(alerts) for alerts, _, _, _ in standing_runs[1]) > 0
+
+
+AN_STEPS = 12
+AN_SEED = SEED + 23
+AN_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
+AN_POINTS = [(-15.0, -10.0), (0.0, 0.0), (12.5, 7.5), (19.0, -19.0), (-19.9, 19.9), (3.0, -4.0)]
+
+
+def _an_steps():
+    """Package-neutral steps drawn from a fixed seed: LambdaStore writes
+    (hot tier) and flushes, writes straight into the cold store's delta
+    tier, and compactions."""
+    rng = np.random.default_rng(AN_SEED)
+    ops = ("write", "write", "flush", "cold_write", "compact")
+    steps, n_row = [], 0
+    for i in range(AN_STEPS):
+        op = ops[i] if i < len(ops) else ops[int(rng.integers(0, len(ops)))]
+        args = {}
+        if op in ("write", "cold_write"):
+            k = int(rng.integers(100, 600))
+            args = {"ids": [f"a{n_row + j}" for j in range(k)],
+                    "x": rng.uniform(-20, 20, k), "y": rng.uniform(-20, 20, k),
+                    "t": T0 + rng.integers(0, 30 * DAY, k)}
+            n_row += k
+        steps.append((op, args))
+    return steps
+
+
+def _an_run(pkg, kw):
+    from importlib import import_module
+
+    st = import_module(pkg.__name__ + ".streaming")
+    cache = import_module(pkg.__name__ + ".cache")
+    geo = import_module(pkg.__name__ + ".geometry")
+    proc = import_module(pkg.__name__ + ".process")
+    sql = import_module(pkg.__name__ + ".sql")
+    tiles = import_module(pkg.__name__ + ".tiles")
+    ds = pkg.DataStore(cache=cache.CacheConfig(max_bytes=1 << 22), tile=TILE, **kw)
+    sft = pkg.FeatureType.from_spec("t", AN_SPEC)
+    sft.user_data["geomesa.indices.enabled"] = "z3,z2"
+    ds.create_schema(sft)
+    rng = np.random.default_rng(AN_SEED + 1)
+    n0 = 2000
+    ds.write("t", pkg.FeatureCollection.from_columns(sft, [f"b{i}" for i in range(n0)], {
+        "name": np.array(["n"] * n0), "dtg": T0 + rng.integers(0, 30 * DAY, n0),
+        "geom": (rng.uniform(-20, 20, n0), rng.uniform(-20, 20, n0))}))
+    pyramid = tiles.TilePyramid(ds, tiles.TilesConfig(leaf_zoom=2, px=16))
+    stars = []
+    for k in range(4):
+        n = 6 + 9 * k
+        a = np.linspace(0, 2 * np.pi, 2 * n + 1)[:-1]
+        rad = np.where(np.arange(2 * n) % 2 == 0, 6.0, 3.0)
+        stars.append(geo.Polygon([(-12 + 8 * k + rr * np.cos(u), -6 + 4 * k + rr * np.sin(u))
+                                  for u, rr in zip(a, rad)]))
+    left = pkg.FeatureCollection.from_columns(
+        pkg.FeatureType.from_spec("adm", "*geom:Polygon:srid=4326"), np.arange(4),
+        {"geom": geo.PackedGeometryColumn.from_geometries(stars)})
+    lam = st.LambdaStore(ds, "t", config=st.StreamConfig(chunk_rows=64, fold_rows=150))
+    out = []
+    try:
+        for op, args in _an_steps():
+            if op == "write":
+                lam.write([{"name": "h", "dtg": np.datetime64(int(t), "ms"), "geom": geo.Point(float(x), float(y))}
+                           for x, y, t in zip(args["x"], args["y"], args["t"])], ids=args["ids"])
+            elif op == "flush":
+                lam.flush()
+            elif op == "cold_write":
+                ds.write("t", pkg.FeatureCollection.from_columns(sft, args["ids"], {
+                    "name": np.array(["c"] * len(args["ids"])), "dtg": args["t"],
+                    "geom": (args["x"], args["y"])}))
+            else:
+                ds.compact("t")
+            knn = [[str(i) for i in fc.ids.tolist()]
+                   for fc in proc.knn_many(ds, "t", AN_POINTS, k=7)]
+            li, ri = sql.spatial_join_indexed(ds, "t", left, "intersects")
+            grids = []
+            for z in range(3):
+                nx, ny = pyramid.lattice.n_tiles(z)
+                for x in range(nx):
+                    for y in range(ny):
+                        g = pyramid.fetch("t", z, x, y).grid
+                        assert np.array_equal(g, pyramid.fresh("t", z, x, y).grid), (op, z, x, y)
+                        grids.append(g.tobytes())
+            out.append((knn, li.tolist(), ri.tolist(), grids, ds.count("t")))
+    finally:
+        lam.close()
+        ds.close()
+    return out
+
+
+@pytest.fixture(scope="module")
+def analytics_runs():
+    return [_an_run(pkg, kw) for pkg, kw in ((geomesa_tpu, {}),
+                                            (geomesa_tpu_torch, {"device": "cpu"}))]
+
+
+@pytest.mark.parametrize("step", range(AN_STEPS))
+def test_analytics_sequence_agrees(analytics_runs, step):
+    jax_run, port_run = analytics_runs
+    assert port_run[step] == jax_run[step]
+
+
+def test_analytics_sequence_draws_every_op(analytics_runs):
+    assert {op for op, _ in _an_steps()} == {"write", "flush", "cold_write", "compact"}
+    counts = [c for *_, c in analytics_runs[1]]
+    assert counts[-1] > counts[0] and len(analytics_runs[1][0][1]) > 0

@@ -1174,3 +1174,89 @@ def test_warm_cache_launches_no_scan_on_the_card():
     warm = [np.asarray(gpu.query("t", q).ids).tolist() for q in HINT_QUERIES]
     assert kernels.BLOCK_SCAN.launches == 0 and warm == cold
     assert warm == [np.asarray(cpu.query("t", q).ids).tolist() for q in HINT_QUERIES]
+
+
+def _analytics_store(device):
+    """A cached 200k-point store with the Z2 index (the analytics path's
+    shape, cut down) on ``device``."""
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+    from geomesa_tpu_torch.cache import CacheConfig
+
+    rng = np.random.default_rng(41)
+    n = 200_000
+    sft = FeatureType.from_spec("p", "*geom:Point:srid=4326")
+    sft.user_data["geomesa.indices.enabled"] = "z2"
+    ds = DataStore(device=device, cache=CacheConfig(max_bytes=1 << 26))
+    ds.create_schema(sft)
+    ds.write("p", FeatureCollection.from_columns(
+        sft, np.arange(n), {"geom": (rng.uniform(-180, 180, n), rng.uniform(-90, 90, n))}),
+        check_ids=False)
+    ds.compact("p")
+    return ds
+
+
+def _stars(n_poly=16, seed=3):
+    from geomesa_tpu_torch import FeatureCollection, FeatureType, geometry
+
+    rng = np.random.default_rng(seed)
+    polys = []
+    for k in range(n_poly):
+        arms = int(rng.integers(8, 128))
+        a = np.linspace(0, 2 * np.pi, 2 * arms + 1)[:-1]
+        rad = np.where(np.arange(2 * arms) % 2 == 0, 1.0, rng.uniform(0.3, 0.7, 2 * arms))
+        r, cx, cy = rng.uniform(2, 15), rng.uniform(-150, 150), rng.uniform(-60, 60)
+        polys.append(geometry.Polygon([(cx + r * q * np.cos(t), cy + r * q * np.sin(t))
+                                       for t, q in zip(a, rad)]))
+    return FeatureCollection.from_columns(
+        FeatureType.from_spec("adm", "*geom:Polygon:srid=4326"), np.arange(n_poly),
+        {"geom": geometry.PackedGeometryColumn.from_geometries(polys)})
+
+
+def test_analytics_on_the_card_equal_the_cpu_store():
+    """kNN (one point through K1, a batch through K2's fused windows),
+    the indexed join (K2, rasters off and on) and every tile of a small
+    pyramid (K1 leaf scans) on the card: ids in order, pairs and grids
+    equal to a CPU store's."""
+    from geomesa_tpu_torch import conf, kernels
+    from geomesa_tpu_torch.filter import raster
+    from geomesa_tpu_torch.process import knn_many, knn_search
+    from geomesa_tpu_torch.sql import spatial_join_indexed
+    from geomesa_tpu_torch.tiles import TilePyramid, TilesConfig
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gpu, cpu = _analytics_store("cuda"), _analytics_store("cpu")
+    pts = [(float(x), float(y)) for x, y in np.random.default_rng(8).uniform(-60, 60, (16, 2))]
+    for k in kernels.KERNELS:
+        k.reset_counts()
+    one = [np.asarray(knn_search(gpu, "p", x, y, k=10).ids).tolist() for x, y in pts[:4]]
+    assert kernels.BLOCK_SCAN.launches > 0
+    many = [np.asarray(fc.ids).tolist() for fc in knn_many(gpu, "p", pts, k=10)]
+    assert kernels.BLOCK_SCAN_MULTI.launches > 0
+    assert one == many[:4]
+    assert many == [np.asarray(fc.ids).tolist() for fc in knn_many(cpu, "p", pts, k=10)]
+    left = _stars()
+    try:
+        for on in (False, True):
+            conf.RASTER_ENABLED.set(on)
+            raster.clear_cache()
+            for ds in (gpu, cpu):
+                ds.planner.invalidate_config_memo()
+            kernels.BLOCK_SCAN_MULTI.reset_counts()
+            got = [a.tolist() for a in spatial_join_indexed(gpu, "p", left, "contains")]
+            assert kernels.BLOCK_SCAN_MULTI.launches > 0
+            assert got == [a.tolist() for a in spatial_join_indexed(cpu, "p", left, "contains")]
+    finally:
+        conf.RASTER_ENABLED.clear()
+        raster.clear_cache()
+    cfg = TilesConfig(leaf_zoom=2, px=64)
+    pg, pc = TilePyramid(gpu, cfg), TilePyramid(cpu, cfg)
+    kernels.BLOCK_SCAN.reset_counts()
+    for z in range(3):
+        nx, ny = pg.lattice.n_tiles(z)
+        for x in range(nx):
+            for y in range(ny):
+                g = pg.fetch("p", z, x, y).grid
+                assert np.array_equal(g, pc.fetch("p", z, x, y).grid)
+                assert np.array_equal(g, pg.fresh("p", z, x, y).grid)
+    assert kernels.BLOCK_SCAN.launches > 0

@@ -39,7 +39,11 @@ segment shipper feeding a follower that catches up, answers a query and
 is promoted; the match gate's, the subscription index's, the window
 aggregator's, the alert queue's, the shipper's and the replica's locks
 are witnessed under the JAX package's names, with the same edges and
-blocking points.
+blocking points. A sixth workload drives the tile pyramid: a cached
+store with a ``TilePyramid`` attached, pyramid fetches on two threads
+racing a LambdaStore's sliced fold flush, then a schema-drop sweep; the
+pyramid's lock (``TilePyramid._lock``, the JAX package's rank 54) is
+witnessed with the cache tier's, and the edges equal the JAX package's.
 """
 
 import json
@@ -666,3 +670,88 @@ def test_standing_and_replica_workload_edges_equal_the_jax_package(tmp_path):
     edges = set(map(tuple, tsnap["edges"]))
     # a subscribe holds the store's subscription lock over the WAL append
     assert ("LambdaStore._sub_lock", "WriteAheadLog._lock") in edges
+
+
+PYRAMID_LOCKS = {"TilePyramid._lock", "ResultCache._lock", "GenerationTracker._lock",
+                 "DataStore._write_lock", "StreamingFeatureCache._lock"}
+
+
+def _pyramid_workload(P):
+    """Arm, then race pyramid fetches (two threads, every tile at every
+    zoom, twice) against a LambdaStore's sliced fold flush on a cached
+    store; then fetch again and drop the schema's grids. Returns the
+    witness snapshot, the cycle and the final grids."""
+    from importlib import import_module
+
+    st = import_module(P.pkg.__name__ + ".streaming")
+    geo = import_module(P.pkg.__name__ + ".geometry")
+    cache = import_module(P.pkg.__name__ + ".cache")
+    tiles = import_module(P.pkg.__name__ + ".tiles")
+    P.lw.enable()
+    rng = np.random.default_rng(31)
+    n = 2_000
+    sft = P.pkg.FeatureType.from_spec("t", SPEC)
+    ds = P.pkg.DataStore(tile=1024, metrics=P.metrics.MetricsRegistry(),
+                         cache=cache.CacheConfig(max_bytes=1 << 22), **P.kw)
+    ds.create_schema(sft)
+    ds.write("t", P.pkg.FeatureCollection.from_columns(sft, [str(i) for i in range(n)], {
+        "name": np.array(["a", "b", "c"])[rng.integers(0, 3, n)],
+        "age": rng.integers(0, 50, n).astype(np.int32),
+        "dtg": T0 + rng.integers(0, 10 * DAY, n),
+        "geom": (rng.uniform(-50, 50, n), rng.uniform(-50, 50, n))}))
+    ds.compact("t")
+    pyramid = tiles.TilePyramid(ds, tiles.TilesConfig(leaf_zoom=2, px=16))
+    lam = st.LambdaStore(ds, "t", config=st.StreamConfig(workers=2, chunk_rows=64,
+                                                          fold_rows=200, slice_rows=100))
+    r = np.random.default_rng(5)
+    lam.write([{"name": "u", "age": 1, "dtg": int(T0 + j), "geom": geo.Point(float(x), float(y))}
+               for j, (x, y) in enumerate(zip(r.uniform(-50, 50, 400), r.uniform(-50, 50, 400)))],
+              ids=[f"h{j}" for j in range(400)])
+    start = threading.Event()
+
+    def fetcher():
+        start.wait()
+        for _ in range(2):
+            for z in range(3):
+                nx, ny = pyramid.lattice.n_tiles(z)
+                for x in range(nx):
+                    for y in range(ny):
+                        pyramid.fetch("t", z, x, y)
+
+    threads = [threading.Thread(target=fetcher) for _ in range(2)]
+    for t in threads:
+        t.start()
+    start.set()
+    lam.flush()  # the sliced fold, racing the fetches
+    for t in threads:
+        t.join(60)
+    grids = [pyramid.fetch("t", z, x, y).grid.tobytes() for z in range(3)
+             for x in range(pyramid.lattice.n_tiles(z)[0])
+             for y in range(pyramid.lattice.n_tiles(z)[1])]
+    stats = pyramid.stats()
+    ds.cache.on_schema_dropped("t")
+    lam.close()
+    ds.close()
+    snap = P.lw.REPORT.snapshot()
+    cycle = P.lw.REPORT.cycle()
+    P.lw.disable()
+    return snap, cycle, (grids, stats["tile_deltas"] > 0)
+
+
+def test_pyramid_workload_edges_equal_the_jax_package():
+    """Pyramid fetches racing a sliced fold flush: the pyramid's lock is
+    witnessed beside the cache tier's and the write lock, the same edges
+    and blocking points as the JAX package's, acyclic. The pyramid's
+    delta accounting runs under the write lock (the fold's per-slice
+    mutation hook), and nothing nests under the pyramid's lock but the
+    metrics registry's."""
+    (jsnap, jcyc, jans), (tsnap, tcyc, tans) = (_pyramid_workload(P) for P in BOTH)
+    assert tans == jans and tans[1]
+    assert jcyc is None and tcyc is None
+    assert PYRAMID_LOCKS <= set(tsnap["seen"]) and PYRAMID_LOCKS <= set(jsnap["seen"])
+    assert tsnap["edges"] == jsnap["edges"]
+    assert set(tsnap["blocking"]) == set(jsnap["blocking"])
+    assert tsnap["aliased"] == jsnap["aliased"]
+    edges = set(map(tuple, tsnap["edges"]))
+    assert ("DataStore._write_lock", "TilePyramid._lock") in edges
+    assert {b for a, b in edges if a == "TilePyramid._lock"} <= {"MetricsRegistry._lock"}

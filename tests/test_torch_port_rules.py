@@ -33,7 +33,14 @@
   pipeline and splits, ``io`` and its readers, writers and converters,
   ``utils.bin_format``) import neither jax nor anything of
   ``geomesa_tpu``, each on its own in a fresh interpreter, and
-  ``geomesa_tpu_torch.io`` imports without pyarrow.
+  ``geomesa_tpu_torch.io`` imports without pyarrow;
+- the analytics tier's modules (``utils.geohash``, ``process`` and its
+  seven modules, ``tiles`` and its three, ``sql`` and its three) import
+  neither jax nor anything of ``geomesa_tpu``, each on its own in a
+  fresh interpreter; ``knn_many``, ``spatial_join_indexed`` and
+  ``TilePyramid`` scan through K1 or K2's plain versions on a CPU store
+  and launch nothing, and raise on a store whose columns lie on a device
+  without a kernel.
 """
 
 import importlib.util
@@ -89,7 +96,11 @@ def test_package_imports_no_jax_and_nothing_of_geomesa_tpu():
                  "streaming.cache", "streaming.flush", "streaming.store", "streaming.stream",
                  "utils.spatial_index", "io.varint", "ingest", "ingest.sort",
                  "ingest.pipeline", "ingest.splits", "io.exporters", "io.arrow",
-                 "utils.bin_format"):
+                 "utils.bin_format", "utils.geohash", "process", "process.knn",
+                 "process.proximity", "process.tube", "process.route", "process.unique",
+                 "process.join", "process.transforms", "tiles", "tiles.tiling",
+                 "tiles.png", "tiles.pyramid", "sql", "sql.functions", "sql.join",
+                 "sql.query"):
         assert importlib.util.find_spec(f"geomesa_tpu_torch.{name}") is not None
 
 
@@ -429,7 +440,12 @@ def test_every_port_knob_is_a_jax_knob_with_its_default():
                  "geomesa.standing.raster.cells", "geomesa.standing.fused.gate",
                  "geomesa.standing.queue.max", "geomesa.standing.window.panes",
                  "geomesa.replica.ship.chunk.bytes", "geomesa.replica.ship.interval.ms",
-                 "geomesa.replica.staleness.max.ms", "geomesa.replica.giveup.s"):
+                 "geomesa.replica.staleness.max.ms", "geomesa.replica.giveup.s",
+                 "geomesa.join.adaptive", "geomesa.join.sample",
+                 "geomesa.join.broad.fraction", "geomesa.join.in.selectivity",
+                 "geomesa.tiles.leaf.zoom", "geomesa.tiles.px",
+                 "geomesa.tiles.cache.max.bytes", "geomesa.tiles.ttl",
+                 "geomesa.tiles.max.age.s"):
         assert name in port, name
 
 
@@ -657,3 +673,102 @@ def test_io_imports_without_pyarrow():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.splitlines() == ["a,x,POINT (1 2)", "parquet needs pyarrow"]
+
+
+ANALYTICS_MODULES = ["utils.geohash", "process", "process.knn", "process.proximity",
+                     "process.tube", "process.route", "process.unique", "process.join",
+                     "process.transforms", "tiles", "tiles.tiling", "tiles.png",
+                     "tiles.pyramid", "sql", "sql.functions", "sql.join", "sql.query"]
+
+
+@pytest.fixture(scope="module")
+def analytics_imports():
+    """Each analytics module imported on its own in a fresh interpreter,
+    the interpreters started together: module -> (rc, stdout, stderr)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    procs = {
+        m: subprocess.Popen([sys.executable, "-c", _IMPORT_ONE, f"geomesa_tpu_torch.{m}"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+        for m in ANALYTICS_MODULES
+    }
+    out = {}
+    for m, p in procs.items():
+        stdout, stderr = p.communicate(timeout=180)
+        out[m] = (p.returncode, stdout, stderr)
+    return out
+
+
+@pytest.mark.parametrize("module", ANALYTICS_MODULES)
+def test_analytics_modules_import_no_jax(analytics_imports, module):
+    """kNN, the processes, the tile pyramid and the SQL tier, each on its
+    own in a fresh interpreter: neither jax nor anything of geomesa_tpu."""
+    rc, stdout, stderr = analytics_imports[module]
+    assert rc == 0, stderr
+    assert stdout.strip() == "[]", stdout
+    path = os.path.join(ROOT, "geomesa_tpu_torch", *module.split("."))
+    src = open(path + ".py" if os.path.exists(path + ".py") else
+               os.path.join(path, "__init__.py")).read()
+    assert "import jax" not in src and "from geomesa_tpu." not in src
+    assert "from geomesa_tpu import" not in src
+
+
+def _analytics_store():
+    from geomesa_tpu_torch import FeatureCollection, FeatureType
+    from geomesa_tpu_torch.cache import CacheConfig
+
+    sft = FeatureType.from_spec("p", "*geom:Point:srid=4326")
+    sft.user_data["geomesa.indices.enabled"] = "z2"
+    ds = DataStore(device="cpu", tile=1024, cache=CacheConfig(max_bytes=1 << 20))
+    ds.create_schema(sft)
+    rng = np.random.default_rng(3)
+    n = 6000
+    ds.write("p", FeatureCollection.from_columns(
+        sft, np.arange(n), {"geom": (rng.uniform(-20, 20, n), rng.uniform(-20, 20, n))}),
+        check_ids=False)
+    ds.compact("p")
+    return ds
+
+
+def _analytics_call(ds, what):
+    from geomesa_tpu_torch import FeatureCollection, FeatureType, geometry
+    from geomesa_tpu_torch.process import knn_many, knn_search
+    from geomesa_tpu_torch.sql import spatial_join_indexed
+    from geomesa_tpu_torch.tiles import TilePyramid, TilesConfig
+
+    if what == "knn_many":
+        return [len(fc) for fc in knn_many(ds, "p", [(0.0, 0.0), (5.0, 5.0)], k=4)]
+    if what == "knn_search":
+        return len(knn_search(ds, "p", 1.0, 1.0, k=4))
+    if what == "join":
+        a = np.linspace(0, 2 * np.pi, 41)[:-1]
+        star = geometry.Polygon([(2 * np.cos(t) * (1 + k % 2), 2 * np.sin(t) * (1 + k % 2))
+                                 for k, t in enumerate(a)])
+        left = FeatureCollection.from_columns(
+            FeatureType.from_spec("adm", "*geom:Polygon:srid=4326"), ["s"],
+            {"geom": geometry.PackedGeometryColumn.from_geometries([star])})
+        return len(spatial_join_indexed(ds, "p", left, "contains")[0])
+    return TilePyramid(ds, TilesConfig(leaf_zoom=1, px=8)).fetch("p", 1, 1, 0).count
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("what", ["knn_many", "knn_search", "join", "pyramid"])
+def test_analytics_take_plain_on_cpu_and_raise_without_a_kernel(device, what):
+    """kNN, the indexed join and the pyramid's leaf scans reach K1 or K2
+    through the store's tables: on a CPU store the plain versions run and
+    nothing launches; with the table's columns on a device without a
+    kernel they raise (no fallback to the plain version)."""
+    from geomesa_tpu_torch.kernels import KERNELS
+
+    ds = _analytics_store()
+    if device == "meta":
+        for table in ds._tables.values():
+            table.cols3 = {k: v.to("meta") for k, v in table.cols3.items()}
+            table.device = torch.device("meta")
+        with pytest.raises(ValueError, match="kernel"):
+            _analytics_call(ds, what)
+        return
+    before = [k.launches for k in KERNELS]
+    assert _analytics_call(ds, what)
+    assert [k.launches for k in KERNELS] == before
