@@ -133,11 +133,12 @@ Phases, each printing one JSON line:
    DURING`` queries plan as
    unions of a Z2 and a Z3 scan: the box branch's ids, then the window
    branch's unseen ids, each branch equal to an f64 brute force;
-12. gdelt-z3-10M-mutate (5,000,000 rows, the cell's 10M cut for the
+12. gdelt-z3-10M-mutate (3,000,000 rows, the cell's 10M cut for the
    script's wall, ``reduced``): a
-   GDELT-shaped store on Z3 and Z2 takes ``fold_upsert`` of 1,000,000
-   rows (500k moving objects reporting again in the span's last 21
-   days, 500k new ids; 16 slices of 65,536 rows on the device fold),
+   GDELT-shaped store on Z3 and Z2 takes ``fold_upsert`` of 500,000
+   rows (250k moving objects reporting again in the span's last 21
+   days, 250k new ids; 8 slices of 65,536 rows on the device fold; the
+   cell's 1M in 16 slices cut for the script's wall, ``reduced``),
    ``upsert`` of 10,000 ids,
    ``modify_features`` of ``dtg`` over a BBOX + DURING filter,
    ``delete_features`` over a 10 x 10 degree box and ``age_off`` with a
@@ -150,7 +151,7 @@ Phases, each printing one JSON line:
    and upload only the slice's rows; on the final store ``query_many``
    of 16, 4 count estimates, densities and bounds against the plain
    versions, and ``warmup()``;
-13. gdelt-attr-10M: 5,000,000 GDELT-shaped points (the cell's 10M, cut
+13. gdelt-attr-10M: 3,000,000 GDELT-shaped points (the cell's 10M, cut
    for the script's wall; ``reduced`` says so) with two string attribute
    indexes (``EventCode``: 300 CAMEO-shaped codes of 2-4
    digits; ``Actor1Name``: 2,000 upper-case names of 3-40 characters,
@@ -162,7 +163,8 @@ Phases, each printing one JSON line:
    16 rare-code regional queries (fused), 4 count estimates >= the
    exact counts; then two 50k-row appends with names of other widths
    stay in the delta and the 32 queries run again;
-14. gdelt-z3-10M-persist: a 10,000,000-row GDELT Z3 store with
+14. gdelt-z3-10M-persist: a 3,000,000-row GDELT Z3 store (the cell's
+   10M cut for the script's wall, ``reduced``) with
    ``EventRootCode`` answers 16 measured queries, 4 densities, both
    bounds and 4 count estimates; ``persist.save`` writes it to a
    temporary directory on local disk (removed at the end) and
@@ -182,7 +184,8 @@ Phases, each printing one JSON line:
    queries as the device store, in order; the lock witness armed around
    a small write, query and fold workload gives an acyclic graph (its
    edges in the record);
-15. gdelt-z3-10M-secure-cached: 10,000,000 GDELT-shaped events on Z3 and
+15. gdelt-z3-10M-secure-cached: 3,000,000 GDELT-shaped events (the
+   cell's 10M cut for the script's wall, ``reduced``) on Z3 and
    Z2 with ``EventRootCode`` declared ``vis=secret`` and a ``vis`` label
    column from the path's own seed (50 % public, 20 % ``analyst``, 15 %
    ``analyst&secret``, 10 % ``secret|ops``, 5 % ``ops``): analysts with
@@ -204,14 +207,14 @@ Phases, each printing one JSON line:
    and launching no K1p, K3 or K4 (K1 scans), while the None store's
    launch all three; a filter on ``EventRootCode`` raises without
    ``secret``, whose results lack the column. Views: the rows split by
-   id parity into two 5M stores; a ``MergedView`` gives the 10M store's
+   id parity into two stores; a ``MergedView`` gives the whole store's
    ids as a set, its counts, grids and both bounds; a ``RoutedView`` by
    time half answers as the store it routes to. Cache: a
    ``DataStore(cache=True)`` runs the 64 queries cold then warm (64
    result hits, no K1 launch, ids identical), 32 panned dashboard boxes
    through ``count`` and exact ``bounds`` twice (equal to the brute
    force; the second pass reuses tiles; the cache section runs on the
-   path's first 2,000,000 rows, held against an uncached store of them
+   path's first 1,000,000 rows, held against an uncached store of them
    and the brute force), then a ``fold_upsert`` of 10k
    rows in one box, a 50k ``write`` in another and a ``delete_features``:
    after each, every query equals a ``cache="bypass"`` query in order and
@@ -247,13 +250,14 @@ Phases, each printing one JSON line:
 17. moving-z3-3M-stream: the reference's own streaming scenarios
    (``bench.py`` ``config_stream`` and ``config_wal``). ``sustained``: a
    cold Z3 store of 3,000,000 tracked objects (name, one day of times,
-   a point), ``serve()`` attached; 24 flushes, each a 20k-row batch (half
+   a point), ``serve()`` attached; 12 flushes (the reference's 24, cut
+   for the script's wall, ``reduced``), each a 20k-row batch (half
    updates of existing ids with fresh positions and times, half new
    ids) written in 2048-row sub-batches and ``flush()``ed, then
    ``persist_hot()`` inside the timed wall, while 4 clients poll mixed
    BBOX and BBOX + DURING boxes through ``LambdaStore.query`` every 150
    ms; every one of 24 probe queries' ids and values equal a numpy model
-   of the final state; then the legacy flush for 4 flushes. ``wal``: a
+   of the final state; then the legacy flush for 2 flushes. ``wal``: a
    200k store and the same write + flush workload with no WAL and under
    ``sync`` off, interval and always (rows/s each, fsync times, the
    interval / no-WAL ratio beside the reference's 0.85); a
@@ -271,9 +275,10 @@ Phases, each printing one JSON line:
    jagged stars of 8-120 arms in the hotspot box (0, 10, 12, 22) and 16
    convex rings, 1,000,112 in all, registered through
    ``register_geofences`` on a WAL-backed LambdaStore whose cold store is
-   on the card, every fused E bucket warmed with the gate; 100,000 events
-   (the reference's 200,000 halved, as the path's 75 s budget asks when
-   it runs over; listed in ``reduced``; 20 % in the hotspot) in 20k
+   on the card, every fused E bucket warmed with the gate; 60,000 events
+   (the reference's 200,000, halved for the path's 75 s budget and cut
+   again for the script's wall; listed in ``reduced``; 20 % in the
+   hotspot) in 20k
    batches, each ``write`` then ``flush``,
    with the matcher off and on (rows/s and their ratio beside the
    reference's 0.9); the inverted index per event against the naive
@@ -304,14 +309,14 @@ Phases, each printing one JSON line:
    ``/stats`` answering, no kernel launched by the scrapes; ``close()``
    of every store and the shipper leaves no thread;
 20. gdelt-ingest-20M: the reference's ``config_ingest``. 20M GDELT-shaped
-   rows over 80 days in 1M-row chunks on Z3 and Z2, loaded by the
-   sequential ``write`` loop and ``compact``, then by ``BulkLoader`` at 1
-   and 4 workers (the reference's 1, 2 and 4 cut for the path's 90 s;
-   ``reduced``), each store closed and released before the next; rows/s,
-   speedup, stage seconds; every load's tables identical to the
-   sequential one's by the reference's fingerprint (device columns read
-   back). On the last load: the 64 BBOX + DURING queries' ids equal the
-   sequential store's in order and an f64 brute force on 8, density and
+   rows over 80 days in 1M-row chunks on Z3 and Z2, loaded by
+   ``BulkLoader`` at 1 and 4 workers (the reference's 1, 2 and 4 cut for
+   the path's 90 s, and its sequential ``write`` loop cut for the
+   script's 900 s once paths 22-24 came; ``reduced``), each store closed
+   and released before the next; rows/s, the x4 speedup over x1, stage
+   seconds; the x4 load's tables identical to the x1 load's by the
+   reference's fingerprint (device columns read back). On the last load:
+   the 64 BBOX + DURING queries' ids equal the x1 store's in order and an f64 brute force on 8, density and
    bounds equal their plain versions on 4, ``bin_query`` on 8 equals
    ``bin_format.encode`` of the brute-force rows; 312,500 rows (n/64)
    appended and compacted under an RSS sampler (peak RSS over the host
@@ -345,10 +350,50 @@ Phases, each printing one JSON line:
    ``ST_DistanceSphere``, a residual with ``OFFSET``) equal to the f64
    brute force. Then ``proximity_search``, ``tube_select`` and
    ``route_search`` on a 1M-row Z3 + Z2 store with times and headings,
-   each equal to an f64 brute force over every row.
+   each equal to an f64 brute force over every row;
+22. moving-z3-2M-http: the reference's data-plane scenario
+   (``config_serve_http``) with its cold store raised from 40k to
+   2,000,000 rows: a saved cold store served as a LambdaStore with a WAL
+   under ``sync=always`` through ``serve(port=0)`` on loopback. The
+   GeoJSON body of each of three probe boxes equals ``_geojson`` of the
+   in-process query byte for byte, at the default page size and at 1,000
+   rows; the mixed closed loop (2 s: two readers at ``limit=256``, one
+   client ingesting 200-row batches; read q/s and acked rows/s); bursts
+   of 16 concurrent readers (fused into K2); fairness (6 s each: the
+   compliant tenant's read p99 alone, then under an adversary of quota 1
+   flooding from 3 threads; the degradation beside the reference's 1.5x
+   bound, printed; the adversary's 429s accounted to it); every HTTP-acked
+   row survives ``wal.crash()`` + ``LambdaStore.recover`` on the card,
+   none lost, none invented. On the recovered store (cache tier on,
+   auths ``ops``): four PNG tiles equal ``TilePyramid.fresh`` rendered, an
+   ``If-None-Match`` replay answers 304 with no aggregation, an ingest
+   into one leaf re-renders that leaf and its ancestors and leaves far
+   tiles at 304; ``/metrics``, ``/health``, ``/stats`` and ``/tenants`` on
+   the data port; 400, 403, 404, 413 and 429 each from one request; then
+   the CLI's ``serve`` over the saved catalog on the card and one query
+   through it; ``close()`` leaves no serve, serving or ops thread;
+23. gdelt-s2-10M: 10,000,000 GDELT-shaped points on a schema with
+   ``geomesa.indices.enabled=s3,s2`` (cell ids for both indexes at
+   ingest, bit 63 set on faces 4 and 5); 64 BBOX + DURING queries planned
+   on s3 and 32 BBOX queries planned on s2 (the explain names each), ids
+   against an f64 brute force on 8 of each with their ``limit`` pages as
+   prefixes of the full order, density and bounds against the plain
+   versions on 4 of each; ingest seconds and p50 / p84 / p99;
+24. gdelt-z2-1M-drift: the reference's ``config_drift`` at its defaults
+   (1,000,000 points on z2, 12 queries, 6 passes): frozen, oracle and
+   self-tuned stores with the frozen pin calibrated on this card; the
+   frozen degradation, tuned over oracle and the decisions recorded,
+   printed beside the reference's bounds (>= 1.30, <= 1.5, >= 1); the
+   disarmed bit-identity on two 50k stores; the card's pull RTT derives
+   the link constants, installed on a fresh 8M-row store, where every
+   K2 chunk takes the derived slot count and ``query_many`` ids equal the
+   untuned store's; an armed tier behind ``serve()`` under a 1 us
+   objective sheds the low-weight tenant first and then releases;
+   ``close()`` writes ``_tuning.json``, which the CLI's ``tune`` (and
+   ``ops``) read on the card.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the nineteen paths and read just after
+are zeroed just before each of the twenty-two paths and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
@@ -356,7 +401,7 @@ with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
 extent leg; tiered, mutate, persist and secure-cached: all five;
 attribute, served and stream: K1 and K2; standing: K2 with its
 point-in-polygon leg; replica: K1; ingest: K1, K3, K4; analytics: K1
-and K2) and
+and K2; HTTP: K1 and K2; S2: K1, K3, K4; drift: K1 and K2) and
 called the native helpers ``check_native`` names (the ranges where it
 plans new filters, since the batch path's repeated plans take the
 planner's scan-config memo; ``sort_bins_z`` where it ingests, the plane
@@ -2851,7 +2896,7 @@ def hints_path(torch, ds, src, measured, outs, main_lat, clock_phases) -> dict:
 
 
 def main_path(torch, device):
-    """Nineteen paths, each with its own launch and native call counts
+    """Twenty-two paths, each with its own launch and native call counts
     (zeroed just before it runs, read just after): the single-query main
     path, the batch path, the polygon path and the query controls on the
     same store, the
@@ -2860,9 +2905,10 @@ def main_path(torch, device):
     attribute-indexed store, the saved and loaded store, the secure,
     cached event store, the served store behind the scheduler and the
     ops plane, the streaming tier, standing queries, replication, the
-    pipelined bulk loader with file ingest and export, and the analytics
-    tier (kNN, joins, the tile pyramid, SQL, processes). Each path from
-    the XZ2 cell on carries its wall as ``wall_s``."""
+    pipelined bulk loader with file ingest and export, the analytics
+    tier (kNN, joins, the tile pyramid, SQL, processes), the HTTP data
+    plane, the S2 and S3 indexes, and the tuning tier with the CLI. Each
+    path from the XZ2 cell on carries its wall as ``wall_s``."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
     zero_launches()
@@ -2963,7 +3009,8 @@ def main_path(torch, device):
     records = [rec, batch, poly, hints, packed, z2]
     for path in (xz2_path, xz3_path, tiered_union_path, mutation_path, attribute_path,
                  persist_path, secure_cached_path, served_path, stream_path, standing_path,
-                 replica_path, ingest_path, analytics_path):
+                 replica_path, ingest_path, analytics_path, serve_http_path, s2_path,
+                 drift_path):
         t0 = time.perf_counter()
         records.append(path(torch, device))
         records[-1]["wall_s"] = time.perf_counter() - t0
@@ -3201,8 +3248,11 @@ def tiered_union_path(torch, device) -> dict:
 # the ingest path added the script took 846.2 s (NVIDIA H100 80GB HBM3,
 # 700.00 W; the path 116.6 s of it, the fold 65.0 s), over its 800 s; the
 # fold's slices and the maintenance ops scale with the rows
-N_MUTATE = 5_000_000
-N_FOLD = 1_000_000  # half replace existing ids, half are new
+# 3M since PR 19, for the script's wall once paths 22-24 came
+N_MUTATE = 3_000_000
+# half replace existing ids, half are new; the cell folds 1M rows in 16
+# slices, cut to 500k in 8 for the script's 900 s once paths 22-24 came
+N_FOLD = 500_000
 N_UPSERT = 10_000
 N_MUTATE_QUERIES = 8
 N_ID_CHECK = 1_000
@@ -3545,8 +3595,8 @@ def mutation_path(torch, device) -> dict:
         "phase": "mutation_path", "cell": "gdelt-z3-10M-mutate", "launches": launches,
         "native": read_native(),
         "n_points": N_MUTATE, "indexes": ["z3", "z2"], "n_queries": len(queries),
-        **({"reduced": {"n_points": {"cell": 10_000_000, "run": N_MUTATE}}}
-           if N_MUTATE != 10_000_000 else {}),
+        "reduced": {"n_points": {"cell": 10_000_000, "run": N_MUTATE},
+                    "fold_rows": {"cell": 1_000_000, "run": N_FOLD}},
         "ingest_s": ingest_s,
         "fold": {"rows": N_FOLD, "replaced": N_FOLD - n_new, "new": n_new, "s": fold_s,
                  "slices": report["slices"], "slice_rows": slice_rows,
@@ -3573,7 +3623,8 @@ def mutation_path(torch, device) -> dict:
 
 # 5M of the cell's 10M rows: with the streaming path added, the whole
 # script ran 851.3 s on the card against its 760 s budget
-N_ATTR = 5_000_000
+# 3M since PR 19, for the script's wall once paths 22-24 came
+N_ATTR = 3_000_000
 N_ATTR_APPEND = 50_000  # each of the two appends kept in the delta tier
 N_ATTR_BATCH = 16  # rare-code regional queries in one query_many
 N_ACTORS = 2_000
@@ -3921,7 +3972,9 @@ def attribute_path(torch, device) -> dict:
 
 # -- persistence: save, load, quarantine, crash points, the host adapter -----
 
-N_PERSIST = 10_000_000
+# the cell's 10M rows cut to 3M for the script's wall once paths 22-24
+# came (the record's ``reduced``)
+N_PERSIST = 3_000_000
 N_PERSIST_APPEND = 50_000  # the span's last 21 days, kept in the delta tier
 N_PERSIST_QUERIES = 16
 N_CRASH = 200_000
@@ -4069,7 +4122,7 @@ def witness_workload(torch, device) -> dict:
 
 
 def persist_path(torch, device) -> dict:
-    """gdelt-z3-10M-persist: a 10M-row GDELT Z3 store with
+    """gdelt-z3-10M-persist: an N_PERSIST-row GDELT Z3 store with
     ``EventRootCode`` answers 16 measured queries, densities and bounds;
     ``persist.save`` writes it to a temporary directory on local disk
     (removed at the end) and ``persist.load(device="cuda")`` reads it
@@ -4243,6 +4296,7 @@ def persist_path(torch, device) -> dict:
     return {
         "phase": "persist_path", "cell": "gdelt-z3-10M-persist", "launches": launches,
         "native": read_native(),
+        "reduced": {"n_points": {"cell": 10_000_000, "run": N_PERSIST}},
         "n_points": N_PERSIST, "n_append": N_PERSIST_APPEND, "n_queries": len(queries),
         "ingest_s": ingest_s, "append_s": append_s,
         "save_s": save_s, "load_s": load_s, "save_incremental_s": save2_s,
@@ -4265,12 +4319,14 @@ def persist_path(torch, device) -> dict:
 
 # -- statistics, visibility, federated views and the cache tier --------------
 
-N_SECURE = 10_000_000
+# the cell's 10M rows cut to 3M for the script's wall once paths 22-24
+# came (the record's ``reduced``)
+N_SECURE = 3_000_000
 N_SECURE_AGG = 4
 N_TILE_VIEWS = 4  # dashboard views, each panned 8 times: 32 tile boxes
-# the cache section's rows: a seeded prefix of the path's rows (the
-# persist path measures a 10M save and load at full depth)
-N_SECURE_CACHE = 2_000_000
+# the cache section's rows: a seeded prefix of the path's rows (1M since
+# PR 19, for the script's wall)
+N_SECURE_CACHE = 1_000_000
 N_SECURE_WRITE = 50_000
 N_SECURE_FOLD = 10_000  # half replace rows in the fold box, half are new ids
 N_SERVE_THREADS = 8
@@ -4485,7 +4541,7 @@ def visibility_checks(torch, device, rows, base, measured, base_outs, brute, bus
 
 
 def view_checks(torch, device, rows, base, measured, base_outs, busy_idx) -> dict:
-    """Two 5M stores split by id parity: a MergedView gives the 10M
+    """Two stores split by id parity: a MergedView gives the whole
     store's ids as a set, its counts, density grids and both bounds; a
     RoutedView by time half answers each query as the store it routes
     to."""
@@ -4499,7 +4555,7 @@ def view_checks(torch, device, rows, base, measured, base_outs, busy_idx) -> dic
     for (q, _), ref in zip(measured, base_outs):
         got = np.sort(np.asarray(merged.query(q).ids, np.int64))
         check(np.array_equal(got, np.sort(np.asarray(ref.ids, np.int64))),
-              f"MergedView ids equal the 10M store's as a set: {q}")
+              f"MergedView ids equal the whole store's as a set: {q}")
     merged_s = time.perf_counter() - t0
     for k in busy_idx:
         q, box = measured[k]
@@ -4862,7 +4918,7 @@ def stats_mutation_checks(torch, base, rows, measured) -> dict:
 
 
 def secure_cached_path(torch, device) -> dict:
-    """gdelt-z3-10M-secure-cached: 10M GDELT-shaped events on Z3 and Z2
+    """gdelt-z3-10M-secure-cached: N_SECURE GDELT-shaped events on Z3 and Z2
     with ``EventRootCode`` (declared ``vis=secret``) and a ``vis`` label
     column (50 % public, 20 % ``analyst``, 15 % ``analyst&secret``, 10 %
     ``secret|ops``, 5 % ``ops``): analysts with different clearances
@@ -4911,8 +4967,8 @@ def secure_cached_path(torch, device) -> dict:
         "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
         "hits_total": int(sum(len(b) for b in brute)),
         "stats": stats, "visibility": vis, "views": views, "cache": cache,
-        **({"reduced": {"cache_rows": {"cell": 10_000_000, "run": N_SECURE_CACHE}}}
-           if N_SECURE_CACHE < N_SECURE else {}),
+        "reduced": {"n_points": {"cell": 10_000_000, "run": N_SECURE},
+                    "cache_rows": {"cell": 10_000_000, "run": N_SECURE_CACHE}},
         "section_s": sections, "path_s": time.perf_counter() - t_path,
     }
     del base
@@ -5402,8 +5458,10 @@ STREAM_T0 = 1_717_200_000_000  # 2024-06-01T00:00:00Z
 STREAM_DAY = 86_400_000
 N_STREAM = 3_000_000  # tracked objects in the cold store
 STREAM_BATCH = 20_000  # rows per flush: half updates, half new ids
-STREAM_FLUSHES = 24
-STREAM_LEGACY_FLUSHES = 4  # of the reference's 12 (its per-flush cost is stationary)
+# config_stream's 24 flushes, cut to 12 for the script's wall once paths
+# 22-24 came (the record's ``reduced``)
+STREAM_FLUSHES = 12
+STREAM_LEGACY_FLUSHES = 2  # of the reference's 12 (its per-flush cost is stationary)
 STREAM_CLIENTS = 4  # the reference's max(2, cpus // 2) on the card's 8-CPU host
 STREAM_POLL_MS = 150.0
 STREAM_PROBES = 24
@@ -5413,7 +5471,7 @@ N_WAL_COLD = 200_000
 # the WAL section 100.5 of it): the WAL modes' rows are cut from 400k,
 # then the recovery run's from 1M (the record's "reduced" lists both)
 N_WAL_STREAM = 200_000  # streamed rows per WAL mode
-N_WAL_REPLAY = 500_000  # rows of the recovery run
+N_WAL_REPLAY = 250_000  # rows of the recovery run (500k until PR 19)
 WAL_MODES = ("nowal", "off", "interval", "always")
 WAL_PROBES = ("bbox(geom, -40, -40, 0, 0)", "bbox(geom, 10, 10, 60, 50)",
               "IN ('0', '1', 'a1', 'a2')")
@@ -5533,10 +5591,11 @@ def consume(lam, rows, ids) -> None:
 
 
 def sustained_section(torch, device) -> dict:
-    """The reference's config_stream at its defaults: 24 flushes of 20k rows
-    (write, flush) into a 3M-object cold store under 4 polling query
-    clients, a final persist_hot inside the timed wall, the identical
-    check against the numpy model, then the legacy flush for 4 flushes."""
+    """The reference's config_stream, its 24 flushes cut to STREAM_FLUSHES:
+    flushes of 20k rows (write, flush) into a 3M-object cold store under 4
+    polling query clients, a final persist_hot inside the timed wall, the
+    identical check against the numpy model, then the legacy flush for
+    STREAM_LEGACY_FLUSHES flushes."""
     import threading
 
     from geomesa_tpu_torch.metrics import MetricsRegistry
@@ -5922,7 +5981,8 @@ def stream_path(torch, device) -> dict:
     check(left == [], f"close() of every store leaves no streaming, serving or ops thread: {left}")
     launches = read_launches()
     reduced = {"legacy_flushes": {"cell": 12, "run": STREAM_LEGACY_FLUSHES},
-               "wal_mode_repeats": {"cell": 2, "run": 1}}
+               "wal_mode_repeats": {"cell": 2, "run": 1},
+               "flushes": {"cell": 24, "run": STREAM_FLUSHES}}
     if N_WAL_STREAM != 400_000:
         reduced["wal_mode_rows"] = {"cell": 400_000, "run": N_WAL_STREAM}
     if N_WAL_REPLAY != 1_000_000:
@@ -5942,7 +6002,9 @@ def stream_path(torch, device) -> dict:
 
 GEOFENCE_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
 N_SUBS = 1_000_000  # tiny squares; with the 96 stars and 16 rings: 1,000,112
-N_GEOFENCE_EVENTS = 100_000  # the reference's 200,000, halved for the 75 s budget
+# the reference's 200,000, halved for the 75 s budget, then cut to 60k for
+# the script's wall once paths 22-24 came
+N_GEOFENCE_EVENTS = 60_000
 GEOFENCE_BATCH = 20_000
 N_GEOFENCE_ORACLE = 1_500
 N_GEOFENCE_NAIVE = 16
@@ -6888,12 +6950,12 @@ def ingest_path(torch, device) -> dict:
     """gdelt-ingest-20M: the reference's ``config_ingest``
     (``bench.py:487-711``) on the card. 20M GDELT-shaped rows in 1M-row
     chunks (``dtg:Date,*geom:Point:srid=4326``, ``z3,z2``) load through
-    the sequential ``write`` loop and ``compact``, then through
     ``BulkLoader`` at 1 and 4 workers (``INGEST_WORKERS``), each store
-    released before the next loads; each load's tables must be identical to the sequential
-    one's by bench.py's fingerprint (device columns read back). On the
-    last store: the 64 BBOX + DURING queries equal the sequential store's
-    ids in order and an f64 brute force on 8, density and bounds equal
+    released before the next loads (the sequential ``write`` loop is cut
+    for the script's wall, ``reduced``); the x4 load's tables must be
+    identical to the x1 load's by bench.py's fingerprint (device columns
+    read back). On the last store: the 64 BBOX + DURING queries equal the
+    x1 store's ids in order and an f64 brute force on 8, density and bounds equal
     their plain versions on 4, ``bin_query`` on 8 equals
     ``bin_format.encode`` of the brute-force rows; then 312,500 rows
     (n/64) appended and compacted under an RSS sampler (the compaction
@@ -6926,18 +6988,8 @@ def ingest_path(torch, device) -> dict:
         fp = table_fingerprint(ds, "gdelt")
         return ds, wall, fp, time.perf_counter() - t0, extra
 
-    def sequential(ds, chunks):
-        for fc in chunks:
-            ds.write("gdelt", fc, check_ids=False)
-        ds.compact("gdelt")
-
-    ds, seq_wall, seq_fp, fp_s, _ = load(sequential)
-    seq_ids = [np.asarray(ds.query("gdelt", q).ids) for q, _ in queries]
-    ds.close()
-    del ds
-    torch.cuda.empty_cache()
-    gc.collect()
     loads = []
+    ref_fp = ref_wall = seq_ids = fp_s = None
     for i, w in enumerate(INGEST_WORKERS):
         def pipelined(ds, chunks, w=w):
             loader = BulkLoader(ds, "gdelt", check_ids=False, config=PipelineConfig(workers=w))
@@ -6950,11 +7002,16 @@ def ingest_path(torch, device) -> dict:
             gc.collect()
             malloc_trim()
             rss_baseline = rss_bytes()
-        ds, wall, fp, _, res = load(pipelined)
+        ds, wall, fp, fp_s_w, res = load(pipelined)
         check(res.written == N_INGEST, f"the x{w} load wrote every row")
-        check(fp == seq_fp, f"the x{w} load's tables are identical to the sequential load's")
+        if ref_fp is None:
+            # the first load is the reference (the sequential write loop is
+            # cut for the script's wall: ``reduced``)
+            ref_fp, ref_wall, fp_s = fp, wall, fp_s_w
+            seq_ids = [np.asarray(ds.query("gdelt", q).ids) for q, _ in queries]
+        check(fp == ref_fp, f"the x{w} load's tables are identical to the reference load's")
         loads.append({"workers": w, "seconds": wall, "rows_per_s": N_INGEST / wall,
-                      "speedup": seq_wall / wall, "identical_tables": fp == seq_fp,
+                      "speedup_over_first": ref_wall / wall, "identical_tables": fp == ref_fp,
                       "stage_seconds": res.stage_seconds})
         if not last:
             ds.close()
@@ -6970,8 +7027,8 @@ def ingest_path(torch, device) -> dict:
     lat, outs, wall = run_queries(ds, queries)
     hits = sum(len(o) for o in outs)
     for (q, _), a, b in zip(queries, outs, seq_ids):
-        check(np.array_equal(np.asarray(a.ids), b), f"pipelined ids equal the sequential store's "
-                                                     f"in order: {q}")
+        check(np.array_equal(np.asarray(a.ids), b), f"the last load's ids equal the reference "
+                                                     f"load's in order: {q}")
     src = (x, y, t)
     n_brute = check_queries(ds, src, queries, outs, N_INGEST_CHECK)
     n_agg = check_aggregations(torch, ds, busiest(queries, outs, 4))
@@ -7034,7 +7091,6 @@ def ingest_path(torch, device) -> dict:
         "phase": "ingest_path", "cell": "gdelt-ingest-20M", "launches": launches,
         "native": read_native(), "n_rows": N_INGEST, "chunk_rows": INGEST_CHUNK,
         "host_cpus": os.cpu_count(), "generate_s": gen_s,
-        "sequential": {"seconds": seq_wall, "rows_per_s": N_INGEST / seq_wall},
         "pipelined": loads, "fingerprint_s": fp_s,
         "identical_tables": all(r["identical_tables"] for r in loads),
         "n_queries": len(queries), "hits_total": hits, "queries_wall_s": wall,
@@ -7045,7 +7101,12 @@ def ingest_path(torch, device) -> dict:
         "compaction": compaction, "loads_s": loads_s, "files": files,
         "path_s": path_s, "budget_s": INGEST_BUDGET_S,
         "reduced": {"compaction_rows": {"cell": 100_000_000, "run": N_INGEST},
-                    "workers": {"cell": [1, 2, 4], "run": list(INGEST_WORKERS)}},
+                    "workers": {"cell": [1, 2, 4], "run": list(INGEST_WORKERS)},
+                    # cut for the script's 900 s once three paths came:
+                    # the x1 load is the reference the x4 load's tables,
+                    # ids and speedup are held to
+                    "sequential_write_loop": {"cell": "write + compact of 20M rows",
+                                              "run": "not run"}},
     }
 
 
@@ -7578,6 +7639,896 @@ def analytics_path(torch, device) -> dict:
     }
 
 
+# -- the data plane, the S2 indexes, the tuning tier ----------------------
+
+N_HTTP = 2_000_000  # config_serve_http's cold store, raised from its 40k default
+HTTP_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
+HTTP_T0 = 1_717_200_000_000  # config_serve_http's t0
+HTTP_PROBES = ("bbox(geom, -40, -40, 0, 0)", "bbox(geom, 10, 10, 60, 50)",
+               "bbox(geom, -170, -80, -100, 0)")
+HTTP_READ_S = 2.0  # config_serve_http's mixed loop
+HTTP_FAIR_S = 6.0  # and its fairness loops
+HTTP_DEGRADATION_BOUND = 1.5  # its gate on the compliant tenant's p99
+HTTP_BURST = 16  # concurrent /query requests of one burst (a fused batch)
+HTTP_TILES = (("density", 1, 1, 0), ("count", 2, 5, 2), ("heat", 0, 0, 0), ("density", 3, 11, 4))
+HTTP_CLI_Q = "bbox(geom, 10, 10, 20, 20)"
+HTTP_BUDGET_S = 60.0
+SERVE_THREADS = ("geomesa-serve", "geomesa-serving", "geomesa-ops", "geomesa-telemetry")
+
+
+def serve_threads() -> list:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate()
+                  if t.is_alive() and t.name in SERVE_THREADS)
+
+
+def http_rows(prefix, b, k, t0):
+    """One ingest batch as config_serve_http posts it: k points, ids
+    ``<prefix><b>-<j>``."""
+    return {"type": "FeatureCollection", "features": [
+        {"type": "Feature", "id": f"{prefix}{b}-{j}",
+         "geometry": {"type": "Point", "coordinates": [float(b % 90), float(j % 45)]},
+         "properties": {"name": prefix, "dtg": t0 + b * k + j}} for j in range(k)]}
+
+
+def http_mixed(srv, seconds) -> dict:
+    """config_serve_http's mixed closed loop: two readers (limit 256) and
+    one ingester of 200-row GeoJSON batches, each on its own kept-alive
+    client."""
+    import threading
+
+    from geomesa_tpu_torch.serving import DataClient
+
+    stop = threading.Event()
+    reads, rows, errors = [0, 0], [0], []
+
+    def reader(slot):
+        c = DataClient(srv.url, keep_alive=True)
+        try:
+            while not stop.is_set():
+                c.query("sv", cql=HTTP_PROBES[reads[slot] % len(HTTP_PROBES)], limit=256)
+                reads[slot] += 1
+        except Exception as e:  # noqa: BLE001 - reported by the check below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    def ingester():
+        c = DataClient(srv.url, keep_alive=True)
+        b = 0
+        try:
+            while not stop.is_set():
+                rows[0] += c.ingest("sv", http_rows("m", b, 200, HTTP_T0))["acked"]
+                b += 1
+        except Exception as e:  # noqa: BLE001
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    ts = [threading.Thread(target=reader, args=(i,)) for i in range(2)]
+    ts.append(threading.Thread(target=ingester))
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    time.sleep(seconds)
+    stop.set()
+    for t in ts:
+        t.join(60)
+    dt = time.perf_counter() - t0
+    check(not errors, f"the mixed loop's clients saw no error: {errors[:3]}")
+    return {"read_qps": sum(reads) / dt, "ingest_rows_per_s": rows[0] / dt,
+            "reads": sum(reads), "ingested_rows": rows[0], "seconds": dt}
+
+
+def http_fairness(srv, seconds) -> dict:
+    """config_serve_http's fairness: the compliant tenant's read p99
+    alone, then under an adversary (quota 1) flooding from 3 threads that
+    back off only by the server's Retry-After."""
+    import threading
+
+    from geomesa_tpu_torch.serving import DataClient, ServeError
+
+    def compliant_loop(warm_s=1.0):
+        c = DataClient(srv.url, tenant="compliant", keep_alive=True)
+        lats, i, t0 = [], 0, time.perf_counter()
+        while True:
+            q0 = time.perf_counter()
+            c.query("sv", cql=HTTP_PROBES[i % len(HTTP_PROBES)], limit=256)
+            if q0 - t0 >= warm_s:
+                lats.append(time.perf_counter() - q0)
+            i += 1
+            if time.perf_counter() - t0 >= warm_s + seconds:
+                c.close()
+                return lats
+
+    iso = compliant_loop()
+    srv.tenants.configure("adversary", queue_max=1)
+    stop = threading.Event()
+    statuses: dict = {}
+
+    def adversary():
+        c = DataClient(srv.url, tenant="adversary", timeout=10.0, keep_alive=True)
+        while not stop.is_set():
+            try:
+                c.query("sv", cql="bbox(geom, 3.0, 3.0, 3.5, 3.5)", limit=1)
+                statuses[200] = statuses.get(200, 0) + 1
+            except ServeError as e:
+                statuses[e.status] = statuses.get(e.status, 0) + 1
+                time.sleep(min(e.retry_after or 0.05, 0.25))
+            except OSError:
+                pass
+        c.close()
+
+    floods = [threading.Thread(target=adversary) for _ in range(3)]
+    for t in floods:
+        t.start()
+    try:
+        flooded = compliant_loop()
+    finally:
+        stop.set()
+        for t in floods:
+            t.join(30)
+    p99_iso = float(np.percentile(np.array(iso) * 1e3, 99))
+    p99_flood = float(np.percentile(np.array(flooded) * 1e3, 99))
+    rows = {r["tenant"]: r for r in srv.tenants.report()["tenants"]}
+    adv = rows.get("adversary", {})
+    check(adv.get("shed", 0) > 0 and statuses.get(429, 0) > 0,
+          "the adversary was shed with 429s")
+    check(adv.get("shed", 0) == statuses.get(429, 0),
+          "every 429 the adversary saw is accounted to it")
+    check(rows["compliant"]["shed"] == 0, "the compliant tenant shed nothing")
+    return {"compliant_p99_isolated_ms": p99_iso, "compliant_p99_flood_ms": p99_flood,
+            "degradation": p99_flood / max(p99_iso, 1e-9),
+            "degradation_bound": HTTP_DEGRADATION_BOUND,
+            "compliant_requests": len(iso) + len(flooded),
+            "adversary_submitted": adv.get("submitted"), "adversary_shed": adv.get("shed"),
+            "adversary_statuses": {str(k): v for k, v in sorted(statuses.items())}}
+
+
+def http_burst(srv, rounds=2) -> dict:
+    """HTTP_BURST readers released together, each with its own box: one
+    scheduler window collects them, so the scans fuse (K2)."""
+    import threading
+
+    from geomesa_tpu_torch.serving import DataClient
+
+    rng = np.random.default_rng(SEED + 131)
+    boxes = [(float(x), float(y)) for x, y in
+             zip(rng.uniform(-160, 120, HTTP_BURST), rng.uniform(-70, 30, HTTP_BURST))]
+    answers = {}
+    for r in range(rounds):
+        gate = threading.Barrier(HTTP_BURST)
+
+        def one(i, r=r, gate=gate):
+            x0, y0 = boxes[i]
+            q = f"bbox(geom, {x0 + r:.4f}, {y0:.4f}, {x0 + r + 30:.4f}, {y0 + 30:.4f})"
+            c = DataClient(srv.url)
+            gate.wait(30)
+            answers[(r, i)] = (q, [f["id"] for f in c.query("sv", cql=q, limit=256)["features"]])
+
+        ts = [threading.Thread(target=one, args=(i,)) for i in range(HTTP_BURST)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+    check(len(answers) == rounds * HTTP_BURST, "every burst request answered")
+    return {"requests": len(answers), "answers": answers}
+
+
+def http_statuses(srv) -> dict:
+    """400, 403, 404, 413 and 429, each from one request."""
+    from geomesa_tpu_torch.serving import DataClient
+
+    c = DataClient(srv.url)
+    srv.tenants.configure("flood", queue_max=0)
+    got = {
+        400: c.request("GET", "/query/sv?fmt=csv")[0],
+        403: c.request("GET", "/query/sv", headers={"X-Geomesa-Auths": "admin"})[0],
+        404: c.request("GET", "/query/nope")[0],
+        413: c.request("POST", "/ingest/sv",
+                       headers={"Content-Length": str(srv.max_body_bytes + 1)})[0],
+        429: c.request("GET", "/query/sv", headers={"X-Geomesa-Tenant": "flood"})[0],
+    }
+    for want, status in got.items():
+        check(status == want, f"the data plane answers {want}")
+    _, hdrs, _ = c.request("GET", "/query/sv", headers={"X-Geomesa-Tenant": "flood"})
+    check(float(hdrs.get("Retry-After", 0)) > 0, "a 429 carries Retry-After")
+    return {str(k): v for k, v in got.items()}
+
+
+def http_tiles(srv, lam) -> dict:
+    """Four PNG tiles equal to TilePyramid.fresh rendered; an If-None-Match
+    replay answers 304 with no aggregation; an ingest into one leaf
+    re-renders that leaf's tiles (ancestors included) and leaves far
+    tiles at 304; after the flush the touched leaf equals fresh."""
+    from geomesa_tpu_torch.serving import DataClient
+    from geomesa_tpu_torch.tiles import render
+
+    c = DataClient(srv.url)
+    metrics = srv.metrics
+    etags = {}
+    t0 = time.perf_counter()
+    for kind, z, x, y in HTTP_TILES:
+        st, h, body = c.tile("sv", kind, z, x, y)
+        check(st == 200 and body[:8] == b"\x89PNG\r\n\x1a\n", f"tile {kind} {z}/{x}/{y} is a PNG")
+        check(body == render(kind, srv.tiles.fresh("sv", z, x, y).grid),
+              f"tile {kind} {z}/{x}/{y} equals TilePyramid.fresh rendered")
+        etags[(kind, z, x, y)] = h["ETag"]
+    cold_s = time.perf_counter() - t0
+    work = ("geomesa.tiles.compose", "geomesa.tiles.leaf.scan", "geomesa.tiles.fresh")
+    before = [metrics.counter_value(n) for n in work]
+    nm0 = metrics.counter_value("geomesa.tiles.not_modified")
+    for key, etag in etags.items():
+        st, _, body = c.tile("sv", *key, etag=etag)
+        check(st == 304 and body == b"", f"If-None-Match replay of {key} answers 304")
+    check([metrics.counter_value(n) for n in work] == before, "the 304s aggregated nothing")
+    check(metrics.counter_value("geomesa.tiles.not_modified") == nm0 + len(etags),
+          "each 304 counted")
+    lz = srv.tiles.lattice.leaf_zoom
+    touched = [(lz - k, 12 >> k, 3 >> k) for k in range(lz + 1)]  # leaf (lz, 12, 3), ancestors
+    far = [(lz - k, 0, 0) for k in range(lz + 1)]
+    tags = {t: c.tile("sv", "density", *t)[1]["ETag"] for t in touched + far}
+    # a 200-row batch inside the touched leaf's box (x 97.5..99, y 7.0..8.4)
+    batch = {"type": "FeatureCollection", "features": [
+        {"type": "Feature", "id": f"tile-{j}",
+         "geometry": {"type": "Point", "coordinates": [97.5 + (j % 20) * 0.07, 7.0 + (j // 20) * 0.14]},
+         "properties": {"name": "tile", "dtg": HTTP_T0 + j}} for j in range(200)]}
+    check(c.ingest("sv", batch)["acked"] == 200, "the tile batch acked")
+    rerendered = 0
+    for t in touched:
+        st, h, _ = c.tile("sv", "density", *t, etag=tags[t])
+        check(st == 200 and h["ETag"] != tags[t], f"touched tile {t} re-rendered")
+        rerendered += 1
+    for t in far:
+        st, _, _ = c.tile("sv", "density", *t, etag=tags[t])
+        check(st == 304, f"far tile {t} stays at 304")
+    lam.flush()  # the batch folds into the cold store the tiles aggregate
+    leaf = srv.tiles.fetch("sv", *touched[0]).grid
+    check(float(leaf.sum()) >= 200, "the flushed batch shows in its leaf")
+    check(np.array_equal(leaf, srv.tiles.fresh("sv", *touched[0]).grid),
+          "the touched leaf equals fresh after the flush")
+    return {"tiles": len(HTTP_TILES), "cold_fetch_s": cold_s, "not_modified": len(etags),
+            "rerendered": rerendered, "far_304": len(far)}
+
+
+def http_ops_surfaces(srv) -> dict:
+    from geomesa_tpu_torch.serving import DataClient
+
+    c = DataClient(srv.url)
+    text = c.metrics_text()
+    check("geomesa_serve_requests" in text, "/metrics on the data port")
+    health = c.health()
+    check(health["http_status"] == 200, "/health on the data port")
+    check(bool(c.stats()), "/stats on the data port")
+    rep = c.tenants()
+    check({"default_weight", "tenants"} <= set(rep), "/tenants on the data port")
+    return {"health": health["status"], "tenants": len(rep["tenants"])}
+
+
+def http_cli(torch, root) -> dict:
+    """The CLI's ``serve`` over the saved catalog on the card (its
+    default device) and one DataClient query through it."""
+    import contextlib
+    import io
+
+    from geomesa_tpu_torch import cli
+    from geomesa_tpu_torch.io.exporters import _geojson
+    from geomesa_tpu_torch.serving import DataClient
+
+    args = cli.build_parser().parse_args(["serve", "-c", root, "--port", "0"])
+    check(args.device == "cuda", "the CLI defaults to the card")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        srv = cli.cmd_serve(args, hold=False)
+    load_s = time.perf_counter() - t0
+    try:
+        check(srv.cold.device.type == "cuda", "the CLI's store is on the card")
+        check(f"at {srv.url}" in out.getvalue(), "the CLI prints its URL")
+        from urllib.parse import quote
+
+        status, _, raw = DataClient(srv.url).request("GET", "/query/sv?cql=" + quote(HTTP_CLI_Q))
+        check(status == 200 and raw == _geojson(srv.cold.query("sv", HTTP_CLI_Q)).encode(),
+              "a query through the CLI's server equals the in-process export")
+    finally:
+        srv.store.close()
+    return {"load_s": load_s, "rows": len(json.loads(raw)["features"])}
+
+
+def serve_http_path(torch, device) -> dict:
+    """moving-z3-2M-http: the reference's data-plane scenario
+    (``config_serve_http``) with its cold store raised from 40k to 2M
+    rows: a WAL-backed LambdaStore (``sync=always``) over a saved cold
+    store on the card, mounted with ``serve(port=0)`` on loopback. Wire
+    equals in-process, the mixed closed loop, a fused burst, fairness
+    under an adversarial tenant, ack durability through a crash, then on
+    the recovered store (cache tier on, auths ``ops``): tiles and ETags,
+    the ops surfaces, one status of each kind; then the CLI's ``serve``.
+    Launch and native counts are zeroed before, read after."""
+    from urllib.parse import quote
+
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+    from geomesa_tpu_torch.cache import CacheConfig
+    from geomesa_tpu_torch.io.exporters import _geojson
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.serving import DataClient
+    from geomesa_tpu_torch.storage import persist
+    from geomesa_tpu_torch.streaming import LambdaStore, StreamConfig, WalConfig
+
+    zero_launches()
+    t_path = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="geomesa_http_")
+    root = os.path.join(tmp, "s")
+    rng = np.random.default_rng(SEED + 130)
+    sft = FeatureType.from_spec("sv", HTTP_SPEC)
+    ds = DataStore(device=device, metrics=MetricsRegistry())
+    ds.create_schema(sft)
+    t0 = time.perf_counter()
+    ds.write("sv", FeatureCollection.from_columns(
+        sft, np.arange(N_HTTP).astype(str),
+        {"name": np.array(["v"] * N_HTTP), "dtg": HTTP_T0 + rng.integers(0, 86_400_000, N_HTTP),
+         "geom": (rng.uniform(-170, 170, N_HTTP), rng.uniform(-80, 80, N_HTTP))}),
+        check_ids=False)
+    ds.compact("sv")
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    persist.save(ds, root)
+    save_s = time.perf_counter() - t0
+    lam = LambdaStore(ds, "sv", config=StreamConfig(), wal_dir=os.path.join(root, "_wal"),
+                      wal_config=WalConfig(sync="always"))
+    srv = lam.serve(port=0)
+    check(srv.lam is lam and srv.cold.device.type == "cuda", "the data plane serves the card store")
+    sections = {}
+    mark = time.perf_counter()
+
+    def lap(name):
+        nonlocal mark
+        now = time.perf_counter()
+        sections[name] = now - mark
+        mark = now
+
+    warm = DataClient(srv.url, keep_alive=True)
+    for q in HTTP_PROBES:
+        warm.query("sv", cql=q, limit=256)
+    lap("warm_s")
+    # wire == in-process, at the default page size and at 1,000 rows
+    for q in HTTP_PROBES:
+        direct = lam.query(q)
+        want = _geojson(direct).encode()
+        for page in (None, 1000):
+            path = "/query/sv?cql=" + quote(q) + (f"&page_rows={page}" if page else "")
+            status, hdrs, raw = warm.request("GET", path)
+            check(status == 200 and raw == want, f"wire equals in-process: {q} page {page}")
+            check(hdrs["X-Geomesa-Rows"] == str(len(direct)), f"rows header: {q}")
+    warm.close()
+    lap("wire_s")
+    mixed = http_mixed(srv, HTTP_READ_S)
+    lap("mixed_s")
+    burst = http_burst(srv)
+    for (r, i), (q, ids) in list(burst.pop("answers").items())[:4]:
+        check(ids == [str(v) for v in lam.query(q).ids.tolist()[:256]],
+              f"burst answer in order: {q}")
+    lap("burst_s")
+    fair = http_fairness(srv, HTTP_FAIR_S)
+    lap("fairness_s")
+    # ack durability: every HTTP-acked row survives wal.crash() + recover
+    dur = DataClient(srv.url, keep_alive=True)
+    acked = []
+    for b in range(10):
+        feats = http_rows("dur", b, 100, HTTP_T0)
+        ack = dur.ingest("sv", feats)
+        if ack["acked"] == 100 and ack["durable"]:
+            acked.extend(f["id"] for f in feats["features"])
+    dur.close()
+    posted_m = mixed["ingested_rows"]
+    lap("acks_s")
+    srv.close()
+    lam.wal.crash()
+    lam.flusher.close()
+    lam.cold.close()
+    del lam, ds
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = LambdaStore.recover(root, device=device, metrics=MetricsRegistry(),
+                              cache=CacheConfig(max_bytes=256 << 20), auths=("ops",))
+    recover_s = time.perf_counter() - t0
+    check(rec.cold.device.type == "cuda", "recover loads the cold store onto the card")
+    got = {str(i) for i in rec.query("INCLUDE").ids.tolist()}
+    lost = sum(1 for fid in acked if fid not in got)
+    invented = sum(1 for fid in got if not fid.isdigit() and not fid.startswith(("m", "dur")))
+    cold_ids = sum(1 for fid in got if fid.isdigit())
+    check(len(acked) == 1000 and lost == 0, "no acked row lost")
+    check(invented == 0 and cold_ids == N_HTTP, "no row invented, every cold row back")
+    check(len(got) == N_HTTP + len(acked) + posted_m, "every mixed-loop ack is back")
+    lap("recover_and_check_s")
+    srv = rec.serve(port=0)
+    tiles = http_tiles(srv, rec)
+    lap("tiles_s")
+    ops = http_ops_surfaces(srv)
+    statuses = http_statuses(srv)
+    srv.close()
+    rec.close()
+    rec.cold.close()
+    lap("ops_and_statuses_s")
+    cli = http_cli(torch, root)
+    lap("cli_s")
+    del rec
+    torch.cuda.empty_cache()
+    left = []
+    for _ in range(100):
+        left = serve_threads()
+        if not left:
+            break
+        time.sleep(0.05)
+    check(left == [], f"close() leaves no serve, serving or ops thread: {left}")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    path_s = time.perf_counter() - t_path
+    return {
+        "phase": "serve_http_path", "cell": "moving-z3-2M-http",
+        "launches": read_launches(), "native": read_native(), "n_points": N_HTTP,
+        "ingest_s": ingest_s, "save_s": save_s, "recover_s": recover_s,
+        "identical": True, "mixed": mixed, "burst": burst, "fairness": fair,
+        "durability": {"acked_rows": len(acked), "acked_loss": lost, "invented": invented},
+        "tiles": tiles, "ops": ops, "statuses": statuses, "cli": cli,
+        "sections_s": sections, "path_s": path_s, "budget_s": HTTP_BUDGET_S,
+        "reduced": {},
+    }
+
+
+N_S2 = 10_000_000
+N_S2_S3_QUERIES = 64
+N_S2_S2_QUERIES = 32
+N_S2_CHECK = 8
+N_S2_AGG = 4
+S2_BUDGET_S = 60.0
+
+
+def s2_check_aggregations(torch, ds, index, queries) -> int:
+    """density / bounds(estimate=True) through the store against the plain
+    versions over the same S3 or S2 device table and candidate blocks."""
+    from geomesa_tpu_torch.scan import aggregations as agg
+
+    table = ds.table("gdelt", index)
+    n = 0
+    for q, (x0, y0, x1, y1, *_) in queries:
+        env = (x0, y0, x1, y1)
+        grid = ds.density("gdelt", q, envelope=env, width=256, height=256)
+        env_stats = ds.bounds("gdelt", q, estimate=True)
+        plan = ds.planner.plan("gdelt", q)
+        check(plan.index == index, f"{index} plans {q}")
+        cols3, bids, n_real, boxes, wins, kw = table.agg_launch_args(plan.config)
+        cols = dict(zip(kw["col_names"], cols3))
+        dv = table.device
+        targs = (cols, torch.from_numpy(bids).to(dv), torch.from_numpy(boxes).to(dv),
+                 torch.from_numpy(wins).to(dv))
+        flags = dict(has_boxes=kw["has_boxes"], has_windows=kw["has_windows"])
+        ref = agg.density_plain(*targs, torch.tensor(env, dtype=torch.float32, device=dv),
+                                width=256, height=256, **flags).cpu().numpy()
+        check(np.array_equal(grid, ref), f"{index} density vs plain: {q}")
+        st = agg.bounds_plain(*targs, **flags).cpu().numpy()
+        check(env_stats == agg.reduce_bounds(st, n_real)[1], f"{index} bounds vs plain: {q}")
+        check(float(grid.sum()) > 0 and env_stats is not None, f"{index} aggregations see hits: {q}")
+        n += 1
+    return n
+
+
+def s2_path(torch, device) -> dict:
+    """gdelt-s2-10M: 10M GDELT-shaped points on a schema with
+    ``geomesa.indices.enabled=s3,s2`` (cell ids for both indexes at
+    ingest), 64 BBOX + DURING queries (planned on s3) and 32 BBOX queries
+    (planned on s2): ids against an f64 brute force on 8 of each (and
+    their ``limit`` pages as prefixes of the full order), density and
+    bounds against the plain versions on 4 of each, the planner's choice
+    in the explain. Launch and native counts are zeroed before, read
+    after."""
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+
+    zero_launches()
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(SEED + 140)
+    x, y = gdelt_points(N_S2, rng)
+    t = T0_MS + rng.integers(0, SPAN_MS, N_S2)
+    sft = FeatureType.from_spec("gdelt", "dtg:Date,*geom:Point:srid=4326")
+    sft.user_data["geomesa.indices.enabled"] = "s3,s2"
+    ds = DataStore(device=device)
+    ds.create_schema(sft)
+    check([i.name for i in ds.indexes("gdelt")] == ["s3", "s2"], "the schema enables s3 and s2")
+    t0 = time.perf_counter()
+    ds.write("gdelt", FeatureCollection.from_columns(sft, np.arange(N_S2),
+                                                    {"dtg": t, "geom": (x, y)}), check_ids=False)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    for idx in ("s3", "s2"):
+        zs = ds.table("gdelt", idx).zs
+        check(zs.dtype == np.uint64 and bool(((zs >> np.uint64(63)) == 1).any()),
+              f"{idx} keys stay unsigned with bit 63 set on faces 4 and 5")
+    src = (x, y, t)
+    s3q = query_set(SEED + 141, N_S2_S3_QUERIES)
+    r = np.random.default_rng(SEED + 142)
+    s2q = []
+    for (x0, y0, x1, y1) in box_queries(r, N_S2_S2_QUERIES):
+        box = tuple(float(f"{v:.4f}") for v in (x0, y0, x1, y1))
+        s2q.append((f"bbox(geom, {box[0]:.4f}, {box[1]:.4f}, {box[2]:.4f}, {box[3]:.4f})",
+                    (*box, np.iinfo(np.int64).min, np.iinfo(np.int64).max)))
+    out = {"ingest_s": ingest_s, "ingest_rows_per_s": N_S2 / ingest_s}
+    for name, queries, index in (("s3", s3q, "s3"), ("s2", s2q, "s2")):
+        for q, _ in queries[:2]:
+            ds.query("gdelt", q)  # first plans and launches off the clock
+        check(f"Strategy: {index}" in ds.explain("gdelt", queries[0][0]),
+              f"the planner's explain names {index}")
+        t_plan = time.perf_counter()
+        for q, _ in queries:
+            check(ds.planner.plan("gdelt", q).index == index, f"{index} plans {q}")
+        plan_ms = (time.perf_counter() - t_plan) / len(queries) * 1e3
+        lat, outs, wall = run_queries(ds, queries)
+        for (q, box), res in list(zip(queries, outs))[:N_S2_CHECK]:
+            ids = np.asarray(res.ids, np.int64)
+            check(np.array_equal(np.sort(ids), brute_ids(src, box)),
+                  f"{index} ids vs brute force: {q}")
+            for lim in (1, 10, 100):
+                page = np.asarray(ds.query("gdelt", q, limit=lim).ids, np.int64)
+                check(np.array_equal(page, ids[:lim]), f"{index} limit {lim} is the prefix: {q}")
+        n_agg = s2_check_aggregations(torch, ds, index, busiest(queries, outs, N_S2_AGG))
+        hits = sum(len(o) for o in outs)
+        out[name] = {
+            "n_queries": len(queries), "hits_total": hits,
+            "latency_p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "latency_p84_ms": float(np.percentile(lat, 84) * 1e3),
+            "latency_p99_ms": float(np.percentile(lat, 99) * 1e3),
+            "plan_ms_per_query": plan_ms, "features_per_s": hits / wall,
+            "ranges_median": float(np.median(
+                [ds.planner.plan("gdelt", q).config.n_ranges for q, _ in queries[:8]])),
+            "checked_vs_brute_force": N_S2_CHECK, "checked_aggregations": n_agg,
+        }
+    device_gb = sum(ds.table("gdelt", i).nbytes_device for i in ("s3", "s2")) / 1e9
+    ds.close()
+    del ds, src, x, y, t
+    torch.cuda.empty_cache()
+    return {
+        "phase": "s2_path", "cell": "gdelt-s2-10M", "launches": read_launches(),
+        "native": read_native(), "n_points": N_S2, "indexes": ["s3", "s2"],
+        "device_gb": device_gb, **out, "path_s": time.perf_counter() - t_path,
+        "budget_s": S2_BUDGET_S, "reduced": {},
+    }
+
+
+N_DRIFT = 1_000_000  # config_drift's defaults: points, queries, passes
+N_DRIFT_QUERIES = 12
+DRIFT_REPS = 6
+N_DRIFT_SMALL = 50_000  # its disarmed bit-identity stores
+N_LINK = 8_000_000  # the link seam's store: past 256 blocks, so the slot cap shows
+N_LINK_QUERIES = 64
+DRIFT_BOUNDS = {"frozen_degradation_min": 1.30, "tuned_over_oracle_max": 1.5,
+                "decisions_min": 1}  # scripts/bench_gate.py's config_drift rows
+DRIFT_BUDGET_S = 60.0
+
+
+def drift_star(cx, cy, r_out, r_in, points=60):
+    th = np.linspace(0.0, 2.0 * np.pi, 2 * points, endpoint=False)
+    rr = np.where(np.arange(2 * points) % 2 == 0, r_out, r_in)
+    xs, ys = cx + rr * np.cos(th), cy + rr * np.sin(th)
+    coords = ", ".join(f"{a:.4f} {b:.4f}" for a, b in zip(xs, ys))
+    return f"POLYGON(({coords}, {xs[0]:.4f} {ys[0]:.4f}))"
+
+
+def drift_queries():
+    arng = np.random.default_rng(SEED + 91)
+    qa = [f"INTERSECTS(geom, {drift_star(float(arng.uniform(-130.0, -50.0)), float(arng.uniform(-35.0, 35.0)), 40.0, 18.0)})"
+          for _ in range(N_DRIFT_QUERIES)]
+    brng = np.random.default_rng(SEED + 92)
+    qb = []
+    for _ in range(N_DRIFT_QUERIES):
+        x0, y0 = float(brng.uniform(5.0, 173.0)), float(brng.uniform(-85.0, 84.0))
+        qb.append(f"bbox(geom, {x0:.4f}, {y0:.4f}, {x0 + 1.5:.4f}, {y0 + 1.0:.4f})")
+    return qa, qb
+
+
+def drift_store(torch, device, x, y, n, min_cost=None, tuned=False, interval=None, **kw):
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType, conf
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+
+    if min_cost is not None:
+        conf.CACHE_MIN_COST.set(float(min_cost))
+    sft = FeatureType.from_spec("dash", "*geom:Point:srid=4326")
+    sft.user_data["geomesa.indices.enabled"] = "z2"
+    ds = DataStore(device=device, metrics=MetricsRegistry(), **kw)
+    ds.create_schema(sft)
+    ds.write("dash", FeatureCollection.from_columns(sft, np.arange(n), {"geom": (x[:n], y[:n])}),
+             check_ids=False)
+    mgr = ds.attach_tuning(enabled=True, interval=interval) if tuned else None
+    return ds, mgr
+
+
+def drift_section(torch, device, x, y) -> dict:
+    """config_drift: frozen, oracle and self-tuned stores over one
+    dashboard workload whose hotspot moves from concave-star polygons to
+    cheap boxes; the frozen pin is calibrated between the two hotspots'
+    measured scan costs on this card."""
+    from geomesa_tpu_torch import conf
+    from geomesa_tpu_torch.planning.hints import QueryHints
+
+    qa, qb = drift_queries()
+    bypass = QueryHints(cache="bypass")
+    probe, _ = drift_store(torch, device, x, y, N_DRIFT, cache=True)
+    for q in qa + qb:
+        probe.query("dash", q, hints=bypass)
+
+    def cost(queries):
+        out = []
+        for q in queries:
+            s = time.perf_counter()
+            probe.query("dash", q, hints=bypass)
+            out.append(time.perf_counter() - s)
+        return float(np.median(out))
+
+    t_hi, t_lo = cost(qa), cost(qb)
+    thr = float(np.sqrt(max(t_lo, 1e-6) * max(t_hi, 1e-6)))
+    if 1.25 * t_lo <= 0.8 * t_hi:
+        thr = max(1.25 * t_lo, min(thr, 0.8 * t_hi))
+    thr = min(thr, 0.05)
+    probe.close()
+    del probe
+
+    def qps(ds, queries, passes):
+        t0 = time.perf_counter()
+        for _ in range(passes):
+            for q in queries:
+                ds.query("dash", q)
+        return passes * len(queries) / (time.perf_counter() - t0)
+
+    results, decisions = {}, []
+    for name, pin, tuned in (("frozen", thr, False), ("oracle", 0.0, False), ("tuned", thr, True)):
+        try:
+            ds, mgr = drift_store(torch, device, x, y, N_DRIFT, min_cost=pin, tuned=tuned,
+                                  interval=max(1, N_DRIFT_QUERIES // 2), cache=True)
+            for q in qa + qb:
+                ds.query("dash", q, hints=bypass)
+            for _ in range(2):
+                for q in qa:
+                    ds.query("dash", q)
+            pre = qps(ds, qa, DRIFT_REPS)
+            for _ in range(6):
+                for q in qb:
+                    ds.query("dash", q)
+            post = qps(ds, qb, DRIFT_REPS)
+            results[name] = {"pin_ms": pin * 1e3, "qps_pre": pre, "qps_post": post}
+            if mgr is not None:
+                rep = mgr.report()
+                decisions = [d for d in rep["decisions"] if d.get("controller") == "cache_min_cost"]
+                results[name]["final_pin_ms"] = ds.cache.result.conf.min_cost_s * 1e3
+                results[name]["pulses"] = rep["pulses"]
+            ds.close()
+        finally:
+            conf.CACHE_MIN_COST.clear()
+        del ds
+        torch.cuda.empty_cache()
+    frozen = results["frozen"]["qps_pre"] / max(results["frozen"]["qps_post"], 1e-9)
+    tuned_over_oracle = results["oracle"]["qps_post"] / max(results["tuned"]["qps_post"], 1e-9)
+    return {"pin_ms": thr * 1e3, "hotspot_scan_ms": {"pre": t_hi * 1e3, "post": t_lo * 1e3},
+            **results, "frozen_degradation": frozen, "tuned_over_oracle": tuned_over_oracle,
+            "decisions_recorded": len(decisions), "decisions": decisions[:8],
+            "bounds_printed_not_enforced": DRIFT_BOUNDS}
+
+
+def drift_disarmed(torch, device, x, y) -> dict:
+    """Two 50k stores, one with a disarmed tier: ids and explains (less
+    timings) identical on config_drift's queries."""
+    from geomesa_tpu_torch.planning.explain import Explainer
+
+    qa, qb = drift_queries()
+    plain, _ = drift_store(torch, device, x, y, N_DRIFT_SMALL, cache=True)
+    disarmed, _ = drift_store(torch, device, x, y, N_DRIFT_SMALL, cache=True)
+    mgr = disarmed.attach_tuning(enabled=False)
+    check(not mgr.enabled and disarmed.planner.reweighter is None, "the tier is disarmed")
+    n = 0
+    for q in qa + qb:
+        e1, e2 = Explainer(), Explainer()
+        r1 = plain.query("dash", q, explain=e1)
+        r2 = disarmed.query("dash", q, explain=e2)
+        check(np.array_equal(np.asarray(r1.ids), np.asarray(r2.ids)), f"disarmed ids: {q[:40]}")
+        check([ln for ln in e1.lines if "ms" not in ln] == [ln for ln in e2.lines if "ms" not in ln],
+              f"disarmed explain: {q[:40]}")
+        n += 1
+    check(mgr.report()["pulses"] == 0, "a disarmed tier never pulses")
+    plain.close()
+    disarmed.close()
+    return {"identical": True, "queries": n}
+
+
+def link_rtt_ms(torch, device, reps=15) -> float:
+    """The pull floor the reference's link probe measures: a small
+    device-to-host copy after warm-up, the median of ``reps``."""
+    small = torch.ones((8, 128), dtype=torch.float32, device=device)
+    small.cpu()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        small.cpu()
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out) * 1e3)
+
+
+@contextmanager
+def fused_m_recorder():
+    """The M (padded slots) of every fused chunk the tables launch."""
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    shapes: list = []
+    launch = bk.scan_planes_multi
+
+    def recording(cols3, bids, *args, **kw):
+        shapes.append(len(bids))
+        return launch(cols3, bids, *args, **kw)
+
+    bk.scan_planes_multi = recording
+    try:
+        yield shapes
+    finally:
+        bk.scan_planes_multi = launch
+
+
+def link_section(torch, device) -> dict:
+    """The link seam: the card's pull RTT derives the fused slot cap and
+    the M floor; installed on a fresh store, K2's chunks take the derived
+    slot count and ``query_many`` ids equal the untuned store's."""
+    from geomesa_tpu_torch.scan import block_kernels as bk
+
+    rng = np.random.default_rng(SEED + 151)
+    x, y = gdelt_points(N_LINK, rng)
+    queries = [f"bbox(geom, {a:.4f}, {b:.4f}, {a + w:.4f}, {b + w / 2:.4f})"
+               for (a, b, *_), w in zip(box_queries(rng, N_LINK_QUERIES),
+                                        rng.choice([5.0, 10.0, 20.0], N_LINK_QUERIES))]
+    rtt = link_rtt_ms(torch, device)
+    derived = bk.derive_link_constants(rtt)
+    ds, _ = drift_store(torch, device, x, y, N_LINK)
+    table = ds.table("dash", "z2")
+    untuned_slots = table.fused_slots
+    with fused_m_recorder() as m_untuned:
+        ref = [np.asarray(fc.ids).tolist() for fc in ds.query_many("dash", queries)]
+    try:
+        bk.set_link_constants(derived)
+        tuned_slots = table.fused_slots
+        want = min(derived["fused_chunk_slots"], bk.bucket_of(table.n_blocks))
+        check(tuned_slots == want, "the table's fused slots follow the link constants")
+        with fused_m_recorder() as m_tuned:
+            got = [np.asarray(fc.ids).tolist() for fc in ds.query_many("dash", queries)]
+        check(got == ref, "query_many ids under the link constants equal the untuned store's")
+        check(len(m_tuned) > 0 and set(m_tuned) == {tuned_slots},
+              "every K2 chunk takes the derived slot count")
+        check(bk.m_bucket_of(1) == derived["m_floor"], "the single-query M floor follows the link")
+    finally:
+        bk.set_link_constants(None)
+    check(table.fused_slots == untuned_slots, "the link constants reset")
+    ds.close()
+    del ds
+    torch.cuda.empty_cache()
+    return {"link_rtt_ms": rtt, "derived": derived, "n_points": N_LINK,
+            "n_blocks": table.n_blocks, "slots_untuned": untuned_slots,
+            "slots_tuned": tuned_slots, "chunks_untuned": len(m_untuned),
+            "chunks_tuned": len(m_tuned)}
+
+
+def burn_section(torch, device, x, y) -> dict:
+    """An armed tier behind ``serve()`` under a 1 us query objective: the
+    burn gate sheds the low-weight tenant first (``geomesa.tuning.shed``),
+    top-weight work admits, and the gate releases once the window empties."""
+    from geomesa_tpu_torch.obs.slo import SloObjective, SloTracker
+    from geomesa_tpu_torch.serving import ServingRejected, TenantRegistry
+
+    ds, _ = drift_store(torch, device, x, y, N_DRIFT)
+    ds.attach_slo(SloTracker([SloObjective("query_p99", "geomesa.query.scan", 0.99, 1e-6)],
+                             window_s=1.0))
+    sched = ds.serve()
+    sched.tenants = TenantRegistry(metrics=ds.metrics)
+    sched.tenants.configure("gold", weight=8.0)
+    sched.tenants.configure("bronze", weight=1.0)
+    mgr = ds.attach_tuning(enabled=True, interval=1_000_000)
+    check(sched.burn_gate is mgr.burnshed, "the burn gate is wired onto the scheduler")
+    _, qb = drift_queries()
+    for q in qb:
+        sched.submit("dash", q, tenant="gold").result(60)
+    # the gate re-reads the burn at most every refresh_s (the submits
+    # above read it before any query was observed)
+    time.sleep(2 * mgr.burnshed.refresh_s)
+    mgr.pulse()
+    check(mgr.burnshed.report()["engaged"], "the 1 us objective burns: the gate engages")
+    shed = 0
+    try:
+        sched.submit("dash", qb[0], tenant="bronze").result(60)
+    except ServingRejected as e:
+        shed += "slo burn" in str(e)
+    check(shed == 1 and ds.metrics.counter_value("geomesa.tuning.shed") == 1,
+          "the low-weight tenant sheds first")
+    check(len(sched.submit("dash", qb[1], tenant="gold").result(60)) >= 0,
+          "top-weight work admits through the burn")
+    time.sleep(1.6)  # the window slides empty
+    mgr.pulse()
+    check(not mgr.burnshed.report()["engaged"], "the gate releases")
+    sched.submit("dash", qb[2], tenant="bronze").result(60)
+    check(ds.metrics.counter_value("geomesa.tuning.shed") == 1, "bronze admits after release")
+    rep = mgr.burnshed.report()
+    ds.close()
+    del ds
+    return {"shed": 1, "released": True, "burn_after": rep["burn"]}
+
+
+def tuning_cli_section(torch, device, x, y) -> dict:
+    """``close()`` writes ``_tuning.json`` beside the catalog; the CLI's
+    ``tune`` and ``ops`` read the catalog on the card."""
+    import contextlib
+    import io
+
+    from geomesa_tpu_torch import cli, conf
+    from geomesa_tpu_torch.storage import persist
+
+    tmp = tempfile.mkdtemp(prefix="geomesa_tune_")
+    cat = os.path.join(tmp, "cat")
+    try:
+        ds, _ = drift_store(torch, device, x, y, N_DRIFT, cache=True, min_cost=0.04)
+        persist.save(ds, cat)
+        mgr = ds.attach_tuning(enabled=True, interval=1,
+                               state_path=os.path.join(cat, "_tuning.json"))
+        for hits in (100, 100, 10):  # seeded readings: the hits collapse
+            ds.metrics.counter("geomesa.cache.hit", hits)
+            mgr.pulse()
+        decided = [d for d in mgr.report()["decisions"] if d["controller"] == "cache_min_cost"]
+        check(len(decided) == 1, "the seeded readings move cache_min_cost once")
+        ds.close()
+    finally:
+        conf.CACHE_MIN_COST.clear()
+    state = json.load(open(os.path.join(cat, "_tuning.json")))
+    check(state["decisions"] == decided, "close() writes the decisions to _tuning.json")
+    outs = {}
+    for argv in (["tune", "-c", cat], ["tune", "-c", cat, "--json"], ["ops", "-c", cat]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(argv) == 0, f"the CLI's {' '.join(argv[:1])} runs on the card")
+        outs[" ".join(a for a in argv if a != cat)] = buf.getvalue()
+    check("cache_min_cost geomesa.cache.min.cost: 0.04 -> 0.027" in outs["tune -c"],
+          "tune reports the saved decision")
+    check(json.loads(outs["tune -c --json"])["decisions"] == decided, "tune --json too")
+    check(outs["ops -c"].startswith("status: "), "ops reports the catalog")
+    conf.CACHE_MIN_COST.clear()
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"decisions": len(decided), "tune_lines": len(outs["tune -c"].splitlines()),
+            "ops_status": outs["ops -c"].splitlines()[0]}
+
+
+def drift_path(torch, device) -> dict:
+    """gdelt-z2-1M-drift: the reference's ``config_drift`` at its defaults
+    (1M points on z2, 12 queries, 6 passes) on the card, the disarmed
+    bit-identity on two 50k stores, the link seam on an 8M-row store, the
+    burn gate behind ``serve()``, and the state file through the CLI.
+    Launch and native counts are zeroed before, read after."""
+    zero_launches()
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(SEED + 90)
+    x, y = rng.uniform(-180.0, 180.0, N_DRIFT), rng.uniform(-90.0, 90.0, N_DRIFT)
+    sections = {}
+    for name, fn in (("drift", lambda: drift_section(torch, device, x, y)),
+                     ("disarmed", lambda: drift_disarmed(torch, device, x, y)),
+                     ("link", lambda: link_section(torch, device)),
+                     ("burn", lambda: burn_section(torch, device, x, y)),
+                     ("cli", lambda: tuning_cli_section(torch, device, x, y))):
+        t0 = time.perf_counter()
+        sections[name] = fn()
+        sections[name]["section_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return {
+        "phase": "drift_path", "cell": "gdelt-z2-1M-drift", "launches": read_launches(),
+        "native": read_native(), "n_points": N_DRIFT, **sections,
+        "path_s": time.perf_counter() - t_path, "budget_s": DRIFT_BUDGET_S, "reduced": {},
+    }
+
+
+
 # -- entry point -------------------------------------------------------------
 
 
@@ -7615,6 +8566,10 @@ def check_native(records) -> None:
         "gdelt-ingest-20M": point,
         # the host grid join sorts by cell, the joins refine on the host
         "gdelt-z2-20M-analytics": point + ("points_in_polygon", "counting_argsort"),
+        "moving-z3-2M-http": point,
+        # S2 covers are numpy BFS (no native ranges); the keys sort natively
+        "gdelt-s2-10M": ("sort_bins_z", "bitmask_decode_pair"),
+        "gdelt-z2-1M-drift": point + ("points_in_polygon",),
     }
     for cell, names in expected_native.items():
         for name in names:
@@ -7688,6 +8643,9 @@ def main() -> int:
         "moving-replica-60k": ("block_scan",),
         "gdelt-ingest-20M": ("block_scan", "density", "bounds"),
         "gdelt-z2-20M-analytics": ("block_scan", "block_scan_multi"),
+        "moving-z3-2M-http": ("block_scan", "block_scan_multi"),
+        "gdelt-s2-10M": ("block_scan", "density", "bounds"),
+        "gdelt-z2-1M-drift": ("block_scan", "block_scan_multi"),
     }
     for cell, names in expected.items():
         for name in names:

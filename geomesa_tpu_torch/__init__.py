@@ -8,8 +8,10 @@ copy under the same path. Entry points run on the card
 the CPU, where every kernel wrapper takes its plain PyTorch version.
 """
 
+__version__ = "0.1.0"
+
 from geomesa_tpu_torch.datastore import DataStore
 from geomesa_tpu_torch.features import FeatureCollection
 from geomesa_tpu_torch.sft import FeatureType
 
-__all__ = ["DataStore", "FeatureCollection", "FeatureType"]
+__all__ = ["DataStore", "FeatureCollection", "FeatureType", "__version__"]

@@ -11,6 +11,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+REGISTRY: dict[str, "SystemProperty"] = {}
+
 
 @dataclass
 class SystemProperty:
@@ -21,6 +23,9 @@ class SystemProperty:
     parser: Callable = int
     doc: str = ""
     _override: Optional[object] = field(default=None, repr=False)
+
+    def __post_init__(self):
+        REGISTRY[self.name] = self
 
     @property
     def env_key(self) -> str:
@@ -593,3 +598,97 @@ PLAN_ESTIMATE_AUTO_ANALYZE = SystemProperty(
     "window resets after). Off by default: a full re-sketch on a large "
     "store is a deliberate maintenance op",
 )
+
+
+# -- the data plane (serving.http) -----------------------------------------
+
+SERVE_HOST = SystemProperty(
+    "geomesa.serve.host", "127.0.0.1", str,
+    "bind address for DataStore.serve(port) — loopback by default "
+    "(laptop-friendly, the same posture as the ops plane)",
+)
+SERVE_PAGE_ROWS = SystemProperty(
+    "geomesa.serve.page.rows", 4096, int,
+    "rows per chunked-transfer page on the query endpoints: one big "
+    "result streams as bounded pages instead of materializing the whole "
+    "payload (one Arrow record batch per page on fmt=arrow)",
+)
+SERVE_MAX_BODY_BYTES = SystemProperty(
+    "geomesa.serve.max.body.bytes", 64 << 20, int,
+    "cap on an ingest request body; a larger Content-Length is refused "
+    "with HTTP 413 before any bytes are read",
+)
+SERVE_RETRY_AFTER_MS = SystemProperty(
+    "geomesa.serve.retry.after.ms", 50.0, float,
+    "Retry-After hint (milliseconds, rendered as seconds) on a 429 shed "
+    "or a 503 stale-replica read — the client backoff the admission "
+    "layer suggests",
+)
+
+# -- the self-tuning controller tier (tuning) ------------------------------
+
+TUNING_ENABLED = SystemProperty(
+    "geomesa.tuning.enabled", False, _parse_bool,
+    "arm the self-tuning controller tier (plan-feedback index "
+    "reweighting, knob auto-tuning, SLO-burn admission shedding); off "
+    "is bit-identical to a store without the tier",
+)
+TUNING_INTERVAL = SystemProperty(
+    "geomesa.tuning.interval", 64, int,
+    "queries between adaptation pulses: the tuning loop piggybacks on "
+    "the query path, so a busier store adapts faster and an idle one "
+    "not at all",
+)
+TUNING_DECISIONS = SystemProperty(
+    "geomesa.tuning.decisions", 128, int,
+    "bounded length of the adaptation decision ring served by "
+    "/debug/tuning and the CLI's tune command",
+)
+TUNING_PLAN_MAX_ADJUST = SystemProperty(
+    "geomesa.tuning.plan.max.adjust", 4.0, float,
+    "hard cap on the plan-feedback priority inflation for a "
+    "chronically misestimating index: it can lose plans but never be "
+    "exiled",
+)
+TUNING_PLAN_DEADBAND = SystemProperty(
+    "geomesa.tuning.plan.deadband", 2.0, float,
+    "p90 estimate-error factor at which plan reweighting engages; "
+    "release happens at the midpoint back toward 1.0, and the band "
+    "between holds (hysteresis: no plan flapping)",
+)
+TUNING_PLAN_MIN_COUNT = SystemProperty(
+    "geomesa.tuning.plan.min.count", 8, int,
+    "accuracy-window samples required per (type, index) before plan "
+    "reweighting may act on its error factor",
+)
+TUNING_BURN_OBJECTIVE = SystemProperty(
+    "geomesa.tuning.burn.objective", "query_p99", str,
+    "SLO objective name whose burn rate drives admission shedding "
+    "(must exist in the attached tracker's objective set)",
+)
+TUNING_BURN_THRESHOLD = SystemProperty(
+    "geomesa.tuning.burn.threshold", 2.0, float,
+    "burn rate above which the scheduler sheds below-max-weight "
+    "tenant work before the queue is physically full",
+)
+TUNING_BURN_RELEASE = SystemProperty(
+    "geomesa.tuning.burn.release", 1.0, float,
+    "burn rate at or below which engaged burn shedding releases "
+    "(hysteresis gap against admission flapping)",
+)
+SCAN_FUSED_SLOTS = SystemProperty(
+    "geomesa.scan.fused.slots", 0, int,
+    "pinned fused chunk slot count (power-of-two ladder rung); 0 = "
+    "automatic (the link-probe constants, or the compiled default) — "
+    "the knob the fused_chunk_slots controller writes",
+)
+
+
+def describe() -> str:
+    """One line per registered property with its current value (the
+    CLI's env command)."""
+    out = []
+    for name in sorted(REGISTRY):
+        p = REGISTRY[name]
+        out.append(f"{name} = {p.get()!r}  [{p.env_key}] {p.doc}")
+    return "\n".join(out)

@@ -68,7 +68,9 @@ from geomesa_tpu_torch.features import FeatureCollection, _date_to_millis
 from geomesa_tpu_torch.filter.predicates import (
     INCLUDE, Cmp, Filter, IdFilter, Include, PointColumn,
 )
-from geomesa_tpu_torch.index import AttributeIndex, XZ2Index, XZ3Index, Z2Index, Z3Index
+from geomesa_tpu_torch.index import (
+    AttributeIndex, S2Index, S3Index, XZ2Index, XZ3Index, Z2Index, Z3Index,
+)
 from geomesa_tpu_torch.index.api import WriteKeys
 from geomesa_tpu_torch.lockwitness import witness
 from geomesa_tpu_torch.planning.errors import check_deadline
@@ -278,6 +280,11 @@ class DataStore:
         self.scheduler = None
         self.ops = None
         self.slo = None
+        # the network data plane (serve(port=...))
+        self.server = None
+        # the self-tuning controller tier (attach_tuning()); None and a
+        # disarmed manager keep every hook path as without the tier
+        self.tuning = None
 
     def attach_cache(self, cache) -> None:
         """Install (or replace) the cache tier: ``True`` or a CacheConfig
@@ -340,10 +347,13 @@ class DataStore:
     @staticmethod
     def _choose_indexes(sft: FeatureType) -> list:
         indexes: list = []
+        extras: list = []  # opt-in only (the reference gates S2/S3 the same way)
         if sft.is_points:
             if sft.dtg_field is not None:
                 indexes.append(Z3Index(sft))
+                extras.append(S3Index(sft))
             indexes.append(Z2Index(sft))
+            extras.append(S2Index(sft))
         else:
             if sft.dtg_field is not None:
                 indexes.append(XZ3Index(sft))
@@ -355,7 +365,10 @@ class DataStore:
         enabled = sft.user_data.get("geomesa.indices.enabled")
         if enabled:
             names = {s.strip() for s in str(enabled).split(",")}
-            indexes = [i for i in indexes if i.name in names or i.name.split("_")[0] in names]
+            indexes = [
+                i for i in indexes + extras
+                if i.name in names or i.name.split("_")[0] in names
+            ]
             if not indexes:
                 raise ValueError(f"no supported index in {enabled!r}")
         return indexes
@@ -1356,8 +1369,8 @@ class DataStore:
         for cache hits, which scanned nothing); a misestimate past the
         staleness threshold checks the window and, with
         ``geomesa.plan.estimate.auto.analyze`` on, sketches the type
-        afresh, once per trip. (The reference's tuning line waits for
-        that tier.)"""
+        afresh, once per trip. An armed tuning tier counts the query
+        toward its next pulse."""
         if plan.estimated_rows is not None and plan.cache_status not in ("hit", "coalesced"):
             actual = plan.actual_rows if plan.actual_rows is not None else hits
             err = self.accuracy.record(plan.type_name, plan.index, plan.estimated_rows, actual)
@@ -1399,6 +1412,13 @@ class DataStore:
             if plan.cache_status is not None:
                 # cache overhead, apart from the scan time
                 self.metrics.timer_update("geomesa.query.cache_probe", plan.cache_probe_s)
+        # self-tuning pacing: an armed tuning tier counts every recorded
+        # query and runs one adaptation pulse per interval in this
+        # caller's thread (no lock is held here; a disarmed or absent
+        # manager costs one attribute read)
+        tuning = self.tuning
+        if tuning is not None and tuning.enabled:
+            tuning.on_query()
         if self.audit is not None:
             from geomesa_tpu_torch.audit import AuditedEvent
             from geomesa_tpu_torch.obs.trace import tracer
@@ -1436,7 +1456,8 @@ class DataStore:
 
         return tracer().slow_queries(type_name=type_name)
 
-    def serve(self, config=None):
+    def serve(self, config=None, port: "int | None" = None,
+              host: "str | None" = None, **server_kwargs):
         """Attach (or return) the micro-batch serving tier: concurrent
         callers ``submit()`` through the returned, started QueryScheduler,
         and compatible index scans coalesce into fused launches. The
@@ -1446,9 +1467,27 @@ class DataStore:
         attached scheduler while it is open; a closed one is replaced.
         Thread-safe: the write lock keeps concurrent first callers from
         starting two schedulers. A TenantRegistry attaches as
-        ``serve().tenants``."""
+        ``serve().tenants``.
+
+        With ``port`` (0 = ephemeral), also mounts the network data plane
+        and returns the started
+        :class:`~geomesa_tpu_torch.serving.http.DataServer` instead: query,
+        ingest, tile and ops endpoints over this store, multi-tenant
+        admission through the scheduler. ``server_kwargs`` pass through to
+        it."""
         from geomesa_tpu_torch.serving import QueryScheduler, ServingConfig
 
+        if port is not None:
+            from geomesa_tpu_torch.serving.http import DataServer
+
+            with self._write_lock:
+                srv = self.server
+                if srv is not None and not srv.closed:
+                    return srv
+                self.server = DataServer(
+                    self, host=host, port=port, config=config, **server_kwargs
+                ).start()
+                return self.server
         with self._write_lock:
             sched = self.scheduler
             if sched is not None and not sched.closed:
@@ -1456,6 +1495,11 @@ class DataStore:
             if config is None or config is True:
                 config = ServingConfig()
             self.scheduler = QueryScheduler(self, config).start()
+            # an armed tuning tier attached before serve(): wire its burn
+            # gate onto the fresh scheduler
+            tuning = self.tuning
+            if tuning is not None and tuning.enabled:
+                self.scheduler.burn_gate = tuning.burnshed
             return self.scheduler
 
     def serve_ops(self, port: int = 0, host: "str | None" = None, lam=None):
@@ -1478,17 +1522,72 @@ class DataStore:
             return self.ops
 
     def close(self) -> None:
-        """Release the attached background services: the serving scheduler
+        """Release the attached background services: the data plane
+        (socket closed, serve thread joined), the serving scheduler
         (drained, its dispatcher joined) and the ops endpoint (socket
-        closed, serve and telemetry threads joined, bounded). Idempotent;
-        the store itself stays queryable, and serve() / serve_ops()
-        attach fresh ones."""
+        closed, serve and telemetry threads joined, bounded), and save an
+        attached tuning tier's learned state. Idempotent; the store
+        itself stays queryable, and serve() / serve_ops() attach fresh
+        ones."""
+        srv = self.server
+        if srv is not None:
+            srv.close()
         sched = self.scheduler
         if sched is not None:
             sched.close()
         ops = self.ops
         if ops is not None:
             ops.close()
+        tuning = self.tuning
+        if tuning is not None:
+            # learned state outlives the store handle: factors, controller
+            # baselines, tuned knobs
+            tuning.save()
+
+    def attach_tuning(self, enabled=None, state_path=None, interval=None):
+        """Attach the self-tuning controller tier: one
+        :class:`~geomesa_tpu_torch.tuning.manager.TuningManager` closing
+        the loop from this store's telemetry (estimate-accuracy windows,
+        metric rings, SLO burn) to its knobs, plan weights and admission.
+        ``enabled`` defaults to the ``geomesa.tuning.enabled`` knob; a
+        disarmed manager reports state but never pulses, never installs
+        the planner or scheduler hooks, and leaves behavior unchanged.
+        ``state_path`` names a JSON file the learned state persists to on
+        :meth:`close` and rehydrates from here. Re-attaching builds a
+        fresh manager and re-wires the hooks. Returns the manager."""
+        from geomesa_tpu_torch.metrics import MetricsRegistry
+        from geomesa_tpu_torch.tuning import TuningManager
+
+        if self.metrics is None:
+            # the tier is telemetry-driven: without a registry there is
+            # nothing to sense, so attach one (as attach_slo does)
+            self.metrics = MetricsRegistry()
+        manager = TuningManager(self, enabled=enabled, state_path=state_path, interval=interval)
+        self.tuning = manager
+        sched = self.scheduler
+        if manager.enabled:
+            self.planner.reweighter = manager.reweighter
+            if sched is not None:
+                sched.burn_gate = manager.burnshed
+        else:
+            # disarming restores the untuned behavior, also after a
+            # previously armed manager is replaced
+            self.planner.reweighter = None
+            if sched is not None:
+                sched.burn_gate = None
+        return manager
+
+    def tuning_report(self) -> dict:
+        """The attached tuning manager's report, the ``/debug/tuning``
+        payload (controller values, bounds and readings, plan factors,
+        burn gate state, decision ring). An unattached store reports a
+        disarmed, empty tier."""
+        if self.tuning is None:
+            return {
+                "enabled": False, "controllers": [], "plan_factors": {},
+                "burn": None, "decisions": [],
+            }
+        return self.tuning.report()
 
     def attach_slo(self, objectives=None):
         """Attach an SLO tracker: declarative latency objectives evaluated

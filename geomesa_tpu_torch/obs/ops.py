@@ -14,7 +14,7 @@ in-process:
 | ``/debug/trace`` | Chrome trace-event export of retained traces |
 | ``/debug/vars?window=`` | TelemetryRecorder time-series rings |
 | ``/debug/audit?n=`` | the audit ring (trace-id cross-referenced) |
-| ``/debug/tuning`` | the tuning tier's report (a disarmed, empty tier) |
+| ``/debug/tuning`` | the tuning tier's report (``DataStore.tuning_report``) |
 
 The **health state machine** (:class:`HealthMonitor`): each check
 contributes zero or more machine-readable reasons ``{"reason": code,
@@ -373,7 +373,14 @@ def ops_report(store, lam=None, monitor: "HealthMonitor | None" = None,
 class OpsRoutes:
     """The ops-plane route table without a socket: monitor, telemetry
     recorder and the ``handle()`` dispatch. :class:`OpsServer` wraps one
-    for the ops port."""
+    for the ops port; the data plane (serving/http.py) mounts one on its
+    own port, so a single listener serves data and ops."""
+
+    #: paths this table answers (the data server's dispatch check)
+    PATHS = (
+        "/metrics", "/health", "/stats", "/debug/slow", "/debug/trace",
+        "/debug/vars", "/debug/audit", "/debug/tuning",
+    )
 
     def __init__(self, store, lam=None, audit=None):
         self.store = store
@@ -422,8 +429,9 @@ class OpsRoutes:
                 events = events[-n:]
             return 200, "application/json", _json_dump(events)
         if path == "/debug/tuning":
-            # the tuning tier's report; a store without one answers the
-            # disarmed, empty tier
+            # the self-tuning tier's audit surface: controller values,
+            # bounds and readings, the plan factor table, the burn gate
+            # and the decision ring with reasons
             return 200, "application/json", _json_dump(
                 self.store.tuning_report()
                 if hasattr(self.store, "tuning_report")

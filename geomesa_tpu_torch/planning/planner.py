@@ -64,9 +64,13 @@ from geomesa_tpu_torch.obs.trace import tracer as _otracer
 from geomesa_tpu_torch.planning.explain import Explainer, ExplainNull
 
 # index selection priority (reference cost multipliers: z3 / xz3 = 1.1
-# with bounded time, z2 / xz2 = 2.0, attribute indexes 2.5, id lookups
-# 0.5). Lower = preferred.
-INDEX_PRIORITY = {"z3": 1.1, "xz3": 1.1, "z2": 2.0, "xz2": 2.0, "attr": 2.5, "id": 0.5}
+# with bounded time, s3 = 1.2, z2 / xz2 = 2.0, s2 = 2.1, attribute
+# indexes 2.5, id lookups 0.5). Lower = preferred.
+INDEX_PRIORITY = {
+    "z3": 1.1, "xz3": 1.1, "s3": 1.2,
+    "z2": 2.0, "xz2": 2.0, "s2": 2.1,
+    "attr": 2.5, "id": 0.5,
+}
 
 
 def index_priority(name: str) -> float:
@@ -230,6 +234,11 @@ class QueryPlanner:
         self._config_memo: "OrderedDict" = OrderedDict()
         self._memo_lock = threading.Lock()
         self._memo_epoch = 0  # bumped by every invalidation
+        # plan-feedback hook: an armed tuning tier installs its
+        # IndexReweighter here; None (the default, and the disarmed state)
+        # keeps cost() on the static multipliers. Reads are lock-free
+        # (immutable table swap).
+        self.reweighter = None
 
     @property
     def mutation_epoch(self) -> int:
@@ -432,7 +441,7 @@ class QueryPlanner:
             if cfg.disjoint:
                 exp(f"Index {idx.name}: filter disjoint -> empty plan")
                 return QueryPlan(type_name, f, idx.name, cfg, limit=limit)
-            cost = self.cost(type_name, idx.name, cfg)
+            cost = self.cost(type_name, idx.name, cfg, exp)
             options.append((cost, idx.name, cfg))
             exp(f"Index {idx.name}: {cfg.n_ranges} ranges, cost {cost:.1f}")
         if not options:
@@ -443,11 +452,22 @@ class QueryPlanner:
         exp(f"Strategy: {name} (cost {cost:.1f})")
         return QueryPlan(type_name, f, name, cfg, limit=limit)
 
-    def cost(self, type_name: str, index_name: str, cfg: ScanConfig) -> float:
+    def cost(self, type_name: str, index_name: str, cfg: ScanConfig, exp=None) -> float:
         """Cost = rows the ranges cover x index multiplier (reference
         CostBasedStrategyDecider, StrategyDecider.scala:143-180); the row
-        count is exact, from searchsorted over the host-resident keys."""
+        count is exact, from searchsorted over the host-resident keys. An
+        armed tuning tier inflates the multiplier of an index whose row
+        estimates chronically miss (bounded, hysteretic, explained);
+        factor 1.0, or no reweighter, leaves the cost as it is."""
         mult = index_priority(index_name)
+        rw = self.reweighter
+        if rw is not None:
+            fac = rw.factor(type_name, index_name)
+            if fac != 1.0:
+                mult *= fac
+                if exp is not None:
+                    # the JAX package's line, byte for byte
+                    exp(f"Index {index_name}: estimate-accuracy reweight x{fac:.2f} (docs/tuning.md)")
         try:
             table = self.store.table(type_name, index_name)
         except KeyError:

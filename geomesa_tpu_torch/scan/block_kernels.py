@@ -292,18 +292,100 @@ def bucket_of(n: int) -> int:
     return m
 
 
+def m_bucket_of(n: int) -> int:
+    """Single-query candidate-list bucket: :func:`bucket_of` raised to the
+    link-derived M floor (set_link_constants). The floor applies to this
+    ladder only, never to the fused-chunk slot sizing that also derives
+    from bucket_of (flooring slots would inflate small tables' chunks
+    with pad-slot work)."""
+    return max(bucket_of(n), int(_LINK_CONSTANTS["m_floor"]))
+
+
+# -- the measured-link seam ------------------------------------------------
+# Two floor-amortization constants re-derived from a measured pull RTT
+# (dimensionless ratios against the 66 ms design link, so the rule gives
+# the compiled values on a link like that one): the fused-chunk slot cap
+# scales with the pull floor (a chunk must hold enough slots that one
+# launch's fixed cost stays amortized), and the single-query M floor rises
+# on a fast link (the 32/64 buckets only shave pull bytes on a slow one).
+# With no profile installed and geomesa.scan.fused.slots unset, every
+# shape is the compiled one.
+DESIGN_LINK_RTT_MS = 66.0
+_LINK_CONSTANTS = {
+    "fused_chunk_slots": None,  # None = the compiled FUSED_CHUNK_SLOTS
+    "m_floor": M_BUCKETS[0],
+    "link_rtt_ms": None,
+}
+
+
+def derive_link_constants(rtt_ms: float, pull_mb_s: "float | None" = None) -> dict:
+    """Pure derivation (no state change): the fused-chunk slot cap and the
+    M-bucket floor a measured link profile calls for."""
+    from geomesa_tpu_torch.storage.table import FUSED_CHUNK_SLOTS
+    from geomesa_tpu_torch.tuning.primitives import doubling_ladder
+
+    want = FUSED_CHUNK_SLOTS * max(float(rtt_ms), 1e-3) / DESIGN_LINK_RTT_MS
+    slots = doubling_ladder(want, 256, FUSED_CHUNK_SLOTS)
+    fast = rtt_ms <= 5.0 or (pull_mb_s is not None and pull_mb_s >= 200.0)
+    return {
+        "fused_chunk_slots": slots,
+        "m_floor": 128 if fast else M_BUCKETS[0],
+        "link_rtt_ms": round(float(rtt_ms), 2),
+    }
+
+
+def set_link_constants(constants: "dict | None") -> None:
+    """Install (or, with None, reset) a derived link profile. Install it
+    before tables are queried: the constants set launch shapes."""
+    if constants is None:
+        _LINK_CONSTANTS.update(fused_chunk_slots=None, m_floor=M_BUCKETS[0], link_rtt_ms=None)
+    else:
+        _LINK_CONSTANTS.update(constants)
+
+
+def link_constants() -> dict:
+    """The active link-derived constants."""
+    from geomesa_tpu_torch.storage.table import FUSED_CHUNK_SLOTS
+
+    out = dict(_LINK_CONSTANTS)
+    if out["fused_chunk_slots"] is None:
+        out["fused_chunk_slots"] = FUSED_CHUNK_SLOTS
+    return out
+
+
+def fused_slot_cap(local_cap: "int | None" = None) -> int:
+    """The fused-chunk slot cap in force (IndexTable.fused_slots clamps it
+    to the table's own block-count bucket): the ``geomesa.scan.fused.slots``
+    knob when pinned nonzero (how the tuning tier's fused_chunk_slots
+    controller actuates), else ``local_cap`` (a per-host probed cap), else
+    the installed link constants, else the compiled default."""
+    from geomesa_tpu_torch import conf
+
+    pinned = int(conf.SCAN_FUSED_SLOTS.get() or 0)
+    if pinned > 0:
+        return pinned
+    if local_cap is not None:
+        return int(local_cap)
+    cap = _LINK_CONSTANTS["fused_chunk_slots"]
+    if cap is not None:
+        return int(cap)
+    from geomesa_tpu_torch.storage.table import FUSED_CHUNK_SLOTS
+
+    return FUSED_CHUNK_SLOTS
+
+
 def pad_bids(
     blocks: np.ndarray, n_blocks_table: int, pad: int = 0, bucket: int | None = None
 ) -> tuple[np.ndarray, int]:
-    """Pad a sorted block-id list to a static M bucket. Returns
-    (padded [M] i32, n_real).
+    """Pad a sorted block-id list to a static M bucket (m_bucket_of).
+    Returns (padded [M] i32, n_real).
 
     ``pad=0`` repeats block 0 (scan kernels: the decode ignores pad slots);
     ``pad=-1`` marks pads explicitly (aggregation kernels mask them).
     ``bucket`` forces the bucket.
     """
     n = len(blocks)
-    m = bucket if bucket is not None else bucket_of(n)
+    m = bucket if bucket is not None else m_bucket_of(n)
     out = np.full(m, pad, np.int32)
     out[:n] = blocks
     return out, n

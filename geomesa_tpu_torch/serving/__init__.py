@@ -1,5 +1,6 @@
 """Concurrent query serving: the micro-batch scheduler in front of the
-device (``DataStore.serve()``) and its multi-tenant fairness state.
+device (``DataStore.serve()``), its multi-tenant fairness state, and the
+network data plane (``DataStore.serve(port=...)``).
 
 - :class:`QueryScheduler`: bounded admission queues, the adaptive
   micro-batch window, cache-aware and deadline-aware admission,
@@ -8,9 +9,13 @@ device (``DataStore.serve()``) and its multi-tenant fairness state.
 - :class:`ServingRejected`: a full queue or quota shed a non-blocking
   submit;
 - :class:`TenantRegistry`: per-tenant quotas, DRR weights, SLO windows
-  and accounting (serving/tenancy.py).
+  and accounting (serving/tenancy.py);
+- :class:`DataServer`, :class:`DataClient`, :class:`ServeError`: the
+  HTTP query, ingest, tile and ops endpoints and their stdlib client
+  (serving/http.py).
 """
 
+from geomesa_tpu_torch.serving.http import DataClient, DataServer, ServeError
 from geomesa_tpu_torch.serving.scheduler import (
     QueryScheduler,
     ServingConfig,
@@ -18,4 +23,7 @@ from geomesa_tpu_torch.serving.scheduler import (
 )
 from geomesa_tpu_torch.serving.tenancy import TenantRegistry
 
-__all__ = ["QueryScheduler", "ServingConfig", "ServingRejected", "TenantRegistry"]
+__all__ = [
+    "DataClient", "DataServer", "QueryScheduler", "ServeError",
+    "ServingConfig", "ServingRejected", "TenantRegistry",
+]

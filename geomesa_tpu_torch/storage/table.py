@@ -529,10 +529,12 @@ class IndexTable(SortedKeys):
     # -- fused multi-query scans -----------------------------------------
     @property
     def fused_slots(self) -> int:
-        """Slot count of this table's fused-chunk shape:
-        FUSED_CHUNK_SLOTS clamped down to the table's block-count bucket
-        (2048 at 100M rows of 16384-row blocks)."""
-        return min(FUSED_CHUNK_SLOTS, bk.bucket_of(self.n_blocks))
+        """Slot count of this table's fused-chunk shape: the slot cap in
+        force (bk.fused_slot_cap: the compiled FUSED_CHUNK_SLOTS unless a
+        link profile or the geomesa.scan.fused.slots knob sets another)
+        clamped down to the table's block-count bucket (2048 at 100M rows
+        of 16384-row blocks)."""
+        return min(bk.fused_slot_cap(), bk.bucket_of(self.n_blocks))
 
     @property
     def fused_pack_capacity(self) -> int:

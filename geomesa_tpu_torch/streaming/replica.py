@@ -529,6 +529,7 @@ class ReplicaStore:
         self._tails: dict = {}           # segment -> unparsed byte tail
         self._hole_retries: dict = {}    # (segment, seq) -> resyncs tried
         self.writable = False
+        self.server = None  # the data plane (serve(port=...))
         self._stop = threading.Event()
         self._thread: "threading.Thread | None" = None
         # resume handshake: tell the shipper where our local copies end
@@ -977,14 +978,20 @@ class ReplicaStore:
 
     def serve(self, config=None, port: "int | None" = None,
               host: "str | None" = None, **server_kwargs):
-        """The follower's serving tier (the cold store's scheduler).
-        ``port`` (the read-only network data plane) is not ported yet
-        (ROADMAP A12b) and raises."""
+        """The follower's serving tier (the cold store's scheduler); with
+        ``port``, mounts the read-only data plane over this replica
+        (writes answer 403 with the leader's address; reads honor the
+        staleness-bound header)."""
         if port is not None:
-            raise NotImplementedError(
-                "serve(port=...) mounts the network data plane, which is not "
-                "ported yet (ROADMAP A12b)"
-            )
+            from geomesa_tpu_torch.serving.http import DataServer
+
+            srv = self.server
+            if srv is not None and not srv.closed:
+                return srv
+            self.server = DataServer(
+                self, host=host, port=port, config=config, **server_kwargs
+            ).start()
+            return self.server
         return self.store.serve(config)
 
     def serve_ops(self, port: int = 0, host: "str | None" = None):
@@ -994,7 +1001,10 @@ class ReplicaStore:
         """Stop the apply loop (joined), close the transport (its socket)
         and the follower's store. The replica loaded its cold store
         itself, so the cold store's services (scheduler, ops plane) close
-        here too. Idempotent."""
+        here too, and the data plane if one is mounted. Idempotent."""
+        srv = self.server
+        if srv is not None:
+            srv.close()
         self.stop()
         try:
             self.transport.close()

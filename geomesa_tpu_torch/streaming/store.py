@@ -12,9 +12,8 @@ hot-tier mutation is logged before it is acknowledged, and
 Standing queries ride the write path: once ``standing()`` or
 ``subscribe()`` attaches the engine (on the cold store's device), every
 acknowledged batch routes through its SubscriptionIndex
-(streaming/standing.py). The network data plane (``serve(port=...)``)
-belongs to a later tier of the port (ROADMAP A12b) and raises
-``NotImplementedError`` naming it.
+(streaming/standing.py). ``serve(port=...)`` mounts the network data
+plane (serving/http.py) over the store.
 """
 
 from __future__ import annotations
@@ -223,6 +222,8 @@ class LambdaStore:
         self._sub_lock = witness(threading.Lock(), "LambdaStore._sub_lock")
         self._sub_records: dict[str, dict] = {}  # guarded-by: _sub_lock
         self._standing = None
+        # the network data plane: attached by serve(port=...)
+        self.server = None
         # a cache-enabled cold store: hot-tier upsert/delete/expiry bump
         # the shared generations, so merged answers over a mutated hot
         # tier never compose against stale cold cache entries
@@ -593,13 +594,23 @@ class LambdaStore:
               host: "str | None" = None, **server_kwargs):
         """Attach (or return) the cold store's serving tier: with a
         scheduler attached, the cold half of every :meth:`query` is
-        admitted through it. Returns the scheduler. ``port`` (the network
-        data plane) is not ported yet (ROADMAP A12b) and raises."""
+        admitted through it. Returns the scheduler.
+
+        With ``port``, mounts the network data plane over this store
+        instead and returns the started
+        :class:`~geomesa_tpu_torch.serving.http.DataServer`: its ingest
+        acks ride :meth:`write`'s WAL path, so a 200 means durable to the
+        sync policy's guarantee."""
         if port is not None:
-            raise NotImplementedError(
-                "serve(port=...) mounts the network data plane, which is not "
-                "ported yet (ROADMAP A12b)"
-            )
+            from geomesa_tpu_torch.serving.http import DataServer
+
+            srv = self.server
+            if srv is not None and not srv.closed:
+                return srv
+            self.server = DataServer(
+                self, host=host, port=port, config=config, **server_kwargs
+            ).start()
+            return self.server
         return self.cold.serve(config)
 
     def serve_ops(self, port: int = 0, host: "str | None" = None):
@@ -655,9 +666,13 @@ class LambdaStore:
         return len(self.query(f))
 
     def close(self) -> None:
-        """Release the flusher's worker pool and the WAL (its interval
-        sync thread included). Idempotent. The cold store's own services
-        (scheduler, ops plane) close with ``cold.close()``."""
+        """Release the data plane (if mounted), the flusher's worker pool
+        and the WAL (its interval sync thread included). Idempotent. The
+        cold store's own services (scheduler, ops plane) close with
+        ``cold.close()``."""
+        srv = self.server
+        if srv is not None:
+            srv.close()
         self.flusher.close()
         if self.wal is not None:
             self.wal.close()

@@ -42,6 +42,11 @@ store with a tile pyramid attached draws from LambdaStore writes and
 flushes, writes into the delta tier and ``compact``; after each step
 ``knn_many`` ids in order, ``spatial_join_indexed`` pairs and the
 pyramid's grids at every zoom (each also equal to ``fresh``) agree.
+The point trees run again on S3 + S2 stores
+(``geomesa.indices.enabled=s3,s2``, once and tiered) with their hints,
+and through each package's data plane: ``GET /query`` with the tree as
+its CQL (and ``limit``) answers the same status, rows header and GeoJSON
+body byte for byte.
 Tolerance: exact.
 """
 
@@ -53,7 +58,7 @@ import geomesa_tpu
 import geomesa_tpu_torch
 from geomesa_tpu.planning.hints import QueryHints as JHints
 from geomesa_tpu_torch.planning.hints import QueryHints as THints
-from test_torch_hints import DAY, NAMES, T0, point_data, point_store
+from test_torch_hints import DAY, NAMES, POINT_SPEC, T0, point_data, point_store
 from test_torch_native import ensure_jax_native
 
 torch.set_num_threads(1)
@@ -855,3 +860,83 @@ def test_analytics_sequence_draws_every_op(analytics_runs):
     assert {op for op, _ in _an_steps()} == {"write", "flush", "cold_write", "compact"}
     counts = [c for *_, c in analytics_runs[1]]
     assert counts[-1] > counts[0] and len(analytics_runs[1][0][1]) > 0
+
+
+# -- the S2 / S3 indexes and the data plane ---------------------------------
+
+S2_TREES = 60  # the first point trees of CASES
+S2_STORES = ("once", "tiered")
+
+
+def _s2_store(pkg, data, writes, **kw):
+    sft = pkg.FeatureType.from_spec("pts", POINT_SPEC)
+    sft.user_data["geomesa.indices.enabled"] = "s3,s2"
+    ds = pkg.DataStore(tile=TILE, **kw)
+    ds.create_schema(sft)
+    x, y, t, age, score, name = data
+    lo = 0
+    for n in writes:
+        sl = slice(lo, lo + n)
+        cols = {"geom": (x[sl], y[sl]), "dtg": t[sl], "age": age[sl], "score": score[sl],
+                "name": name[sl]}
+        ds.write("pts", pkg.FeatureCollection.from_columns(sft, np.arange(lo, lo + n), cols))
+        lo += n
+    return ds
+
+
+@pytest.fixture(scope="module")
+def s2_stores():
+    ensure_jax_native()
+    pdata = point_data(seed=17, n=N)
+    out = {}
+    for w in S2_STORES:
+        writes = (N,) if w == "once" else (2_500, 500)
+        out[w] = (_s2_store(geomesa_tpu, pdata, writes),
+                  _s2_store(geomesa_tpu_torch, pdata, writes, device="cpu"))
+    yield out
+    for pair in out.values():
+        for ds in pair:
+            ds.close()
+
+
+S2_PARAMS = [(w, c) for w in S2_STORES for c in range(S2_TREES // CHUNK)]
+
+
+@pytest.mark.parametrize("writes,chunk", S2_PARAMS, ids=[f"{w}-{c}" for w, c in S2_PARAMS])
+def test_random_trees_agree_on_s2_stores(s2_stores, writes, chunk):
+    jds, tds = s2_stores[writes]
+    assert [i.name for i in tds.indexes("pts")] == ["s3", "s2"]
+    nonempty = 0
+    for q, kw, limit in CASES["pts"][chunk * CHUNK:(chunk + 1) * CHUNK]:
+        want = np.asarray(jds.query("pts", q).ids).tolist()
+        assert np.asarray(tds.query("pts", q).ids).tolist() == want, q
+        nonempty += bool(want)
+        got = tds.query("pts", q, limit=limit, hints=THints(**kw))
+        ref = jds.query("pts", q, limit=limit, hints=JHints(**kw))
+        assert np.asarray(got.ids).tolist() == np.asarray(ref.ids).tolist(), (q, kw, limit)
+    assert nonempty
+
+
+@pytest.mark.parametrize("writes", S2_STORES)
+def test_random_trees_agree_through_the_data_plane(s2_stores, writes):
+    from urllib.parse import quote
+
+    from geomesa_tpu.serving import DataClient as JClient
+    from geomesa_tpu_torch.serving import DataClient as TClient
+
+    jds, tds = s2_stores[writes]
+    jsrv, tsrv = jds.serve(port=0), tds.serve(port=0)
+    try:
+        jc, tc = JClient(jsrv.url), TClient(tsrv.url)
+        rows = 0
+        for q, _kw, limit in CASES["pts"][:S2_TREES]:
+            path = f"/query/pts?cql={quote(q)}" + (f"&limit={limit}" if limit else "")
+            (js, jh, jb), (ts, th, tb) = jc.request("GET", path), tc.request("GET", path)
+            assert ts == js, q
+            assert th.get("X-Geomesa-Rows") == jh.get("X-Geomesa-Rows"), q
+            assert tb == jb, q
+            rows += int(th.get("X-Geomesa-Rows") or 0)
+        assert rows
+    finally:
+        jsrv.close()
+        tsrv.close()

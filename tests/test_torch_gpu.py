@@ -1260,3 +1260,86 @@ def test_analytics_on_the_card_equal_the_cpu_store():
                 assert np.array_equal(g, pc.fetch("p", z, x, y).grid)
                 assert np.array_equal(g, pg.fresh("p", z, x, y).grid)
     assert kernels.BLOCK_SCAN.launches > 0
+
+
+def _s2_store(device, n=60_000):
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+
+    sft = FeatureType.from_spec("s", "name:String,dtg:Date,*geom:Point:srid=4326")
+    sft.user_data["geomesa.indices.enabled"] = "s3,s2"
+    ds = DataStore(device=device)
+    ds.create_schema(sft)
+    rng = np.random.default_rng(31)
+    t0 = int(np.datetime64("2024-01-01T00:00:00", "ms").astype(np.int64))
+    ds.write("s", FeatureCollection.from_columns(
+        sft, [f"s{i}" for i in range(n)],
+        {"name": np.array([f"n{i % 9}" for i in range(n)]),
+         "dtg": t0 + rng.integers(0, 20 * 86_400_000, n),
+         "geom": (rng.uniform(-180, 180, n), rng.uniform(-90, 90, n))}))
+    return ds
+
+
+def test_s2_and_s3_stores_on_the_card_equal_the_cpu_store():
+    """S3 (bbox + during) and S2 (bbox) plans on the card: ids in order and
+    under ``limit`` equal to a CPU store's, through K1; density and bounds
+    through K3 and K4; keys on every face (bit 63 set on faces 4 and 5)."""
+    from geomesa_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gpu, cpu = _s2_store("cuda"), _s2_store("cpu")
+    zs = gpu.table("s", "s2").zs
+    assert zs.dtype == np.uint64 and ((zs >> np.uint64(63)) == 1).any()
+    queries = [
+        "bbox(geom, -30, 20, 40, 60) AND dtg DURING 2024-01-03T00:00:00Z/2024-01-12T00:00:00Z",
+        "bbox(geom, 120, -90, 180, -30) AND dtg DURING 2024-01-01T00:00:00Z/2024-01-05T00:00:00Z",
+        "bbox(geom, -30, 20, 40, 60)", "bbox(geom, -180, -90, 180, -40)",
+    ]
+    for k in kernels.KERNELS:
+        k.reset_counts()
+    for q in queries:
+        assert gpu.explain("s", q).splitlines()[-1] == cpu.explain("s", q).splitlines()[-1]
+        assert gpu.query("s", q).ids.tolist() == cpu.query("s", q).ids.tolist(), q
+        assert gpu.query("s", q, limit=9).ids.tolist() == cpu.query("s", q, limit=9).ids.tolist()
+        g = gpu.density("s", q, envelope=(-180, -90, 180, 90), width=64, height=32)
+        c = cpu.density("s", q, envelope=(-180, -90, 180, 90), width=64, height=32)
+        assert np.array_equal(np.asarray(g), np.asarray(c))
+        assert gpu.bounds("s", q) == cpu.bounds("s", q)
+    assert kernels.BLOCK_SCAN.launches > 0
+    assert kernels.DENSITY.launches > 0 and kernels.BOUNDS.launches > 0
+
+
+def test_data_plane_on_the_card_equals_a_cpu_server():
+    """One store on the card and one on the CPU behind ``serve(port=0)``:
+    GeoJSON bodies byte for byte, rows headers and statuses equal, and
+    the card's queries go through K1 or K2; an ingest acks on both."""
+    from urllib.parse import quote
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.serving import DataClient
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gpu, cpu = _s2_store("cuda", n=40_000), _s2_store("cpu", n=40_000)
+    try:
+        gc, cc = DataClient(gpu.serve(port=0).url), DataClient(cpu.serve(port=0).url)
+        for k in kernels.KERNELS:
+            k.reset_counts()
+        for q, limit in (("bbox(geom, -30, 20, 40, 60)", None), ("bbox(geom, 0, 0, 90, 45)", 100),
+                         ("name = 'n3' AND bbox(geom, -90, -45, 90, 45)", 50),
+                         ("bbox(geom, 170, 80, 171, 81)", None)):
+            path = f"/query/s?cql={quote(q)}" + (f"&limit={limit}" if limit else "")
+            (gs, gh, gb), (cs, ch, cb) = gc.request("GET", path), cc.request("GET", path)
+            assert (gs, gh.get("X-Geomesa-Rows"), gb) == (cs, ch.get("X-Geomesa-Rows"), cb), q
+        assert kernels.BLOCK_SCAN.launches + kernels.BLOCK_SCAN_MULTI.launches > 0
+        feat = {"type": "FeatureCollection", "features": [
+            {"type": "Feature", "id": "new-1", "geometry": {"type": "Point", "coordinates": [1, 2]},
+             "properties": {"name": "zz", "dtg": 1704067200000}}]}
+        assert gc.ingest("s", feat) == cc.ingest("s", feat) == {
+            "acked": 1, "durable": False, "type": "s"}
+        assert gc.query("s", cql="name = 'zz'") == cc.query("s", cql="name = 'zz'")
+        for path in ("/query/nope", "/tiles/s/density/0/0/0", "/tenants"):
+            assert gc.request("GET", path)[0] == cc.request("GET", path)[0]
+    finally:
+        gpu.close()
+        cpu.close()

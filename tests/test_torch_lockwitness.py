@@ -44,6 +44,10 @@ store with a ``TilePyramid`` attached, pyramid fetches on two threads
 racing a LambdaStore's sliced fold flush, then a schema-drop sweep; the
 pyramid's lock (``TilePyramid._lock``, the JAX package's rank 54) is
 witnessed with the cache tier's, and the edges equal the JAX package's.
+A seventh workload arms the tuning tier (a pulse every query) behind the
+scheduler and the ops plane: ``TuningManager._lock`` is witnessed under
+the JAX package's name as a strict leaf, and the edges equal the JAX
+package's.
 """
 
 import json
@@ -658,7 +662,16 @@ def _standing_replica_workload(P, tmp):
 def test_standing_and_replica_workload_edges_equal_the_jax_package(tmp_path):
     """Standing queries and replication under both witnesses: the six
     locks of the two modules seen under the JAX package's names, the same
-    edges and blocking points, acyclic, the same answers."""
+    edges and blocking points, acyclic, the same answers. The JAX
+    package's global registry (its follower's promotion) is left as it
+    was found."""
+    from test_torch_replica import jax_global_metrics_kept
+
+    with jax_global_metrics_kept():
+        _standing_replica_edges(tmp_path)
+
+
+def _standing_replica_edges(tmp_path):
     (jsnap, jcyc, jans), (tsnap, tcyc, tans) = (_standing_replica_workload(P, str(tmp_path))
                                                 for P in BOTH)
     assert tans == jans and len(tans[0]) > 0
@@ -755,3 +768,54 @@ def test_pyramid_workload_edges_equal_the_jax_package():
     edges = set(map(tuple, tsnap["edges"]))
     assert ("DataStore._write_lock", "TilePyramid._lock") in edges
     assert {b for a, b in edges if a == "TilePyramid._lock"} <= {"MetricsRegistry._lock"}
+
+
+def _tuning_workload(P):
+    """Arm the witness, attach an armed tuning tier (a pulse every query)
+    behind the serving tier and the ops plane, and drive queries, pulses,
+    the burn gate and a ``/debug/tuning`` scrape; return the snapshot,
+    the cycle and the answers."""
+    import urllib.request
+
+    P.lw.enable()
+    reg = P.metrics.MetricsRegistry()
+    rng = np.random.default_rng(29)
+    n = 2_000
+    sft = P.pkg.FeatureType.from_spec("t", SPEC)
+    ds = P.pkg.DataStore(tile=1024, metrics=reg, cache=True, **P.kw)
+    ds.create_schema(sft)
+    ds.write("t", P.pkg.FeatureCollection.from_columns(sft, np.arange(n), {
+        "name": np.array(["a", "b", "c"])[rng.integers(0, 3, n)],
+        "age": rng.integers(0, 50, n).astype(np.int32),
+        "dtg": T0 + rng.integers(0, 10 * DAY, n),
+        "geom": (rng.uniform(-50, 50, n), rng.uniform(-50, 50, n))}))
+    ds.attach_slo()
+    mgr = ds.attach_tuning(enabled=True, interval=1)
+    sched = ds.serve()
+    answers = []
+    for q in QUERIES:
+        answers.append(np.asarray(sched.submit("t", q, tenant="gold").result(60).ids).tolist())
+        answers.append(np.asarray(ds.query("t", q).ids).tolist())
+    mgr.pulse()
+    ops = ds.serve_ops()
+    with urllib.request.urlopen(ops.url + "/debug/tuning", timeout=30) as r:
+        answers.append(r.status)
+    answers.append(mgr.report()["queries"])
+    ds.close()
+    snap = P.lw.REPORT.snapshot()
+    cycle = P.lw.REPORT.cycle()
+    P.lw.disable()
+    return snap, cycle, answers
+
+
+def test_tuning_workload_edges_equal_the_jax_package():
+    """``TuningManager._lock`` is witnessed under the JAX package's name,
+    and it is a strict leaf: no lock is taken while it is held. The edges
+    and blocking events equal the JAX package's, acyclic."""
+    (jsnap, jcyc, jans), (tsnap, tcyc, tans) = (_tuning_workload(P) for P in BOTH)
+    assert tans == jans
+    assert jcyc is None and tcyc is None
+    assert "TuningManager._lock" in tsnap["seen"] and "TuningManager._lock" in jsnap["seen"]
+    assert tsnap["edges"] == jsnap["edges"]
+    assert tsnap["blocking"] == jsnap["blocking"]
+    assert not any(a == "TuningManager._lock" for a, _ in tsnap["edges"])

@@ -40,7 +40,14 @@
   fresh interpreter; ``knn_many``, ``spatial_join_indexed`` and
   ``TilePyramid`` scan through K1 or K2's plain versions on a CPU store
   and launch nothing, and raise on a store whose columns lie on a device
-  without a kernel.
+  without a kernel;
+- the data plane, the S2 curve and indexes, the tuning tier and the CLI
+  (``serving.http``, ``curve.s2``, ``index.s2``, ``tuning`` and its four
+  modules, ``cli``) import neither jax nor anything of ``geomesa_tpu``,
+  each on its own in a fresh interpreter; ``serve(port=)`` mounts the
+  data plane on a DataStore, a LambdaStore and a ReplicaStore; the CLI
+  loads onto the card unless it is given ``--device cpu``, and raises
+  where there is no card.
 """
 
 import importlib.util
@@ -445,8 +452,33 @@ def test_every_port_knob_is_a_jax_knob_with_its_default():
                  "geomesa.join.broad.fraction", "geomesa.join.in.selectivity",
                  "geomesa.tiles.leaf.zoom", "geomesa.tiles.px",
                  "geomesa.tiles.cache.max.bytes", "geomesa.tiles.ttl",
-                 "geomesa.tiles.max.age.s"):
+                 "geomesa.tiles.max.age.s", "geomesa.serve.host", "geomesa.serve.page.rows",
+                 "geomesa.serve.max.body.bytes", "geomesa.serve.retry.after.ms",
+                 "geomesa.tuning.enabled", "geomesa.tuning.interval",
+                 "geomesa.tuning.decisions", "geomesa.tuning.plan.max.adjust",
+                 "geomesa.tuning.plan.deadband", "geomesa.tuning.plan.min.count",
+                 "geomesa.tuning.burn.objective", "geomesa.tuning.burn.threshold",
+                 "geomesa.tuning.burn.release", "geomesa.scan.fused.slots"):
         assert name in port, name
+
+
+def test_registry_holds_every_knob_and_describe_lists_it():
+    """``conf.REGISTRY`` maps every declared knob's name to it (the tuning
+    manager looks knobs up there), and ``describe()`` prints one line per
+    knob as the JAX package's does (the CLI's env command)."""
+    from geomesa_tpu import conf as jconf
+    from geomesa_tpu_torch import conf as tconf
+
+    port = _knobs(tconf)
+    assert tconf.REGISTRY == port
+    assert set(port) <= set(jconf.REGISTRY)
+    lines = tconf.describe().splitlines()
+    assert len(lines) == len(port)
+    ref = dict(ln.split(" = ", 1) for ln in jconf.describe().splitlines())
+    for ln in lines:
+        # the value and the environment key (the docs are the port's own)
+        name, rest = ln.split(" = ", 1)
+        assert rest.split("] ")[0] == ref[name].split("] ")[0], name
 
 
 _IMPORT_ONE = """
@@ -772,3 +804,101 @@ def test_analytics_take_plain_on_cpu_and_raise_without_a_kernel(device, what):
     before = [k.launches for k in KERNELS]
     assert _analytics_call(ds, what)
     assert [k.launches for k in KERNELS] == before
+
+
+SLICE_MODULES = ["serving.http", "serving", "curve.s2", "index.s2", "curve", "index", "tuning",
+                 "tuning.controllers", "tuning.reweight", "tuning.burnshed", "tuning.manager",
+                 "cli"]
+
+
+@pytest.fixture(scope="module")
+def slice_imports():
+    """Each of the slice's modules imported on its own in a fresh
+    interpreter, the interpreters started together: module -> (rc,
+    stdout, stderr)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    procs = {
+        m: subprocess.Popen([sys.executable, "-c", _IMPORT_ONE, f"geomesa_tpu_torch.{m}"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+        for m in SLICE_MODULES
+    }
+    out = {}
+    for m, p in procs.items():
+        stdout, stderr = p.communicate(timeout=180)
+        out[m] = (p.returncode, stdout, stderr)
+    return out
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_data_plane_s2_tuning_and_cli_modules_import_no_jax(slice_imports, module):
+    rc, stdout, stderr = slice_imports[module]
+    assert rc == 0, stderr
+    assert stdout.strip() == "[]", stdout
+    path = os.path.join(ROOT, "geomesa_tpu_torch", *module.split("."))
+    src = open(path + ".py" if os.path.exists(path + ".py") else
+               os.path.join(path, "__init__.py")).read()
+    assert "import jax" not in src and "from geomesa_tpu." not in src
+    assert "from geomesa_tpu import" not in src
+
+
+@pytest.mark.parametrize("kind", ["datastore", "lambda", "replica"])
+def test_serve_port_mounts_the_data_plane_on_every_store(kind, tmp_path):
+    """``serve(port=)`` on a DataStore, a LambdaStore and a ReplicaStore
+    returns a started DataServer (it raised ``NotImplementedError`` before
+    the data plane was ported); close() ends its thread."""
+    from geomesa_tpu_torch import FeatureCollection, FeatureType
+    from geomesa_tpu_torch.serving import DataClient, DataServer
+    from geomesa_tpu_torch.storage import persist
+    from geomesa_tpu_torch.streaming import LambdaStore, PipeTransport, ReplicaStore, StreamConfig
+
+    sft = FeatureType.from_spec("t", "name:String,dtg:Date,*geom:Point:srid=4326")
+    ds = DataStore(device="cpu")
+    ds.create_schema(sft)
+    ds.write("t", FeatureCollection.from_columns(
+        sft, ["a", "b"], {"name": np.array(["x", "y"]), "dtg": np.zeros(2, np.int64),
+                          "geom": (np.array([1.0, 2.0]), np.array([1.0, 2.0]))}))
+    store = ds
+    if kind != "datastore":
+        root = str(tmp_path / "s")
+        persist.save(ds, root)
+        store = LambdaStore(ds, "t", config=StreamConfig(chunk_rows=64, fold_rows=4096),
+                            wal_dir=f"{root}/_wal")
+        if kind == "replica":
+            store.close()
+            store = ReplicaStore(root, str(tmp_path / "f" / "_wal"), PipeTransport.pair()[1],
+                                 type_name="t", device="cpu")
+    srv = store.serve(port=0)
+    try:
+        assert isinstance(srv, DataServer) and store.serve(port=0) is srv
+        assert srv.host == "127.0.0.1" and srv._thread.name == "geomesa-serve"
+        assert len(DataClient(srv.url).query("t")["features"]) == 2
+    finally:
+        store.close()
+        ds.close()
+    assert srv.closed and not srv._thread
+
+
+def test_cli_loads_onto_the_card_unless_told_otherwise(tmp_path, monkeypatch, capsys):
+    from geomesa_tpu_torch import FeatureType, cli
+    from geomesa_tpu_torch.storage import persist
+
+    ds = DataStore(device="cpu")
+    ds.create_schema(FeatureType.from_spec("t", "*geom:Point:srid=4326"))
+    root = str(tmp_path / "cat")
+    persist.save(ds, root)
+    parser = cli.build_parser()
+    for argv in (["count", "-c", root, "-f", "t"], ["serve", "-c", root], ["env"],
+                 ["create-schema", "-c", root, "-f", "u", "-s", "*geom:Point:srid=4326"]):
+        assert parser.parse_args(argv).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["count", "-c", root, "-f", "t"], ["tune", "-c", root],
+                 ["create-schema", "-c", str(tmp_path / "new"), "-f", "u", "-s",
+                  "*geom:Point:srid=4326"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    assert cli.main(["count", "-c", root, "-f", "t", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.strip() == "0"
+    src = inspect.getsource(cli)
+    assert "environ" not in src and "getenv" not in src

@@ -34,6 +34,7 @@ import os
 import socket
 import threading
 import time
+from contextlib import contextmanager
 from importlib import import_module
 from types import SimpleNamespace
 
@@ -42,6 +43,7 @@ import pytest
 import torch
 
 import geomesa_tpu
+import geomesa_tpu.metrics
 import geomesa_tpu_torch
 from test_torch_native import ensure_jax_native
 
@@ -80,10 +82,29 @@ def _jax_native():
     ensure_jax_native()
 
 
+@contextmanager
+def jax_global_metrics_kept():
+    """Leave the JAX package's process-global registry as it was found. A
+    follower that loads its own cold store counts its promotions and fences
+    there; tests/test_replica.py counts them exactly, and under ``--dist
+    loadfile`` its file may run after this one in the same worker."""
+    reg = geomesa_tpu.metrics.global_registry()
+    counters, gauges = dict(reg.counters), dict(reg.gauges)
+    try:
+        yield
+    finally:
+        with reg._lock:
+            reg.counters.clear()
+            reg.counters.update(counters)
+            reg.gauges.clear()
+            reg.gauges.update(gauges)
+
+
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
     monkeypatch.setenv("GEOMESA_TPU_IO_BACKOFF_S", "0.0001")
-    yield
+    with jax_global_metrics_kept():
+        yield
     for P in BOTH:
         P.fault.injector().reset()
         P.conf.REPLICA_STALENESS_MAX_MS.clear()
@@ -589,9 +610,10 @@ def test_ship_giveup_health_reason(tmp_path, closing):
 
 def test_ops_plane_of_a_follower(tmp_path, closing):
     """``ReplicaStore.serve_ops()``: ``/health`` carries the ``replica``
-    section, ``close()`` ends the ops threads (the JAX package's leaves
-    them to the cold store's own ``close()``), and ``serve(port=)`` names
-    ROADMAP A12b."""
+    section, ``close()`` ends the ops threads and the data plane (the JAX
+    package's leaves the ops threads to the cold store's own
+    ``close()``), and ``serve(port=)`` mounts the read-only data plane
+    (it raised ``NotImplementedError`` until that was ported)."""
     import json
     import urllib.request
 
@@ -600,8 +622,8 @@ def test_ops_plane_of_a_follower(tmp_path, closing):
     ship.attach(end)
     ship.pump()
     fol.drain()
-    with pytest.raises(NotImplementedError, match="A12b"):
-        fol.serve(port=0)
+    data = fol.serve(port=0)
+    assert data.replica is fol and fol.serve(port=0) is data
     srv = fol.serve_ops()
     with urllib.request.urlopen(srv.url + "/health", timeout=10) as r:
         health = json.loads(r.read().decode())
@@ -609,7 +631,7 @@ def test_ops_plane_of_a_follower(tmp_path, closing):
         stats = json.loads(r.read().decode())
     assert health["replica"]["replayed"] == fol.replayed and "t" in stats
     fol.close()
-    assert srv.closed  # the port's close() ends the follower's services too
+    assert srv.closed and data.closed  # the port's close() ends the follower's services
     # the JAX package's close() leaves them running (a deliberate difference)
     jlam, jfol, _, _ = _pair(JAX, tmp_path, closing)
     jsrv = jfol.serve_ops()

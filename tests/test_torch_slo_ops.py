@@ -20,8 +20,9 @@ tier).
   Chrome cross-reference on one trace id, ``/stats``, a 404); and the
   ``DataStore.close`` lifecycle (no ops or serving thread left, the port
   rebinding at once, close idempotent);
-- fault C8: the lifecycle census counts every ops, telemetry and serving
-  thread in the process, and the JAX package's data-plane tests
+- fault C8: the lifecycle census counts every ops, telemetry, serving and
+  data-plane (``geomesa-serve``) thread in the process, and the JAX
+  package's data-plane tests
   (tests/test_serve_http.py: ``serve(port=)`` starts a scheduler its
   ``DataServer.close`` leaves running) leave JAX schedulers alive in
   their xdist worker. ``close_jax_services_left_open`` closes the JAX
@@ -66,11 +67,12 @@ KNOBS = ("OBS_TRACE_SAMPLE", "OBS_SLOW_MS", "OBS_SLOW_MAX", "PLAN_ESTIMATE",
          "OBS_SLO_REPLICA_STALENESS_P99_MS", "OBS_SLO_TILES_P99_MS")
 
 
-CENSUS = ("geomesa-ops", "geomesa-telemetry", "geomesa-serving")
+CENSUS = ("geomesa-ops", "geomesa-telemetry", "geomesa-serving", "geomesa-serve")
 
 
 def census() -> list:
-    """Every live ops, telemetry or serving thread in the process."""
+    """Every live ops, telemetry, serving or data-plane thread in the
+    process."""
     return [t for t in threading.enumerate() if t.name in CENSUS and t.is_alive()]
 
 
@@ -617,9 +619,7 @@ def test_close_joins_threads_and_port_rebinds_immediately():
             assert srv2.closed and ds.scheduler.closed
         deadline = time.monotonic() + 5.0
         while time.monotonic() < deadline:
-            leaked = [t for t in threading.enumerate()
-                      if t.name in ("geomesa-ops", "geomesa-telemetry", "geomesa-serving")
-                      and t.is_alive()]
+            leaked = [t for t in threading.enumerate() if t.name in CENSUS and t.is_alive()]
             if not leaked:
                 break
             time.sleep(0.02)
@@ -645,6 +645,32 @@ def test_jax_services_left_open_are_closed_and_port_ones_still_counted():
         left = census()
         assert [t.name for t in left] == ["geomesa-serving"]
         assert left[0]._target.__self__ is port_sched
+    finally:
+        port_ds.close()
+        jax_ds.close()
+    assert census() == []
+
+
+def test_jax_data_servers_left_open_are_closed_and_port_ones_still_counted():
+    """The census takes in the data plane's ``geomesa-serve`` thread: a
+    JAX ``DataServer`` left open (as tests/test_serve_http.py's module
+    fixture leaves one until its file ends) is ended with its scheduler
+    and sampler; a port ``DataServer`` left open is not, so the census
+    sees its serve thread, scheduler and sampler."""
+    jax_ds = _store(JAX, n=50)
+    jax_srv = jax_ds.serve(port=0)
+    port_ds = _store(PORT, n=50)
+    port_srv = port_ds.serve(port=0)
+    try:
+        ended = close_jax_services_left_open()
+        assert sorted(ended) == ["geomesa-serve", "geomesa-serving", "geomesa-telemetry"]
+        assert not jax_srv._thread.is_alive()
+        left = census()
+        assert sorted(t.name for t in left) == ["geomesa-serve", "geomesa-serving",
+                                                "geomesa-telemetry"]
+        assert {type(t._target.__self__).__module__.split(".")[0] for t in left} == \
+            {"geomesa_tpu_torch"}
+        assert port_srv._thread in left
     finally:
         port_ds.close()
         jax_ds.close()

@@ -442,12 +442,19 @@ def test_close_ends_the_interval_thread_and_the_pool(tmp_path):
 
 
 def test_later_items_raise_not_implemented():
-    """Only the network data plane is still a later item; the standing
+    """No later item is left: ``serve(port=)``, the last one, mounts the
+    network data plane over the LambdaStore (it raised
+    ``NotImplementedError`` until the data plane was ported); the standing
     surface it once shared this test with is ported."""
+    from geomesa_tpu_torch.serving.http import DataServer
+
     lam = tstream.LambdaStore(_cold(PORT, n=100), "t", config=_config(PORT))
-    with pytest.raises(NotImplementedError, match="A12b"):
-        lam.serve(port=0)
-    assert lam.cold.scheduler is None  # serve(port=) attached nothing
+    assert lam.cold.scheduler is None
+    srv = lam.serve(port=0)
+    assert isinstance(srv, DataServer) and srv.lam is lam and lam.serve(port=0) is srv
+    assert lam.cold.scheduler is not None  # the data plane admits through it
+    srv.close()
+    lam.cold.close()
     assert lam.unsubscribe("s1") is False  # no engine attached yet
     assert lam.standing() is lam.standing()
     assert lam.standing().device == lam.cold.device
