@@ -133,7 +133,7 @@ Phases, each printing one JSON line:
    DURING`` queries plan as
    unions of a Z2 and a Z3 scan: the box branch's ids, then the window
    branch's unseen ids, each branch equal to an f64 brute force;
-12. gdelt-z3-10M-mutate (3,000,000 rows, the cell's 10M cut for the
+12. gdelt-z3-10M-mutate (2,000,000 rows, the cell's 10M cut for the
    script's wall, ``reduced``): a
    GDELT-shaped store on Z3 and Z2 takes ``fold_upsert`` of 500,000
    rows (250k moving objects reporting again in the span's last 21
@@ -151,7 +151,7 @@ Phases, each printing one JSON line:
    and upload only the slice's rows; on the final store ``query_many``
    of 16, 4 count estimates, densities and bounds against the plain
    versions, and ``warmup()``;
-13. gdelt-attr-10M: 3,000,000 GDELT-shaped points (the cell's 10M, cut
+13. gdelt-attr-10M: 2,000,000 GDELT-shaped points (the cell's 10M, cut
    for the script's wall; ``reduced`` says so) with two string attribute
    indexes (``EventCode``: 300 CAMEO-shaped codes of 2-4
    digits; ``Actor1Name``: 2,000 upper-case names of 3-40 characters,
@@ -163,7 +163,7 @@ Phases, each printing one JSON line:
    16 rare-code regional queries (fused), 4 count estimates >= the
    exact counts; then two 50k-row appends with names of other widths
    stay in the delta and the 32 queries run again;
-14. gdelt-z3-10M-persist: a 3,000,000-row GDELT Z3 store (the cell's
+14. gdelt-z3-10M-persist: a 2,000,000-row GDELT Z3 store (the cell's
    10M cut for the script's wall, ``reduced``) with
    ``EventRootCode`` answers 16 measured queries, 4 densities, both
    bounds and 4 count estimates; ``persist.save`` writes it to a
@@ -184,7 +184,7 @@ Phases, each printing one JSON line:
    queries as the device store, in order; the lock witness armed around
    a small write, query and fold workload gives an acyclic graph (its
    edges in the record);
-15. gdelt-z3-10M-secure-cached: 3,000,000 GDELT-shaped events (the
+15. gdelt-z3-10M-secure-cached: 2,000,000 GDELT-shaped events (the
    cell's 10M cut for the script's wall, ``reduced``) on Z3 and
    Z2 with ``EventRootCode`` declared ``vis=secret`` and a ``vis`` label
    column from the path's own seed (50 % public, 20 % ``analyst``, 15 %
@@ -250,7 +250,7 @@ Phases, each printing one JSON line:
 17. moving-z3-3M-stream: the reference's own streaming scenarios
    (``bench.py`` ``config_stream`` and ``config_wal``). ``sustained``: a
    cold Z3 store of 3,000,000 tracked objects (name, one day of times,
-   a point), ``serve()`` attached; 12 flushes (the reference's 24, cut
+   a point), ``serve()`` attached; 8 flushes (the reference's 24, cut
    for the script's wall, ``reduced``), each a 20k-row batch (half
    updates of existing ids with fresh positions and times, half new
    ids) written in 2048-row sub-batches and ``flush()``ed, then
@@ -258,7 +258,7 @@ Phases, each printing one JSON line:
    BBOX and BBOX + DURING boxes through ``LambdaStore.query`` every 150
    ms; every one of 24 probe queries' ids and values equal a numpy model
    of the final state; then the legacy flush for 2 flushes. ``wal``: a
-   200k store and the same write + flush workload with no WAL and under
+   200k store and 100k rows of the same write + flush workload with no WAL and under
    ``sync`` off, interval and always (rows/s each, fsync times, the
    interval / no-WAL ratio beside the reference's 0.85); a
    ``checkpoint``, a crash and ``LambdaStore.recover`` on the card equal
@@ -308,7 +308,7 @@ Phases, each printing one JSON line:
    the lagging follower: ``/health`` with the ``replica`` section,
    ``/stats`` answering, no kernel launched by the scrapes; ``close()``
    of every store and the shipper leaves no thread;
-20. gdelt-ingest-20M: the reference's ``config_ingest``. 20M GDELT-shaped
+20. gdelt-ingest-20M: the reference's ``config_ingest``. 10M GDELT-shaped (the cell's 20M, cut)
    rows over 80 days in 1M-row chunks on Z3 and Z2, loaded by
    ``BulkLoader`` at 1 and 4 workers (the reference's 1, 2 and 4 cut for
    the path's 90 s, and its sequential ``write`` loop cut for the
@@ -353,13 +353,13 @@ Phases, each printing one JSON line:
    each equal to an f64 brute force over every row;
 22. moving-z3-2M-http: the reference's data-plane scenario
    (``config_serve_http``) with its cold store raised from 40k to
-   2,000,000 rows: a saved cold store served as a LambdaStore with a WAL
+   1,000,000 rows (the cell's 2M, cut): a saved cold store served as a LambdaStore with a WAL
    under ``sync=always`` through ``serve(port=0)`` on loopback. The
    GeoJSON body of each of three probe boxes equals ``_geojson`` of the
    in-process query byte for byte, at the default page size and at 1,000
    rows; the mixed closed loop (2 s: two readers at ``limit=256``, one
    client ingesting 200-row batches; read q/s and acked rows/s); bursts
-   of 16 concurrent readers (fused into K2); fairness (6 s each: the
+   of 16 concurrent readers (fused into K2); fairness (3 s each, its 6 cut: the
    compliant tenant's read p99 alone, then under an adversary of quota 1
    flooding from 3 threads; the degradation beside the reference's 1.5x
    bound, printed; the adversary's 429s accounted to it); every HTTP-acked
@@ -390,10 +390,32 @@ Phases, each printing one JSON line:
    untuned store's; an armed tier behind ``serve()`` under a 1 us
    objective sheds the low-weight tenant first and then releases;
    ``close()`` writes ``_tuning.json``, which the CLI's ``tune`` (and
-   ``ops``) read on the card.
+   ``ops``) read on the card;
+25. gdelt-pod-10M: the multi-device tier after the reference's
+   ``config_pod`` (its spec, its 12 probes of 4 x 3 degrees, 4 hosts and
+   the flat mesh on the same devices), the scan rows raised from 150,000
+   to 10,000,000 GDELT-shaped points and the ingest rows from 400,000 to
+   2,000,000: a pod of 4 sim hosts x 2 shards of the card, the flat
+   8-shard mesh over the same devices and a one-device store, each
+   ``write`` + ``compact``; the probes, a fused ``query_many`` of them,
+   density, bounds and ``Count()`` estimates on each, ids equal in order
+   across the three and to an f64 brute force on 4, grids, bounds and
+   counts equal; on the pod every probe launches K1 only on the hosts
+   that own its candidate blocks (once per shard with candidates); 3 s
+   closed loops of the probes on each store (q/s printed, not gated);
+   host-local ingest of 2M rows partitioned by the crc32 owner of their
+   ids, each host's ``BulkLoader`` leg timed alone, beside one load on
+   the flat mesh, the hosts' union answering as the flat store; a
+   ``PodStore`` with per-host WALs (sync always): 1,000 geofences, 200k
+   rows in 20k batches, a flush, host 1 killed after the fifth batch and
+   rejoined from its WAL; its rows equal a never-crashed pod's and the
+   brute force's, the union of the hosts' alerts equals one
+   LambdaStore's; the two-process gloo probe
+   (``geomesa_tpu_torch/scripts/probe_multiprocess.py``) reads
+   ``supported``.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the twenty-two paths and read just after
+are zeroed just before each of the twenty-three paths and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
@@ -401,7 +423,8 @@ with stacks; XZ2: all five with the extent leg; XZ3: K1 and K2 with the
 extent leg; tiered, mutate, persist and secure-cached: all five;
 attribute, served and stream: K1 and K2; standing: K2 with its
 point-in-polygon leg; replica: K1; ingest: K1, K3, K4; analytics: K1
-and K2; HTTP: K1 and K2; S2: K1, K3, K4; drift: K1 and K2) and
+and K2; HTTP: K1 and K2; S2: K1, K3, K4; drift: K1 and K2; pod: all
+five) and
 called the native helpers ``check_native`` names (the ranges where it
 plans new filters, since the batch path's repeated plans take the
 planner's scan-config memo; ``sort_bins_z`` where it ingests, the plane
@@ -3010,7 +3033,7 @@ def main_path(torch, device):
     for path in (xz2_path, xz3_path, tiered_union_path, mutation_path, attribute_path,
                  persist_path, secure_cached_path, served_path, stream_path, standing_path,
                  replica_path, ingest_path, analytics_path, serve_http_path, s2_path,
-                 drift_path):
+                 drift_path, pod_path):
         t0 = time.perf_counter()
         records.append(path(torch, device))
         records[-1]["wall_s"] = time.perf_counter() - t0
@@ -3248,8 +3271,10 @@ def tiered_union_path(torch, device) -> dict:
 # the ingest path added the script took 846.2 s (NVIDIA H100 80GB HBM3,
 # 700.00 W; the path 116.6 s of it, the fold 65.0 s), over its 800 s; the
 # fold's slices and the maintenance ops scale with the rows
-# 3M since PR 19, for the script's wall once paths 22-24 came
-N_MUTATE = 3_000_000
+# cut to 3M for the script's wall once paths 22-24 came, and to 2M once
+# the pod path came (the script ran 965.2 s on an H100 80GB HBM3 at 700 W
+# with it, over its 850 s)
+N_MUTATE = 2_000_000
 # half replace existing ids, half are new; the cell folds 1M rows in 16
 # slices, cut to 500k in 8 for the script's 900 s once paths 22-24 came
 N_FOLD = 500_000
@@ -3623,8 +3648,10 @@ def mutation_path(torch, device) -> dict:
 
 # 5M of the cell's 10M rows: with the streaming path added, the whole
 # script ran 851.3 s on the card against its 760 s budget
-# 3M since PR 19, for the script's wall once paths 22-24 came
-N_ATTR = 3_000_000
+# cut to 3M for the script's wall once paths 22-24 came, and to 2M once
+# the pod path came (the script ran 965.2 s on an H100 80GB HBM3 at 700 W
+# with it, over its 850 s)
+N_ATTR = 2_000_000
 N_ATTR_APPEND = 50_000  # each of the two appends kept in the delta tier
 N_ATTR_BATCH = 16  # rare-code regional queries in one query_many
 N_ACTORS = 2_000
@@ -3973,8 +4000,8 @@ def attribute_path(torch, device) -> dict:
 # -- persistence: save, load, quarantine, crash points, the host adapter -----
 
 # the cell's 10M rows cut to 3M for the script's wall once paths 22-24
-# came (the record's ``reduced``)
-N_PERSIST = 3_000_000
+# came, to 2M once the pod path came (the record's ``reduced``)
+N_PERSIST = 2_000_000
 N_PERSIST_APPEND = 50_000  # the span's last 21 days, kept in the delta tier
 N_PERSIST_QUERIES = 16
 N_CRASH = 200_000
@@ -4320,8 +4347,8 @@ def persist_path(torch, device) -> dict:
 # -- statistics, visibility, federated views and the cache tier --------------
 
 # the cell's 10M rows cut to 3M for the script's wall once paths 22-24
-# came (the record's ``reduced``)
-N_SECURE = 3_000_000
+# came, to 2M once the pod path came (the record's ``reduced``)
+N_SECURE = 2_000_000
 N_SECURE_AGG = 4
 N_TILE_VIEWS = 4  # dashboard views, each panned 8 times: 32 tile boxes
 # the cache section's rows: a seeded prefix of the path's rows (1M since
@@ -5460,7 +5487,7 @@ N_STREAM = 3_000_000  # tracked objects in the cold store
 STREAM_BATCH = 20_000  # rows per flush: half updates, half new ids
 # config_stream's 24 flushes, cut to 12 for the script's wall once paths
 # 22-24 came (the record's ``reduced``)
-STREAM_FLUSHES = 12
+STREAM_FLUSHES = 8  # 12 until the pod path came (the record's "reduced")
 STREAM_LEGACY_FLUSHES = 2  # of the reference's 12 (its per-flush cost is stationary)
 STREAM_CLIENTS = 4  # the reference's max(2, cpus // 2) on the card's 8-CPU host
 STREAM_POLL_MS = 150.0
@@ -5470,7 +5497,7 @@ N_WAL_COLD = 200_000
 # the path's wall on the card passed 90 s at the reference's sizes (142.0 s,
 # the WAL section 100.5 of it): the WAL modes' rows are cut from 400k,
 # then the recovery run's from 1M (the record's "reduced" lists both)
-N_WAL_STREAM = 200_000  # streamed rows per WAL mode
+N_WAL_STREAM = 100_000  # streamed rows per WAL mode (200k until the pod path came)
 N_WAL_REPLAY = 250_000  # rows of the recovery run (500k until PR 19)
 WAL_MODES = ("nowal", "off", "interval", "always")
 WAL_PROBES = ("bbox(geom, -40, -40, 0, 0)", "bbox(geom, 10, 10, 60, 50)",
@@ -6674,7 +6701,10 @@ def matcher_kernels(torch, device, dev) -> tuple:
 
 # -- the pipelined bulk loader, file ingest and export ------------------------
 
-N_INGEST = 20_000_000
+# the cell's 20M rows cut to 10M once the pod path came (the script ran
+# 965.2 s on an H100 80GB HBM3 at 700 W, over its 850 s; the record's
+# ``reduced``)
+N_INGEST = 10_000_000
 INGEST_CHUNK = 1_000_000
 # config_ingest's 1, 2 and 4 workers, cut to 1 and 4 for the path's 90 s
 # (106.9 s with all three on an NVIDIA H100 80GB HBM3's 8-CPU host, where
@@ -6948,7 +6978,7 @@ def file_section(torch, device) -> dict:
 
 def ingest_path(torch, device) -> dict:
     """gdelt-ingest-20M: the reference's ``config_ingest``
-    (``bench.py:487-711``) on the card. 20M GDELT-shaped rows in 1M-row
+    (``bench.py:487-711``) on the card. ``N_INGEST`` (10M of the cell's 20M) GDELT-shaped rows in 1M-row
     chunks (``dtg:Date,*geom:Point:srid=4326``, ``z3,z2``) load through
     ``BulkLoader`` at 1 and 4 workers (``INGEST_WORKERS``), each store
     released before the next loads (the sequential ``write`` loop is cut
@@ -7100,7 +7130,8 @@ def ingest_path(torch, device) -> dict:
         "checked_bin_queries": N_INGEST_CHECK, "bin_check_s": bin_s,
         "compaction": compaction, "loads_s": loads_s, "files": files,
         "path_s": path_s, "budget_s": INGEST_BUDGET_S,
-        "reduced": {"compaction_rows": {"cell": 100_000_000, "run": N_INGEST},
+        "reduced": {"rows": {"cell": 20_000_000, "run": N_INGEST},
+                    "compaction_rows": {"cell": 100_000_000, "run": N_INGEST},
                     "workers": {"cell": [1, 2, 4], "run": list(INGEST_WORKERS)},
                     # cut for the script's 900 s once three paths came:
                     # the x1 load is the reference the x4 load's tables,
@@ -7641,13 +7672,15 @@ def analytics_path(torch, device) -> dict:
 
 # -- the data plane, the S2 indexes, the tuning tier ----------------------
 
-N_HTTP = 2_000_000  # config_serve_http's cold store, raised from its 40k default
+# config_serve_http's cold store, raised from its 40k default to the
+# cell's 2M, run at 1M since the pod path came (the record's "reduced")
+N_HTTP = 1_000_000
 HTTP_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
 HTTP_T0 = 1_717_200_000_000  # config_serve_http's t0
 HTTP_PROBES = ("bbox(geom, -40, -40, 0, 0)", "bbox(geom, 10, 10, 60, 50)",
                "bbox(geom, -170, -80, -100, 0)")
 HTTP_READ_S = 2.0  # config_serve_http's mixed loop
-HTTP_FAIR_S = 6.0  # and its fairness loops
+HTTP_FAIR_S = 3.0  # and its fairness loops, cut from its 6 s (the record's "reduced")
 HTTP_DEGRADATION_BOUND = 1.5  # its gate on the compliant tenant's p99
 HTTP_BURST = 16  # concurrent /query requests of one burst (a fused batch)
 HTTP_TILES = (("density", 1, 1, 0), ("count", 2, 5, 2), ("heat", 0, 0, 0), ("density", 3, 11, 4))
@@ -7938,8 +7971,8 @@ def http_cli(torch, root) -> dict:
 
 def serve_http_path(torch, device) -> dict:
     """moving-z3-2M-http: the reference's data-plane scenario
-    (``config_serve_http``) with its cold store raised from 40k to 2M
-    rows: a WAL-backed LambdaStore (``sync=always``) over a saved cold
+    (``config_serve_http``) with its cold store raised from 40k to
+    ``N_HTTP`` rows (1M of the cell's 2M): a WAL-backed LambdaStore (``sync=always``) over a saved cold
     store on the card, mounted with ``serve(port=0)`` on loopback. Wire
     equals in-process, the mixed closed loop, a fused burst, fairness
     under an adversarial tenant, ack durability through a crash, then on
@@ -8075,7 +8108,8 @@ def serve_http_path(torch, device) -> dict:
         "durability": {"acked_rows": len(acked), "acked_loss": lost, "invented": invented},
         "tiles": tiles, "ops": ops, "statuses": statuses, "cli": cli,
         "sections_s": sections, "path_s": path_s, "budget_s": HTTP_BUDGET_S,
-        "reduced": {},
+        "reduced": {"cold_rows": {"cell": 2_000_000, "run": N_HTTP},
+                    "fairness_s": {"cell": 6.0, "run": HTTP_FAIR_S}},
     }
 
 
@@ -8528,6 +8562,354 @@ def drift_path(torch, device) -> dict:
     }
 
 
+# -- the multi-device tier: the shard mesh, the pod table, the pod store -----
+
+N_POD = 10_000_000  # config_pod's scan rows, raised from its 150,000
+N_POD_INGEST = 2_000_000  # its host-local ingest rows, raised from its 400,000
+POD_HOSTS = 4
+POD_SHARDS = 2  # per host: 4 x 2 shards, the flat mesh's 8, all on the one card
+POD_SPEC = "dtg:Date,*geom:Point:srid=4326"  # config_pod's spec
+POD_SPAN_MS = 20 * 86_400_000  # and its 20-day span
+N_POD_PROBES = 12  # its probes: 4 x 3 degree boxes
+N_POD_BRUTE = 4
+N_POD_AGG = 4
+POD_READ_S = 3.0  # its closed loop
+N_POD_STREAM = 200_000
+POD_STREAM_BATCH = 20_000
+POD_KILL_AFTER = 5  # batches written before host POD_KILLED is killed
+POD_KILLED = 1
+N_POD_FENCES = 1_000
+POD_BUDGET_S = 60.0
+
+
+def pod_probes(seed) -> list:
+    """config_pod's 12 selective probes: 4 x 3 degree boxes with lower
+    corners in [-55, 40) x [-40, 30), printed to 3 decimals."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(N_POD_PROBES):
+        x0, y0 = rng.uniform(-55, 40), rng.uniform(-40, 30)
+        box = tuple(float(f"{v:.3f}") for v in (x0, y0, x0 + 4, y0 + 3))
+        out.append((f"bbox(geom, {box[0]:.3f}, {box[1]:.3f}, {box[2]:.3f}, {box[3]:.3f})", box))
+    return out
+
+
+def brute_box_ids(x, y, box) -> np.ndarray:
+    x0, y0, x1, y1 = box
+    return np.flatnonzero((x >= x0) & (x <= x1) & (y >= y0) & (y <= y1))
+
+
+@contextmanager
+def shard_recorder():
+    """Record every shard table's scan launch: (shard table, shards with
+    candidate blocks) per ``DistributedIndexTable._device_scan_submit``."""
+    from geomesa_tpu_torch.parallel import DistributedIndexTable
+
+    calls: list = []
+    orig = DistributedIndexTable._device_scan_submit
+
+    def recording(self, blocks, *a, **kw):
+        calls.append((self, int(np.count_nonzero(self._split_blocks(blocks)[1]))))
+        return orig(self, blocks, *a, **kw)
+
+    DistributedIndexTable._device_scan_submit = recording
+    try:
+        yield calls
+    finally:
+        DistributedIndexTable._device_scan_submit = orig
+
+
+def closed_loop(ds, probes, seconds) -> float:
+    """Queries per second of one client sending the probes in turn."""
+    k = 0
+    t0 = time.perf_counter()
+    while True:
+        ds.query("gdelt", probes[k % len(probes)][0])
+        k += 1
+        dt = time.perf_counter() - t0
+        if dt >= seconds:
+            return k / dt
+
+
+def pod_scan_section(torch, device) -> dict:
+    """Three stores over the same 10M rows (each ``write`` + ``compact``):
+    the pod (4 sim hosts x 2 shards of the card), the flat 8-shard mesh
+    over the same devices and a one-device store; the probes, a fused
+    batch, grids, bounds and count estimates, equal across the three and
+    to an f64 brute force; the pod's selective probes launch only on the
+    hosts that own their blocks; the closed loops."""
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+    from geomesa_tpu_torch.kernels import BLOCK_SCAN
+    from geomesa_tpu_torch.pod import PodIndexTable, make_host_group
+
+    rng = np.random.default_rng(SEED + 160)
+    x, y = gdelt_points(N_POD, rng)
+    t = T0_MS + rng.integers(0, POD_SPAN_MS, N_POD)
+    group = make_host_group(hosts=POD_HOSTS, devices_per_host=POD_SHARDS, driver="sim",
+                            devices=[device] * (POD_HOSTS * POD_SHARDS))
+    stores, build_s = {}, {}
+    for name, mesh in (("pod", group), ("flat", group.flat_mesh()), ("one", None)):
+        sft = FeatureType.from_spec("gdelt", POD_SPEC)
+        ds = DataStore(device=device, mesh=mesh)
+        ds.create_schema(sft)
+        t0 = time.perf_counter()
+        ds.write("gdelt", FeatureCollection.from_columns(sft, np.arange(N_POD),
+                                                        {"dtg": t, "geom": (x, y)}),
+                 check_ids=False)
+        ds.compact("gdelt")
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        stores[name] = ds
+    pod = stores["pod"]
+    check(all(isinstance(pod._tables[("gdelt", i.name)], PodIndexTable)
+              for i in pod.indexes("gdelt")), "the pod store's tables are pod tables")
+    probes = pod_probes(SEED + 161)
+    for ds in stores.values():
+        for q, _ in probes[:2]:
+            ds.query("gdelt", q)  # first plans and launches off the clock
+    outs = {name: [np.asarray(ds.query("gdelt", q).ids, np.int64) for q, _ in probes]
+            for name, ds in stores.items()}
+    hits = []
+    for i, (q, box) in enumerate(probes):
+        got = outs["pod"][i]
+        check(np.array_equal(got, outs["flat"][i]) and np.array_equal(got, outs["one"][i]),
+              f"pod, flat mesh and one-device ids equal in order: {q}")
+        if i < N_POD_BRUTE:
+            check(np.array_equal(np.sort(got), brute_box_ids(x, y, box)),
+                  f"pod ids vs brute force: {q}")
+        hits.append(len(got))
+    batch = [q for q, _ in probes] * 2
+    many = {name: [np.asarray(r.ids, np.int64) for r in ds.query_many("gdelt", batch)]
+            for name, ds in stores.items()}
+    for name, res in many.items():
+        check(all(np.array_equal(a, outs["pod"][i % N_POD_PROBES]) for i, a in enumerate(res)),
+              f"query_many on the {name} store equals the probes' ids")
+    for q, box in sorted(probes, key=lambda p: -len(brute_box_ids(x, y, p[1])))[:N_POD_AGG]:
+        grids = [ds.density("gdelt", q, envelope=box, width=64, height=64)
+                 for ds in stores.values()]
+        check(all(np.array_equal(g, grids[2]) for g in grids) and grids[2].sum() > 0,
+              f"pod, flat and one-device grids equal: {q}")
+        bounds = [ds.bounds("gdelt", q, estimate=True) for ds in stores.values()]
+        check(bounds[0] == bounds[1] == bounds[2] and bounds[2] is not None,
+              f"pod, flat and one-device bounds equal: {q}")
+        est = [ds.stats_query("gdelt", "Count()", q, estimate=True)[0].count
+               for ds in stores.values()]
+        check(est[0] == est[1] == est[2] > 0, f"pod, flat and one-device count estimates: {q}")
+    # non-owning hosts launch nothing
+    owners_per_probe = []
+    for q, _ in probes:
+        plan = pod.planner.plan("gdelt", q)
+        table = pod._tables[("gdelt", plan.index)]
+        host_of = {id(sh): h for h, sh in enumerate(table.shards)}
+        blocks = table.candidate_blocks(table.candidate_spans_split(plan.config)[0])
+        owners = {h for h, _ in table._host_blocks(blocks)}
+        before = BLOCK_SCAN.launches
+        with shard_recorder() as calls:
+            pod.query("gdelt", q)
+        launched = {host_of[id(sh)] for sh, _ in calls}
+        check(launched <= owners, f"only owning hosts launch: {q} ({launched} vs {owners})")
+        check(BLOCK_SCAN.launches - before == sum(n for _, n in calls),
+              f"K1 launches once per shard with candidates: {q}")
+        owners_per_probe.append(len(owners))
+    check(min(owners_per_probe) < POD_HOSTS, "a selective probe leaves hosts out")
+    qps = {name: closed_loop(ds, probes, POD_READ_S) for name, ds in stores.items()}
+    device_gb = {name: sum(ds.table("gdelt", i.name).nbytes_device
+                           for i in ds.indexes("gdelt")) / 1e9 for name, ds in stores.items()}
+    for ds in stores.values():
+        ds.close()
+    del stores, x, y, t
+    return {
+        "n_points": N_POD, "hosts": POD_HOSTS, "shards_per_host": POD_SHARDS,
+        "build_s": build_s, "device_gb": device_gb, "probe_hits": hits,
+        "checked_vs_brute_force": N_POD_BRUTE, "checked_aggregations": N_POD_AGG,
+        "owning_hosts_per_probe": owners_per_probe,
+        "qps": qps, "pod_over_flat": qps["pod"] / qps["flat"], "read_s": POD_READ_S,
+    }
+
+
+def pod_ingest_section(torch, device) -> dict:
+    """config_pod's host-local ingest: 2M rows partitioned by the crc32
+    owner of their ids, each host's BulkLoader leg timed alone (a host is
+    its own machine in a deployment), against one load on the flat
+    mesh; the union of the host stores answers as the flat store does."""
+    import zlib
+
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+    from geomesa_tpu_torch.ingest.pipeline import BulkLoader
+    from geomesa_tpu_torch.pod import make_host_group
+
+    group = make_host_group(hosts=POD_HOSTS, devices_per_host=POD_SHARDS, driver="sim",
+                            devices=[device] * (POD_HOSTS * POD_SHARDS))
+    rng = np.random.default_rng(SEED + 162)
+    x, y = gdelt_points(N_POD_INGEST, rng)
+    t = T0_MS + rng.integers(0, POD_SPAN_MS, N_POD_INGEST)
+    ids = np.arange(N_POD_INGEST).astype(str)
+    fc = FeatureCollection.from_columns(FeatureType.from_spec("gdelt", POD_SPEC), ids,
+                                        {"dtg": t, "geom": (x, y)})
+    owners = np.fromiter((zlib.crc32(i.encode()) % POD_HOSTS for i in ids.tolist()),
+                         np.int64, count=N_POD_INGEST)
+
+    def load(mesh, part):
+        ds = DataStore(device=device, mesh=mesh)
+        ds.create_schema(FeatureType.from_spec("gdelt", POD_SPEC))
+        t0 = time.perf_counter()
+        loader = BulkLoader(ds, "gdelt")
+        loader.put(part)
+        loader.close()
+        torch.cuda.synchronize()
+        return ds, time.perf_counter() - t0
+
+    flat, flat_s = load(group.flat_mesh(), fc)
+    hosts, host_s = [], []
+    for h in range(POD_HOSTS):
+        ds, s = load(group.mesh(h), fc.take(np.flatnonzero(owners == h)))
+        hosts.append(ds)
+        host_s.append(s)
+    q = "bbox(geom, -20, -15, 10, 12)"
+    union = np.sort(np.concatenate([np.asarray(ds.query("gdelt", q).ids).astype(str)
+                                    for ds in hosts]))
+    flat_ids = np.sort(np.asarray(flat.query("gdelt", q).ids).astype(str))
+    check(np.array_equal(union, flat_ids) and len(flat_ids) > 0,
+          "the host stores' union answers as the flat store")
+    check(sum(ds.row_count("gdelt") for ds in hosts) == flat.row_count("gdelt") == N_POD_INGEST,
+          "the host stores partition the rows")
+    for ds in (flat, *hosts):
+        ds.close()
+    return {"n_rows": N_POD_INGEST, "flat_s": flat_s, "host_s": host_s,
+            "pod_model_s": max(host_s), "host_parallel_speedup": flat_s / max(host_s),
+            "host_rows": np.bincount(owners, minlength=POD_HOSTS).tolist()}
+
+
+def pod_fences(x, y, seed) -> list:
+    """N_POD_FENCES squares of 0.25-1 degree, each centred on an event
+    drawn from (x, y): city-scale geofences where the events are."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in rng.choice(len(x), N_POD_FENCES, replace=False):
+        h = float(rng.uniform(0.125, 0.5))
+        x0, y0 = float(np.clip(x[i], -179, 179)) - h, float(np.clip(y[i], -89, 89)) - h
+        out.append([(x0, y0), (x0 + 2 * h, y0), (x0 + 2 * h, y0 + 2 * h), (x0, y0 + 2 * h),
+                    (x0, y0)])
+    return out
+
+
+def pod_store_section(torch, device, tmp) -> dict:
+    """A PodStore with per-host WALs on the pod's shard meshes: 200k rows
+    in 20k batches with 1,000 geofences subscribed, host 1 killed after
+    the fifth batch and rejoined from its WAL; its rows equal a
+    never-crashed pod's and the brute force's, and the union of the
+    hosts' alerts equals one LambdaStore's over the same events."""
+    from geomesa_tpu_torch import DataStore, FeatureType, geometry
+    from geomesa_tpu_torch.pod import PodStore, make_host_group
+    from geomesa_tpu_torch.streaming import LambdaStore
+    from geomesa_tpu_torch.streaming.standing import Subscription
+    from geomesa_tpu_torch.streaming.wal import WalConfig
+
+    group = make_host_group(hosts=POD_HOSTS, devices_per_host=POD_SHARDS, driver="sim",
+                            devices=[device] * (POD_HOSTS * POD_SHARDS))
+    sft = FeatureType.from_spec("gdelt", POD_SPEC)
+    pod = PodStore(sft, group, root=os.path.join(tmp, "pod"), wal_config=WalConfig(sync="always"))
+    ref = PodStore(sft, group)
+    one_cold = DataStore(device=device)
+    one_cold.create_schema(FeatureType.from_spec("gdelt", POD_SPEC))
+    one = LambdaStore(one_cold, "gdelt")
+    rng = np.random.default_rng(SEED + 164)
+    x, y = gdelt_points(N_POD_STREAM, rng)
+    t = T0_MS + rng.integers(0, POD_SPAN_MS, N_POD_STREAM)
+    fences = pod_fences(x, y, SEED + 163)
+    t0 = time.perf_counter()
+    for i, ring in enumerate(fences):
+        for st in (pod, one):  # the never-crashed pod is held to rows only
+            st.subscribe(Subscription(f"fence{i}", "geofence", geom=geometry.Polygon(ring)))
+    subscribe_s = time.perf_counter() - t0
+    ids = [f"e{i}" for i in range(N_POD_STREAM)]
+    pod_alerts, one_alerts = set(), set()
+    write_s, rejoin_s = [], None
+    for b, s in enumerate(range(0, N_POD_STREAM, POD_STREAM_BATCH)):
+        rows = [{"dtg": int(t[i]), "geom": geometry.Point(float(x[i]), float(y[i]))}
+                for i in range(s, s + POD_STREAM_BATCH)]
+        bids = ids[s : s + POD_STREAM_BATCH]
+        t1 = time.perf_counter()
+        check(pod.write(rows, bids) == POD_STREAM_BATCH, "the pod acknowledges the batch")
+        write_s.append(time.perf_counter() - t1)
+        ref.write(rows, bids)
+        one.write(rows, bids)
+        pod_alerts |= {(a["sub"], a["kind"], a["id"]) for a in pod.drain_alerts()}
+        one_alerts |= {(a["sub"], a["kind"], a["id"]) for a in one.standing().alerts.drain()}
+        if b == 2:
+            pod.flush()
+            ref.flush()
+        if b + 1 == POD_KILL_AFTER:
+            pod.kill(POD_KILLED)
+            t1 = time.perf_counter()
+            pod.rejoin(POD_KILLED)
+            rejoin_s = time.perf_counter() - t1
+    check(pod_alerts == one_alerts and len(one_alerts) > 0,
+          "the union of the hosts' alerts equals one LambdaStore's")
+    got = np.sort(np.asarray(pod.query().ids).astype(str))
+    check(pod.count() == ref.count() == N_POD_STREAM, "the rejoined pod holds every row")
+    check(np.array_equal(got, np.sort(np.asarray(ref.query().ids).astype(str))),
+          "the rejoined pod's ids equal a never-crashed pod's")
+    for q, box in pod_probes(SEED + 165)[:N_POD_BRUTE]:
+        want = np.sort(np.array(ids)[brute_box_ids(x, y, box)])
+        check(np.array_equal(np.sort(np.asarray(pod.query(q).ids).astype(str)), want),
+              f"the rejoined pod's ids vs brute force: {q}")
+    owned = [pod.stores[h].count() for h in range(POD_HOSTS)]
+    for st in (pod, ref):
+        st.close()
+    one.close()
+    one_cold.close()
+    return {"n_rows": N_POD_STREAM, "batch": POD_STREAM_BATCH, "fences": N_POD_FENCES,
+            "killed_host": POD_KILLED, "killed_after_batches": POD_KILL_AFTER,
+            "subscribe_s": subscribe_s, "write_ms": m_summary(np.array(write_s) * 1e3),
+            "rejoin_s": rejoin_s, "alerts": len(one_alerts), "rows_per_host": owned}
+
+
+def pod_path(torch, device) -> dict:
+    """gdelt-pod-10M: the multi-device tier on the card, after the
+    reference's ``config_pod``: the pod, flat-mesh and one-device stores
+    over 10M rows, host-local ingest of 2M rows, a PodStore through a
+    killed and rejoined host, and the two-process gloo probe's verdict.
+    The probe's three processes run beside the store section (their
+    own subprocesses, waited for at the end). Launch and native counts
+    are zeroed before, read after."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from geomesa_tpu_torch.pod import probe_capability
+
+    zero_launches()
+    t_path = time.perf_counter()
+    sections = {}
+
+    def probe() -> dict:
+        t0 = time.perf_counter()
+        return {**probe_capability(refresh=True), "probe_s": time.perf_counter() - t0}
+
+    with tempfile.TemporaryDirectory(prefix="geomesa-pod-") as tmp, \
+            ThreadPoolExecutor(max_workers=1) as ex:
+        probe_future = None
+        for name, fn in (("scan", lambda: pod_scan_section(torch, device)),
+                         ("ingest", lambda: pod_ingest_section(torch, device)),
+                         ("store", lambda: pod_store_section(torch, device, tmp))):
+            if name == "store":
+                probe_future = ex.submit(probe)
+            t0 = time.perf_counter()
+            sections[name] = fn()
+            sections[name]["section_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        sections["probe"] = probe_future.result(timeout=300)
+    check(sections["probe"].get("verdict") == "supported",
+          f"the two-process gloo probe reads supported: {sections['probe']}")
+    return {
+        "phase": "pod_path", "cell": "gdelt-pod-10M", "launches": read_launches(),
+        "native": read_native(), **sections, "path_s": time.perf_counter() - t_path,
+        "budget_s": POD_BUDGET_S,
+        "reduced": {"scan_rows": f"{N_POD:,} (config_pod's default 150,000, raised)",
+                    "ingest_rows": f"{N_POD_INGEST:,} (config_pod's default 400,000, raised)",
+                    "devices": "8 shards of one card (the reference: 8 virtual CPU devices)"},
+    }
+
+
 
 # -- entry point -------------------------------------------------------------
 
@@ -8570,6 +8952,7 @@ def check_native(records) -> None:
         # S2 covers are numpy BFS (no native ranges); the keys sort natively
         "gdelt-s2-10M": ("sort_bins_z", "bitmask_decode_pair"),
         "gdelt-z2-1M-drift": point + ("points_in_polygon",),
+        "gdelt-pod-10M": point,
     }
     for cell, names in expected_native.items():
         for name in names:
@@ -8646,6 +9029,7 @@ def main() -> int:
         "moving-z3-2M-http": ("block_scan", "block_scan_multi"),
         "gdelt-s2-10M": ("block_scan", "density", "bounds"),
         "gdelt-z2-1M-drift": ("block_scan", "block_scan_multi"),
+        "gdelt-pod-10M": tuple(k.name for k in KERNELS),
     }
     for cell, names in expected.items():
         for name in names:

@@ -625,6 +625,31 @@ SERVE_RETRY_AFTER_MS = SystemProperty(
     "layer suggests",
 )
 
+# -- the multi-host pod tier (pod) -----------------------------------------
+
+POD_HOSTS = SystemProperty(
+    "geomesa.pod.hosts", 0, int,
+    "host-group size H for the pod tier (0 = one host per process under "
+    "the distributed driver; the sim driver needs a count)",
+)
+POD_DEVICES_PER_HOST = SystemProperty(
+    "geomesa.pod.devices.per.host", 0, int,
+    "devices each host contributes to its shard mesh (0 = divide the "
+    "given or visible devices evenly over the hosts)",
+)
+POD_DRIVER = SystemProperty(
+    "geomesa.pod.driver", "auto", str,
+    "host-group driver: 'distributed' (a torch.distributed world, one "
+    "host per process), 'sim' (in-process per-host device slices), or "
+    "'auto' (distributed in a world of more than one process, else sim)",
+)
+POD_LINK_PROBE = SystemProperty(
+    "geomesa.pod.link.probe", False, _parse_bool,
+    "measure each host's pull link at host-group construction and derive "
+    "per-host fused slot caps from the probes (off = the compiled shapes "
+    "on every host)",
+)
+
 # -- the self-tuning controller tier (tuning) ------------------------------
 
 TUNING_ENABLED = SystemProperty(

@@ -37,7 +37,9 @@ index; extent schemas (polygons, lines, multi-geometries) an XZ3 and an
 XZ2 index; both narrowed by the ``geomesa.indices.enabled`` user data.
 Each index is a scan surface built by the store's adapter
 (storage.adapter): by default a sorted IndexTable whose predicate
-columns live on the store's device. The catalog (storage.metadata) keeps
+columns live on the store's device, or with ``mesh=`` a table sharded
+over a parallel.Mesh (parallel.dtable) or cut host-major over a
+pod.HostGroup (pod.table). The catalog (storage.metadata) keeps
 each schema's spec, user data and index names; ``persist.save`` and
 ``persist.load`` (storage.persist) write a store to disk and read it
 back, and ``store_health`` reports partitions quarantined at load.
@@ -191,8 +193,12 @@ class DataStore:
         metadata=None,
         auths: Sequence[str] | None = None,
         cache=None,
+        mesh=None,
     ):
-        """``guards`` / ``interceptors``: planning.guards hooks; ``audit``
+        """``mesh``: a parallel.Mesh (or a pod.HostGroup) the index tables
+        shard over (parallel.dtable, pod.table); its devices must be of
+        ``device``'s type, and of ``device`` itself where that names an
+        index. ``guards`` / ``interceptors``: planning.guards hooks; ``audit``
         an AuditWriter; ``metrics`` a MetricsRegistry. ``auths``: the
         visibility authorizations of every query (None turns security
         off; ``[]`` sees public rows only). ``cache``: the query and
@@ -213,6 +219,15 @@ class DataStore:
         from geomesa_tpu_torch.storage.persist import StoreHealth
 
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            devs = {torch.device(d) for d in mesh.devices}
+            if {d.type for d in devs} != {self.device.type} or (
+                self.device.index is not None and self.device not in devs
+            ):
+                raise ValueError(
+                    f"mesh devices {sorted(map(str, devs))} disagree with device={self.device}"
+                )
         self.tile = tile
         self.block_full_table_scans = block_full_table_scans
         self.guards = list(guards or [])
@@ -253,7 +268,7 @@ class DataStore:
         self._fold_progress: dict[str, tuple] = {}  # guarded-by: _write_lock
         # backend seam and catalog tier
         if adapter is None:
-            adapter = InProcessAdapter(tile=tile, device=self.device)
+            adapter = InProcessAdapter(tile=tile, device=self.device, mesh=mesh)
         elif isinstance(adapter, InProcessAdapter) and adapter.device is None:
             adapter.device = self.device
         self.adapter = adapter
@@ -642,16 +657,23 @@ class DataStore:
 
     def _fold_sliceable(self, type_name: str, keys: Mapping) -> bool:
         """Whether every index of ``type_name`` takes the incremental fold
-        (a built table and the batch's keys, no secondary sort words): a
-        fold whose indexes rebuild outright would pay a full build per
-        slice, so it stays monolithic."""
-        if getattr(self.adapter, "fold_table", None) is None:
+        (a built one-device table and the batch's keys, no secondary sort
+        words, no mesh): a fold whose indexes rebuild outright would pay a
+        full build per slice, so it stays monolithic."""
+        if (
+            getattr(self.adapter, "fold_table", None) is None
+            or getattr(self.adapter, "mesh", None) is not None
+        ):
             return False
         for idx in self._indexes[type_name]:
             k = keys.get(idx.name)
             if k is None or k.sub is not None:
                 return False
-            if not isinstance(self._tables.get((type_name, idx.name)), IndexTable):
+            old = self._tables.get((type_name, idx.name))
+            if (
+                not isinstance(old, IndexTable)
+                or type(old)._place_cols is not IndexTable._place_cols
+            ):
                 return False
             parts = self._key_chunks.get((type_name, idx.name)) or []
             if any(p.sub is not None for p in parts):

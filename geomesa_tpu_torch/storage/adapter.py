@@ -11,7 +11,10 @@ incremental fold and delete_schema's release.
 - :class:`InProcessAdapter` (the default) builds the port's IndexTable on
   the store's device; compactions of a table holding exactly the
   compacted prefix take the partition-preserving merge
-  (storage.table.merged_table), and the fold takes folded_table.
+  (storage.table.merged_table), and the fold takes folded_table. Given a
+  ``mesh`` it builds a parallel.DistributedIndexTable over it, or over a
+  pod.HostGroup a pod.PodIndexTable; those tables rebuild on every
+  compaction and never fold.
 - :class:`HostAdapter` builds :class:`HostTable` surfaces: sorted host
   keys and numpy predicate masks, no device at all. Only a caller who
   passes it gets it; nothing selects it.
@@ -19,8 +22,7 @@ incremental fold and delete_schema's release.
 With a cache tier attached (``DataStore.attach_cache`` sets the
 adapter's ``generations``), every ``create_table`` of the in-process
 adapter bumps the owning type's generation: a compaction is a mutation
-path of the cache's invalidation contract. The reference's mesh and pod
-tables (its ``mesh`` argument) wait for those tiers of the port.
+path of the cache's invalidation contract.
 """
 
 from __future__ import annotations
@@ -63,12 +65,18 @@ class IndexAdapter(Protocol):
 
 def merge_applies(old, main_rows: int, n_rows: int) -> bool:
     """Whether a compaction of ``n_rows`` key rows may merge its delta
-    into ``old`` (storage.table.merged_table): ``old`` is a device table
-    built from exactly the ``main_rows`` compacted prefix, and a delta
-    exists. Otherwise the table rebuilds outright."""
+    into ``old`` (storage.table.merged_table): ``old`` is a one-device
+    table built from exactly the ``main_rows`` compacted prefix, and a
+    delta exists. Otherwise the table rebuilds outright (mesh and pod
+    tables, whose layout is their own, always do)."""
     from geomesa_tpu_torch.storage.table import IndexTable
 
-    return isinstance(old, IndexTable) and old.n == main_rows and 0 < main_rows < n_rows
+    return (
+        isinstance(old, IndexTable)
+        and type(old)._place_cols is IndexTable._place_cols
+        and old.n == main_rows
+        and 0 < main_rows < n_rows
+    )
 
 
 def _bump_generations(adapter, keyspace) -> None:
@@ -84,12 +92,14 @@ def _bump_generations(adapter, keyspace) -> None:
 
 class InProcessAdapter:
     """The built-in backend: sorted columnar tables whose predicate
-    columns live on one device. ``device`` None takes the device of the
-    DataStore the adapter is given to."""
+    columns live on one device, or are sharded over a ``mesh``
+    (parallel.Mesh, or a pod.HostGroup). ``device`` None takes the device
+    of the DataStore the adapter is given to."""
 
-    def __init__(self, tile: Optional[int] = None, device=None):
+    def __init__(self, tile: Optional[int] = None, device=None, mesh=None):
         self.tile = tile
         self.device = device
+        self.mesh = mesh
         self.generations = None  # set by DataStore.attach_cache
 
     def create_table(self, keyspace, keys, old=None, main_rows: int = 0, sorted_state=None):
@@ -101,6 +111,19 @@ class InProcessAdapter:
         # are not retried
         def attempt():
             fault_point("adapter.create_table")
+            if self.mesh is not None:
+                from geomesa_tpu_torch.parallel import DistributedIndexTable
+                from geomesa_tpu_torch.pod.hostgroup import HostGroup
+
+                if isinstance(self.mesh, HostGroup):
+                    from geomesa_tpu_torch.pod.table import PodIndexTable
+
+                    # a host group rides the mesh seam: per-host
+                    # contiguous shards instead of one flat deal
+                    return PodIndexTable(keyspace, keys, self.mesh, tile=self.tile)
+                # mesh tables sort anew (their deal derives from the sort
+                # anyway): ignoring sorted_state is correct
+                return DistributedIndexTable(keyspace, keys, self.mesh, tile=self.tile)
             if sorted_state is not None and len(sorted_state) == len(keys.zs) > 0:
                 # the pipelined ingest already merged the stable (bin, z)
                 # order: build straight from it, no sort
@@ -128,11 +151,12 @@ class InProcessAdapter:
         """Incremental replace-merge (storage.table.folded_table): fold a
         delete and an insert batch into ``old`` without a whole-table
         sort, bit-identical to a full build. Returns None when the table
-        cannot fold (secondary sort words, another table class): the
-        caller then builds it through :meth:`create_table`."""
+        cannot fold (a mesh or pod table, secondary sort words, another
+        table class): the caller then builds it through
+        :meth:`create_table`."""
         from geomesa_tpu_torch.storage.table import IndexTable, folded_table
 
-        if merged_keys.sub is not None or type(old) is not IndexTable:
+        if self.mesh is not None or merged_keys.sub is not None or type(old) is not IndexTable:
             return None
 
         def attempt():

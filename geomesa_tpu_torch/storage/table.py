@@ -314,7 +314,13 @@ class IndexTable(SortedKeys):
         super().__init__(keyspace, keys, block, sorted_state)
         self._set_layout(block, keys.device_cols, torch.device(device))
         self._reuse = reuse
-        if fold_plan is not None:
+        if type(self)._place_cols is not IndexTable._place_cols:
+            # subclasses (the mesh and pod tables) own their layout through
+            # the whole padded column set: they never reuse a prefix or
+            # take the device fold, both of which assume one contiguous
+            # device table
+            self._place_cols(self.pad_cols(keys), self.device)
+        elif fold_plan is not None:
             self._fold_cols_device(fold_plan)
         else:
             self._stream_cols(keys)
@@ -338,13 +344,13 @@ class IndexTable(SortedKeys):
         cols = state["cols3"]
         self._set_layout(block, cols, torch.device(device))
         # copies: the table never aliases the caller's arrays
-        self.cols3 = {k: self._upload(np.array(cols[k])) for k in self.col_names}
+        self._place_cols({k: np.array(cols[k]) for k in self.col_names}, self.device)
         return self
 
     def _set_layout(self, block: int, cols: dict, device: torch.device) -> None:
         self.block = block
         self.sub = block // bk.LANES
-        self.n_blocks = max(1, -(-self.n // block))
+        self.n_blocks = self._round_blocks(max(1, -(-self.n // block)))
         self.n_pad = self.n_blocks * block
         self.col_names = tuple(sorted(cols))
         self.extent = "gxmin" in cols
@@ -353,6 +359,38 @@ class IndexTable(SortedKeys):
     def _upload(self, col: np.ndarray) -> torch.Tensor:
         v3 = np.ascontiguousarray(col).reshape(-1, self.sub, bk.LANES)
         return torch.from_numpy(v3).to(self.device)
+
+    # -- layout hooks ----------------------------------------------------
+    # The mesh and pod tables (parallel.dtable, pod.table) override these
+    # and the device hooks below (_device_scan_submit, _device_pops,
+    # _device_density_submit, _device_bounds, _submit_fused_chunk); the
+    # pruning, exactness tier and decode stay this class's.
+
+    def _round_blocks(self, n_blocks: int) -> int:
+        """Block-count rounding hook (a mesh table rounds up to a multiple
+        of its shard count)."""
+        return n_blocks
+
+    # a per-table fused slot cap: a pod host group stamps one per host
+    # shard (None = the process-wide link constants)
+    _slot_cap: "int | None" = None
+
+    def pad_cols(self, keys: WriteKeys) -> dict:
+        """The sorted device columns, each padded to ``n_pad`` rows with
+        never-matching sentinels."""
+        cols = {}
+        for name, col in keys.device_cols.items():
+            out = np.full(self.n_pad, _SENTINELS[name], dtype=col.dtype)
+            out[: self.n] = _take(col, self.perm)
+            cols[name] = out
+        return cols
+
+    def _place_cols(self, cols: dict, device: torch.device) -> None:
+        """Layout hook: put padded sorted columns (``n_pad`` rows each) on
+        ``device`` in the [n_blocks, SUB, 128] scan layout. A table built
+        from keys streams its columns instead (``_stream_cols``)."""
+        self.rows_uploaded = self.n_pad
+        self.cols3 = {k: self._upload(v) for k, v in cols.items()}
 
     def _reuse_prefix(self, col_names) -> tuple:
         """(old table, first reusable block count) from ``self._reuse``,
@@ -533,8 +571,9 @@ class IndexTable(SortedKeys):
         force (bk.fused_slot_cap: the compiled FUSED_CHUNK_SLOTS unless a
         link profile or the geomesa.scan.fused.slots knob sets another)
         clamped down to the table's block-count bucket (2048 at 100M rows
-        of 16384-row blocks)."""
-        return min(bk.fused_slot_cap(), bk.bucket_of(self.n_blocks))
+        of 16384-row blocks). ``_slot_cap`` is a per-table cap (a pod
+        host's shard)."""
+        return min(bk.fused_slot_cap(self._slot_cap), bk.bucket_of(self.n_blocks))
 
     @property
     def fused_pack_capacity(self) -> int:
@@ -900,15 +939,17 @@ class IndexTable(SortedKeys):
         overlap, contained = self.candidate_spans_split(config)
         return self.candidate_blocks(_merge_spans(overlap + contained))
 
-    def agg_launch_args(self, config: ScanConfig):
-        """(cols3, padded bids (-1 pads), n_real, boxes, wins, kwargs) of an
-        aggregation kernel over this config's candidate blocks, or None
-        when there is nothing to scan."""
+    def _agg_candidates(self, config: ScanConfig) -> "np.ndarray | None":
+        """Candidate blocks of an aggregation, or None when there is
+        nothing to scan."""
         if config.disjoint or self.n == 0:
             return None
         blocks = self._agg_blocks(config)
-        if len(blocks) == 0:
-            return None
+        return blocks if len(blocks) else None
+
+    def _agg_args(self, blocks: np.ndarray, config: ScanConfig):
+        """(cols3, padded bids (-1 pads), n_real, boxes, wins, kwargs) of an
+        aggregation kernel over candidate ``blocks``."""
         blocks = self._full_or(blocks)
         bids, n_real = bk.pad_bids(blocks, self.n_blocks, pad=-1)
         boxes, wins = self._params(config)
@@ -918,14 +959,26 @@ class IndexTable(SortedKeys):
             self._kernel_kwargs(config, names),
         )
 
+    def agg_launch_args(self, config: ScanConfig):
+        """(cols3, padded bids (-1 pads), n_real, boxes, wins, kwargs) of an
+        aggregation kernel over this config's candidate blocks, or None
+        when there is nothing to scan."""
+        blocks = self._agg_candidates(config)
+        return None if blocks is None else self._agg_args(blocks, config)
+
     def bounds_stats(self, config: ScanConfig, clock=NULL_CLOCK):
         """(count, (xmin, ymin, xmax, ymax)) of wide-predicate hits on
         device (the StatsScan Count/MinMax(geom) fast path; loose f32
         semantics)."""
-        args = self.agg_launch_args(config)
-        if args is None:
+        blocks = self._agg_candidates(config)
+        if blocks is None:
             return 0, None
-        cols3, bids, n_real, boxes, wins, kw = args
+        return self._device_bounds(blocks, config, clock)
+
+    def _device_bounds(self, blocks: np.ndarray, config: ScanConfig, clock=NULL_CLOCK):
+        """Device hook of :meth:`bounds_stats`: the bounds kernel over
+        candidate ``blocks``, folded on the host."""
+        cols3, bids, n_real, boxes, wins, kw = self._agg_args(blocks, config)
         stats = aggregations.block_bounds(cols3, bids, boxes, wins, clock=clock, **kw)
         with clock.device("d2h", self.device):
             host = stats.cpu().numpy()
@@ -943,18 +996,18 @@ class IndexTable(SortedKeys):
         a [height, width] grid over ``bounds``); return finish() -> grid.
         A batch of map tiles launches every tile's kernel before pulling
         any grid (DataStore.density_many)."""
-        args = self.agg_launch_args(config)
-        if args is None:
+        blocks = self._agg_candidates(config)
+        if blocks is None:
             return lambda: np.zeros((height, width), dtype=np.float32)
         gb = np.asarray(bounds, dtype=np.float32).reshape(4)
-        return self._device_density_submit(args, gb, width, height, clock)
+        return self._device_density_submit(blocks, config, gb, width, height, clock)
 
-    def _device_density_submit(self, args, grid_bounds, width: int, height: int,
-                               clock=NULL_CLOCK):
-        """Launch the density kernel over ``agg_launch_args`` output;
-        return finish() -> grid (one device->host copy). The device hook
-        beside ``_device_scan_submit`` and ``_device_pops``."""
-        cols3, bids, _, boxes, wins, kw = args
+    def _device_density_submit(self, blocks: np.ndarray, config: ScanConfig, grid_bounds,
+                               width: int, height: int, clock=NULL_CLOCK):
+        """Launch the density kernel over candidate ``blocks``; return
+        finish() -> grid (one device->host copy). The device hook beside
+        ``_device_scan_submit`` and ``_device_pops``."""
+        cols3, bids, _, boxes, wins, kw = self._agg_args(blocks, config)
         grid = aggregations.block_density(
             cols3, bids, boxes, wins, grid_bounds, width=width, height=height,
             clock=clock, **kw,

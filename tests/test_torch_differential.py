@@ -47,6 +47,10 @@ The point trees run again on S3 + S2 stores
 and through each package's data plane: ``GET /query`` with the tree as
 its CQL (and ``limit``) answers the same status, rows header and GeoJSON
 body byte for byte.
+The first trees run again on two-write mesh and pod stores (the flat
+8-shard mesh and a sim pod of 4 hosts x 2 shards, the port's shards
+virtual CPU devices) against the JAX package's: ids in order with their
+hints, counts and estimates, and ``query_many``.
 Tolerance: exact.
 """
 
@@ -940,3 +944,68 @@ def test_random_trees_agree_through_the_data_plane(s2_stores, writes):
     finally:
         jsrv.close()
         tsrv.close()
+
+
+# -- mesh and pod stores -------------------------------------------------------
+
+N_MESH = 12_000  # three 4,096-row blocks: every host of the pod owns one
+MESH_TREES = 40  # per variant: the first trees of CASES
+MESH_VARIANTS = [(s, v) for s in ("pts", "ext") for v in ("mesh", "pod")]
+
+
+def _mesh_kwargs(variant):
+    """(JAX kwargs, port kwargs): the flat 8-shard mesh, or a sim pod of
+    4 hosts x 2 shards; the port's shards are virtual CPU devices."""
+    from geomesa_tpu.parallel import make_mesh as jmake_mesh
+    from geomesa_tpu.pod import make_host_group as jgroup
+    from geomesa_tpu_torch.parallel import make_mesh
+    from geomesa_tpu_torch.pod import make_host_group
+
+    if variant == "mesh":
+        return {"mesh": jmake_mesh(8)}, {"mesh": make_mesh(devices=["cpu"] * 8), "device": "cpu"}
+    return ({"mesh": jgroup(4, 2, driver="sim")},
+            {"mesh": make_host_group(4, 2, driver="sim", devices=["cpu"] * 8), "device": "cpu"})
+
+
+@pytest.fixture(scope="module")
+def mesh_stores():
+    ensure_jax_native()
+    pdata, edata = point_data(seed=17, n=N_MESH), extent_data(n=N_MESH)
+    out = {}
+    for schema, v in MESH_VARIANTS:
+        make, data = (point_store, pdata) if schema == "pts" else (extent_store, edata)
+        jkw, tkw = _mesh_kwargs(v)
+        out[(schema, v)] = (make(geomesa_tpu, data, writes=(10_000, 2_000), **jkw),
+                            make(geomesa_tpu_torch, data, writes=(10_000, 2_000), **tkw))
+    return out
+
+
+MESH_PARAMS = [(s, v, c) for s, v in MESH_VARIANTS for c in range(MESH_TREES // (2 * CHUNK))]
+
+
+@pytest.mark.parametrize("schema,variant,chunk", MESH_PARAMS,
+                         ids=[f"{s}-{v}-{c}" for s, v, c in MESH_PARAMS])
+def test_random_trees_agree_on_mesh_and_pod_stores(mesh_stores, schema, variant, chunk):
+    """Twenty trees per parameter on a two-write (tiered) mesh or pod
+    store: ids in order with and without hints and limit, the count and
+    its estimate, equal to the JAX package's mesh or pod store; a
+    ``query_many`` of the chunk's trees equals the per-query ids."""
+    jds, tds = mesh_stores[(schema, variant)]
+    trees = CASES[schema][2 * chunk * CHUNK:(2 * chunk + 2) * CHUNK]
+    nonempty = 0
+    wants = []
+    for q, kw, limit in trees:
+        want = np.asarray(jds.query(schema, q).ids).tolist()
+        assert np.asarray(tds.query(schema, q).ids).tolist() == want, q
+        wants.append(want)
+        nonempty += bool(want)
+        got = tds.query(schema, q, limit=limit, hints=THints(**kw))
+        ref = jds.query(schema, q, limit=limit, hints=JHints(**kw))
+        assert np.asarray(got.ids).tolist() == np.asarray(ref.ids).tolist(), (q, kw, limit)
+    for q, _kw, _limit in trees[:4]:
+        assert tds.count(schema, q) == jds.count(schema, q), q
+        est = [ds.stats_query(schema, "Count()", q, estimate=True)[0].count for ds in (tds, jds)]
+        assert est[0] == est[1], q
+    assert [np.asarray(r.ids).tolist() for r in tds.query_many(schema, [t[0] for t in trees])] \
+        == wants
+    assert nonempty

@@ -1343,3 +1343,69 @@ def test_data_plane_on_the_card_equals_a_cpu_server():
     finally:
         gpu.close()
         cpu.close()
+
+
+def _mesh_store(device, mesh=None, n=200_000):
+    from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
+
+    sft = FeatureType.from_spec("m", "dtg:Date,*geom:Point:srid=4326")
+    ds = DataStore(device=device, mesh=mesh)
+    ds.create_schema(sft)
+    rng = np.random.default_rng(37)
+    t0 = int(np.datetime64("2024-01-01T00:00:00", "ms").astype(np.int64))
+    ds.write("m", FeatureCollection.from_columns(
+        sft, np.arange(n), {"dtg": t0 + rng.integers(0, 20 * 86_400_000, n),
+                            "geom": (rng.uniform(-180, 180, n), rng.uniform(-90, 90, n))}))
+    return ds
+
+
+def test_virtual_cuda_mesh_planes_and_answers_equal_the_one_device_store():
+    """A virtual mesh of 4 shards on cuda:0: each shard's K1 planes over
+    its local blocks equal the one-device table's planes over the same
+    global blocks (j * 4 + d), word for word; ids, counts, count
+    estimates, grids, bounds and a fused batch equal the one-device
+    store's, and K1, K2, K1p, K3 and K4 launch on the shards."""
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.parallel import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    D = 4
+    one = _mesh_store("cuda")
+    mesh = _mesh_store("cuda", make_mesh(devices=["cuda:0"] * D))
+    q = "bbox(geom, -60, -30, 40, 50) AND dtg DURING 2024-01-03T00:00:00Z/2024-01-12T00:00:00Z"
+    plan = one.planner.plan("m", q)
+    t1, tm = one.table("m", plan.index), mesh.table("m", plan.index)
+    boxes, wins = t1._params(plan.config)
+    names = t1._scan_cols(plan.config)
+    kw = t1._scan_kernel_kwargs(plan.config, names)
+    for d in range(D):
+        local = np.arange(tm.blocks_local, dtype=np.int64)
+        glob = local * D + d
+        keep = glob < t1.n_blocks
+        lb, _ = tbk.pad_bids(local[keep], tm.blocks_local)
+        gb, _ = tbk.pad_bids(glob[keep], t1.n_blocks)
+        a = tbk.scan_planes(tm._shard_cols(d, names), lb, boxes, wins, **kw)
+        b = tbk.scan_planes(t1._cols_args(names), gb, boxes, wins, **kw)
+        n_real = int(keep.sum())
+        assert torch.equal(a[:, :n_real], b[:, :n_real]), d
+    queries = [q, "bbox(geom, 100, -80, 170, -10)", "bbox(geom, -10, -10, 10, 10)"]
+    batch = [f"bbox(geom, {x:.2f}, {y:.2f}, {x + 12:.2f}, {y + 9:.2f})"
+             for x, y in zip(np.linspace(-170, 150, 24), np.linspace(-80, 70, 24))]
+
+    def answers(ds):
+        out = []
+        for qq in queries:
+            out += [ds.query("m", qq).ids.tolist(), ds.count("m", qq),
+                    ds.stats_query("m", "Count()", qq, estimate=True)[0].count,
+                    ds.density("m", qq, envelope=(-180, -90, 180, 90), width=64,
+                               height=32).tolist(),
+                    ds.bounds("m", qq, estimate=True)]
+        return out + [[r.ids.tolist() for r in ds.query_many("m", batch)]]
+
+    for k in kernels.KERNELS:
+        k.reset_counts()
+    got = answers(mesh)
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    assert got == answers(one)
+    assert all(launched.values()), launched

@@ -50,6 +50,7 @@ the JAX package's name as a strict leaf, and the edges equal the JAX
 package's.
 """
 
+import importlib
 import json
 import threading
 from types import SimpleNamespace
@@ -819,3 +820,46 @@ def test_tuning_workload_edges_equal_the_jax_package():
     assert tsnap["edges"] == jsnap["edges"]
     assert tsnap["blocking"] == jsnap["blocking"]
     assert not any(a == "TuningManager._lock" for a, _ in tsnap["edges"])
+
+
+POD_LOCKS = {"HostGroup._probe_lock", "PodStore._route_lock"}
+
+
+def _pod_workload(P):
+    """Arm the witness, build a sim host group and a PodStore (both
+    constructed armed), install a per-host link profile, and drive id-less
+    routed writes, a query and a count; return the snapshot, the cycle and
+    the answers."""
+    P.lw.enable()
+    pod_pkg = importlib.import_module(f"{P.pkg.__name__}.pod")
+    geo = importlib.import_module(f"{P.pkg.__name__}.geometry")
+    kw = {"devices": ["cpu"] * 2} if P is PORT else {}
+    group = pod_pkg.make_host_group(hosts=2, devices_per_host=1, driver="sim", **kw)
+    caps = group.set_link_profile([10.0, 40.0])
+    pod = pod_pkg.PodStore(P.pkg.FeatureType.from_spec("p", SPEC), group)
+    try:
+        wrote = pod.write([{"name": "p", "age": i, "dtg": np.datetime64(T0, "ms"),
+                            "geom": geo.Point(float(i), float(i))} for i in range(8)])
+        answers = [caps, wrote, sorted(np.asarray(pod.query().ids).astype(str).tolist()),
+                   pod.count(), [group.slot_cap(h) for h in range(2)]]
+    finally:
+        pod.close()
+    snap = P.lw.REPORT.snapshot()
+    cycle = P.lw.REPORT.cycle()
+    P.lw.disable()
+    return snap, cycle, answers
+
+
+def test_pod_workload_edges_equal_the_jax_package():
+    """``HostGroup._probe_lock`` (the link-profile install and the
+    per-host cap reads) and ``PodStore._route_lock`` (the auto-id counter
+    of id-less writes) are witnessed under the JAX package's names; both
+    are leaves, and the edges and blocking events equal the JAX
+    package's, acyclic."""
+    (jsnap, jcyc, jans), (tsnap, tcyc, tans) = (_pod_workload(P) for P in BOTH)
+    assert tans == jans and tans[1] == 8 and tans[3] == 8
+    assert jcyc is None and tcyc is None
+    assert POD_LOCKS <= set(tsnap["seen"]) and POD_LOCKS <= set(jsnap["seen"])
+    assert tsnap["edges"] == jsnap["edges"]
+    assert set(tsnap["blocking"]) == set(jsnap["blocking"])
+    assert not any(a in POD_LOCKS for a, _ in tsnap["edges"])

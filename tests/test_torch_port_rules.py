@@ -902,3 +902,64 @@ def test_cli_loads_onto_the_card_unless_told_otherwise(tmp_path, monkeypatch, ca
     assert capsys.readouterr().out.strip() == "0"
     src = inspect.getsource(cli)
     assert "environ" not in src and "getenv" not in src
+
+
+MESH_POD_MODULES = ["parallel", "parallel.mesh", "parallel.dtable", "pod", "pod.hostgroup",
+                    "pod.table", "pod.store", "scripts.probe_multiprocess"]
+
+
+@pytest.fixture(scope="module")
+def mesh_pod_imports():
+    """Each module of the multi-device tier imported on its own in a fresh
+    interpreter, the interpreters started together: module -> (rc,
+    stdout, stderr)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    procs = {
+        m: subprocess.Popen([sys.executable, "-c", _IMPORT_ONE, f"geomesa_tpu_torch.{m}"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+        for m in MESH_POD_MODULES
+    }
+    out = {}
+    for m, p in procs.items():
+        stdout, stderr = p.communicate(timeout=180)
+        out[m] = (p.returncode, stdout, stderr)
+    return out
+
+
+@pytest.mark.parametrize("module", MESH_POD_MODULES)
+def test_mesh_and_pod_modules_import_no_jax(mesh_pod_imports, module):
+    rc, stdout, stderr = mesh_pod_imports[module]
+    assert rc == 0, stderr
+    assert stdout.strip() == "[]", stdout
+    path = os.path.join(ROOT, "geomesa_tpu_torch", *module.split("."))
+    src = open(path + ".py" if os.path.exists(path + ".py") else
+               os.path.join(path, "__init__.py")).read()
+    assert "import jax" not in src and "from geomesa_tpu." not in src
+    assert "from geomesa_tpu import" not in src
+
+
+def test_mesh_shards_take_plain_on_cpu_and_launch_nothing():
+    """A CPU mesh store's shards take the kernels' plain versions: a
+    query, a fused batch, a count estimate, a grid and bounds launch no
+    kernel."""
+    from geomesa_tpu_torch import FeatureCollection, FeatureType
+    from geomesa_tpu_torch.kernels import KERNELS
+    from geomesa_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(3)
+    n = 20_000
+    sft = FeatureType.from_spec("t", "dtg:Date,*geom:Point:srid=4326")
+    ds = DataStore(device="cpu", mesh=make_mesh(devices=["cpu"] * 4))
+    ds.create_schema(sft)
+    ds.write("t", FeatureCollection.from_columns(sft, np.arange(n), {
+        "dtg": rng.integers(0, 10 * 86_400_000, n) + 1_704_067_200_000,
+        "geom": (rng.uniform(-50, 50, n), rng.uniform(-50, 50, n))}))
+    before = [k.launches for k in KERNELS]
+    q = "bbox(geom, -20, -20, 20, 20) AND dtg DURING 2024-01-02T00:00:00Z/2024-01-06T00:00:00Z"
+    assert len(ds.query("t", q)) and all(len(r) for r in ds.query_many("t", [q] * 10))
+    assert ds.stats_query("t", "Count()", q, estimate=True)[0].count > 0
+    assert ds.density("t", q, envelope=(-50, -50, 50, 50), width=8, height=8).sum() > 0
+    assert ds.bounds("t", q, estimate=True) is not None
+    assert [k.launches for k in KERNELS] == before
