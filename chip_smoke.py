@@ -12,6 +12,11 @@ Phases, each printing one JSON line:
    builds from geomesa_tpu_torch/csrc with nvcc for sm_90a, and the
    native host helpers (geomesa_tpu_torch/native) with g++, loaded
    before any path;
+   then the lint phase: the port's static analysis
+   (``python -m geomesa_tpu_torch.scripts.check --json``) over the tree
+   this script sits in, its findings, rule count, wall and CPU seconds on
+   a line of their own; any finding fails the run (it needs no kernel, so
+   it runs before the first path);
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the main path's shapes (SUB = 128 over as many blocks as
    the 100M-row table; K1 at M in {32, 256, 4096} and the whole table
@@ -150,7 +155,13 @@ Phases, each printing one JSON line:
    fold of the same slice and (last) a full build, bitwise on the card,
    and upload only the slice's rows; on the final store ``query_many``
    of 16, 4 count estimates, densities and bounds against the plain
-   versions, and ``warmup()``;
+   versions, and ``warmup()``; then the pinned-snapshot check of the
+   raster aggregation push-down: a 12-edge star polygon over a dense
+   cluster (raster-eligible on Z2, with certain rows and a residue),
+   with a hook on ``gather`` that deletes a 1 x 1 degree box inside the
+   star (a publish) before it gathers; ``count``, ``bounds`` (both
+   ``estimate`` settings) and ``Count()`` equal the f64 brute force of
+   the snapshot each scan ran on, and K1 launched with its raster leg;
 13. gdelt-attr-10M: 2,000,000 GDELT-shaped points (the cell's 10M, cut
    for the script's wall; ``reduced`` says so) with two string attribute
    indexes (``EventCode``: 300 CAMEO-shaped codes of 2-4
@@ -3454,8 +3465,89 @@ def check_fold_builds(torch, device, kept, last: int) -> dict:
     return out
 
 
+N_PINNED_CALLS = 4  # count, bounds (estimate on and off), Count()
+
+
+def pinned_raster_check(torch, ds, model) -> dict:
+    """The raster aggregation push-down answers from the snapshot its scan
+    ran on: a hook on ``gather`` deletes a 1 x 1 degree box inside a
+    12-edge star (a publish that renumbers the table) before every
+    residue gather; ``count``, ``bounds`` with ``estimate`` on and off and
+    ``Count()`` must equal the f64 brute force of the model before that
+    call's delete. K1's launches by leg are counted around the calls."""
+    from geomesa_tpu_torch import geometry as geo
+
+    # the centre of the densest 1 x 1 degree cell of the live rows
+    live = model.alive
+    h, xe, ye = np.histogram2d(model.x[live], model.y[live], bins=[360, 180],
+                               range=[[-180, 180], [-90, 90]])
+    i, j = np.unravel_index(int(np.argmax(h)), h.shape)
+    cx, cy = float(xe[i]) + 0.5, float(ye[j]) + 0.5
+    poly = star(cx, cy, 4.0, 6, np.random.default_rng(SEED + 57))
+    q = f"INTERSECTS(geom, {geo.to_wkt(poly)})"
+    plan = ds.planner.plan("gdelt", q)
+    check(plan.index == "z2" and plan.config.rast is not None
+          and ds._raster_agg_eligible("gdelt", plan),
+          "the pinned-snapshot star is raster-eligible on Z2")
+    _, certain = ds.table("gdelt", "z2").scan(plan.config)
+    check(bool(certain.any()) and bool((~certain).any()),
+          "the star's scan has certain rows and a residue")
+
+    def brute():
+        return brute_polygon_ids((np.where(model.alive, model.x, np.nan), model.y, model.t),
+                                 poly, None)
+
+    gather = ds.gather
+    deleted = []
+    busy = []  # the delete gathers too: it must not publish again
+
+    def hooked(type_name, ords, chunks=None):
+        if not busy and len(deleted) < N_PINNED_CALLS:
+            j = len(deleted)
+            box = (cx - 0.5 + 0.25 * j, cy - 0.5, cx + 0.5 + 0.25 * j, cy + 0.5)
+            gone = model.hits(box)
+            busy.append(1)
+            try:
+                n = ds.delete_features(type_name, "bbox(geom, {}, {}, {}, {})".format(*box))
+            finally:
+                busy.clear()
+            check(n == len(gone) > 0, f"the pinned check's delete {j} removed {n} rows, "
+                                      f"the model {len(gone)}")
+            model.alive[gone] = False
+            deleted.append(n)
+        return gather(type_name, ords, chunks=chunks)
+
+    legs0 = read_leg_launches().get("block_scan", {})
+    ds.gather = hooked
+    answers = {}
+    t0 = time.perf_counter()
+    try:
+        for name, call in (("count", lambda: ds.count("gdelt", q)),
+                           ("bounds_estimate", lambda: ds.bounds("gdelt", q, estimate=True)),
+                           ("bounds_exact", lambda: ds.bounds("gdelt", q, estimate=False)),
+                           ("count_stat", lambda: ds.stats_query("gdelt", "Count()", q)[0].count)):
+            ids = brute()  # the snapshot the scan runs on: before this call's delete
+            want = len(ids) if name.startswith("count") else (
+                float(model.x[ids].min()), float(model.y[ids].min()),
+                float(model.x[ids].max()), float(model.y[ids].max()))
+            got = call()
+            check(got == want, f"pinned raster {name}: {got} against the snapshot's {want}")
+            answers[name] = got
+    finally:
+        del ds.gather
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(deleted) == N_PINNED_CALLS, "every pinned call published before its gather")
+    legs1 = read_leg_launches().get("block_scan", {})
+    raster = sum(legs1.get(g, 0) - legs0.get(g, 0) for g in legs1 if "raster" in g)
+    check(raster >= N_PINNED_CALLS, f"K1 launched {raster} times with its raster leg")
+    return {"polygon_edges": 12, "centre": [cx, cy], "answers": answers, "deleted": deleted,
+            "k1_raster_launches": raster, "certain": int(certain.sum()),
+            "residue": int((~certain).sum()), "s": seconds}
+
+
 def mutation_path(torch, device) -> dict:
-    """gdelt-z3-10M-mutate, N_MUTATE = 5M rows: a GDELT-shaped
+    """gdelt-z3-10M-mutate, N_MUTATE rows: a GDELT-shaped
     point store (Z3 and Z2, ids 0..N-1, written once) takes, in order,
     ``fold_upsert`` of 1M rows
     (500k existing ids moved to new positions in the span's last 21 days,
@@ -3471,8 +3563,9 @@ def mutation_path(torch, device) -> dict:
     fold of the same slice and (last) a full build, bitwise on the card.
     On the final store: ``query_many`` over 16 queries against the
     sequential ones, 4 count estimates, densities and bounds against the
-    plain versions, and ``warmup()``. Launch counts are zeroed before and
-    read after; all five kernels must launch."""
+    plain versions, ``warmup()``, and the raster push-down's pinned
+    snapshot under publishes (``pinned_raster_check``). Launch counts are
+    zeroed before and read after; all five kernels must launch."""
     from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType, conf
 
     zero_launches()
@@ -3614,6 +3707,7 @@ def mutation_path(torch, device) -> dict:
     calls = ds.warmup("gdelt")
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
+    pinned = pinned_raster_check(torch, ds, model)
     launches = read_launches()
     slice_ms = np.asarray(report["slice_s"]) * 1e3
     rec = {
@@ -3636,6 +3730,7 @@ def mutation_path(torch, device) -> dict:
         "ops": ops,
         "checked_query_many": len(many), "checked_counts": n_counts,
         "checked_aggregations": n_agg, "count_estimates": estimates,
+        "checked_pinned_raster": pinned,
         "device_gb": ds.table("gdelt", "z3").nbytes_device / 1e9
                      + ds.table("gdelt", "z2").nbytes_device / 1e9,
     }
@@ -8967,6 +9062,31 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def lint_phase() -> dict:
+    """The port's static analysis over the tree this script sits in,
+    through its runner (exit 0 clean, 1 findings, 2 unusable): findings,
+    rule count, wall and CPU seconds (the runner's process)."""
+    from geomesa_tpu_torch import analysis
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    c0, t0 = os.times(), time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "geomesa_tpu_torch.scripts.check", "--json",
+                          "--root", root], cwd=root, capture_output=True, text=True, timeout=300)
+    wall_s, c1 = time.perf_counter() - t0, os.times()
+    payload = json.loads(out.stdout) if out.stdout.strip().startswith("{") else {}
+    rec = {"phase": "lint", "exit_code": out.returncode, "rules": len(analysis.ALL_RULES),
+           "findings": [f"{f['path']}:{f['line']}: [{f['rule']}] {f['message']}"
+                        for f in payload.get("findings", [])],
+           "suppressed": len(payload.get("suppressed", [])),
+           "wall_s": wall_s, "cpu_s": (c1.children_user - c0.children_user)
+           + (c1.children_system - c0.children_system),
+           "analysis_s": payload.get("seconds")}
+    emit(rec)
+    check(out.returncode == 0 and payload.get("clean") is True and not rec["findings"],
+          f"the port's lint is clean (exit {out.returncode}): {rec['findings']} {out.stderr[-2000:]}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -8988,6 +9108,8 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch_device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s,
           "native_build_s": time.perf_counter() - t_native, "host_cpus": os.cpu_count()})
+
+    lint_phase()
 
     timings = kernel_phase(torch, device)
     emit({"phase": "kernels_vs_plain", **{k: v for k, v in timings.items()}})

@@ -10,8 +10,22 @@ the CPU, where every kernel wrapper takes its plain PyTorch version.
 
 __version__ = "0.1.0"
 
-from geomesa_tpu_torch.datastore import DataStore
-from geomesa_tpu_torch.features import FeatureCollection
-from geomesa_tpu_torch.sft import FeatureType
-
 __all__ = ["DataStore", "FeatureCollection", "FeatureType", "__version__"]
+
+#: the top-level names load on first use, so a stdlib-only subpackage
+#: (``analysis``, the ``check`` script) imports without torch
+_LAZY = {
+    "DataStore": "geomesa_tpu_torch.datastore",
+    "FeatureCollection": "geomesa_tpu_torch.features",
+    "FeatureType": "geomesa_tpu_torch.sft",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        value = getattr(importlib.import_module(_LAZY[name]), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

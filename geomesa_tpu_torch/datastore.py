@@ -1825,22 +1825,26 @@ class DataStore:
         )
 
     def _raster_agg_scan(self, type_name: str, plan, explain=None):
-        """(hit count, hit ordinals) of a raster-eligible plan: the scan's
-        certain rows (full cells, contained ranges) are accepted without a
-        gather; only the uncertain residue gathers and refines in f64.
-        Recorded (``record_query``, ``geomesa.query.raster_agg``) like the
-        other aggregation fast paths."""
+        """(hit count, hit ordinals, chunk snapshot) of a raster-eligible
+        plan: the scan's certain rows (full cells, contained ranges) are
+        accepted without a gather; only the uncertain residue gathers and
+        refines in f64. Recorded (``record_query``,
+        ``geomesa.query.raster_agg``) like the other aggregation fast
+        paths."""
         deadline = self._agg_deadline()
         t0 = time.perf_counter()
-        ordinals, certain = self.table(type_name, plan.index).scan_submit(
-            plan.config, clock=self.clock
-        )()
+        # pinned pair: the residue gather resolves the scan's ordinals
+        # against the chunk list the table was built over, not whatever
+        # a publish swaps in mid-scan
+        table, chunks = self.pin_scan_state(type_name, plan.index)
+        ordinals, certain = table.scan_submit(plan.config, clock=self.clock)()
         self._agg_check_deadline(deadline, "raster aggregation scan")
         cert_ords = ordinals[certain]
         unc = ordinals[~certain]
         if len(unc):
             with self.clock.host("refine"):
-                m = plan.filter.evaluate(self.gather(type_name, unc).batch)
+                sub = self.gather(type_name, unc, chunks=chunks)
+                m = plan.filter.evaluate(sub.batch)
             self._agg_check_deadline(deadline, "raster residue refinement")
             hits = np.concatenate([cert_ords, unc[m]])
         else:
@@ -1854,17 +1858,33 @@ class DataStore:
         if self.metrics is not None:
             self.metrics.counter("geomesa.query.raster_agg")
         self.record_query(plan, len(hits), time.perf_counter() - t0)
-        return len(hits), hits
+        return len(hits), hits, chunks
 
     def _raster_agg_bounds(self, type_name: str, plan, explain=None):
         """(count, exact envelope | None) through the raster scan: the hit
-        coordinates come straight from the point column, no row gather."""
-        n, hits = self._raster_agg_scan(type_name, plan, explain=explain)
+        coordinates come straight from the point columns, chunk by chunk
+        of the scan's pinned snapshot, with no row gather and no full
+        concat (order is irrelevant to min/max)."""
+        n, hits, chunks = self._raster_agg_scan(type_name, plan, explain=explain)
         if n == 0:
             return 0, None
-        col = self.features(type_name).geom_column
-        x, y = col.x[hits], col.y[hits]
-        return n, (float(x.min()), float(y.min()), float(x.max()), float(y.max()))
+        hits = np.sort(np.asarray(hits, dtype=np.int64))
+        env = None
+        base = 0
+        for c in chunks:
+            lo = np.searchsorted(hits, base)
+            hi = np.searchsorted(hits, base + len(c))
+            if hi > lo:
+                col = c.geom_column
+                sel = hits[lo:hi] - base
+                x, y = col.x[sel], col.y[sel]
+                e = (float(x.min()), float(y.min()), float(x.max()), float(y.max()))
+                env = e if env is None else (
+                    min(env[0], e[0]), min(env[1], e[1]),
+                    max(env[2], e[2]), max(env[3], e[3]),
+                )
+            base += len(c)
+        return n, env
 
     def density(
         self,

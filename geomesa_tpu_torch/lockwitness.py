@@ -1,12 +1,16 @@
-"""Dynamic lock witness: record the lock-acquisition order at run time.
+"""Dynamic lock witness: prove the static lock model against reality.
 
-The port's copy of geomesa_tpu/lockwitness.py. Every lock the port
-declares (``DataStore._write_lock``, ``DataStore._id_lock``,
-``MetricsRegistry._lock``, ``Tracer._lock``, ``QueryScheduler._cond``,
-``ChaosSpec._lock``) is constructed through :func:`witness`. When the
-witness is ARMED (``geomesa.tpu.lock.witness`` / env
-``GEOMESA_TPU_LOCK_WITNESS=1``, or :func:`enable` in a test) the lock
-wraps in a recording proxy:
+The port's copy of geomesa_tpu/lockwitness.py. The static tier
+(``analysis/lockmodel.py`` + the concurrency rules) derives the
+lock-acquisition graph from the AST and checks it against the declared
+rank order. A static model can drift from runtime truth in both
+directions: an edge real control flow takes through a callback the AST
+cannot resolve, or a registry entry for a lock nothing ever acquires.
+This module closes the loop: every
+:data:`~geomesa_tpu_torch.analysis.lockmodel.LOCKS` lock is constructed
+through :func:`witness`, and when the witness is ARMED
+(``geomesa.tpu.lock.witness`` / env ``GEOMESA_TPU_LOCK_WITNESS=1``, or
+:func:`enable` in a test) the lock wraps in a recording proxy:
 
 - every acquisition while other witnessed locks are held records an
   acquisition-order EDGE ``held -> acquired`` (per thread, via a
@@ -19,7 +23,11 @@ wraps in a recording proxy:
   witnessed lock is held records a ``blocking`` event (fault points mark
   the IO and latency steps).
 
-:func:`dump` writes the observed graph to
+``tests/test_torch_lockwitness.py`` drives workloads over the
+concurrent tiers under an armed witness and asserts both directions:
+every registry lock was witnessed, the observed graph is acyclic, and
+it is a subgraph of the static model's predicted edges (AST-derived +
+declared callback edges). :func:`dump` writes the observed graph to
 ``geomesa.tpu.lock.witness.artifact`` (default
 ``/tmp/lock_witness.json``), or to the path it is given.
 

@@ -1,12 +1,13 @@
 """SLO tracking: declarative objectives over sliding windows.
 
 The port's copy of geomesa_tpu/obs/slo.py. An :class:`SloObjective`
-states what good looks like for one histogram metric — "``geomesa.query.
-scan`` p99 ≤ 250 ms over 5 minutes, with a 1% error budget". The
-:class:`SloTracker` subscribes to a ``MetricsRegistry`` (the ``observer``
-hook, invoked after the registry lock is released), so every histogram
-observation in the process — query latency, fold slice pauses, a
-tenant's served wall — feeds the windows without per-call-site wiring.
+states what good looks like for one histogram metric —
+"``geomesa.query.scan`` p99 ≤ 250 ms over 5 minutes, with a 1% error
+budget". The :class:`SloTracker` subscribes to a ``MetricsRegistry``
+(the ``observer`` hook, invoked after the registry lock is released), so
+every histogram observation in the process — query latency, fold slice
+pauses, a tenant's served wall — feeds the windows without
+per-call-site wiring.
 
 Windows are rings of interval sub-histograms (``geomesa.obs.slo.slices``
 slices over ``geomesa.obs.slo.window.s``): an observation lands in the

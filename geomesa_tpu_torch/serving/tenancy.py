@@ -192,7 +192,7 @@ class TenantRegistry:
             tracker = t.tracker
         if tracker is not None:
             tracker.observe(TENANT_WALL_METRIC, wall_s, now=time.time() if now is None else now)
-        self.metrics.observe(TENANT_WALL_METRIC, wall_s)
+        self.metrics.observe("geomesa.tenant.query_wall", wall_s)
 
     # -- the report -------------------------------------------------------
     def report(self) -> dict:

@@ -133,6 +133,14 @@ class FeatureType:
     def xz_precision(self) -> int:
         return int(self.user_data.get("geomesa.xz.precision", 12))
 
+    @property
+    def z_shards(self) -> int:
+        return int(self.user_data.get("geomesa.z.splits", 4))
+
+    @property
+    def attr_shards(self) -> int:
+        return int(self.user_data.get("geomesa.attr.splits", 4))
+
     # -- spec DSL --------------------------------------------------------
     def indexed_attributes(self) -> list[str]:
         return [a.name for a in self.attributes if a.indexed and not a.is_geometry]

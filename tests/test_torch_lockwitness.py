@@ -8,9 +8,8 @@ name record an ``aliased`` event, a two-thread inversion is reported as
 a cycle, a Condition's wait releases its held frame, and a fault point
 reached under a witnessed lock records a ``blocking`` event.
 
-The reference's static lock model (``geomesa_tpu/analysis/``) is not
-ported, so the workload check holds the two runtimes against each
-other: both witnesses armed, the same seeded workload (write, query,
+The workload checks hold the two runtimes against each other: both
+witnesses armed, the same seeded workload (write, query,
 ``query_many``, a sliced ``fold_upsert`` with a pacer, ``serve()`` with a
 few submits, a pipelined ``BulkLoader`` load of a second type, tracing
 and a metrics registry on) runs through each package, and the observed edge sets and blocking events must be equal,
@@ -47,7 +46,12 @@ witnessed with the cache tier's, and the edges equal the JAX package's.
 A seventh workload arms the tuning tier (a pulse every query) behind the
 scheduler and the ops plane: ``TuningManager._lock`` is witnessed under
 the JAX package's name as a strict leaf, and the edges equal the JAX
-package's.
+package's. Last, the port's workloads run together (the streaming one
+under a chaos schedule armed at rate 0) and are held against the port's
+own static lock model (``geomesa_tpu_torch/analysis/lockmodel.py``), as
+the JAX package's witness test holds its workload against its model:
+every ``LOCKS`` entry witnessed, the union graph acyclic and within the
+predicted edges, no fault point under a hot lock but the declared ones.
 """
 
 import importlib
@@ -863,3 +867,55 @@ def test_pod_workload_edges_equal_the_jax_package():
     assert tsnap["edges"] == jsnap["edges"]
     assert set(tsnap["blocking"]) == set(jsnap["blocking"])
     assert not any(a in POD_LOCKS for a, _ in tsnap["edges"])
+
+
+def test_port_workloads_close_over_the_port_s_lock_model(tmp_path):
+    """The model-vs-reality gate of the JAX package's witness test, held
+    against the port's own static model (geomesa_tpu_torch/analysis/
+    lockmodel.py): over the port's armed workloads together, every
+    ``LOCKS`` entry is witnessed, the observed graph is acyclic and lies
+    within the model's predicted edges, and no fault point fires under a
+    hot lock but the declared ``DECLARED_BLOCKING`` pairs. The union graph
+    is dumped into ``tmp_path``."""
+    import fnmatch
+    import os
+
+    from geomesa_tpu_torch.analysis.core import Project
+    from geomesa_tpu_torch.analysis.lockmodel import DECLARED_BLOCKING, LOCKS, LockModel
+
+    # the streaming workload runs under a chaos schedule armed at rate 0
+    # (constructed armed), so its fault points consult the schedule's lock
+    # without firing
+    PORT.lw.enable()
+    with tfault.chaos(seed=3, rate=0.0, points="stream.*,streaming.*,standing.*,replica.*"):
+        streaming = _streaming_workload(PORT, str(tmp_path / "stream"))[0]
+    snaps = [_workload(PORT)[0], _cached_workload(PORT)[0], _serving_workload(PORT)[0], streaming,
+             _standing_replica_workload(PORT, str(tmp_path / "standing"))[0],
+             _pyramid_workload(PORT)[0], _tuning_workload(PORT)[0], _pod_workload(PORT)[0]]
+    for prop in (tconf.CACHE_MIN_COST, tconf.SCAN_FUSED_SLOTS,
+                 tconf.STREAM_FOLD_SLICE_ROWS, tconf.STREAM_CHUNK_ROWS):
+        prop.clear()  # the armed controllers write through the global knobs
+    seen = set().union(*(s["seen"] for s in snaps))
+    edges = set().union(*(map(tuple, s["edges"]) for s in snaps))
+    blocking = set().union(*(s["blocking"] for s in snaps))
+
+    # (a) every registry lock witnessed
+    assert set(LOCKS) - seen == set(), sorted(set(LOCKS) - seen)
+    # (b) the union graph is acyclic
+    PORT.lw.REPORT.reset()
+    PORT.lw.REPORT.edges.update({e: 1 for e in edges})
+    artifact = PORT.lw.dump(str(tmp_path / "port_union.json"))
+    assert PORT.lw.REPORT.cycle() is None, artifact
+    # (c) every observed edge is predicted by the static model
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+    model = LockModel.of(Project.load(root))
+    assert sorted(edges - model.predicted_edges()) == []
+    # (d) no fault point under a hot lock but the declared ones
+    hot = [k for k in sorted(blocking)
+           if model.is_hot(k.split(" @ ")[0])
+           and not any(k.split(" @ ")[0] == lock and fnmatch.fnmatch(k.split(" @ ")[1], pat)
+                       for lock, pat, _ in DECLARED_BLOCKING)]
+    assert hot == []
+    # the load-bearing nesting was observed, not vacuously absent
+    assert ("WriteAheadLog._sync_lock", "WriteAheadLog._lock") in edges
+    assert ("StreamingFeatureCache._lock", "WriteAheadLog._lock") in edges

@@ -14,10 +14,11 @@ import pytest
 import torch
 
 from geomesa_tpu.scan import block_kernels as jbk
+from geomesa_tpu_torch import native as tnative
 from geomesa_tpu_torch.scan import block_kernels as tbk
 from test_torch_store import _dur
 from test_torch_polygon_store import (  # noqa: F401  (stores is a fixture)
-    CELLS, POLYGONS, SETTINGS, SLIVER, _eq, _filter, _ids, raster_setting, stores,
+    CELLS, POLYGONS, SETTINGS, SLIVER, _eq, _filter, _ids, raster_setting, star, stores,
 )
 
 # the suite runs in several test processes side by side: one intra-op
@@ -141,9 +142,9 @@ def test_raster_aggregation_skips_the_gather(stores, monkeypatch):
     gathered = []
     gather = tds.gather
 
-    def spy(type_name, ords):
+    def spy(type_name, ords, chunks=None):
         gathered.append(len(ords))
-        return gather(type_name, ords)
+        return gather(type_name, ords, chunks=chunks)
 
     monkeypatch.setattr(tds, "gather", spy)
     n = tds.count("pts", q)
@@ -151,3 +152,81 @@ def test_raster_aggregation_skips_the_gather(stores, monkeypatch):
     assert tds.stats_query("pts", "Count()", q)[0].count == n
     assert tds.bounds("pts", q, estimate=False) == jds.bounds("pts", q, estimate=False)
     assert gathered == [int((~certain).sum())] * 3
+
+
+# -- a publish between the raster scan and its residue gather -----------------
+
+# a 12-edge star polygon (above geomesa.raster.min.edges, so it gets a
+# raster) over a point schema with no date (the Z2 index, where the
+# raster's full cells are certain)
+PIN_Q = f"INTERSECTS(geom, {star(10, 5, 6, 12, 30)})"
+
+
+def _pin_store(pkg, mesh=None, **kw):
+    """20,000 seeded points in two writes, each row named n0..n9."""
+    rng = np.random.default_rng(11)
+    n = 20_000
+    x, y = rng.uniform(-40, 60, n), rng.uniform(-40, 50, n)
+    names = np.array([f"n{i % 10}" for i in range(n)])
+    sft = pkg.FeatureType.from_spec("pts", "name:String,*geom:Point:srid=4326")
+    ds = pkg.DataStore(mesh=mesh, **kw) if mesh is not None else pkg.DataStore(**kw)
+    ds.create_schema(sft)
+    for sl in (slice(0, n // 2), slice(n // 2, n)):
+        ds.write("pts", pkg.FeatureCollection.from_columns(sft, np.arange(sl.start, sl.stop), {
+            "name": names[sl], "geom": (x[sl], y[sl])}))
+    return ds
+
+
+def _publish_before_gather(monkeypatch, ds):
+    """Every residue gather first deletes the next name's rows (a publish
+    that renumbers the table), then gathers: the interleaving a flush, a
+    fold or a delete can produce between a scan and its gather."""
+    gather = ds.gather
+    deleted = []
+
+    def hooked(type_name, ords, chunks=None):
+        if not getattr(hooked, "busy", False):
+            hooked.busy = True
+            try:
+                deleted.append(ds.delete_features(type_name, f"name = 'n{len(deleted)}'"))
+            finally:
+                hooked.busy = False
+        return gather(type_name, ords, chunks=chunks)
+
+    monkeypatch.setattr(ds, "gather", hooked)
+    return deleted
+
+
+@pytest.mark.parametrize("layout", ["single", "mesh"])
+def test_raster_aggregation_answers_from_its_pinned_snapshot(layout, monkeypatch):
+    """count, bounds (both estimate settings) and Count() of a
+    raster-eligible polygon answer from the snapshot their scan ran on,
+    as the JAX package's do, when a publish lands between the scan and
+    the residue gather (before the pin, the port gathered the scan's
+    ordinals from the new chunk list and raised IndexError)."""
+    from geomesa_tpu import native
+    from geomesa_tpu.parallel import make_mesh as jmake_mesh
+    from geomesa_tpu_torch.parallel import make_mesh
+
+    import geomesa_tpu
+    import geomesa_tpu_torch
+
+    jmesh, tmesh = (jmake_mesh(8), make_mesh(devices=["cpu"] * 8)) if layout == "mesh" else (None, None)
+    with pytest.MonkeyPatch.context() as mp, tnative.disabled():
+        mp.setattr(native, "_lib", False)
+        jds = _pin_store(geomesa_tpu, mesh=jmesh)
+        tds = _pin_store(geomesa_tpu_torch, mesh=tmesh, device="cpu")
+        plan = tds.planner.plan("pts", PIN_Q)
+        assert tds._raster_agg_eligible("pts", plan)
+        ordinals, certain = tds.table("pts", plan.index).scan(plan.config)
+        assert certain.any() and (~certain).any()
+        jdel = _publish_before_gather(monkeypatch, jds)
+        tdel = _publish_before_gather(monkeypatch, tds)
+        assert tds.count("pts", PIN_Q) == jds.count("pts", PIN_Q)
+        for est in (True, False):
+            assert tds.bounds("pts", PIN_Q, estimate=est) == jds.bounds("pts", PIN_Q, estimate=est)
+        g = tds.stats_query("pts", "Count()", PIN_Q)
+        r = jds.stats_query("pts", "Count()", PIN_Q)
+        assert [s.to_json() for s in g] == [s.to_json() for s in r]
+        # every call published before its gather, in both packages alike
+        assert tdel == jdel and len(tdel) == 4 and all(d > 0 for d in tdel)

@@ -47,7 +47,13 @@
   each on its own in a fresh interpreter; ``serve(port=)`` mounts the
   data plane on a DataStore, a LambdaStore and a ReplicaStore; the CLI
   loads onto the card unless it is given ``--device cpu``, and raises
-  where there is no card.
+  where there is no card;
+- the static analysis (``analysis`` and its thirteen modules) and its
+  runner (``scripts.check``) import neither jax, nor torch, nor anything
+  of ``geomesa_tpu``, each on its own in a fresh interpreter; the port's
+  rule ids are the JAX package's less exactly its two jit rules, and
+  ``python -m geomesa_tpu_torch.scripts.check`` exits 0 on the tree, 1
+  on a staged bad fixture and 2 on an unknown rule id.
 """
 
 import importlib.util
@@ -963,3 +969,90 @@ def test_mesh_shards_take_plain_on_cpu_and_launch_nothing():
     assert ds.density("t", q, envelope=(-50, -50, 50, 50), width=8, height=8).sum() > 0
     assert ds.bounds("t", q, estimate=True) is not None
     assert [k.launches for k in KERNELS] == before
+
+
+ANALYSIS_MODULES = ["analysis", "analysis.core", "analysis.registries", "analysis.lockmodel",
+                    "analysis.rules", "analysis.rules.concurrency", "analysis.rules.controllers",
+                    "analysis.rules.faults", "analysis.rules.fused", "analysis.rules.kernels",
+                    "analysis.rules.knobs", "analysis.rules.locks", "analysis.rules.metrics",
+                    "analysis.rules.scripts", "scripts.check"]
+
+_IMPORT_STDLIB_ONLY = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "torch", "numpy", "geomesa_tpu"))
+print(bad)
+"""
+
+
+@pytest.fixture(scope="module")
+def analysis_imports():
+    """Each analysis module and the check script imported on its own in a
+    fresh interpreter, the interpreters started together: module -> (rc,
+    stdout, stderr)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    procs = {
+        m: subprocess.Popen([sys.executable, "-c", _IMPORT_STDLIB_ONLY, f"geomesa_tpu_torch.{m}"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+        for m in ANALYSIS_MODULES
+    }
+    out = {}
+    for m, p in procs.items():
+        stdout, stderr = p.communicate(timeout=180)
+        out[m] = (p.returncode, stdout, stderr)
+    return out
+
+
+@pytest.mark.parametrize("module", ANALYSIS_MODULES)
+def test_analysis_modules_import_the_standard_library_only(analysis_imports, module):
+    """The analysis and its runner need neither torch nor numpy (they read
+    the tree as text and AST), and nothing of jax or geomesa_tpu."""
+    rc, stdout, stderr = analysis_imports[module]
+    assert rc == 0, stderr
+    assert stdout.strip() == "[]", stdout
+    path = os.path.join(ROOT, "geomesa_tpu_torch", *module.split("."))
+    src = open(path + ".py" if os.path.exists(path + ".py") else
+               os.path.join(path, "__init__.py")).read()
+    assert "import jax" not in src and "import torch" not in src and "import numpy" not in src
+    assert "from geomesa_tpu." not in src and "from geomesa_tpu import" not in src
+
+
+def test_rule_ids_are_the_jax_package_s_less_its_two_jit_rules():
+    from geomesa_tpu import analysis as jax_analysis
+    from geomesa_tpu_torch import analysis
+
+    ref = [r.id for r in jax_analysis.ALL_RULES]
+    ids = [r.id for r in analysis.ALL_RULES]
+    assert set(ref) - set(ids) == {"kernel-traced-coercion", "kernel-dynamic-shape"}
+    assert set(ids) <= set(ref) and len(ids) == len(ref) - 2
+
+
+def _check(*args, cwd=ROOT):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    return subprocess.run([sys.executable, "-m", "geomesa_tpu_torch.scripts.check", *args],
+                          cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_check_exits_zero_on_the_tree_one_on_a_bad_fixture_two_on_an_unknown_rule(tmp_path):
+    import json
+
+    proc = _check("--json")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    payload = json.loads(proc.stdout)
+    assert payload["clean"] is True and payload["findings"] == [] and payload["schema_version"] == 1
+    # a staged bad fixture: the knob fixture under a mini tree's package
+    pkg = tmp_path / "geomesa_tpu_torch"
+    pkg.mkdir()
+    with open(os.path.join(ROOT, "tests", "fixtures", "analysis", "knob_bad.py")) as fh:
+        (pkg / "knob_bad.py").write_text(fh.read())
+    proc = _check("--root", str(tmp_path), "--json", "--rules", "knob-undeclared")
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert {f["rule"] for f in json.loads(proc.stdout)["findings"]} == {"knob-undeclared"}
+    assert _check("--rules", "no-such-rule").returncode == 2
+    assert _check("--rules", "kernel-dynamic-shape").returncode == 2  # no counterpart
+    assert _check("--root", str(tmp_path / "missing")).returncode == 2
+    assert _check("--baseline", str(tmp_path / "missing.txt")).returncode == 2
