@@ -261,7 +261,7 @@ Phases, each printing one JSON line:
 17. moving-z3-3M-stream: the reference's own streaming scenarios
    (``bench.py`` ``config_stream`` and ``config_wal``). ``sustained``: a
    cold Z3 store of 3,000,000 tracked objects (name, one day of times,
-   a point), ``serve()`` attached; 8 flushes (the reference's 24, cut
+   a point), ``serve()`` attached; 6 flushes (the reference's 24, cut
    for the script's wall, ``reduced``), each a 20k-row batch (half
    updates of existing ids with fresh positions and times, half new
    ids) written in 2048-row sub-batches and ``flush()``ed, then
@@ -286,7 +286,7 @@ Phases, each printing one JSON line:
    jagged stars of 8-120 arms in the hotspot box (0, 10, 12, 22) and 16
    convex rings, 1,000,112 in all, registered through
    ``register_geofences`` on a WAL-backed LambdaStore whose cold store is
-   on the card, every fused E bucket warmed with the gate; 60,000 events
+   on the card, every fused E bucket warmed with the gate; 40,000 events
    (the reference's 200,000, halved for the path's 75 s budget and cut
    again for the script's wall; listed in ``reduced``; 20 % in the
    hotspot) in 20k
@@ -346,7 +346,7 @@ Phases, each printing one JSON line:
    ``knn_search`` (K1), both equal in order to an f64 brute-force top k
    (the card's f64 haversine over every row picks 64 candidates, numpy's
    orders them). Joins (``config_pip_join``): ``spatial_join_indexed`` of
-   128 concave stars of 16-254 edges, ``contains`` and ``intersects``,
+   64 concave stars (its 128) of 16-254 edges, ``contains`` and ``intersects``,
    rasters off and on, pairs equal to an f64 even-odd ray cast run on the
    card over each star's bbox; the host grid join exact and adaptive on a
    seeded 2M-row sample, equal to each other and to the ray cast. The
@@ -370,7 +370,7 @@ Phases, each printing one JSON line:
    in-process query byte for byte, at the default page size and at 1,000
    rows; the mixed closed loop (2 s: two readers at ``limit=256``, one
    client ingesting 200-row batches; read q/s and acked rows/s); bursts
-   of 16 concurrent readers (fused into K2); fairness (3 s each, its 6 cut: the
+   of 16 concurrent readers (fused into K2); fairness (2 s each, its 6 cut: the
    compliant tenant's read p99 alone, then under an adversary of quota 1
    flooding from 3 threads; the degradation beside the reference's 1.5x
    bound, printed; the adversary's 429s accounted to it); every HTTP-acked
@@ -405,7 +405,8 @@ Phases, each printing one JSON line:
 25. gdelt-pod-10M: the multi-device tier after the reference's
    ``config_pod`` (its spec, its 12 probes of 4 x 3 degrees, 4 hosts and
    the flat mesh on the same devices), the scan rows raised from 150,000
-   to 10,000,000 GDELT-shaped points and the ingest rows from 400,000 to
+   to 5,000,000 GDELT-shaped points (10M until the scripts path came,
+   cut for the script's wall) and the ingest rows from 400,000 to
    2,000,000: a pod of 4 sim hosts x 2 shards of the card, the flat
    8-shard mesh over the same devices and a one-device store, each
    ``write`` + ``compact``; the probes, a fused ``query_many`` of them,
@@ -424,9 +425,20 @@ Phases, each printing one JSON line:
    LambdaStore's; the two-process gloo probe
    (``geomesa_tpu_torch/scripts/probe_multiprocess.py``) reads
    ``supported``.
+26. scripts: the measurement drivers of ``geomesa_tpu_torch/scripts/``
+   (the ports of the reference's ``scripts/``), each through its own
+   ``run`` on the card at a small size, its exactness fields checked:
+   ``validate_1b`` (4M rows, packed time, 12 exact queries, a 2M append
+   and compaction), ``run_pod_scale --ci`` (2M rows, 4 sim hosts x 2
+   shards of the card: exact probes, the fused leg taken and exact, the
+   streamed compaction exact), ``probe_link`` (16M rows), ``probe_floor``,
+   ``probe_async_pull``, ``probe_density_many`` (5M points), the three
+   XZ2 probes (2M footprints) and ``profile_join`` (2M points, 64
+   polygons); each driver's record on a line of its own with its
+   kernels' launches; the phase must stay under ``SCRIPTS_BUDGET_S``.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the twenty-three paths and read just after
+are zeroed just before each of the twenty-four paths and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
@@ -435,7 +447,7 @@ extent leg; tiered, mutate, persist and secure-cached: all five;
 attribute, served and stream: K1 and K2; standing: K2 with its
 point-in-polygon leg; replica: K1; ingest: K1, K3, K4; analytics: K1
 and K2; HTTP: K1 and K2; S2: K1, K3, K4; drift: K1 and K2; pod: all
-five) and
+five; scripts: K1, K2, K3) and
 called the native helpers ``check_native`` names (the ranges where it
 plans new filters, since the batch path's repeated plans take the
 planner's scan-config memo; ``sort_bins_z`` where it ingests, the plane
@@ -2930,7 +2942,7 @@ def hints_path(torch, ds, src, measured, outs, main_lat, clock_phases) -> dict:
 
 
 def main_path(torch, device):
-    """Twenty-two paths, each with its own launch and native call counts
+    """Twenty-four paths, each with its own launch and native call counts
     (zeroed just before it runs, read just after): the single-query main
     path, the batch path, the polygon path and the query controls on the
     same store, the
@@ -2941,7 +2953,8 @@ def main_path(torch, device):
     ops plane, the streaming tier, standing queries, replication, the
     pipelined bulk loader with file ingest and export, the analytics
     tier (kNN, joins, the tile pyramid, SQL, processes), the HTTP data
-    plane, the S2 and S3 indexes, and the tuning tier with the CLI. Each
+    plane, the S2 and S3 indexes, the tuning tier with the CLI, the pod
+    tier, and the measurement drivers of geomesa_tpu_torch/scripts/. Each
     path from the XZ2 cell on carries its wall as ``wall_s``."""
     from geomesa_tpu_torch.timing import NULL_CLOCK, PhaseClock
 
@@ -3044,7 +3057,7 @@ def main_path(torch, device):
     for path in (xz2_path, xz3_path, tiered_union_path, mutation_path, attribute_path,
                  persist_path, secure_cached_path, served_path, stream_path, standing_path,
                  replica_path, ingest_path, analytics_path, serve_http_path, s2_path,
-                 drift_path, pod_path):
+                 drift_path, pod_path, scripts_path):
         t0 = time.perf_counter()
         records.append(path(torch, device))
         records[-1]["wall_s"] = time.perf_counter() - t0
@@ -5582,7 +5595,7 @@ N_STREAM = 3_000_000  # tracked objects in the cold store
 STREAM_BATCH = 20_000  # rows per flush: half updates, half new ids
 # config_stream's 24 flushes, cut to 12 for the script's wall once paths
 # 22-24 came (the record's ``reduced``)
-STREAM_FLUSHES = 8  # 12 until the pod path came (the record's "reduced")
+STREAM_FLUSHES = 6  # 12 until the pod path came, 8 until the scripts path (the record's "reduced")
 STREAM_LEGACY_FLUSHES = 2  # of the reference's 12 (its per-flush cost is stationary)
 STREAM_CLIENTS = 4  # the reference's max(2, cpus // 2) on the card's 8-CPU host
 STREAM_POLL_MS = 150.0
@@ -6126,7 +6139,7 @@ GEOFENCE_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
 N_SUBS = 1_000_000  # tiny squares; with the 96 stars and 16 rings: 1,000,112
 # the reference's 200,000, halved for the 75 s budget, then cut to 60k for
 # the script's wall once paths 22-24 came
-N_GEOFENCE_EVENTS = 60_000
+N_GEOFENCE_EVENTS = 40_000  # 60,000 until the scripts path ("reduced")
 GEOFENCE_BATCH = 20_000
 N_GEOFENCE_ORACLE = 1_500
 N_GEOFENCE_NAIVE = 16
@@ -6815,65 +6828,6 @@ FILE_SPEC = "name:String,dtg:Date,*geom:Point:srid=4326"
 INGEST_BUDGET_S = 90.0
 
 
-def rss_bytes() -> int:
-    """This process's resident set size (Linux /proc)."""
-    with open("/proc/self/statm") as fh:
-        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
-
-
-def malloc_trim() -> None:
-    """Hand freed allocator arenas back before a baseline RSS reading, so
-    the ratio compares live bytes rather than glibc's retention."""
-    import ctypes
-
-    ctypes.CDLL("libc.so.6").malloc_trim(0)
-
-
-@contextmanager
-def rss_peak(interval_s: float = 0.02):
-    """Peak RSS over the block, sampled by a thread: yields a dict whose
-    ``peak`` holds it after the block."""
-    import threading
-
-    out = {"peak": rss_bytes()}
-    stop = threading.Event()
-
-    def sample():
-        while not stop.is_set():
-            out["peak"] = max(out["peak"], rss_bytes())
-            stop.wait(interval_s)
-
-    t = threading.Thread(target=sample, name="rss-sampler", daemon=True)
-    t.start()
-    try:
-        yield out
-    finally:
-        stop.set()
-        t.join()
-        out["peak"] = max(out["peak"], rss_bytes())
-
-
-def column_set_bytes(ds, type_name: str) -> dict:
-    """One type's column set (bench.py's ``_ingest_column_set_bytes``),
-    split: the host's half (feature columns and ids, every index's keys,
-    each table's sorted keys and permutation) and the tables' device
-    columns on the card."""
-    from geomesa_tpu_torch.ingest.pipeline import _chunk_nbytes
-
-    host = sum(_chunk_nbytes(fc, {}) for fc in ds._chunks.get(type_name, []))
-    for (t, _), parts in ds._key_chunks.items():
-        if t == type_name:
-            for k in parts:
-                host += int(k.bins.nbytes) + int(k.zs.nbytes)
-                host += sum(int(v.nbytes) for v in k.device_cols.values())
-    device = 0
-    for (t, _), table in ds._tables.items():
-        if t == type_name:
-            device += int(table.nbytes_device)
-            host += sum(int(np.asarray(a).nbytes) for a in (table.perm, table.bins, table.zs))
-    return {"host": host, "device": device}
-
-
 def table_fingerprint(ds, type_name: str) -> str:
     """bench.py's ``_table_fingerprint``: blake2b over every index table's
     sorted keys, block layout and device columns (read back to the host)
@@ -7090,6 +7044,7 @@ def ingest_path(torch, device) -> dict:
 
     from geomesa_tpu_torch import DataStore, FeatureCollection, FeatureType
     from geomesa_tpu_torch.ingest import BulkLoader, PipelineConfig
+    from geomesa_tpu_torch.scripts import hostmem
     from geomesa_tpu_torch.utils import bin_format
 
     zero_launches()
@@ -7125,8 +7080,8 @@ def ingest_path(torch, device) -> dict:
         last = i == len(INGEST_WORKERS) - 1
         if last:  # the compaction row's baseline: before the store it measures
             gc.collect()
-            malloc_trim()
-            rss_baseline = rss_bytes()
+            hostmem.malloc_trim()
+            rss_baseline = hostmem.rss_bytes()
         ds, wall, fp, fp_s_w, res = load(pipelined)
         check(res.written == N_INGEST, f"the x{w} load wrote every row")
         if ref_fp is None:
@@ -7178,12 +7133,12 @@ def ingest_path(torch, device) -> dict:
         {"dtg": dt, "geom": (dx, dy)}), check_ids=False)
     check(ds._main_rows["gdelt"] == N_INGEST, "the append stays in the delta tier")
     gc.collect()
-    malloc_trim()
-    cset = column_set_bytes(ds, "gdelt")
+    hostmem.malloc_trim()
+    cset = hostmem.column_set_split(ds, "gdelt")
     torch.cuda.reset_peak_memory_stats()
     dev_before = torch.cuda.memory_allocated()
-    with rss_peak() as rss:
-        before = rss["peak"]
+    with hostmem.RssSampler() as rss:
+        before = rss.peak
         t0 = time.perf_counter()
         ds.compact("gdelt")
         torch.cuda.synchronize()
@@ -7198,8 +7153,8 @@ def ingest_path(torch, device) -> dict:
         "n_rows": N_INGEST, "delta_rows": n_delta, "seconds": compact_s,
         "column_set_host_bytes": cset["host"], "column_set_device_bytes": cset["device"],
         "rss_baseline_bytes": rss_baseline, "rss_before_bytes": before,
-        "rss_peak_bytes": rss["peak"], "peak_extra_bytes": rss["peak"] - before,
-        "peak_over_column_set_host": (rss["peak"] - rss_baseline) / max(cset["host"], 1),
+        "rss_peak_bytes": rss.peak, "peak_extra_bytes": rss.peak - before,
+        "peak_over_column_set_host": (rss.peak - rss_baseline) / max(cset["host"], 1),
         "device_peak_over_table_bytes": (dev_peak - dev_before) / max(cset["device"], 1),
         "device_before_bytes": dev_before, "device_peak_bytes": dev_peak,
     }
@@ -7241,7 +7196,7 @@ def ingest_path(torch, device) -> dict:
 N_KNN_QUERIES = 64  # config_knn's queries
 KNN_K = 10
 KNN_CANDIDATES = 64  # the card's f64 pre-selection of the brute force's top k
-N_JOIN_STARS = 128  # config_pip_join's z2_polygon_join
+N_JOIN_STARS = 64  # config_pip_join's z2_polygon_join has 128 (the record's "reduced")
 N_GRID_JOIN = 2_000_000  # config_pip_join's host_grid_join sample
 JOIN_PIP_CHUNK = 65_536  # points per block of the card's brute-force ray cast
 TILES_LEAF_ZOOM = 3  # the reference's geomesa.tiles.leaf.zoom default
@@ -7324,9 +7279,9 @@ def pip_brute(torch, xs, ys, geom, boundary: bool) -> np.ndarray:
 
 
 def join_stars(seed):
-    """config_pip_join's join polygons: 128 concave stars of 16-254 edges
-    (8, 16, 50 or 127 arms), radii 1-6 degrees, centres over the lon
-    -150..150, lat -60..60 box."""
+    """config_pip_join's join polygons: N_JOIN_STARS (its 128) concave
+    stars of 16-254 edges (8, 16, 50 or 127 arms), radii 1-6 degrees,
+    centres over the lon -150..150, lat -60..60 box."""
     rng = np.random.default_rng(seed)
     return [star(float(rng.uniform(-150, 150)), float(rng.uniform(-60, 60)),
                  float(rng.uniform(1.0, 6.0)), int(rng.choice([8, 16, 50, 127])),
@@ -7405,7 +7360,7 @@ def knn_section(torch, ds, xs, ys, x, y, rng) -> dict:
 
 
 def join_section(torch, ds, xs, ys, x, y) -> dict:
-    """config_pip_join: ``spatial_join_indexed`` of 128 concave stars
+    """config_pip_join: ``spatial_join_indexed`` of N_JOIN_STARS concave stars
     against the 20M points, ``contains`` and ``intersects``, rasters off
     and on (one fused dispatch set through K2 each), each run cold (the
     setting's first call builds the stars' rasters) and then timed warm,
@@ -7761,7 +7716,8 @@ def analytics_path(torch, device) -> dict:
     return {
         "phase": "analytics_path", "cell": "gdelt-z2-20M-analytics",
         "launches": read_launches(), "native": read_native(), "n_points": N_Z2,
-        **sections, "path_s": path_s, "budget_s": ANALYTICS_BUDGET_S, "reduced": {},
+        **sections, "path_s": path_s, "budget_s": ANALYTICS_BUDGET_S,
+        "reduced": {"join_stars": {"cell": 128, "run": N_JOIN_STARS}},
     }
 
 
@@ -7775,7 +7731,7 @@ HTTP_T0 = 1_717_200_000_000  # config_serve_http's t0
 HTTP_PROBES = ("bbox(geom, -40, -40, 0, 0)", "bbox(geom, 10, 10, 60, 50)",
                "bbox(geom, -170, -80, -100, 0)")
 HTTP_READ_S = 2.0  # config_serve_http's mixed loop
-HTTP_FAIR_S = 3.0  # and its fairness loops, cut from its 6 s (the record's "reduced")
+HTTP_FAIR_S = 2.0  # and its fairness loops, cut from its 6 s (the record's "reduced")
 HTTP_DEGRADATION_BOUND = 1.5  # its gate on the compliant tenant's p99
 HTTP_BURST = 16  # concurrent /query requests of one burst (a fused batch)
 HTTP_TILES = (("density", 1, 1, 0), ("count", 2, 5, 2), ("heat", 0, 0, 0), ("density", 3, 11, 4))
@@ -8659,7 +8615,7 @@ def drift_path(torch, device) -> dict:
 
 # -- the multi-device tier: the shard mesh, the pod table, the pod store -----
 
-N_POD = 10_000_000  # config_pod's scan rows, raised from its 150,000
+N_POD = 5_000_000  # config_pod's scan rows, raised from its 150,000 (10M until the scripts path)
 N_POD_INGEST = 2_000_000  # its host-local ingest rows, raised from its 400,000
 POD_HOSTS = 4
 POD_SHARDS = 2  # per host: 4 x 2 shards, the flat mesh's 8, all on the one card
@@ -8963,7 +8919,7 @@ def pod_store_section(torch, device, tmp) -> dict:
 def pod_path(torch, device) -> dict:
     """gdelt-pod-10M: the multi-device tier on the card, after the
     reference's ``config_pod``: the pod, flat-mesh and one-device stores
-    over 10M rows, host-local ingest of 2M rows, a PodStore through a
+    over ``N_POD`` rows, host-local ingest of 2M rows, a PodStore through a
     killed and rejoined host, and the two-process gloo probe's verdict.
     The probe's three processes run beside the store section (their
     own subprocesses, waited for at the end). Launch and native counts
@@ -9004,6 +8960,86 @@ def pod_path(torch, device) -> dict:
                     "devices": "8 shards of one card (the reference: 8 virtual CPU devices)"},
     }
 
+
+
+# -- the measurement drivers of geomesa_tpu_torch/scripts/ -----------------
+
+N_SCRIPT_1B = 4_000_000  # validate_1b's rows (the reference's 10^9)
+N_SCRIPT_LINK = 16 * 1024 * 1024  # probe_link's table (its 128M)
+N_SCRIPT_DENSITY = 5_000_000  # probe_density_many's points (its 50M)
+N_SCRIPT_XZ2 = 2_000_000  # the three XZ2 probes' footprints (their 50M)
+N_SCRIPT_JOIN = 2_000_000  # profile_join's points (its 20M) ...
+N_SCRIPT_POLYGONS = 64  # ... and polygons (its 256)
+SCRIPTS_BUDGET_S = 60.0
+
+
+def script_runs(torch, device) -> list:
+    """(name, call, its exactness fields) of each driver at this phase's
+    sizes, in the order they run."""
+    from geomesa_tpu_torch.scripts import (probe_async_pull, probe_density_many, probe_floor,
+                                           probe_link, probe_xz2_50m, probe_xz2_pipeline,
+                                           probe_xz2_stage, profile_join, run_pod_scale,
+                                           validate_1b)
+
+    def pod_ci():
+        argv = ["--ci", "--device", str(device)]
+        return run_pod_scale.run(run_pod_scale._parse_args(argv), argv)
+
+    return [
+        ("validate_1b", lambda: validate_1b.run(N_SCRIPT_1B, device),
+         lambda r: r["queries_exact"] == 12 and r["post_append_exact"]),
+        ("run_pod_scale", pod_ci,
+         lambda r: not r["ci_failures"] and r["queries"]["exact"] and r["fused_join"]["exact"]
+         and r["fused_join"]["shard_legs"] > 0 and r["compaction"]["exact"]),
+        ("probe_link", lambda: probe_link.run(N_SCRIPT_LINK, device),
+         lambda r: r["count_scan"]["count"] > 0 and r["gather_scan"]["count"] > 0),
+        ("probe_floor", lambda: probe_floor.run(device), lambda r: r["overlap"]["ms"] is not None),
+        ("probe_async_pull", lambda: probe_async_pull.run(device),
+         lambda r: r["async_ms"] is not None),
+        ("probe_density_many", lambda: probe_density_many.run(N_SCRIPT_DENSITY, device),
+         lambda r: r["grids_equal"]),
+        ("probe_xz2_50m", lambda: probe_xz2_50m.run(N_SCRIPT_XZ2, device),
+         lambda r: r["checked_vs_brute_force"] == probe_xz2_50m.N_QUERIES),
+        ("probe_xz2_pipeline", lambda: probe_xz2_pipeline.run(N_SCRIPT_XZ2, device),
+         lambda r: r["same_ids"] and r["checked_vs_brute_force"] == probe_xz2_50m.N_QUERIES),
+        ("probe_xz2_stage", lambda: probe_xz2_stage.run(N_SCRIPT_XZ2, device),
+         lambda r: r["checked_vs_brute_force"] == 1 and r["hits"] > 0),
+        ("profile_join", lambda: profile_join.run(N_SCRIPT_JOIN, N_SCRIPT_POLYGONS, device),
+         lambda r: r["checked_polygons"] == N_SCRIPT_POLYGONS and r["pairs"] > 0),
+    ]
+
+
+def scripts_path(torch, device) -> dict:
+    """Each driver's ``run`` on the card, its record emitted on a line of
+    its own with the kernels it launched (every driver checks its
+    answers and raises on a wrong one; here its exactness fields are
+    checked again), under ``SCRIPTS_BUDGET_S``."""
+    zero_launches()
+    t_path = time.perf_counter()
+    drivers = {}
+    for name, call, exact in script_runs(torch, device):
+        before, t0 = read_launches(), time.perf_counter()
+        rec = call()
+        wall_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        launched = {k: v - before[k] for k, v in read_launches().items()}
+        emit({"phase": "scripts", "script": name, "wall_s": wall_s, "launches": launched,
+              "record": rec})
+        check(exact(rec), f"the {name} driver's answers are exact on the card")
+        ran_on = rec["device"] if "device" in rec else rec["provenance"]["device_name"]
+        check(ran_on == torch.cuda.get_device_name(0), f"{name} ran on the card")
+        drivers[name] = {"wall_s": wall_s, "launches": launched,
+                         "reduced": rec["reduced"] if "reduced" in rec
+                         else rec["provenance"]["reduced"]}
+    path_s = time.perf_counter() - t_path
+    check(path_s < SCRIPTS_BUDGET_S, f"the scripts phase took {path_s:.1f} s "
+          f"(budget {SCRIPTS_BUDGET_S} s)")
+    return {"phase": "scripts_path", "cell": "scripts", "launches": read_launches(),
+            "native": read_native(), "drivers": drivers, "path_s": path_s,
+            "budget_s": SCRIPTS_BUDGET_S,
+            "reduced": "every driver at a small size (each driver's own reduced), so the "
+                       "ten fit SCRIPTS_BUDGET_S; their full-size runs are not part of the "
+                       "script"}
 
 
 # -- entry point -------------------------------------------------------------
@@ -9152,6 +9188,7 @@ def main() -> int:
         "gdelt-s2-10M": ("block_scan", "density", "bounds"),
         "gdelt-z2-1M-drift": ("block_scan", "block_scan_multi"),
         "gdelt-pod-10M": tuple(k.name for k in KERNELS),
+        "scripts": ("block_scan", "block_scan_multi", "density"),
     }
     for cell, names in expected.items():
         for name in names:

@@ -53,7 +53,16 @@
   of ``geomesa_tpu``, each on its own in a fresh interpreter; the port's
   rule ids are the JAX package's less exactly its two jit rules, and
   ``python -m geomesa_tpu_torch.scripts.check`` exits 0 on the tree, 1
-  on a staged bad fixture and 2 on an unknown rule id.
+  on a staged bad fixture and 2 on an unknown rule id;
+- the measurement drivers of ``geomesa_tpu_torch/scripts/`` (the ports
+  of the reference's ``scripts/``: ``validate_1b``, ``run_pod_scale``,
+  the link, floor and pull probes, ``probe_density_many``, the three XZ2
+  probes, ``profile_join``) and their ``hostmem`` helpers import neither
+  jax, nor anything of ``geomesa_tpu``, nor the reference's ``bench``,
+  each on its own in a fresh interpreter; none holds an absolute path
+  but /proc's; each driver has ``main(argv=None)`` and ``run``, a
+  docstring naming its ``python -m`` command, and a ``device`` that
+  defaults to ``cuda``.
 """
 
 import importlib.util
@@ -1056,3 +1065,93 @@ def test_check_exits_zero_on_the_tree_one_on_a_bad_fixture_two_on_an_unknown_rul
     assert _check("--rules", "kernel-dynamic-shape").returncode == 2  # no counterpart
     assert _check("--root", str(tmp_path / "missing")).returncode == 2
     assert _check("--baseline", str(tmp_path / "missing.txt")).returncode == 2
+
+
+# the measurement drivers of geomesa_tpu_torch/scripts/ (the ports of the
+# reference's scripts/) and their host-memory helper module
+SCRIPT_DRIVERS = ["validate_1b", "run_pod_scale", "probe_link", "probe_floor",
+                  "probe_async_pull", "probe_density_many", "probe_xz2_50m",
+                  "probe_xz2_pipeline", "probe_xz2_stage", "profile_join"]
+SCRIPT_MODULES = [*SCRIPT_DRIVERS, "hostmem"]
+
+_IMPORT_SCRIPT = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "geomesa_tpu", "bench"))
+print(bad)
+"""
+
+
+@pytest.fixture(scope="module")
+def script_imports():
+    """Each driver module imported on its own in a fresh interpreter, the
+    interpreters started together: module -> (rc, stdout, stderr)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    procs = {
+        m: subprocess.Popen([sys.executable, "-c", _IMPORT_SCRIPT,
+                             f"geomesa_tpu_torch.scripts.{m}"], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for m in SCRIPT_MODULES
+    }
+    out = {}
+    for m, p in procs.items():
+        stdout, stderr = p.communicate(timeout=180)
+        out[m] = (p.returncode, stdout, stderr)
+    return out
+
+
+def _script_tree(module):
+    import ast
+
+    path = os.path.join(ROOT, "geomesa_tpu_torch", "scripts", f"{module}.py")
+    with open(path) as fh:
+        return ast.parse(fh.read())
+
+
+@pytest.mark.parametrize("module", SCRIPT_MODULES)
+def test_script_drivers_import_neither_jax_nor_the_reference_nor_bench(script_imports, module):
+    rc, stdout, stderr = script_imports[module]
+    assert rc == 0, stderr
+    assert stdout.strip() == "[]", stdout
+    import ast
+
+    for node in ast.walk(_script_tree(module)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "geomesa_tpu", "bench"), name
+
+
+@pytest.mark.parametrize("module", SCRIPT_MODULES)
+def test_script_drivers_hold_no_absolute_path(module):
+    """No path of a machine (the reference's drivers insert their
+    checkout's absolute path into ``sys.path``): the drivers run as
+    ``python -m``; the only absolute path a string may hold is the
+    kernel's /proc."""
+    import ast
+    import re
+
+    tree = _script_tree(module)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            for path in re.findall(r"(?<![\w.])/[A-Za-z_][\w.-]*/\S*", node.value):
+                assert path.startswith("/proc/"), path
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            assert ast.unparse(node.func) != "sys.path.insert", ast.unparse(node)
+
+
+@pytest.mark.parametrize("module", SCRIPT_DRIVERS)
+def test_script_drivers_have_main_and_run(module):
+    mod = importlib.import_module(f"geomesa_tpu_torch.scripts.{module}")
+    assert callable(mod.run) and callable(mod.main)
+    assert inspect.signature(mod.main).parameters["argv"].default is None
+    assert mod.__doc__ and "python -m geomesa_tpu_torch.scripts." + module in mod.__doc__
+    run_params = inspect.signature(mod.run).parameters
+    if "device" in run_params:
+        assert run_params["device"].default == "cuda"
