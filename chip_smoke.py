@@ -436,9 +436,18 @@ Phases, each printing one JSON line:
    XZ2 probes (2M footprints) and ``profile_join`` (2M points, 64
    polygons); each driver's record on a line of its own with its
    kernels' launches; the phase must stay under ``SCRIPTS_BUDGET_S``.
+27. examples: the five examples of ``geomesa_tpu_torch/examples/`` (the
+   ports of the reference's ``examples/``, at their sizes: 200k, 100k,
+   100k, 200k and 50k rows), each ``main(device="cuda")`` on the card
+   (the mesh as 8 virtual shards of ``cuda:0``), then the same example
+   with ``device="cpu"`` in this process: the returned ids in order,
+   counts, SQL rows, grids, join pairs and every printed line equal; the
+   CPU runs launch nothing; each example's wall (card and CPU) and
+   kernel launches on a line of their own; the phase must stay under
+   ``EXAMPLES_BUDGET_S``.
 
 Launch counts (and the legs' counts) and the native helpers' call counts
-are zeroed just before each of the twenty-four paths and read just after
+are zeroed just before each path and read just after
 it; each path must have launched the kernels and legs it names (main:
 K1, K3, K4; batch: K2, K1p, K3; Z3 polygon: K1 and K2 each with PIP,
 raster and both legs; hints: K1 and K2; packed time: all five; Z2 polygon: K1's raster leg, K2
@@ -447,7 +456,7 @@ extent leg; tiered, mutate, persist and secure-cached: all five;
 attribute, served and stream: K1 and K2; standing: K2 with its
 point-in-polygon leg; replica: K1; ingest: K1, K3, K4; analytics: K1
 and K2; HTTP: K1 and K2; S2: K1, K3, K4; drift: K1 and K2; pod: all
-five; scripts: K1, K2, K3) and
+five; scripts: K1, K2, K3; examples: K1, K2, K3) and
 called the native helpers ``check_native`` names (the ranges where it
 plans new filters, since the batch path's repeated plans take the
 planner's scan-config memo; ``sort_bins_z`` where it ingests, the plane
@@ -466,6 +475,9 @@ from __future__ import annotations
 
 import json
 import os
+import contextlib
+import importlib
+import io
 import subprocess
 import sys
 import tempfile
@@ -3057,7 +3069,7 @@ def main_path(torch, device):
     for path in (xz2_path, xz3_path, tiered_union_path, mutation_path, attribute_path,
                  persist_path, secure_cached_path, served_path, stream_path, standing_path,
                  replica_path, ingest_path, analytics_path, serve_http_path, s2_path,
-                 drift_path, pod_path, scripts_path):
+                 drift_path, pod_path, scripts_path, examples_path):
         t0 = time.perf_counter()
         records.append(path(torch, device))
         records[-1]["wall_s"] = time.perf_counter() - t0
@@ -8615,8 +8627,10 @@ def drift_path(torch, device) -> dict:
 
 # -- the multi-device tier: the shard mesh, the pod table, the pod store -----
 
-N_POD = 5_000_000  # config_pod's scan rows, raised from its 150,000 (10M until the scripts path)
-N_POD_INGEST = 2_000_000  # its host-local ingest rows, raised from its 400,000
+# config_pod's scan rows, raised from its 150,000 (10M until the scripts
+# path, 5M until the examples path)
+N_POD = 2_000_000
+N_POD_INGEST = 1_000_000  # its host-local ingest rows, raised from its 400,000 (2M until the examples path)
 POD_HOSTS = 4
 POD_SHARDS = 2  # per host: 4 x 2 shards, the flat mesh's 8, all on the one card
 POD_SPEC = "dtg:Date,*geom:Point:srid=4326"  # config_pod's spec
@@ -9042,6 +9056,88 @@ def scripts_path(torch, device) -> dict:
                        "script"}
 
 
+# -- the examples of geomesa_tpu_torch/examples/ -----------------------------
+
+EXAMPLES = ("quickstart", "batch_and_update", "distributed_mesh", "sql_and_joins",
+            "streaming_hot_tier")
+EXAMPLES_BUDGET_S = 60.0
+
+
+def run_example(name, device) -> tuple:
+    """(result, printed lines, record, wall s) of one example's ``main``."""
+    mod = importlib.import_module(f"geomesa_tpu_torch.examples.{name}")
+    record, buf = {}, io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(device=device, record=record)
+    return out, buf.getvalue().splitlines(), record, time.perf_counter() - t0
+
+
+def same_value(a, b) -> bool:
+    """Exact equality of two example values: arrays and tensors element
+    for element (dtype and shape included), containers item for item,
+    feature collections by ids in order and their columns."""
+    if hasattr(a, "ids") and hasattr(a, "columns"):
+        def values(col):  # a point column by its coordinates
+            return (np.asarray(col.x), np.asarray(col.y)) if hasattr(col, "x") else np.asarray(col)
+
+        return (same_value(np.asarray(a.ids), np.asarray(b.ids))
+                and list(a.columns) == list(b.columns)
+                and all(same_value(values(a.columns[c]), values(b.columns[c])) for c in a.columns))
+    if hasattr(a, "detach"):
+        a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and bool(
+            np.array_equal(a, b, equal_nan=a.dtype.kind == "f"))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_value(x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_value(a[k], b[k]) for k in a)
+    return a == b
+
+
+def examples_path(torch, device) -> dict:
+    """Each example on the card, then on the CPU in this process: the
+    results, the records and the printed lines equal, the CPU runs
+    launching nothing; under ``EXAMPLES_BUDGET_S``."""
+    zero_launches()
+    t_path = time.perf_counter()
+    card = {}
+    for name in EXAMPLES:
+        before = read_launches()
+        card[name] = run_example(name, device)
+        torch.cuda.synchronize()
+        card[name] += ({k: v - before[k] for k, v in read_launches().items()},)
+    launches, native_calls = read_launches(), read_native()
+    examples = {}
+    for name in EXAMPLES:
+        out, lines, record, wall_s, launched = card[name]
+        cpu_out, cpu_lines, cpu_record, cpu_wall_s = run_example(name, torch.device("cpu"))
+        diff = [k for k in record if not same_value(record[k], cpu_record[k])]
+        emit({"phase": "examples", "example": name, "wall_s": wall_s, "cpu_wall_s": cpu_wall_s,
+              "launches": launched, "lines": lines, "differs": diff})
+        check(lines == cpu_lines, f"the {name} example prints on the card what it prints on "
+              f"the CPU: {lines} vs {cpu_lines}")
+        check(same_value(out, cpu_out), f"the {name} example returns on the card what it "
+              "returns on the CPU")
+        check(not diff and record.keys() == cpu_record.keys(),
+              f"the {name} example's {diff} equal on the card and on the CPU")
+        examples[name] = {"wall_s": wall_s, "cpu_wall_s": cpu_wall_s, "launches": launched,
+                          "checked": sorted(record)}
+        del card[name]
+        torch.cuda.empty_cache()
+    check(read_launches() == launches, "the examples' CPU runs launched no kernel")
+    path_s = time.perf_counter() - t_path
+    check(path_s < EXAMPLES_BUDGET_S, f"the examples phase took {path_s:.1f} s "
+          f"(budget {EXAMPLES_BUDGET_S} s)")
+    return {"phase": "examples_path", "cell": "examples", "launches": launches,
+            "native": native_calls, "examples": examples, "path_s": path_s,
+            "budget_s": EXAMPLES_BUDGET_S,
+            "reduced": "none: every example at the reference's seeds and sizes"}
+
+
 # -- entry point -------------------------------------------------------------
 
 
@@ -9084,6 +9180,7 @@ def check_native(records) -> None:
         "gdelt-s2-10M": ("sort_bins_z", "bitmask_decode_pair"),
         "gdelt-z2-1M-drift": point + ("points_in_polygon",),
         "gdelt-pod-10M": point,
+        "examples": point,
     }
     for cell, names in expected_native.items():
         for name in names:
@@ -9189,6 +9286,7 @@ def main() -> int:
         "gdelt-z2-1M-drift": ("block_scan", "block_scan_multi"),
         "gdelt-pod-10M": tuple(k.name for k in KERNELS),
         "scripts": ("block_scan", "block_scan_multi", "density"),
+        "examples": ("block_scan", "block_scan_multi", "density"),
     }
     for cell, names in expected.items():
         for name in names:

@@ -6,15 +6,21 @@ geomesa_tpu: where it needs a module of the JAX package it keeps its own
 copy under the same path. Entry points run on the card
 (``DataStore(device="cuda")``, the default) unless the caller asks for
 the CPU, where every kernel wrapper takes its plain PyTorch version.
+
+The reference's ``enable_compile_cache`` (JAX's persistent compile cache)
+has no counterpart: the port's compiled kernels persist in its kernel
+build directory (``kernels/build.py``).
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["DataStore", "FeatureCollection", "FeatureType", "__version__"]
+__all__ = ["FeatureType", "AttributeDescriptor", "DataStore", "FeatureCollection",
+           "__version__"]
 
 #: the top-level names load on first use, so a stdlib-only subpackage
 #: (``analysis``, the ``check`` script) imports without torch
 _LAZY = {
+    "AttributeDescriptor": "geomesa_tpu_torch.sft",
     "DataStore": "geomesa_tpu_torch.datastore",
     "FeatureCollection": "geomesa_tpu_torch.features",
     "FeatureType": "geomesa_tpu_torch.sft",

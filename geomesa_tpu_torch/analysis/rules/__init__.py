@@ -2,7 +2,8 @@
 
 The port of geomesa_tpu/analysis/rules/__init__.py: the reference's
 rules in the reference's order, less the two jit rules that have no
-counterpart (``rules/kernels.py``). Adding a rule: subclass
+counterpart (``KernelTracedCoercionRule`` and ``KernelDynamicShapeRule``,
+``rules/kernels.py``). Adding a rule: subclass
 :class:`geomesa_tpu_torch.analysis.core.Rule` in one of these modules
 (or a new one), give it a unique kebab-case ``id``, a one-line
 ``description`` and a ``fix_hint``, append an instance here, document

@@ -11,7 +11,9 @@ walk, first queries stall. Any class shipping both ``warmup`` and
 call level down.
 
 The JAX module's ``kernel-traced-coercion`` and ``kernel-dynamic-shape``
-rules have no counterpart: both look only inside ``jax.jit`` functions
+rules (``KernelTracedCoercionRule``, ``KernelDynamicShapeRule``, with
+their tables ``KERNEL_SCOPES``, ``COERCIONS`` and ``DYNAMIC_SHAPE_CALLS``)
+have no counterpart: both look only inside ``jax.jit`` functions
 (traced-value coercion, data-dependent output shapes under a trace), and
 the port has none — its kernels are CUDA sources launched through
 wrappers on concrete tensors.

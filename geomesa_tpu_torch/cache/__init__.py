@@ -14,6 +14,9 @@ miss runs the normal path.
   served;
 - :class:`QueryCache`: the facade a DataStore owns (``DataStore(cache=
   True)``), wiring the three together with the conf knobs.
+
+The reference's package also leaks ``field`` (its ``dataclasses.field``
+import, not API); this one does not.
 """
 
 from __future__ import annotations

@@ -4,6 +4,9 @@ The port's copy of the part of geomesa_tpu/conf.py its main path reads,
 under the same names and defaults. Each property resolves, in order:
 programmatic override (``prop.set``) -> environment variable -> default.
 No property selects a kernel or a backend: the device of a tensor does.
+
+Two of the reference's properties have no counterpart: ``PALLAS_MODE``
+picks a backend, and ``DENSITY_VMEM_BUDGET`` sizes the TPU's VMEM.
 """
 
 from __future__ import annotations
@@ -53,10 +56,10 @@ class SystemProperty:
         self._override = None
 
 
-def _parse_bool(v) -> bool:
-    if isinstance(v, bool):
-        return v
-    return str(v).strip().lower() in ("1", "true", "yes", "on")
+def _parse_bool(s) -> bool:
+    if isinstance(s, bool):
+        return s
+    return str(s).strip().lower() in ("1", "true", "yes", "on")
 
 
 SCAN_RANGES_TARGET = SystemProperty(

@@ -114,6 +114,9 @@ class BinnedTime:
         base = b.astype("datetime64[Y]").astype("datetime64[ms]").astype(np.int64)
         return base + off * 60_000
 
+    def bin_start_millis(self, bin) -> np.ndarray:
+        return self.from_binned(bin, 0)
+
     def bins_for_interval(self, lo_millis: int, hi_millis: int):
         """All (bin, lo_offset, hi_offset) triples covering [lo, hi] millis.
 

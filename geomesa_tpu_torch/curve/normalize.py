@@ -36,11 +36,30 @@ class NormalizedDimension:
     def _normalizer(self) -> float:
         return self.bins / (self.max - self.min)
 
+    @property
+    def _denormalizer(self) -> float:
+        return (self.max - self.min) / self.bins
+
     def normalize(self, d):
         """Map value(s) to bin ordinals, clamping to [0, max_index]."""
         d = np.asarray(d, dtype=np.float64)
         i = np.floor((d - self.min) * self._normalizer).astype(np.int64)
         return np.clip(i, 0, self.max_index)
+
+    def denormalize(self, i):
+        """Map bin ordinal(s) to the bin-center value."""
+        i = np.asarray(i, dtype=np.float64)
+        return self.min + (i + 0.5) * self._denormalizer
+
+    # Inclusive value bounds of a bin: does a curve cell lie fully inside
+    # the query window?
+    def bin_min(self, i):
+        i = np.asarray(i, dtype=np.float64)
+        return self.min + i * self._denormalizer
+
+    def bin_max(self, i):
+        i = np.asarray(i, dtype=np.float64)
+        return self.min + (i + 1.0) * self._denormalizer
 
 
 def NormalizedLon(precision: int) -> NormalizedDimension:

@@ -25,6 +25,19 @@ class Z2SFC:
         """(lon, lat) -> z (vectorized). Reference Z2SFC.index."""
         return Z2.index(self.lon.normalize(x).astype(np.uint64), self.lat.normalize(y).astype(np.uint64))
 
+    def normalize(self, x, y):
+        """(lon, lat) -> (x_ord, y_ord) dimension ordinals, the decoded
+        columns the device table stores."""
+        return (
+            self.lon.normalize(x).astype(np.int64),
+            self.lat.normalize(y).astype(np.int64),
+        )
+
+    def invert(self, z):
+        """z -> (lon, lat) of the cell centres."""
+        xi, yi = Z2.decode(z)
+        return self.lon.denormalize(xi.astype(np.int64)), self.lat.denormalize(yi.astype(np.int64))
+
     def ranges(
         self,
         bounds: Sequence[tuple[float, float, float, float]],

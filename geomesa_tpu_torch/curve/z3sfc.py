@@ -42,6 +42,23 @@ class Z3SFC:
             self.time.normalize(t).astype(np.uint64),
         )
 
+    def normalize(self, x, y, t):
+        """(lon, lat, offset) -> int ordinals for the device columns."""
+        return (
+            self.lon.normalize(x).astype(np.int64),
+            self.lat.normalize(y).astype(np.int64),
+            self.time.normalize(t).astype(np.int64),
+        )
+
+    def invert(self, z):
+        """z -> (lon, lat, offset) of the cell centres."""
+        xi, yi, ti = Z3.decode(z)
+        return (
+            self.lon.denormalize(xi.astype(np.int64)),
+            self.lat.denormalize(yi.astype(np.int64)),
+            self.time.denormalize(ti.astype(np.int64)),
+        )
+
     def ranges(
         self,
         bounds: Sequence[tuple[float, float, float, float]],

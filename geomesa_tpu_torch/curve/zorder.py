@@ -39,6 +39,10 @@ class _ZN:
     def total_bits(self) -> int:
         return self.dims * self.bits_per_dim
 
+    @property
+    def max_mask(self) -> int:
+        return (1 << self.bits_per_dim) - 1
+
     # -- to be provided by subclasses ------------------------------------
     def split(self, x):  # pragma: no cover - interface
         raise NotImplementedError

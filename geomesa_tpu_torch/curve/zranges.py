@@ -263,3 +263,11 @@ def merge_ranges(ranges: list[IndexRange], max_ranges: int | None = None) -> lis
                 out.append(r)
         merged = out
     return merged
+
+
+def ranges_to_arrays(ranges: list[IndexRange]):
+    """(lower u64[n], upper u64[n], contained bool[n]) arrays for searchsorted."""
+    lo = np.array([r.lower for r in ranges], dtype=np.uint64)
+    hi = np.array([r.upper for r in ranges], dtype=np.uint64)
+    contained = np.array([r.contained for r in ranges], dtype=bool)
+    return lo, hi, contained

@@ -167,12 +167,15 @@ class DataStore:
     # publish seconds]}; None until a fold runs
     last_fold_report = None
 
-    # the attached QueryScheduler (serve()), OpsServer (serve_ops()) and
-    # SloTracker (attach_slo()), or None; class-level defaults beside the
-    # instance assignments in __init__
+    # the attached QueryScheduler (serve()), OpsServer (serve_ops()),
+    # SloTracker (attach_slo()) and DataServer (serve(port=...)), or None;
+    # class-level defaults beside the instance assignments in __init__,
+    # which also replaces `accuracy` with a fresh EstimateAccuracy
     scheduler = None
     ops = None
     slo = None
+    accuracy = None
+    server = None
 
     # probe rows per searchsorted call in _id_find: numpy's string
     # searchsorted holds the GIL for the whole call, so slicing bounds
@@ -425,6 +428,12 @@ class DataStore:
         return self._indexes[type_name]
 
     # -- ingest ----------------------------------------------------------
+    # the delta tier's compaction threshold: rebuild the device table when
+    # the host delta exceeds max(COMPACT_MIN_ROWS, total / 8) rows
+    @property
+    def COMPACT_MIN_ROWS(self) -> int:
+        return conf.COMPACT_MIN_ROWS.get()
+
     def write(
         self,
         type_name: str,
@@ -485,7 +494,7 @@ class DataStore:
                 self._key_chunks.setdefault((type_name, name), []).append(keys)
             total = self.row_count(type_name)
             main_rows = self._main_rows[type_name]
-            if main_rows == 0 or total - main_rows > max(conf.COMPACT_MIN_ROWS.get(), total // 8):
+            if main_rows == 0 or total - main_rows > max(self.COMPACT_MIN_ROWS, total // 8):
                 self.compact(type_name)
             self._bump_cache(type_name, features)
         return len(features)

@@ -31,6 +31,9 @@ class PointColumn:
         return len(self.x)
 
 
+GeometryColumn = "PointColumn | geo.PackedGeometryColumn"
+
+
 class Filter:
     """Base predicate. Subclasses are frozen dataclasses."""
 

@@ -799,6 +799,32 @@ class PackedGeometryColumn:
         return out
 
 
+def pad_polygon(poly: "Polygon | MultiPolygon", max_verts: int):
+    """Pad a (multi)polygon into fixed-shape arrays for device kernels.
+
+    Returns (verts f32 [max_verts, 2], n int32, ring_id int32 [max_verts]):
+    all rings (shells and holes, every part) are concatenated; ``ring_id``
+    marks which ring each *edge start* vertex belongs to so the device
+    ray-cast never counts the closing segment between different rings.
+    Even-odd crossing counting makes holes subtract automatically.
+    """
+    rings: list[np.ndarray] = []
+    if isinstance(poly, Polygon):
+        rings = [poly.shell] + poly.holes
+    else:
+        for p in poly.parts:
+            rings += [p.shell] + p.holes
+    verts = np.concatenate(rings, axis=0)
+    if len(verts) > max_verts:
+        raise ValueError(f"polygon has {len(verts)} verts > cap {max_verts}")
+    ring_id = np.concatenate([np.full(len(r), i) for i, r in enumerate(rings)])
+    out_v = np.zeros((max_verts, 2), dtype=np.float32)
+    out_r = np.full(max_verts, -1, dtype=np.int32)
+    out_v[: len(verts)] = verts.astype(np.float32)
+    out_r[: len(verts)] = ring_id
+    return out_v, np.int32(len(verts)), out_r
+
+
 # ---------------------------------------------------------------------------
 # predicate math (vectorized numpy)
 # ---------------------------------------------------------------------------

@@ -174,6 +174,13 @@ def _load() -> "ctypes.CDLL | None":
     return None if _disabled else library()
 
 
+def available() -> bool:
+    """Whether callers take the native helpers: False only inside
+    :func:`disabled`; otherwise the library is loaded (built first where
+    needed) and a failed build raises, as :func:`library` does."""
+    return _load() is not None
+
+
 def morton2(x, y) -> "np.ndarray | None":
     lib = _load()
     if lib is None:

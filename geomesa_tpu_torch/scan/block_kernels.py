@@ -26,6 +26,11 @@ device of the columns: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or the call raises. Parameters (block ids and
 the [8, 128] box and window blocks; for a fused chunk also the query ids
 and the [Q, 8, 128] stacks) travel in one host->device copy per call.
+
+Three of the reference's names have no counterpart: ``use_pallas`` reads
+a backend knob, and the port has no such switch; ``PALLAS_MAX_EDGES`` and
+``PALLAS_MAX_RINTS`` are the unrolled-Pallas limits, where the port's
+caps are :data:`MAX_EDGES` and :data:`MAX_RINTS`.
 """
 
 from __future__ import annotations
@@ -75,7 +80,10 @@ _EXTENT = 64  # the box leg (and the aggregations' coordinates) read the extent 
 _VALID_ON_G = 128  # the validity leg reads gxmin
 
 # the extent columns of XZ tables, in the kernels' argument order
+POINT_COLS = ("x", "y")
+POINT_TIME_COLS = ("x", "y", "tbin", "toff")
 EXTENT_COLS = ("gxmin", "gymin", "gxmax", "gymax")
+EXTENT_TIME_COLS = EXTENT_COLS + ("tbin", "toff")
 
 
 # --------------------------------------------------------------- params
@@ -1094,6 +1102,20 @@ def unpack_plane(plane: np.ndarray, n_real: int) -> np.ndarray:
     return bits.transpose(0, 1, 3, 2).reshape(n_real, pack * 32 * LANES)
 
 
+def decode_bits(plane: np.ndarray, bids: np.ndarray, n_real: int) -> np.ndarray:
+    """[M, pack, 128] i32 plane -> ascending global row ids (i64): the
+    native decode unless ``native.disabled()``, the numpy unpack
+    otherwise."""
+    if n_real == 0:
+        return np.zeros(0, np.int64)
+    block = plane.shape[1] * 32 * LANES
+    rows = native.bitmask_decode(plane, np.asarray(bids, np.int64), n_real, block)
+    if rows is None:
+        blk, local = np.nonzero(unpack_plane(plane, n_real))
+        rows = bids[:n_real][blk].astype(np.int64) * block + local
+    return np.sort(rows) if not _bids_sorted(bids, n_real) else rows
+
+
 def decode_bits_pair(wide_plane, inner_plane, bids, n_real):
     """(rows, certain) — rows ascending, certain[i] True when row i is in
     the inner plane (no host refinement needed). ``inner_plane=None``
@@ -1103,26 +1125,22 @@ def decode_bits_pair(wide_plane, inner_plane, bids, n_real):
     runs unless ``native.disabled()``, the numpy unpack below otherwise."""
     if n_real == 0:
         return np.zeros(0, np.int64), np.zeros(0, bool)
-    block = wide_plane.shape[1] * 32 * LANES
-    bids64 = np.asarray(bids, np.int64)
     if inner_plane is None:
-        rows = native.bitmask_decode(wide_plane, bids64, n_real, block)
-        nat = None if rows is None else (rows, np.zeros(len(rows), bool))
-    else:
-        nat = native.bitmask_decode_pair(wide_plane, inner_plane, bids64, n_real, block)
+        rows = decode_bits(wide_plane, bids, n_real)
+        return rows, np.zeros(len(rows), bool)
+    block = wide_plane.shape[1] * 32 * LANES
+    nat = native.bitmask_decode_pair(
+        wide_plane, inner_plane, np.asarray(bids, np.int64), n_real, block
+    )
     if nat is not None:
         rows, certain = nat
         if not _bids_sorted(bids, n_real):
             order = np.argsort(rows, kind="stable")
             rows, certain = rows[order], certain[order]
         return rows, certain
-    wb = unpack_plane(wide_plane, n_real)
-    blk, local = np.nonzero(wb)
+    blk, local = np.nonzero(unpack_plane(wide_plane, n_real))
     rows = bids[:n_real][blk].astype(np.int64) * block + local
-    if inner_plane is None:
-        certain = np.zeros(len(rows), bool)
-    else:
-        certain = unpack_plane(inner_plane, n_real)[blk, local].astype(bool)
+    certain = unpack_plane(inner_plane, n_real)[blk, local].astype(bool)
     if not _bids_sorted(bids, n_real):
         order = np.argsort(rows, kind="stable")
         rows, certain = rows[order], certain[order]

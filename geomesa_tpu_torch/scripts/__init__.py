@@ -21,4 +21,8 @@ Run on a CUDA card, e.g.:
 Each module's ``run(...)`` takes the sizes as arguments (the reference's
 sizes by default) and returns its record; ``device="cpu"`` runs the
 plain versions and times no device.
+
+The reference's ``bench_gate`` (a bench JSON against a recorded
+baseline) has no port yet: it gates bench files this package does not
+write, and comes with the port's benchmark.
 """

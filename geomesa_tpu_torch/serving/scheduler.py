@@ -90,6 +90,10 @@ class ServingConfig:
         if self.batch_max is None:
             self.batch_max = conf.SERVING_BATCH_MAX.get()
 
+    @staticmethod
+    def from_properties() -> "ServingConfig":
+        return ServingConfig()
+
 
 class _Item:
     """One admitted query waiting for dispatch."""

@@ -93,6 +93,12 @@ class FeatureType:
     def has(self, name: str) -> bool:
         return name in self._by_name
 
+    def index_of(self, name: str) -> int:
+        for i, a in enumerate(self.attributes):
+            if a.name == name:
+                return i
+        raise KeyError(name)
+
     @property
     def geom_field(self) -> str | None:
         """Default geometry attribute (the '*' one, else the first geometry)."""

@@ -185,14 +185,23 @@ class HostTable:
         self.keyspace = keyspace
         # sorted host copies of the predicate columns
         self._cols = {k: v[self._sk.perm] for k, v in keys.device_cols.items()}
+        self.extent = "gxmin" in self._cols
         self.nbytes_device = 0  # nothing lives on a device
 
+    # -- SortedKeys passthroughs ----------------------------------------
     @property
     def n(self):
         return self._sk.n
 
+    @property
+    def perm(self):
+        return self._sk.perm
+
     def candidate_spans(self, config):
         return self._sk.candidate_spans(config)
+
+    def candidate_spans_split(self, config):
+        return self._sk.candidate_spans_split(config)
 
     # -- scan surface ----------------------------------------------------
     def _wide_rows(self, config) -> np.ndarray:
@@ -215,6 +224,9 @@ class HostTable:
         )
         return rows[m]
 
+    def scan(self, config, deadline=None):
+        return self.scan_submit(config, deadline=deadline)()
+
     def scan_submit(self, config, clock=NULL_CLOCK, deadline=None):
         if config.disjoint or self.n == 0:
             return lambda: (np.zeros(0, np.int64), np.zeros(0, bool))
@@ -235,6 +247,9 @@ class HostTable:
 
     # -- aggregation surface (wide semantics, like the device kernels;
     # the representative-xy and grid-scatter rules are the delta tier's)
+    def density(self, config, envelope, width, height):
+        return self.density_submit(config, envelope, width, height)()
+
     def density_submit(self, config, envelope, width, height, clock=NULL_CLOCK):
         from geomesa_tpu_torch.storage.delta import rep_xy, scatter_density
 

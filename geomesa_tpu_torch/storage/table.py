@@ -166,6 +166,16 @@ class SortedKeys:
             hs, z = left, right
         return z
 
+    def pad_cols(self, keys: WriteKeys, n_pad: int) -> dict:
+        """The sorted device columns, each padded to ``n_pad`` rows with
+        never-matching sentinels."""
+        cols = {}
+        for name, col in keys.device_cols.items():
+            out = np.full(n_pad, _SENTINELS[name], dtype=col.dtype)
+            out[: self.n] = _take(col, self.perm)
+            cols[name] = out
+        return cols
+
     # -- pruning ---------------------------------------------------------
     def candidate_spans(self, config: ScanConfig) -> list[tuple[int, int]]:
         """Merged, sorted row spans [lo, hi) covering ALL scan ranges
@@ -319,7 +329,7 @@ class IndexTable(SortedKeys):
             # the whole padded column set: they never reuse a prefix or
             # take the device fold, both of which assume one contiguous
             # device table
-            self._place_cols(self.pad_cols(keys), self.device)
+            self._place_cols(self.pad_cols(keys, self.n_pad), self.device)
         elif fold_plan is not None:
             self._fold_cols_device(fold_plan)
         else:
@@ -374,16 +384,6 @@ class IndexTable(SortedKeys):
     # a per-table fused slot cap: a pod host group stamps one per host
     # shard (None = the process-wide link constants)
     _slot_cap: "int | None" = None
-
-    def pad_cols(self, keys: WriteKeys) -> dict:
-        """The sorted device columns, each padded to ``n_pad`` rows with
-        never-matching sentinels."""
-        cols = {}
-        for name, col in keys.device_cols.items():
-            out = np.full(self.n_pad, _SENTINELS[name], dtype=col.dtype)
-            out[: self.n] = _take(col, self.perm)
-            cols[name] = out
-        return cols
 
     def _place_cols(self, cols: dict, device: torch.device) -> None:
         """Layout hook: put padded sorted columns (``n_pad`` rows each) on

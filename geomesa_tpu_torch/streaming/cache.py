@@ -398,6 +398,11 @@ class StreamingFeatureCache:
                 self._bump_gen(removed)
             return n
 
+    def clear(self) -> None:
+        with self._lock:
+            for fid in list(self._rows):
+                self.delete([fid])
+
     def expire(self, now_ms: Optional[int] = None,
                on_swept: Optional[Callable] = None) -> int:
         """Sweep features older than expiry_ms; returns count expired.
