@@ -1888,7 +1888,7 @@ def batch_path(torch, ds, measured, outs, seq_wall: float) -> dict:
     t0 = time.perf_counter()
     ds.query_many("gdelt", filters)
     traced_s = time.perf_counter() - t0
-    phases = {k: v * 1e3 for k, v in clock.settle().items()}
+    phases = {k: v * 1e3 for k, v in clock.settle().items() if not k.startswith("n.")}
     ds.clock = NULL_CLOCK
     device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
 
@@ -2073,7 +2073,7 @@ def polygon_path(torch, ds, src, index: str, warm, measured, n_brute: int, n_set
     lat, outs, wall = run_queries(ds, measured)
     ds.clock = clock = PhaseClock()
     _, _, traced_wall = run_queries(ds, measured)
-    phases = {k: v / len(measured) * 1e3 for k, v in clock.settle().items()}
+    phases = {k: v / len(measured) * 1e3 for k, v in clock.settle().items() if not k.startswith("n.")}
     ds.clock = NULL_CLOCK
     device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
 
@@ -2331,7 +2331,7 @@ def xz2_path(torch, device) -> dict:
     lat, outs, wall = run_queries(ds, measured, "bld")
     ds.clock = clock = PhaseClock()
     _, _, traced_wall = run_queries(ds, measured, "bld")
-    phases = {k: v / len(measured) * 1e3 for k, v in clock.settle().items()}
+    phases = {k: v / len(measured) * 1e3 for k, v in clock.settle().items() if not k.startswith("n.")}
     ds.clock = NULL_CLOCK
     device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
     cand_blocks = []
@@ -2609,7 +2609,7 @@ def xz3_path(torch, device) -> dict:
     lat, outs, wall = run_queries(ds, measured, "ext")
     ds.clock = clock = PhaseClock()
     _, _, traced_wall = run_queries(ds, measured, "ext")
-    phases = {k: v / len(measured) * 1e3 for k, v in clock.settle().items()}
+    phases = {k: v / len(measured) * 1e3 for k, v in clock.settle().items() if not k.startswith("n.")}
     ds.clock = NULL_CLOCK
     device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
     cand_blocks = []
@@ -2829,7 +2829,7 @@ def hints_path(torch, ds, src, measured, outs, main_lat, clock_phases) -> dict:
     ds.clock = clock = PhaseClock()
     for q in filters:
         ds.query("gdelt", q, hints=QueryHints(loose=True))
-    loose_phases = {k: v / len(filters) * 1e3 for k, v in clock.settle().items()}
+    loose_phases = {k: v / len(filters) * 1e3 for k, v in clock.settle().items() if not k.startswith("n.")}
     ds.clock = NULL_CLOCK
     check(loose_phases.get("refine", 0.0) == 0.0, "loose queries spend no time refining")
 
@@ -2982,7 +2982,7 @@ def main_path(torch, device):
     # a second, traced pass over the same queries splits the time by phase
     ds.clock = clock = PhaseClock()
     _, _, traced_wall = run_queries(ds, measured)
-    phases = {k: v / len(measured) * 1e3 for k, v in clock.settle().items()}
+    phases = {k: v / len(measured) * 1e3 for k, v in clock.settle().items() if not k.startswith("n.")}
     ds.clock = NULL_CLOCK
     device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
     hits = sum(len(o) for o in outs)
@@ -3212,7 +3212,7 @@ def tiered_union_path(torch, device) -> dict:
     lat_tiered, outs, _ = run_queries(ds, queries)
     ds.clock = clock = PhaseClock()
     run_queries(ds, queries)
-    phases = {k: v / len(queries) * 1e3 for k, v in clock.settle().items()}
+    phases = {k: v / len(queries) * 1e3 for k, v in clock.settle().items() if not k.startswith("n.")}
     ds.clock = NULL_CLOCK
     t_chk = time.perf_counter()
     for (q, box), ids, out in zip(queries, main_ids, outs):
@@ -4033,7 +4033,7 @@ def attribute_path(torch, device) -> dict:
     lat, outs, wall = run_queries(ds, [(q,) for q in filters])
     ds.clock = clock = PhaseClock()
     _, _, traced_wall = run_queries(ds, [(q,) for q in filters])
-    phases = {k: v / len(filters) * 1e3 for k, v in clock.settle().items()}
+    phases = {k: v / len(filters) * 1e3 for k, v in clock.settle().items() if not k.startswith("n.")}
     ds.clock = NULL_CLOCK
     device_ms = sum(phases.get(k, 0.0) for k in ("h2d", "kernel", "d2h"))
     hits = sum(len(o) for o in outs)

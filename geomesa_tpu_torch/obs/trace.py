@@ -22,7 +22,11 @@ always retained into the slow-query ring, independent of sampling).
 Span timestamps are ``time.perf_counter`` (monotonic); each trace also
 records a wall-clock anchor so exports are absolute. ``Tracer.dump``
 writes Chrome trace-event JSON (``chrome://tracing`` / Perfetto
-``ph:"X"`` complete events, microsecond units).
+``ph:"X"`` complete events, microsecond units): ``ts`` is Unix-epoch
+microseconds, mapped from ``perf_counter`` through one anchor pair taken
+with ``time.time_ns`` when the module loads, the clock ``torch.profiler``
+stamps its events with, so an export lays over a profiler capture; each
+event's ``args`` carry the thread id that opened the span.
 
 Locking: ``Tracer._lock`` (hot) guards only the
 retention rings and the sampling counter — it is taken once per root
@@ -44,6 +48,12 @@ from geomesa_tpu_torch import conf
 
 _ids = itertools.count(1)
 _tls = threading.local()
+# perf_counter -> Unix-epoch microseconds, from one pair of readings
+_ANCHOR_PC, _ANCHOR_NS = time.perf_counter(), time.time_ns()
+
+
+def _epoch_us(t: float) -> float:
+    return _ANCHOR_NS / 1e3 + (t - _ANCHOR_PC) * 1e6
 
 
 class Span:
@@ -122,6 +132,7 @@ class Trace:
             "name": self.name,
             "wall_ms": round(self.wall_s * 1e3, 3),
             "t_wall": self.t_wall,
+            "t0_epoch_us": _epoch_us(self.root.t0),
             "spans": [
                 {
                     "span_id": s.span_id,
@@ -129,6 +140,7 @@ class Trace:
                     "name": s.name,
                     "start_ms": round((s.t0 - self.root.t0) * 1e3, 3),
                     "dur_ms": round(s.dur_s * 1e3, 3),
+                    "tid": s.tid,
                     **({"attrs": s.attrs} if s.attrs else {}),
                 }
                 for s in sorted(self.spans, key=lambda s: s.t0)
@@ -415,7 +427,8 @@ class _RootCtx:
 
 def _chrome_events(td: dict) -> list[dict]:
     """Chrome trace-event ``ph:"X"`` complete events for one trace
-    dict, pid = trace id (one lane per trace), ts in microseconds."""
+    dict, pid = trace id (one lane per trace), ts in Unix-epoch
+    microseconds, the span's thread id in ``args``."""
     out = []
     for s in td["spans"]:
         out.append({
@@ -423,9 +436,9 @@ def _chrome_events(td: dict) -> list[dict]:
             "ph": "X",
             "pid": td["trace_id"],
             "tid": 0 if s["parent_id"] is None else s["parent_id"],
-            "ts": round(s["start_ms"] * 1e3, 1),
+            "ts": round(td["t0_epoch_us"] + s["start_ms"] * 1e3, 1),
             "dur": round(s["dur_ms"] * 1e3, 1),
-            "args": s.get("attrs", {}),
+            "args": {**s.get("attrs", {}), "tid": s["tid"]},
         })
     return out
 

@@ -232,6 +232,8 @@ class DistributedIndexTable(IndexTable):
             )
             for d in range(D) if counts[d]
         }
+        if clock.armed:
+            self._note_launches(clock, "n.launch.fused", len(planes), sum(counts))
         pulled: list = []
 
         def raw_finish(k: int):
@@ -262,6 +264,8 @@ class DistributedIndexTable(IndexTable):
             d: bk.scan_planes(self._shard_cols(d, names), bids2[d], boxes, wins, clock=clock, **kw)
             for d in range(D) if n_real[d]
         }
+        if clock.armed:
+            self._note_launches(clock, "n.launch.single", len(planes), sum(n_real))
 
         def finish():
             host = pull_shards(planes, clock)

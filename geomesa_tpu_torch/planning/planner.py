@@ -275,7 +275,8 @@ class QueryPlanner:
             guard = intercept
         t0 = time.perf_counter()
         exp = explain or ExplainNull()
-        with _ospan("plan", type=type_name), self.store.clock.host("plan"):
+        clock = self.store.clock
+        with _ospan("plan", type=type_name), clock.host("plan"), clock.thread_cpu("plan.cpu"):
             if isinstance(f, str):
                 f = ecql.parse(f)
             from geomesa_tpu_torch.filter.predicates import normalize_antimeridian
@@ -360,13 +361,16 @@ class QueryPlanner:
         from geomesa_tpu_torch.filter.predicates import canonical_key
 
         key = (idx, canonical_key(f))
+        clock = self.store.clock
         with _ospan("plan.probe", index=idx.name):
             with self._memo_lock:
                 memo = self._config_memo
                 if key in memo:
                     memo.move_to_end(key)
+                    clock.count("n.memo.hit")
                     return memo[key]
                 epoch = self._memo_epoch
+        clock.count("n.memo.miss")
         with _ospan("plan.decompose", index=idx.name):
             cfg = idx.scan_config(f)
         with self._memo_lock:
@@ -805,6 +809,7 @@ class QueryPlanner:
         # estimate accountability: the post-refinement row count (what the
         # sketch estimate predicts), before _post's limit and visibility
         self._note_actual(plan, len(candidates), exp)
+        clock.count("n.rows.matched", plan.actual_rows)
         return self._post(candidates, plan, hints, exp, skip_visibility)
 
     @staticmethod
@@ -826,7 +831,11 @@ class QueryPlanner:
         """Client-side reduce pipeline: visibility -> sample -> sort ->
         offset -> limit -> reproject -> transform (reference
         QueryPlanner.scala:66-102: reducer, sort, startIndex,
-        maxFeatures, projection)."""
+        maxFeatures, projection), timed as the store clock's ``post``."""
+        with self.store.clock.host("post"):
+            return self._reduce(out, plan, hints, exp, skip_visibility)
+
+    def _reduce(self, out, plan, hints, exp, skip_visibility: bool):
         # row-level security: mask rows whose visibility label the store's
         # auths cannot satisfy (reference VisibilityEvaluator tier)
         auths = None if skip_visibility else getattr(self.store, "auths", None)

@@ -34,7 +34,9 @@ geomesa.serving.submitted / .shed / .coalesced / .batches /
 .batched_queries (leaders only: mean fused batch = batched_queries /
 batches) and geomesa.tuning.shed (the burn gate's sheds); gauge
 geomesa.serving.window_ms; histogram geomesa.serving.queue_wait (through
-``DataStore.record_query``).
+``DataStore.record_query``). An armed store clock
+(``timing.PhaseClock``) also gets the stages ``queue``, ``dispatch``,
+``batch.wait`` and ``dispatcher`` (the timing module's doc).
 
 Results equal sequential ``DataStore.query()``: the scheduler reuses the
 planner's plan/refine/post pipeline end to end. A query racing a write
@@ -446,13 +448,22 @@ class QueryScheduler:
             with self._cond:
                 batch = self._take_locked(weights)
                 self._cond.notify_all()  # wake producers blocked on space
+            # the store's clock is armed and disarmed while the scheduler
+            # runs: read at each batch, never cached
+            clock = self.store.clock
+            if clock.armed:
+                t_drain = time.perf_counter()
+                clock.add("queue", sum(t_drain - it.t_enqueue for it in batch))
             self._adapt(len(batch))
             try:
-                self._dispatch(batch)
+                self._dispatch(batch, clock)
             except BaseException as exc:  # the loop must outlive one bad batch
                 for it in batch:
                     if not it.future.done():
                         _resolve(it.future, exc=exc)
+            finally:
+                if clock.armed:
+                    clock.add("dispatcher", time.perf_counter() - t_drain)
 
     def _take_locked(self, weights: "dict | None") -> list:
         """Drain up to ``batch_max`` items under ``_cond``. One backlogged
@@ -509,7 +520,7 @@ class QueryScheduler:
             self._window_s = self._window_s / 2.0
         self.metrics.gauge("geomesa.serving.window_ms", self._window_s * 1e3)
 
-    def _dispatch(self, batch: list) -> None:
+    def _dispatch(self, batch: list, clock) -> None:
         # late deadline shed: the budget expired while queued
         now = time.monotonic()
         live: list[_Item] = []
@@ -554,19 +565,20 @@ class QueryScheduler:
             # queue wait is charged against the caller's budget. A
             # follower shares its leader's deadline and fate
             t_sm0 = time.perf_counter()
-            finishes = self.store.planner.submit_many(
-                [it.plan for it in leaders],
-                hints=[it.hints for it in leaders],
-                explains=[it.explain for it in leaders],
-                deadlines=[
-                    None if it.deadline is None else Deadline(
-                        start=it.deadline - it.timeout,
-                        budget_s=it.timeout,
-                        cutoff=it.deadline,
-                    )
-                    for it in leaders
-                ],
-            )
+            with clock.launching("dispatch"):
+                finishes = self.store.planner.submit_many(
+                    [it.plan for it in leaders],
+                    hints=[it.hints for it in leaders],
+                    explains=[it.explain for it in leaders],
+                    deadlines=[
+                        None if it.deadline is None else Deadline(
+                            start=it.deadline - it.timeout,
+                            budget_s=it.timeout,
+                            cutoff=it.deadline,
+                        )
+                        for it in leaders
+                    ],
+                )
         except BaseException as exc:
             for it in live:
                 if not it.future.done():
@@ -592,6 +604,8 @@ class QueryScheduler:
                 # leader's record_query observes it
                 g.plan.queue_wait_s = t_dispatch - g.t_enqueue
             t0 = time.perf_counter()
+            if clock.armed:
+                clock.add("batch.wait", (t0 - t_dispatch) * len(group))
             for g in group:
                 if g.trace is not None:
                     # the wait between the fused dispatch and this member's

@@ -763,6 +763,8 @@ class IndexTable(SortedKeys):
             has_boxes=has_boxes, has_windows=has_windows, extent=self.extent, edges=edges,
             spip=spip, n_edges=chunk_e, rasts=rasts, n_rints=chunk_r, clock=clock,
         )
+        if clock.armed:
+            self._note_launches(clock, "n.launch.fused", 1, n_real)
         pull = self._fused_pull(planes, clock)
 
         def member_finish(k: int):
@@ -862,6 +864,13 @@ class IndexTable(SortedKeys):
             kw["n_rints"] = bk.n_rints_of(config.rast)
         return kw
 
+    def _note_launches(self, clock, kind: str, launches: int, n_blocks: int) -> None:
+        """Tally scan kernel launches (``n.launch.single``: K1,
+        ``n.launch.fused``: K2) and the rows of the candidate blocks
+        they were handed (``n.rows.scanned``) on an armed clock."""
+        clock.count(kind, launches)
+        clock.count("n.rows.scanned", int(n_blocks) * self.block)
+
     def _cols_args(self, names: tuple) -> tuple:
         return tuple(self.cols3[k] for k in names)
 
@@ -877,6 +886,8 @@ class IndexTable(SortedKeys):
             self._cols_args(names), bids, boxes, wins,
             clock=clock, **self._scan_kernel_kwargs(config, names),
         )
+        if clock.armed:
+            self._note_launches(clock, "n.launch.single", 1, n_real)
 
         def finish():
             with clock.device("d2h", self.device):
